@@ -25,12 +25,16 @@ def main(argv=None) -> int:
     from blacklight_tpu.utils.errors import BlacklightError
 
     try:
+        from blacklight_tpu.constants import ModelType
         from blacklight_tpu.utils.config import read_config
         from blacklight_tpu_torch import pipeline
 
         cfg = read_config(args.input_file)
-        for _ in range(cfg.num_runs):
-            pipeline.run(cfg, device=args.device)
+        multiple = (cfg.model_type == ModelType.simulation
+                    and cfg.require("simulation_multiple"))
+        for n in range(cfg.num_runs):
+            pipeline.run(cfg, snapshot=n if multiple else None,
+                         device=args.device)
     except (BlacklightError, OSError) as exc:
         print(f"Error: {exc}", file=sys.stderr)
         return 1

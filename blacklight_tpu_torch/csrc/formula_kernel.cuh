@@ -5,10 +5,9 @@
 // (:192-596, launched by render_formula :599-697) for one frequency without
 // tangents. The dp body follows :363-485, the rk4/rk2 body :487-578, the
 // sample and transfer update transfer_update :270-355 and the finalization
-// :582-594. Each thread loops over its own step counter n and stops when
-// its ray dies, which gives the Pallas block loop's semantics exactly: all
-// rays of a block start together there, and a dead ray's outputs never
-// change again.
+// :582-594. The step loop is trace.cuh's trace_ray, shared with the
+// simulation kernel; this file supplies the formula coefficients and the
+// transfer update at each stored sample.
 //
 // What bounds it on this card: FP32 (or FP64) ALU work and register
 // pressure. A ray reads 9 values and writes 3 over thousands of steps, so
@@ -40,21 +39,19 @@
 
 #include <cuda_runtime.h>
 
+#include "cuts.cuh"
 #include "formula_params.cuh"
-#include "kerr.cuh"
+#include "trace.cuh"
 
 namespace bl {
 
-enum Integrator : int { INTEGRATOR_DP = 0, INTEGRATOR_RK4 = 1, INTEGRATOR_RK2 = 2 };
+static_assert(P_FALLBACK_NAN == G_FALLBACK_NAN && P_F_BH_A == G_COUNT,
+              "the formula parameters open with the geodesic block");
+static_assert(P_PLANE_NZ - P_CUT_NEAR == C_PLANE_NZ,
+              "the formula parameters hold the cut block in cuts.cuh order");
 
 constexpr int THREADS = 128;
 constexpr double DELTA_TAU_MAX = 100.0;  // unpolarized.cpp:96-110
-constexpr double HALF_PI = 1.5707963267948966;
-
-template <typename T>
-__device__ __forceinline__ bool flag_at(const double* p, int i) {
-  return T(p[i]) != T(0);
-}
 
 // Formula-model constants of one launch (FormulaParams plus frequency).
 template <typename T>
@@ -62,14 +59,11 @@ struct FormulaConsts {
   T bh_a, a2, two_a, two_m, neg_two_m_a, camera_r, l0, one_plus_q, inv_r0_sq;
   T h_sq, inv_nup, a_param, cn0, ej, ej_sign, ea, ea_sign;
   bool ej_int, ea_int;
-  bool cut_near, cut_far, cut_in_on, cut_out_on, cut_plane;
-  int mid_theta_sign, mid_z_sign;
-  T cut_in, cut_out, mid_theta, mid_z;
-  T plane_o[3], plane_n[3];
+  CutConsts<T> cuts;
   T cam[4];
   T nu, x_unit_over_nu;
 
-  __device__ explicit FormulaConsts(const double* p) {
+  __device__ explicit FormulaConsts(const double* p) : cuts(p + P_CUT_NEAR) {
     bh_a = T(p[P_F_BH_A]);
     a2 = T(p[P_F_A2]);
     two_a = T(p[P_F_TWO_A]);
@@ -89,23 +83,6 @@ struct FormulaConsts {
     ea = T(p[P_EA]);
     ea_int = flag_at<T>(p, P_EA_IS_INT);
     ea_sign = T(p[P_EA_SIGN]);
-    cut_near = flag_at<T>(p, P_CUT_NEAR);
-    cut_far = flag_at<T>(p, P_CUT_FAR);
-    cut_in_on = flag_at<T>(p, P_CUT_IN_ON);
-    cut_in = T(p[P_CUT_IN]);
-    cut_out_on = flag_at<T>(p, P_CUT_OUT_ON);
-    cut_out = T(p[P_CUT_OUT]);
-    mid_theta_sign = static_cast<int>(p[P_CUT_MID_THETA_SIGN]);
-    mid_theta = T(p[P_CUT_MID_THETA]);
-    mid_z_sign = static_cast<int>(p[P_CUT_MID_Z_SIGN]);
-    mid_z = T(p[P_CUT_MID_Z]);
-    cut_plane = flag_at<T>(p, P_CUT_PLANE);
-    plane_o[0] = T(p[P_PLANE_OX]);
-    plane_o[1] = T(p[P_PLANE_OY]);
-    plane_o[2] = T(p[P_PLANE_OZ]);
-    plane_n[0] = T(p[P_PLANE_NX]);
-    plane_n[1] = T(p[P_PLANE_NY]);
-    plane_n[2] = T(p[P_PLANE_NZ]);
     cam[0] = T(p[P_CAM_X0]);
     cam[1] = T(p[P_CAM_X1]);
     cam[2] = T(p[P_CAM_X2]);
@@ -135,29 +112,8 @@ __device__ __forceinline__ void formula_coefficients(
   const T rr2 = x1 * x1 + x2 * x2 + x3 * x3;
   const T r = m_sqrt(T(0.5) * (rr2 - c.a2 + m_hypot(rr2 - c.a2, c.two_a * x3)));
 
-  bool keep = r <= c.camera_r;
-  if (c.cut_near || c.cut_far) {
-    const T dot = x1 * c.cam[1] + x2 * c.cam[2] + x3 * c.cam[3];
-    if (c.cut_near) keep = keep && !(dot > T(0));
-    if (c.cut_far) keep = keep && !(dot < T(0));
-  }
-  if (c.cut_in_on) keep = keep && !(r < c.cut_in);
-  if (c.cut_out_on) keep = keep && !(r > c.cut_out);
-  if (c.mid_theta_sign != 0) {
-    const T off = m_abs(m_acos(x3 / r) - T(HALF_PI));
-    keep = keep && (c.mid_theta_sign > 0 ? !(off > c.mid_theta)
-                                         : !(off < c.mid_theta));
-  }
-  if (c.mid_z_sign != 0) {
-    const T az = m_abs(x3);
-    keep = keep && (c.mid_z_sign > 0 ? !(az > c.mid_z) : !(az < c.mid_z));
-  }
-  if (c.cut_plane) {
-    keep = keep && !((x1 - c.plane_o[0]) * c.plane_n[0] +
-                         (x2 - c.plane_o[1]) * c.plane_n[1] +
-                         (x3 - c.plane_o[2]) * c.plane_n[2] <
-                     T(0));
-  }
+  const bool keep = geometric_keep(c.cuts, x1, x2, x3, r, c.camera_r, c.cam[1],
+                                   c.cam[2], c.cam[3]);
 
   const T rr = m_sqrt(jmax(r * r - x3 * x3, T(1e-30)));
   const T cth = x3 / r;
@@ -238,27 +194,9 @@ __global__ void __launch_bounds__(THREADS)
                    long long n_rays) {
   const long long ray = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   if (ray >= n_rays) return;
-  const double* p = params;
-
-  KerrConsts<T> g;
-  g.spin = T(p[P_SPIN]);
-  g.a2 = T(p[P_A2]);
-  g.two_spin = T(p[P_TWO_SPIN]);
-  g.two_a2 = T(p[P_TWO_A2]);
-  g.three_a2 = T(p[P_THREE_A2]);
-  g.two_mass = T(p[P_TWO_MASS]);
-  g.flat = flag_at<T>(p, P_FLAT);
-  const T ray_step = T(p[P_RAY_STEP]);
-  const T camera_r = T(p[P_CAMERA_R]);
-  const T r_terminate = T(p[P_R_TERMINATE]);
-  const T r_horizon = T(p[P_R_HORIZON]);
-  const T tol_abs = T(p[P_TOL_ABS]);
-  const T tol_rel = T(p[P_TOL_REL]);
-  const int max_steps = static_cast<int>(p[P_MAX_STEPS]);
-  const int max_retries = static_cast<int>(p[P_MAX_RETRIES]);
-  const bool fallback_nan = flag_at<T>(p, P_FALLBACK_NAN);
-  const T i_scale = T(p[P_I_SCALE]);
-  const FormulaConsts<T> fc(p);
+  const TraceConsts<T> tc(params);
+  const T i_scale = T(params[P_I_SCALE]);
+  const FormulaConsts<T> fc(params);
 
   // state: x^0..x^3, p_1..p_3 (p_0 is conserved)
   T y[7];
@@ -272,121 +210,16 @@ __global__ void __launch_bounds__(THREADS)
   y[6] = directions[4 * ray + 3];
   const T mom = momentum_factors[ray];
 
-  T h = -ray_step * ks_radius(y[1], y[2], y[3], g);  // dp only
-  bool trunc = false, flag = false, bad = false, prev_fail = false;
-  T r_mid_prev = T(0), intensity = T(0), tau = T(0);
-  int n_samp = 0, num_retry = 0;
+  T intensity = T(0), tau = T(0);
+  bool bad = false, flag;
+  int n_samp;
+  auto on_sample = [&](const T (&ym)[7], T k1, T k2, T k3, T hs) {
+    transfer_sample(fc, ym[1], ym[2], ym[3], p0, k1, k2, k3, mom, hs, intensity, tau,
+                    bad);
+  };
+  trace_ray<T, INTEGRATOR>(tc, y, p0, on_sample, flag, n_samp);
 
-  for (int n = 0; n < max_steps; ++n) {
-    const T r = ks_radius(y[1], y[2], y[3], g);
-    T ye[7], ym[7];  // step endpoint and stored (midpoint) sample
-    T hs;            // signed step of this attempt
-    bool accept = true, retry_exceeded = false;
-
-    if (INTEGRATOR == INTEGRATOR_DP) {
-      T k[7][7], y4[7], ds;
-      geodesic_rhs(y[1], y[2], y[3], p0, y[4], y[5], y[6], g, k[0], &ds);
-      const T ds_dlam = m_abs(ds) + T(1e-30);
-      const T h_cap = ray_step * r / ds_dlam;
-      hs = -jmin(m_abs(h), h_cap);
-      dp_stages(y, p0, hs, g, k, ye, y4, ym);
-
-      // error estimate over the 7 dynamical components (p_0 error = 0)
-      T err = T(0);
-#pragma unroll
-      for (int c = 0; c < 7; ++c) {
-        const T ya = jmax(m_abs(y[c]), m_abs(ye[c]));
-        const T sc = tol_abs + tol_rel * ya;
-        err = jmax(err, m_abs(ye[c] - y4[c]) / sc);
-      }
-      accept = err <= T(1);
-      const T err_safe = jmax(err, T(1e-30));
-      const T fac_ideal = T(DP_ERR_FACTOR) * m_pow(err_safe, T(-DP_ERR_POWER));
-      const T fac_rej =
-          jmax(m_isfinite(err) ? fac_ideal : T(DP_MIN_FACTOR), T(DP_MIN_FACTOR));
-      T fac_acc = jmin(jmax(fac_ideal, T(DP_MIN_FACTOR)), T(DP_MAX_FACTOR));
-      if (err == T(0)) fac_acc = T(DP_MAX_FACTOR);
-      if (prev_fail) fac_acc = jmin(fac_acc, T(1));
-      h = hs * (accept ? fac_acc : fac_rej);
-      num_retry = accept ? 0 : num_retry + 1;
-      retry_exceeded = num_retry > max_retries;
-      flag = flag || retry_exceeded;
-      prev_fail = !accept;
-    } else {
-      // fixed step h = -ray_step (r - r_horizon) (geodesics.cpp:418-795)
-      hs = -ray_step * (r - r_horizon);
-      T k1[7], k2[7];
-      geodesic_rhs(y[1], y[2], y[3], p0, y[4], y[5], y[6], g, k1,
-                   static_cast<T*>(nullptr));
-      if (INTEGRATOR == INTEGRATOR_RK4) {
-        T yt[7], k3[7], k4[7];
-#pragma unroll
-        for (int c = 0; c < 7; ++c) yt[c] = y[c] + (T(0.5) * hs) * k1[c];
-        geodesic_rhs(yt[1], yt[2], yt[3], p0, yt[4], yt[5], yt[6], g, k2,
-                     static_cast<T*>(nullptr));
-#pragma unroll
-        for (int c = 0; c < 7; ++c) yt[c] = y[c] + (T(0.5) * hs) * k2[c];
-        geodesic_rhs(yt[1], yt[2], yt[3], p0, yt[4], yt[5], yt[6], g, k3,
-                     static_cast<T*>(nullptr));
-#pragma unroll
-        for (int c = 0; c < 7; ++c) yt[c] = y[c] + hs * k3[c];
-        geodesic_rhs(yt[1], yt[2], yt[3], p0, yt[4], yt[5], yt[6], g, k4,
-                     static_cast<T*>(nullptr));
-#pragma unroll
-        for (int c = 0; c < 7; ++c) {
-          ye[c] = y[c] + hs * (k1[c] * T(1.0 / 6.0) + k2[c] * T(1.0 / 3.0) +
-                               k3[c] * T(1.0 / 3.0) + k4[c] * T(1.0 / 6.0));
-          ym[c] = T(0.5) * (y[c] + ye[c]);
-        }
-      } else {
-        // rk2 (Heun); the sample is y + h/2 k1 (geodesics.cpp:626-795)
-        T yt[7];
-#pragma unroll
-        for (int c = 0; c < 7; ++c) yt[c] = y[c] + hs * k1[c];
-        geodesic_rhs(yt[1], yt[2], yt[3], p0, yt[4], yt[5], yt[6], g, k2,
-                     static_cast<T*>(nullptr));
-#pragma unroll
-        for (int c = 0; c < 7; ++c) {
-          ye[c] = y[c] + T(0.5) * hs * (k1[c] + k2[c]);
-          ym[c] = y[c] + (T(0.5) * hs) * k1[c];
-        }
-      }
-    }
-
-    // accepted endpoint and stored sample, null-renormalized
-    const T fac = renormalize_factor(ye[1], ye[2], ye[3], p0, ye[4], ye[5], ye[6], g);
-    const T r_new = ks_radius(ye[1], ye[2], ye[3], g);
-    const T facm = renormalize_factor(ym[1], ym[2], ym[3], p0, ym[4], ym[5], ym[6], g);
-    const T r_mid = ks_radius(ym[1], ym[2], ym[3], g);
-
-    const bool trunc_now =
-        n_samp > 0 &&
-        ((r_mid > camera_r && r_mid > r_mid_prev) || r_mid < r_terminate);
-    trunc = trunc || (accept && trunc_now);
-    const bool valid = accept && !trunc && !retry_exceeded;
-    const bool terminate = (r_new > camera_r && r_new > r) || r_new < r_terminate;
-    flag = flag || (accept && !terminate && n == max_steps - 1);
-    const bool alive = !(accept && terminate) && !retry_exceeded;
-
-    if (valid) {
-      transfer_sample(fc, ym[1], ym[2], ym[3], p0, ym[4] * facm, ym[5] * facm,
-                      ym[6] * facm, mom, hs, intensity, tau, bad);
-      r_mid_prev = r_mid;
-      ++n_samp;
-    }
-    if (!alive) break;
-    if (accept) {
-      y[0] = ye[0];
-      y[1] = ye[1];
-      y[2] = ye[2];
-      y[3] = ye[3];
-      y[4] = ye[4] * fac;
-      y[5] = ye[5] * fac;
-      y[6] = ye[6] * fac;
-    }
-  }
-
-  const bool poison = bad || (fallback_nan && flag);
+  const bool poison = bad || (tc.fallback_nan && flag);
   i_nu[ray] = poison ? T(NAN) : intensity * i_scale;
   flags_out[ray] = flag ? 1 : 0;
   n_samples_out[ray] = n_samp;

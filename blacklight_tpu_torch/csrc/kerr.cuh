@@ -33,6 +33,18 @@ __device__ __forceinline__ float m_abs(float x) { return fabsf(x); }
 __device__ __forceinline__ double m_abs(double x) { return fabs(x); }
 __device__ __forceinline__ float m_acos(float x) { return acosf(x); }
 __device__ __forceinline__ double m_acos(double x) { return acos(x); }
+__device__ __forceinline__ float m_atan(float x) { return atanf(x); }
+__device__ __forceinline__ double m_atan(double x) { return atan(x); }
+__device__ __forceinline__ float m_atan2(float y, float x) { return atan2f(y, x); }
+__device__ __forceinline__ double m_atan2(double y, double x) { return atan2(y, x); }
+__device__ __forceinline__ float m_sin(float x) { return sinf(x); }
+__device__ __forceinline__ double m_sin(double x) { return sin(x); }
+__device__ __forceinline__ float m_cos(float x) { return cosf(x); }
+__device__ __forceinline__ double m_cos(double x) { return cos(x); }
+__device__ __forceinline__ float m_copysign(float x, float y) { return copysignf(x, y); }
+__device__ __forceinline__ double m_copysign(double x, double y) { return copysign(x, y); }
+__device__ __forceinline__ bool m_isinf(float x) { return isinf(x); }
+__device__ __forceinline__ bool m_isinf(double x) { return isinf(x); }
 __device__ __forceinline__ bool m_isfinite(float x) { return isfinite(x); }
 __device__ __forceinline__ bool m_isfinite(double x) { return isfinite(x); }
 __device__ __forceinline__ bool m_isnan(float x) { return isnan(x); }

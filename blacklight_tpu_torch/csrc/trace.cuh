@@ -1,0 +1,203 @@
+// The per-ray geodesic loop shared by the fused kernels: step, stored
+// sample, truncation and termination for one ray per thread, templated on
+// the working type T and the integrator.
+//
+// Follows the step bodies of the TPU kernels (ops/pallas_formula.py dp
+// :363-485, rk4/rk2 :487-578; ops/pallas_simulation.py :929-1335). Each
+// thread loops over its own step counter n and stops when its ray dies,
+// which gives the Pallas block loop's semantics exactly: all rays of a
+// block start together there, and a dead ray's outputs never change
+// again. A kernel supplies what happens at a stored sample as a functor;
+// the plain PyTorch version of the loop is
+// blacklight_tpu_torch/ops/geodesic.py trace_reference.
+#pragma once
+
+#include "kerr.cuh"
+
+namespace bl {
+
+enum Integrator : int { INTEGRATOR_DP = 0, INTEGRATOR_RK4 = 1, INTEGRATOR_RK2 = 2 };
+
+// Index order of the geodesic block that opens every fused kernel's float64
+// parameter vector (ops/geodesic.py GEODESIC_PARAM_NAMES fills it).
+enum GeodesicParam : int {
+  G_SPIN,
+  G_A2,
+  G_TWO_SPIN,
+  G_TWO_A2,
+  G_THREE_A2,
+  G_TWO_MASS,
+  G_FLAT,
+  G_RAY_STEP,
+  G_CAMERA_R,
+  G_R_TERMINATE,
+  G_R_HORIZON,
+  G_TOL_ABS,
+  G_TOL_REL,
+  G_MAX_STEPS,
+  G_MAX_RETRIES,
+  G_FALLBACK_NAN,
+  G_COUNT
+};
+
+template <typename T>
+__device__ __forceinline__ bool flag_at(const double* p, int i) {
+  return T(p[i]) != T(0);
+}
+
+// Geodesic constants of one launch, each rounded once to T.
+template <typename T>
+struct TraceConsts {
+  KerrConsts<T> g;
+  T ray_step, camera_r, r_terminate, r_horizon, tol_abs, tol_rel;
+  int max_steps, max_retries;
+  bool fallback_nan;
+
+  __device__ explicit TraceConsts(const double* p) {
+    g.spin = T(p[G_SPIN]);
+    g.a2 = T(p[G_A2]);
+    g.two_spin = T(p[G_TWO_SPIN]);
+    g.two_a2 = T(p[G_TWO_A2]);
+    g.three_a2 = T(p[G_THREE_A2]);
+    g.two_mass = T(p[G_TWO_MASS]);
+    g.flat = flag_at<T>(p, G_FLAT);
+    ray_step = T(p[G_RAY_STEP]);
+    camera_r = T(p[G_CAMERA_R]);
+    r_terminate = T(p[G_R_TERMINATE]);
+    r_horizon = T(p[G_R_HORIZON]);
+    tol_abs = T(p[G_TOL_ABS]);
+    tol_rel = T(p[G_TOL_REL]);
+    max_steps = static_cast<int>(p[G_MAX_STEPS]);
+    max_retries = static_cast<int>(p[G_MAX_RETRIES]);
+    fallback_nan = flag_at<T>(p, G_FALLBACK_NAN);
+  }
+};
+
+// Integrate one ray from y (x^0..x^3, p_1..p_3; p_0 is conserved) and call
+// on_sample(ym, k1, k2, k3, h) at every stored sample that counts: ym the
+// sample position x^0..x^3, k1..k3 its null-renormalized covariant spatial
+// momentum (k_0 = p0) and h the signed affine step. Returns the ray's flag
+// (it hit max_steps, or dp ran out of retries) and its count of samples.
+template <typename T, int INTEGRATOR, typename OnSample>
+__device__ __forceinline__ void trace_ray(const TraceConsts<T>& tc, T (&y)[7], T p0,
+                                          OnSample& on_sample, bool& flag_out,
+                                          int& n_samples_out) {
+  const KerrConsts<T>& g = tc.g;
+  T h = -tc.ray_step * ks_radius(y[1], y[2], y[3], g);  // dp only
+  bool trunc = false, flag = false, prev_fail = false;
+  T r_mid_prev = T(0);
+  int n_samp = 0, num_retry = 0;
+
+  for (int n = 0; n < tc.max_steps; ++n) {
+    const T r = ks_radius(y[1], y[2], y[3], g);
+    T ye[7], ym[7];  // step endpoint and stored (midpoint) sample
+    T hs;            // signed step of this attempt
+    bool accept = true, retry_exceeded = false;
+
+    if (INTEGRATOR == INTEGRATOR_DP) {
+      T k[7][7], y4[7], ds;
+      geodesic_rhs(y[1], y[2], y[3], p0, y[4], y[5], y[6], g, k[0], &ds);
+      const T ds_dlam = m_abs(ds) + T(1e-30);
+      const T h_cap = tc.ray_step * r / ds_dlam;
+      hs = -jmin(m_abs(h), h_cap);
+      dp_stages(y, p0, hs, g, k, ye, y4, ym);
+
+      // error estimate over the 7 dynamical components (p_0 error = 0)
+      T err = T(0);
+#pragma unroll
+      for (int c = 0; c < 7; ++c) {
+        const T ya = jmax(m_abs(y[c]), m_abs(ye[c]));
+        const T sc = tc.tol_abs + tc.tol_rel * ya;
+        err = jmax(err, m_abs(ye[c] - y4[c]) / sc);
+      }
+      accept = err <= T(1);
+      const T err_safe = jmax(err, T(1e-30));
+      const T fac_ideal = T(DP_ERR_FACTOR) * m_pow(err_safe, T(-DP_ERR_POWER));
+      const T fac_rej =
+          jmax(m_isfinite(err) ? fac_ideal : T(DP_MIN_FACTOR), T(DP_MIN_FACTOR));
+      T fac_acc = jmin(jmax(fac_ideal, T(DP_MIN_FACTOR)), T(DP_MAX_FACTOR));
+      if (err == T(0)) fac_acc = T(DP_MAX_FACTOR);
+      if (prev_fail) fac_acc = jmin(fac_acc, T(1));
+      h = hs * (accept ? fac_acc : fac_rej);
+      num_retry = accept ? 0 : num_retry + 1;
+      retry_exceeded = num_retry > tc.max_retries;
+      flag = flag || retry_exceeded;
+      prev_fail = !accept;
+    } else {
+      // fixed step h = -ray_step (r - r_horizon) (geodesics.cpp:418-795)
+      hs = -tc.ray_step * (r - tc.r_horizon);
+      T k1[7], k2[7];
+      geodesic_rhs(y[1], y[2], y[3], p0, y[4], y[5], y[6], g, k1,
+                   static_cast<T*>(nullptr));
+      if (INTEGRATOR == INTEGRATOR_RK4) {
+        T yt[7], k3[7], k4[7];
+#pragma unroll
+        for (int c = 0; c < 7; ++c) yt[c] = y[c] + (T(0.5) * hs) * k1[c];
+        geodesic_rhs(yt[1], yt[2], yt[3], p0, yt[4], yt[5], yt[6], g, k2,
+                     static_cast<T*>(nullptr));
+#pragma unroll
+        for (int c = 0; c < 7; ++c) yt[c] = y[c] + (T(0.5) * hs) * k2[c];
+        geodesic_rhs(yt[1], yt[2], yt[3], p0, yt[4], yt[5], yt[6], g, k3,
+                     static_cast<T*>(nullptr));
+#pragma unroll
+        for (int c = 0; c < 7; ++c) yt[c] = y[c] + hs * k3[c];
+        geodesic_rhs(yt[1], yt[2], yt[3], p0, yt[4], yt[5], yt[6], g, k4,
+                     static_cast<T*>(nullptr));
+#pragma unroll
+        for (int c = 0; c < 7; ++c) {
+          ye[c] = y[c] + hs * (k1[c] * T(1.0 / 6.0) + k2[c] * T(1.0 / 3.0) +
+                               k3[c] * T(1.0 / 3.0) + k4[c] * T(1.0 / 6.0));
+          ym[c] = T(0.5) * (y[c] + ye[c]);
+        }
+      } else {
+        // rk2 (Heun); the sample is y + h/2 k1 (geodesics.cpp:626-795)
+        T yt[7];
+#pragma unroll
+        for (int c = 0; c < 7; ++c) yt[c] = y[c] + hs * k1[c];
+        geodesic_rhs(yt[1], yt[2], yt[3], p0, yt[4], yt[5], yt[6], g, k2,
+                     static_cast<T*>(nullptr));
+#pragma unroll
+        for (int c = 0; c < 7; ++c) {
+          ye[c] = y[c] + T(0.5) * hs * (k1[c] + k2[c]);
+          ym[c] = y[c] + (T(0.5) * hs) * k1[c];
+        }
+      }
+    }
+
+    // accepted endpoint and stored sample, null-renormalized
+    const T fac = renormalize_factor(ye[1], ye[2], ye[3], p0, ye[4], ye[5], ye[6], g);
+    const T r_new = ks_radius(ye[1], ye[2], ye[3], g);
+    const T facm = renormalize_factor(ym[1], ym[2], ym[3], p0, ym[4], ym[5], ym[6], g);
+    const T r_mid = ks_radius(ym[1], ym[2], ym[3], g);
+
+    const bool trunc_now =
+        n_samp > 0 &&
+        ((r_mid > tc.camera_r && r_mid > r_mid_prev) || r_mid < tc.r_terminate);
+    trunc = trunc || (accept && trunc_now);
+    const bool valid = accept && !trunc && !retry_exceeded;
+    const bool terminate =
+        (r_new > tc.camera_r && r_new > r) || r_new < tc.r_terminate;
+    flag = flag || (accept && !terminate && n == tc.max_steps - 1);
+    const bool alive = !(accept && terminate) && !retry_exceeded;
+
+    if (valid) {
+      on_sample(ym, ym[4] * facm, ym[5] * facm, ym[6] * facm, hs);
+      r_mid_prev = r_mid;
+      ++n_samp;
+    }
+    if (!alive) break;
+    if (accept) {
+      y[0] = ye[0];
+      y[1] = ye[1];
+      y[2] = ye[2];
+      y[3] = ye[3];
+      y[4] = ye[4] * fac;
+      y[5] = ye[5] * fac;
+      y[6] = ye[6] * fac;
+    }
+  }
+  flag_out = flag;
+  n_samples_out = n_samp;
+}
+
+}  // namespace bl

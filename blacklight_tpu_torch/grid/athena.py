@@ -1,0 +1,89 @@
+"""Athena++ ``.athdf`` snapshot loader.
+
+Port of ``blacklight_tpu/grid/athena.py`` (``SimulationGrid`` :23-94,
+``load_athdf`` :170-222) for the port's slice: the grid holds tensors on
+one device, and the file is read by ``grid/hdf5.py`` (numpy and struct),
+so no h5py is needed. The layout is the one the reference parses
+(simulation_reader.cpp:593-781): datasets ``prim`` (rho, press, vel1-3)
+and ``B`` (Bcc1-3) with per-block face and centre coordinates.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from blacklight_tpu.utils.errors import BlacklightError
+from blacklight_tpu_torch.grid import hdf5
+
+# Slots of the grid's named primitives: name in the sampler -> name in
+# the file's VariableNames
+PRIMITIVE_NAMES = {"rho": "rho", "pgas": "press", "uu1": "vel1",
+                   "uu2": "vel2", "uu3": "vel3", "bb1": "Bcc1",
+                   "bb2": "Bcc2", "bb3": "Bcc3"}
+
+
+@dataclasses.dataclass(frozen=True)
+class SimulationGrid:
+    """A GRMHD snapshot on one device.
+
+    prim is (n_var, n_b, n_k, n_j, n_i) float32 in the file's variable
+    order; ``ind`` maps the sampler's names to its first axis. The face
+    (x?f, (n_b, n+1)) and centre (x?v, (n_b, n)) coordinates are in the
+    working dtype.
+    """
+
+    prim: torch.Tensor
+    x1f: torch.Tensor
+    x1v: torch.Tensor
+    x2f: torch.Tensor
+    x2v: torch.Tensor
+    x3f: torch.Tensor
+    x3v: torch.Tensor
+    ind: dict
+    time: float
+
+    @property
+    def n_blocks(self) -> int:
+        return self.prim.shape[1]
+
+
+def simulation_grid(prim, x1f, x1v, x2f, x2v, x3f, x3v, ind, time, *,
+                    device, dtype) -> SimulationGrid:
+    """SimulationGrid on ``device`` from array-likes: prim as float32,
+    the coordinates in ``dtype``. ``load_athdf`` ends here, and so does
+    any caller that builds a snapshot in memory."""
+    def host(a, dt):
+        # torch takes no read-only arrays (a JAX array's numpy view is one)
+        return torch.as_tensor(np.require(a, dt, "W"))
+
+    def coords(a):
+        return host(a, np.float64).to(device=device, dtype=dtype)
+
+    return SimulationGrid(
+        prim=host(prim, np.float32).to(device),
+        x1f=coords(x1f), x1v=coords(x1v), x2f=coords(x2f), x2v=coords(x2v),
+        x3f=coords(x3f), x3v=coords(x3v), ind=dict(ind), time=float(time))
+
+
+def load_athdf(path: str, *, device, dtype=torch.float64) -> SimulationGrid:
+    """Load an Athena++ .athdf file onto ``device``."""
+    f = hdf5.read_file(path)
+    dataset_names = [n.decode() for n in f.attrs["DatasetNames"]]
+    variable_names = [n.decode() for n in f.attrs["VariableNames"]]
+    prim = np.concatenate([f[name].read().astype(np.float32)
+                           for name in dataset_names], axis=0)
+
+    ind = {}
+    for key, var in PRIMITIVE_NAMES.items():
+        if var not in variable_names:
+            raise BlacklightError(
+                f'Unable to locate "{var}" slice of "prim" in data file.')
+        ind[key] = variable_names.index(var)
+
+    return simulation_grid(
+        prim, *(f[name].read() for name in
+                ("x1f", "x1v", "x2f", "x2v", "x3f", "x3v")),
+        ind, float(f.attrs["Time"]), device=device, dtype=dtype)

@@ -1,8 +1,8 @@
 """Carry the JAX package's state into this package.
 
-This repository has no weights; its state is the parameter sets and the
-camera rays. These helpers copy them from ``blacklight_tpu`` objects as
-Python scalars and numpy arrays, so the tests can feed both packages the
+This repository has no weights; its state is the parameter sets, the
+camera rays and the GRMHD snapshot. These helpers copy them from
+``blacklight_tpu`` objects as Python scalars and numpy arrays, so the tests can feed both packages the
 same inputs. Nothing here imports jax: the JAX objects are read through
 their dataclass fields and ``numpy.asarray``.
 """
@@ -15,7 +15,10 @@ import numpy as np
 import torch
 
 from blacklight_tpu_torch.camera import CameraGeometry, CameraRays
+from blacklight_tpu_torch.grid.athena import SimulationGrid, simulation_grid
+from blacklight_tpu_torch.models.cuts import GeometricCuts
 from blacklight_tpu_torch.models.formula import FormulaParams
+from blacklight_tpu_torch.models.synchrotron import CutParams, PlasmaParams
 from blacklight_tpu_torch.ops.geodesic import GeodesicParams
 
 
@@ -44,6 +47,31 @@ def geodesic_params_from_jax(params) -> GeodesicParams:
 def formula_params_from_jax(fp) -> FormulaParams:
     """FormulaParams from ``blacklight_tpu.models.formula.FormulaParams``."""
     return _copy_dataclass(fp, FormulaParams)
+
+
+def plasma_params_from_jax(plasma) -> PlasmaParams:
+    """PlasmaParams from ``blacklight_tpu.models.synchrotron.PlasmaParams``."""
+    return _copy_dataclass(plasma, PlasmaParams)
+
+
+def cut_params_from_jax(cuts) -> CutParams:
+    """CutParams from ``blacklight_tpu.models.synchrotron.CutParams``."""
+    return _copy_dataclass(cuts, CutParams)
+
+
+def geometric_cuts_from_jax(cuts) -> GeometricCuts:
+    """GeometricCuts from ``blacklight_tpu.models.cuts.GeometricCuts``."""
+    return _copy_dataclass(cuts, GeometricCuts)
+
+
+def simulation_grid_from_jax(grid, *, device, dtype) -> SimulationGrid:
+    """SimulationGrid on ``device`` from a JAX package SimulationGrid: its
+    float32 ``prim`` and the face and centre rows as numpy arrays, the
+    coordinates in ``dtype``."""
+    return simulation_grid(
+        np.asarray(grid.prim), *(np.asarray(getattr(grid, name)) for name in
+                                 ("x1f", "x1v", "x2f", "x2v", "x3f", "x3v")),
+        grid.ind, grid.time, device=device, dtype=dtype)
 
 
 def camera_rays_from_numpy(positions, directions, momentum_factors, *,

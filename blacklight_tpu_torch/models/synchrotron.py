@@ -1,0 +1,257 @@
+"""Thermal synchrotron emission and absorption from sampled GRMHD, on
+tensors.
+
+Port of the thermal, unpolarized subset of
+``blacklight_tpu/models/synchrotron.py``: ``PlasmaParams`` and
+``CutParams`` (:36-78), ``fluid_state`` in SKS (:81-209), ``value_cuts``
+(:212-230), ``pitch_angle`` (:242-276), ``thermal_coefficients`` for
+j_I and alpha_I (:785-878) and ``log_j_scale`` (:429-431); the reference
+is simulation_coefficients.cpp:51-524 (2021 ApJ 921 17, eqs. 28-31).
+
+Where the JAX package's forms depend on the dtype (floors in the fluid
+state and the pitch angle, the float32 caps on nu_s, xx and h nu / kT),
+the port keeps both branches as they are: float64 follows the
+reference's literal forms, float32 the ones that keep single precision
+finite.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from blacklight_tpu.constants import Math, Physics, PlasmaModel
+from blacklight_tpu_torch.ops import sks
+
+
+@dataclasses.dataclass(frozen=True)
+class PlasmaParams:
+    """Plasma model parameters (reference input_reader.hpp:163-178)."""
+
+    mu: float
+    ne_ni: float
+    model: PlasmaModel
+    use_p: bool = True
+    gamma: float = 5.0 / 3.0
+    gamma_i: float = 5.0 / 3.0
+    gamma_e: float = 4.0 / 3.0
+    rat_low: float = 1.0
+    rat_high: float = 1.0
+    power_frac: float = 0.0
+    power_p: float = 0.0
+    gamma_min: float = 0.0
+    gamma_max: float = 0.0
+    kappa_frac: float = 0.0
+    kappa: float = 0.0
+    w: float = 0.0
+
+    @property
+    def thermal_frac(self):
+        return 1.0 - (self.power_frac + self.kappa_frac)
+
+
+@dataclasses.dataclass(frozen=True)
+class CutParams:
+    """Value cuts (negative = off; reference input_reader.hpp:181-194)."""
+
+    rho_min: float = -1.0
+    rho_max: float = -1.0
+    n_e_min: float = -1.0
+    n_e_max: float = -1.0
+    p_gas_min: float = -1.0
+    p_gas_max: float = -1.0
+    theta_e_min: float = -1.0
+    theta_e_max: float = -1.0
+    b_min: float = -1.0
+    b_max: float = -1.0
+    sigma_min: float = -1.0
+    sigma_max: float = -1.0
+    beta_inverse_min: float = -1.0
+    beta_inverse_max: float = -1.0
+
+    def pairs(self):
+        """(state key, min, max) in the order value_cuts applies them."""
+        return (("rho_cgs", self.rho_min, self.rho_max),
+                ("n_e_cgs", self.n_e_min, self.n_e_max),
+                ("pgas_cgs", self.p_gas_min, self.p_gas_max),
+                ("theta_e", self.theta_e_min, self.theta_e_max),
+                ("bb_cgs", self.b_min, self.b_max),
+                ("sigma", self.sigma_min, self.sigma_max),
+                ("beta_inv", self.beta_inverse_min, self.beta_inverse_max))
+
+
+def fluid_state(pos, samples, spin, plasma: PlasmaParams, rho_unit: float):
+    """CGS fluid state and CKS four-vectors at CKS positions ``pos``
+    (B, 4) from sampled SKS primitives (simulation_coefficients.cpp:
+    287-358 and the Jacobian :397-431).
+
+    Returns a dict with rho_cgs, pgas_cgs, n_e_cgs, bb_cgs, sigma,
+    beta_inv, theta_e, kb_tt_e_cgs, ucon and bcon (each a tuple of four
+    (B,) CKS components) and b_sq.
+    """
+    if plasma.model != PlasmaModel.ti_te_beta:
+        raise ValueError("the port's fluid state covers ti_te_beta")
+    x, y, z = pos[..., 1], pos[..., 2], pos[..., 3]
+    rho, pgas = samples["rho"], samples["pgas"]
+    uu1, uu2, uu3 = samples["uu1"], samples["uu2"], samples["uu3"]
+    bb1, bb2, bb3 = samples["bb1"], samples["bb2"], samples["bb3"]
+
+    d_unit = rho_unit
+    e_unit = d_unit * Physics.c ** 2
+    b_unit = math.sqrt(4.0 * Math.pi * e_unit)
+    rho_cgs = rho * d_unit
+    pgas_cgs = pgas * e_unit
+    n_cgs = rho_cgs / (plasma.mu * Physics.m_p)
+    n_e_cgs = n_cgs / (1.0 + 1.0 / plasma.ne_ni)
+
+    m = sks.sks_metric(x, y, z, spin)
+    ut, ur, uth, uph = sks.normal_frame_velocity(m, uu1, uu2, uu3)
+    _, ucov_r, ucov_th, ucov_ph = sks.lower_sks(m, ut, ur, uth, uph)
+    # b^mu from the cell-frame field (simulation_coefficients.cpp:315-328)
+    bt = ucov_r * bb1 + ucov_th * bb2 + ucov_ph * bb3
+    br = (bb1 + bt * ur) / ut
+    bth = (bb2 + bt * uth) / ut
+    bph = (bb3 + bt * uph) / ut
+    bcov_t, bcov_r, bcov_th, bcov_ph = sks.lower_sks(m, bt, br, bth, bph)
+    b_sq = bcov_t * bt + bcov_r * br + bcov_th * bth + bcov_ph * bph
+
+    f64 = b_sq.dtype == torch.float64
+    if f64:
+        pos_b = b_sq > 0.0
+        bb_cgs = torch.where(pos_b, torch.sqrt(torch.where(pos_b, b_sq, 1.0)),
+                             0.0) * b_unit
+    else:
+        bb_cgs = torch.sqrt(torch.clamp(b_sq, min=1e-30)) * b_unit
+    # divisors floored at the point of use: rho and pgas may be an exact
+    # zero fallback value
+    dfloor = 1e-30 if f64 else 1e-15
+    sigma = b_sq / torch.clamp(rho, min=dfloor)
+    beta_inv = b_sq / torch.clamp(2.0 * pgas, min=dfloor)
+
+    # electron temperature (simulation_coefficients.cpp:330-358), with
+    # (rat_high + rat_low b^2) / (1 + b^2) in the form that passes
+    # beta_inv = inf
+    u_b = 1.0 / (1.0 + beta_inv ** 2)
+    tti_tte = plasma.rat_high * u_b + plasma.rat_low * (1.0 - u_b)
+    kb_tt_tot_cgs = (plasma.mu * Physics.m_p * Physics.c ** 2) \
+        * (pgas / torch.clamp(rho, min=dfloor))
+    if plasma.use_p:
+        kb_tt_e_cgs = (1.0 + plasma.ne_ni) / (tti_tte + plasma.ne_ni) \
+            * kb_tt_tot_cgs
+    else:
+        kb_tt_e_cgs = (1.0 + plasma.ne_ni) * kb_tt_tot_cgs \
+            / (plasma.gamma - 1.0)
+        kb_tt_e_cgs = kb_tt_e_cgs / (tti_tte / (plasma.gamma_i - 1.0)
+                                     + plasma.ne_ni / (plasma.gamma_e - 1.0))
+    theta_e = kb_tt_e_cgs / (Physics.m_e * Physics.c ** 2)
+
+    ux, uy, uz = sks.sks_to_cks_vector(ur, uth, uph, x, y, z, spin)
+    bx, by, bz = sks.sks_to_cks_vector(br, bth, bph, x, y, z, spin)
+    return dict(rho_cgs=rho_cgs, pgas_cgs=pgas_cgs, n_e_cgs=n_e_cgs,
+                bb_cgs=bb_cgs, sigma=sigma, beta_inv=beta_inv,
+                theta_e=theta_e, kb_tt_e_cgs=kb_tt_e_cgs,
+                ucon=(ut, ux, uy, uz), bcon=(bt, bx, by, bz), b_sq=b_sq)
+
+
+def value_cuts(state, cuts: CutParams):
+    """(B,) keep mask of the cell-value cuts
+    (simulation_coefficients.cpp:361-375)."""
+    keep = torch.ones_like(state["sigma"], dtype=torch.bool)
+    for name, lo, hi in cuts.pairs():
+        if lo >= 0.0:
+            keep &= ~(state[name] < lo)
+        if hi >= 0.0:
+            keep &= ~(state[name] > hi)
+    return keep
+
+
+def pitch_angle(kcov, state):
+    """Fluid-frame angle between the wavevector ``kcov`` (four (B,)
+    covariant CKS components) and the field, from invariants:
+    cos(theta_B) = (k.b) / (|k.u| sqrt(b.b)).
+
+    Returns (sin_theta_b, cos_theta_b, sin2_theta_b, u_dot_k).
+    """
+    k0, k1, k2, k3 = kcov
+    ut, ux, uy, uz = state["ucon"]
+    bt, bx, by, bz = state["bcon"]
+    u_dot_k = ut * k0 + ux * k1 + uy * k2 + uz * k3
+    b_dot_k = bt * k0 + bx * k1 + by * k2 + bz * k3
+    b_sq = state["b_sq"]
+    f64 = b_sq.dtype == torch.float64
+    denom = u_dot_k * u_dot_k * torch.clamp(b_sq,
+                                            min=1e-300 if f64 else 1e-16)
+    cos2 = torch.clamp(b_dot_k * b_dot_k / denom, max=1.0)
+    sin2 = 1.0 - cos2
+    cut = 1e-300 if f64 else 1e-24
+
+    def safe_sqrt(v):
+        return torch.where(v > cut, torch.sqrt(torch.where(v > cut, v, 1.0)),
+                           0.0)
+
+    sin_theta_b = safe_sqrt(sin2)
+    cos_theta_b = safe_sqrt(cos2) * torch.where(b_dot_k >= 0.0, 1.0, -1.0)
+    return sin_theta_b, cos_theta_b, sin2, u_dot_k
+
+
+def log_j_scale(nu0: float) -> float:
+    """log of the emissivity unit e^2 / (c nu0^2) taken out of j."""
+    return 2.0 * math.log(Physics.e) - math.log(Physics.c) \
+        - 2.0 * math.log(nu0)
+
+
+def log_kirchhoff(nu0: float) -> float:
+    """log of e^2 c / (2 h nu0^2), which turns the scaled j into alpha."""
+    return (2.0 * math.log(Physics.e) + math.log(Physics.c)
+            - math.log(2.0 * Physics.h) - 2.0 * math.log(nu0))
+
+
+def cbrt(x):
+    """Real cube root, odd in x (torch has no cbrt)."""
+    return torch.sign(x) * torch.pow(torch.abs(x), 1.0 / 3.0)
+
+
+def thermal_coefficients(nu_cgs, nu0: float, state, sin_theta_b,
+                         plasma: PlasmaParams):
+    """Thermal synchrotron j_I and alpha_I at fluid-frame frequencies
+    ``nu_cgs`` (B, F).
+
+    j_I is the invariant emissivity divided by exp(log_j_scale(nu0));
+    alpha_I is the true invariant absorptivity, through Kirchhoff's law
+    with the reference's overflow trap (simulation_coefficients.cpp:
+    469-524). Returns (j_i, alpha_i), each (B, F).
+    """
+    theta_e = state["theta_e"][..., None]
+    kb_tt_e = state["kb_tt_e_cgs"][..., None]
+    n_e = state["n_e_cgs"][..., None]
+    sin_b = sin_theta_b[..., None]
+    f64 = nu_cgs.dtype == torch.float64
+
+    nu_c = Physics.e * state["bb_cgs"][..., None] \
+        / (2.0 * Math.pi * Physics.m_e * Physics.c)
+    nu_s = 2.0 / 9.0 * nu_c * theta_e ** 2 * sin_b
+    nu_s = torch.clamp(nu_s, min=1e-300 if f64 else 1e-12)
+    xx = nu_cgs / nu_s
+    if not f64:
+        xx = torch.clamp(xx, max=1e20)
+    xx_1_3 = cbrt(xx)
+    xx_1_2 = torch.sqrt(xx)
+    xx_1_6 = torch.sqrt(xx_1_3)
+    coefficient = plasma.thermal_frac * n_e * nu_c * (nu0 / nu_cgs) ** 2 \
+        * torch.exp(-xx_1_3)
+    var_a = Math.sqrt2 * Math.pi / 27.0 * sin_b
+    var_b = 2.0 ** (11.0 / 12.0)
+    var_c = xx_1_2 + var_b * xx_1_6
+    j_i = coefficient * var_a * var_c * var_c
+
+    if f64:
+        hnu_kt = Physics.h * nu_cgs / kb_tt_e
+    else:
+        hnu_kt = torch.clamp(Physics.h * nu_cgs
+                             / torch.clamp(kb_tt_e, min=1e-18), max=87.0)
+    kirchhoff = torch.expm1(hnu_kt) * math.exp(log_kirchhoff(nu0))
+    alpha_i = j_i * kirchhoff
+    trap = torch.isinf(1.0 / (alpha_i * alpha_i))
+    return j_i, torch.where(trap, 0.0, alpha_i)

@@ -1,9 +1,11 @@
 """End-to-end orchestration: config -> camera -> fused kernel -> output.
 
-Port of the formula-model path of ``blacklight_tpu/pipeline.py``
-(:32-122, :221-334), with the same timing report. Geodesics, formula
-coefficients and transfer run as one fused kernel
-(``ops/formula_kernel.render_formula``): the CUDA kernel for a CUDA
+Port of ``blacklight_tpu/pipeline.py`` (:32-122, :221-334), with the same
+timing report, for the formula model and (through
+``pipeline_simulation``) the simulation model. Geodesics, coefficients
+and transfer run as one fused kernel per model
+(``ops/formula_kernel.render_formula``,
+``ops/simulation_kernel.render_simulation``): the CUDA kernel for a CUDA
 device, its plain PyTorch version for the CPU.
 
 The configurations this package covers so far are decided from the
@@ -20,11 +22,14 @@ import numpy as np
 import torch
 
 from blacklight_tpu.constants import (
+    Coordinates,
     ModelType,
     OutputFormat,
     Physics,
+    PlasmaModel,
     RayIntegrator,
     RayTerminate,
+    SimulationFormat,
 )
 from blacklight_tpu.output import (
     assemble_npz_arrays,
@@ -93,15 +98,14 @@ def check_slice(cfg) -> None:
             f"blacklight_tpu_torch does not support {what} yet "
             f"(ROADMAP {item}); use blacklight_tpu for this input.")
 
-    if cfg.require("model_type") != ModelType.formula:
-        refuse("the simulation model", "B")
+    simulation = cfg.require("model_type") == ModelType.simulation
     if not cfg.require("image_light"):
         refuse("image_light = false", "A.5")
     for key in _AUX_IMAGES:
         if getattr(cfg, key):
             refuse(f"{key}", "A.5")
-    if cfg.require("image_num_frequencies") > 1:
-        refuse("image_num_frequencies > 1", "K1.3")
+    if not simulation and cfg.require("image_num_frequencies") > 1:
+        refuse("image_num_frequencies > 1 for the formula model", "K1.3")
     if (cfg.adaptive_max_level or 0) > 0:
         refuse("adaptive_max_level > 0", "A.9")
     for key in ("checkpoint_geodesic_save", "checkpoint_geodesic_load",
@@ -112,15 +116,43 @@ def check_slice(cfg) -> None:
         refuse("image_polarization", "C.1")
     if (cfg.render_num_images or 0) > 0:
         refuse("rendering (render_num_images > 0)", "D.1")
+    if simulation:
+        _check_simulation_slice(cfg, refuse)
 
 
-def _device(device) -> torch.device:
+def _check_simulation_slice(cfg, refuse) -> None:
+    fmt = cfg.simulation_format
+    if fmt != SimulationFormat.athena:
+        refuse(f"simulation_format = {fmt.value if fmt else None}", "B.4")
+    if cfg.simulation_coord != Coordinates.sks:
+        coord = cfg.simulation_coord
+        refuse(f"simulation_coord = {coord.value if coord else None}",
+               "B.4")
+    if not cfg.require("simulation_interp"):
+        refuse("simulation_interp = false", "B.1b")
+    if cfg.simulation_block_interp:
+        refuse("simulation_block_interp = true (AMR)", "B.5")
+    if cfg.require("simulation_multiple") and cfg.slow_light_on:
+        refuse("slow light", "B.6")
+    if cfg.require("plasma_model") != PlasmaModel.ti_te_beta:
+        refuse(f"plasma_model = {cfg.plasma_model.value}", "B.2")
+    for key in ("plasma_power_frac", "plasma_kappa_frac"):
+        if cfg.require(key) != 0.0:
+            refuse(f"{key} != 0", "B.2")
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device, a card with its index ("cuda" is the
+    current card, as tensors report it); raises BlacklightError for one
+    this package cannot run on here."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise BlacklightError("device cuda requested but "
                               "torch.cuda.is_available() is false")
     if device.type not in ("cuda", "cpu"):
         raise BlacklightError(f"unsupported device {device}")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 
@@ -133,7 +165,7 @@ def make_formula_renderer(cfg, *, device):
     "_n_samples" (B,).
     """
     check_slice(cfg)
-    device = _device(device)
+    device = resolve_device(device)
     dtype = compute_dtype(cfg)
     bh_m, bh_a, mass_msun = bh_mass_spin(cfg)
     geom, rays, frequencies = make_camera(cfg, bh_m=bh_m, bh_a=bh_a,
@@ -161,17 +193,31 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def run(cfg, snapshot: Optional[int] = None, quiet: bool = False, *,
-        device="cuda") -> dict:
+        device="cuda", grid=None) -> dict:
     """Full run for one snapshot on ``device`` ("cuda" or "cpu").
+
+    grid: for the simulation model, a snapshot already on ``device``
+    (``grid.athena.SimulationGrid``) rendered in place of
+    ``simulation_file``.
 
     Returns the dict of named output arrays written to disk.
     """
     validate_output_options(cfg)
     warn_ignored_options(cfg)
+    check_slice(cfg)
+    simulation = cfg.require("model_type") == ModelType.simulation
 
     t0 = time.time()
-    render_fn, geom, rays, frequencies, mass_msun = make_formula_renderer(
-        cfg, device=device)
+    if simulation:
+        from blacklight_tpu_torch.pipeline_simulation import (
+            make_simulation_renderer)
+        render_fn, geom, rays, frequencies, mass_msun = \
+            make_simulation_renderer(cfg, snapshot, device=device, grid=grid)
+        t_read = time.time() - t0
+    else:
+        render_fn, geom, rays, frequencies, mass_msun = \
+            make_formula_renderer(cfg, device=device)
+        t_read = 0.0
     t1 = time.time()
     image = render_fn(rays.positions, rays.directions, rays.momentum_factors)
     image = {k: _to_numpy(v) for k, v in image.items()}  # waits for the device
@@ -189,7 +235,12 @@ def run(cfg, snapshot: Optional[int] = None, quiet: bool = False, *,
     arrays = assemble_npz_arrays(cfg, image, mass_msun=mass_msun,
                                  frequencies=_to_numpy(frequencies),
                                  camera_rays=host_rays)
-    path = format_filename(cfg.require("output_file"), snapshot)
+    # numbered outputs follow the snapshot (output_writer.cpp:248-254)
+    file_number = snapshot
+    if snapshot is not None and simulation \
+            and cfg.require("simulation_multiple"):
+        file_number = snapshot + cfg.require("simulation_start")
+    path = format_filename(cfg.require("output_file"), file_number)
     packed = None
     if cfg.require("output_format") != OutputFormat.npz:
         res = cfg.require("camera_resolution")
@@ -201,6 +252,6 @@ def run(cfg, snapshot: Optional[int] = None, quiet: bool = False, *,
         # sampling and image integration are one fused kernel
         print("Calculation completed.")
         print(f"Elapsed time:                        {time.time() - t0:.6g} s")
-        print(f"  Time reading simulation data:      {0.0:.6g} s")
+        print(f"  Time reading simulation data:      {t_read:.6g} s")
         print(f"  Time integrating rays+sample+image: {t_image:.6g} s (fused)")
     return arrays

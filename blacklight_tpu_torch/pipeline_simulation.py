@@ -1,0 +1,149 @@
+"""Simulation-model pipeline: GRMHD snapshot -> fused ray trace -> image.
+
+Port of ``blacklight_tpu/pipeline_simulation.py`` (:70-254, :257-707)
+for the port's slice (``pipeline.check_slice``): one Athena++ snapshot,
+read once onto the device, and one fused kernel that integrates the
+geodesics, samples the grid, evaluates the thermal synchrotron
+coefficients and accumulates the unpolarized transfer
+(``ops/simulation_kernel.render_simulation``): the CUDA kernel for a
+CUDA device, its plain PyTorch version for the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from blacklight_tpu.constants import PlasmaModel, SimulationFormat
+from blacklight_tpu.output import format_filename
+from blacklight_tpu.utils.errors import BlacklightError
+from blacklight_tpu_torch.camera import make_camera
+from blacklight_tpu_torch.grid.athena import SimulationGrid, load_athdf
+from blacklight_tpu_torch.models import synchrotron
+from blacklight_tpu_torch.models.cuts import GeometricCuts
+from blacklight_tpu_torch.ops import simulation_kernel
+
+
+def plasma_params_from_config(cfg) -> synchrotron.PlasmaParams:
+    model = cfg.require("plasma_model")
+    power_frac = cfg.require("plasma_power_frac")
+    kappa_frac = cfg.require("plasma_kappa_frac")
+    thermal_frac = 1.0 - power_frac - kappa_frac
+    if thermal_frac < 0.0 or thermal_frac > 1.0:
+        raise BlacklightError("Invalid plasma distribution fractions.")
+    ti_te = model == PlasmaModel.ti_te_beta
+    use_p = cfg.require("plasma_use_p") if ti_te else True
+    kwargs = {}
+    if ti_te and not use_p:
+        kwargs = dict(gamma=cfg.require("plasma_gamma"),
+                      gamma_i=cfg.require("plasma_gamma_i"),
+                      gamma_e=cfg.require("plasma_gamma_e"))
+    if power_frac != 0.0:
+        kwargs.update(power_p=cfg.require("plasma_p"),
+                      gamma_min=cfg.require("plasma_gamma_min"),
+                      gamma_max=cfg.require("plasma_gamma_max"))
+    if kappa_frac != 0.0:
+        kwargs.update(kappa=cfg.require("plasma_kappa"),
+                      w=cfg.require("plasma_w"))
+    return synchrotron.PlasmaParams(
+        mu=cfg.require("plasma_mu"), ne_ni=cfg.require("plasma_ne_ni"),
+        model=model, use_p=use_p,
+        rat_low=cfg.require("plasma_rat_low") if ti_te else 1.0,
+        rat_high=cfg.require("plasma_rat_high") if ti_te else 1.0,
+        power_frac=power_frac, kappa_frac=kappa_frac, **kwargs)
+
+
+def cut_params_from_config(cfg) -> synchrotron.CutParams:
+    return synchrotron.CutParams(
+        rho_min=cfg.require("cut_rho_min"), rho_max=cfg.require("cut_rho_max"),
+        n_e_min=cfg.require("cut_n_e_min"), n_e_max=cfg.require("cut_n_e_max"),
+        p_gas_min=cfg.require("cut_p_gas_min"),
+        p_gas_max=cfg.require("cut_p_gas_max"),
+        theta_e_min=cfg.require("cut_theta_e_min"),
+        theta_e_max=cfg.require("cut_theta_e_max"),
+        b_min=cfg.require("cut_b_min"), b_max=cfg.require("cut_b_max"),
+        sigma_min=cfg.require("cut_sigma_min"),
+        sigma_max=cfg.require("cut_sigma_max"),
+        beta_inverse_min=cfg.require("cut_beta_inverse_min"),
+        beta_inverse_max=cfg.require("cut_beta_inverse_max"))
+
+
+def load_grid_file(cfg, path: str, *, device, dtype) -> SimulationGrid:
+    """Load one snapshot file (Athena++ only in this slice)."""
+    if cfg.require("simulation_format") != SimulationFormat.athena:
+        raise BlacklightError("blacklight_tpu_torch reads Athena++ "
+                              "snapshots only (ROADMAP B.4).")
+    return load_athdf(path, device=device, dtype=dtype)
+
+
+def load_grid(cfg, snapshot: Optional[int] = None, *, device,
+              dtype) -> SimulationGrid:
+    """Load the snapshot of one output run: ``simulation_file``, numbered
+    from ``simulation_start`` when ``simulation_multiple`` is set
+    (simulation_reader.cpp:305-307)."""
+    path = cfg.require("simulation_file")
+    if cfg.require("simulation_multiple") and snapshot is not None:
+        path = format_filename(path, cfg.require("simulation_start")
+                               + snapshot)
+    return load_grid_file(cfg, path, device=device, dtype=dtype)
+
+
+def make_simulation_renderer(cfg, snapshot: Optional[int] = None, *, device,
+                             grid: Optional[SimulationGrid] = None):
+    """Build the simulation-model renderer on ``device``.
+
+    grid: the snapshot on ``device`` (for example one built in memory with
+    ``grid.athena.simulation_grid``); None loads it from ``cfg``.
+
+    Returns (render_fn, geom, rays, frequencies, mass_msun), where
+    render_fn(positions, directions, momentum_factors) renders a pixel
+    bundle to a dict of tensors: "I_nu" (B, F), "_flags" (B,) bool and
+    "_n_samples" (B,). ``render_fn.kernel_args`` are the arguments after
+    the rays with which ``render_fn`` calls ``render_simulation`` (the
+    snapshot among them).
+    """
+    from blacklight_tpu_torch import pipeline
+
+    pipeline.check_slice(cfg)
+    device = pipeline.resolve_device(device)
+    dtype = pipeline.compute_dtype(cfg)
+    bh_m, bh_a, mass_msun = pipeline.bh_mass_spin(cfg)
+    if grid is None:
+        grid = load_grid(cfg, snapshot, device=device, dtype=dtype)
+    if grid.prim.device != device:
+        raise BlacklightError(f"the grid is on {grid.prim.device}, not "
+                              f"{device}")
+    if grid.n_blocks != 1:
+        raise BlacklightError(
+            f"blacklight_tpu_torch does not support multi-block grids "
+            f"({grid.n_blocks} mesh blocks) yet (ROADMAP B.1b); use "
+            "blacklight_tpu for this input.")
+    geom, rays, frequencies = make_camera(cfg, bh_m=bh_m, bh_a=bh_a,
+                                          device=device, dtype=dtype)
+    params = pipeline.geodesic_params_from_config(cfg, bh_m, bh_a)
+    sp = simulation_kernel.sim_kernel_params(
+        cfg, GeometricCuts.from_config(cfg), plasma_params_from_config(cfg),
+        cut_params_from_config(cfg))
+    nu0 = float(frequencies[0])
+    kernel_args = (frequencies, params, sp, grid, mass_msun,
+                   geom.cam_x.tolist(), synchrotron.log_j_scale(nu0))
+    integrator = params.integrator.value
+
+    def render_fn(positions, directions, momentum_factors):
+        i_nu, flags, n_samples = simulation_kernel.render_simulation(
+            positions, directions, momentum_factors, *kernel_args,
+            integrator=integrator)
+        return {"I_nu": i_nu, "_flags": flags, "_n_samples": n_samples}
+
+    render_fn.kernel_args = kernel_args
+    return render_fn, geom, rays, frequencies, mass_msun
+
+
+def render_simulation_image(cfg, snapshot: Optional[int] = None, *, device):
+    """Unpolarized simulation-model image of the root camera.
+
+    Returns (image_dict, camera_rays, frequencies, mass_msun).
+    """
+    render_fn, geom, rays, frequencies, mass_msun = make_simulation_renderer(
+        cfg, snapshot=snapshot, device=device)
+    image = render_fn(rays.positions, rays.directions, rays.momentum_factors)
+    return image, rays, frequencies, mass_msun

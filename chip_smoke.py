@@ -10,18 +10,32 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no final line):
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: compile csrc/*.cu with nvcc, report registers, spills and the
-   FP64 instructions of each kernel instantiation;
-3. kernel against its plain PyTorch version on the card, 128^2 camera,
-   identical rays: dp float32/float64, rk4 float64, rk2 float32;
+2. build: compile csrc/*.cu with nvcc (one process per source, all at
+   once), report registers, spills and the FP64 instructions of each
+   kernel instantiation;
+3. formula kernel against its plain PyTorch version on the card, 128^2
+   camera, identical rays: dp float32/float64, rk4 float64, rk2 float32;
 4. the 32^2 formula goldens through pipeline.run(cfg, device="cuda") at
    the tolerances of tests/test_formula_e2e.py;
-5. the main path at full width: golden_formula_32.input at 1024^2, dp,
-   float32 through pipeline.run, counting kernel launches; then kernel
-   and plain times (rays/s) at 1024^2 in float32 and float64.
+5. the formula main path at full width: golden_formula_32.input at
+   1024^2, dp, float32 through pipeline.run, counting kernel launches;
+   then kernel times (rays/s) at 1024^2 in float32 and float64, and the
+   plain version's in float32;
+6. simulation kernel against its plain version, 128^2 camera on
+   golden_sim_rk4_32.input with mock_small.athdf, identical rays: rk4
+   float64, rk2 float32, dp float32/float64;
+7. the 32^2 simulation goldens through pipeline.run(cfg, device="cuda"),
+   reading the .athdf file, at the tolerances of
+   tests/test_simulation_e2e.py;
+8. the simulation main path at full width: a 288 x 128 x 128 (r, theta,
+   phi) SKS snapshot (the grid of the EHT GRMHD image library), 1024^2
+   camera, rk4, 2000 steps, float32 through pipeline.run, counting kernel
+   launches; then kernel times at 1024^2 in float32 rk4, float64 rk4 and
+   float32 dp, and the plain version's in float32 rk4.
 
-Every line but the last is a JSON object with the measurements; the last
-line is {"ok": true, "device": {...}}.
+Every line but the last two is a JSON object with the measurements; then
+come the card's name and power limit, and the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -41,6 +55,13 @@ SMI_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"]
 KERNEL_SOURCE = "blacklight_tpu_torch/csrc/formula_kernel.cuh"
 KERNEL_REPLACES = "blacklight_tpu/ops/pallas_formula.py:192"
+SIM_KERNEL_SOURCE = "blacklight_tpu_torch/csrc/simulation_kernel.cuh"
+SIM_KERNEL_REPLACES = "blacklight_tpu/ops/pallas_simulation.py:795"
+# the full-width snapshot: the EHT GRMHD image library's grid (EHT M87*
+# Paper V) over mock_small.athdf's radii, as scripts/bench_simulation.py
+# builds its mock
+FULL_GRID = dict(n_r=288, n_th=128, n_ph=128, r_min=1.916, r_max=52.2,
+                 pert_amp=0.1)
 
 
 def emit(phase: str, **fields) -> None:
@@ -113,11 +134,15 @@ def _ptxas_table(report: str) -> dict:
 
 
 def _kernel_label(mangled: str) -> str:
-    m = re.search(r"formula_kernelI([fd])Li(\d)E", mangled)
+    m = re.search(r"(formula|simulation)_kernelI([fd])Li(\d)E(?:Li(\d+)E)?",
+                  mangled)
     if not m:
         return mangled
-    return (f"formula_kernel<{'float' if m.group(1) == 'f' else 'double'}, "
-            f"{('dp', 'rk4', 'rk2')[int(m.group(2))]}>")
+    kind, tp, integrator, nf = m.groups()
+    args = ["float" if tp == "f" else "double", ("dp", "rk4", "rk2")[int(integrator)]]
+    if nf:
+        args.append(f"NF={nf}")
+    return f"{kind}_kernel<{', '.join(args)}>"
 
 
 def _sass_fp64(lib_path) -> dict:
@@ -150,10 +175,12 @@ def _sass_fp64(lib_path) -> dict:
 def phase_build():
     from blacklight_tpu_torch.ops import _build
     from blacklight_tpu_torch.ops import formula_kernel as fk
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
     t0 = time.perf_counter()
     path = _build.build()
     build_s = time.perf_counter() - t0
     fk._library()
+    sk._library()
     emit("build", seconds=build_s, library=path.name,
          ptxas=_ptxas_table(_build.ptxas_report()), fp64_sass=_sass_fp64(path))
 
@@ -290,43 +317,220 @@ def phase_full_width(tmp: pathlib.Path, card: str) -> dict:
     for precision in ("float32", "float64"):
         cfg.precision = precision
         (args, kwargs), t_setup = _timed(_renderer, cfg)
-        fk.render_formula(*args, **kwargs)  # warm up
-        times = []
-        for _ in range(3):
-            (ik, _, nk), t = _timed(fk.render_formula, *args, **kwargs)
-            times.append(t)
-        t_kernel = min(times)
-        (ip, _, _), t_plain = _timed(fk.render_formula_reference, *args,
-                                     **kwargs)
-        a, b = ik[:, 0].cpu().numpy(), ip[:, 0].cpu().numpy()
-        gate = statistical_gate(a, b)
-        both = np.isfinite(a) & np.isfinite(b)
-        max_abs = float(np.max(np.abs(a[both] - b[both])))
-        n = res * res
-        timings[precision] = dict(kernel_ms=t_kernel * 1e3,
-                                  plain_ms=t_plain * 1e3, max_abs_err=max_abs)
-        ns = nk.cpu().numpy()
-        # 8 x 4 pixel tiles, 32 rays each, in place of 32 pixels of one row
-        tiles = np.arange(n).reshape(res // 4, 4, res // 8, 8).transpose(
-            0, 2, 1, 3).reshape(-1)
-        emit("timing", resolution=res, precision=precision, integrator="dp",
-             card=card, kernel_s_runs=times, kernel_ms=t_kernel * 1e3,
-             plain_ms=t_plain * 1e3, kernel_rays_per_s=n / t_kernel,
-             plain_rays_per_s=n / t_plain, max_abs_err=max_abs,
-             camera_setup_s=t_setup, mean_n_samples=float(ns.mean()),
-             max_n_samples=int(ns.max()),
-             warp_efficiency_rows=warp_efficiency(ns, np.arange(n)),
-             warp_efficiency_8x4_tiles=warp_efficiency(ns, tiles),
-             clocks_power=smi(["nvidia-smi",
-                               "--query-gpu=clocks.sm,power.draw,"
-                               "temperature.gpu", "--format=csv,noheader"]),
-             gate="statistical (bench.py:181-186)", **gate)
-        if not gate["ok"]:
-            raise RuntimeError(f"kernel disagrees with plain at {res}^2 "
-                               f"{precision}: {gate}")
+        # the plain version runs in float32 only: float64 took 107 s more
+        # and adds nothing to the kernel's check
+        timings[precision] = time_kernel(
+            "timing", fk.render_formula,
+            fk.render_formula_reference if precision == "float32" else None,
+            args, kwargs, res, card, precision=precision, integrator="dp",
+            camera_setup_s=t_setup)
     f32 = timings["float32"]
     return {"name": "formula_kernel", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
+            "launches": launches, "max_abs_err": f32["max_abs_err"],
+            "ms": f32["kernel_ms"], "plain_ms": f32["plain_ms"]}
+
+
+def time_kernel(phase, kernel, plain, args, kwargs, res, card, **fields):
+    """Warm best of 3 of ``kernel`` on a res^2 ray bundle and, unless
+    ``plain`` is None, one run of its plain version on the same rays held
+    to the statistical gate; emits the timing line and returns the
+    numbers the kernels line needs."""
+    import numpy as np
+    kernel(*args, **kwargs)  # warm up
+    times = []
+    for _ in range(3):
+        (ik, _, nk), t = _timed(kernel, *args, **kwargs)
+        times.append(t)
+    t_kernel, n = min(times), res * res
+    out = {"kernel_ms": t_kernel * 1e3, "plain_ms": None, "max_abs_err": None}
+    extra = {}
+    if plain is not None:
+        (ip, _, _), t_plain = _timed(plain, *args, **kwargs)
+        gate = {}
+        for f in range(ik.shape[1]):
+            a, b = ik[:, f].cpu().numpy(), ip[:, f].cpu().numpy()
+            gate = statistical_gate(a, b)
+            if not gate["ok"]:
+                raise RuntimeError(f"{kernel.__name__} disagrees with plain "
+                                   f"at {res}^2 {fields}: {gate}")
+            both = np.isfinite(a) & np.isfinite(b)
+            err = float(np.max(np.abs(a[both] - b[both])))
+            out["max_abs_err"] = max(out["max_abs_err"] or 0.0, err)
+        out["plain_ms"] = t_plain * 1e3
+        extra = dict(plain_rays_per_s=n / t_plain,
+                     gate="statistical (bench.py:181-186)", **gate)
+    ns = nk.cpu().numpy()
+    # 8 x 4 pixel tiles, 32 rays each, in place of 32 pixels of one row
+    tiles = np.arange(n).reshape(res // 4, 4, res // 8, 8).transpose(
+        0, 2, 1, 3).reshape(-1)
+    emit(phase, resolution=res, card=card, **fields, kernel_s_runs=times,
+         kernel_ms=out["kernel_ms"], plain_ms=out["plain_ms"],
+         kernel_rays_per_s=n / t_kernel, max_abs_err=out["max_abs_err"],
+         mean_n_samples=float(ns.mean()), max_n_samples=int(ns.max()),
+         warp_efficiency_rows=warp_efficiency(ns, np.arange(n)),
+         warp_efficiency_8x4_tiles=warp_efficiency(ns, tiles),
+         clocks_power=smi(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,"
+                           "temperature.gpu", "--format=csv,noheader"]),
+         **extra)
+    return out
+
+
+def _sim_config(name="golden_sim_rk4_32.input", **overrides):
+    return _config(name, simulation_file=str(FIXTURES / "mock_small.athdf"),
+                   **overrides)
+
+
+def _sim_args(cfg, grid=None):
+    """The simulation renderer's rays and kernel arguments on the card."""
+    from blacklight_tpu_torch.pipeline_simulation import (
+        make_simulation_renderer)
+    render_fn, geom, rays, freqs, mass_msun = make_simulation_renderer(
+        cfg, device="cuda", grid=grid)
+    args = (rays.positions, rays.directions, rays.momentum_factors,
+            *render_fn.kernel_args)
+    return args, {"integrator": cfg.require("ray_integrator").value}
+
+
+def phase_sim_kernel_vs_plain():
+    import numpy as np
+    import torch
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+    for integrator, precision in (("rk4", "float64"), ("rk2", "float32"),
+                                  ("dp", "float32"), ("dp", "float64")):
+        cfg = _sim_config(camera_resolution=128, ray_integrator=integrator,
+                          precision=precision)
+        args, kwargs = _sim_args(cfg)
+        (ik, fk_, nk), t_k = _timed(sk.render_simulation, *args, **kwargs)
+        (ip, fp_, np_), t_p = _timed(sk.render_simulation_reference, *args,
+                                     **kwargs)
+        a, b = ik[:, 0].cpu().numpy(), ip[:, 0].cpu().numpy()
+        gate = statistical_gate(a, b)
+        result = dict(integrator=integrator, precision=precision,
+                      rays=a.size, kernel_s=t_k, plain_s=t_p,
+                      max_n_samples=int(np_.max()), **gate)
+        if integrator != "dp" and precision == "float64":
+            exact = (bool(np.array_equal(np.isnan(a), np.isnan(b)))
+                     and torch.equal(fk_.cpu(), fp_.cpu())
+                     and torch.equal(nk.cpu(), np_.cpu()))
+            close = bool(np.allclose(a, b, rtol=1e-7, atol=0.0,
+                                     equal_nan=True))
+            result.update(gate="exact flags/n_samples/NaN, max rel 1e-7",
+                          ok=exact and close)
+        else:
+            result["gate"] = "statistical (bench.py:181-186)"
+        emit("sim_kernel_vs_plain", **result)
+        if not result["ok"]:
+            raise RuntimeError(f"simulation kernel disagrees with plain: "
+                               f"{result}")
+
+
+def phase_sim_goldens(tmp: pathlib.Path):
+    import numpy as np
+    from blacklight_tpu_torch import pipeline
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+    for name, exact in (("golden_sim_rk4_32", True), ("golden_sim_32", False)):
+        cfg = _sim_config(f"{name}.input",
+                          output_file=str(tmp / f"{name}.npz"))
+        before = sk.LAUNCHES
+        arrays = pipeline.run(cfg, quiet=True, device="cuda")
+        launched = sk.LAUNCHES - before
+        ours = arrays["I_nu"]
+        gold = np.load(FIXTURES / f"{name}.npz")["I_nu"]
+        rel = np.abs(ours - gold) / (np.abs(gold) + gold.max() * 1e-8)
+        if exact:
+            ok = bool(np.allclose(ours, gold, rtol=1e-8, atol=0.0))
+            gate = "rtol 1e-8"
+        else:
+            ok = bool(np.nanmax(rel) < 6e-2 and np.nanmean(rel) < 5e-3)
+            gate = "max rel < 6e-2, mean rel < 5e-3"
+        ok = ok and launched > 0
+        emit("sim_golden", name=name, gate=gate, launches=launched,
+             max_rel=float(np.nanmax(rel)), mean_rel=float(np.nanmean(rel)),
+             ok=ok)
+        if not ok:
+            raise RuntimeError(f"golden {name} failed")
+
+
+def full_width_snapshot(dtype):
+    """FULL_GRID from scripts/generate_mock_simulation.make_fields on the
+    card, as an Athena++ file would hold it (float32 values and
+    coordinates; the coordinates then in ``dtype``), through the function
+    that load_athdf ends in. The card's Python has no h5py to write the
+    file."""
+    import numpy as np
+    import torch
+    from blacklight_tpu_torch.grid.athena import (
+        PRIMITIVE_NAMES,
+        simulation_grid,
+    )
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import generate_mock_simulation as mock
+    fields = mock.make_fields(dict(mock.DEFAULTS, **FULL_GRID))
+    names = ["rho", "press", "vel1", "vel2", "vel3", "Bcc1", "Bcc2", "Bcc3"]
+    prim = np.stack([fields[k] for k in ("rho", "pgas", "uur", "uuth", "uuph",
+                                         "bbr", "bbth", "bbph")])
+    rows = [np.asarray(fields[k], np.float32)[None]
+            for k in ("rf", "r", "thf", "th", "phf", "ph")]
+    return simulation_grid(
+        prim[:, None].astype(np.float32), *rows,
+        {key: names.index(var) for key, var in PRIMITIVE_NAMES.items()}, 0.0,
+        device=torch.device("cuda", torch.cuda.current_device()), dtype=dtype)
+
+
+def phase_sim_full_width(tmp: pathlib.Path, card: str) -> dict:
+    import numpy as np
+    import torch
+    from blacklight_tpu_torch import pipeline
+    from blacklight_tpu_torch.ops import formula_kernel as fk
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+
+    res = 1024
+    t0 = time.perf_counter()
+    grids = {"float32": full_width_snapshot(torch.float32)}
+    t_grid = time.perf_counter() - t0
+    cfg = _sim_config(camera_resolution=res, precision="float32",
+                      ray_integrator="rk4", ray_max_steps=2000,
+                      output_file=str(tmp / "sim_full_width.npz"))
+    fk.LAUNCHES = sk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    arrays = pipeline.run(cfg, quiet=True, device="cuda",
+                          grid=grids["float32"])
+    run_s = time.perf_counter() - t0
+    launches = sk.LAUNCHES
+    image = arrays["I_nu"]
+    if image.shape != (res, res) or not np.isfinite(np.nanmax(image)):
+        raise RuntimeError("full-width simulation image is not finite or has "
+                           "the wrong shape")
+    if launches == 0:
+        raise RuntimeError("the simulation main path launched no simulation "
+                           "kernel")
+    nvar, _, n_k, n_j, n_i = grids["float32"].prim.shape
+    emit("sim_main_path", resolution=res, grid=[n_i, n_j, n_k],
+         grid_mb=grids["float32"].prim.numel() * 4 / 1e6, precision="float32",
+         integrator="rk4", max_steps=2000, snapshot_build_s=t_grid,
+         seconds=run_s, launches=launches,
+         nan_pixels=int(np.isnan(image).sum()),
+         max_I_nu=float(np.nanmax(image)),
+         npz_written=(tmp / "sim_full_width.npz").exists())
+
+    timings = {}
+    for precision, integrator in (("float32", "rk4"), ("float64", "rk4"),
+                                  ("float32", "dp")):
+        if precision not in grids:
+            grids[precision] = full_width_snapshot(torch.float64)
+        cfg = _sim_config(camera_resolution=res, precision=precision,
+                          ray_integrator=integrator, ray_max_steps=2000)
+        (args, kwargs), t_setup = _timed(_sim_args, cfg, grids[precision])
+        plain = sk.render_simulation_reference \
+            if (precision, integrator) == ("float32", "rk4") else None
+        timings[precision, integrator] = time_kernel(
+            "sim_timing", sk.render_simulation, plain, args, kwargs, res,
+            card, precision=precision, integrator=integrator,
+            camera_setup_s=t_setup)
+    f32 = timings["float32", "rk4"]
+    return {"name": "simulation_kernel", "route": "cuda",
+            "source": SIM_KERNEL_SOURCE, "replaces": SIM_KERNEL_REPLACES,
             "launches": launches, "max_abs_err": f32["max_abs_err"],
             "ms": f32["kernel_ms"], "plain_ms": f32["plain_ms"]}
 
@@ -335,11 +539,15 @@ def main() -> int:
     card = phase_device()
     import torch
     phase_build()
-    phase_kernel_vs_plain()
     with tempfile.TemporaryDirectory(dir=ROOT / "build" / "kernels") as tmp:
-        phase_goldens(pathlib.Path(tmp))
-        kernel = phase_full_width(pathlib.Path(tmp), card)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+        tmp = pathlib.Path(tmp)
+        phase_kernel_vs_plain()
+        phase_goldens(tmp)
+        formula = phase_full_width(tmp, card)
+        phase_sim_kernel_vs_plain()
+        phase_sim_goldens(tmp)
+        simulation = phase_sim_full_width(tmp, card)
+    print(json.dumps({"kernels": [formula, simulation]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,15 @@
-"""PyTorch port: the 32^2 formula goldens through pipeline.run on the CPU,
-at the tolerances of test_formula_e2e.py (reference-binary outputs)."""
+"""PyTorch port: the 32^2 formula and simulation goldens through
+pipeline.run on the CPU, at the tolerances of test_formula_e2e.py and
+test_simulation_e2e.py (reference-binary outputs), and the CLI's npz
+against the JAX package's."""
 
 import numpy as np
 import pytest
 import torch
 
+from blacklight_tpu import pipeline as jax_pipeline
 from blacklight_tpu import read_config
-from blacklight_tpu_torch import pipeline
+from blacklight_tpu_torch import cli, pipeline
 
 pytestmark = pytest.mark.slow
 
@@ -16,6 +19,7 @@ torch.set_num_threads(2)
 def _render(fixtures_dir, tmp_path, name):
     cfg = read_config(str(fixtures_dir / f"{name}.input"))
     cfg.output_file = str(tmp_path / f"{name}.npz")
+    cfg.simulation_file = str(fixtures_dir / "mock_small.athdf")
     arrays = pipeline.run(cfg, quiet=True, device="cpu")
     gold = np.load(fixtures_dir / f"{name}.npz")["I_nu"]
     return arrays["I_nu"], gold
@@ -33,3 +37,37 @@ def test_dp_quadrature_parity(fixtures_dir, tmp_path):
     rel = np.abs(ours - gold) / (np.abs(gold) + gold.max() * 1e-8)
     assert np.nanmax(rel) < 5e-3
     assert np.nanmean(rel) < 1e-3
+
+
+def test_simulation_rk4_exact_parity(fixtures_dir, tmp_path):
+    ours, gold = _render(fixtures_dir, tmp_path, "golden_sim_rk4_32")
+    np.testing.assert_allclose(ours, gold, rtol=1e-8)
+
+
+def test_simulation_dp_quadrature_parity(fixtures_dir, tmp_path):
+    ours, gold = _render(fixtures_dir, tmp_path, "golden_sim_32")
+    rel = np.abs(ours - gold) / (np.abs(gold) + gold.max() * 1e-8)
+    assert np.nanmax(rel) < 6e-2
+    assert np.nanmean(rel) < 5e-3
+
+
+def test_simulation_cli_npz_matches_jax(fixtures_dir, tmp_path):
+    """python -m blacklight_tpu_torch --device cpu on the rk4 simulation
+    golden input writes the JAX package's npz, key for key, at rtol
+    1e-8."""
+    text = (fixtures_dir / "golden_sim_rk4_32.input").read_text().replace(
+        "data/mock_small.athdf", str(fixtures_dir / "mock_small.athdf"))
+    inputs = {}
+    for name in ("jax", "torch"):
+        inputs[name] = tmp_path / f"{name}.input"
+        inputs[name].write_text(text.replace(
+            "output/golden_sim_rk4_32.npz", str(tmp_path / f"{name}.npz")))
+    jax_pipeline.run(read_config(str(inputs["jax"])), quiet=True)
+    assert cli.main(["--device", "cpu", str(inputs["torch"])]) == 0
+    ours, ref = np.load(tmp_path / "torch.npz"), np.load(tmp_path / "jax.npz")
+    assert set(ours.keys()) == set(ref.keys())
+    for key in ref.keys():
+        assert ours[key].shape == ref[key].shape, key
+        np.testing.assert_allclose(ours[key], ref[key], rtol=1e-8,
+                                   atol=1e-14 * np.nanmax(np.abs(ref[key])),
+                                   err_msg=key)

@@ -152,7 +152,10 @@ def test_import_does_not_load_jax():
         "import blacklight_tpu_torch.cli, blacklight_tpu_torch.pipeline\n"
         "import blacklight_tpu_torch.interop, blacklight_tpu_torch.camera\n"
         "import blacklight_tpu_torch.ops.formula_kernel\n"
+        "import blacklight_tpu_torch.ops.simulation_kernel\n"
         "import blacklight_tpu_torch.ops._build\n"
+        "import blacklight_tpu_torch.pipeline_simulation\n"
+        "import blacklight_tpu_torch.grid.hdf5\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))

@@ -1,0 +1,133 @@
+"""PyTorch port: the CUDA simulation kernel against its plain PyTorch
+version, on the card.
+
+This file imports neither jax nor the JAX package, so it runs on a GPU
+machine without JAX: ``python -m pytest --noconftest -m cuda
+tests/test_torch_simulation_kernel_cuda.py``. Without a GPU every test
+skips. The plain version itself is held against the JAX package in
+``test_torch_simulation_pipeline.py``.
+"""
+
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from blacklight_tpu.constants import FrequencySpacing
+from blacklight_tpu_torch import RayIntegrator, pipeline, read_config
+from blacklight_tpu_torch.pipeline_simulation import make_simulation_renderer
+from blacklight_tpu_torch.ops import simulation_kernel as sk
+
+torch.set_num_threads(2)
+
+pytestmark = pytest.mark.cuda
+
+FIXTURES = pathlib.Path(__file__).parent / "fixtures"
+INPUT = FIXTURES / "golden_sim_rk4_32.input"
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the CUDA kernel has no "
+                    "CPU mode)")
+    return torch.device("cuda")
+
+
+def _config(res=16, **overrides):
+    cfg = read_config(str(INPUT))
+    cfg.simulation_file = str(FIXTURES / "mock_small.athdf")
+    cfg.camera_resolution = res
+    for key, value in overrides.items():
+        setattr(cfg, key, value)
+    return cfg
+
+
+def _args(integrator, precision, **overrides):
+    """Rays and arguments for render_simulation on the card: the rk4
+    simulation golden input at 16^2 with its full step budget. Off-grid
+    samples poison pixels (fallback_nan) only where the comparison is
+    exact; a dp or float32 ray may step off the grid where its plain
+    twin does not."""
+    exact = integrator != "dp" and precision == "float64"
+    cfg = _config(ray_integrator=RayIntegrator(integrator),
+                  precision=precision, fallback_nan=exact, **overrides)
+    render_fn, geom, rays, freqs, _ = make_simulation_renderer(
+        cfg, device="cuda")
+    args = (rays.positions, rays.directions, rays.momentum_factors,
+            *render_fn.kernel_args)
+    return args, {"integrator": integrator}, exact
+
+
+def _statistical_gate(a, b):
+    """bench.py:181-186: identical NaN sets, fewer than 0.5% of pixels past
+    1e-3 relative, total flux within 1e-3."""
+    rel = np.abs(a - b) / (np.abs(b) + np.nanmax(np.abs(b)) * 1e-6)
+    assert np.array_equal(np.isnan(a), np.isnan(b))
+    assert np.mean(np.nan_to_num(rel) > 1e-3) < 5e-3
+    assert abs(np.nansum(a) - np.nansum(b)) < 1e-3 * abs(np.nansum(b))
+
+
+def _compare(args, kwargs, exact, launches):
+    before = sk.LAUNCHES
+    i_k, f_k, n_k = sk.render_simulation(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == before + launches
+    i_p, f_p, n_p = sk.render_simulation_reference(*args, **kwargs)
+    assert sk.LAUNCHES == before + launches
+    assert i_k.dtype == args[0].dtype and i_k.shape == i_p.shape
+    a, b = i_k.cpu().numpy(), i_p.cpu().numpy()
+    assert np.nanmax(b) > 0.0
+    if exact:
+        assert torch.equal(f_k, f_p) and torch.equal(n_k, n_p)
+        assert np.array_equal(np.isnan(a), np.isnan(b))
+        np.testing.assert_allclose(a, b, rtol=1e-7, atol=0.0)
+    else:
+        for f in range(a.shape[1]):
+            _statistical_gate(a[:, f], b[:, f])
+
+
+@pytest.mark.parametrize("precision", ["float32", "float64"])
+@pytest.mark.parametrize("integrator", ["dp", "rk4", "rk2"])
+def test_kernel_matches_plain(cuda_device, integrator, precision):
+    """rk4 and rk2 in float64 round alike on both sides (no multiply-add
+    contraction): flags, n_samples and NaN sets agree exactly, I_nu to
+    rtol 1e-7 (the card's pow and transcendentals are not torch's). dp and
+    float32 are held to the statistical gate of bench.py."""
+    args, kwargs, exact = _args(integrator, precision)
+    _compare(args, kwargs, exact, launches=1)
+
+
+def test_kernel_many_frequencies(cuda_device):
+    """20 frequencies: two launches of at most 16, one image."""
+    args, kwargs, exact = _args(
+        "rk4", "float64", image_num_frequencies=20,
+        image_frequency_start=5e10, image_frequency_end=1e12,
+        image_frequency_spacing=FrequencySpacing.log)
+    assert args[3].shape == (20,)
+    _compare(args, kwargs, exact, launches=2)
+
+
+def test_kernel_rejects_mixed_inputs(cuda_device):
+    args, kwargs, _ = _args("rk4", "float64")
+    pos, dirs, mom = args[:3]
+    with pytest.raises(TypeError):
+        sk.render_simulation(pos, dirs.cpu(), mom, *args[3:], **kwargs)
+    with pytest.raises(TypeError):
+        sk.render_simulation(pos, dirs.float(), mom, *args[3:], **kwargs)
+    empty = [t[:0] for t in (pos, dirs, mom)]
+    before = sk.LAUNCHES
+    i_nu, flags, n_samples = sk.render_simulation(*empty, *args[3:],
+                                                  **kwargs)
+    assert i_nu.shape == (0, 1) and sk.LAUNCHES == before
+
+
+def test_pipeline_run_on_cuda(cuda_device, tmp_path):
+    cfg = _config(res=8, output_file=str(tmp_path / "out.npz"))
+    before = sk.LAUNCHES
+    arrays = pipeline.run(cfg, quiet=True, device="cuda")
+    assert sk.LAUNCHES == before + 1
+    assert arrays["I_nu"].shape == (8, 8)
+    assert np.isfinite(np.nanmax(arrays["I_nu"]))
+    assert (tmp_path / "out.npz").exists()
