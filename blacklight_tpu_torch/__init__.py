@@ -1,17 +1,20 @@
 """blacklight_tpu_torch: the PyTorch / CUDA port of blacklight_tpu.
 
-The formula-model main path (config -> camera -> fused geodesic +
-formula coefficients + unpolarized transfer -> npz) runs through one
-hand-written CUDA kernel on an NVIDIA GPU (``ops/formula_kernel.py``,
-``csrc/formula_kernel.cuh``) and through its plain PyTorch version on the
-CPU. The JAX package ``blacklight_tpu`` is the reference; its jax-free
-modules (config parsing, constants, output writing) are shared, not
-copied. Importing this package never loads jax.
+Three slices, each config -> camera -> one fused hand-written CUDA kernel
+on an NVIDIA GPU (its plain PyTorch version on the CPU) -> npz/npy/raw:
+the formula model (``ops/formula_kernel.py``), the simulation model on
+Athena++ snapshots (``ops/simulation_kernel.py``) and its full-Stokes
+polarized transfer (``ops/polarized_kernel.py``). The JAX package ``blacklight_tpu`` is the reference; this package
+keeps its own copies of the jax-free modules it needs (``constants``,
+``output``, ``utils/config``, ``utils/errors``, ``utils/colors``) and
+imports nothing of the JAX package, nor jax.
 """
 
 __version__ = "0.1.0"
 
-from blacklight_tpu.constants import RayIntegrator
-from blacklight_tpu.utils.config import Config, read_config
+from blacklight_tpu_torch.constants import RayIntegrator
+from blacklight_tpu_torch.utils.config import Config, parse_config, read_config
+from blacklight_tpu_torch.utils.errors import BlacklightError
 
-__all__ = ["Config", "RayIntegrator", "read_config", "__version__"]
+__all__ = ["BlacklightError", "Config", "RayIntegrator", "parse_config",
+           "read_config", "__version__"]

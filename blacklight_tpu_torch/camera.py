@@ -17,7 +17,7 @@ import math
 import numpy as np
 import torch
 
-from blacklight_tpu.constants import (
+from blacklight_tpu_torch.constants import (
     CameraType,
     FrequencyNormalization,
     FrequencySpacing,

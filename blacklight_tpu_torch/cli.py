@@ -22,11 +22,11 @@ def main(argv=None) -> int:
     parser.add_argument("input_file")
     args = parser.parse_args(sys.argv[1:] if argv is None else argv)
 
-    from blacklight_tpu.utils.errors import BlacklightError
+    from blacklight_tpu_torch.utils.errors import BlacklightError
 
     try:
-        from blacklight_tpu.constants import ModelType
-        from blacklight_tpu.utils.config import read_config
+        from blacklight_tpu_torch.constants import ModelType
+        from blacklight_tpu_torch.utils.config import read_config
         from blacklight_tpu_torch import pipeline
 
         cfg = read_config(args.input_file)

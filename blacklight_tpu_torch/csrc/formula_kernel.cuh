@@ -199,15 +199,9 @@ __global__ void __launch_bounds__(THREADS)
   const FormulaConsts<T> fc(params);
 
   // state: x^0..x^3, p_1..p_3 (p_0 is conserved)
-  T y[7];
-  y[0] = positions[4 * ray + 0];
-  y[1] = positions[4 * ray + 1];
-  y[2] = positions[4 * ray + 2];
-  y[3] = positions[4 * ray + 3];
+  RayState<T> s;
+  init_ray_state(tc, positions + 4 * ray, directions + 4 * ray, s);
   const T p0 = directions[4 * ray + 0];
-  y[4] = directions[4 * ray + 1];
-  y[5] = directions[4 * ray + 2];
-  y[6] = directions[4 * ray + 3];
   const T mom = momentum_factors[ray];
 
   T intensity = T(0), tau = T(0);
@@ -217,7 +211,7 @@ __global__ void __launch_bounds__(THREADS)
     transfer_sample(fc, ym[1], ym[2], ym[3], p0, k1, k2, k3, mom, hs, intensity, tau,
                     bad);
   };
-  trace_ray<T, INTEGRATOR>(tc, y, p0, on_sample, flag, n_samp);
+  trace_ray<T, INTEGRATOR>(tc, s, p0, on_sample, flag, n_samp);
 
   const bool poison = bad || (tc.fallback_nan && flag);
   i_nu[ray] = poison ? T(NAN) : intensity * i_scale;

@@ -27,6 +27,16 @@ __device__ __forceinline__ float m_exp(float x) { return expf(x); }
 __device__ __forceinline__ double m_exp(double x) { return exp(x); }
 __device__ __forceinline__ float m_expm1(float x) { return expm1f(x); }
 __device__ __forceinline__ double m_expm1(double x) { return expm1(x); }
+__device__ __forceinline__ float m_log(float x) { return logf(x); }
+__device__ __forceinline__ double m_log(double x) { return log(x); }
+__device__ __forceinline__ float m_log1p(float x) { return log1pf(x); }
+__device__ __forceinline__ double m_log1p(double x) { return log1p(x); }
+__device__ __forceinline__ float m_sinh(float x) { return sinhf(x); }
+__device__ __forceinline__ double m_sinh(double x) { return sinh(x); }
+__device__ __forceinline__ float m_cosh(float x) { return coshf(x); }
+__device__ __forceinline__ double m_cosh(double x) { return cosh(x); }
+__device__ __forceinline__ float m_tanh(float x) { return tanhf(x); }
+__device__ __forceinline__ double m_tanh(double x) { return tanh(x); }
 __device__ __forceinline__ float m_pow(float x, float y) { return powf(x, y); }
 __device__ __forceinline__ double m_pow(double x, double y) { return pow(x, y); }
 __device__ __forceinline__ float m_abs(float x) { return fabsf(x); }
@@ -79,21 +89,19 @@ __device__ __forceinline__ T ks_radius(T x1, T x2, T x3, const KerrConsts<T>& g)
   return m_sqrt(r2);
 }
 
-// Geodesic right-hand side (geometry.py:243-315): dy/dlambda for the seven
-// dynamical components (x^0..x^3, p_1..p_3; p_0 is conserved) and, when
-// ds is given, the proper-distance rate.
+// Kerr-Schild scalars at a point and their spatial derivatives
+// (geometry.py ks_derivatives_c): f, the spatial covector l_i (l_0 = 1),
+// df/dx^j and dl[i][j] = d l_i / dx^j.
 template <typename T>
-__device__ __forceinline__ void geodesic_rhs(T x1, T x2, T x3, T p0, T p1, T p2,
-                                             T p3, const KerrConsts<T>& g,
-                                             T out[7], T* ds) {
-  if (g.flat) {
-    out[0] = -p0; out[1] = p1; out[2] = p2; out[3] = p3;
-    out[4] = T(0); out[5] = T(0); out[6] = T(0);
-    if (ds) *ds = -m_sqrt(p1 * p1 + p2 * p2 + p3 * p3);
-    return;
-  }
+struct KsDerivs {
+  T r, f, l1, l2, l3, df1, df2, df3;
+  T dl[3][3];
+};
+
+template <typename T>
+__device__ __forceinline__ void ks_derivatives(T x1, T x2, T x3, const KerrConsts<T>& g,
+                                               KsDerivs<T>& d) {
   const T spin = g.spin, a2 = g.a2;
-  // ks_derivatives_c
   const T rr2 = x1 * x1 + x2 * x2 + x3 * x3;
   const T r2 = T(0.5) * (rr2 - a2 + m_hypot(rr2 - a2, g.two_spin * x3));
   const T r = m_sqrt(r2);
@@ -109,19 +117,49 @@ __device__ __forceinline__ void geodesic_rhs(T x1, T x2, T x3, T p0, T p1, T p2,
   const T dr_dz = (r * x3 + a2 * x3 / r) / dr_denom;
   const T f_denom = r * (r2 * r2 + a2 * x3 * x3);
   const T poly = r2 * r2 - g.three_a2 * x3 * x3;
-  const T df_dx = -poly * dr_dx / f_denom * f;
-  const T df_dy = -poly * dr_dy / f_denom * f;
-  const T df_dz = -(poly * dr_dz + g.two_a2 * r * x3) / f_denom * f;
+  d.df1 = -poly * dr_dx / f_denom * f;
+  d.df2 = -poly * dr_dy / f_denom * f;
+  d.df3 = -(poly * dr_dz + g.two_a2 * r * x3) / f_denom * f;
 
   const T c1 = (x1 - T(2) * r * l1) / denom;
   const T c2 = (x2 - T(2) * r * l2) / denom;
   const T a_denom = (T(1) / denom) * spin;
-  const T dl1x = c1 * dr_dx + r / denom, dl1y = c1 * dr_dy + a_denom,
-          dl1z = c1 * dr_dz;
-  const T dl2x = c2 * dr_dx - a_denom, dl2y = c2 * dr_dy + r / denom,
-          dl2z = c2 * dr_dz;
-  const T dl3x = -x3 / r2 * dr_dx, dl3y = -x3 / r2 * dr_dy,
-          dl3z = -x3 / r2 * dr_dz + T(1) / r;
+  d.dl[0][0] = c1 * dr_dx + r / denom;
+  d.dl[0][1] = c1 * dr_dy + a_denom;
+  d.dl[0][2] = c1 * dr_dz;
+  d.dl[1][0] = c2 * dr_dx - a_denom;
+  d.dl[1][1] = c2 * dr_dy + r / denom;
+  d.dl[1][2] = c2 * dr_dz;
+  d.dl[2][0] = -x3 / r2 * dr_dx;
+  d.dl[2][1] = -x3 / r2 * dr_dy;
+  d.dl[2][2] = -x3 / r2 * dr_dz + T(1) / r;
+  d.r = r;
+  d.f = f;
+  d.l1 = l1;
+  d.l2 = l2;
+  d.l3 = l3;
+}
+
+// Geodesic right-hand side (geometry.py:243-315): dy/dlambda for the seven
+// dynamical components (x^0..x^3, p_1..p_3; p_0 is conserved) and, when
+// ds is given, the proper-distance rate.
+template <typename T>
+__device__ __forceinline__ void geodesic_rhs(T x1, T x2, T x3, T p0, T p1, T p2,
+                                             T p3, const KerrConsts<T>& g,
+                                             T out[7], T* ds) {
+  if (g.flat) {
+    out[0] = -p0; out[1] = p1; out[2] = p2; out[3] = p3;
+    out[4] = T(0); out[5] = T(0); out[6] = T(0);
+    if (ds) *ds = -m_sqrt(p1 * p1 + p2 * p2 + p3 * p3);
+    return;
+  }
+  KsDerivs<T> d;
+  ks_derivatives(x1, x2, x3, g, d);
+  const T f = d.f, l1 = d.l1, l2 = d.l2, l3 = d.l3;
+  const T df_dx = d.df1, df_dy = d.df2, df_dz = d.df3;
+  const T dl1x = d.dl[0][0], dl1y = d.dl[0][1], dl1z = d.dl[0][2];
+  const T dl2x = d.dl[1][0], dl2y = d.dl[1][1], dl2z = d.dl[1][2];
+  const T dl3x = d.dl[2][0], dl3y = d.dl[2][1], dl3z = d.dl[2][2];
 
   // geodesic_rhs_c
   const T lp = -p0 + l1 * p1 + l2 * p2 + l3 * p3;

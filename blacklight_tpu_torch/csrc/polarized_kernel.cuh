@@ -1,0 +1,1162 @@
+// Fused polarized (full-Stokes IQUV) simulation-model ray tracer for NVIDIA
+// Hopper (sm_90a): geodesic steps, GRMHD grid sampling, thermal polarized
+// synchrotron coefficients and coherency-tensor transfer with tetrad-frame
+// matter coupling, one ray per thread.
+//
+// Replaces the TPU kernel blacklight_tpu/ops/pallas_polarized.py
+// _make_kernel (:286, launched by render_polarized :727; K3.1) for a
+// single-block SKS grid, thermal ti_te_beta electrons, dp, rk4 and rk2, and
+// float32 and float64. Its values follow the JAX package's exact (XLA)
+// path in each type's forms: transfer/polarized.py integrate_polarized
+// with pipeline_simulation.make_simulation_coeff_fns(polarized=True). The
+// plain PyTorch version is blacklight_tpu_torch/ops/polarized_kernel.py
+// render_polarized_reference (transfer/polarized.py, ops/connection.py,
+// ops/tetrad.py, transfer/polarized_coupling.py, models/synchrotron.py);
+// this file writes their operation forms. Like the TPU kernel it returns
+// the final coherency components; the caller takes camera-frame Stokes
+// (transfer/polarized.camera_stokes) and poisons NaN pixels.
+//
+// The transfer takes samples far end first while the geodesic runs from
+// the camera, so each thread makes two sweeps:
+//   sweep A integrates its ray forward and stores the state entering each
+//     window of W steps (RayState, trace.cuh) in a table in device memory,
+//     laid out [window][field][ray] so a warp's stores coalesce;
+//   sweep B walks the windows backwards: it replays a window from its
+//     entering state with the same step_ray (so the samples are sweep A's
+//     bit for bit, dp's rejected attempts included), keeps the window's
+//     samples in a per-thread array and applies the polarized update to
+//     them far end first: the grid sample and fluid state
+//     (sim_sample.cuh, shared with the unpolarized kernel), three
+//     transport matrices, the deferred second half of the previous
+//     sample's transport and this sample's first half, the fluid tetrad,
+//     N -> Stokes, the per-frequency coefficients, the matter coupling in
+//     the sample's own regime, and Stokes -> N.
+// At the camera end the nearest sample's second half is applied.
+//
+// What bounds it on this card: arithmetic and latency. Per sample and
+// frequency the update is ~2,000 floating-point operations (three 4x4
+// transport matrices, two 16-component transports, the tetrad, the
+// coupling's transcendentals), on top of two geodesic steps (sweep A and
+// the replay); the bytes are the grid's 256 per sample, mostly cache hits,
+// and the window table (~50 bytes per ray and window, written once and
+// read once). No brick, window vote, DMA or overflow latch: those exist in
+// the TPU kernel for Mosaic's DMA and VMEM rules, and no ray goes to the
+// host. The TPU kernel's Mosaic substitutes for sin, cos, sinh, cosh,
+// expm1, log1p, pow and tanh are not carried over: the card has them.
+//
+// The instantiations live in three translation units that nvcc builds side
+// by side, none with multiply-add contraction (ops/_build.py), so that
+// each operation rounds as the plain version's does:
+// polarized_kernel.cu (rk4, rk2 in float), polarized_kernel_f64.cu (rk4,
+// rk2 in double) and polarized_kernel_dp.cu (dp in both).
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "polarized_params.cuh"
+#include "sim_sample.cuh"
+
+namespace bl {
+
+constexpr int POL_THREADS = 128;
+constexpr int POL_MAX_FREQUENCIES = 4;  // per launch; more go to more launches
+constexpr int POL_MAX_WINDOW = 512;     // steps per window, at most
+constexpr int POL_CARRY_REALS = 9;      // y[7], h, r_mid_prev
+constexpr int POL_CARRY_INTS = 2;       // n_samp; num_retry and the four bits
+constexpr double POL_DELTA_TAU_MAX = 100.0;  // unpolarized.cpp:96-110
+constexpr double THETA_E_ZERO = 0.01;        // radiation_integrator.hpp:190
+constexpr double PI = 3.141592653589793;
+constexpr double EULER_GAMMA = 0.5772156649015328606;
+constexpr int BESSEL_SERIES_TERMS = 22;  // models/synchrotron.py :279-288
+constexpr int BESSEL_CF2_ITERS = 40;
+
+// ---- Bessel K (models/synchrotron.py :291-428) ----------------------------
+// Constants of the k-th term of the small-argument series, folded in
+// float64 as the JAX package folds them in Python.
+template <int K>
+struct BesselTerm {
+  static constexpr double fact = BesselTerm<K - 1>::fact * K;
+  static constexpr double h = BesselTerm<K - 1>::h + 1.0 / K;
+  static constexpr double inv_sq = 1.0 / (fact * fact);
+  static constexpr double inv_11 = 1.0 / (fact * fact * (K + 1.0));
+  static constexpr double k1_coef = 2.0 * h + 1.0 / (K + 1.0) - 2.0 * EULER_GAMMA;
+};
+template <>
+struct BesselTerm<0> {
+  static constexpr double fact = 1.0;
+  static constexpr double h = 0.0;
+};
+
+template <typename T, int K>
+__device__ __forceinline__ void bessel_series_terms(T t, T& tk, T& i0, T& k0_sum, T& i1_sum,
+                                                    T& k1_sum) {
+  if constexpr (K <= BESSEL_SERIES_TERMS) {
+    using B = BesselTerm<K>;
+    tk = tk * t;
+    i0 = i0 + tk * T(B::inv_sq);
+    k0_sum = k0_sum + tk * T(B::inv_sq) * T(B::h);
+    i1_sum = i1_sum + tk * T(B::inv_11);
+    k1_sum = k1_sum + tk * T(B::inv_11) * T(B::k1_coef);
+    bessel_series_terms<T, K + 1>(t, tk, i0, k0_sum, i1_sum, k1_sum);
+  }
+}
+
+// K0, K1 by the ascending series (DLMF 10.31.2-3), for x <= 3.
+template <typename T>
+__device__ __forceinline__ void bessel_k01_small(T x, T& k0, T& k1) {
+  const T t = x * x / T(4);
+  T tk = T(1), i0 = T(1), k0_sum = T(0), i1_sum = T(1);
+  T k1_sum = T(1.0 - 2.0 * EULER_GAMMA);
+  bessel_series_terms<T, 1>(t, tk, i0, k0_sum, i1_sum, k1_sum);
+  const T lnx2 = m_log(x / T(2));
+  const T i1 = T(0.5) * x * i1_sum;
+  k0 = -(lnx2 + T(EULER_GAMMA)) * i0 + k0_sum;
+  k1 = T(1) / x + lnx2 * i1 - T(0.25) * x * k1_sum;
+}
+
+// K0, K1 for x >= 2 by Steed's continued fraction CF2 (Temme's method,
+// mu = 0); SCALED gives e^x K. float64 only (its recurrences overflow
+// single precision).
+template <bool SCALED>
+__device__ __forceinline__ void bessel_k01_large(double x, double& k0, double& k1) {
+  const double a1 = 0.25;
+  double b = 2.0 * (1.0 + x);
+  double d = 1.0 / b;
+  double h = d, delh = d;
+  double q1 = 0.0, q2 = 1.0, q = a1, c = a1;
+  double a = -a1;
+  double s = 1.0 + q * delh;
+#pragma unroll 4
+  for (int i = 2; i < BESSEL_CF2_ITERS + 2; ++i) {
+    a = a - 2.0 * (i - 1);
+    c = -a * c / i;
+    const double qnew = (q1 - b * q2) / a;
+    q1 = q2;
+    q2 = qnew;
+    q = q + c * qnew;
+    b = b + 2.0;
+    d = 1.0 / (b + a * d);
+    delh = (b * d - 1.0) * delh;
+    h = h + delh;
+    s = s + q * delh;
+  }
+  h = a1 * h;
+  double pref = sqrt((1.0 / (2.0 * x)) * PI);  // pi / (2 x) as PyTorch forms it
+  if (!SCALED) pref = pref * exp(-x);
+  k0 = pref / s;
+  k1 = k0 * (x + 0.5 - h) / x;
+}
+
+// Coefficients of the large-argument asymptotic series of e^x K_nu
+// (4 nu^2 = NU4: 0 for K0, 4 for K1).
+template <int K, int NU4>
+struct AsymTerm {
+  static constexpr double m = (2.0 * K - 1.0) * (2.0 * K - 1.0);
+  static constexpr double a = AsymTerm<K - 1, NU4>::a * ((NU4 - m) / (8.0 * K));
+};
+template <int NU4>
+struct AsymTerm<0, NU4> {
+  static constexpr double a = 1.0;
+};
+
+template <int K>
+__device__ __forceinline__ void bessel_asym_terms(float inv, float& xk, float& p0, float& p1) {
+  if constexpr (K <= 8) {
+    p0 = p0 + float(AsymTerm<K, 0>::a) * xk;
+    p1 = p1 + float(AsymTerm<K, 4>::a) * xk;
+    xk = xk * inv;
+    bessel_asym_terms<K + 1>(inv, xk, p0, p1);
+  }
+}
+
+// e^x K0, e^x K1 from the asymptotic series (float32 only).
+__device__ __forceinline__ void bessel_k01_asymptotic(float x, float& k0, float& k1) {
+  const float inv = 1.0f / x;
+  float p0 = 1.0f, p1 = 1.0f, xk = inv;
+  bessel_asym_terms<1>(inv, xk, p0, p1);
+  const float pref = sqrtf((1.0f / (2.0f * x)) * float(PI));
+  k0 = pref * p0;
+  k1 = pref * p1;
+}
+
+// (e^x K0, e^x K1, e^x K2): the series below x = 3, above it the CF2 in
+// float64 and the asymptotic series in float32.
+template <typename T>
+__device__ __forceinline__ void bessel_k012_scaled(T x, T& k0, T& k1, T& k2) {
+  if (x <= T(3)) {
+    const T xs = jmax(x, T(1e-30));
+    T k0s, k1s;
+    bessel_k01_small(xs, k0s, k1s);
+    const T e = m_exp(xs);
+    k0 = k0s * e;
+    k1 = k1s * e;
+  } else if constexpr (TypeForms<T>::F64) {
+    bessel_k01_large<true>(x, k0, k1);
+  } else {
+    bessel_k01_asymptotic(x, k0, k1);
+  }
+  k2 = k0 + T(2) * k1 / x;
+}
+
+// K0, K1, K2 (float64): the series below x = 3, the CF2 above.
+__device__ __forceinline__ void bessel_k012(double x, double& k0, double& k1, double& k2) {
+  if (x <= 3.0) {
+    bessel_k01_small(jmax(x, 1e-300), k0, k1);
+  } else {
+    bessel_k01_large<false>(x, k0, k1);
+  }
+  k2 = k0 + 2.0 * k1 / x;
+}
+
+// ---- thermal polarized coefficients ---------------------------------------
+// models/synchrotron.py thermal_coefficients(polarized=True) (:785-936).
+// What depends on the cell and not on the frequency: the fluid-frame
+// angle and the Bessel functions of 1 / theta_e.
+template <typename T>
+struct PolCell {
+  T n_e, theta_e, kb_tt_e, nu_c, nu_s, sin_b, cos_b, sin2_b, u_dot_k;
+  T kk0, kk1, kk2;  // float64: K(1/theta); float32: e^x-scaled K's
+  T inv_theta, log_k0s;
+};
+
+template <typename T>
+struct PolCoeffs {
+  T j_i, j_q, j_v, a_i, a_q, a_v, rho_q, rho_v;
+};
+
+template <typename T>
+__device__ __forceinline__ void pol_cell_bessel(PolCell<T>& pc) {
+  if constexpr (TypeForms<T>::F64) {
+    pc.inv_theta = T(1) / jmax(pc.theta_e, T(THETA_E_ZERO));
+    bessel_k012(pc.inv_theta, pc.kk0, pc.kk1, pc.kk2);
+    pc.log_k0s = T(0);
+  } else {
+    pc.inv_theta = jmax(T(1) / jmax(pc.theta_e, T(THETA_E_ZERO)), T(1e-15));
+    bessel_k012_scaled(pc.inv_theta, pc.kk0, pc.kk1, pc.kk2);
+    pc.log_k0s = m_log(pc.kk0);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ PolCoeffs<T> thermal_polarized(const SimConsts<T>& c, T e_squared,
+                                                          T me_c, const PolCell<T>& pc,
+                                                          T nu_cgs) {
+  using Forms = TypeForms<T>;
+  const ThermalI<T> ti =
+      thermal_i(c, nu_cgs, pc.n_e, pc.nu_c, pc.nu_s, pc.sin_b, pc.kb_tt_e);
+  const T theta_e = pc.theta_e;
+  const T frac = c.thermal_frac;
+  PolCoeffs<T> o;
+  o.j_i = ti.j;
+  o.a_i = ti.alpha;
+
+  // j_Q, j_V (M 29-30): float32 floors theta_e inside the power and the
+  // division; float64 divides by it literally
+  const T theta_f = Forms::F64 ? theta_e : jmax(theta_e, T(1e-15));
+  const T th_096 = m_pow(theta_f, T(0.96));
+  const T var_d = (T(7) * th_096 + T(35)) / (T(10) * th_096 + T(75)) * c.var_b;
+  const T var_e = ti.xx_1_2 + var_d * ti.xx_1_6;
+  const T var_f = pc.cos_b / theta_f;
+  const T var_g = T(PI / 3.0) + T(PI / 3.0) * ti.xx_1_3 + T(2.0 / 300.0) * ti.xx_1_2 +
+                  T(2.0 / 19.0 * PI) * (ti.xx_1_3 * ti.xx_1_3);
+  o.j_q = -ti.coefficient * ti.var_a * var_e * var_e;
+  o.j_v = ti.coefficient * var_f * var_g;
+  o.a_q = ti.trap ? T(0) : o.j_q * ti.kirch;
+  o.a_v = ti.trap ? T(0) : o.j_v * ti.kirch;
+
+  // Faraday rotativities (M 33-37)
+  const T xx = ti.xx;
+  const T nu_2 = nu_cgs * nu_cgs;
+  const T coefficient_q =
+      -frac * pc.n_e * e_squared * (pc.nu_c * pc.nu_c) * pc.sin2_b / (me_c * nu_2);
+  const T coefficient_v =
+      T(2) * frac * pc.n_e * e_squared * pc.nu_c * pc.cos_b / (me_c * nu_cgs);
+  const T xx_neg_1_2 = T(1) / m_sqrt(xx);
+  const T var_a2 = T(2.011) * m_exp(T(-19.78) * m_pow(xx, T(-0.5175)));
+  const T var_b2 = m_cos(T(39.89) * xx_neg_1_2) * m_exp(T(-70.16) * m_pow(xx, T(-0.6)));
+  const T var_c2 = T(0.011) * m_exp(T(-1.69) * xx_neg_1_2);
+  const T var_d2 = T(0.003135) * m_pow(xx, T(4.0 / 3.0));
+  const T var_e2 = T(0.5) * (T(1) + m_tanh(T(10) * m_log(T(0.6648) * xx_neg_1_2)));
+  const T f_0 = var_a2 - var_b2 - var_c2;
+  const T f_m = f_0 + (var_c2 - var_d2) * var_e2;
+  T factor_q, factor_v;
+  if constexpr (Forms::F64) {
+    // the reference's literal (K0 - delta) / K2 with its < 0 / > 1 trap
+    const T delta_jj_5 = T(0.4379) * m_log(T(1) + T(1.3414) * m_pow(xx, T(-0.7515)));
+    factor_q = f_m * (pc.kk1 / pc.kk2 + T(6) * theta_e);
+    factor_v = (pc.kk0 - delta_jj_5) / pc.kk2;
+    if (factor_v < T(0) || factor_v > T(1)) factor_v = T(1);
+  } else {
+    // e^x-scaled K's and the trap taken in log space
+    const T delta_jj_5 = T(0.4379) * m_log1p(T(1.3414) * m_pow(xx, T(-0.7515)));
+    factor_q = f_m * (pc.kk1 / pc.kk2 + T(6) * theta_e);
+    const T log_de = m_log(jmax(delta_jj_5, T(1e-30))) + pc.inv_theta;
+    const bool ok_v = log_de <= pc.log_k0s;
+    const T de = m_exp(jmin(log_de, pc.log_k0s));
+    factor_v = ok_v ? (pc.kk0 - de) / pc.kk2 : T(1);
+  }
+  const bool cold = theta_e < T(THETA_E_ZERO);
+  o.rho_q = coefficient_q * (cold ? T(0) : factor_q);
+  o.rho_v = coefficient_v * (cold ? T(1) : factor_v);
+  return o;
+}
+
+// ---- geometry of the transport (ops/connection.py, transfer/polarized.py)
+
+// g^{mn} k_n through the rank-1 Kerr-Schild structure (_kcon_scalar).
+template <typename T>
+__device__ __forceinline__ void kcon_of(bool flat, const KsDerivs<T>& d, const T (&kcov)[4],
+                                        T (&kcon)[4]) {
+  if (flat) {
+    kcon[0] = -kcov[0];
+    kcon[1] = kcov[1];
+    kcon[2] = kcov[2];
+    kcon[3] = kcov[3];
+    return;
+  }
+  const T lp = -kcov[0] + d.l1 * kcov[1] + d.l2 * kcov[2] + d.l3 * kcov[3];
+  const T flp = d.f * lp;
+  kcon[0] = -kcov[0] + flp;
+  kcon[1] = kcov[1] - flp * d.l1;
+  kcon[2] = kcov[2] - flp * d.l2;
+  kcon[3] = kcov[3] - flp * d.l3;
+}
+
+// A^m_b = k^a Gamma^m_{ab} for the contravariant k (connection.py
+// transport_matrix_c); zero in flat spacetime.
+template <typename T>
+__device__ __forceinline__ void transport_matrix(bool flat, const KsDerivs<T>& d,
+                                                 const T (&k)[4], T (&a)[4][4]) {
+  if (flat) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) a[m][b] = T(0);
+    return;
+  }
+  const T f = d.f;
+  const T l[4] = {T(1), d.l1, d.l2, d.l3};
+  const T lk = k[0] + d.l1 * k[1] + d.l2 * k[2] + d.l3 * k[3];
+  const T kdf = k[1] * d.df1 + k[2] * d.df2 + k[3] * d.df3;
+  T kdl[4], s[4];
+  const T df[4] = {T(0), d.df1, d.df2, d.df3};
+  kdl[0] = T(0);
+  s[0] = T(0);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    kdl[i + 1] = k[1] * d.dl[i][0] + k[2] * d.dl[i][1] + k[3] * d.dl[i][2];
+    s[i + 1] = d.dl[0][i] * k[1] + d.dl[1][i] * k[2] + d.dl[2][i] * k[3];
+  }
+  // p(b, e) = d_b l_e, zero in the t slot of either index
+  auto p = [&](int b, int e) -> T { return (b == 0 || e == 0) ? T(0) : d.dl[e - 1][b - 1]; };
+  T t[4][4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      t[e][b] = kdf * l[e] * l[b] + f * (kdl[e] * l[b] + l[e] * kdl[b]) + df[b] * l[e] * lk +
+                f * lk * p(b, e) + f * l[e] * s[b] - df[e] * lk * l[b] - f * s[e] * l[b] -
+                f * lk * p(e, b);
+    }
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    const T u = -t[0][b] + d.l1 * t[1][b] + d.l2 * t[2][b] + d.l3 * t[3][b];
+    a[0][b] = T(0.5) * (-t[0][b] + f * u);
+    a[1][b] = T(0.5) * (t[1][b] - f * d.l1 * u);
+    a[2][b] = T(0.5) * (t[2][b] - f * d.l2 * u);
+    a[3][b] = T(0.5) * (t[3][b] - f * d.l3 * u);
+  }
+}
+
+// The coherency tensor N^{mn} of one frequency: 10 real-symmetric
+// components in (00, 01, 02, 03, 11, 12, 13, 22, 23, 33) order and 6
+// imaginary-antisymmetric ones in (01, 02, 03, 12, 13, 23) order
+// (transfer/polarized.py _SYM, _ANT).
+template <typename T>
+struct Coherency {
+  T re[10];
+  T im[6];
+};
+
+__device__ __forceinline__ constexpr int sym_index(int m, int n) {
+  return m > n ? sym_index(n, m)
+               : (m == 0 ? n : (m == 1 ? 3 + n : (m == 2 ? 5 + n : 9)));
+}
+__device__ __forceinline__ constexpr int ant_index(int m, int n) {
+  return m == 0 ? n - 1 : (m == 1 ? 1 + n : 5);  // m < n
+}
+__device__ __forceinline__ constexpr int sym_m(int i) {
+  return i < 4 ? 0 : (i < 7 ? 1 : (i < 9 ? 2 : 3));
+}
+__device__ __forceinline__ constexpr int sym_n(int i) {
+  return i < 4 ? i : (i < 7 ? i - 3 : (i < 9 ? i - 5 : 3));
+}
+__device__ __forceinline__ constexpr int ant_m(int i) { return i < 3 ? 0 : (i < 5 ? 1 : 2); }
+__device__ __forceinline__ constexpr int ant_n(int i) {
+  return i < 3 ? i + 1 : (i < 5 ? i - 1 : 3);
+}
+
+// Half-step parallel transport (polarized.cpp:174-192; _transport_c):
+// out = base - dl (A^m_b N^{bn} + A^n_b N^{mb}), N = src.
+template <typename T>
+__device__ __forceinline__ void transport(const T (&a)[4][4], const Coherency<T>& src,
+                                          const Coherency<T>& base, T dl, Coherency<T>& out) {
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    const int m = sym_m(i), n = sym_n(i);
+    T d = T(0);
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const T t = a[m][b] * src.re[sym_index(b, n)] + a[n][b] * src.re[sym_index(m, b)];
+      d = b == 0 ? t : d + t;
+    }
+    out.re[i] = base.re[i] - dl * d;
+  }
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    const int m = ant_m(i), n = ant_n(i);
+    T d = T(0);
+    bool any = false;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      if (b != n) {  // Im N^{bn}, antisymmetry folded in
+        const T v = b < n ? src.im[ant_index(b, n)] : -src.im[ant_index(n, b)];
+        const T t = a[m][b] * v;
+        d = any ? d + t : t;
+        any = true;
+      }
+      if (m != b) {  // Im N^{mb}
+        const T v = m < b ? src.im[ant_index(m, b)] : -src.im[ant_index(b, m)];
+        const T t = a[n][b] * v;
+        d = any ? d + t : t;
+        any = true;
+      }
+    }
+    out.im[i] = base.im[i] - dl * d;
+  }
+}
+
+// Tetrad-frame (I, Q, U, V) from N (polarized.cpp:264-292; _stokes_from_n);
+// e1, e2 are the covariant tetrad rows.
+template <typename T>
+__device__ __forceinline__ void stokes_from_n(const T (&e1)[4], const T (&e2)[4],
+                                              const Coherency<T>& nn, T (&s)[4]) {
+  T nt00 = T(0), nt11 = T(0), nt01 = T(0);
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const T r = nn.re[sym_index(m, m)];
+    const T t00 = e1[m] * e1[m] * r;
+    const T t11 = e2[m] * e2[m] * r;
+    const T t01 = e1[m] * e2[m] * r;
+    nt00 = m == 0 ? t00 : nt00 + t00;
+    nt11 = m == 0 ? t11 : nt11 + t11;
+    nt01 = m == 0 ? t01 : nt01 + t01;
+  }
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    const int m = ant_m(i), n = ant_n(i);
+    const T r = nn.re[sym_index(m, n)];
+    nt00 = nt00 + T(2) * e1[m] * e1[n] * r;
+    nt11 = nt11 + T(2) * e2[m] * e2[n] * r;
+    nt01 = nt01 + (e1[m] * e2[n] + e1[n] * e2[m]) * r;
+  }
+  T s_v = T(0);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    const int m = ant_m(i), n = ant_n(i);
+    const T t = (e2[m] * e1[n] - e2[n] * e1[m]) * nn.im[i];
+    s_v = i == 0 ? t : s_v + t;
+  }
+  s[0] = T(0.5) * (nt00 + nt11);
+  s[1] = T(0.5) * (nt00 - nt11);
+  s[2] = nt01;
+  s[3] = s_v;
+}
+
+// N from tetrad-frame Stokes (polarized.cpp:793-813; _n_from_stokes); t1,
+// t2 are the contravariant tetrad rows.
+template <typename T>
+__device__ __forceinline__ void n_from_stokes(const T (&t1)[4], const T (&t2)[4],
+                                              const T (&s)[4], Coherency<T>& nn) {
+  const T ipq = s[0] + s[1];
+  const T imq = s[0] - s[1];
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    const int m = sym_m(i), n = sym_n(i);
+    nn.re[i] = t1[m] * t1[n] * ipq + (t1[m] * t2[n] + t2[m] * t1[n]) * s[2] +
+               t2[m] * t2[n] * imq;
+  }
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    const int m = ant_m(i), n = ant_n(i);
+    nn.im[i] = s[3] * (t2[m] * t1[n] - t1[m] * t2[n]);
+  }
+}
+
+// Rows e_1 and e_2 of the orthonormal fluid tetrad, contravariant (t1, t2)
+// and covariant (e1, e2) (ops/tetrad.py tetrad_rows_c; f = 0 and l = 0 in
+// flat spacetime).
+template <typename T>
+__device__ __forceinline__ void tetrad_rows(const T (&ucon)[4], const T (&kcon)[4],
+                                            const T (&kcov)[4], const T (&up)[4], T f, T l1,
+                                            T l2, T l3, T (&t1)[4], T (&t2)[4], T (&e1)[4],
+                                            T (&e2)[4]) {
+  auto ldot = [&](const T(&v)[4]) -> T { return v[0] + l1 * v[1] + l2 * v[2] + l3 * v[3]; };
+  auto dot4 = [](const T(&a)[4], const T(&b)[4]) -> T {
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2] + a[3] * b[3];
+  };
+  auto cov = [&](const T(&v)[4], T(&w)[4]) {
+    const T lv = f * ldot(v);
+    w[0] = -v[0] + lv;
+    w[1] = v[1] + l1 * lv;
+    w[2] = v[2] + l2 * lv;
+    w[3] = v[3] + l3 * lv;
+  };
+  const T omega = -dot4(kcov, ucon);
+  const T k_up = dot4(kcov, up) / omega;
+  T ucov[4];
+  cov(ucon, ucov);
+  const T u_up = dot4(ucov, up) / omega;
+  T e3[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) e3[m] = kcon[m] / omega - ucon[m];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) t2[m] = up[m] - k_up * e3[m] + u_up * kcon[m];
+  const T le2 = ldot(t2);
+  const T inner = -t2[0] * t2[0] + t2[1] * t2[1] + t2[2] * t2[2] + t2[3] * t2[3] + f * le2 * le2;
+  const T norm = m_sqrt(inner);
+#pragma unroll
+  for (int m = 0; m < 4; ++m) t2[m] = t2[m] / norm;
+  auto lc = [&](int a, int b, int c) -> T {
+    return ucon[a] * (t2[b] * e3[c] - t2[c] * e3[b]);
+  };
+  e1[0] = lc(1, 3, 2) + lc(2, 1, 3) + lc(3, 2, 1);
+  e1[1] = lc(0, 2, 3) + lc(2, 3, 0) + lc(3, 0, 2);
+  e1[2] = lc(0, 3, 1) + lc(1, 0, 3) + lc(3, 1, 0);
+  e1[3] = lc(0, 1, 2) + lc(1, 2, 0) + lc(2, 0, 1);
+  // con(e1)
+  const T lw = f * (-e1[0] + l1 * e1[1] + l2 * e1[2] + l3 * e1[3]);
+  t1[0] = -e1[0] + lw;
+  t1[1] = e1[1] - l1 * lw;
+  t1[2] = e1[2] - l2 * lw;
+  t1[3] = e1[3] - l3 * lw;
+  cov(t2, e2);
+}
+
+// ---- matter coupling (transfer/polarized_coupling.py :235-539) -----------
+
+template <typename T>
+__device__ __forceinline__ T safe_recip(T den) {
+  return T(1) / (m_abs(den) > TypeForms<T>::coupling_recip_guard() ? den : T(1));
+}
+
+// I >= 0 and sqrt(Q^2 + U^2 + V^2) <= I.
+template <typename T>
+__device__ __forceinline__ void admissibility_clamp(T (&s)[4]) {
+  const T s0c = jmax(s[0], T(0));
+  const T pol = s[1] * s[1] + s[2] * s[2] + s[3] * s[3];
+  const T factor =
+      pol > s0c * s0c ? s0c / m_sqrt(jmax(pol, TypeForms<T>::coupling_sqrt_floor())) : T(1);
+  s[0] = s0c;
+  s[1] = s[1] * factor;
+  s[2] = s[2] * factor;
+  s[3] = s[3] * factor;
+}
+
+// Faraday rotation alone (I A2-A5).
+template <typename T>
+__device__ __forceinline__ void rotate(T (&s)[4], T rho1, T rho3, T rho_p, T rho_sq, T dl) {
+  const T cos_rho = m_cos(rho_p * dl);
+  const T sin_rho = m_sin(rho_p * dl);
+  const T sh = m_sin(rho_p * dl / T(2));
+  const T sin_sq_rho = sh * sh;
+  const T inv_rho = safe_recip(rho_p);
+  const T inv_rho_sq = safe_recip(rho_sq);
+  const T rho_ss = rho1 * s[1] + rho3 * s[3];
+  const T r1 = s[1] * cos_rho + T(2) * rho1 * rho_ss * inv_rho_sq * sin_sq_rho -
+               rho3 * s[2] * inv_rho * sin_rho;
+  const T r2 = s[2] * cos_rho + (rho3 * s[1] - rho1 * s[3]) * inv_rho * sin_rho;
+  const T r3 = s[3] * cos_rho + T(2) * rho3 * rho_ss * inv_rho_sq * sin_sq_rho +
+               rho1 * s[2] * inv_rho * sin_rho;
+  s[1] = r1;
+  s[2] = r2;
+  s[3] = r3;
+}
+
+// Emission with isotropic absorption (alpha_Q = alpha_V = 0).
+template <typename T>
+__device__ __forceinline__ void couple_simple(T (&s)[4], T j0, T j1, T j3, T a_i, T dl,
+                                              bool thin) {
+  const T tau = a_i * dl;
+  const T inv_ai = safe_recip(a_i);
+  if (!thin) {
+    s[0] = j0 * inv_ai;
+    s[1] = j1 * inv_ai;
+    s[2] = T(0);
+    s[3] = j3 * inv_ai;
+    return;
+  }
+  const T exp_neg = m_exp(-tau);
+  const T tau_c = jmin(tau, TypeForms<T>::coupling_exp_max());
+  const T em1_over_tau = tau_c < T(1e-4)
+                             ? T(1) + tau_c * (T(0.5) + tau_c * (T(1.0 / 6.0) + tau_c / T(24)))
+                             : m_expm1(tau_c) / tau_c;
+  const T edl = em1_over_tau * dl;
+  s[0] = exp_neg * (s[0] + j0 * edl);
+  s[1] = exp_neg * (s[1] + j1 * edl);
+  s[2] = exp_neg * s[2];
+  s[3] = exp_neg * (s[3] + j3 * edl);
+}
+
+// Emission with polarized absorption and no rotation (I A14-A17).
+template <typename T>
+__device__ __forceinline__ void couple_absorption(T (&s)[4], T j0, T j1, T j3, T a1, T a3,
+                                                  T a_i, T alpha_p, T alpha_sq, T dl,
+                                                  bool thin) {
+  const T tau = a_i * dl;
+  const T inv_ai = safe_recip(a_i);
+  const T fac = safe_recip(a_i * a_i - alpha_sq);
+  const T alpha_j = a1 * j1 + a3 * j3;
+  const T t0_thick = (a_i * j0 - alpha_j) * fac;
+  if (!thin) {
+    s[0] = t0_thick;
+    s[1] = (j1 - a1 * t0_thick) * inv_ai;
+    s[2] = T(0);
+    s[3] = (j3 - a3 * t0_thick) * inv_ai;
+    return;
+  }
+  const T exp_neg_i = m_exp(-tau);
+  const T ap_dl = jmin(alpha_p * dl, TypeForms<T>::coupling_exp_max());
+  const T exp_neg_p = m_exp(-ap_dl);
+  const T sinh_p = m_sinh(ap_dl);
+  const T cosh_p = m_cosh(ap_dl);
+  const T coshm1_p = T(0.5) * (m_expm1(ap_dl) + exp_neg_p - T(1));
+  const T alpha_ss = a1 * s[1] + a3 * s[3];
+  const T inv_ap = safe_recip(alpha_p);
+  const T inv_asq = safe_recip(alpha_sq);
+  const T omexp_over = tau < T(1e-4)
+                           ? T(1) - tau * (T(0.5) - tau * (T(1.0 / 6.0) - tau / T(24)))
+                           : (T(1) - exp_neg_i) / tau;
+  const T omexp_dl = omexp_over * dl;
+  const T s0 = s[0];
+  const T t0_thin = (s0 * cosh_p - alpha_ss * inv_ap * sinh_p) * exp_neg_i +
+                    alpha_j * fac * (T(-1) + (a_i * sinh_p + alpha_p * cosh_p) * inv_ap * exp_neg_p) +
+                    a_i * j0 * fac * (T(1) - (a_i * cosh_p + alpha_p * sinh_p) * inv_ai * exp_neg_p);
+  auto rest = [&](T aa, T jj, T ss) -> T {
+    const T term_1 = (ss + aa * alpha_ss * inv_asq * coshm1_p - s0 * aa * inv_ap * sinh_p) *
+                     exp_neg_i;
+    const T term_2 = jj * omexp_dl;
+    const T term_3 =
+        alpha_j * aa * inv_ai * fac *
+        (T(1) - (T(1) - a_i * a_i * inv_asq - a_i * inv_asq * (a_i * cosh_p + alpha_p * sinh_p)) *
+                    exp_neg_i);
+    const T term_4 =
+        j0 * aa * inv_ap * fac * (-alpha_p + (alpha_p * cosh_p + a_i * sinh_p) * exp_neg_i);
+    return term_1 + term_2 + term_3 + term_4;
+  };
+  const T r1 = rest(a1, j1, s[1]);
+  const T r3 = rest(a3, j3, s[3]);
+  s[0] = t0_thin;
+  s[1] = r1;
+  s[2] = s[2] * exp_neg_i;
+  s[3] = r3;
+}
+
+// (p (I + M4) + q (I - M4) + r M2 + s M3) . v with the M2/M3 sparsity
+// folded into g01, g03, g12 and pm = p - q (_gmatvec).
+template <typename T>
+struct CouplingMatrix {
+  T m4_00, m4_11, m4_22, m4_33, m4_02, m4_13;
+  T m2_01, m2_03, m2_12, m3_01, m3_03, m3_12;
+
+  __device__ __forceinline__ void apply(T p, T q, T r, T sc, T v0, T v1, T v2, T v3,
+                                        T (&o)[4]) const {
+    const T pm = p - q;
+    const T g01 = r * m2_01 + sc * m3_01;
+    const T g03 = r * m2_03 + sc * m3_03;
+    const T g12 = r * m2_12 + sc * m3_12;
+    const T pq = p + q;
+    o[0] = (pq + pm * m4_00) * v0 + g01 * v1 + pm * m4_02 * v2 + g03 * v3;
+    o[1] = g01 * v0 + (pq + pm * m4_11) * v1 + g12 * v2 + pm * m4_13 * v3;
+    o[2] = -pm * m4_02 * v0 - g12 * v1 + (pq + pm * m4_22) * v2;
+    o[3] = g03 * v0 + pm * m4_13 * v1 + (pq + pm * m4_33) * v3;
+  }
+};
+
+// Polarized absorption and rotation together (L 10, I 24).
+template <typename T>
+__device__ __forceinline__ void couple_matrix(T (&s)[4], T j0, T j1, T j3, T a1, T a3, T a_i,
+                                              T alpha_sq, T rho1, T rho3, T rho_sq, T dl,
+                                              bool thin) {
+  const T floor = TypeForms<T>::coupling_sqrt_floor();
+  const T alpha_rho = a1 * rho1 + a3 * rho3;
+  const T asr = alpha_sq - rho_sq;
+  const T lambda_a = m_sqrt(jmax(asr * asr / T(4) + alpha_rho * alpha_rho, floor));
+  const T lambda_b = asr / T(2);
+  const T lam1 = m_sqrt(jmax(lambda_a + lambda_b, floor));
+  const T lam2 = m_sqrt(jmax(lambda_a - lambda_b, floor));
+  const T ctheta = lam1 * lam1 + lam2 * lam2;
+  const T inv_ct = safe_recip(ctheta);
+  const T sgn = alpha_rho >= T(0) ? T(1) : T(-1);
+
+  CouplingMatrix<T> mm;
+  mm.m2_01 = (lam2 * a1 - sgn * lam1 * rho1) * inv_ct;
+  mm.m2_03 = (lam2 * a3 - sgn * lam1 * rho3) * inv_ct;
+  mm.m2_12 = (sgn * lam1 * a1 + lam2 * rho1) * inv_ct;
+  mm.m3_01 = (lam1 * a1 + sgn * lam2 * rho1) * inv_ct;
+  mm.m3_03 = (lam1 * a3 + sgn * lam2 * rho3) * inv_ct;
+  mm.m3_12 = -(sgn * lam2 * a1 - lam1 * rho1) * inv_ct;
+  const T half_sum = (alpha_sq + rho_sq) / T(2);
+  mm.m4_00 = half_sum * T(2) * inv_ct;
+  mm.m4_11 = (a1 * a1 + rho1 * rho1 - half_sum) * T(2) * inv_ct;
+  mm.m4_22 = -half_sum * T(2) * inv_ct;
+  mm.m4_33 = (a3 * a3 + rho3 * rho3 - half_sum) * T(2) * inv_ct;
+  mm.m4_02 = (a1 * rho3 - a3 * rho1) * T(2) * inv_ct;
+  mm.m4_13 = (a3 * a1 + rho3 * rho1) * T(2) * inv_ct;
+
+  const T f_1 = safe_recip(a_i * a_i - lam1 * lam1);
+  const T f_2 = safe_recip(a_i * a_i + lam2 * lam2);
+  T pv[4];
+  mm.apply(T(0.5) * a_i * f_1, T(0.5) * a_i * f_2, -lam2 * f_2, -lam1 * f_1, j0, j1, T(0), j3,
+           pv);
+  if (!thin) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[i] = pv[i];
+    return;
+  }
+  const T tau = a_i * dl;
+  const T exp_t = m_exp(-tau);
+  const T lam1_dl = jmin(lam1 * dl, TypeForms<T>::coupling_exp_max());
+  const T sin_t = m_sin(lam2 * dl);
+  const T cos_t = m_cos(lam2 * dl);
+  const T sinh_t = m_sinh(lam1_dl);
+  const T cosh_t = m_cosh(lam1_dl);
+  T ov[4], cv[4];
+  mm.apply(T(0.5) * cosh_t, T(0.5) * cos_t, -sin_t, -sinh_t, s[0], s[1], s[2], s[3], ov);
+  mm.apply(f_1 * T(0.5) * (a_i * cosh_t + lam1 * sinh_t),
+           f_2 * T(0.5) * (a_i * cos_t - lam2 * sin_t), f_2 * (-lam2 * cos_t - a_i * sin_t),
+           f_1 * (-lam1 * cosh_t - a_i * sinh_t), j0, j1, T(0), j3, cv);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) s[i] = pv[i] - exp_t * cv[i] + exp_t * ov[i];
+}
+
+// One matter-coupling step on tetrad-frame Stokes s (couple_matter_c),
+// clamped admissible. The coefficients are first rescaled to per-step
+// optical-depth units, under which the algebra is invariant (dl -> 1).
+// Only the sample's own regime is evaluated: the XLA form evaluates all
+// and selects, which gives the same value.
+template <typename T>
+__device__ __forceinline__ void couple_matter(T (&s)[4], const PolCoeffs<T>& k, T dl_cgs,
+                                              bool rotation_split) {
+  const T dl = T(1);
+  const T j0 = k.j_i * dl_cgs, j1 = k.j_q * dl_cgs, j3 = k.j_v * dl_cgs;
+  const T a_i = k.a_i * dl_cgs, a1 = k.a_q * dl_cgs, a3 = k.a_v * dl_cgs;
+  const T rho1 = k.rho_q * dl_cgs, rho3 = k.rho_v * dl_cgs;
+  const T alpha_sq = a1 * a1 + a3 * a3;
+  const T rho_sq = rho1 * rho1 + rho3 * rho3;
+  const bool a0_zero = a_i == T(0);
+  const bool ap_zero = alpha_sq == T(0);
+  const bool rp_zero = rho_sq == T(0);
+  const T floor = TypeForms<T>::coupling_sqrt_floor();
+  const T alpha_p = m_sqrt(jmax(alpha_sq, floor));
+  const T rho_p = m_sqrt(jmax(rho_sq, floor));
+  const bool thin = a_i * dl <= T(POL_DELTA_TAU_MAX);
+
+  if (rotation_split) {
+    auto half_couple = [&](T(&ss)[4]) {
+      const T half = dl / T(2);
+      if (a0_zero) {
+        ss[0] = ss[0] + j0 * half;
+        ss[1] = ss[1] + j1 * half;
+        ss[3] = ss[3] + j3 * half;
+      } else if (ap_zero) {
+        couple_simple(ss, j0, j1, j3, a_i, half, thin);
+      } else {
+        couple_absorption(ss, j0, j1, j3, a1, a3, a_i, alpha_p, alpha_sq, half, thin);
+      }
+      admissibility_clamp(ss);
+    };
+    half_couple(s);
+    if (!rp_zero) rotate(s, rho1, rho3, rho_p, rho_sq, dl);
+    admissibility_clamp(s);
+    half_couple(s);
+    admissibility_clamp(s);
+    return;
+  }
+  if (a0_zero && rp_zero) {
+    s[0] = s[0] + j0 * dl;
+    s[1] = s[1] + j1 * dl;
+    s[3] = s[3] + j3 * dl;
+  } else if (ap_zero && rp_zero) {
+    couple_simple(s, j0, j1, j3, a_i, dl, thin);
+  } else if (a0_zero) {
+    rotate(s, rho1, rho3, rho_p, rho_sq, dl);
+    s[0] = s[0] + j0 * dl;
+    s[1] = s[1] + j1 * dl;
+    s[3] = s[3] + j3 * dl;
+  } else if (rp_zero) {
+    couple_absorption(s, j0, j1, j3, a1, a3, a_i, alpha_p, alpha_sq, dl, thin);
+  } else {
+    couple_matrix(s, j0, j1, j3, a1, a3, a_i, alpha_sq, rho1, rho3, rho_sq, dl, thin);
+  }
+  admissibility_clamp(s);
+}
+
+// ---- the per-ray transfer -------------------------------------------------
+
+// Constants of one launch beyond the simulation kernel's.
+template <typename T>
+struct PolConsts {
+  bool rotation_split;
+  T fallback_rho, fallback_pgas, e_squared, me_c;
+
+  __device__ explicit PolConsts(const double* p) {
+    rotation_split = flag_at<T>(p, P_ROTATION_SPLIT);
+    fallback_rho = T(p[P_FALLBACK_RHO]);
+    fallback_pgas = T(p[P_FALLBACK_PGAS]);
+    e_squared = T(p[P_E_SQUARED]);
+    me_c = T(p[P_ME_C]);
+  }
+};
+
+// The transfer state of one ray (integrate_polarized's carry): N per
+// frequency, the previous sample's transport matrix, wavevector, position
+// and step, and the bad-sample bits. A sample far end first at a time.
+template <typename T, int NF>
+struct PolTransfer {
+  const TraceConsts<T>& tc;
+  const SimConsts<T>& c;
+  const PolConsts<T>& pk;
+  const GridView<T>& grid;
+  const T* __restrict__ freqs;
+  int nf;
+  T p0, mom;
+  Coherency<T> nn[NF];
+  T a_prev[4][4];
+  T kcon_pv[4];
+  T pos_pv[3];
+  T dl_pv;
+  bool started;
+  unsigned bad;  // bit f: frequency f met a sample the reference would NaN
+
+  __device__ PolTransfer(const TraceConsts<T>& tc_, const SimConsts<T>& c_,
+                         const PolConsts<T>& pk_, const GridView<T>& grid_,
+                         const T* __restrict__ freqs_, int nf_, T p0_, T mom_, const T* pos)
+      : tc(tc_), c(c_), pk(pk_), grid(grid_), freqs(freqs_), nf(nf_), p0(p0_), mom(mom_),
+        dl_pv(T(0)), started(false), bad(0u) {
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+#pragma unroll
+      for (int i = 0; i < 10; ++i) nn[f].re[i] = T(0);
+#pragma unroll
+      for (int i = 0; i < 6; ++i) nn[f].im[i] = T(0);
+    }
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      kcon_pv[m] = T(0);
+#pragma unroll
+      for (int b = 0; b < 4; ++b) a_prev[m][b] = T(0);
+    }
+    pos_pv[0] = pos[1];
+    pos_pv[1] = pos[2];
+    pos_pv[2] = pos[3];
+  }
+
+  __device__ __forceinline__ int n_freq() const { return NF == 1 ? 1 : nf; }
+
+  // One valid sample at CKS (x, y, z) with covariant momentum (p0, k1, k2,
+  // k3) and signed step h.
+  __device__ __forceinline__ void update(T x, T y, T z, T k1, T k2, T k3, T h) {
+    using Forms = TypeForms<T>;
+    const bool flat = tc.g.flat;
+    const bool first = !started;
+    const T dl_cur = -h;
+    const T kcov[4] = {p0, k1, k2, k3};
+
+    // transport matrices; the averaged first-half matrix expands by
+    // bilinearity: 0.5 A(prev, k_old) + 0.25 A(cur, k_prev) + 0.25 A(cur, k)
+    KsDerivs<T> d;
+    if (!flat) ks_derivatives(x, y, z, tc.g, d);
+    T kcon[4];
+    kcon_of(flat, d, kcov, kcon);
+    T a_cur[4][4], a_half[4][4];
+    transport_matrix(flat, d, kcon, a_cur);
+    if (first) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) a_half[m][b] = a_cur[m][b];
+    } else {
+      T kcon_old[4], a_kprev[4][4], a_pv[4][4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) kcon_old[m] = T(0.5) * (kcon_pv[m] + kcon[m]);
+      transport_matrix(flat, d, kcon_pv, a_kprev);
+      KsDerivs<T> dpv;
+      if (!flat) ks_derivatives(pos_pv[0], pos_pv[1], pos_pv[2], tc.g, dpv);
+      transport_matrix(flat, dpv, kcon_old, a_pv);
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          a_half[m][b] =
+              T(0.5) * a_pv[m][b] + T(0.25) * a_kprev[m][b] + T(0.25) * a_cur[m][b];
+    }
+    const T dl_sec = T(0.25) * (dl_pv + dl_cur);
+    const T dl_local = T(0.5) * ((first ? T(0) : dl_pv) + dl_cur);
+
+    // the grid sample: zeros where a geometric cut holds (the reference's
+    // sampler leaves zeros there, which the tetrad consumes), the fallback
+    // values off the grid
+    const SksPoint<T> pt = cks_to_sks(c, x, y, z);
+    const bool keep_geo =
+        geometric_keep(c.cuts, pt.x, pt.y, pt.z, pt.r, c.camera_r, c.cam1, c.cam2, c.cam3);
+    const bool off_grid = is_off_grid(grid, pt);
+    T v[8];
+    if (keep_geo && !off_grid) {
+      sample_cell(grid, pt, v);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v[q] = T(0);
+      if (keep_geo) {
+        v[0] = pk.fallback_rho;
+        v[1] = pk.fallback_pgas;
+      }
+    }
+    FluidState<T> st;
+    fluid_state(c, pt, v, st);
+    const bool b_zero = v[5] == T(0) && v[6] == T(0) && v[7] == T(0);
+    const bool keep = keep_geo && !b_zero && value_keep(c, st);
+    const bool bad0 = off_grid && c.fallback_nan && keep_geo;
+    T ucon[4], bcon[4];
+    fluid_cks(pt, c.spin, st, ucon, bcon);
+
+    PolCell<T> cell;
+    if (keep) {
+      const Pitch<T> pa = pitch_angle(p0, k1, k2, k3, ucon, bcon, st.b_sq);
+      cell.n_e = st.n_e_cgs;
+      cell.theta_e = st.theta_e;
+      cell.kb_tt_e = st.kb_tt_e;
+      cell.sin_b = safe_sqrt(pa.sin2);
+      cell.cos_b = safe_sqrt(pa.cos2) * (pa.b_dot_k >= T(0) ? T(1) : T(-1));
+      cell.sin2_b = pa.sin2;
+      cell.u_dot_k = pa.u_dot_k;
+      cell.nu_c = c.e_charge * st.bb_cgs / c.nu_c_div;
+      cell.nu_s = jmax(c.two_ninths * cell.nu_c * (st.theta_e * st.theta_e) * cell.sin_b,
+                       Forms::nu_s_floor());
+      pol_cell_bessel(cell);
+    }
+
+    // the fluid tetrad; a field-free cell takes up = (0, 0, 0, 1)
+    const T up[4] = {b_zero ? T(0) : bcon[0], b_zero ? T(0) : bcon[1],
+                     b_zero ? T(0) : bcon[2], b_zero ? T(1) : bcon[3]};
+    T t1[4], t2[4], e1[4], e2[4];
+    if (flat) {
+      tetrad_rows(ucon, kcon, kcov, up, T(0), T(0), T(0), T(0), t1, t2, e1, e2);
+    } else {
+      tetrad_rows(ucon, kcon, kcov, up, d.f, d.l1, d.l2, d.l3, t1, t2, e1, e2);
+    }
+
+    const T dl_lam = dl_cur * c.x_unit;
+#pragma unroll 1
+    for (int f = 0; f < n_freq(); ++f) {
+      const T nu = __ldg(freqs + f);
+      PolCoeffs<T> k = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
+      bool cbad = bad0;
+      if (keep) {
+        const T nu_cgs = -cell.u_dot_k * nu * mom;
+        k = thermal_polarized(c, pk.e_squared, pk.me_c, cell, nu_cgs);
+        cbad = cbad || !(m_isfinite(k.j_i) && m_isfinite(k.j_q) && m_isfinite(k.j_v) &&
+                         m_isfinite(k.a_i) && m_isfinite(k.a_q) && m_isfinite(k.a_v) &&
+                         m_isfinite(k.rho_q) && m_isfinite(k.rho_v));
+      }
+      if (cbad) {
+        bad |= 1u << f;
+        k = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
+      }
+      // the previous sample's deferred second half (its step is this
+      // sample's), then this sample's first half (polarized.cpp:815-833)
+      Coherency<T> sec, half;
+      transport(a_prev, nn[f], nn[f], dl_sec, sec);
+      transport(a_half, sec, nn[f], dl_local, half);
+      T s[4];
+      stokes_from_n(e1, e2, half, s);
+      couple_matter(s, k, dl_lam / (nu * mom), pk.rotation_split);
+      n_from_stokes(t1, t2, s, nn[f]);
+    }
+
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      kcon_pv[m] = kcon[m];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) a_prev[m][b] = a_cur[m][b];
+    }
+    pos_pv[0] = x;
+    pos_pv[1] = y;
+    pos_pv[2] = z;
+    dl_pv = dl_cur;
+    started = true;
+  }
+
+  // The camera end: the nearest sample's second half, with its own step.
+  __device__ __forceinline__ void finish(T* __restrict__ out) {
+#pragma unroll 1
+    for (int f = 0; f < n_freq(); ++f) {
+      Coherency<T> fin;
+      transport(a_prev, nn[f], nn[f], T(0.5) * dl_pv, fin);
+#pragma unroll
+      for (int i = 0; i < 10; ++i) out[16 * f + i] = fin.re[i];
+#pragma unroll
+      for (int i = 0; i < 6; ++i) out[16 * f + 10 + i] = fin.im[i];
+    }
+  }
+};
+
+// The window-entry table: field q of window w of ray i at
+// reals[(w * POL_CARRY_REALS + q) * n + i] and ints[(w * POL_CARRY_INTS + q) * n + i].
+template <typename T>
+struct CarryTable {
+  T* __restrict__ reals;
+  int* __restrict__ ints;
+  long long n;
+
+  __device__ __forceinline__ void store(int w, long long ray, const RayState<T>& s) const {
+#pragma unroll
+    for (int q = 0; q < 7; ++q) reals[(w * POL_CARRY_REALS + q) * n + ray] = s.y[q];
+    reals[(w * POL_CARRY_REALS + 7) * n + ray] = s.h;
+    reals[(w * POL_CARRY_REALS + 8) * n + ray] = s.r_mid_prev;
+    ints[(w * POL_CARRY_INTS + 0) * n + ray] = s.n_samp;
+    ints[(w * POL_CARRY_INTS + 1) * n + ray] =
+        (s.num_retry << 4) | (s.alive ? 1 : 0) | (s.trunc ? 2 : 0) | (s.flag ? 4 : 0) |
+        (s.prev_fail ? 8 : 0);
+  }
+
+  __device__ __forceinline__ void load(int w, long long ray, RayState<T>& s) const {
+#pragma unroll
+    for (int q = 0; q < 7; ++q) s.y[q] = __ldcg(reals + (w * POL_CARRY_REALS + q) * n + ray);
+    s.h = __ldcg(reals + (w * POL_CARRY_REALS + 7) * n + ray);
+    s.r_mid_prev = __ldcg(reals + (w * POL_CARRY_REALS + 8) * n + ray);
+    s.n_samp = __ldcg(ints + (w * POL_CARRY_INTS + 0) * n + ray);
+    const int bits = __ldcg(ints + (w * POL_CARRY_INTS + 1) * n + ray);
+    s.num_retry = bits >> 4;
+    s.alive = bits & 1;
+    s.trunc = bits & 2;
+    s.flag = bits & 4;
+    s.prev_fail = bits & 8;
+  }
+};
+
+template <typename T, int INTEGRATOR, int NF>
+__global__ void __launch_bounds__(POL_THREADS)
+    polarized_kernel(const T* __restrict__ positions, const T* __restrict__ directions,
+                     const T* __restrict__ momentum_factors, const T* __restrict__ freqs, int nf,
+                     const double* __restrict__ params, GridView<T> grid, T* __restrict__ nn_out,
+                     int* __restrict__ flags_out, int* __restrict__ n_samples_out,
+                     int* __restrict__ bad_out, CarryTable<T> carries, int window,
+                     int n_windows, long long n_rays) {
+  const long long ray = static_cast<long long>(blockIdx.x) * POL_THREADS + threadIdx.x;
+  if (ray >= n_rays) return;
+  const TraceConsts<T> tc(params);
+  const SimConsts<T> sc(params);
+  const PolConsts<T> pc(params);
+  const T* pos = positions + 4 * ray;
+  const T p0 = directions[4 * ray + 0];
+
+  // sweep A: integrate forward, keeping the state entering each window
+  RayState<T> s;
+  init_ray_state(tc, pos, directions + 4 * ray, s);
+  int w_used = 0;
+  for (int w = 0; w < n_windows && s.alive; ++w) {
+    carries.store(w, ray, s);
+    w_used = w + 1;
+    const int n_end = min((w + 1) * window, tc.max_steps);
+    for (int n = w * window; n < n_end && s.alive; ++n) {
+      T ym[7], k1, k2, k3, hs;
+      step_ray<T, INTEGRATOR>(tc, s, p0, n, ym, k1, k2, k3, hs);
+    }
+  }
+  flags_out[ray] = s.flag ? 1 : 0;
+  n_samples_out[ray] = s.n_samp;
+
+  // sweep B: windows in reverse, each replayed and its samples taken far
+  // end first
+  PolTransfer<T, NF> tr(tc, sc, pc, grid, freqs, nf, p0, momentum_factors[ray], pos);
+  T smp[POL_MAX_WINDOW][7];
+  for (int w = w_used - 1; w >= 0; --w) {
+    carries.load(w, ray, s);
+    const int n_end = min((w + 1) * window, tc.max_steps);
+    int ns = 0;
+    for (int n = w * window; n < n_end && s.alive; ++n) {
+      T ym[7], k1, k2, k3, hs;
+      if (step_ray<T, INTEGRATOR>(tc, s, p0, n, ym, k1, k2, k3, hs)) {
+        smp[ns][0] = ym[1];
+        smp[ns][1] = ym[2];
+        smp[ns][2] = ym[3];
+        smp[ns][3] = k1;
+        smp[ns][4] = k2;
+        smp[ns][5] = k3;
+        smp[ns][6] = hs;
+        ++ns;
+      }
+    }
+    for (int t = ns - 1; t >= 0; --t) {
+      tr.update(smp[t][0], smp[t][1], smp[t][2], smp[t][3], smp[t][4], smp[t][5], smp[t][6]);
+    }
+  }
+  tr.finish(nn_out + 16 * nf * ray);
+  bad_out[ray] = static_cast<int>(tr.bad);
+}
+
+// Pointers and sizes of one launch, as the C interface receives them.
+struct PolLaunchArgs {
+  const void* positions;
+  const void* directions;
+  const void* momentum_factors;
+  const void* freqs;
+  int nf;
+  const double* params;
+  const float* table;
+  const void* coords;
+  int n_i, n_j, n_k;
+  void* nn;
+  int* flags;
+  int* n_samples;
+  int* bad;
+  void* carries;  // n_windows windows of POL_CARRY_REALS reals, then POL_CARRY_INTS ints
+  int window, n_windows;
+  long long n_rays;
+  cudaStream_t stream;
+};
+
+template <typename T, int INTEGRATOR, int NF>
+cudaError_t launch_polarized(const PolLaunchArgs& a) {
+  const GridView<T> grid = make_grid_view<T>(a.table, a.coords, a.n_i, a.n_j, a.n_k);
+  // the integer fields follow the real ones
+  CarryTable<T> carries;
+  carries.reals = static_cast<T*>(a.carries);
+  carries.ints = reinterpret_cast<int*>(carries.reals +
+                                        static_cast<long long>(a.n_windows) * POL_CARRY_REALS *
+                                            a.n_rays);
+  carries.n = a.n_rays;
+  const unsigned blocks = static_cast<unsigned>((a.n_rays + POL_THREADS - 1) / POL_THREADS);
+  polarized_kernel<T, INTEGRATOR, NF><<<blocks, POL_THREADS, 0, a.stream>>>(
+      static_cast<const T*>(a.positions), static_cast<const T*>(a.directions),
+      static_cast<const T*>(a.momentum_factors), static_cast<const T*>(a.freqs), a.nf, a.params,
+      grid, static_cast<T*>(a.nn), a.flags, a.n_samples, a.bad, carries, a.window, a.n_windows,
+      a.n_rays);
+  return cudaGetLastError();
+}
+
+// One frequency keeps its coherency components in registers;
+// 2..POL_MAX_FREQUENCIES hold them in a local array.
+template <typename T, int INTEGRATOR>
+cudaError_t launch_polarized_nf(const PolLaunchArgs& a) {
+  if (a.nf == 1) return launch_polarized<T, INTEGRATOR, 1>(a);
+  return launch_polarized<T, INTEGRATOR, POL_MAX_FREQUENCIES>(a);
+}
+
+// rk4 / rk2 in double (polarized_kernel_f64.cu) and dp in float or double
+// (polarized_kernel_dp.cu).
+cudaError_t launch_polarized_rk_f64(int integrator, const PolLaunchArgs& a);
+cudaError_t launch_polarized_dp(int dtype_code, const PolLaunchArgs& a);
+
+}  // namespace bl

@@ -1,0 +1,447 @@
+// What the simulation-model kernels do at one stored sample before the
+// transfer: CKS -> SKS, the cell search and trilinear blend of the GRMHD
+// table, the fluid state, the value cuts, u and b in CKS, the pitch angle
+// and the thermal j_I / alpha_I. The unpolarized kernel
+// (simulation_kernel.cuh) and the polarized one (polarized_kernel.cuh)
+// both call these, so the two cannot drift.
+//
+// The values follow the JAX package's exact (XLA) path in each type's
+// forms: grid/sampling.py sample_grid, models/synchrotron.py fluid_state,
+// value_cuts, pitch_angle and thermal_coefficients (ops/sks.py for the
+// metric and the frame changes). Their plain PyTorch versions are
+// blacklight_tpu_torch/grid/sampling.py and models/synchrotron.py; this
+// file writes their operation forms (a scalar numerator s / t as
+// (1 / t) * s, as PyTorch evaluates it).
+#pragma once
+
+#include "cuts.cuh"
+#include "simulation_params.cuh"
+#include "trace.cuh"
+
+namespace bl {
+
+constexpr double TWO_PI = 6.283185307179586;
+
+// Floors and caps that depend on the working type (models/synchrotron.py
+// :147-179, :254-268, :819-867; transfer/polarized_coupling.py _lims
+// :246-260): float64 keeps the reference's literal forms, float32 the ones
+// that keep single precision finite.
+template <typename T>
+struct TypeForms;
+template <>
+struct TypeForms<float> {
+  static constexpr bool F64 = false;
+  static __device__ __forceinline__ float div_floor() { return 1e-15f; }
+  static __device__ __forceinline__ float pitch_floor() { return 1e-16f; }
+  static __device__ __forceinline__ float sqrt_cut() { return 1e-24f; }
+  static __device__ __forceinline__ float nu_s_floor() { return 1e-12f; }
+  // polarized coupling: sqrt floor, cap on hyperbolic arguments, guard of
+  // a reciprocal (|den| <= guard takes 1 / 1)
+  static __device__ __forceinline__ float coupling_sqrt_floor() { return 1e-16f; }
+  static __device__ __forceinline__ float coupling_exp_max() { return 80.0f; }
+  static __device__ __forceinline__ float coupling_recip_guard() { return 1e-16f; }
+};
+template <>
+struct TypeForms<double> {
+  static constexpr bool F64 = true;
+  static __device__ __forceinline__ double div_floor() { return 1e-30; }
+  static __device__ __forceinline__ double pitch_floor() { return 1e-300; }
+  static __device__ __forceinline__ double sqrt_cut() { return 1e-300; }
+  static __device__ __forceinline__ double nu_s_floor() { return 1e-300; }
+  static __device__ __forceinline__ double coupling_sqrt_floor() { return 1e-40; }
+  static __device__ __forceinline__ double coupling_exp_max() { return 705.0; }
+  static __device__ __forceinline__ double coupling_recip_guard() { return 0.0; }
+};
+
+// Constants of one launch, each rounded once to T.
+template <typename T>
+struct SimConsts {
+  CutConsts<T> cuts;
+  T spin, a2, two_spin, camera_r, cam1, cam2, cam3, x_unit;
+  bool fallback_nan, use_p;
+  T d_unit, e_unit, b_unit, mu_mp, ne_div, rat_high, rat_low, kb_tot;
+  T one_plus_ne_ni, ne_ni, gamma_m1, gamma_i_m1, ne_ni_over_gamma_e_m1, me_c2;
+  T thermal_frac, e_charge, nu_c_div, two_ninths, var_a, var_b, h_planck, nu0,
+      kirchhoff;
+  const double* value_cuts;  // S_RHO_MIN..S_BETA_INV_MAX as float64
+
+  __device__ explicit SimConsts(const double* p) : cuts(p + S_CUT_NEAR) {
+    spin = T(p[S_SPIN]);
+    a2 = T(p[S_A2]);
+    two_spin = T(p[S_TWO_SPIN]);
+    camera_r = T(p[S_CAMERA_R]);
+    cam1 = T(p[S_CAM_X1]);
+    cam2 = T(p[S_CAM_X2]);
+    cam3 = T(p[S_CAM_X3]);
+    x_unit = T(p[S_X_UNIT]);
+    fallback_nan = flag_at<T>(p, S_FALLBACK_NAN);
+    use_p = flag_at<T>(p, S_USE_P);
+    d_unit = T(p[S_D_UNIT]);
+    e_unit = T(p[S_E_UNIT]);
+    b_unit = T(p[S_B_UNIT]);
+    mu_mp = T(p[S_MU_MP]);
+    ne_div = T(p[S_NE_DIV]);
+    rat_high = T(p[S_RAT_HIGH]);
+    rat_low = T(p[S_RAT_LOW]);
+    kb_tot = T(p[S_KB_TOT]);
+    one_plus_ne_ni = T(p[S_ONE_PLUS_NE_NI]);
+    ne_ni = T(p[S_NE_NI]);
+    gamma_m1 = T(p[S_GAMMA_M1]);
+    gamma_i_m1 = T(p[S_GAMMA_I_M1]);
+    ne_ni_over_gamma_e_m1 = T(p[S_NE_NI_OVER_GAMMA_E_M1]);
+    me_c2 = T(p[S_ME_C2]);
+    thermal_frac = T(p[S_THERMAL_FRAC]);
+    e_charge = T(p[S_E_CHARGE]);
+    nu_c_div = T(p[S_NU_C_DIV]);
+    two_ninths = T(p[S_TWO_NINTHS]);
+    var_a = T(p[S_VAR_A]);
+    var_b = T(p[S_VAR_B]);
+    h_planck = T(p[S_H_PLANCK]);
+    nu0 = T(p[S_NU0]);
+    kirchhoff = T(p[S_KIRCHHOFF]);
+    value_cuts = p + S_RHO_MIN;
+  }
+};
+
+// The kernels' view of the snapshot: a (n_k, n_j, n_i, 8) float32 table
+// (rho, pgas, uu1..3, bb1..3 of a cell side by side, two 16-byte loads) and
+// the face and centre coordinates of each axis in T.
+template <typename T>
+struct GridView {
+  const float4* __restrict__ table;
+  const T* __restrict__ x1f;
+  const T* __restrict__ x1v;
+  const T* __restrict__ x2f;
+  const T* __restrict__ x2v;
+  const T* __restrict__ x3f;
+  const T* __restrict__ x3v;
+  int n_i, n_j, n_k;
+};
+
+// The view of a (n_k, n_j, n_i, 8) float32 table and the concatenated
+// coordinates x1f, x1v, x2f, x2v, x3f, x3v.
+template <typename T>
+GridView<T> make_grid_view(const float* table, const void* coords_, int n_i, int n_j,
+                           int n_k) {
+  const T* coords = static_cast<const T*>(coords_);
+  GridView<T> grid;
+  grid.table = reinterpret_cast<const float4*>(table);
+  grid.x1f = coords;
+  grid.x1v = grid.x1f + n_i + 1;
+  grid.x2f = grid.x1v + n_i;
+  grid.x2v = grid.x2f + n_j + 1;
+  grid.x3f = grid.x2v + n_j;
+  grid.x3v = grid.x3f + n_k + 1;
+  grid.n_i = n_i;
+  grid.n_j = n_j;
+  grid.n_k = n_k;
+  return grid;
+}
+
+// Cell location along one axis (grid/sampling.py _locate :54-87): i is the
+// count of faces below x, less one, clamped to the cells; the anchor i_m
+// backs off by one when x lies before the centre of cell i (except at the
+// block edges), and the fraction f may leave [0, 1] near the edges.
+template <typename T>
+__device__ __forceinline__ void locate(const T* __restrict__ xf, const T* __restrict__ xv,
+                                       int n, T x, int& i_m, T& f) {
+  int lo = 0, hi = n + 1;  // faces are non-decreasing (checked on the host)
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(xf + mid) < x) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  const int i = min(max(lo - 1, 0), n - 1);
+  const T xv_i = __ldg(xv + i);
+  const bool use_i = (i == 0) || (i != n - 1 && x >= xv_i);
+  i_m = use_i ? i : i - 1;
+  // n >= 2, so cell i + 1 exists when use_i and cell i - 1 when not
+  const T x_lo = use_i ? xv_i : __ldg(xv + i - 1);
+  const T x_hi = use_i ? __ldg(xv + i + 1) : xv_i;
+  f = (x - x_lo) / (x_hi - x_lo);
+}
+
+__device__ __forceinline__ float prim_at(const float4& a, const float4& b, int v) {
+  switch (v) {
+    case 0: return a.x;
+    case 1: return a.y;
+    case 2: return a.z;
+    case 3: return a.w;
+    case 4: return b.x;
+    case 5: return b.y;
+    case 6: return b.z;
+    default: return b.w;
+  }
+}
+
+// A sample point in CKS and SKS (ops/sks.py cks_to_sks); phi in [0, 2 pi),
+// ph_raw before the wrap.
+template <typename T>
+struct SksPoint {
+  T x, y, z, r2, r, th, ph_raw, ph;
+};
+
+template <typename T>
+__device__ __forceinline__ SksPoint<T> cks_to_sks(const SimConsts<T>& c, T x, T y, T z) {
+  SksPoint<T> p;
+  p.x = x;
+  p.y = y;
+  p.z = z;
+  const T rr2 = x * x + y * y + z * z;
+  p.r2 = T(0.5) * (rr2 - c.a2 + m_hypot(rr2 - c.a2, c.two_spin * z));
+  p.r = m_sqrt(p.r2);
+  p.th = m_acos(jmin(jmax(z / p.r, T(-1)), T(1)));
+  p.ph_raw = m_atan2(y, x) - m_atan((T(1) / p.r) * c.spin);
+  T ph = p.ph_raw < T(0) ? p.ph_raw + T(TWO_PI) : p.ph_raw;
+  p.ph = ph >= T(TWO_PI) ? ph - T(TWO_PI) : ph;
+  return p;
+}
+
+template <typename T>
+__device__ __forceinline__ bool is_off_grid(const GridView<T>& grid, const SksPoint<T>& p) {
+  return p.r < __ldg(grid.x1f) || p.r > __ldg(grid.x1f + grid.n_i) ||
+         p.th < __ldg(grid.x2f) || p.th > __ldg(grid.x2f + grid.n_j) ||
+         p.ph < __ldg(grid.x3f) || p.ph > __ldg(grid.x3f + grid.n_k);
+}
+
+// Trilinear blend of the 8 corner cells (grid/sampling.py :284-371), the
+// positivity repair of rho and pgas against the anchor cell (:225-226) and
+// the reference's float32 storage of samples (:189); v in table order
+// (rho, pgas, uu1..3, bb1..3). For a point on the grid.
+template <typename T>
+__device__ __forceinline__ void sample_cell(const GridView<T>& grid, const SksPoint<T>& p,
+                                            T (&v)[8]) {
+  const int n_i = grid.n_i, n_j = grid.n_j, n_k = grid.n_k;
+  int i_m, j_m, k_m;
+  T f_i, f_j, f_k;
+  locate(grid.x1f, grid.x1v, n_i, p.r, i_m, f_i);
+  locate(grid.x2f, grid.x2v, n_j, p.th, j_m, f_j);
+  locate(grid.x3f, grid.x3v, n_k, p.ph, k_m, f_k);
+  i_m = min(max(i_m, 0), n_i - 2);
+  j_m = min(max(j_m, 0), n_j - 2);
+  k_m = min(max(k_m, 0), n_k - 2);
+  const T w[8] = {(T(1) - f_k) * (T(1) - f_j) * (T(1) - f_i),
+                  (T(1) - f_k) * (T(1) - f_j) * f_i,
+                  (T(1) - f_k) * f_j * (T(1) - f_i),
+                  (T(1) - f_k) * f_j * f_i,
+                  f_k * (T(1) - f_j) * (T(1) - f_i),
+                  f_k * (T(1) - f_j) * f_i,
+                  f_k * f_j * (T(1) - f_i),
+                  f_k * f_j * f_i};
+  const long long anchor =
+      (static_cast<long long>(k_m) * n_j + j_m) * static_cast<long long>(n_i) + i_m;
+  float anchor_rho = 0.0f, anchor_pgas = 0.0f;
+#pragma unroll
+  for (int corner = 0; corner < 8; ++corner) {
+    const int dk = corner >> 2, dj = (corner >> 1) & 1, di = corner & 1;
+    const long long cell =
+        anchor + (static_cast<long long>(dk) * n_j + dj) * static_cast<long long>(n_i) + di;
+    const float4 a = __ldg(grid.table + 2 * cell);
+    const float4 b = __ldg(grid.table + 2 * cell + 1);
+    if (corner == 0) {
+      anchor_rho = a.x;
+      anchor_pgas = a.y;
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const T term = w[corner] * T(prim_at(a, b, q));
+      v[q] = corner == 0 ? term : v[q] + term;
+    }
+  }
+  if (v[0] <= T(0)) v[0] = T(anchor_rho);
+  if (v[1] <= T(0)) v[1] = T(anchor_pgas);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) v[q] = T(static_cast<float>(v[q]));
+}
+
+// CGS fluid state and SKS four-vectors from sampled primitives
+// (models/synchrotron.py fluid_state, ops/sks.py).
+template <typename T>
+struct FluidState {
+  T rho_cgs, pgas_cgs, n_e_cgs, bb_cgs, sigma, beta_inv, kb_tt_e, theta_e, b_sq;
+  T ut, ur, uth, uph, bt, br, bth, bph;
+};
+
+template <typename T>
+__device__ __forceinline__ void fluid_state(const SimConsts<T>& c, const SksPoint<T>& p,
+                                            const T (&v)[8], FluidState<T>& s) {
+  using Forms = TypeForms<T>;
+  const T r = p.r, r2 = p.r2, spin = c.spin;
+  const T rho = v[0], pgas = v[1], uu1 = v[2], uu2 = v[3], uu3 = v[4];
+  const T bb1 = v[5], bb2 = v[6], bb3 = v[7];
+  s.rho_cgs = rho * c.d_unit;
+  s.pgas_cgs = pgas * c.e_unit;
+  s.n_e_cgs = (s.rho_cgs / c.mu_mp) / c.ne_div;
+  const T cth = p.z / r;
+  const T cth2 = cth * cth;
+  const T sth2 = T(1) - cth2;
+  const T sigma_m = r2 + c.a2 * cth2;
+  const T w_m = T(2) * r / sigma_m;
+  const T g_tt = -(T(1) - w_m);
+  const T g_tr = w_m;
+  const T g_tph = -w_m * spin * sth2;
+  const T g_rr = T(1) + w_m;
+  const T g_rph = -(T(1) + w_m) * spin * sth2;
+  const T g_thth = sigma_m;
+  const T g_phph = (r2 + c.a2 + w_m * c.a2 * sth2) * sth2;
+  const T gi_tt = -(T(1) + w_m);
+  const T gi_tr = w_m;
+  const T gi_rph = (T(1) / sigma_m) * spin;
+
+  const T uu0 = m_sqrt(T(1) + g_rr * uu1 * uu1 + T(2) * g_rph * uu1 * uu3 +
+                       g_thth * uu2 * uu2 + g_phph * uu3 * uu3);
+  const T lapse = T(1) / m_sqrt(-gi_tt);
+  const T shift1 = -gi_tr / gi_tt;
+  const T shift3 = -gi_rph / gi_tt;
+  const T ut = uu0 / lapse;
+  const T ur = uu1 - shift1 * uu0 / lapse;
+  const T uth = uu2;
+  const T uph = uu3 - shift3 * uu0 / lapse;
+  const T ucov_r = g_tr * ut + g_rr * ur + g_rph * uph;
+  const T ucov_th = g_thth * uth;
+  const T ucov_ph = g_tph * ut + g_rph * ur + g_phph * uph;
+  const T bt = ucov_r * bb1 + ucov_th * bb2 + ucov_ph * bb3;
+  const T br = (bb1 + bt * ur) / ut;
+  const T bth = (bb2 + bt * uth) / ut;
+  const T bph = (bb3 + bt * uph) / ut;
+  const T bcov_t = g_tt * bt + g_tr * br + g_tph * bph;
+  const T bcov_r = g_tr * bt + g_rr * br + g_rph * bph;
+  const T bcov_th = g_thth * bth;
+  const T bcov_ph = g_tph * bt + g_rph * br + g_phph * bph;
+  const T b_sq = bcov_t * bt + bcov_r * br + bcov_th * bth + bcov_ph * bph;
+
+  if (Forms::F64) {
+    s.bb_cgs = (b_sq > T(0) ? m_sqrt(b_sq) : T(0)) * c.b_unit;
+  } else {
+    s.bb_cgs = m_sqrt(jmax(b_sq, T(1e-30))) * c.b_unit;
+  }
+  s.sigma = b_sq / jmax(rho, Forms::div_floor());
+  s.beta_inv = b_sq / jmax(T(2) * pgas, Forms::div_floor());
+  const T u_b = T(1) / (T(1) + s.beta_inv * s.beta_inv);
+  const T tti_tte = c.rat_high * u_b + c.rat_low * (T(1) - u_b);
+  const T kb_tt_tot = c.kb_tot * (pgas / jmax(rho, Forms::div_floor()));
+  T kb_tt_e;
+  if (c.use_p) {
+    kb_tt_e = (T(1) / (tti_tte + c.ne_ni)) * c.one_plus_ne_ni * kb_tt_tot;
+  } else {
+    kb_tt_e = c.one_plus_ne_ni * kb_tt_tot / c.gamma_m1;
+    kb_tt_e = kb_tt_e / (tti_tte / c.gamma_i_m1 + c.ne_ni_over_gamma_e_m1);
+  }
+  s.kb_tt_e = kb_tt_e;
+  s.theta_e = kb_tt_e / c.me_c2;
+  s.b_sq = b_sq;
+  s.ut = ut;
+  s.ur = ur;
+  s.uth = uth;
+  s.uph = uph;
+  s.bt = bt;
+  s.br = br;
+  s.bth = bth;
+  s.bph = bph;
+}
+
+// Value cuts (models/synchrotron.py value_cuts); the on/off test is on the
+// float64 value, as the JAX package tests the Python float.
+template <typename T>
+__device__ __forceinline__ bool value_keep(const SimConsts<T>& c, const FluidState<T>& s) {
+  const T cut_values[7] = {s.rho_cgs, s.n_e_cgs, s.pgas_cgs, s.theta_e,
+                           s.bb_cgs,  s.sigma,   s.beta_inv};
+#pragma unroll
+  for (int q = 0; q < 7; ++q) {
+    const double lo = c.value_cuts[2 * q], hi = c.value_cuts[2 * q + 1];
+    if (lo >= 0.0 && cut_values[q] < T(lo)) return false;
+    if (hi >= 0.0 && cut_values[q] > T(hi)) return false;
+  }
+  return true;
+}
+
+// u^mu and b^mu in CKS (ops/sks.py sks_to_cks_vector).
+template <typename T>
+__device__ __forceinline__ void fluid_cks(const SksPoint<T>& p, T spin, const FluidState<T>& s,
+                                          T (&ucon)[4], T (&bcon)[4]) {
+  const T r = p.r;
+  const T cth = p.z / r;
+  const T sth = m_sqrt(jmax(T(1) - cth * cth, T(0)));
+  const T sph = m_sin(p.ph_raw), cph = m_cos(p.ph_raw);
+  const T e_r[3] = {sth * cph, sth * sph, cth};
+  const T e_th[3] = {cth * (r * cph - spin * sph), cth * (r * sph + spin * cph), -r * sth};
+  const T e_ph[3] = {sth * (-r * sph - spin * cph), sth * (r * cph - spin * sph), T(0)};
+  ucon[0] = s.ut;
+  ucon[1] = e_r[0] * s.ur + e_th[0] * s.uth + e_ph[0] * s.uph;
+  ucon[2] = e_r[1] * s.ur + e_th[1] * s.uth + e_ph[1] * s.uph;
+  ucon[3] = e_r[2] * s.ur - r * sth * s.uth;
+  bcon[0] = s.bt;
+  bcon[1] = e_r[0] * s.br + e_th[0] * s.bth + e_ph[0] * s.bph;
+  bcon[2] = e_r[1] * s.br + e_th[1] * s.bth + e_ph[1] * s.bph;
+  bcon[3] = e_r[2] * s.br - r * sth * s.bth;
+}
+
+// Pitch angle from invariants (models/synchrotron.py pitch_angle):
+// cos^2 and sin^2 of the fluid-frame angle between k and b, u.k and b.k.
+template <typename T>
+struct Pitch {
+  T u_dot_k, b_dot_k, cos2, sin2;
+};
+
+template <typename T>
+__device__ __forceinline__ Pitch<T> pitch_angle(T p0, T k1, T k2, T k3, const T (&ucon)[4],
+                                                const T (&bcon)[4], T b_sq) {
+  using Forms = TypeForms<T>;
+  Pitch<T> q;
+  q.u_dot_k = ucon[0] * p0 + ucon[1] * k1 + ucon[2] * k2 + ucon[3] * k3;
+  q.b_dot_k = bcon[0] * p0 + bcon[1] * k1 + bcon[2] * k2 + bcon[3] * k3;
+  const T denom = q.u_dot_k * q.u_dot_k * jmax(b_sq, Forms::pitch_floor());
+  q.cos2 = jmin(q.b_dot_k * q.b_dot_k / denom, T(1));
+  q.sin2 = T(1) - q.cos2;
+  return q;
+}
+
+// sqrt(v) above the type's cut, else 0 (pitch_angle's safe_sqrt).
+template <typename T>
+__device__ __forceinline__ T safe_sqrt(T v) {
+  return v > TypeForms<T>::sqrt_cut() ? m_sqrt(v) : T(0);
+}
+
+// Thermal j_I and alpha_I at one fluid-frame frequency
+// (models/synchrotron.py thermal_coefficients :785-878), with the pieces
+// the polarized coefficients reuse. alpha is already zeroed where the
+// reference's overflow trap holds (trap).
+template <typename T>
+struct ThermalI {
+  T xx, xx_1_3, xx_1_2, xx_1_6, coefficient, var_a, kirch, j, alpha;
+  bool trap;
+};
+
+template <typename T>
+__device__ __forceinline__ ThermalI<T> thermal_i(const SimConsts<T>& c, T nu_cgs, T n_e_cgs,
+                                                 T nu_c, T nu_s, T sin_b, T kb_tt_e) {
+  using Forms = TypeForms<T>;
+  ThermalI<T> t;
+  T xx = nu_cgs / nu_s;
+  if (!Forms::F64) xx = jmin(xx, T(1e20));
+  t.xx = xx;
+  t.xx_1_3 = m_copysign(m_pow(m_abs(xx), T(1.0 / 3.0)), xx);
+  t.xx_1_2 = m_sqrt(xx);
+  t.xx_1_6 = m_sqrt(t.xx_1_3);
+  const T ratio = (T(1) / nu_cgs) * c.nu0;
+  t.coefficient = c.thermal_frac * n_e_cgs * nu_c * (ratio * ratio) * m_exp(-t.xx_1_3);
+  t.var_a = c.var_a * sin_b;
+  const T var_c = t.xx_1_2 + c.var_b * t.xx_1_6;
+  t.j = t.coefficient * t.var_a * var_c * var_c;
+  T hnu_kt;
+  if (Forms::F64) {
+    hnu_kt = c.h_planck * nu_cgs / kb_tt_e;
+  } else {
+    hnu_kt = jmin(c.h_planck * nu_cgs / jmax(kb_tt_e, T(1e-18)), T(87));
+  }
+  t.kirch = m_expm1(hnu_kt) * c.kirchhoff;
+  t.alpha = t.j * t.kirch;
+  t.trap = m_isinf((T(1) / (t.alpha * t.alpha)));
+  if (t.trap) t.alpha = T(0);
+  return t;
+}
+
+}  // namespace bl

@@ -73,131 +73,174 @@ struct TraceConsts {
   }
 };
 
-// Integrate one ray from y (x^0..x^3, p_1..p_3; p_0 is conserved) and call
-// on_sample(ym, k1, k2, k3, h) at every stored sample that counts: ym the
-// sample position x^0..x^3, k1..k3 its null-renormalized covariant spatial
-// momentum (k_0 = p0) and h the signed affine step. Returns the ray's flag
-// (it hit max_steps, or dp ran out of retries) and its count of samples.
-template <typename T, int INTEGRATOR, typename OnSample>
-__device__ __forceinline__ void trace_ray(const TraceConsts<T>& tc, T (&y)[7], T p0,
-                                          OnSample& on_sample, bool& flag_out,
-                                          int& n_samples_out) {
+// The integrator state of one ray between two steps: the seven dynamical
+// components y (x^0..x^3, p_1..p_3; p_0 is conserved), the dp controller
+// (h, num_retry, prev_fail) and the bookkeeping of stored samples. A window
+// of the polarized kernel replays from a copy of it (polarized_kernel.cuh);
+// its plain twin is ops/geodesic.py RayState.
+template <typename T>
+struct RayState {
+  T y[7];
+  T h;  // dp only: the next attempt's step size
+  T r_mid_prev;
+  int n_samp, num_retry;
+  bool alive, trunc, flag, prev_fail;
+};
+
+// The state at the camera: y from the ray's position and covariant momentum.
+template <typename T>
+__device__ __forceinline__ void init_ray_state(const TraceConsts<T>& tc, const T* __restrict__ pos,
+                                               const T* __restrict__ dir, RayState<T>& s) {
+  s.y[0] = pos[0];
+  s.y[1] = pos[1];
+  s.y[2] = pos[2];
+  s.y[3] = pos[3];
+  s.y[4] = dir[1];
+  s.y[5] = dir[2];
+  s.y[6] = dir[3];
+  s.h = -tc.ray_step * ks_radius(s.y[1], s.y[2], s.y[3], tc.g);
+  s.r_mid_prev = T(0);
+  s.n_samp = 0;
+  s.num_retry = 0;
+  s.alive = true;
+  s.trunc = false;
+  s.flag = false;
+  s.prev_fail = false;
+}
+
+// Advance a live ray by step index n (< max_steps). Returns whether the step
+// stored a sample that counts, and then sets ym (the sample position
+// x^0..x^3), k1..k3 (its null-renormalized covariant spatial momentum; k_0
+// = p0) and hs (the signed affine step). A ray that terminates, or runs
+// out of dp retries, leaves s.alive false and its y as it was.
+template <typename T, int INTEGRATOR>
+__device__ __forceinline__ bool step_ray(const TraceConsts<T>& tc, RayState<T>& s, T p0, int n,
+                                         T (&ym)[7], T& k1, T& k2, T& k3, T& hs) {
   const KerrConsts<T>& g = tc.g;
-  T h = -tc.ray_step * ks_radius(y[1], y[2], y[3], g);  // dp only
-  bool trunc = false, flag = false, prev_fail = false;
-  T r_mid_prev = T(0);
-  int n_samp = 0, num_retry = 0;
+  T(&y)[7] = s.y;
+  const T r = ks_radius(y[1], y[2], y[3], g);
+  T ye[7];  // step endpoint
+  bool accept = true, retry_exceeded = false;
 
-  for (int n = 0; n < tc.max_steps; ++n) {
-    const T r = ks_radius(y[1], y[2], y[3], g);
-    T ye[7], ym[7];  // step endpoint and stored (midpoint) sample
-    T hs;            // signed step of this attempt
-    bool accept = true, retry_exceeded = false;
+  if (INTEGRATOR == INTEGRATOR_DP) {
+    T k[7][7], y4[7], ds;
+    geodesic_rhs(y[1], y[2], y[3], p0, y[4], y[5], y[6], g, k[0], &ds);
+    const T ds_dlam = m_abs(ds) + T(1e-30);
+    const T h_cap = tc.ray_step * r / ds_dlam;
+    hs = -jmin(m_abs(s.h), h_cap);
+    dp_stages(y, p0, hs, g, k, ye, y4, ym);
 
-    if (INTEGRATOR == INTEGRATOR_DP) {
-      T k[7][7], y4[7], ds;
-      geodesic_rhs(y[1], y[2], y[3], p0, y[4], y[5], y[6], g, k[0], &ds);
-      const T ds_dlam = m_abs(ds) + T(1e-30);
-      const T h_cap = tc.ray_step * r / ds_dlam;
-      hs = -jmin(m_abs(h), h_cap);
-      dp_stages(y, p0, hs, g, k, ye, y4, ym);
-
-      // error estimate over the 7 dynamical components (p_0 error = 0)
-      T err = T(0);
+    // error estimate over the 7 dynamical components (p_0 error = 0)
+    T err = T(0);
+#pragma unroll
+    for (int c = 0; c < 7; ++c) {
+      const T ya = jmax(m_abs(y[c]), m_abs(ye[c]));
+      const T sc = tc.tol_abs + tc.tol_rel * ya;
+      err = jmax(err, m_abs(ye[c] - y4[c]) / sc);
+    }
+    accept = err <= T(1);
+    const T err_safe = jmax(err, T(1e-30));
+    const T fac_ideal = T(DP_ERR_FACTOR) * m_pow(err_safe, T(-DP_ERR_POWER));
+    const T fac_rej =
+        jmax(m_isfinite(err) ? fac_ideal : T(DP_MIN_FACTOR), T(DP_MIN_FACTOR));
+    T fac_acc = jmin(jmax(fac_ideal, T(DP_MIN_FACTOR)), T(DP_MAX_FACTOR));
+    if (err == T(0)) fac_acc = T(DP_MAX_FACTOR);
+    if (s.prev_fail) fac_acc = jmin(fac_acc, T(1));
+    s.h = hs * (accept ? fac_acc : fac_rej);
+    s.num_retry = accept ? 0 : s.num_retry + 1;
+    retry_exceeded = s.num_retry > tc.max_retries;
+    s.flag = s.flag || retry_exceeded;
+    s.prev_fail = !accept;
+  } else {
+    // fixed step h = -ray_step (r - r_horizon) (geodesics.cpp:418-795)
+    hs = -tc.ray_step * (r - tc.r_horizon);
+    T q1[7], q2[7];
+    geodesic_rhs(y[1], y[2], y[3], p0, y[4], y[5], y[6], g, q1, static_cast<T*>(nullptr));
+    if (INTEGRATOR == INTEGRATOR_RK4) {
+      T yt[7], q3[7], q4[7];
+#pragma unroll
+      for (int c = 0; c < 7; ++c) yt[c] = y[c] + (T(0.5) * hs) * q1[c];
+      geodesic_rhs(yt[1], yt[2], yt[3], p0, yt[4], yt[5], yt[6], g, q2,
+                   static_cast<T*>(nullptr));
+#pragma unroll
+      for (int c = 0; c < 7; ++c) yt[c] = y[c] + (T(0.5) * hs) * q2[c];
+      geodesic_rhs(yt[1], yt[2], yt[3], p0, yt[4], yt[5], yt[6], g, q3,
+                   static_cast<T*>(nullptr));
+#pragma unroll
+      for (int c = 0; c < 7; ++c) yt[c] = y[c] + hs * q3[c];
+      geodesic_rhs(yt[1], yt[2], yt[3], p0, yt[4], yt[5], yt[6], g, q4,
+                   static_cast<T*>(nullptr));
 #pragma unroll
       for (int c = 0; c < 7; ++c) {
-        const T ya = jmax(m_abs(y[c]), m_abs(ye[c]));
-        const T sc = tc.tol_abs + tc.tol_rel * ya;
-        err = jmax(err, m_abs(ye[c] - y4[c]) / sc);
+        ye[c] = y[c] + hs * (q1[c] * T(1.0 / 6.0) + q2[c] * T(1.0 / 3.0) +
+                             q3[c] * T(1.0 / 3.0) + q4[c] * T(1.0 / 6.0));
+        ym[c] = T(0.5) * (y[c] + ye[c]);
       }
-      accept = err <= T(1);
-      const T err_safe = jmax(err, T(1e-30));
-      const T fac_ideal = T(DP_ERR_FACTOR) * m_pow(err_safe, T(-DP_ERR_POWER));
-      const T fac_rej =
-          jmax(m_isfinite(err) ? fac_ideal : T(DP_MIN_FACTOR), T(DP_MIN_FACTOR));
-      T fac_acc = jmin(jmax(fac_ideal, T(DP_MIN_FACTOR)), T(DP_MAX_FACTOR));
-      if (err == T(0)) fac_acc = T(DP_MAX_FACTOR);
-      if (prev_fail) fac_acc = jmin(fac_acc, T(1));
-      h = hs * (accept ? fac_acc : fac_rej);
-      num_retry = accept ? 0 : num_retry + 1;
-      retry_exceeded = num_retry > tc.max_retries;
-      flag = flag || retry_exceeded;
-      prev_fail = !accept;
     } else {
-      // fixed step h = -ray_step (r - r_horizon) (geodesics.cpp:418-795)
-      hs = -tc.ray_step * (r - tc.r_horizon);
-      T k1[7], k2[7];
-      geodesic_rhs(y[1], y[2], y[3], p0, y[4], y[5], y[6], g, k1,
+      // rk2 (Heun); the sample is y + h/2 k1 (geodesics.cpp:626-795)
+      T yt[7];
+#pragma unroll
+      for (int c = 0; c < 7; ++c) yt[c] = y[c] + hs * q1[c];
+      geodesic_rhs(yt[1], yt[2], yt[3], p0, yt[4], yt[5], yt[6], g, q2,
                    static_cast<T*>(nullptr));
-      if (INTEGRATOR == INTEGRATOR_RK4) {
-        T yt[7], k3[7], k4[7];
 #pragma unroll
-        for (int c = 0; c < 7; ++c) yt[c] = y[c] + (T(0.5) * hs) * k1[c];
-        geodesic_rhs(yt[1], yt[2], yt[3], p0, yt[4], yt[5], yt[6], g, k2,
-                     static_cast<T*>(nullptr));
-#pragma unroll
-        for (int c = 0; c < 7; ++c) yt[c] = y[c] + (T(0.5) * hs) * k2[c];
-        geodesic_rhs(yt[1], yt[2], yt[3], p0, yt[4], yt[5], yt[6], g, k3,
-                     static_cast<T*>(nullptr));
-#pragma unroll
-        for (int c = 0; c < 7; ++c) yt[c] = y[c] + hs * k3[c];
-        geodesic_rhs(yt[1], yt[2], yt[3], p0, yt[4], yt[5], yt[6], g, k4,
-                     static_cast<T*>(nullptr));
-#pragma unroll
-        for (int c = 0; c < 7; ++c) {
-          ye[c] = y[c] + hs * (k1[c] * T(1.0 / 6.0) + k2[c] * T(1.0 / 3.0) +
-                               k3[c] * T(1.0 / 3.0) + k4[c] * T(1.0 / 6.0));
-          ym[c] = T(0.5) * (y[c] + ye[c]);
-        }
-      } else {
-        // rk2 (Heun); the sample is y + h/2 k1 (geodesics.cpp:626-795)
-        T yt[7];
-#pragma unroll
-        for (int c = 0; c < 7; ++c) yt[c] = y[c] + hs * k1[c];
-        geodesic_rhs(yt[1], yt[2], yt[3], p0, yt[4], yt[5], yt[6], g, k2,
-                     static_cast<T*>(nullptr));
-#pragma unroll
-        for (int c = 0; c < 7; ++c) {
-          ye[c] = y[c] + T(0.5) * hs * (k1[c] + k2[c]);
-          ym[c] = y[c] + (T(0.5) * hs) * k1[c];
-        }
+      for (int c = 0; c < 7; ++c) {
+        ye[c] = y[c] + T(0.5) * hs * (q1[c] + q2[c]);
+        ym[c] = y[c] + (T(0.5) * hs) * q1[c];
       }
-    }
-
-    // accepted endpoint and stored sample, null-renormalized
-    const T fac = renormalize_factor(ye[1], ye[2], ye[3], p0, ye[4], ye[5], ye[6], g);
-    const T r_new = ks_radius(ye[1], ye[2], ye[3], g);
-    const T facm = renormalize_factor(ym[1], ym[2], ym[3], p0, ym[4], ym[5], ym[6], g);
-    const T r_mid = ks_radius(ym[1], ym[2], ym[3], g);
-
-    const bool trunc_now =
-        n_samp > 0 &&
-        ((r_mid > tc.camera_r && r_mid > r_mid_prev) || r_mid < tc.r_terminate);
-    trunc = trunc || (accept && trunc_now);
-    const bool valid = accept && !trunc && !retry_exceeded;
-    const bool terminate =
-        (r_new > tc.camera_r && r_new > r) || r_new < tc.r_terminate;
-    flag = flag || (accept && !terminate && n == tc.max_steps - 1);
-    const bool alive = !(accept && terminate) && !retry_exceeded;
-
-    if (valid) {
-      on_sample(ym, ym[4] * facm, ym[5] * facm, ym[6] * facm, hs);
-      r_mid_prev = r_mid;
-      ++n_samp;
-    }
-    if (!alive) break;
-    if (accept) {
-      y[0] = ye[0];
-      y[1] = ye[1];
-      y[2] = ye[2];
-      y[3] = ye[3];
-      y[4] = ye[4] * fac;
-      y[5] = ye[5] * fac;
-      y[6] = ye[6] * fac;
     }
   }
-  flag_out = flag;
-  n_samples_out = n_samp;
+
+  // accepted endpoint and stored sample, null-renormalized
+  const T fac = renormalize_factor(ye[1], ye[2], ye[3], p0, ye[4], ye[5], ye[6], g);
+  const T r_new = ks_radius(ye[1], ye[2], ye[3], g);
+  const T facm = renormalize_factor(ym[1], ym[2], ym[3], p0, ym[4], ym[5], ym[6], g);
+  const T r_mid = ks_radius(ym[1], ym[2], ym[3], g);
+
+  const bool trunc_now =
+      s.n_samp > 0 &&
+      ((r_mid > tc.camera_r && r_mid > s.r_mid_prev) || r_mid < tc.r_terminate);
+  s.trunc = s.trunc || (accept && trunc_now);
+  const bool valid = accept && !s.trunc && !retry_exceeded;
+  const bool terminate = (r_new > tc.camera_r && r_new > r) || r_new < tc.r_terminate;
+  s.flag = s.flag || (accept && !terminate && n == tc.max_steps - 1);
+  s.alive = !(accept && terminate) && !retry_exceeded;
+
+  if (valid) {
+    k1 = ym[4] * facm;
+    k2 = ym[5] * facm;
+    k3 = ym[6] * facm;
+    s.r_mid_prev = r_mid;
+    ++s.n_samp;
+  }
+  if (s.alive && accept) {
+    y[0] = ye[0];
+    y[1] = ye[1];
+    y[2] = ye[2];
+    y[3] = ye[3];
+    y[4] = ye[4] * fac;
+    y[5] = ye[5] * fac;
+    y[6] = ye[6] * fac;
+  }
+  return valid;
+}
+
+// Integrate one ray from y (x^0..x^3, p_1..p_3; p_0 is conserved) and call
+// on_sample(ym, k1, k2, k3, h) at every stored sample that counts, in step
+// order (step_ray). Returns the ray's flag (it hit max_steps, or dp ran out
+// of retries) and its count of samples.
+template <typename T, int INTEGRATOR, typename OnSample>
+__device__ __forceinline__ void trace_ray(const TraceConsts<T>& tc, RayState<T>& s, T p0,
+                                          OnSample& on_sample, bool& flag_out,
+                                          int& n_samples_out) {
+  for (int n = 0; n < tc.max_steps && s.alive; ++n) {
+    T ym[7], k1, k2, k3, hs;
+    if (step_ray<T, INTEGRATOR>(tc, s, p0, n, ym, k1, k2, k3, hs)) {
+      on_sample(ym, k1, k2, k3, hs);
+    }
+  }
+  flag_out = s.flag;
+  n_samples_out = s.n_samp;
 }
 
 }  // namespace bl

@@ -15,7 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from blacklight_tpu.utils.errors import BlacklightError
+from blacklight_tpu_torch.utils.errors import BlacklightError
 from blacklight_tpu_torch.grid import hdf5
 
 # Slots of the grid's named primitives: name in the sampler -> name in

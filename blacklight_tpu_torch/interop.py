@@ -10,10 +10,12 @@ their dataclass fields and ``numpy.asarray``.
 from __future__ import annotations
 
 import dataclasses
+import enum
 
 import numpy as np
 import torch
 
+from blacklight_tpu_torch import constants
 from blacklight_tpu_torch.camera import CameraGeometry, CameraRays
 from blacklight_tpu_torch.grid.athena import SimulationGrid, simulation_grid
 from blacklight_tpu_torch.models.cuts import GeometricCuts
@@ -23,12 +25,14 @@ from blacklight_tpu_torch.ops.geodesic import GeodesicParams
 
 
 def _scalar(v):
-    """A Python scalar (or tuple of them) from a numpy or jax scalar."""
+    """A Python scalar (or tuple of them) from a numpy or jax scalar; an
+    enum member becomes the member of the same name in this package's
+    enum of the same class name (``constants``)."""
     if isinstance(v, tuple):
         return tuple(_scalar(x) for x in v)
+    if isinstance(v, enum.Enum):
+        return getattr(constants, type(v).__name__)[v.name]
     if isinstance(v, (bool, int, float, str)) or v is None:
-        return v
-    if hasattr(v, "value") and not hasattr(v, "shape"):  # enum members
         return v
     return np.asarray(v).item()
 

@@ -38,9 +38,11 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # simulation unit contracts: in float32 the grid's trilinear kinks make
 # dp's image depend on its exact step sequence at the 1e-3 level, so dp
 # holds the statistical gate only when it rounds as the plain version
-# does (PERF.md).
+# does (PERF.md). No polarized unit contracts either, for the same
+# reason.
 CONTRACT = {"formula_kernel.cu": False, "simulation_kernel.cu": False,
-            "simulation_kernel_dp.cu": False}
+            "simulation_kernel_dp.cu": False, "polarized_kernel.cu": False,
+            "polarized_kernel_f64.cu": False, "polarized_kernel_dp.cu": False}
 
 
 def find_nvcc() -> str:

@@ -20,7 +20,7 @@ import math
 
 import torch
 
-from blacklight_tpu.constants import Physics
+from blacklight_tpu_torch.constants import Physics
 from blacklight_tpu_torch.models.cuts import (
     CUT_PARAM_NAMES,
     GeometricCuts,

@@ -1,21 +1,25 @@
 """Geodesic integration parameters, the Dormand-Prince tableau and the
 lock-step ray loop of the fused kernels' plain versions.
 
-Port of the parameter half of ``blacklight_tpu/ops/geodesic.py:44-98``.
-The step loop itself runs inside the fused kernels (``csrc/trace.cuh``
-on the card); ``trace_reference`` is the same loop in plain torch ops,
-shared by ``ops/formula_kernel.render_formula_reference`` and
-``ops/simulation_kernel.render_simulation_reference``.
+Port of the parameter half of ``blacklight_tpu/ops/geodesic.py:44-98``
+and of its windowed sweep (``masked_step``, ``segment_carries``,
+``replay_window``, :462-521). The step loop itself runs inside the fused
+kernels (``csrc/trace.cuh`` on the card); ``step`` is one of its steps in
+plain torch ops, from which ``trace_reference`` (the loop of
+``ops/formula_kernel.render_formula_reference`` and
+``ops/simulation_kernel.render_simulation_reference``) and the windowed
+sweep of ``ops/polarized_kernel.render_polarized_reference`` are built.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 
-from blacklight_tpu.constants import RayIntegrator, RayTerminate
+from blacklight_tpu_torch.constants import RayIntegrator, RayTerminate
 from blacklight_tpu_torch.ops.geometry import (
     geodesic_rhs_c,
     radius_c,
@@ -120,145 +124,229 @@ def pack_params(names, values: dict) -> list:
     return [float(values[name]) for name in names]
 
 
-def trace_reference(positions, directions, params: GeodesicParams,
-                    integrator: str, on_sample):
-    """Integrate a ray bundle in lock step and hand every step's stored
-    sample to ``on_sample``: the loop of the fused kernels, in plain
-    torch ops over (B,) tensors.
+class RayState(NamedTuple):
+    """The integrator state of a ray bundle between two steps, each field
+    (B,): the seven dynamical components y (x^0..x^3, p_1..p_3; p_0 is
+    conserved), the dp controller (h, num_retry, prev_fail) and the
+    bookkeeping of stored samples. A window's replay starts from one of
+    these (``segment_carries``)."""
 
-    Every ray advances together, as in the Pallas block: masks select the
-    state updates, dead rays park at a benign state, and the loop runs
-    while any ray is alive and n < max_steps. The JAX kernel's forms are
-    kept, where-guards included.
+    y: tuple
+    h: torch.Tensor
+    alive: torch.Tensor
+    trunc: torch.Tensor
+    flag: torch.Tensor
+    prev_fail: torch.Tensor
+    r_mid_prev: torch.Tensor
+    n_samples: torch.Tensor
+    num_retry: torch.Tensor
 
-    on_sample(valid, x, k, h) is called once per step with the (B,) mask
-    of rays whose sample counts, the sample position x (x^0..x^3), its
-    null-renormalized covariant momentum k (p_0..p_3) and the signed
-    affine step h; it sees every ray, valid or not.
 
-    Returns (flag (B,) bool, n_samples (B,) int32).
+class Sample(NamedTuple):
+    """One step's stored sample, each field over the bundle: ``valid``
+    (B,) marks the rays whose sample counts, ``x`` the position
+    (x^0..x^3), ``k`` the null-renormalized covariant momentum
+    (p_0..p_3) and ``h`` the signed affine step."""
+
+    valid: torch.Tensor
+    x: tuple
+    k: tuple
+    h: torch.Tensor
+
+
+def initial_state(positions, directions, params: GeodesicParams) -> RayState:
+    x0, x1, x2, x3 = positions.unbind(-1)
+    _, p1, p2, p3 = directions.unbind(-1)
+    false = torch.zeros_like(x0, dtype=torch.bool)
+    izero = torch.zeros_like(x0, dtype=torch.int32)
+    return RayState(
+        y=(x0, x1, x2, x3, p1, p2, p3),
+        h=-params.ray_step * radius_c(x1, x2, x3, params.bh_a),
+        alive=~false, trunc=false, flag=false, prev_fail=false,
+        r_mid_prev=torch.zeros_like(x0), n_samples=izero, num_retry=izero)
+
+
+def _add_stage(base, weights, k, h):
+    out = []
+    for ci in range(7):
+        acc = None
+        for q, w in enumerate(weights):
+            if w == 0.0:
+                continue
+            term = (w * h) * k[q][ci]
+            acc = term if acc is None else acc + term
+        out.append(base[ci] if acc is None else base[ci] + acc)
+    return out
+
+
+def step(state: RayState, p0, n: int, params: GeodesicParams,
+         integrator: str):
+    """Advance every ray of the bundle by step index ``n`` (< max_steps)
+    in lock step; returns (new state, the step's Sample).
+
+    The JAX kernel's forms are kept, where-guards included: masks select
+    the state updates and dead rays park at a benign state. ``p0`` is the
+    rays' conserved p_0.
     """
     spin, mass, flat = params.bh_a, params.bh_m, params.ray_flat
     max_steps = params.ray_max_steps
-    dp = integrator == "dp"
-    x0, x1, x2, x3 = positions.unbind(-1)
-    p0, p1, p2, p3 = directions.unbind(-1)
-    zero = torch.zeros_like(x0)
-    false = torch.zeros_like(x0, dtype=torch.bool)
-    izero = torch.zeros_like(x0, dtype=torch.int32)
+    y, alive = list(state.y), state.alive
+    false = torch.zeros_like(alive)
 
-    def rhs(y, with_distance=False):
-        return geodesic_rhs_c(y[1], y[2], y[3], p0, y[4], y[5], y[6], spin,
+    def rhs(v, with_distance=False):
+        return geodesic_rhs_c(v[1], v[2], v[3], p0, v[4], v[5], v[6], spin,
                               mass, flat=flat, with_distance=with_distance)
 
-    def renorm(y):
-        return renormalize_factor_c(y[1], y[2], y[3], p0, y[4], y[5], y[6],
+    def renorm(v):
+        return renormalize_factor_c(v[1], v[2], v[3], p0, v[4], v[5], v[6],
                                     spin, mass, flat=flat)
 
-    def add_stage(base, weights, k, h):
-        out = []
+    r = radius_c(y[1], y[2], y[3], spin)
+    if integrator == "dp":
+        k = [None] * 7
+        k[0] = rhs(y, with_distance=True)
+        ds_dlam = torch.abs(k[0][7]) + 1e-30
+        h_cap = params.ray_step * r / ds_dlam
+        h = -torch.minimum(torch.abs(state.h), h_cap)
+        for i in range(1, 7):
+            k[i] = rhs(_add_stage(y, DP_A[i], k, h))
+        y_end = _add_stage(y, DP_B5, k, h)
+        y4 = _add_stage(y, DP_B4, k, h)
+        y_mid = _add_stage(y, DP_B4M, k, h)
+
+        err = torch.zeros_like(r)
         for ci in range(7):
-            acc = None
-            for q, w in enumerate(weights):
-                if w == 0.0:
-                    continue
-                term = (w * h) * k[q][ci]
-                acc = term if acc is None else acc + term
-            out.append(base[ci] if acc is None else base[ci] + acc)
-        return out
+            ya = torch.maximum(torch.abs(y[ci]), torch.abs(y_end[ci]))
+            sc = params.ray_tol_abs + params.ray_tol_rel * ya
+            err = torch.maximum(err, torch.abs(y_end[ci] - y4[ci]) / sc)
+        accept = err <= 1.0
+        err_safe = torch.clamp(err, min=1e-30)
+        fac_ideal = DP_ERR_FACTOR * err_safe ** (-DP_ERR_POWER)
+        fac_rej = torch.clamp(
+            torch.where(torch.isfinite(err), fac_ideal, DP_MIN_FACTOR),
+            min=DP_MIN_FACTOR)
+        fac_acc = torch.clamp(fac_ideal, DP_MIN_FACTOR, DP_MAX_FACTOR)
+        fac_acc = torch.where(err == 0.0, DP_MAX_FACTOR, fac_acc)
+        fac_acc = torch.where(state.prev_fail, torch.clamp(fac_acc, max=1.0),
+                              fac_acc)
+        h_next = h * torch.where(accept, fac_acc, fac_rej)
+        retry = torch.where(accept, 0, state.num_retry + 1)
+        retry_exceeded = retry > params.ray_max_retries
+    else:
+        h = torch.where(alive, -params.ray_step * (r - params.r_horizon), 0.0)
+        k1 = rhs(y)
+        if integrator == "rk4":
+            k2 = rhs([y[c] + (0.5 * h) * k1[c] for c in range(7)])
+            k3 = rhs([y[c] + (0.5 * h) * k2[c] for c in range(7)])
+            k4 = rhs([y[c] + (1.0 * h) * k3[c] for c in range(7)])
+            y_end = [y[c] + h * (k1[c] * (1.0 / 6.0) + k2[c] * (1.0 / 3.0)
+                                 + k3[c] * (1.0 / 3.0) + k4[c] * (1.0 / 6.0))
+                     for c in range(7)]
+            y_mid = [0.5 * (y[c] + y_end[c]) for c in range(7)]
+        else:  # rk2 (Heun); the sample is y + h/2 k1
+            k2 = rhs([y[c] + (1.0 * h) * k1[c] for c in range(7)])
+            y_end = [y[c] + 0.5 * h * (k1[c] + k2[c]) for c in range(7)]
+            y_mid = [y[c] + (0.5 * h) * k1[c] for c in range(7)]
+        accept = ~false
+        retry_exceeded = false
 
-    y = [x0, x1, x2, x3, p1, p2, p3]
-    h_state = -params.ray_step * radius_c(x1, x2, x3, spin)
-    alive = ~false
-    trunc, flag, prev_fail = false, false, false
-    r_mid_prev = zero
-    n_samp, num_retry = izero, izero
+    fac = renorm(y_end)
+    r_new = radius_c(y_end[1], y_end[2], y_end[3], spin)
+    facm = renorm(y_mid)
+    r_mid = radius_c(y_mid[1], y_mid[2], y_mid[3], spin)
 
+    trunc_now = (state.n_samples > 0) & (
+        ((r_mid > params.camera_r) & (r_mid > state.r_mid_prev))
+        | (r_mid < params.r_terminate))
+    trunc = state.trunc | (accept & trunc_now)
+    valid = alive & accept & ~trunc & ~retry_exceeded
+    terminate = ((r_new > params.camera_r) & (r_new > r)) \
+        | (r_new < params.r_terminate)
+    flag = state.flag | (alive & retry_exceeded) \
+        | (alive & accept & ~terminate & (n == max_steps - 1))
+    alive_new = alive & ~(accept & terminate) & ~retry_exceeded
+
+    sample = Sample(valid, tuple(y_mid[:4]),
+                    (p0, y_mid[4] * facm, y_mid[5] * facm, y_mid[6] * facm),
+                    h)
+
+    stepped = (y_end[0], y_end[1], y_end[2], y_end[3],
+               y_end[4] * fac, y_end[5] * fac, y_end[6] * fac)
+    parked = (0.0, 1.0e3, 0.0, 0.0, 1.0, 0.0, 0.0)
+    moved = alive & accept
+    park = ~alive_new
+    new = RayState(
+        y=tuple(torch.where(park, parked[c],
+                            torch.where(moved, stepped[c], y[c]))
+                for c in range(7)),
+        h=torch.where(alive, h_next, state.h) if integrator == "dp"
+        else state.h,
+        alive=alive_new, trunc=trunc, flag=flag,
+        prev_fail=(alive & ~accept) | (~alive & state.prev_fail),
+        r_mid_prev=torch.where(valid, r_mid, state.r_mid_prev),
+        n_samples=state.n_samples + valid.to(torch.int32),
+        num_retry=torch.where(alive, retry, state.num_retry)
+        if integrator == "dp" else state.num_retry)
+    return new, sample
+
+
+def trace_reference(positions, directions, params: GeodesicParams,
+                    integrator: str, on_sample):
+    """Integrate a ray bundle in lock step and hand every step's Sample to
+    ``on_sample``: the loop of the fused kernels, in plain torch ops over
+    (B,) tensors. The loop runs while any ray is alive and n < max_steps.
+
+    on_sample(valid, x, k, h) is called once per step with the fields of
+    ``step``'s Sample; it sees every ray, valid or not.
+
+    Returns (flag (B,) bool, n_samples (B,) int32).
+    """
+    state = initial_state(positions, directions, params)
+    p0 = directions[:, 0]
     n = 0
-    while n < max_steps and bool(alive.any()):
-        r = radius_c(y[1], y[2], y[3], spin)
-        if dp:
-            k = [None] * 7
-            k[0] = rhs(y, with_distance=True)
-            ds_dlam = torch.abs(k[0][7]) + 1e-30
-            h_cap = params.ray_step * r / ds_dlam
-            h = -torch.minimum(torch.abs(h_state), h_cap)
-            for i in range(1, 7):
-                k[i] = rhs(add_stage(y, DP_A[i], k, h))
-            y_end = add_stage(y, DP_B5, k, h)
-            y4 = add_stage(y, DP_B4, k, h)
-            y_mid = add_stage(y, DP_B4M, k, h)
-
-            err = zero
-            for ci in range(7):
-                ya = torch.maximum(torch.abs(y[ci]), torch.abs(y_end[ci]))
-                sc = params.ray_tol_abs + params.ray_tol_rel * ya
-                err = torch.maximum(err, torch.abs(y_end[ci] - y4[ci]) / sc)
-            accept = err <= 1.0
-            err_safe = torch.clamp(err, min=1e-30)
-            fac_ideal = DP_ERR_FACTOR * err_safe ** (-DP_ERR_POWER)
-            fac_rej = torch.clamp(
-                torch.where(torch.isfinite(err), fac_ideal, DP_MIN_FACTOR),
-                min=DP_MIN_FACTOR)
-            fac_acc = torch.clamp(fac_ideal, DP_MIN_FACTOR, DP_MAX_FACTOR)
-            fac_acc = torch.where(err == 0.0, DP_MAX_FACTOR, fac_acc)
-            fac_acc = torch.where(prev_fail, torch.clamp(fac_acc, max=1.0),
-                                  fac_acc)
-            h_next = h * torch.where(accept, fac_acc, fac_rej)
-            retry = torch.where(accept, 0, num_retry + 1)
-            retry_exceeded = retry > params.ray_max_retries
-        else:
-            h = torch.where(alive, -params.ray_step * (r - params.r_horizon),
-                            0.0)
-            k1 = rhs(y)
-            if integrator == "rk4":
-                k2 = rhs([y[c] + (0.5 * h) * k1[c] for c in range(7)])
-                k3 = rhs([y[c] + (0.5 * h) * k2[c] for c in range(7)])
-                k4 = rhs([y[c] + (1.0 * h) * k3[c] for c in range(7)])
-                y_end = [y[c] + h * (k1[c] * (1.0 / 6.0) + k2[c] * (1.0 / 3.0)
-                                     + k3[c] * (1.0 / 3.0)
-                                     + k4[c] * (1.0 / 6.0))
-                         for c in range(7)]
-                y_mid = [0.5 * (y[c] + y_end[c]) for c in range(7)]
-            else:  # rk2 (Heun); the sample is y + h/2 k1
-                k2 = rhs([y[c] + (1.0 * h) * k1[c] for c in range(7)])
-                y_end = [y[c] + 0.5 * h * (k1[c] + k2[c]) for c in range(7)]
-                y_mid = [y[c] + (0.5 * h) * k1[c] for c in range(7)]
-            accept = ~false
-            retry_exceeded = false
-
-        fac = renorm(y_end)
-        r_new = radius_c(y_end[1], y_end[2], y_end[3], spin)
-        facm = renorm(y_mid)
-        r_mid = radius_c(y_mid[1], y_mid[2], y_mid[3], spin)
-
-        trunc_now = (n_samp > 0) & (
-            ((r_mid > params.camera_r) & (r_mid > r_mid_prev))
-            | (r_mid < params.r_terminate))
-        trunc = trunc | (accept & trunc_now)
-        valid = alive & accept & ~trunc & ~retry_exceeded
-        terminate = ((r_new > params.camera_r) & (r_new > r)) \
-            | (r_new < params.r_terminate)
-        flag = flag | (alive & retry_exceeded) \
-            | (alive & accept & ~terminate & (n == max_steps - 1))
-        alive_new = alive & ~(accept & terminate) & ~retry_exceeded
-
-        on_sample(valid, y_mid[:4],
-                  (p0, y_mid[4] * facm, y_mid[5] * facm, y_mid[6] * facm), h)
-
-        step = alive & accept
-        park = ~alive_new
-        stepped = [y_end[0], y_end[1], y_end[2], y_end[3],
-                   y_end[4] * fac, y_end[5] * fac, y_end[6] * fac]
-        parked = (0.0, 1.0e3, 0.0, 0.0, 1.0, 0.0, 0.0)
-        y = [torch.where(park, parked[c], torch.where(step, stepped[c], y[c]))
-             for c in range(7)]
-        if dp:
-            h_state = torch.where(alive, h_next, h_state)
-            num_retry = torch.where(alive, retry, num_retry)
-            prev_fail = (alive & ~accept) | (~alive & prev_fail)
-        r_mid_prev = torch.where(valid, r_mid, r_mid_prev)
-        n_samp = n_samp + valid.to(torch.int32)
-        alive = alive_new
+    while n < params.ray_max_steps and bool(state.alive.any()):
+        state, sample = step(state, p0, n, params, integrator)
+        on_sample(*sample)
         n += 1
-    return flag, n_samp
+    return state.flag, state.n_samples
+
+
+def segment_carries(positions, directions, params: GeodesicParams,
+                    integrator: str, window: int):
+    """Sweep the whole integration, keeping only the state that enters
+    each window of ``window`` steps (JAX segment_carries): the
+    polarized transfer consumes samples far end first and replays one
+    window at a time from these (``replay_window``).
+
+    Windows after the one in which the last ray dies are left out: from
+    there every step leaves the state as it is and stores no sample, as
+    the masked steps past ray_max_steps do.
+
+    Returns (starts, flag, n_samples), starts[k] the state entering step
+    k * window.
+    """
+    state = initial_state(positions, directions, params)
+    p0 = directions[:, 0]
+    starts = []
+    n_seg = -(-params.ray_max_steps // window)
+    for k in range(n_seg):
+        if not bool(state.alive.any()):
+            break
+        starts.append(state)
+        for n in range(k * window, min((k + 1) * window,
+                                       params.ray_max_steps)):
+            state, _ = step(state, p0, n, params, integrator)
+    return starts, state.flag, state.n_samples
+
+
+def replay_window(start: RayState, p0, params: GeodesicParams,
+                  integrator: str, k: int, window: int) -> list:
+    """Re-integrate window k from its entering state; returns its Samples
+    in step order, bit for bit those of the forward sweep. Steps past
+    ray_max_steps are left out (JAX masked_step)."""
+    samples = []
+    state = start
+    for n in range(k * window, min((k + 1) * window, params.ray_max_steps)):
+        state, sample = step(state, p0, n, params, integrator)
+        samples.append(sample)
+    return samples

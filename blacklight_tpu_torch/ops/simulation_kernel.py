@@ -25,7 +25,7 @@ import math
 
 import torch
 
-from blacklight_tpu.constants import Math, Physics
+from blacklight_tpu_torch.constants import Math, Physics
 from blacklight_tpu_torch.grid.athena import SimulationGrid
 from blacklight_tpu_torch.grid.sampling import (
     SAMPLE_NAMES,

@@ -21,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from blacklight_tpu.constants import (
+from blacklight_tpu_torch.constants import (
     Coordinates,
     ModelType,
     OutputFormat,
@@ -31,14 +31,14 @@ from blacklight_tpu.constants import (
     RayTerminate,
     SimulationFormat,
 )
-from blacklight_tpu.output import (
+from blacklight_tpu_torch.output import (
     assemble_npz_arrays,
     format_filename,
     validate_output_options,
     write_output,
 )
-from blacklight_tpu.utils.config import warn_ignored_options
-from blacklight_tpu.utils.errors import BlacklightError, blacklight_warning
+from blacklight_tpu_torch.utils.config import warn_ignored_options
+from blacklight_tpu_torch.utils.errors import BlacklightError, blacklight_warning
 from blacklight_tpu_torch.camera import CameraRays, make_camera
 from blacklight_tpu_torch.models import formula as formula_model
 from blacklight_tpu_torch.ops import geodesic
@@ -112,8 +112,6 @@ def check_slice(cfg) -> None:
                 "checkpoint_sample_save", "checkpoint_sample_load"):
         if getattr(cfg, key):
             refuse(f"{key}", "A.8")
-    if cfg.image_polarization:
-        refuse("image_polarization", "C.1")
     if (cfg.render_num_images or 0) > 0:
         refuse("rendering (render_num_images > 0)", "D.1")
     if simulation:
@@ -243,8 +241,12 @@ def run(cfg, snapshot: Optional[int] = None, quiet: bool = False, *,
     path = format_filename(cfg.require("output_file"), file_number)
     packed = None
     if cfg.require("output_format") != OutputFormat.npz:
+        # the packed (quantities, res, res) block: I, or I, Q, U, V
         res = cfg.require("camera_resolution")
         packed = image["I_nu"].reshape(1, res, res)
+        if "Q_nu" in image:
+            packed = np.stack([image[k].reshape(res, res)
+                               for k in ("I_nu", "Q_nu", "U_nu", "V_nu")])
     write_output(cfg, path, arrays, image_packed=packed)
 
     if not quiet:

@@ -4,23 +4,25 @@ Port of ``blacklight_tpu/pipeline_simulation.py`` (:70-254, :257-707)
 for the port's slice (``pipeline.check_slice``): one Athena++ snapshot,
 read once onto the device, and one fused kernel that integrates the
 geodesics, samples the grid, evaluates the thermal synchrotron
-coefficients and accumulates the unpolarized transfer
-(``ops/simulation_kernel.render_simulation``): the CUDA kernel for a
-CUDA device, its plain PyTorch version for the CPU.
+coefficients and accumulates the transfer: unpolarized
+(``ops/simulation_kernel.render_simulation``) or, with
+image_polarization, full-Stokes (``ops/polarized_kernel.render_polarized``
+followed by the camera-frame Stokes extraction). Each is the CUDA kernel
+for a CUDA device, its plain PyTorch version for the CPU.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-from blacklight_tpu.constants import PlasmaModel, SimulationFormat
-from blacklight_tpu.output import format_filename
-from blacklight_tpu.utils.errors import BlacklightError
+from blacklight_tpu_torch.constants import PlasmaModel, SimulationFormat
+from blacklight_tpu_torch.output import format_filename
+from blacklight_tpu_torch.utils.errors import BlacklightError
 from blacklight_tpu_torch.camera import make_camera
 from blacklight_tpu_torch.grid.athena import SimulationGrid, load_athdf
 from blacklight_tpu_torch.models import synchrotron
 from blacklight_tpu_torch.models.cuts import GeometricCuts
-from blacklight_tpu_torch.ops import simulation_kernel
+from blacklight_tpu_torch.ops import polarized_kernel, simulation_kernel
 
 
 def plasma_params_from_config(cfg) -> synchrotron.PlasmaParams:
@@ -96,10 +98,12 @@ def make_simulation_renderer(cfg, snapshot: Optional[int] = None, *, device,
 
     Returns (render_fn, geom, rays, frequencies, mass_msun), where
     render_fn(positions, directions, momentum_factors) renders a pixel
-    bundle to a dict of tensors: "I_nu" (B, F), "_flags" (B,) bool and
-    "_n_samples" (B,). ``render_fn.kernel_args`` are the arguments after
-    the rays with which ``render_fn`` calls ``render_simulation`` (the
-    snapshot among them).
+    bundle to a dict of tensors: "I_nu" (B, F) (and "Q_nu", "U_nu",
+    "V_nu" with image_polarization), "_flags" (B,) bool and "_n_samples"
+    (B,). ``render_fn.kernel`` is the kernel wrapper it calls
+    (``render_simulation`` or ``render_polarized``), with
+    ``render_fn.kernel_args`` the arguments after the rays (the snapshot
+    among them) and ``render_fn.kernel_kwargs`` the keywords.
     """
     from blacklight_tpu_torch import pipeline
 
@@ -124,22 +128,39 @@ def make_simulation_renderer(cfg, snapshot: Optional[int] = None, *, device,
         cfg, GeometricCuts.from_config(cfg), plasma_params_from_config(cfg),
         cut_params_from_config(cfg))
     nu0 = float(frequencies[0])
+    log_scale = synchrotron.log_j_scale(nu0)
     kernel_args = (frequencies, params, sp, grid, mass_msun,
-                   geom.cam_x.tolist(), synchrotron.log_j_scale(nu0))
-    integrator = params.integrator.value
+                   geom.cam_x.tolist(), log_scale)
+    kernel_kwargs = {"integrator": params.integrator.value}
+    fallback_nan = cfg.require("fallback_nan")
+    polarized = cfg.require("image_polarization")
+    if polarized:
+        kernel = polarized_kernel.render_polarized
+        kernel_kwargs["rotation_split"] = cfg.require("image_rotation_split")
+    else:
+        kernel = simulation_kernel.render_simulation
 
     def render_fn(positions, directions, momentum_factors):
-        i_nu, flags, n_samples = simulation_kernel.render_simulation(
-            positions, directions, momentum_factors, *kernel_args,
-            integrator=integrator)
-        return {"I_nu": i_nu, "_flags": flags, "_n_samples": n_samples}
+        out = kernel(positions, directions, momentum_factors, *kernel_args,
+                     **kernel_kwargs)
+        if not polarized:
+            i_nu, flags, n_samples = out
+            return {"I_nu": i_nu, "_flags": flags, "_n_samples": n_samples}
+        nn_re, nn_im, flags, n_samples, bad = out
+        image = polarized_kernel.poisoned_stokes(
+            nn_re, nn_im, flags, bad, positions, directions, frequencies,
+            params, geom, log_scale, fallback_nan)
+        return {**image, "_flags": flags, "_n_samples": n_samples}
 
+    render_fn.kernel = kernel
     render_fn.kernel_args = kernel_args
+    render_fn.kernel_kwargs = kernel_kwargs
     return render_fn, geom, rays, frequencies, mass_msun
 
 
 def render_simulation_image(cfg, snapshot: Optional[int] = None, *, device):
-    """Unpolarized simulation-model image of the root camera.
+    """Simulation-model image of the root camera (full-Stokes with
+    image_polarization).
 
     Returns (image_dict, camera_rays, frequencies, mass_msun).
     """

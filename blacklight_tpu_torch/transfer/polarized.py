@@ -1,0 +1,301 @@
+"""Polarized (full-Stokes IQUV) radiative transfer on tensors.
+
+Port of ``blacklight_tpu/transfer/polarized.py`` for the light-only
+image: the coherency-tensor bookkeeping (``_SYM``, ``_ANT``,
+``_transport_c``, ``_stokes_from_n``, ``_n_from_stokes``, :49-140),
+``_kcon_scalar`` (:202), ``camera_stokes`` (:143) and
+``integrate_polarized`` (:216-613) without its aux planes and stored
+samples. The reference is polarized.cpp:51-973.
+
+The state per ray and frequency is the Hermitian coherency tensor N^{mn},
+carried as 10 real-symmetric and 6 imaginary-antisymmetric components.
+Samples are taken far end first: the geodesic sweep keeps only each
+window's entering state (``ops/geodesic.segment_carries``) and replays
+one window at a time, so memory is O(S / W + W) in the S steps. Per
+sample: the previous sample's deferred second-half transport, the
+averaged first-half transport, the fluid tetrad, N -> Stokes, the matter
+coupling (``polarized_coupling.couple_matter_c``) and Stokes -> N.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from blacklight_tpu_torch.constants import Physics
+from blacklight_tpu_torch.ops import geodesic, geometry
+from blacklight_tpu_torch.ops.connection import transport_matrix_c
+from blacklight_tpu_torch.ops.tetrad import tetrad_rows_c
+from blacklight_tpu_torch.transfer.polarized_coupling import couple_matter_c
+
+# Steps per replayed window of the plain version (JAX's XLA default).
+WINDOW = 64
+
+_SYM = ((0, 0), (0, 1), (0, 2), (0, 3), (1, 1), (1, 2), (1, 3), (2, 2),
+        (2, 3), (3, 3))
+_ANT = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
+_SYM_POS = {}
+for _i, (_m, _n) in enumerate(_SYM):
+    _SYM_POS[(_m, _n)] = _i
+    _SYM_POS[(_n, _m)] = _i
+_ANT_POS = {mn: i for i, mn in enumerate(_ANT)}
+
+
+def _re_at(re, m, n):
+    return re[_SYM_POS[(m, n)]]
+
+
+def _im_at(im, m, n):
+    """Im N^{mn} with antisymmetry folded in; None where it is 0."""
+    if m == n:
+        return None
+    if m < n:
+        return im[_ANT_POS[(m, n)]]
+    return -im[_ANT_POS[(n, m)]]
+
+
+def _transport_c(a_mat, re, im, base_re, base_im, dl):
+    """Half-step parallel transport (polarized.cpp:174-192):
+    new = base - dl (A^m_b N^{bn} + A^n_b N^{mb}) per stored component."""
+    new_re = []
+    for i, (m, n) in enumerate(_SYM):
+        d = None
+        for bb in range(4):
+            t = a_mat[m][bb] * _re_at(re, bb, n) \
+                + a_mat[n][bb] * _re_at(re, m, bb)
+            d = t if d is None else d + t
+        new_re.append(base_re[i] - dl * d)
+    new_im = []
+    for i, (m, n) in enumerate(_ANT):
+        d = None
+        for bb in range(4):
+            v = _im_at(im, bb, n)
+            if v is not None:
+                t = a_mat[m][bb] * v
+                d = t if d is None else d + t
+            v = _im_at(im, m, bb)
+            if v is not None:
+                t = a_mat[n][bb] * v
+                d = t if d is None else d + t
+        new_im.append(base_im[i] - dl * d)
+    return tuple(new_re), tuple(new_im)
+
+
+def _stokes_from_n(e1, e2, re, im):
+    """Tetrad-frame (I, Q, U, V) from the coherency components
+    (polarized.cpp:264-292, I 14); e1, e2 are the covariant tetrad rows."""
+    nt00 = nt11 = nt01 = None
+    for m in range(4):
+        t00 = e1[m] * e1[m] * _re_at(re, m, m)
+        t11 = e2[m] * e2[m] * _re_at(re, m, m)
+        t01 = e1[m] * e2[m] * _re_at(re, m, m)
+        nt00 = t00 if nt00 is None else nt00 + t00
+        nt11 = t11 if nt11 is None else nt11 + t11
+        nt01 = t01 if nt01 is None else nt01 + t01
+    for m, n in _ANT:
+        r = re[_SYM_POS[(m, n)]]
+        nt00 = nt00 + 2.0 * e1[m] * e1[n] * r
+        nt11 = nt11 + 2.0 * e2[m] * e2[n] * r
+        nt01 = nt01 + (e1[m] * e2[n] + e1[n] * e2[m]) * r
+    s_v = None
+    for i, (m, n) in enumerate(_ANT):
+        t = (e2[m] * e1[n] - e2[n] * e1[m]) * im[i]
+        s_v = t if s_v is None else s_v + t
+    return (0.5 * (nt00 + nt11), 0.5 * (nt00 - nt11), nt01, s_v)
+
+
+def _n_from_stokes(t1, t2, s_i, s_q, s_u, s_v):
+    """Coherency components from tetrad-frame Stokes (I 13,
+    polarized.cpp:793-813); t1, t2 are the contravariant tetrad rows."""
+    ipq = s_i + s_q
+    imq = s_i - s_q
+    re = tuple(
+        t1[m] * t1[n] * ipq + (t1[m] * t2[n] + t2[m] * t1[n]) * s_u
+        + t2[m] * t2[n] * imq
+        for (m, n) in _SYM)
+    im = tuple(s_v * (t2[m] * t1[n] - t1[m] * t2[n]) for (m, n) in _ANT)
+    return re, im
+
+
+def _ks_f_l(x1, x2, x3, spin, mass):
+    """(f, (l1, l2, l3)) of the Kerr-Schild metric, as geometry.ks_scalars
+    forms them."""
+    _, f, l_lower = geometry.ks_scalars(torch.stack([x1, x2, x3], dim=-1),
+                                        spin, mass)
+    return f, l_lower.unbind(-1)
+
+
+def _kcon_scalar(pos, kcov, spin, mass, flat):
+    """g^{mn} k_n through the rank-1 Kerr-Schild structure; pos and kcov
+    are 4-tuples of components."""
+    if flat:
+        return (-kcov[0], kcov[1], kcov[2], kcov[3])
+    f, (l1, l2, l3) = _ks_f_l(pos[1], pos[2], pos[3], spin, mass)
+    lp = -kcov[0] + l1 * kcov[1] + l2 * kcov[2] + l3 * kcov[3]
+    flp = f * lp
+    return (-kcov[0] + flp, kcov[1] - flp * l1, kcov[2] - flp * l2,
+            kcov[3] - flp * l3)
+
+
+def camera_stokes(nn_re, nn_im, positions, directions, spin, mass, flat,
+                  frequencies, camera_u_con, camera_u_cov, camera_vert_con_c,
+                  log_j_scale):
+    """Camera-frame Stokes (polarized.cpp:846-949): the camera tetrad of
+    each pixel projects the final coherency components (nn_re (B, F, 10),
+    nn_im (B, F, 6)), times the nu^3 invariant scale. Returns (I, Q, U,
+    V), each (B, F)."""
+    b = positions.shape[0]
+    pos = positions.unbind(-1)
+    kcov = directions.unbind(-1)
+    kcon = _kcon_scalar(pos, kcov, spin, mass, flat)
+    u_con, u_cov, vert = camera_u_con, camera_u_cov, camera_vert_con_c
+    up_con = torch.cat([
+        (u_con[0] * vert[0] - (u_cov[1] * vert[1] + u_cov[2] * vert[2]
+                               + u_cov[3] * vert[3]) / u_cov[0])[None],
+        vert[1:] + u_con[1:] * vert[0]]).to(positions.dtype)
+
+    def each(v):
+        return tuple(v[m].expand(b) for m in range(4))
+
+    if flat:
+        f_cam = torch.zeros_like(pos[0])
+        l_cam = (f_cam, f_cam, f_cam)
+    else:
+        f_cam, l_cam = _ks_f_l(pos[1], pos[2], pos[3], spin, mass)
+    _, _, e1, e2 = tetrad_rows_c(
+        each(u_con.to(positions.dtype)), kcon, kcov, each(up_con), f_cam,
+        l_cam, ucov=each(u_cov.to(positions.dtype)))
+    e1 = [c[:, None] for c in e1]
+    e2 = [c[:, None] for c in e2]
+    s_i, s_q, s_u, s_v = _stokes_from_n(e1, e2, nn_re.unbind(-1),
+                                        nn_im.unbind(-1))
+    scale = torch.exp(torch.tensor(log_j_scale, dtype=positions.dtype,
+                                   device=positions.device)
+                      + 3.0 * torch.log(frequencies[None, :]))
+    return s_i * scale, s_q * scale, s_u * scale, s_v * scale
+
+
+def integrate_polarized(positions, directions, momentum_factors, frequencies,
+                        *, params: geodesic.GeodesicParams, integrator: str,
+                        coeff_fn: Callable, mass_msun: float,
+                        rotation_split: bool, window: int = WINDOW):
+    """Full-Stokes transfer over a ray bundle, light image only.
+
+    coeff_fn(pos, kcov) takes 4-tuples of (B,) components and returns a
+    dict with (B, F) j_i/j_q/j_v (scaled as models/synchrotron does),
+    alpha_i/alpha_q/alpha_v, rho_q/rho_v and "bad" (samples the reference
+    would NaN, coefficients zeroed there), the 4-tuples "ucon" and "bcon"
+    and the (B,) "b_zero".
+
+    Returns (nn_re (B, F, 10), nn_im (B, F, 6), flags (B,) bool,
+    n_samples (B,) int32, bad (B, F) bool): the coherency components at
+    the camera end, before ``camera_stokes``.
+    """
+    b, nf = positions.shape[0], frequencies.shape[0]
+    dtype, device = positions.dtype, positions.device
+    spin, mass, flat = params.bh_a, params.bh_m, params.ray_flat
+    x_unit = Physics.gg_msun * mass_msun / (Physics.c * Physics.c)
+    starts, flags, n_samples = geodesic.segment_carries(
+        positions, directions, params, integrator, window)
+    p0 = directions[:, 0]
+    mom = momentum_factors[:, None]
+    nus = frequencies[None, :]
+
+    zero_bf = torch.zeros((b, nf), dtype=dtype, device=device)
+    zero_b = torch.zeros(b, dtype=dtype, device=device)
+    st = {"re": (zero_bf,) * 10, "im": (zero_bf,) * 6,
+          "bad": torch.zeros((b, nf), dtype=torch.bool, device=device),
+          "started": torch.zeros(b, dtype=torch.bool, device=device),
+          "pos_pv": tuple(positions.unbind(-1)), "dl_pv": zero_b,
+          "kcon_pv": (zero_b,) * 4,
+          "a_prev": tuple((zero_b,) * 4 for _ in range(4))}
+
+    def col(v):
+        return v[:, None]
+
+    def update(sample):
+        active, pos, kcov, h = sample
+        first = active & ~st["started"]
+        pos_pv, dl_pv, kcon_prev = st["pos_pv"], st["dl_pv"], st["kcon_pv"]
+        dl_cur = -h
+        dl_cgs = col(dl_cur) * x_unit / (nus * mom)
+
+        # transport matrices; the averaged first-half matrix expands by
+        # bilinearity: 0.5 A(prev, k_old) + 0.25 A(cur, k_prev)
+        # + 0.25 A(cur, k)
+        kcon = _kcon_scalar(pos, kcov, spin, mass, flat)
+        kcon_old = tuple(torch.where(first, kcon[m],
+                                     0.5 * (kcon_prev[m] + kcon[m]))
+                         for m in range(4))
+        derivs = None if flat else geometry.ks_derivatives_c(
+            pos[1], pos[2], pos[3], spin, mass)
+        a_cur_k = transport_matrix_c(pos[1], pos[2], pos[3], *kcon, spin,
+                                     mass, flat=flat, derivs=derivs)
+        a_cur_kprev = transport_matrix_c(pos[1], pos[2], pos[3], *kcon_prev,
+                                         spin, mass, flat=flat, derivs=derivs)
+        a_prev_kold = transport_matrix_c(pos_pv[1], pos_pv[2], pos_pv[3],
+                                         *kcon_old, spin, mass, flat=flat)
+        a_half = [[col(torch.where(first, a_cur_k[m][n],
+                                   0.5 * a_prev_kold[m][n]
+                                   + 0.25 * a_cur_kprev[m][n]
+                                   + 0.25 * a_cur_k[m][n]))
+                   for n in range(4)] for m in range(4)]
+
+        # the previous sample's deferred second half (its step is this
+        # sample's), then this sample's first half
+        a_prev = [[col(v) for v in row] for row in st["a_prev"]]
+        nn_sec = _transport_c(a_prev, st["re"], st["im"], st["re"], st["im"],
+                              col(0.25 * (dl_pv + dl_cur)))
+        dl_local = 0.5 * (torch.where(first, 0.0, dl_pv) + dl_cur)
+        nn_re, nn_im = _transport_c(a_half, *nn_sec, st["re"], st["im"],
+                                    col(dl_local))
+
+        coeffs = coeff_fn(pos, kcov)
+        st["bad"] = st["bad"] | (col(active) & coeffs["bad"])
+        if flat:
+            f_ks = torch.zeros_like(pos[0])
+            l_ks = (f_ks, f_ks, f_ks)
+        else:
+            _, f_ks, l_ks, _, _ = derivs
+        upcon = tuple(torch.where(coeffs["b_zero"], 1.0 if m == 3 else 0.0,
+                                  coeffs["bcon"][m]) for m in range(4))
+        t1, t2, e1, e2 = tetrad_rows_c(coeffs["ucon"], kcon, kcov, upcon,
+                                       f_ks, l_ks)
+        stokes = _stokes_from_n([col(c) for c in e1], [col(c) for c in e2],
+                                nn_re, nn_im)
+        stokes = couple_matter_c(
+            *stokes, coeffs["j_i"], coeffs["j_q"], coeffs["j_v"],
+            coeffs["alpha_i"], coeffs["alpha_q"], coeffs["alpha_v"],
+            coeffs["rho_q"], coeffs["rho_v"], dl_cgs, rotation_split)
+        post_re, post_im = _n_from_stokes([col(c) for c in t1],
+                                          [col(c) for c in t2], *stokes)
+
+        act = col(active)
+        st["re"] = tuple(torch.where(act, n, o)
+                         for n, o in zip(post_re, st["re"]))
+        st["im"] = tuple(torch.where(act, n, o)
+                         for n, o in zip(post_im, st["im"]))
+        st["a_prev"] = tuple(tuple(torch.where(active, a_cur_k[m][n],
+                                               st["a_prev"][m][n])
+                                   for n in range(4)) for m in range(4))
+        st["kcon_pv"] = tuple(torch.where(active, kcon[m], kcon_prev[m])
+                              for m in range(4))
+        st["pos_pv"] = tuple(torch.where(active, pos[m], pos_pv[m])
+                             for m in range(4))
+        st["dl_pv"] = torch.where(active, dl_cur, dl_pv)
+        st["started"] = st["started"] | active
+
+    for k in reversed(range(len(starts))):
+        for sample in reversed(geodesic.replay_window(
+                starts[k], p0, params, integrator, k, window)):
+            # a step with no valid sample leaves every accumulator as it is
+            if bool(sample.valid.any()):
+                update(sample)
+
+    # the camera end: the nearest sample's second half, with its own step
+    a_prev = [[col(v) for v in row] for row in st["a_prev"]]
+    nn_re, nn_im = _transport_c(a_prev, st["re"], st["im"], st["re"],
+                                st["im"], col(0.5 * st["dl_pv"]))
+    return (torch.stack(nn_re, dim=-1), torch.stack(nn_im, dim=-1), flags,
+            n_samples, st["bad"])

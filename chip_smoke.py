@@ -13,25 +13,57 @@ and prints no final line):
 2. build: compile csrc/*.cu with nvcc (one process per source, all at
    once), report registers, spills and the FP64 instructions of each
    kernel instantiation;
-3. formula kernel against its plain PyTorch version on the card, 128^2
-   camera, identical rays: dp float32/float64, rk4 float64, rk2 float32;
+3. checks, each kernel against its plain PyTorch version on identical
+   rays, WORKERS processes at once on the one card (the plain versions
+   are bound by the host's launches, so they overlap; their times here
+   are not comparable with a lone run):
+   - formula, 128^2 camera on golden_formula_32.input: dp float32/float64,
+     rk4 float64, rk2 float32;
+   - simulation, 128^2 camera on golden_sim_rk4_32.input with
+     mock_small.athdf: rk4 float64, rk2 float32, dp float32/float64;
+   - polarized, 64^2 camera on golden_polarized_rk4_32.input with
+     mock_small.athdf (ray_step 0.04, 400 steps), camera-frame I, Q, U,
+     V: rk4 float64, dp float32, rk2 float32 with image_rotation_split
+     and two frequencies; each float32 case also against the plain
+     version in float64 on the same rays (truth_gate);
+   - the plain polarized version in float64 on 4,096 rays of phase 9's
+     main path, which phase 9 holds its float32 kernel against;
 4. the 32^2 formula goldens through pipeline.run(cfg, device="cuda") at
    the tolerances of tests/test_formula_e2e.py;
 5. the formula main path at full width: golden_formula_32.input at
    1024^2, dp, float32 through pipeline.run, counting kernel launches;
    then kernel times (rays/s) at 1024^2 in float32 and float64, and the
    plain version's in float32;
-6. simulation kernel against its plain version, 128^2 camera on
-   golden_sim_rk4_32.input with mock_small.athdf, identical rays: rk4
-   float64, rk2 float32, dp float32/float64;
-7. the 32^2 simulation goldens through pipeline.run(cfg, device="cuda"),
+6. the 32^2 simulation goldens through pipeline.run(cfg, device="cuda"),
    reading the .athdf file, at the tolerances of
    tests/test_simulation_e2e.py;
-8. the simulation main path at full width: a 288 x 128 x 128 (r, theta,
+7. the simulation main path at full width: a 288 x 128 x 128 (r, theta,
    phi) SKS snapshot (the grid of the EHT GRMHD image library), 1024^2
    camera, rk4, 2000 steps, float32 through pipeline.run, counting kernel
    launches; then kernel times at 1024^2 in float32 rk4, float64 rk4 and
-   float32 dp, and the plain version's in float32 rk4.
+   float32 dp, and the plain version's in float32 rk4;
+8. the 32^2 polarized goldens through pipeline.run(cfg, device="cuda"),
+   reading the .athdf file, at the tolerances of
+   tests/test_polarized_e2e.py;
+9. the polarized main path at full width: phase 7's snapshot, 1024^2
+   camera, rk4, 2000 steps, float32, one frequency through pipeline.run,
+   counting kernel launches; then kernel times at 1024^2 in float32 rk4,
+   float64 rk4 and float32 dp, the plain version's in float32 rk4 on
+   4,096 of the same rays (every PLAIN_STRIDE-th; held to the kernel and
+   both to phase 3's float64 run), and one launch at WINDOW_CHECK steps
+   per window that must give the same image bit for bit.
+
+Phases 4 to 9 run alone on the card, after phase 3.
+
+``python3 chip_smoke.py --window-sweep`` runs phases 1 and 2, then times
+the polarized kernel at 1024^2 (float32 rk4) for each window W from 32 to
+512 steps: how polarized_kernel.WINDOW was chosen.
+
+Each kernel's bound is the least time the card could take for the same
+work: the larger of its bytes (each input read once, each output written
+once) over the memory rate and its floating-point operations over the
+peak rate of its type. The operations are this run's mean samples per ray
+times hand counts per step and per sample (OPS_PER_STEP, OPS_PER_SAMPLE).
 
 Every line but the last two is a JSON object with the measurements; then
 come the card's name and power limit, and the last line is
@@ -40,7 +72,9 @@ come the card's name and power limit, and the last line is
 
 from __future__ import annotations
 
+import argparse
 import json
+import multiprocessing
 import pathlib
 import re
 import shutil
@@ -57,6 +91,40 @@ KERNEL_SOURCE = "blacklight_tpu_torch/csrc/formula_kernel.cuh"
 KERNEL_REPLACES = "blacklight_tpu/ops/pallas_formula.py:192"
 SIM_KERNEL_SOURCE = "blacklight_tpu_torch/csrc/simulation_kernel.cuh"
 SIM_KERNEL_REPLACES = "blacklight_tpu/ops/pallas_simulation.py:795"
+POL_KERNEL_SOURCE = "blacklight_tpu_torch/csrc/polarized_kernel.cuh"
+POL_KERNEL_REPLACES = "blacklight_tpu/ops/pallas_polarized.py:286"
+# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s and
+# floating-point operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
+# Floating-point operations, counted by hand from the CUDA sources (an
+# add, multiply, divide, square root, compare-and-select or transcendental
+# is one; about +-30 %): per geodesic step of each integrator (dp: per
+# attempt), and per stored sample of each kernel at one frequency. The
+# polarized sample counts its fluid state, three transport matrices and
+# the tetrad once and POL_OPS_PER_FREQUENCY per frequency; its every step
+# runs twice (sweep A and the replay).
+OPS_PER_STEP = {"rk4": 830, "rk2": 500, "dp": 2020}
+OPS_PER_SAMPLE = {"formula": 130, "simulation": 495, "polarized": 2740}
+POL_OPS_PER_FREQUENCY = 1090
+# V's gate for the kernel against its plain version in float64 rk4/rk2
+# (polarized_gate).
+V_EXACT_RTOL = 5e-5
+# truth_gate (tests/test_pallas_polarized.py:99-119): the float32 kernel's
+# error against the float64 plain version stays within this factor of the
+# float32 plain version's, plus about one float32 ulp of I's peak.
+TRUTH_FACTOR = 3.0
+TRUTH_SLACK = 1e-7
+# Processes that run phase 3's checks at once: each plain version spends
+# its time launching small kernels from one host core, so several overlap
+# on one card (an H100 host has 8 cores).
+WORKERS = 6
+# Phase 9: the plain version runs on every PLAIN_STRIDE-th ray of the
+# 1024^2 bundle, and one launch with WINDOW_CHECK steps per window (31
+# windows at 2000 steps) must reproduce the image bit for bit.
+PLAIN_STRIDE = 256
+WINDOW_CHECK = 64
+STOKES = ("I_nu", "Q_nu", "U_nu", "V_nu")
 # the full-width snapshot: the EHT GRMHD image library's grid (EHT M87*
 # Paper V) over mock_small.athdf's radii, as scripts/bench_simulation.py
 # builds its mock
@@ -134,8 +202,8 @@ def _ptxas_table(report: str) -> dict:
 
 
 def _kernel_label(mangled: str) -> str:
-    m = re.search(r"(formula|simulation)_kernelI([fd])Li(\d)E(?:Li(\d+)E)?",
-                  mangled)
+    m = re.search(r"(formula|simulation|polarized)_kernelI([fd])Li(\d)E"
+                  r"(?:Li(\d+)E)?", mangled)
     if not m:
         return mangled
     kind, tp, integrator, nf = m.groups()
@@ -175,12 +243,14 @@ def _sass_fp64(lib_path) -> dict:
 def phase_build():
     from blacklight_tpu_torch.ops import _build
     from blacklight_tpu_torch.ops import formula_kernel as fk
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
     from blacklight_tpu_torch.ops import simulation_kernel as sk
     t0 = time.perf_counter()
     path = _build.build()
     build_s = time.perf_counter() - t0
     fk._library()
     sk._library()
+    pk._library()
     emit("build", seconds=build_s, library=path.name,
          ptxas=_ptxas_table(_build.ptxas_report()), fp64_sass=_sass_fp64(path))
 
@@ -220,37 +290,69 @@ def _timed(fn, *args, **kwargs):
     return out, time.perf_counter() - t0
 
 
-def phase_kernel_vs_plain():
+def phase_checks(pool) -> tuple:
+    """Phase 3 on ``pool``: every check at once, longest first; emits each
+    result in that order and raises at the first that failed. Returns
+    phase 9's float64 reference (positions, Stokes)."""
+    t0 = time.perf_counter()
+    truth = pool.apply_async(pol_full_width_truth)
+    checks = [pool.apply_async(fn, args) for fn, args in (
+        (check_formula, ("dp", "float32")),
+        (check_formula, ("dp", "float64")),
+        (check_polarized, ("dp", "float32", False, 1)),
+        (check_polarized, ("rk2", "float32", True, 2)),
+        (check_formula, ("rk4", "float64")),
+        (check_simulation, ("dp", "float32")),
+        (check_simulation, ("dp", "float64")),
+        (check_polarized, ("rk4", "float64", False, 1)),
+        (check_formula, ("rk2", "float32")),
+        (check_simulation, ("rk4", "float64")),
+        (check_simulation, ("rk2", "float32")))]
+    for check in checks:
+        phase, result = check.get()
+        emit(phase, workers=WORKERS, **result)
+        if not result["ok"]:
+            raise RuntimeError(f"{phase}: kernel disagrees with plain: "
+                               f"{result}")
+    truth = truth.get()
+    emit("checks", workers=WORKERS, seconds=time.perf_counter() - t0)
+    return truth
+
+
+def _check_exact(kernel_out, plain_out, rtol) -> dict:
+    """The unpolarized gates on identical rays: in rk4/rk2 float64
+    identical flags, n_samples and NaN sets and I within ``rtol``;
+    otherwise the statistical gate (bench.py:181-186)."""
     import numpy as np
     import torch
+    (ik, fk_, nk), (ip, fp_, np_) = kernel_out, plain_out
+    a, b = ik[:, 0].cpu().numpy(), ip[:, 0].cpu().numpy()
+    gate = statistical_gate(a, b)
+    result = dict(rays=a.size, max_n_samples=int(np_.max()), **gate)
+    if rtol is None:
+        result["gate"] = "statistical (bench.py:181-186)"
+        return result
+    exact = (bool(np.array_equal(np.isnan(a), np.isnan(b)))
+             and torch.equal(fk_.cpu(), fp_.cpu())
+             and torch.equal(nk.cpu(), np_.cpu()))
+    close = bool(np.allclose(a, b, rtol=rtol, atol=0.0, equal_nan=True))
+    result.update(gate=f"exact flags/n_samples/NaN, rtol {rtol:g}",
+                  ok=exact and close)
+    return result
+
+
+def check_formula(integrator, precision) -> tuple:
+    """The formula kernel against its plain version, 128^2."""
     from blacklight_tpu_torch.ops import formula_kernel as fk
-    cases = [("dp", "float32"), ("dp", "float64"), ("rk4", "float64"),
-             ("rk2", "float32")]
-    for integrator, precision in cases:
-        cfg = _config("golden_formula_32.input", camera_resolution=128,
-                      ray_integrator=integrator, precision=precision)
-        args, kwargs = _renderer(cfg)
-        (ik, fk_, nk), t_k = _timed(fk.render_formula, *args, **kwargs)
-        (ip, fp_, np_), t_p = _timed(fk.render_formula_reference, *args,
-                                     **kwargs)
-        a, b = ik[:, 0].cpu().numpy(), ip[:, 0].cpu().numpy()
-        gate = statistical_gate(a, b)
-        result = dict(integrator=integrator, precision=precision,
-                      rays=a.size, kernel_s=t_k, plain_s=t_p,
-                      max_n_samples=int(np_.max()), **gate)
-        if integrator != "dp" and precision == "float64":
-            exact = (bool(np.array_equal(np.isnan(a), np.isnan(b)))
-                     and torch.equal(fk_.cpu(), fp_.cpu())
-                     and torch.equal(nk.cpu(), np_.cpu()))
-            close = bool(np.allclose(a, b, rtol=1e-9, atol=0.0,
-                                     equal_nan=True))
-            result.update(gate="exact flags/n_samples/NaN, rtol 1e-9",
-                          ok=exact and close)
-        else:
-            result["gate"] = "statistical (bench.py:181-186)"
-        emit("kernel_vs_plain", **result)
-        if not result["ok"]:
-            raise RuntimeError(f"kernel disagrees with plain: {result}")
+    cfg = _config("golden_formula_32.input", camera_resolution=128,
+                  ray_integrator=integrator, precision=precision)
+    args, kwargs = _renderer(cfg)
+    out_k, t_k = _timed(fk.render_formula, *args, **kwargs)
+    out_p, t_p = _timed(fk.render_formula_reference, *args, **kwargs)
+    exact = integrator != "dp" and precision == "float64"
+    return "kernel_vs_plain", dict(
+        integrator=integrator, precision=precision, kernel_s=t_k,
+        plain_s=t_p, **_check_exact(out_k, out_p, 1e-9 if exact else None))
 
 
 def phase_goldens(tmp: pathlib.Path):
@@ -293,12 +395,14 @@ def phase_full_width(tmp: pathlib.Path, card: str) -> dict:
     import numpy as np
     from blacklight_tpu_torch import pipeline
     from blacklight_tpu_torch.ops import formula_kernel as fk
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
 
     res = 1024
     cfg = _config("golden_formula_32.input", camera_resolution=res,
                   precision="float32", ray_integrator="dp",
                   output_file=str(tmp / "full_width.npz"))
-    fk.LAUNCHES = 0
+    fk.LAUNCHES = sk.LAUNCHES = pk.LAUNCHES = 0
     t0 = time.perf_counter()
     arrays = pipeline.run(cfg, quiet=True, device="cuda")
     run_s = time.perf_counter() - t0
@@ -307,8 +411,9 @@ def phase_full_width(tmp: pathlib.Path, card: str) -> dict:
     if image.shape != (res, res) or not np.isfinite(np.nanmax(image)):
         raise RuntimeError("full-width image is not finite or has the wrong "
                            "shape")
-    if launches == 0:
-        raise RuntimeError("the main path launched no formula kernel")
+    if launches == 0 or sk.LAUNCHES or pk.LAUNCHES:
+        raise RuntimeError("the formula main path launched no formula "
+                           "kernel, or another kernel")
     emit("main_path", resolution=res, precision="float32", integrator="dp",
          seconds=run_s, launches=launches, nan_pixels=int(np.isnan(image).sum()),
          max_I_nu=float(np.nanmax(image)))
@@ -328,7 +433,10 @@ def phase_full_width(tmp: pathlib.Path, card: str) -> dict:
     return {"name": "formula_kernel", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
             "launches": launches, "max_abs_err": f32["max_abs_err"],
-            "ms": f32["kernel_ms"], "plain_ms": f32["plain_ms"]}
+            "ms": f32["kernel_ms"], "plain_ms": f32["plain_ms"],
+            **bound("formula", "dp", "float32", res * res,
+                    f32["mean_n_samples"], in_bytes=0, out_values=1),
+            "library_ms": None}
 
 
 def time_kernel(phase, kernel, plain, args, kwargs, res, card, **fields):
@@ -343,7 +451,8 @@ def time_kernel(phase, kernel, plain, args, kwargs, res, card, **fields):
         (ik, _, nk), t = _timed(kernel, *args, **kwargs)
         times.append(t)
     t_kernel, n = min(times), res * res
-    out = {"kernel_ms": t_kernel * 1e3, "plain_ms": None, "max_abs_err": None}
+    out = {"kernel_ms": t_kernel * 1e3, "plain_ms": None, "max_abs_err": None,
+           "mean_n_samples": float(nk.double().mean())}
     extra = {}
     if plain is not None:
         (ip, _, _), t_plain = _timed(plain, *args, **kwargs)
@@ -392,37 +501,18 @@ def _sim_args(cfg, grid=None):
     return args, {"integrator": cfg.require("ray_integrator").value}
 
 
-def phase_sim_kernel_vs_plain():
-    import numpy as np
-    import torch
+def check_simulation(integrator, precision) -> tuple:
+    """The simulation kernel against its plain version, 128^2."""
     from blacklight_tpu_torch.ops import simulation_kernel as sk
-    for integrator, precision in (("rk4", "float64"), ("rk2", "float32"),
-                                  ("dp", "float32"), ("dp", "float64")):
-        cfg = _sim_config(camera_resolution=128, ray_integrator=integrator,
-                          precision=precision)
-        args, kwargs = _sim_args(cfg)
-        (ik, fk_, nk), t_k = _timed(sk.render_simulation, *args, **kwargs)
-        (ip, fp_, np_), t_p = _timed(sk.render_simulation_reference, *args,
-                                     **kwargs)
-        a, b = ik[:, 0].cpu().numpy(), ip[:, 0].cpu().numpy()
-        gate = statistical_gate(a, b)
-        result = dict(integrator=integrator, precision=precision,
-                      rays=a.size, kernel_s=t_k, plain_s=t_p,
-                      max_n_samples=int(np_.max()), **gate)
-        if integrator != "dp" and precision == "float64":
-            exact = (bool(np.array_equal(np.isnan(a), np.isnan(b)))
-                     and torch.equal(fk_.cpu(), fp_.cpu())
-                     and torch.equal(nk.cpu(), np_.cpu()))
-            close = bool(np.allclose(a, b, rtol=1e-7, atol=0.0,
-                                     equal_nan=True))
-            result.update(gate="exact flags/n_samples/NaN, max rel 1e-7",
-                          ok=exact and close)
-        else:
-            result["gate"] = "statistical (bench.py:181-186)"
-        emit("sim_kernel_vs_plain", **result)
-        if not result["ok"]:
-            raise RuntimeError(f"simulation kernel disagrees with plain: "
-                               f"{result}")
+    cfg = _sim_config(camera_resolution=128, ray_integrator=integrator,
+                      precision=precision)
+    args, kwargs = _sim_args(cfg)
+    out_k, t_k = _timed(sk.render_simulation, *args, **kwargs)
+    out_p, t_p = _timed(sk.render_simulation_reference, *args, **kwargs)
+    exact = integrator != "dp" and precision == "float64"
+    return "sim_kernel_vs_plain", dict(
+        integrator=integrator, precision=precision, kernel_s=t_k,
+        plain_s=t_p, **_check_exact(out_k, out_p, 1e-7 if exact else None))
 
 
 def phase_sim_goldens(tmp: pathlib.Path):
@@ -478,21 +568,23 @@ def full_width_snapshot(dtype):
         device=torch.device("cuda", torch.cuda.current_device()), dtype=dtype)
 
 
-def phase_sim_full_width(tmp: pathlib.Path, card: str) -> dict:
+def phase_sim_full_width(tmp: pathlib.Path, card: str, grids: dict) -> dict:
     import numpy as np
     import torch
     from blacklight_tpu_torch import pipeline
     from blacklight_tpu_torch.ops import formula_kernel as fk
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
     from blacklight_tpu_torch.ops import simulation_kernel as sk
 
     res = 1024
     t0 = time.perf_counter()
-    grids = {"float32": full_width_snapshot(torch.float32)}
+    if "float32" not in grids:
+        grids["float32"] = full_width_snapshot(torch.float32)
     t_grid = time.perf_counter() - t0
     cfg = _sim_config(camera_resolution=res, precision="float32",
                       ray_integrator="rk4", ray_max_steps=2000,
                       output_file=str(tmp / "sim_full_width.npz"))
-    fk.LAUNCHES = sk.LAUNCHES = 0
+    fk.LAUNCHES = sk.LAUNCHES = pk.LAUNCHES = 0
     t0 = time.perf_counter()
     arrays = pipeline.run(cfg, quiet=True, device="cuda",
                           grid=grids["float32"])
@@ -502,7 +594,7 @@ def phase_sim_full_width(tmp: pathlib.Path, card: str) -> dict:
     if image.shape != (res, res) or not np.isfinite(np.nanmax(image)):
         raise RuntimeError("full-width simulation image is not finite or has "
                            "the wrong shape")
-    if launches == 0:
+    if launches == 0 or fk.LAUNCHES or pk.LAUNCHES:
         raise RuntimeError("the simulation main path launched no simulation "
                            "kernel")
     nvar, _, n_k, n_j, n_i = grids["float32"].prim.shape
@@ -532,22 +624,462 @@ def phase_sim_full_width(tmp: pathlib.Path, card: str) -> dict:
     return {"name": "simulation_kernel", "route": "cuda",
             "source": SIM_KERNEL_SOURCE, "replaces": SIM_KERNEL_REPLACES,
             "launches": launches, "max_abs_err": f32["max_abs_err"],
-            "ms": f32["kernel_ms"], "plain_ms": f32["plain_ms"]}
+            "ms": f32["kernel_ms"], "plain_ms": f32["plain_ms"],
+            **bound("simulation", "rk4", "float32", res * res,
+                    f32["mean_n_samples"], in_bytes=grid_bytes(grids["float32"]),
+                    out_values=1),
+            "library_ms": None}
 
 
-def main() -> int:
+def grid_bytes(grid) -> int:
+    """Bytes the kernels read of a snapshot: the (k, j, i, 8) float32
+    table and the coordinates."""
+    nvar, _, n_k, n_j, n_i = grid.prim.shape
+    item = grid.x1f.element_size()
+    return 32 * n_k * n_j * n_i + item * (2 * (n_i + n_j + n_k) + 3)
+
+
+def bound(kernel, integrator, precision, rays, mean_samples, *, in_bytes,
+          out_values, frequencies=1, extra_out_bytes=8) -> dict:
+    """The least time the card could take for a launch's work: the larger
+    of its bytes over HBM_BYTES_PER_S (rays, momentum factors and
+    ``in_bytes`` read once; ``out_values`` values of the working type and
+    ``extra_out_bytes`` per ray written once) and its operations over the
+    type's peak (mean samples per ray standing in for the steps)."""
+    item = 4 if precision == "float32" else 8
+    n_bytes = rays * (9 * item + out_values * item + extra_out_bytes) + in_bytes
+    per_sample = OPS_PER_STEP[integrator] + OPS_PER_SAMPLE[kernel]
+    if kernel == "polarized":
+        per_sample += OPS_PER_STEP[integrator] \
+            + POL_OPS_PER_FREQUENCY * frequencies
+    ops = rays * mean_samples * per_sample
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[precision]
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "bound_ops": ops, "bound_bytes": n_bytes}
+
+
+def _pol_config(name="golden_polarized_rk4_32.input", **overrides):
+    return _sim_config(name, **overrides)
+
+
+def _pol_args(cfg, grid=None):
+    """The polarized renderer's rays, kernel arguments and keywords on the
+    card, and its camera geometry."""
+    from blacklight_tpu_torch.pipeline_simulation import (
+        make_simulation_renderer)
+    render_fn, geom, rays, freqs, mass_msun = make_simulation_renderer(
+        cfg, device="cuda", grid=grid)
+    args = (rays.positions, rays.directions, rays.momentum_factors,
+            *render_fn.kernel_args)
+    return args, dict(render_fn.kernel_kwargs), geom
+
+
+def _pol_stokes(out, args, geom, fallback_nan) -> dict:
+    """Camera-frame I, Q, U, V (B, F) on the host from render_polarized's
+    output, NaN-poisoned as the pipeline does."""
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    nn_re, nn_im, flags, _, bad = out
+    positions, directions, _, freqs, params = args[:5]
+    image = pk.poisoned_stokes(nn_re, nn_im, flags, bad, positions,
+                               directions, freqs, params, geom, args[-1],
+                               fallback_nan)
+    return {k: v.cpu().numpy() for k, v in image.items()}
+
+
+def polarized_gate(ours: dict, ref: dict, exact: bool) -> dict:
+    """Kernel against plain on identical rays, each frequency scaled by its
+    own peak of I. exact (rk4/rk2 float64): identical NaN sets and I, Q, U
+    each within max rel 1e-7 with the per-channel floor of
+    tests/test_polarized_e2e.py:40 (the channel's peak x 1e-4, at least
+    I's peak x 1e-8); V within max rel V_EXACT_RTOL with that floor and
+    |delta V| / max|I| below 1e-9. The Faraday rotation amplifies rounding
+    into V most: a 1e-15 relative change of the camera rays moves the
+    plain version's own V by 1e-8 (8^2, CPU), and the card measured
+    7.0e-6 at 64^2 (PERF.md). Otherwise (dp, float32): identical NaN
+    sets; I, Q, U, V with |delta| / max|I| below 1e-3 at the 99.5th
+    percentile and 1e-2 at the maximum; I's flux within 1e-3. bench.py's
+    share of pixels past 1e-3 relative is recorded, not gated: float32
+    polarized transfer rounds differently pixel by pixel wherever the
+    Faraday rotation is deep, in the plain version as in the kernel
+    (truth_gate holds both to the float64 plain version; PERF.md)."""
+    import numpy as np
+    i_scale = np.nanmax(np.abs(ref["I_nu"]), axis=0)
+    out = {"same_nan": all(bool(np.array_equal(np.isnan(ours[k]),
+                                               np.isnan(ref[k])))
+                           for k in ref)}
+    ok = out["same_nan"]
+    for k in STOKES:
+        a, b = ours[k], ref[k]
+        floor = np.maximum(np.nanmax(np.abs(b), axis=0) * 1e-4,
+                           i_scale * 1e-8)
+        rel = np.abs(a - b) / (np.abs(b) + floor)
+        frac = np.abs(a - b) / i_scale
+        out[k] = {"max_rel_floor": float(np.nanmax(rel)),
+                  "frac_p99_5": float(np.nanpercentile(frac, 99.5)),
+                  "frac_max": float(np.nanmax(frac))}
+        if exact:
+            ok = ok and out[k]["max_rel_floor"] <= (
+                V_EXACT_RTOL if k == "V_nu" else 1e-7)
+            if k == "V_nu":
+                ok = ok and out[k]["frac_max"] <= 1e-9
+        else:
+            ok = ok and out[k]["frac_p99_5"] < 1e-3 and out[k]["frac_max"] < 1e-2
+    if not exact:
+        for f in range(ref["I_nu"].shape[1]):
+            gate = statistical_gate(ours["I_nu"][:, f], ref["I_nu"][:, f])
+            del gate["ok"]
+            out[f"I_statistical_{f}"] = gate
+            ok = ok and gate["same_nan"] and gate["flux_rel"] < 1e-3
+    out["max_abs_err"] = max(float(np.nanmax(np.abs(ours[k] - ref[k])))
+                             for k in ref)
+    out["ok"] = bool(ok)
+    return out
+
+
+def truth_gate(ours: dict, ref: dict, truth: dict) -> dict:
+    """The float32 kernel (``ours``) and the float32 plain version
+    (``ref``) each against the plain version in float64 (``truth``) on the
+    same rays, as tests/test_pallas_polarized.py:99-119 holds the TPU
+    kernel's coupling: per frequency and channel, |x - truth| over that
+    frequency's peak |I| on the pixels finite in all three; the kernel's
+    max and mean within TRUTH_FACTOR times the plain version's plus
+    TRUTH_SLACK."""
+    import numpy as np
+    out, ok = {}, True
+    for f in range(truth["I_nu"].shape[1]):
+        scale = float(np.nanmax(np.abs(truth["I_nu"][:, f])))
+        finite = np.all([np.isfinite(x[k][:, f]) for x in (ours, ref, truth)
+                         for k in STOKES], axis=0)
+        out[f"pixels_{f}"] = int(finite.sum())
+        if not finite.any():
+            ok = False
+            continue
+        for k in STOKES:
+            t = truth[k][finite, f]
+            e_k = np.abs(ours[k][finite, f] - t) / scale
+            e_p = np.abs(ref[k][finite, f] - t) / scale
+            entry = {"kernel_max": float(e_k.max()),
+                     "plain_max": float(e_p.max()),
+                     "kernel_mean": float(e_k.mean()),
+                     "plain_mean": float(e_p.mean())}
+            ok = ok and all(entry[f"kernel_{s}"] <= TRUTH_FACTOR
+                            * entry[f"plain_{s}"] + TRUTH_SLACK
+                            for s in ("max", "mean"))
+            out[f"{k}_{f}"] = entry
+    out["ok"] = bool(ok)
+    return out
+
+
+def _pol_truth(cfg64, args, grid=None) -> dict:
+    """Camera-frame Stokes of the plain version in float64 (``cfg64``;
+    ``grid`` the float64 snapshot, None reads cfg64's) on the float32 rays
+    and frequencies of ``args`` (a render_polarized argument tuple),
+    widened, with its log_j_scale."""
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    args64, kwargs, geom = _pol_args(cfg64, grid)
+    args64 = (*(a.double() for a in args[:4]), *args64[4:-1], args[-1])
+    return _pol_stokes(pk.render_polarized_reference(*args64, **kwargs),
+                       args64, geom, True)
+
+
+def _pol_case_config(integrator, precision, split, nf):
+    """Phase 3's polarized case: 64^2, 400 steps of 0.04; two or more
+    frequencies log-spaced over 150-460 GHz."""
+    from blacklight_tpu_torch.constants import FrequencySpacing
+    overrides = dict(camera_resolution=64, ray_integrator=integrator,
+                     precision=precision, ray_step=0.04, ray_max_steps=400,
+                     image_rotation_split=split)
+    if nf > 1:
+        overrides.update(image_num_frequencies=nf,
+                         image_frequency_start=1.5e11,
+                         image_frequency_end=4.6e11,
+                         image_frequency_spacing=FrequencySpacing.log)
+    return _pol_config(**overrides)
+
+
+def check_polarized(integrator, precision, split, nf) -> tuple:
+    """The polarized kernel against its plain version, 64^2; float32 (and
+    dp) also against the plain version in float64 on the same rays."""
+    import torch
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    cfg = _pol_case_config(integrator, precision, split, nf)
+    args, kwargs, geom = _pol_args(cfg)
+    out_k, t_k = _timed(pk.render_polarized, *args, **kwargs)
+    out_p, t_p = _timed(pk.render_polarized_reference, *args, **kwargs)
+    exact = precision == "float64" and integrator != "dp"
+    ours = _pol_stokes(out_k, args, geom, True)
+    ref = _pol_stokes(out_p, args, geom, True)
+    gate = polarized_gate(ours, ref, exact)
+    same_flags = torch.equal(out_k[2].cpu(), out_p[2].cpu())
+    same_ns = torch.equal(out_k[3].cpu(), out_p[3].cpu())
+    ok = gate["ok"] and (same_flags and same_ns if exact else True)
+    result = dict(
+        integrator=integrator, precision=precision, rotation_split=split,
+        frequencies=nf, rays=int(args[0].shape[0]), kernel_s=t_k,
+        plain_s=t_p, same_flags=same_flags, same_n_samples=same_ns,
+        max_n_samples=int(out_p[3].max()),
+        gate=("exact flags/n_samples/NaN, max rel 1e-7 with floor" if exact
+              else "NaN sets, I flux, IQUV frac of max I per frequency; "
+              "kernel within 3x the plain version's error to float64"),
+        **{k: v for k, v in gate.items() if k != "ok"})
+    if precision == "float32":
+        cfg64 = _pol_case_config(integrator, "float64", split, nf)
+        truth, result["truth_s"] = _timed(_pol_truth, cfg64, args)
+        result["float64_truth"] = truth_gate(ours, ref, truth)
+        ok = ok and result["float64_truth"]["ok"]
+    result["ok"] = bool(ok)
+    return "pol_kernel_vs_plain", result
+
+
+def _pol_full_config(precision, integrator, **overrides):
+    """Phase 9's configuration: 1024^2, 2000 steps, no rotation split."""
+    return _pol_config(camera_resolution=1024, precision=precision,
+                       ray_integrator=integrator, ray_max_steps=2000,
+                       image_rotation_split=False, **overrides)
+
+
+def _plain_subset(args):
+    """Phase 9's plain-version rays: every PLAIN_STRIDE-th of ``args``."""
+    import torch
+    pick = torch.arange(0, args[0].shape[0], PLAIN_STRIDE,
+                        device=args[0].device)
+    return pick, (*(a[pick].contiguous() for a in args[:3]), *args[3:])
+
+
+def pol_full_width_truth() -> tuple:
+    """The plain version in float64 on phase 9's float32 plain-version
+    rays, through the float64 snapshot: (their positions, Stokes)."""
+    import torch
+    # the camera's rays do not depend on the snapshot: cfg's small one
+    # stands in for it here
+    args, _, _ = _pol_args(_pol_full_config("float32", "rk4"))
+    _, sub = _plain_subset(args)
+    truth = _pol_truth(_pol_full_config("float64", "rk4"), sub,
+                       full_width_snapshot(torch.float64))
+    return sub[0].cpu().numpy(), truth
+
+
+def phase_pol_goldens(tmp: pathlib.Path):
+    import numpy as np
+    from blacklight_tpu_torch import pipeline
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    tols = {"I_nu": 1e-8, "Q_nu": 1e-6, "U_nu": 1e-7, "V_nu": 1e-6}
+    for name, exact in (("golden_polarized_rk4_32", True),
+                        ("golden_polarized_32", False)):
+        cfg = _pol_config(f"{name}.input",
+                          output_file=str(tmp / f"{name}.npz"))
+        before = pk.LAUNCHES
+        arrays = pipeline.run(cfg, quiet=True, device="cuda")
+        launched = pk.LAUNCHES - before
+        gold = np.load(FIXTURES / f"{name}.npz")
+        i_scale = float(np.nanmax(np.abs(gold["I_nu"])))
+        ok, result = launched > 0, {}
+        for k in ("I_nu", "Q_nu", "U_nu", "V_nu"):
+            ours, g = arrays[k], gold[k]
+            if exact:
+                floor = max(float(np.nanmax(np.abs(g))) * 1e-4, i_scale * 1e-8)
+                rel = float(np.nanmax(np.abs(ours - g) / (np.abs(g) + floor)))
+                result[k] = {"max_rel_floor": rel, "tol": tols[k]}
+                ok = ok and rel < tols[k]
+            elif k == "I_nu":
+                rel = float(np.nanmax(np.abs(ours - g)
+                                      / (np.abs(g) + i_scale * 1e-8)))
+                result[k] = {"max_rel": rel, "tol": 6e-2}
+                ok = ok and rel < 6e-2
+            else:
+                frac = np.abs(ours - g) / i_scale
+                result[k] = {"mean_frac": float(np.nanmean(frac)),
+                             "max_frac": float(np.nanmax(frac)),
+                             "tol": [5e-3, 1e-1]}
+                ok = ok and np.nanmean(frac) < 5e-3 and np.nanmax(frac) < 1e-1
+        emit("pol_golden", name=name, launches=launched,
+             gate=("tests/test_polarized_e2e.py:28-42" if exact
+                   else "tests/test_polarized_e2e.py:53-61"),
+             **result, ok=bool(ok))
+        if not ok:
+            raise RuntimeError(f"golden {name} failed: {result}")
+
+
+def phase_pol_full_width(tmp: pathlib.Path, card: str, grids: dict,
+                         truth: tuple) -> dict:
+    """Phase 9; ``truth`` is phase 3's float64 plain version on the
+    float32 plain version's rays (their positions, Stokes)."""
+    import numpy as np
+    import torch
+    from blacklight_tpu_torch import pipeline
+    from blacklight_tpu_torch.ops import formula_kernel as fk
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+
+    res, steps = 1024, 2000
+    if "float32" not in grids:
+        grids["float32"] = full_width_snapshot(torch.float32)
+    cfg = _pol_full_config("float32", "rk4",
+                           output_file=str(tmp / "pol_full_width.npz"))
+    fk.LAUNCHES = sk.LAUNCHES = pk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    arrays = pipeline.run(cfg, quiet=True, device="cuda",
+                          grid=grids["float32"])
+    run_s = time.perf_counter() - t0
+    launches = pk.LAUNCHES
+    image = {k: arrays[k] for k in ("I_nu", "Q_nu", "U_nu", "V_nu")}
+    finite_i = np.isfinite(image["I_nu"])
+    if any(v.shape != (res, res) for v in image.values()) \
+            or not finite_i.any() \
+            or not all(np.isfinite(v[finite_i]).all() for v in image.values()):
+        raise RuntimeError("full-width polarized image has the wrong shape or "
+                           "non-finite Q/U/V where I is finite")
+    if launches == 0 or fk.LAUNCHES or sk.LAUNCHES:
+        raise RuntimeError("the polarized main path launched no polarized "
+                           "kernel, or another kernel")
+    emit("pol_main_path", resolution=res, precision="float32",
+         integrator="rk4", max_steps=steps, rotation_split=False,
+         seconds=run_s, launches=launches,
+         nan_pixels=int((~finite_i).sum()),
+         max_I_nu=float(np.nanmax(image["I_nu"])),
+         max_pol_frac=float(np.nanmax(
+             np.sqrt(image["Q_nu"] ** 2 + image["U_nu"] ** 2
+                     + image["V_nu"] ** 2) / image["I_nu"])),
+         window=pk.WINDOW,
+         carry_bytes=res * res * pk.carry_bytes_per_ray(
+             torch.float32, steps, pk.WINDOW),
+         npz_written=(tmp / "pol_full_width.npz").exists())
+
+    timings = {}
+    for precision, integrator in (("float32", "rk4"), ("float64", "rk4"),
+                                  ("float32", "dp")):
+        if precision not in grids:
+            grids[precision] = full_width_snapshot(torch.float64)
+        cfg = _pol_full_config(precision, integrator)
+        (args, kwargs, geom), t_setup = _timed(_pol_args, cfg, grids[precision])
+        pk.render_polarized(*args, **kwargs)  # warm up
+        times = []
+        for _ in range(3):
+            out, t = _timed(pk.render_polarized, *args, **kwargs)
+            times.append(t)
+        ns = out[3].cpu().numpy()
+        entry = {"kernel_ms": min(times) * 1e3, "plain_ms": None,
+                 "max_abs_err": None, "mean_n_samples": float(ns.mean())}
+        extra = {}
+        if (precision, integrator) == ("float32", "rk4"):
+            extra = _pol_full_width_checks(args, kwargs, geom, out, truth)
+            entry.update(plain_ms=extra.pop("plain_ms"),
+                         max_abs_err=extra.pop("max_abs_err"))
+        b = bound("polarized", integrator, precision, res * res,
+                  entry["mean_n_samples"], in_bytes=grid_bytes(grids[precision]),
+                  out_values=16, extra_out_bytes=12)
+        timings[precision, integrator] = {**entry, **b}
+        emit("pol_timing", resolution=res, card=card, precision=precision,
+             integrator=integrator, camera_setup_s=t_setup,
+             kernel_s_runs=times, kernel_ms=entry["kernel_ms"],
+             kernel_rays_per_s=res * res / min(times),
+             plain_ms=entry["plain_ms"], max_abs_err=entry["max_abs_err"],
+             mean_n_samples=entry["mean_n_samples"],
+             max_n_samples=int(ns.max()),
+             warp_efficiency_rows=warp_efficiency(ns, np.arange(res * res)),
+             window=pk.WINDOW, **b,
+             clocks_power=smi(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,"
+                               "temperature.gpu", "--format=csv,noheader"]),
+             **extra)
+    f32 = timings["float32", "rk4"]
+    return {"name": "polarized_kernel", "route": "cuda",
+            "source": POL_KERNEL_SOURCE, "replaces": POL_KERNEL_REPLACES,
+            "launches": launches, "max_abs_err": f32["max_abs_err"],
+            "ms": f32["kernel_ms"], "plain_ms": f32["plain_ms"],
+            "plain_rays": res * res // PLAIN_STRIDE,
+            "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
+            "library_ms": None}
+
+
+def _pol_full_width_checks(args, kwargs, geom, out, truth) -> dict:
+    """Phase 9's checks of the float32 rk4 kernel output ``out``: the
+    plain version on every PLAIN_STRIDE-th ray against it (polarized_gate)
+    and both against phase 3's float64 run (truth_gate); one launch at
+    WINDOW_CHECK steps per window equal to ``out`` bit for bit. Raises on
+    a failure; returns the numbers for the timing line."""
+    import numpy as np
+    import torch
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    pick, sub = _plain_subset(args)
+    positions, truth = truth
+    if not np.array_equal(positions, sub[0].cpu().numpy()):
+        raise RuntimeError("the float64 reference traced other rays")
+    out_p, t_plain = _timed(pk.render_polarized_reference, *sub, **kwargs)
+    ours = _pol_stokes(tuple(o[pick] for o in out), sub, geom, True)
+    ref = _pol_stokes(out_p, sub, geom, True)
+    gate = polarized_gate(ours, ref, exact=False)
+    to_truth = truth_gate(ours, ref, truth)
+    if not (gate["ok"] and to_truth["ok"]):
+        raise RuntimeError(f"polarized kernel disagrees with plain at "
+                           f"1024^2: {gate}, against float64 {to_truth}")
+    other = pk._render_cuda(*args, kwargs["integrator"],
+                            kwargs["rotation_split"], window=WINDOW_CHECK)
+    if not all(torch.equal(a, b) for a, b in zip(other, out)):
+        raise RuntimeError(f"the polarized image at window {WINDOW_CHECK} "
+                           f"differs from window {pk.WINDOW}")
+    return dict(plain_ms=t_plain * 1e3, max_abs_err=gate["max_abs_err"],
+                plain_rays=int(pick.numel()),
+                plain_rays_per_s=pick.numel() / t_plain,
+                gate="NaN sets, I flux, IQUV frac of max I; kernel within "
+                     "3x the plain version's error to float64",
+                **{k: v for k, v in gate.items()
+                   if k not in ("ok", "max_abs_err")},
+                float64_truth=to_truth,
+                bit_identical_at_window=WINDOW_CHECK)
+
+
+def phase_pol_window(card: str, grid):
+    """The window W of the polarized kernel's two sweeps (pk.WINDOW is
+    chosen from this): float32 rk4 at 1024^2 on the full-width snapshot,
+    best of 2 per W; every W must give the same image bit for bit."""
+    import torch
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    args, kwargs, _ = _pol_args(_pol_full_config("float32", "rk4"), grid)
+    ref = None
+    for window in (32, 64, 128, 256, 512):
+        def run():
+            return pk._render_cuda(*args, kwargs["integrator"],
+                                   kwargs["rotation_split"], window=window)
+        run()  # warm up
+        times = []
+        for _ in range(2):
+            out, t = _timed(run)
+            times.append(t)
+        if ref is None:
+            ref = out
+        elif not all(torch.equal(a, b) for a, b in zip(out, ref)):
+            raise RuntimeError(f"window {window} changed the image")
+        emit("pol_window", window=window, card=card, kernel_s_runs=times,
+             kernel_ms=min(times) * 1e3, chosen=window == pk.WINDOW)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--window-sweep", action="store_true",
+                        help="only build and time the polarized kernel at "
+                             "each window W")
+    opts = parser.parse_args(argv)
     card = phase_device()
     import torch
     phase_build()
-    with tempfile.TemporaryDirectory(dir=ROOT / "build" / "kernels") as tmp:
-        tmp = pathlib.Path(tmp)
-        phase_kernel_vs_plain()
-        phase_goldens(tmp)
-        formula = phase_full_width(tmp, card)
-        phase_sim_kernel_vs_plain()
-        phase_sim_goldens(tmp)
-        simulation = phase_sim_full_width(tmp, card)
-    print(json.dumps({"kernels": [formula, simulation]}), flush=True)
+    if opts.window_sweep:
+        phase_pol_window(card, full_width_snapshot(torch.float32))
+    else:
+        with multiprocessing.get_context("spawn").Pool(WORKERS) as pool:
+            truth = phase_checks(pool)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build" / "kernels") \
+                as tmp:
+            tmp = pathlib.Path(tmp)
+            phase_goldens(tmp)
+            formula = phase_full_width(tmp, card)
+            phase_sim_goldens(tmp)
+            grids = {}
+            simulation = phase_sim_full_width(tmp, card, grids)
+            phase_pol_goldens(tmp)
+            polarized = phase_pol_full_width(tmp, card, grids, truth)
+        print(json.dumps({"kernels": [formula, simulation, polarized]}),
+              flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

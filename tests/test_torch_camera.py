@@ -5,9 +5,9 @@ import numpy as np
 import pytest
 import torch
 
-from blacklight_tpu import read_config
+from blacklight_tpu import read_config as jax_read_config
 from blacklight_tpu.camera import make_camera as jax_make_camera
-from blacklight_tpu_torch import interop
+from blacklight_tpu_torch import interop, read_config
 from blacklight_tpu_torch.camera import init_pixels, make_camera, pixel_grid
 
 torch.set_num_threads(2)
@@ -28,12 +28,14 @@ CASES = {
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_make_camera_matches_jax(fixtures_dir, case):
     name, overrides = CASES[case]
-    cfg = read_config(str(fixtures_dir / name))
-    cfg.camera_resolution = 16
-    for k, v in overrides.items():
-        setattr(cfg, k, v)
+    cfg, jcfg = (read(str(fixtures_dir / name))
+                 for read in (read_config, jax_read_config))
+    for c in (cfg, jcfg):
+        c.camera_resolution = 16
+        for k, v in overrides.items():
+            setattr(c, k, v)
     spin = 0.9
-    geom_j, rays_j, freqs_j = jax_make_camera(cfg, bh_m=1.0, bh_a=spin,
+    geom_j, rays_j, freqs_j = jax_make_camera(jcfg, bh_m=1.0, bh_a=spin,
                                               dtype=jnp.float64)
     geom_t, rays_t, freqs_t = make_camera(cfg, bh_m=1.0, bh_a=spin,
                                           device="cpu", dtype=torch.float64)
@@ -53,9 +55,10 @@ def test_make_camera_matches_jax(fixtures_dir, case):
 def test_init_pixels_from_jax_geometry(fixtures_dir):
     """The per-pixel chain alone: the JAX camera frame carried across by
     interop gives the JAX package's rays."""
-    cfg = read_config(str(fixtures_dir / "golden_formula_cam_32.input"))
-    cfg.camera_resolution = 16
-    geom_j, rays_j, _ = jax_make_camera(cfg, bh_m=1.0, bh_a=0.9,
+    path = str(fixtures_dir / "golden_formula_cam_32.input")
+    cfg, jcfg = read_config(path), jax_read_config(path)
+    jcfg.camera_resolution = 16
+    geom_j, rays_j, _ = jax_make_camera(jcfg, bh_m=1.0, bh_a=0.9,
                                         dtype=jnp.float64)
     geom_t = interop.camera_geometry_from_numpy(geom_j, device="cpu",
                                                 dtype=torch.float64)

@@ -1,15 +1,16 @@
-"""PyTorch port: the 32^2 formula and simulation goldens through
-pipeline.run on the CPU, at the tolerances of test_formula_e2e.py and
-test_simulation_e2e.py (reference-binary outputs), and the CLI's npz
-against the JAX package's."""
+"""PyTorch port: the 32^2 formula, simulation and polarized goldens
+through pipeline.run or the CLI on the CPU, at the tolerances of
+test_formula_e2e.py, test_simulation_e2e.py and test_polarized_e2e.py
+(reference-binary outputs), and the CLI's npz against the JAX
+package's."""
 
 import numpy as np
 import pytest
 import torch
 
 from blacklight_tpu import pipeline as jax_pipeline
-from blacklight_tpu import read_config
-from blacklight_tpu_torch import cli, pipeline
+from blacklight_tpu import read_config as jax_read_config
+from blacklight_tpu_torch import cli, pipeline, read_config
 
 pytestmark = pytest.mark.slow
 
@@ -62,7 +63,7 @@ def test_simulation_cli_npz_matches_jax(fixtures_dir, tmp_path):
         inputs[name] = tmp_path / f"{name}.input"
         inputs[name].write_text(text.replace(
             "output/golden_sim_rk4_32.npz", str(tmp_path / f"{name}.npz")))
-    jax_pipeline.run(read_config(str(inputs["jax"])), quiet=True)
+    jax_pipeline.run(jax_read_config(str(inputs["jax"])), quiet=True)
     assert cli.main(["--device", "cpu", str(inputs["torch"])]) == 0
     ours, ref = np.load(tmp_path / "torch.npz"), np.load(tmp_path / "jax.npz")
     assert set(ours.keys()) == set(ref.keys())
@@ -71,3 +72,44 @@ def test_simulation_cli_npz_matches_jax(fixtures_dir, tmp_path):
         np.testing.assert_allclose(ours[key], ref[key], rtol=1e-8,
                                    atol=1e-14 * np.nanmax(np.abs(ref[key])),
                                    err_msg=key)
+
+
+STOKES_RTOL = {"I_nu": 1e-8, "Q_nu": 1e-6, "U_nu": 1e-7, "V_nu": 1e-6}
+
+
+def test_polarized_rk4_cli_exact_parity(fixtures_dir, tmp_path):
+    """python -m blacklight_tpu_torch --device cpu on the rk4 polarized
+    golden input writes I, Q, U and V at the tolerances of
+    test_polarized_e2e.py:28-42 (each channel's floor its peak x 1e-4)."""
+    text = (fixtures_dir / "golden_polarized_rk4_32.input").read_text()
+    text = text.replace("data/mock_small.athdf",
+                        str(fixtures_dir / "mock_small.athdf")).replace(
+        "output/golden_polarized_rk4_32.npz", str(tmp_path / "pol.npz"))
+    (tmp_path / "pol.input").write_text(text)
+    assert cli.main(["--device", "cpu", str(tmp_path / "pol.input")]) == 0
+    ours = np.load(tmp_path / "pol.npz")
+    gold = np.load(fixtures_dir / "golden_polarized_rk4_32.npz")
+    i_scale = np.nanmax(np.abs(gold["I_nu"]))
+    for key, tol in STOKES_RTOL.items():
+        g = gold[key]
+        floor = max(np.nanmax(np.abs(g)) * 1e-4, i_scale * 1e-8)
+        rel = np.abs(ours[key] - g) / (np.abs(g) + floor)
+        assert np.nanmax(rel) < tol, (key, np.nanmax(rel))
+
+
+def test_polarized_dp_quadrature_parity(fixtures_dir, tmp_path):
+    """test_polarized_e2e.py:53-61: I pointwise, Q/U/V as fractions of
+    I's peak."""
+    cfg = read_config(str(fixtures_dir / "golden_polarized_32.input"))
+    cfg.output_file = str(tmp_path / "pol_dp.npz")
+    cfg.simulation_file = str(fixtures_dir / "mock_small.athdf")
+    arrays = pipeline.run(cfg, quiet=True, device="cpu")
+    gold = np.load(fixtures_dir / "golden_polarized_32.npz")
+    i_scale = np.nanmax(np.abs(gold["I_nu"]))
+    rel_i = np.abs(arrays["I_nu"] - gold["I_nu"]) \
+        / (np.abs(gold["I_nu"]) + i_scale * 1e-8)
+    assert np.nanmax(rel_i) < 6e-2
+    for key in ("Q_nu", "U_nu", "V_nu"):
+        frac = np.abs(arrays[key] - gold[key]) / i_scale
+        assert np.nanmean(frac) < 5e-3, key
+        assert np.nanmax(frac) < 1e-1, key

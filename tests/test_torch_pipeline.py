@@ -10,9 +10,9 @@ import pytest
 import torch
 
 from blacklight_tpu import pipeline as jax_pipeline
-from blacklight_tpu.utils.config import parse_config, read_config
-from blacklight_tpu.utils.errors import BlacklightError
-from blacklight_tpu_torch import cli, pipeline
+from blacklight_tpu import read_config as jax_read_config
+from blacklight_tpu_torch import (BlacklightError, cli, parse_config,
+                                  pipeline, read_config)
 
 from test_adaptive import CONFIG
 
@@ -37,7 +37,7 @@ def jax_reference(tmp_path_factory):
     """The JAX package's run() on a 16^2 rk4 float64 input."""
     d = tmp_path_factory.mktemp("jax_ref")
     inp = _input(d / "ref.input", d / "jax.npz")
-    arrays = jax_pipeline.run(read_config(str(inp)), quiet=True)
+    arrays = jax_pipeline.run(jax_read_config(str(inp)), quiet=True)
     return inp, arrays, np.load(d / "jax.npz")
 
 
@@ -89,6 +89,19 @@ def test_cuda_device_without_gpu_raises(tmp_path, monkeypatch):
     assert not (tmp_path / "a.npz").exists()
 
 
+def test_formula_polarization_warns_and_renders(jax_reference, tmp_path,
+                                                capsys):
+    """image_polarization on the formula model is ignored with the JAX
+    package's warning, and the image is the unpolarized one."""
+    _, ref_arrays, _ = jax_reference
+    cfg = read_config(str(_input(tmp_path / "pol.input",
+                                 tmp_path / "pol.npz")))
+    cfg.image_polarization = True
+    arrays = pipeline.run(cfg, quiet=True, device="cpu")
+    assert "Ignoring image_polarization selection." in capsys.readouterr().err
+    _assert_same_npz(arrays, ref_arrays)
+
+
 def test_npy_output(tmp_path):
     inp = _input(tmp_path / "npy.input", tmp_path / "o.npy", res=4,
                  ray_max_steps=50)
@@ -125,7 +138,7 @@ OUT_OF_SLICE = {
                        "checkpoint_geodesic_file": "g.npz"}, "A.8"),
     "sample_save": ({"checkpoint_sample_save": True}, "A.8"),
     "sample_load": ({"checkpoint_sample_load": True}, "A.8"),
-    "polarization": ({"image_polarization": True}, "C.1"),
+    "polarization": ({"image_polarization": True, "image_tau": True}, "A.5"),
     "rendering": ({"render_num_images": 1}, "D.1"),
 }
 
@@ -137,7 +150,7 @@ def test_out_of_slice_config_raises(tmp_path, case):
                               tmp_path / "x.npz").read_text())
     for key, value in overrides.items():
         if key == "model_type":
-            from blacklight_tpu.constants import ModelType
+            from blacklight_tpu_torch.constants import ModelType
             value = ModelType(value)
         setattr(cfg, key, value)
     with pytest.raises(BlacklightError, match=item):
@@ -145,28 +158,49 @@ def test_out_of_slice_config_raises(tmp_path, case):
     assert not (tmp_path / "x.npz").exists()
 
 
-def test_import_does_not_load_jax():
+def test_import_does_not_load_jax(tmp_path):
+    """In a fresh interpreter: import every module of the port and its
+    CLI, render an 8^2 formula image on the CPU, and find neither jax nor
+    any module of the JAX package in sys.modules."""
+    inp = _input(tmp_path / "run.input", tmp_path / "run.npz")
     code = (
-        "import sys\n"
+        "import importlib, pkgutil, sys\n"
         "import blacklight_tpu_torch\n"
-        "import blacklight_tpu_torch.cli, blacklight_tpu_torch.pipeline\n"
-        "import blacklight_tpu_torch.interop, blacklight_tpu_torch.camera\n"
-        "import blacklight_tpu_torch.ops.formula_kernel\n"
-        "import blacklight_tpu_torch.ops.simulation_kernel\n"
-        "import blacklight_tpu_torch.ops._build\n"
-        "import blacklight_tpu_torch.pipeline_simulation\n"
-        "import blacklight_tpu_torch.grid.hdf5\n"
+        "for m in pkgutil.walk_packages(blacklight_tpu_torch.__path__,\n"
+        "                               'blacklight_tpu_torch.'):\n"
+        "    if not m.name.endswith('__main__'):  # runs the CLI\n"
+        "        importlib.import_module(m.name)\n"
+        "import blacklight_tpu_torch.cli\n"
+        "from blacklight_tpu_torch import pipeline, read_config\n"
+        f"cfg = read_config({str(inp)!r})\n"
+        "cfg.camera_resolution = 8\n"
+        "arrays = pipeline.run(cfg, quiet=True, device='cpu')\n"
+        "assert arrays['I_nu'].shape == (8, 8)\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "loaded = [m for m in sys.modules if m == 'blacklight_tpu'\n"
+        "          or m.startswith('blacklight_tpu.')]\n"
+        "assert not loaded, loaded\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     result = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                            text=True, env=env, timeout=300)
+                            text=True, env=env, timeout=300, cwd=tmp_path)
     assert result.returncode == 0, result.stderr
-    assert result.stdout.strip() == "ok"
+    assert result.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_package_source_never_imports_jax():
-    for path in (REPO / "blacklight_tpu_torch").rglob("*.py"):
+    """No import statement of the port, of chip_smoke.py or of the card's
+    tests names jax or the JAX package."""
+    paths = [*(REPO / "blacklight_tpu_torch").rglob("*.py"),
+             REPO / "chip_smoke.py",
+             *(REPO / "tests").glob("test_torch_*_cuda.py")]
+    for path in paths:
         for line in path.read_text().splitlines():
-            stripped = line.strip()
-            assert not stripped.startswith(("import jax", "from jax")), path
+            words = line.strip().split()
+            if len(words) < 2 or words[0] not in ("import", "from"):
+                continue
+            names = [w.strip(",") for w in words[1:]] if words[0] == "import" \
+                else [words[1]]
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "blacklight_tpu"), \
+                    (path, line)

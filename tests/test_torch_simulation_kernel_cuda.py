@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from blacklight_tpu.constants import FrequencySpacing
+from blacklight_tpu_torch.constants import FrequencySpacing
 from blacklight_tpu_torch import RayIntegrator, pipeline, read_config
 from blacklight_tpu_torch.pipeline_simulation import make_simulation_renderer
 from blacklight_tpu_torch.ops import simulation_kernel as sk

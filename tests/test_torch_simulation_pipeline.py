@@ -21,9 +21,9 @@ import torch
 
 from blacklight_tpu import pipeline as jax_pipeline
 from blacklight_tpu import pipeline_simulation as jax_sim
-from blacklight_tpu.utils.config import parse_config
-from blacklight_tpu.utils.errors import BlacklightError
-from blacklight_tpu_torch import cli, interop, pipeline, pipeline_simulation
+from blacklight_tpu.utils.config import parse_config as jax_parse_config
+from blacklight_tpu_torch import (BlacklightError, cli, interop,
+                                  parse_config, pipeline, pipeline_simulation)
 from blacklight_tpu_torch.ops import simulation_kernel as sk
 
 torch.set_num_threads(2)
@@ -50,6 +50,10 @@ def _config_text(out, res=16, **overrides):
 
 def _config(tmp_path, **overrides):
     return parse_config(_config_text(tmp_path / "out.npz", **overrides))
+
+
+def _jax_config(tmp_path, **overrides):
+    return jax_parse_config(_config_text(tmp_path / "out.npz", **overrides))
 
 
 def _statistical_gate(a, b):
@@ -85,7 +89,8 @@ def test_reference_matches_jax_xla_path(tmp_path, case):
     """render_simulation_reference on the JAX package's own camera rays."""
     overrides, gate = CASES[case]
     cfg = _config(tmp_path, **overrides)
-    jrender, geom, rays, freqs, _ = jax_sim.make_simulation_renderer(cfg)
+    jrender, geom, rays, freqs, _ = jax_sim.make_simulation_renderer(
+        _jax_config(tmp_path, **overrides))
     ref = jrender(rays.positions, rays.directions, rays.momentum_factors)
     precision = cfg.precision or "float64"
     render_fn, *_ = pipeline_simulation.make_simulation_renderer(
@@ -155,7 +160,7 @@ def test_kernel_tables(tmp_path):
 
 def test_run_matches_jax_run(tmp_path):
     text = _config_text(tmp_path / "jax.npz", output_camera="true")
-    ref = jax_pipeline.run(parse_config(text), quiet=True)
+    ref = jax_pipeline.run(jax_parse_config(text), quiet=True)
     cfg = parse_config(_config_text(tmp_path / "torch.npz",
                                     output_camera="true"))
     ours = pipeline.run(cfg, quiet=True, device="cpu")
@@ -174,8 +179,10 @@ def test_run_matches_jax_run(tmp_path):
 
 
 def test_render_simulation_image_matches_jax(tmp_path):
-    cfg = _config(tmp_path, camera_resolution=8, ray_integrator="rk2")
-    ref, _, jfreqs, jmass = jax_sim.render_simulation_image(cfg)
+    overrides = dict(camera_resolution=8, ray_integrator="rk2")
+    cfg = _config(tmp_path, **overrides)
+    ref, _, jfreqs, jmass = jax_sim.render_simulation_image(
+        _jax_config(tmp_path, **overrides))
     image, rays, freqs, mass = pipeline_simulation.render_simulation_image(
         cfg, device="cpu")
     assert mass == jmass
@@ -237,7 +244,8 @@ OUT_OF_SLICE = {
                "plasma_w": 0.5}, "B.2"),
     "code_kappa": ({"plasma_model": "code_kappa",
                     "simulation_kappa_name": "kappa"}, "B.2"),
-    "polarization": ({"image_polarization": "true"}, "C.1"),
+    "polarization": ({"image_polarization": "true", "image_tau": "true"},
+                     "A.5"),
     "aux_image": ({"image_tau": "true"}, "A.5"),
     "adaptive": ({"adaptive_max_level": 1, "adaptive_block_size": 4,
                   "adaptive_num_regions": 0}, "A.9"),
