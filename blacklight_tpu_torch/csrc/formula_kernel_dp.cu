@@ -1,18 +1,17 @@
-// dp instantiations of the fused formula-model kernel (formula_kernel.cuh).
-// This unit is built with multiply-add contraction (-fmad=true), about 6 %
-// faster in float and 4 % in double than without on an H100. dp's accept
-// and reject decisions make its agreement with the plain PyTorch version
-// statistical (identical NaN sets, fewer than 0.5 % of pixels past 1e-3,
-// flux within 1e-3) whether or not the roundings match.
+// dp instantiations of the fused formula-model kernel (formula_kernel.cuh)
+// at one frequency without tangents. This unit is built with multiply-add
+// contraction (-fmad=true), about 6 % faster in float and 4 % in double
+// than without on an H100. dp's accept and reject decisions make its
+// agreement with the plain PyTorch version statistical (identical NaN sets,
+// fewer than 0.5 % of pixels past 1e-3, flux within 1e-3) whether or not the
+// roundings match.
 
 #include "formula_kernel.cuh"
 
 namespace bl {
 
 cudaError_t launch_dp(int dtype_code, const LaunchArgs& a) {
-  if (dtype_code == 0) return launch<float, INTEGRATOR_DP>(a);
-  if (dtype_code == 1) return launch<double, INTEGRATOR_DP>(a);
-  return cudaErrorInvalidValue;
+  return launch_typed<INTEGRATOR_DP, 1, false>(dtype_code, a);
 }
 
 }  // namespace bl

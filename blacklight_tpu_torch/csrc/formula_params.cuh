@@ -1,9 +1,12 @@
-// Index order of the float64 parameter vector the formula kernel reads.
+// Index order of the float64 parameter vector the formula kernel reads:
+// the fixed block (FormulaParam), then one block per frequency of the
+// launch (FrequencyParam), frequency f at P_COUNT + f * PF_COUNT.
 //
-// The host (blacklight_tpu_torch/ops/formula_kernel.py, PARAM_NAMES) fills
-// it in this order, with every derived constant computed in float64;
-// tests/test_torch_formula_kernel.py checks that the two orders agree.
-// Flags are stored as 0.0 / 1.0 and integers as exact doubles.
+// The host (blacklight_tpu_torch/ops/formula_kernel.py, PARAM_NAMES and
+// FREQUENCY_PARAM_NAMES) fills it in this order, with every derived
+// constant computed in float64; tests/test_torch_formula_kernel.py checks
+// that the orders agree. Flags are stored as 0.0 / 1.0 and integers as
+// exact doubles.
 #pragma once
 
 namespace bl {
@@ -65,15 +68,21 @@ enum FormulaParam : int {
   P_PLANE_NX,
   P_PLANE_NY,
   P_PLANE_NZ,
-  // camera position, frequency and units
+  // camera position
   P_CAM_X0,
   P_CAM_X1,
   P_CAM_X2,
   P_CAM_X3,
-  P_NU,
-  P_X_UNIT_OVER_NU,
-  P_I_SCALE,
   P_COUNT
+};
+
+// The block of one frequency: nu, the unit length over nu and the image
+// scale exp(log_j_scale) nu^3.
+enum FrequencyParam : int {
+  PF_NU,
+  PF_X_UNIT_OVER_NU,
+  PF_I_SCALE,
+  PF_COUNT
 };
 
 }  // namespace bl

@@ -104,10 +104,14 @@ def cpp_pow_exponent(e: float):
 
 
 def formula_geom_c(x0, x1, x2, x3, k0, k1, k2, k3, fp: FormulaParams,
-                   camera_x):
+                   camera_x, r0=None, h=None):
     """Frequency-independent part of the coefficients: cut mask, bad mask
     (non-timelike disk velocity), n/n0 and u.k (formula_coefficients.cpp
-    :74-162, kernel form). camera_x is a 4-tuple of Python floats."""
+    :74-162, kernel form), and r and cos(theta), from which the tangent
+    weights of the density profile follow. camera_x is a 4-tuple of Python
+    floats. r0 and h, where given (0-dim tensors in the rays' dtype),
+    replace fp's in the density profile; absent, the profile keeps its
+    float64 host constants."""
     bh_a = fp.bh_a
     r = radius_c(x1, x2, x3, bh_a)
 
@@ -168,18 +172,22 @@ def formula_geom_c(x0, x1, x2, x3, k0, k1, k2, k3, fp: FormulaParams,
     u2 = sth * (r * cph - bh_a * sph) * uph_bl
     u3 = torch.zeros_like(u0)
 
-    n_n0 = torch.exp(-0.5 * (r * r * (1.0 / (fp.r0 * fp.r0))
-                             + fp.h * fp.h * cth * cth))
+    radial = (r * r * (1.0 / (fp.r0 * fp.r0)) if r0 is None
+              else r * r / (r0 * r0))
+    h_sq = fp.h * fp.h if h is None else h * h
+    n_n0 = torch.exp(-0.5 * (radial + h_sq * cth * cth))
     u_dot_k = u0 * k0 + u1 * k1 + u2 * k2 + u3 * k3
-    return keep, bad, n_n0, u_dot_k
+    return keep, bad, n_n0, u_dot_k, r, cth
 
 
 def formula_jalpha_c(keep, bad, n_n0, u_dot_k, mom, nu: float,
-                     fp: FormulaParams):
+                     fp: FormulaParams, cn0=None, with_unit=False):
     """Invariant j (scaled by nup^2/cn0) and alpha at frequency nu from
     the shared geometry (formula_coefficients.cpp:164-179), with C++
     ``pow`` semantics for a negative base. Returns (j, alpha, bad), j and
-    alpha zeroed where cut."""
+    alpha zeroed where cut. cn0, where given (a 0-dim tensor), replaces
+    fp.cn0 in alpha; with_unit appends alpha_unit = d alpha / d cn0 (alpha
+    is linear in cn0), zeroed where cut like alpha."""
     nu_fluid = -u_dot_k * nu * mom
     x_raw = nu_fluid * (1.0 / fp.nup)
 
@@ -205,6 +213,10 @@ def formula_jalpha_c(keep, bad, n_n0, u_dot_k, mom, nu: float,
         pa = torch.where(x_raw > 0.0, torch.pow(xs, ea), 0.0)
 
     j = n_n0 * pj
-    alpha = fp.cn0 * (fp.a_param * n_n0 * pa * nu_fluid)
-    return (torch.where(keep, j, 0.0), torch.where(keep, alpha, 0.0),
-            bad & keep)
+    alpha_unit = fp.a_param * n_n0 * pa * nu_fluid
+    alpha = (fp.cn0 if cn0 is None else cn0) * alpha_unit
+    out = (torch.where(keep, j, 0.0), torch.where(keep, alpha, 0.0),
+           bad & keep)
+    if with_unit:
+        return out + (torch.where(keep, alpha_unit, 0.0),)
+    return out

@@ -29,18 +29,25 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 # Multiply-add contraction per source; a source not listed contracts.
-# formula_kernel.cu (rk4, rk2) does not: chaotic photon-ring rays amplify
-# a one-ulp difference to 1e-7 in I_nu, and without contraction each
-# operation rounds as the plain PyTorch version's does, which keeps
-# float64 within rtol 1e-9 of it and float32 inside the statistical gate.
-# formula_kernel_dp.cu contracts: dp agrees statistically either way, and
+# The formula units with rk4 and rk2 (formula_kernel.cu, one frequency;
+# formula_kernel_multi.cu, several; formula_kernel_tangent.cu, with
+# tangents) do not: chaotic photon-ring rays amplify a one-ulp difference
+# to 1e-7 in I_nu, and without contraction each operation rounds as the
+# plain PyTorch version's does, which keeps float64 intensities and
+# tangents within rtol 1e-9 of it and float32 inside the statistical gate.
+# The formula dp units contract: dp agrees statistically either way, and
 # contraction makes it 4-6 % faster on an H100 (PERF.md). Neither
 # simulation unit contracts: in float32 the grid's trilinear kinks make
 # dp's image depend on its exact step sequence at the 1e-3 level, so dp
 # holds the statistical gate only when it rounds as the plain version
 # does (PERF.md). No polarized unit contracts either, for the same
 # reason.
-CONTRACT = {"formula_kernel.cu": False, "simulation_kernel.cu": False,
+CONTRACT = {"formula_kernel.cu": False, "formula_kernel_dp.cu": True,
+            "formula_kernel_multi.cu": False,
+            "formula_kernel_multi_dp.cu": True,
+            "formula_kernel_tangent.cu": False,
+            "formula_kernel_tangent_dp.cu": True,
+            "simulation_kernel.cu": False,
             "simulation_kernel_dp.cu": False, "polarized_kernel.cu": False,
             "polarized_kernel_f64.cu": False, "polarized_kernel_dp.cu": False}
 

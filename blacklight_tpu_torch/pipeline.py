@@ -42,7 +42,10 @@ from blacklight_tpu_torch.utils.errors import BlacklightError, blacklight_warnin
 from blacklight_tpu_torch.camera import CameraRays, make_camera
 from blacklight_tpu_torch.models import formula as formula_model
 from blacklight_tpu_torch.ops import geodesic
-from blacklight_tpu_torch.ops.formula_kernel import render_formula
+from blacklight_tpu_torch.ops.formula_kernel import (
+    frequency_list,
+    render_formula,
+)
 
 _AUX_IMAGES = ("image_time", "image_length", "image_lambda", "image_emission",
                "image_tau", "image_lambda_ave", "image_emission_ave",
@@ -104,8 +107,6 @@ def check_slice(cfg) -> None:
     for key in _AUX_IMAGES:
         if getattr(cfg, key):
             refuse(f"{key}", "A.5")
-    if not simulation and cfg.require("image_num_frequencies") > 1:
-        refuse("image_num_frequencies > 1 for the formula model", "K1.3")
     if (cfg.adaptive_max_level or 0) > 0:
         refuse("adaptive_max_level > 0", "A.9")
     for key in ("checkpoint_geodesic_save", "checkpoint_geodesic_load",
@@ -159,7 +160,7 @@ def make_formula_renderer(cfg, *, device):
 
     Returns (render_fn, geom, rays, frequencies, mass_msun), where
     render_fn(positions, directions, momentum_factors) renders a pixel
-    bundle to a dict of tensors: "I_nu" (B, 1), "_flags" (B,) bool and
+    bundle to a dict of tensors: "I_nu" (B, F), "_flags" (B,) bool and
     "_n_samples" (B,).
     """
     check_slice(cfg)
@@ -170,14 +171,14 @@ def make_formula_renderer(cfg, *, device):
                                           device=device, dtype=dtype)
     params = geodesic_params_from_config(cfg, bh_m, bh_a)
     fparams = formula_model.formula_params_from_config(cfg)
-    nu = float(frequencies[0])
+    nus = frequency_list(frequencies)
     camera_x = geom.cam_x.tolist()
     log_j_scale = formula_model.formula_log_j_scale(fparams)
     fallback_nan = cfg.require("fallback_nan")
 
     def render_fn(positions, directions, momentum_factors):
         i_nu, flags, n_samples = render_formula(
-            positions, directions, momentum_factors, nu, params, fparams,
+            positions, directions, momentum_factors, nus, params, fparams,
             mass_msun, camera_x, log_j_scale, fallback_nan=fallback_nan,
             integrator=params.integrator.value)
         return {"I_nu": i_nu, "_flags": flags, "_n_samples": n_samples}

@@ -18,7 +18,8 @@ and prints no final line):
    are bound by the host's launches, so they overlap; their times here
    are not comparable with a lone run):
    - formula, 128^2 camera on golden_formula_32.input: dp float32/float64,
-     rk4 float64, rk2 float32;
+     rk4 float64, rk2 float32; and at three frequencies with tangents for
+     cn0, r0 and h (h = 0.4, absorption on): rk4 float64, dp float32;
    - simulation, 128^2 camera on golden_sim_rk4_32.input with
      mock_small.athdf: rk4 float64, rk2 float32, dp float32/float64;
    - polarized, 64^2 camera on golden_polarized_rk4_32.input with
@@ -28,12 +29,15 @@ and prints no final line):
      version in float64 on the same rays (truth_gate);
    - the plain polarized version in float64 on 4,096 rays of phase 9's
      main path, which phase 9 holds its float32 kernel against;
+   - the plain formula version on 4,096 rays (every PLAIN_STRIDE-th) of
+     each full-width formula cell (phases 5, 10 and 11), which those
+     phases hold their kernel against;
 4. the 32^2 formula goldens through pipeline.run(cfg, device="cuda") at
    the tolerances of tests/test_formula_e2e.py;
 5. the formula main path at full width: golden_formula_32.input at
    1024^2, dp, float32 through pipeline.run, counting kernel launches;
-   then kernel times (rays/s) at 1024^2 in float32 and float64, and the
-   plain version's in float32;
+   then kernel times (rays/s) at 1024^2 in float32 and float64, the
+   float32 kernel held to phase 3's plain run on its subset;
 6. the 32^2 simulation goldens through pipeline.run(cfg, device="cuda"),
    reading the .athdf file, at the tolerances of
    tests/test_simulation_e2e.py;
@@ -51,9 +55,22 @@ and prints no final line):
    float64 rk4 and float32 dp, the plain version's in float32 rk4 on
    4,096 of the same rays (every PLAIN_STRIDE-th; held to the kernel and
    both to phase 3's float64 run), and one launch at WINDOW_CHECK steps
-   per window that must give the same image bit for bit.
+   per window that must give the same image bit for bit;
+10. K1.3 at full width: phase 5's cell at three frequencies (100-400 GHz,
+    log-spaced) through pipeline.run, counting launches; the kernel time
+    against phase 3's plain subset, and one, three and six frequencies
+    (two launches) timed in turns on the same rays;
+11. K1.4 at full width: scripts/bench_gradient.py's path at 1024^2 and
+    2000 steps: value and gradient of the total flux through the vjp
+    renderer (cn0) and the fit renderer (cn0, r0, h; h = 0.4), counting
+    launches, best of 3, each gradient against central finite differences
+    through the kernel; the tangent kernel's time against phase 3's plain
+    subset;
+12. the fit: ``python -m blacklight_tpu_torch.fit_demo`` (32^2, 200 Adam
+    iterations) must print FIT OK; then 10 iterations at 1024^2, whose
+    loss must be finite and fall.
 
-Phases 4 to 9 run alone on the card, after phase 3.
+Phases 4 to 12 run alone on the card, after phase 3.
 
 ``python3 chip_smoke.py --window-sweep`` runs phases 1 and 2, then times
 the polarized kernel at 1024^2 (float32 rk4) for each window W from 32 to
@@ -63,11 +80,14 @@ Each kernel's bound is the least time the card could take for the same
 work: the larger of its bytes (each input read once, each output written
 once) over the memory rate and its floating-point operations over the
 peak rate of its type. The operations are this run's mean samples per ray
-times hand counts per step and per sample (OPS_PER_STEP, OPS_PER_SAMPLE).
+times hand counts per step and per sample (OPS_PER_STEP, OPS_PER_SAMPLE,
+and per further frequency and tangent FORMULA_OPS_PER_FREQUENCY,
+FORMULA_OPS_PER_TANGENT).
 
-Every line but the last two is a JSON object with the measurements; then
-come the card's name and power limit, and the last line is
-{"ok": true, "device": {...}}.
+Every line but the last two is a JSON object with the measurements (the
+kernels line lists formula K1.1/K1.2, K1.3, K1.4, simulation and
+polarized); then come the card's name and power limit, and the last line
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -89,6 +109,10 @@ SMI_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"]
 KERNEL_SOURCE = "blacklight_tpu_torch/csrc/formula_kernel.cuh"
 KERNEL_REPLACES = "blacklight_tpu/ops/pallas_formula.py:192"
+MULTI_REPLACES = ("blacklight_tpu/ops/pallas_formula.py:192 (_make_kernel "
+                  "with len(nus) > 1, K1.3)")
+TANGENT_REPLACES = ("blacklight_tpu/ops/pallas_formula.py:192 (_make_kernel "
+                    "with diff_params, K1.4)")
 SIM_KERNEL_SOURCE = "blacklight_tpu_torch/csrc/simulation_kernel.cuh"
 SIM_KERNEL_REPLACES = "blacklight_tpu/ops/pallas_simulation.py:795"
 POL_KERNEL_SOURCE = "blacklight_tpu_torch/csrc/polarized_kernel.cuh"
@@ -107,6 +131,14 @@ PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
 OPS_PER_STEP = {"rk4": 830, "rk2": 500, "dp": 2020}
 OPS_PER_SAMPLE = {"formula": 130, "simulation": 495, "polarized": 2740}
 POL_OPS_PER_FREQUENCY = 1090
+# The formula sample beyond its first frequency (csrc/formula_kernel.cuh):
+# each further frequency's power laws and selects (formula_jalpha, ~21)
+# and its transfer update (~29); each tangent per frequency: dj, dalpha,
+# ddt (3), dss (3), dcontrib (6), datten (4), the dI and dtau updates (6),
+# and its share of the frequency's 1/alpha and exp(-dtau) (4) and of the
+# sample's weights w_r0, w_h (7).
+FORMULA_OPS_PER_FREQUENCY = 50
+FORMULA_OPS_PER_TANGENT = 25
 # V's gate for the kernel against its plain version in float64 rk4/rk2
 # (polarized_gate).
 V_EXACT_RTOL = 5e-5
@@ -124,6 +156,25 @@ WORKERS = 6
 # windows at 2000 steps) must reproduce the image bit for bit.
 PLAIN_STRIDE = 256
 WINDOW_CHECK = 64
+# K1.3 and K1.4 cells: three frequencies log-spaced over 100-400 GHz (the
+# ones tests/test_pallas_kernel.py:78-82 uses); tangents for cn0, r0 and h
+# with h = 0.4 (h = 0 zeroes the h tangent, tests/test_gradients.py:133).
+# Phase 3's tangent checks also turn absorption on (formula_a = 1e5:
+# optical depths of order one), so that every branch of the tangent update
+# runs; the golden input has formula_a = 0.
+MULTI_FREQUENCIES = dict(image_num_frequencies=3, image_frequency_start=1e11,
+                         image_frequency_end=4e11,
+                         image_frequency_spacing="log")
+FIT_PARAMS = ("cn0", "r0", "h")
+FIT_H = 0.4
+CHECK_A = 1e5
+# K1.4's cell: scripts/bench_gradient.py's path (cn0, float32, the vjp
+# kernel) at 1024^2 and 2000 steps; finite differences at its step 1e-3 of
+# the value and the JAX tests' tolerances (tests/test_gradients.py:108,
+# :156-157)
+GRAD_STEPS = 2000
+FD_STEP = 1e-3
+FD_RTOL = {"vjp": 1e-3, "fit": 5e-3}
 STOKES = ("I_nu", "Q_nu", "U_nu", "V_nu")
 # the full-width snapshot: the EHT GRMHD image library's grid (EHT M87*
 # Paper V) over mock_small.athdf's radii, as scripts/bench_simulation.py
@@ -203,13 +254,15 @@ def _ptxas_table(report: str) -> dict:
 
 def _kernel_label(mangled: str) -> str:
     m = re.search(r"(formula|simulation|polarized)_kernelI([fd])Li(\d)E"
-                  r"(?:Li(\d+)E)?", mangled)
+                  r"(?:Li(\d+)E)?(?:Lb([01])E)?", mangled)
     if not m:
         return mangled
-    kind, tp, integrator, nf = m.groups()
+    kind, tp, integrator, nf, tangents = m.groups()
     args = ["float" if tp == "f" else "double", ("dp", "rk4", "rk2")[int(integrator)]]
     if nf:
         args.append(f"NF={nf}")
+    if tangents == "1":
+        args.append("tangents")
     return f"{kind}_kernel<{', '.join(args)}>"
 
 
@@ -257,10 +310,13 @@ def phase_build():
 
 def _config(name, **overrides):
     from blacklight_tpu_torch import RayIntegrator, read_config
+    from blacklight_tpu_torch.constants import FrequencySpacing
     cfg = read_config(str(FIXTURES / name))
     for key, value in overrides.items():
         if key == "ray_integrator":
             value = RayIntegrator(value)
+        elif key == "image_frequency_spacing":
+            value = FrequencySpacing(value)
         setattr(cfg, key, value)
     return cfg
 
@@ -274,11 +330,71 @@ def _renderer(cfg):
         cfg, device="cuda")
     fp = formula_model.formula_params_from_config(cfg)
     args = (rays.positions, rays.directions, rays.momentum_factors,
-            float(freqs[0]), render_fn.geodesic_params, fp, mass_msun,
+            freqs.tolist(), render_fn.geodesic_params, fp, mass_msun,
             geom.cam_x.tolist(), formula_model.formula_log_j_scale(fp))
     kwargs = dict(fallback_nan=cfg.require("fallback_nan"),
                   integrator=cfg.require("ray_integrator").value)
     return args, kwargs
+
+
+def _fit_values(fp) -> dict:
+    """The fitted parameters' values in ``fp``, for diff_values."""
+    return {p: getattr(fp, p) for p in FIT_PARAMS}
+
+
+def _outputs(out) -> list:
+    """I_nu and every dI/dp of a render_formula output, (B, F) each."""
+    return [out[0], *out[3]] if len(out) == 4 else [out[0]]
+
+
+def signed_gate(a, b) -> dict:
+    """statistical_gate, with a signed tangent's flux held to 1e-3 of the
+    sum of |b| (the same as bench.py's for a positive image; an all-zero
+    plane must then match exactly)."""
+    import numpy as np
+    scale = float(np.nansum(np.abs(b)))
+    gap = float(abs(np.nansum(a) - np.nansum(b)))
+    if not scale:
+        same_nan = bool(np.array_equal(np.isnan(a), np.isnan(b)))
+        return {"same_nan": same_nan, "all_zero": True, "flux_gap": gap,
+                "ok": same_nan and not gap}
+    gate = statistical_gate(a, b)
+    gate["flux_rel"] = gap / scale if scale else gap
+    gate["ok"] = (gate["same_nan"] and gate["frac_past_1e-3"] < 5e-3
+                  and gap <= 1e-3 * scale)
+    return gate
+
+
+def gate_outputs(ours, ref, exact_rtol=None) -> dict:
+    """Every output (I_nu, then each dI/dp) and frequency of a kernel run
+    against the plain version's: the statistical gate (signed_gate), or
+    with exact_rtol identical NaN sets and values within that rtol.
+    Arrays are (B, F) numpy."""
+    import numpy as np
+    names = ["I_nu", *(f"dI_d{p}" for p in FIT_PARAMS)][:len(ours)]
+    result, ok, err = {}, True, 0.0
+    for name, a, b in zip(names, ours, ref):
+        for f in range(b.shape[1]):
+            x, y = a[:, f], b[:, f]
+            both = np.isfinite(x) & np.isfinite(y)
+            if both.any():
+                err = max(err, float(np.max(np.abs(x[both] - y[both]))))
+            if exact_rtol is None:
+                gate = signed_gate(x, y)
+            else:
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    rel = np.abs(x - y) / np.abs(y)
+                gate = {"same_nan": bool(np.array_equal(np.isnan(x),
+                                                        np.isnan(y))),
+                        "max_rel": float(np.nanmax(np.where(x == y, 0.0,
+                                                            rel)))}
+                gate["ok"] = bool(gate["same_nan"] and np.allclose(
+                    x, y, rtol=exact_rtol, atol=0.0, equal_nan=True))
+            ok = ok and gate["ok"]
+            result[f"{name}_{f}"] = {k: v for k, v in gate.items()
+                                     if k != "ok"}
+    result.update(max_abs_err=err, ok=bool(ok))
+    return result
 
 
 def _timed(fn, *args, **kwargs):
@@ -293,10 +409,15 @@ def _timed(fn, *args, **kwargs):
 def phase_checks(pool) -> tuple:
     """Phase 3 on ``pool``: every check at once, longest first; emits each
     result in that order and raises at the first that failed. Returns
-    phase 9's float64 reference (positions, Stokes)."""
+    phase 9's float64 reference (positions, Stokes) and the plain formula
+    version on the subsets of the full-width formula cells, by cell."""
     t0 = time.perf_counter()
     truth = pool.apply_async(pol_full_width_truth)
+    subsets = {cell: pool.apply_async(formula_plain_subset, (cell,))
+               for cell in ("k13", "k14", "k11")}
     checks = [pool.apply_async(fn, args) for fn, args in (
+        (check_formula_tangents, ("rk4", "float64")),
+        (check_formula_tangents, ("dp", "float32")),
         (check_formula, ("dp", "float32")),
         (check_formula, ("dp", "float64")),
         (check_polarized, ("dp", "float32", False, 1)),
@@ -315,8 +436,9 @@ def phase_checks(pool) -> tuple:
             raise RuntimeError(f"{phase}: kernel disagrees with plain: "
                                f"{result}")
     truth = truth.get()
+    subsets = {cell: result.get() for cell, result in subsets.items()}
     emit("checks", workers=WORKERS, seconds=time.perf_counter() - t0)
-    return truth
+    return truth, subsets
 
 
 def _check_exact(kernel_out, plain_out, rtol) -> dict:
@@ -355,6 +477,73 @@ def check_formula(integrator, precision) -> tuple:
         plain_s=t_p, **_check_exact(out_k, out_p, 1e-9 if exact else None))
 
 
+def check_formula_tangents(integrator, precision) -> tuple:
+    """K1.3 and K1.4 against the plain version, 128^2: three frequencies
+    with tangents for cn0, r0 and h (h = FIT_H, formula_a = CHECK_A); rk4
+    float64 identical flags and n_samples and every output within rtol
+    1e-9 per frequency, dp float32 the statistical gate on each."""
+    import torch
+    from blacklight_tpu_torch.ops import formula_kernel as fk
+    cfg = _config("golden_formula_32.input", camera_resolution=128,
+                  ray_integrator=integrator, precision=precision,
+                  formula_h=FIT_H, formula_a=CHECK_A, **MULTI_FREQUENCIES)
+    args, kwargs = _renderer(cfg)
+    kwargs["diff_values"] = _fit_values(args[5])
+    out_k, t_k = _timed(fk.render_formula, *args, **kwargs)
+    out_p, t_p = _timed(fk.render_formula_reference, *args, **kwargs)
+    exact = integrator != "dp" and precision == "float64"
+    gate = gate_outputs([o.cpu().numpy() for o in _outputs(out_k)],
+                        [o.cpu().numpy() for o in _outputs(out_p)],
+                        1e-9 if exact else None)
+    same = (torch.equal(out_k[1].cpu(), out_p[1].cpu())
+            and torch.equal(out_k[2].cpu(), out_p[2].cpu()))
+    gate["ok"] = gate["ok"] and (same or not exact)
+    return "tangent_kernel_vs_plain", dict(
+        integrator=integrator, precision=precision, frequencies=3,
+        tangents=list(FIT_PARAMS), formula_h=FIT_H, formula_a=CHECK_A,
+        rays=int(args[0].shape[0]), kernel_s=t_k, plain_s=t_p,
+        same_flags_n_samples=same, max_n_samples=int(out_p[2].max()),
+        gate=("exact flags/n_samples/NaN, rtol 1e-9" if exact
+              else "statistical (bench.py:181-186) per output and frequency"),
+        **gate)
+
+
+def _formula_cell(cell):
+    """The configuration, renderer arguments and keywords of a full-width
+    formula cell: "k11" golden_formula_32 at 1024^2, dp, float32 (phase
+    5); "k13" the same at three frequencies (phase 10); "k14" the same at
+    one frequency with tangents for FIT_PARAMS at h = FIT_H (phase 11);
+    "grad" scripts/bench_gradient.py's setting, GRAD_STEPS steps without
+    NaN poisoning, at h = FIT_H (phase 11)."""
+    overrides = dict(camera_resolution=1024, precision="float32",
+                     ray_integrator="dp")
+    if cell == "k13":
+        overrides.update(MULTI_FREQUENCIES)
+    elif cell == "k14":
+        overrides.update(formula_h=FIT_H)
+    elif cell == "grad":
+        overrides.update(ray_max_steps=GRAD_STEPS, fallback_nan=False,
+                         formula_h=FIT_H)
+    cfg = _config("golden_formula_32.input", **overrides)
+    args, kwargs = _renderer(cfg)
+    if cell == "k14":
+        kwargs["diff_values"] = _fit_values(args[5])
+    return cfg, args, kwargs
+
+
+def formula_plain_subset(cell) -> tuple:
+    """Phase 3: the plain formula version on every PLAIN_STRIDE-th ray of a
+    full-width cell, which that cell's phase holds its kernel against:
+    (the rays' positions, the outputs (B, F) each, seconds). Run in phase
+    3's pool, its time is not comparable with a lone run."""
+    from blacklight_tpu_torch.ops import formula_kernel as fk
+    _, args, kwargs = _formula_cell(cell)
+    _, sub = _plain_subset(args)
+    out, t_plain = _timed(fk.render_formula_reference, *sub, **kwargs)
+    return (sub[0].cpu().numpy(), [o.cpu().numpy() for o in _outputs(out)],
+            t_plain)
+
+
 def phase_goldens(tmp: pathlib.Path):
     import numpy as np
     from blacklight_tpu_torch import pipeline
@@ -391,7 +580,9 @@ def warp_efficiency(n_samples, order) -> float:
     return float(lanes.sum() / (32 * lanes.max(axis=1).sum()))
 
 
-def phase_full_width(tmp: pathlib.Path, card: str) -> dict:
+def phase_full_width(tmp: pathlib.Path, card: str, subset) -> dict:
+    """Phase 5; ``subset`` is phase 3's plain version on this cell's
+    subset of rays (formula_plain_subset("k11"))."""
     import numpy as np
     from blacklight_tpu_torch import pipeline
     from blacklight_tpu_torch.ops import formula_kernel as fk
@@ -399,9 +590,8 @@ def phase_full_width(tmp: pathlib.Path, card: str) -> dict:
     from blacklight_tpu_torch.ops import simulation_kernel as sk
 
     res = 1024
-    cfg = _config("golden_formula_32.input", camera_resolution=res,
-                  precision="float32", ray_integrator="dp",
-                  output_file=str(tmp / "full_width.npz"))
+    cfg, _, _ = _formula_cell("k11")
+    cfg.output_file = str(tmp / "full_width.npz")
     fk.LAUNCHES = sk.LAUNCHES = pk.LAUNCHES = 0
     t0 = time.perf_counter()
     arrays = pipeline.run(cfg, quiet=True, device="cuda")
@@ -422,11 +612,10 @@ def phase_full_width(tmp: pathlib.Path, card: str) -> dict:
     for precision in ("float32", "float64"):
         cfg.precision = precision
         (args, kwargs), t_setup = _timed(_renderer, cfg)
-        # the plain version runs in float32 only: float64 took 107 s more
-        # and adds nothing to the kernel's check
+        # the plain version runs in float32 only, on phase 3's subset
         timings[precision] = time_kernel(
             "timing", fk.render_formula,
-            fk.render_formula_reference if precision == "float32" else None,
+            subset if precision == "float32" else None,
             args, kwargs, res, card, precision=precision, integrator="dp",
             camera_setup_s=t_setup)
     f32 = timings["float32"]
@@ -434,40 +623,48 @@ def phase_full_width(tmp: pathlib.Path, card: str) -> dict:
             "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
             "launches": launches, "max_abs_err": f32["max_abs_err"],
             "ms": f32["kernel_ms"], "plain_ms": f32["plain_ms"],
+            "plain_rays": res * res // PLAIN_STRIDE,
             **bound("formula", "dp", "float32", res * res,
                     f32["mean_n_samples"], in_bytes=0, out_values=1),
             "library_ms": None}
 
 
 def time_kernel(phase, kernel, plain, args, kwargs, res, card, **fields):
-    """Warm best of 3 of ``kernel`` on a res^2 ray bundle and, unless
-    ``plain`` is None, one run of its plain version on the same rays held
-    to the statistical gate; emits the timing line and returns the
-    numbers the kernels line needs."""
+    """Warm best of 3 of ``kernel`` on a res^2 ray bundle, and its outputs
+    held to the plain version's by the statistical gate (per output and
+    frequency): ``plain`` is None (no check), the plain version (run once
+    on the same rays) or formula_plain_subset's result for these rays.
+    Emits the timing line and returns the numbers the kernels line
+    needs."""
     import numpy as np
     kernel(*args, **kwargs)  # warm up
     times = []
     for _ in range(3):
-        (ik, _, nk), t = _timed(kernel, *args, **kwargs)
+        out_k, t = _timed(kernel, *args, **kwargs)
         times.append(t)
+    nk = out_k[2]
     t_kernel, n = min(times), res * res
     out = {"kernel_ms": t_kernel * 1e3, "plain_ms": None, "max_abs_err": None,
            "mean_n_samples": float(nk.double().mean())}
     extra = {}
     if plain is not None:
-        (ip, _, _), t_plain = _timed(plain, *args, **kwargs)
-        gate = {}
-        for f in range(ik.shape[1]):
-            a, b = ik[:, f].cpu().numpy(), ip[:, f].cpu().numpy()
-            gate = statistical_gate(a, b)
-            if not gate["ok"]:
-                raise RuntimeError(f"{kernel.__name__} disagrees with plain "
-                                   f"at {res}^2 {fields}: {gate}")
-            both = np.isfinite(a) & np.isfinite(b)
-            err = float(np.max(np.abs(a[both] - b[both])))
-            out["max_abs_err"] = max(out["max_abs_err"] or 0.0, err)
+        ours = [o.cpu().numpy() for o in _outputs(out_k)]
+        if callable(plain):
+            out_p, t_plain = _timed(plain, *args, **kwargs)
+            ref, n_plain = [o.cpu().numpy() for o in _outputs(out_p)], n
+        else:
+            positions, ref, t_plain = plain
+            pick = np.arange(0, n, PLAIN_STRIDE)
+            if not np.array_equal(positions, args[0][pick].cpu().numpy()):
+                raise RuntimeError("the plain version traced other rays")
+            ours, n_plain = [o[pick] for o in ours], pick.size
+        gate = gate_outputs(ours, ref)
+        if not gate["ok"]:
+            raise RuntimeError(f"{kernel.__name__} disagrees with plain "
+                               f"at {res}^2 {fields}: {gate}")
+        out["max_abs_err"] = gate.pop("max_abs_err")
         out["plain_ms"] = t_plain * 1e3
-        extra = dict(plain_rays_per_s=n / t_plain,
+        extra = dict(plain_rays=n_plain, plain_rays_per_s=n_plain / t_plain,
                      gate="statistical (bench.py:181-186)", **gate)
     ns = nk.cpu().numpy()
     # 8 x 4 pixel tiles, 32 rays each, in place of 32 pixels of one row
@@ -640,7 +837,7 @@ def grid_bytes(grid) -> int:
 
 
 def bound(kernel, integrator, precision, rays, mean_samples, *, in_bytes,
-          out_values, frequencies=1, extra_out_bytes=8) -> dict:
+          out_values, frequencies=1, tangents=0, extra_out_bytes=8) -> dict:
     """The least time the card could take for a launch's work: the larger
     of its bytes over HBM_BYTES_PER_S (rays, momentum factors and
     ``in_bytes`` read once; ``out_values`` values of the working type and
@@ -649,6 +846,9 @@ def bound(kernel, integrator, precision, rays, mean_samples, *, in_bytes,
     item = 4 if precision == "float32" else 8
     n_bytes = rays * (9 * item + out_values * item + extra_out_bytes) + in_bytes
     per_sample = OPS_PER_STEP[integrator] + OPS_PER_SAMPLE[kernel]
+    if kernel == "formula":
+        per_sample += FORMULA_OPS_PER_FREQUENCY * (frequencies - 1) \
+            + FORMULA_OPS_PER_TANGENT * frequencies * tangents
     if kernel == "polarized":
         per_sample += OPS_PER_STEP[integrator] \
             + POL_OPS_PER_FREQUENCY * frequencies
@@ -1054,6 +1254,233 @@ def phase_pol_window(card: str, grid):
              kernel_ms=min(times) * 1e3, chosen=window == pk.WINDOW)
 
 
+def _only_formula_launched(fk, sk, pk, plain_before) -> bool:
+    """Whether the formula kernel, and nothing else, ran since the counts
+    were set to 0 (its plain version included)."""
+    return (fk.LAUNCHES > 0 and not sk.LAUNCHES and not pk.LAUNCHES
+            and fk.PLAIN_CALLS == plain_before)
+
+
+def phase_multi_full_width(tmp: pathlib.Path, card: str, subset) -> dict:
+    """Phase 10, K1.3: golden_formula_32.input at 1024^2, dp, float32,
+    three frequencies through pipeline.run, counting launches; the kernel
+    (best of 3) held to the plain version on phase 3's subset; then, in
+    turns on the same rays, one frequency, three, and six (two launches,
+    each tracing the rays again)."""
+    import math
+    import numpy as np
+    from blacklight_tpu_torch import pipeline
+    from blacklight_tpu_torch.ops import formula_kernel as fk
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+
+    res = 1024
+    cfg, args, kwargs = _formula_cell("k13")
+    cfg.output_file = str(tmp / "multi_full_width.npz")
+    plain_before = fk.PLAIN_CALLS
+    fk.LAUNCHES = sk.LAUNCHES = pk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    arrays = pipeline.run(cfg, quiet=True, device="cuda")
+    run_s = time.perf_counter() - t0
+    launches = fk.LAUNCHES
+    image = arrays["I_nu"]
+    if image.shape != (3, res, res) or not all(
+            np.isfinite(np.nanmax(image[f])) for f in range(3)):
+        raise RuntimeError("the three-frequency image is not finite or has "
+                           "the wrong shape")
+    if not _only_formula_launched(fk, sk, pk, plain_before):
+        raise RuntimeError("the three-frequency path launched no formula "
+                           "kernel, another kernel, or the plain version")
+    emit("multi_main_path", resolution=res, precision="float32",
+         integrator="dp", frequencies=arrays["frequency"].tolist(),
+         seconds=run_s, launches=launches,
+         nan_pixels=int(np.isnan(image[0]).sum()),
+         max_I_nu=[float(np.nanmax(image[f])) for f in range(3)])
+
+    timing = time_kernel("multi_timing", fk.render_formula, subset, args,
+                         kwargs, res, card, precision="float32",
+                         integrator="dp", frequencies=3)
+    cases = {"one": args[3][:1], "three": args[3],
+             "six": np.geomspace(1e11, 4e11, 6).tolist()}
+    best = dict.fromkeys(cases, math.inf)
+    for _ in range(3):
+        for name, nus in cases.items():
+            _, t = _timed(fk.render_formula, *args[:3], nus, *args[4:],
+                          **kwargs)
+            best[name] = min(best[name], t)
+    emit("multi_frequency_cost", resolution=res, card=card,
+         **{f"{name}_ms": t * 1e3 for name, t in best.items()},
+         three_over_one=best["three"] / best["one"],
+         six_over_three=best["six"] / best["three"])
+    return {"name": "formula_kernel_frequencies", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": MULTI_REPLACES,
+            "launches": launches, "max_abs_err": timing["max_abs_err"],
+            "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
+            "plain_rays": res * res // PLAIN_STRIDE,
+            **bound("formula", "dp", "float32", res * res,
+                    timing["mean_n_samples"], in_bytes=0, out_values=3,
+                    frequencies=3),
+            "library_ms": None}
+
+
+def phase_grad_full_width(card: str, subset) -> dict:
+    """Phase 11, K1.4: the tangent kernel (cn0, r0 and h at h = FIT_H) on
+    phase 5's rays and step budget, best of 3, held to the plain version
+    on phase 3's subset, and timed in turns with the launch without
+    tangents and with cn0's alone; then scripts/bench_gradient.py's path
+    at 1024^2 and GRAD_STEPS steps without NaN poisoning: the value and
+    gradient of the total flux with respect to cn0 through the vjp
+    renderer (h = 0, the golden input) and with respect to cn0, r0 and h
+    through the fit renderer, counting launches, each best of 3 and each
+    gradient against central finite differences through the kernel
+    itself."""
+    import dataclasses
+    import math
+    import numpy as np
+    import torch
+    from blacklight_tpu_torch.models import formula as formula_model
+    from blacklight_tpu_torch.ops import formula_fit
+    from blacklight_tpu_torch.ops import formula_kernel as fk
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+
+    res = 1024
+    _, args, kwargs = _formula_cell("k14")
+    fp = args[5]
+    timing = time_kernel("tangent_timing", fk.render_formula, subset, args,
+                         kwargs, res, card, precision="float32",
+                         integrator="dp", tangents=list(FIT_PARAMS),
+                         formula_h=FIT_H)
+    # the same rays without tangents and with cn0 alone, in turns
+    plain_kwargs = {k: v for k, v in kwargs.items() if k != "diff_values"}
+    cases = {"none": plain_kwargs, "cn0": dict(plain_kwargs, cn0=fp.cn0),
+             "all": kwargs}
+    best = dict.fromkeys(cases, math.inf)
+    for _ in range(3):
+        for name, kw in cases.items():
+            _, t = _timed(fk.render_formula, *args, **kw)
+            best[name] = min(best[name], t)
+    emit("tangent_cost", resolution=res, card=card,
+         **{f"tangents_{name}_ms": t * 1e3 for name, t in best.items()},
+         cn0_over_none=best["cn0"] / best["none"],
+         all_over_none=best["all"] / best["none"])
+
+    _, grad_args, _ = _formula_cell("grad")
+    positions, directions, mom, nus, params, fp = grad_args[:6]
+    mass_msun, camera_x = grad_args[6:8]
+    golden = dataclasses.replace(fp, h=0.0)
+    renderers = {
+        "vjp": (formula_fit.make_formula_vjp_renderer(
+            nus, params, golden, mass_msun, camera_x,
+            formula_model.formula_log_j_scale(golden), fallback_nan=False),
+            {"cn0": golden.cn0}),
+        "fit": (formula_fit.make_formula_fit_renderer(
+            nus, params, fp, mass_msun, camera_x,
+            formula_model.formula_log_j_scale(fp), fallback_nan=False,
+            fit_params=FIT_PARAMS), _fit_values(fp)),
+    }
+
+    def flux(name, values, grad=False):
+        """The total flux (summed in float64) and, with grad, its gradient
+        by backward through the renderer."""
+        render = renderers[name][0]
+        theta = {p: torch.tensor(v, dtype=torch.float32, device="cuda",
+                                 requires_grad=grad)
+                 for p, v in values.items()}
+        with torch.set_grad_enabled(grad):
+            if name == "vjp":
+                i_img = render(theta["cn0"], positions, directions, mom)[0]
+            else:
+                i_img = render(theta, positions, directions, mom)[0]
+            total = i_img.double().sum()
+        if not grad:
+            return total.item(), None
+        total.backward()
+        return total.item(), {p: t.grad.item() for p, t in theta.items()}
+
+    plain_before = fk.PLAIN_CALLS
+    fk.LAUNCHES = sk.LAUNCHES = pk.LAUNCHES = 0
+    for name, (_, values) in renderers.items():
+        flux(name, values, grad=True)
+    launches = fk.LAUNCHES
+    if launches != len(renderers) or not _only_formula_launched(
+            fk, sk, pk, plain_before):
+        raise RuntimeError("value and gradient did not take one tangent "
+                           "kernel launch each, or ran the plain version")
+    for name, (_, values) in renderers.items():
+        times = []
+        for _ in range(3):
+            (value, grad), t = _timed(flux, name, values, True)
+            times.append(t)
+        fd, ok = {}, True
+        for p, v in values.items():
+            hi = float(np.float32(v * (1.0 + FD_STEP)))
+            lo = float(np.float32(v * (1.0 - FD_STEP)))
+            f_hi = flux(name, dict(values, **{p: hi}))[0]
+            f_lo = flux(name, dict(values, **{p: lo}))[0]
+            fd[p] = (f_hi - f_lo) / (hi - lo)
+            ok = ok and grad[p] != 0.0 and bool(np.isclose(
+                grad[p], fd[p], rtol=FD_RTOL[name], atol=0.0))
+        emit("gradient", renderer=name, resolution=res, card=card,
+             max_steps=GRAD_STEPS, precision="float32", integrator="dp",
+             wrt=list(values), value=value, grad=grad, finite_difference=fd,
+             fd_step=FD_STEP, rtol=FD_RTOL[name],
+             value_and_grad_s_runs=times,
+             value_and_grad_ms=min(times) * 1e3,
+             rays_per_s=res * res / min(times), ok=bool(ok))
+        if not ok:
+            raise RuntimeError(f"the {name} gradient disagrees with finite "
+                               f"differences: {grad} against {fd}")
+    return {"name": "formula_kernel_tangents", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": TANGENT_REPLACES,
+            "launches": launches, "max_abs_err": timing["max_abs_err"],
+            "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
+            "plain_rays": res * res // PLAIN_STRIDE,
+            **bound("formula", "dp", "float32", res * res,
+                    timing["mean_n_samples"], in_bytes=0,
+                    out_values=1 + len(FIT_PARAMS),
+                    tangents=len(FIT_PARAMS)),
+            "library_ms": None}
+
+
+def phase_fit(card: str):
+    """Phase 12: ``python -m blacklight_tpu_torch.fit_demo`` as a user runs
+    it (32^2, 200 Adam iterations on the card), which must print FIT OK;
+    then 10 iterations of the same problem at 1024^2, whose loss must be
+    finite and fall, with the time of each iteration."""
+    import math
+    from blacklight_tpu_torch import fit_demo
+    from blacklight_tpu_torch.ops import formula_kernel as fk
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "blacklight_tpu_torch.fit_demo"],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    ok = proc.returncode == 0 and "FIT OK" in lines
+    emit("fit_demo", resolution=32, iterations=200, card=card,
+         returncode=proc.returncode, seconds=time.perf_counter() - t0,
+         output=lines[-4:], stderr=proc.stderr[-2000:], ok=ok)
+    if not ok:
+        raise RuntimeError("fit_demo did not print FIT OK")
+
+    plain_before = fk.PLAIN_CALLS
+    fk.LAUNCHES = sk.LAUNCHES = pk.LAUNCHES = 0
+    result = fit_demo.fit(1024, 10, "cuda", log=lambda *_: None)
+    losses = result["losses"]
+    ok = (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]
+          and _only_formula_launched(fk, sk, pk, plain_before))
+    emit("fit_1024", resolution=1024, iterations=10, card=card,
+         launches=fk.LAUNCHES, losses=losses,
+         seconds_per_iteration=result["seconds"],
+         best_iteration_ms=min(result["seconds"]) * 1e3, ok=bool(ok))
+    if not ok:
+        raise RuntimeError("the 1024^2 fit's loss is not finite or did not "
+                           "fall, or it ran no tangent kernel")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--window-sweep", action="store_true",
@@ -1067,19 +1494,23 @@ def main(argv=None) -> int:
         phase_pol_window(card, full_width_snapshot(torch.float32))
     else:
         with multiprocessing.get_context("spawn").Pool(WORKERS) as pool:
-            truth = phase_checks(pool)
+            truth, subsets = phase_checks(pool)
         with tempfile.TemporaryDirectory(dir=ROOT / "build" / "kernels") \
                 as tmp:
             tmp = pathlib.Path(tmp)
             phase_goldens(tmp)
-            formula = phase_full_width(tmp, card)
+            formula = phase_full_width(tmp, card, subsets["k11"])
             phase_sim_goldens(tmp)
             grids = {}
             simulation = phase_sim_full_width(tmp, card, grids)
             phase_pol_goldens(tmp)
             polarized = phase_pol_full_width(tmp, card, grids, truth)
-        print(json.dumps({"kernels": [formula, simulation, polarized]}),
-              flush=True)
+            grids.clear()
+            multi = phase_multi_full_width(tmp, card, subsets["k13"])
+            tangent = phase_grad_full_width(card, subsets["k14"])
+            phase_fit(card)
+        print(json.dumps({"kernels": [formula, multi, tangent, simulation,
+                                      polarized]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

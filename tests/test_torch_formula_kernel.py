@@ -60,13 +60,22 @@ def _setup(tmp_path, integrator, res, precision, **overrides):
                 log_j_scale=float(jformula.formula_log_j_scale(fparams)))
 
 
+def _port_args(s, frequencies=None):
+    """render_formula's positional arguments for _setup's inputs, at
+    ``frequencies`` (default: every frequency of the camera)."""
+    t = s["trays"]
+    if frequencies is None:
+        frequencies = np.asarray(s["freqs"])
+    return (t.positions, t.directions, t.momentum_factors, frequencies,
+            interop.geodesic_params_from_jax(s["params"]),
+            interop.formula_params_from_jax(s["fparams"]), s["mass_msun"],
+            s["camera_x"], s["log_j_scale"])
+
+
 def _port_render(s, integrator, fallback_nan):
     t = s["trays"]
     i_nu, flags, n_samp = fk.render_formula(
-        t.positions, t.directions, t.momentum_factors, s["nu"],
-        interop.geodesic_params_from_jax(s["params"]),
-        interop.formula_params_from_jax(s["fparams"]), s["mass_msun"],
-        s["camera_x"], s["log_j_scale"], fallback_nan=fallback_nan,
+        *_port_args(s, s["nu"]), fallback_nan=fallback_nan,
         integrator=integrator)
     assert i_nu.shape == (t.positions.shape[0], 1)
     assert flags.dtype == torch.bool and n_samp.dtype == torch.int32
@@ -169,26 +178,45 @@ def test_header_dp_tableau_matches_jax():
         np.testing.assert_allclose(ours, ref, rtol=1e-15)
 
 
-def test_header_param_enum_matches_wrapper():
-    m = re.search(r"enum FormulaParam : int \{(.*?)\};", _header_text(), re.S)
+def _enum_names(name):
+    m = re.search(rf"enum {name} : int \{{(.*?)\}};", _header_text(), re.S)
     body = re.sub(r"//[^\n]*", "", m.group(1))
-    names = [tok.strip() for tok in body.split(",") if tok.strip()]
-    assert names == [f"P_{n}" for n in fk.PARAM_NAMES] + ["P_COUNT"]
+    return [tok.strip() for tok in body.split(",") if tok.strip()]
+
+
+def test_header_param_enum_matches_wrapper():
+    """The fixed block, the per-frequency block and the tangent order of
+    csrc/ agree with the wrapper's names."""
+    assert _enum_names("FormulaParam") == \
+        [f"P_{n}" for n in fk.PARAM_NAMES] + ["P_COUNT"]
+    assert _enum_names("FrequencyParam") == \
+        [f"PF_{n}" for n in fk.FREQUENCY_PARAM_NAMES] + ["PF_COUNT"]
+    assert _enum_names("DiffParam") == \
+        [f"D_{n.upper()}" for n in fk.DIFFABLE_PARAMS] + ["D_COUNT"]
+    m = re.search(r"constexpr int FORMULA_MAX_FREQUENCIES = (\d+);",
+                  _header_text())
+    assert int(m.group(1)) == fk.MAX_FREQUENCIES
 
 
 def test_kernel_params_vector(tmp_path):
     s = _setup(tmp_path, "dp", 8, "float64", ray_tol_abs=1e-8,
                ray_tol_rel=1e-8, ray_max_retries=20)
+    nus = [s["nu"], 2.0 * s["nu"]]
     vec = fk.kernel_params(interop.geodesic_params_from_jax(s["params"]),
                            interop.formula_params_from_jax(s["fparams"]),
-                           s["nu"], s["mass_msun"], s["camera_x"],
+                           nus, s["mass_msun"], s["camera_x"],
                            s["log_j_scale"], True)
-    assert len(vec) == len(fk.PARAM_NAMES)
+    nfix, nper = len(fk.PARAM_NAMES), len(fk.FREQUENCY_PARAM_NAMES)
+    assert len(vec) == nfix + 2 * nper
     at = dict(zip(fk.PARAM_NAMES, vec))
-    # x_unit / nu and the image scale are float64 host scalars: cn0/nup^2
-    # alone (~1e-41) would underflow float32
-    assert at["I_SCALE"] == pytest.approx(
-        np.exp(s["log_j_scale"] + 3.0 * np.log(s["nu"])), rel=1e-15)
+    # x_unit / nu and the image scale are float64 host scalars, one block
+    # per frequency: cn0/nup^2 alone (~1e-41) would underflow float32
+    for f, nu in enumerate(nus):
+        block = dict(zip(fk.FREQUENCY_PARAM_NAMES,
+                         vec[nfix + f * nper:nfix + (f + 1) * nper]))
+        assert block["NU"] == nu
+        assert block["I_SCALE"] == pytest.approx(
+            np.exp(s["log_j_scale"] + 3.0 * np.log(nu)), rel=1e-15)
     assert at["EJ"] == 1.0 and at["EJ_IS_INT"] == 1.0
     assert at["EA"] == 0.5 and at["EA_IS_INT"] == 0.0
     assert at["MAX_STEPS"] == s["params"].ray_max_steps

@@ -74,9 +74,9 @@ def test_cli_cpu_writes_same_npz(jax_reference, tmp_path, capsys):
 
 def test_cli_reports_errors(tmp_path, capsys):
     inp = _input(tmp_path / "bad.input", tmp_path / "bad.npz",
-                 image_num_frequencies=2)
+                 adaptive_max_level=1)
     assert cli.main(["--device", "cpu", str(inp)]) == 1
-    assert "K1.3" in capsys.readouterr().err
+    assert "A.9" in capsys.readouterr().err
     assert cli.main(["--device", "cpu", str(tmp_path / "missing")]) == 1
 
 
@@ -128,9 +128,6 @@ OUT_OF_SLICE = {
     "emission_ave": ({"image_emission_ave": True}, "A.5"),
     "tau_int": ({"image_tau_int": True}, "A.5"),
     "crossings": ({"image_crossings": True}, "A.5"),
-    "frequencies": ({"image_num_frequencies": 3,
-                     "image_frequency_start": 1e11,
-                     "image_frequency_end": 4e11}, "K1.3"),
     "adaptive": ({"adaptive_max_level": 1}, "A.9"),
     "geodesic_save": ({"checkpoint_geodesic_save": True,
                        "checkpoint_geodesic_file": "g.npz"}, "A.8"),
