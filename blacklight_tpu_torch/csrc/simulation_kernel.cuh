@@ -37,10 +37,12 @@
 // the host. Later work may stage cells in shared memory or order rays by
 // image tile.
 //
-// The instantiations live in two translation units that nvcc builds side
-// by side, both without multiply-add contraction (ops/_build.py), so that
+// The instantiations live in three translation units that nvcc builds side
+// by side, all without multiply-add contraction (ops/_build.py), so that
 // each operation rounds as the plain version's does:
-// simulation_kernel.cu holds rk4 and rk2, simulation_kernel_dp.cu dp.
+// simulation_kernel.cu holds rk4 and rk2, simulation_kernel_dp.cu dp, and
+// simulation_phase.cu the phase kernel of phased dispatch (below), which
+// must round as simulation_kernel.cu does to give its image bit for bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -203,5 +205,147 @@ cudaError_t launch_simulation_nf(const SimLaunchArgs& a) {
 
 // dp in float (dtype_code 0) or double (1); defined in simulation_kernel_dp.cu.
 cudaError_t launch_simulation_dp(int dtype_code, const SimLaunchArgs& a);
+
+// ---------------------------------------------------------------------------
+// Phased dispatch (K2.3): one phase of the kernel above from a carried state.
+//
+// Replaces the TPU kernel's carry_io mode (blacklight_tpu/ops/
+// pallas_simulation.py _make_kernel with carry_io=True, launched by
+// render_simulation_phase :1484, driven by render_simulation_phased :1588).
+// Each thread takes one ray from an int32 list of live rays, reads its
+// RayState and its transfer sums from struct-of-arrays buffers of the whole
+// bundle, runs the steps [n_base, n_base + phase_steps) with the same
+// step_ray and SimSample as simulation_kernel, and writes them back in
+// place. The state stays where it is between phases, so compacting the pool
+// moves 4 bytes per survivor (its index), not the state; the wrapper
+// (ops/simulation_kernel.py render_simulation_phased) drops finished rays
+// from the list and re-orders it between launches. A ray's result is bit
+// for bit the monolithic kernel's: the loop is cut at a step boundary and
+// every carried value is stored exactly.
+//
+// What bounds it: the same arithmetic as simulation_kernel, plus per phase
+// the carried state (~56 bytes a ray in float at one frequency) read and
+// written once. rk4 and rk2 only, as the TPU kernel: dp would also carry
+// its step controller. Instantiated in simulation_phase.cu.
+
+// Bits of the carried masks (ops/simulation_kernel.py ALIVE, TRUNC, FLAG).
+constexpr int CARRY_ALIVE = 1;
+constexpr int CARRY_TRUNC = 2;
+constexpr int CARRY_FLAG = 4;
+
+// The carried state of a ray bundle, each plane n_rays long and indexed by
+// the ray's place in the bundle (ops/simulation_kernel.py SimCarry). The
+// transfer sums and the bad-sample bits are this launch's frequencies'.
+template <typename T>
+struct SimCarryView {
+  T* y;           // [7][n_rays]: x^0..x^3, p_1..p_3
+  T* r_mid_prev;  // [n_rays]
+  int* n_samp;    // [n_rays]
+  int* masks;     // [n_rays]: CARRY_ALIVE | CARRY_TRUNC | CARRY_FLAG
+  T* intensity;   // [nf][n_rays]: the unscaled transfer sum
+  T* tau;         // [nf][n_rays]: the optical depth
+  int* bad;       // [n_rays]: SimSample::bad
+  long long n_rays;
+};
+
+// At least PHASE_MIN_BLOCKS blocks per SM: the float kernel then keeps the
+// monolithic kernel's 128 registers (16 warps per SM) where the compiler
+// would take 168 (12 warps), so that the two differ in how they are
+// dispatched, not in occupancy (PERF.md). The double kernels use ~255
+// registers either way.
+template <typename T>
+constexpr int PHASE_MIN_BLOCKS = sizeof(T) == 4 ? 4 : 1;
+
+template <typename T, int INTEGRATOR, int NF>
+__global__ void __launch_bounds__(SIM_THREADS, PHASE_MIN_BLOCKS<T>)
+    simulation_phase_kernel(const int* __restrict__ index, long long n_live, int n_base,
+                            int phase_steps, bool write_state, const T* __restrict__ directions,
+                            const T* __restrict__ momentum_factors, const T* __restrict__ freqs,
+                            int nf, const double* __restrict__ params, GridView<T> grid,
+                            SimCarryView<T> carry) {
+  const long long slot = static_cast<long long>(blockIdx.x) * SIM_THREADS + threadIdx.x;
+  if (slot >= n_live) return;
+  const long long ray = index[slot];
+  const long long n = carry.n_rays;
+  const TraceConsts<T> tc(params);
+  const SimConsts<T> sc(params);
+
+  RayState<T> s;
+#pragma unroll
+  for (int c = 0; c < 7; ++c) s.y[c] = carry.y[c * n + ray];
+  s.h = T(0);  // rk4 and rk2 do not read it
+  s.r_mid_prev = carry.r_mid_prev[ray];
+  s.n_samp = carry.n_samp[ray];
+  s.num_retry = 0;
+  const int masks = carry.masks[ray];
+  s.alive = (masks & CARRY_ALIVE) != 0;
+  s.trunc = (masks & CARRY_TRUNC) != 0;
+  s.flag = (masks & CARRY_FLAG) != 0;
+  s.prev_fail = false;
+  const T p0 = directions[4 * ray + 0];
+
+  SimSample<T, NF> sample(sc, grid, freqs, nf, p0, momentum_factors[ray]);
+#pragma unroll 1
+  for (int f = 0; f < sample.n_freq(); ++f) {
+    sample.intensity[f] = carry.intensity[f * n + ray];
+    sample.tau[f] = carry.tau[f * n + ray];
+  }
+  sample.bad = static_cast<unsigned>(carry.bad[ray]);
+  trace_steps<T, INTEGRATOR>(tc, s, p0, n_base, n_base + phase_steps, sample);
+
+#pragma unroll 1
+  for (int f = 0; f < sample.n_freq(); ++f) {
+    carry.intensity[f * n + ray] = sample.intensity[f];
+    carry.tau[f * n + ray] = sample.tau[f];
+  }
+  carry.bad[ray] = static_cast<int>(sample.bad);
+  if (!write_state) return;
+#pragma unroll
+  for (int c = 0; c < 7; ++c) carry.y[c * n + ray] = s.y[c];
+  carry.r_mid_prev[ray] = s.r_mid_prev;
+  carry.n_samp[ray] = s.n_samp;
+  carry.masks[ray] = (s.alive ? CARRY_ALIVE : 0) | (s.trunc ? CARRY_TRUNC : 0) |
+                     (s.flag ? CARRY_FLAG : 0);
+}
+
+// Pointers and sizes of one phase launch, as the C interface receives them.
+struct SimPhaseArgs {
+  const int* index;
+  long long n_live;
+  int n_base, phase_steps;
+  bool write_state;
+  const void* directions;
+  const void* momentum_factors;
+  const void* freqs;
+  int nf;
+  const double* params;
+  const float* table;
+  const void* coords;
+  int n_i, n_j, n_k;
+  void* y;
+  void* r_mid_prev;
+  int* n_samp;
+  int* masks;
+  void* intensity;
+  void* tau;
+  int* bad;
+  long long n_rays;
+  cudaStream_t stream;
+};
+
+template <typename T, int INTEGRATOR, int NF>
+cudaError_t launch_simulation_phase(const SimPhaseArgs& a) {
+  const GridView<T> grid = make_grid_view<T>(a.table, a.coords, a.n_i, a.n_j, a.n_k);
+  const SimCarryView<T> carry{static_cast<T*>(a.y),         static_cast<T*>(a.r_mid_prev),
+                              a.n_samp,                      a.masks,
+                              static_cast<T*>(a.intensity), static_cast<T*>(a.tau),
+                              a.bad,                         a.n_rays};
+  const unsigned blocks = static_cast<unsigned>((a.n_live + SIM_THREADS - 1) / SIM_THREADS);
+  simulation_phase_kernel<T, INTEGRATOR, NF><<<blocks, SIM_THREADS, 0, a.stream>>>(
+      a.index, a.n_live, a.n_base, a.phase_steps, a.write_state,
+      static_cast<const T*>(a.directions), static_cast<const T*>(a.momentum_factors),
+      static_cast<const T*>(a.freqs), a.nf, a.params, grid, carry);
+  return cudaGetLastError();
+}
 
 }  // namespace bl

@@ -225,20 +225,31 @@ __device__ __forceinline__ bool step_ray(const TraceConsts<T>& tc, RayState<T>& 
   return valid;
 }
 
-// Integrate one ray from y (x^0..x^3, p_1..p_3; p_0 is conserved) and call
-// on_sample(ym, k1, k2, k3, h) at every stored sample that counts, in step
-// order (step_ray). Returns the ray's flag (it hit max_steps, or dp ran out
-// of retries) and its count of samples.
+// Advance one ray by the steps n in [n_begin, min(n_end, max_steps)) while
+// it is alive, and call on_sample(ym, k1, k2, k3, h) at every stored sample
+// that counts, in step order (step_ray): one phase of phased dispatch
+// (simulation_kernel.cuh simulation_phase_kernel), or with [0, max_steps)
+// the whole trace. Its plain twin is ops/geodesic.py trace_steps.
 template <typename T, int INTEGRATOR, typename OnSample>
-__device__ __forceinline__ void trace_ray(const TraceConsts<T>& tc, RayState<T>& s, T p0,
-                                          OnSample& on_sample, bool& flag_out,
-                                          int& n_samples_out) {
-  for (int n = 0; n < tc.max_steps && s.alive; ++n) {
+__device__ __forceinline__ void trace_steps(const TraceConsts<T>& tc, RayState<T>& s, T p0,
+                                            int n_begin, int n_end, OnSample& on_sample) {
+  const int n_stop = n_end < tc.max_steps ? n_end : tc.max_steps;
+  for (int n = n_begin; n < n_stop && s.alive; ++n) {
     T ym[7], k1, k2, k3, hs;
     if (step_ray<T, INTEGRATOR>(tc, s, p0, n, ym, k1, k2, k3, hs)) {
       on_sample(ym, k1, k2, k3, hs);
     }
   }
+}
+
+// Integrate one ray from y (x^0..x^3, p_1..p_3; p_0 is conserved) over
+// [0, max_steps) (trace_steps). Returns the ray's flag (it hit max_steps,
+// or dp ran out of retries) and its count of samples.
+template <typename T, int INTEGRATOR, typename OnSample>
+__device__ __forceinline__ void trace_ray(const TraceConsts<T>& tc, RayState<T>& s, T p0,
+                                          OnSample& on_sample, bool& flag_out,
+                                          int& n_samples_out) {
+  trace_steps<T, INTEGRATOR>(tc, s, p0, 0, tc.max_steps, on_sample);
   flag_out = s.flag;
   n_samples_out = s.n_samp;
 }

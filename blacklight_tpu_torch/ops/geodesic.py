@@ -5,7 +5,8 @@ Port of the parameter half of ``blacklight_tpu/ops/geodesic.py:44-98``
 and of its windowed sweep (``masked_step``, ``segment_carries``,
 ``replay_window``, :462-521). The step loop itself runs inside the fused
 kernels (``csrc/trace.cuh`` on the card); ``step`` is one of its steps in
-plain torch ops, from which ``trace_reference`` (the loop of
+plain torch ops, from which ``trace_steps`` (one phase of the loop),
+``trace_reference`` (the loop of
 ``ops/formula_kernel.render_formula_reference`` and
 ``ops/simulation_kernel.render_simulation_reference``) and the windowed
 sweep of ``ops/polarized_kernel.render_polarized_reference`` are built.
@@ -290,24 +291,35 @@ def step(state: RayState, p0, n: int, params: GeodesicParams,
     return new, sample
 
 
-def trace_reference(positions, directions, params: GeodesicParams,
-                    integrator: str, on_sample):
-    """Integrate a ray bundle in lock step and hand every step's Sample to
-    ``on_sample``: the loop of the fused kernels, in plain torch ops over
-    (B,) tensors. The loop runs while any ray is alive and n < max_steps.
+def trace_steps(state: RayState, p0, params: GeodesicParams, integrator: str,
+                n_begin: int, n_end: int, on_sample) -> RayState:
+    """Run ``step`` for n in [n_begin, min(n_end, max_steps)) while any
+    ray of the bundle is alive, handing every step's Sample to
+    ``on_sample``; returns the state after the last step. One phase of
+    phased dispatch, or with [0, max_steps) the whole trace.
 
     on_sample(valid, x, k, h) is called once per step with the fields of
     ``step``'s Sample; it sees every ray, valid or not.
-
-    Returns (flag (B,) bool, n_samples (B,) int32).
     """
-    state = initial_state(positions, directions, params)
-    p0 = directions[:, 0]
-    n = 0
-    while n < params.ray_max_steps and bool(state.alive.any()):
+    n = n_begin
+    while n < min(n_end, params.ray_max_steps) and bool(state.alive.any()):
         state, sample = step(state, p0, n, params, integrator)
         on_sample(*sample)
         n += 1
+    return state
+
+
+def trace_reference(positions, directions, params: GeodesicParams,
+                    integrator: str, on_sample):
+    """Integrate a ray bundle in lock step and hand every step's Sample to
+    ``on_sample`` (``trace_steps`` over [0, max_steps)): the loop of the
+    fused kernels, in plain torch ops over (B,) tensors.
+
+    Returns (flag (B,) bool, n_samples (B,) int32).
+    """
+    state = trace_steps(initial_state(positions, directions, params),
+                        directions[:, 0], params, integrator, 0,
+                        params.ray_max_steps, on_sample)
     return state.flag, state.n_samples
 
 

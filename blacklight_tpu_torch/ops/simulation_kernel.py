@@ -14,6 +14,14 @@ on a CUDA device it launches the hand-written kernel
 ``render_simulation_reference``, the same function in plain torch ops
 built from ``grid/sampling``, ``models/cuts`` and
 ``models/synchrotron``. There is no fallback from one to the other.
+
+Phased dispatch (K2.3, ``render_simulation_phase`` :1484 and
+``render_simulation_phased`` :1588 of the JAX module) runs the same
+function a phase of steps at a time from a carried state
+(``SimCarry``), through the phase kernel of the same CUDA header or
+``render_simulation_phase_reference``, and drops finished rays between
+phases. ``spatial_order`` and ``angular_order`` are the JAX module's ray
+orderings (:440, :474), on the rays' device.
 """
 
 from __future__ import annotations
@@ -22,7 +30,10 @@ import ctypes
 import dataclasses
 import functools
 import math
+import time
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from blacklight_tpu_torch.constants import Math, Physics
@@ -323,29 +334,21 @@ def sample_coefficients(pos, kcov, momentum_factors, frequencies,
     return j, alpha, bad
 
 
-def render_simulation_reference(positions, directions, momentum_factors,
-                                frequencies, params: geo.GeodesicParams,
-                                sp: SimKernelParams, grid: SimulationGrid,
-                                mass_msun: float, camera_x,
-                                log_j_scale: float, integrator: str = "rk4"):
-    """The kernel's function in plain torch ops: the shared lock-step loop
-    (``geodesic.trace_reference``) with ``sample_coefficients`` and the
-    transfer update of ``integrate_unpolarized`` at every sample. Returns
-    what ``render_simulation`` returns."""
-    _check_rays(positions, directions, momentum_factors)
-    _check_frequencies(frequencies, positions)
-    dtype = positions.dtype
-    spin = params.bh_a
+def transfer_update(acc: dict, momentum_factors, frequencies,
+                    sp: SimKernelParams, grid: SimulationGrid, spin: float,
+                    mass_msun: float, camera_x):
+    """The on_sample of ``geodesic.trace_steps`` for the kernel's plain
+    versions: ``sample_coefficients`` and the transfer update of
+    ``integrate_unpolarized`` at one step of the bundle. It updates
+    ``acc`` in place: "bad" (B, F) bool, the samples the reference would
+    NaN; "intensity" (B, F), the unscaled transfer sum; "tau" (B, F), the
+    optical depth."""
     x_unit = Physics.gg_msun * mass_msun / (Physics.c * Physics.c)
     nu0 = float(frequencies[0])
     cam = [float(v) for v in camera_x]
     mom = momentum_factors
-    b, nf = positions.shape[0], frequencies.shape[0]
-    zero = torch.zeros((b, nf), dtype=dtype, device=positions.device)
-    acc = {"bad": torch.zeros_like(zero, dtype=torch.bool),
-           "intensity": zero, "tau": zero}
 
-    def transfer(valid, ym, k, h):
+    def update(valid, ym, k, h):
         # Invalid samples hold dead rays' last state; evaluate them at the
         # camera instead (their values are discarded through valid)
         pos = torch.stack([torch.where(valid, ym[c], cam[c])
@@ -378,10 +381,444 @@ def render_simulation_reference(positions, directions, momentum_factors,
                                torch.where(thin, delta_tau, math.inf), 0.0)
         acc["tau"] = acc["tau"] + torch.where(vcol, dtau_eff, 0.0)
 
-    flag, n_samp = geo.trace_reference(positions, directions, params,
-                                       integrator, transfer)
-    poison = acc["bad"] | (flag & sp.sampler.fallback_nan)[:, None]
+    return update
+
+
+def _finish(intensity, bad, flags, n_samples, frequencies, log_j_scale,
+            fallback_nan):
+    """The image of finished rays from their (B, F) transfer sums and bad
+    samples: one multiply by image_scale, NaN where a sample was bad or,
+    under fallback_nan, where the ray hit max_steps (the monolithic
+    kernel's forms, csrc/simulation_kernel.cuh)."""
+    poison = bad | (flags & fallback_nan)[:, None]
     i_nu = torch.where(poison, math.nan,
-                       acc["intensity"] * image_scale(frequencies,
-                                                      log_j_scale))
-    return i_nu, flag, n_samp
+                       intensity * image_scale(frequencies, log_j_scale))
+    return i_nu, flags, n_samples
+
+
+def render_simulation_reference(positions, directions, momentum_factors,
+                                frequencies, params: geo.GeodesicParams,
+                                sp: SimKernelParams, grid: SimulationGrid,
+                                mass_msun: float, camera_x,
+                                log_j_scale: float, integrator: str = "rk4"):
+    """The kernel's function in plain torch ops: the shared lock-step loop
+    (``geodesic.trace_reference``) with ``transfer_update`` at every
+    sample. Returns what ``render_simulation`` returns."""
+    _check_rays(positions, directions, momentum_factors)
+    _check_frequencies(frequencies, positions)
+    b, nf = positions.shape[0], frequencies.shape[0]
+    zero = torch.zeros((b, nf), dtype=positions.dtype,
+                       device=positions.device)
+    acc = {"bad": torch.zeros_like(zero, dtype=torch.bool),
+           "intensity": zero, "tau": zero}
+    update = transfer_update(acc, momentum_factors, frequencies, sp, grid,
+                             params.bh_a, mass_msun, camera_x)
+    flag, n_samp = geo.trace_reference(positions, directions, params,
+                                       integrator, update)
+    return _finish(acc["intensity"], acc["bad"], flag, n_samp, frequencies,
+                   log_j_scale, sp.sampler.fallback_nan)
+
+
+# ---------------------------------------------------------------------------
+# Ray orderings of the kernel routes
+
+
+def _bins(x, levels: int):
+    """Each value's bin among ``levels`` equal bins between the least and
+    the greatest value, int64; all 0 where the values span nothing (the
+    JAX package's quant, in the values' dtype)."""
+    lo = x.min()
+    span = x.max() - lo
+    scaled = ((x - lo) / span * levels).to(torch.int64).clamp(0, levels - 1)
+    return torch.where(span > 0.0, scaled, 0)
+
+
+def _tile_order(u, v, fine_u: int, fine_v: int, block: int):
+    """The stable permutation that sorts rays by u's bin, then v's, among
+    g = ceil(sqrt(B / block)) bins each, then u's among fine_u * g bins,
+    then v's among fine_v * g: np.lexsort's order, by one argsort over a
+    combined int64 key."""
+    b = u.shape[0]
+    g = max(1, math.ceil(math.sqrt(b / float(block))))
+    key = torch.zeros(b, dtype=torch.int64, device=u.device)
+    for x, levels in ((u, g), (v, g), (u, fine_u * g), (v, fine_v * g)):
+        key = key * levels + _bins(x, levels)
+    return torch.argsort(key, stable=True)
+
+
+def spatial_order(positions, block: int = 1024):
+    """Group rays into coherent ~sqrt(block) x sqrt(block) camera-plane
+    tiles by their camera-plane coordinates, with a finer sub-key (8 x 4
+    bins in each tile) so that runs of block / 32 rays are compact
+    patches: ``blacklight_tpu/ops/pallas_simulation.py`` spatial_order
+    :440, on the rays' device. The camera plane is the two principal axes
+    of the positions' x^1..x^3; its 3 x 3 moment matrix is reduced on the
+    device and solved on the host by numpy.linalg.eigh in float64, as the
+    JAX package solves it, so that the axes' signs and the permutation
+    are the JAX package's.
+
+    Returns a permutation (B,) int64 on the positions' device.
+    """
+    q = positions[:, 1:4]
+    q = q - q.mean(dim=0)
+    _, vecs = np.linalg.eigh((q.T @ q).cpu().numpy())
+    vecs = torch.from_numpy(vecs).to(q.device)
+    u, v = q @ vecs[:, -1], q @ vecs[:, -2]
+    return _tile_order(u, v, 8, 4, block)
+
+
+def angular_order(positions, block: int = 1024):
+    """Group mid-flight rays into (phi, theta)-compact runs:
+    ``blacklight_tpu/ops/pallas_simulation.py`` angular_order :474, on the
+    rays' device. Phased dispatch re-tiles its survivors with it: once
+    rays have travelled, the camera plane no longer says which are near
+    each other.
+
+    Returns a permutation (B,) int64 on the positions' device.
+    """
+    x, y, z = positions[:, 1], positions[:, 2], positions[:, 3]
+    r = torch.sqrt(x * x + y * y + z * z) + 1.0e-30
+    phi = torch.atan2(y, x)
+    cth = z / r
+    return _tile_order(phi, cth, 8, 8, block)
+
+
+# ---------------------------------------------------------------------------
+# Phased dispatch (K2.3)
+
+# Phase kernel launches so far; render_simulation_phase adds one per launch
+# of the CUDA phase kernel and nowhere else.
+PHASE_LAUNCHES = 0
+
+# Bits of SimCarry.masks (csrc/simulation_kernel.cuh CARRY_*).
+ALIVE, TRUNC, FLAG = 1, 2, 4
+
+
+class SimCarry(NamedTuple):
+    """The state phased dispatch carries from one phase to the next, for
+    the whole bundle, each tensor on the rays' device and indexed by a
+    ray's place in the bundle: y (7, B) in the rays' dtype, x^0..x^3 and
+    p_1..p_3; r_mid_prev (B,); n_samp (B,) int32; masks (B,) int32, the
+    bits ALIVE, TRUNC and FLAG; intensity and tau (F, B), the unscaled
+    transfer sum and the optical depth (the port's accumulators: the TPU
+    kernel carries the attenuation instead); bad (C, B) int32, C =
+    ceil(F / MAX_FREQUENCIES): bit f of row c set where frequency
+    c * MAX_FREQUENCIES + f met a sample the reference would NaN.
+
+    The phase kernel updates it in place."""
+
+    y: torch.Tensor
+    r_mid_prev: torch.Tensor
+    n_samp: torch.Tensor
+    masks: torch.Tensor
+    intensity: torch.Tensor
+    tau: torch.Tensor
+    bad: torch.Tensor
+
+
+def initial_carry(positions, directions, params: geo.GeodesicParams,
+                  nf: int) -> SimCarry:
+    """The carried state of ``nf`` frequencies at the camera: every ray
+    alive, no sample yet (``geodesic.initial_state``)."""
+    state = geo.initial_state(positions, directions, params)
+    b = positions.shape[0]
+    zero = torch.zeros((nf, b), dtype=positions.dtype,
+                       device=positions.device)
+    return SimCarry(
+        y=torch.stack(state.y), r_mid_prev=state.r_mid_prev,
+        n_samp=state.n_samples, masks=_pack_masks(state),
+        intensity=zero, tau=zero.clone(),
+        bad=torch.zeros((-(-nf // MAX_FREQUENCIES), b), dtype=torch.int32,
+                        device=positions.device))
+
+
+def _pack_masks(state: geo.RayState):
+    return (state.alive.to(torch.int32) * ALIVE
+            | state.trunc.to(torch.int32) * TRUNC
+            | state.flag.to(torch.int32) * FLAG)
+
+
+def _bad_bits(bad, nf: int):
+    """(n, nf) bool from the (C, n) bit rows of SimCarry.bad."""
+    f = torch.arange(nf, device=bad.device)
+    bits = bad[f // MAX_FREQUENCIES] >> (f % MAX_FREQUENCIES)[:, None]
+    return (bits & 1).bool().T
+
+
+def _check_phase(carry: SimCarry, index, n_base: int, phase_steps: int,
+                 directions, momentum_factors, frequencies, integrator: str):
+    if integrator not in ("rk4", "rk2"):
+        raise ValueError("phased dispatch runs rk4 and rk2 only (dp would "
+                         "also carry its step controller), not "
+                         f"{integrator!r}")
+    b = carry.y.shape[1]
+    nf = frequencies.shape[0]
+    if (carry.y.shape != (7, b) or carry.intensity.shape != (nf, b)
+            or carry.tau.shape != (nf, b)
+            or carry.bad.shape != (-(-nf // MAX_FREQUENCIES), b)
+            or any(t.shape != (b,) for t in (carry.r_mid_prev, carry.n_samp,
+                                              carry.masks))):
+        raise ValueError("the carried state does not fit the frequencies "
+                         "or its bundle")
+    if directions.shape != (b, 4) or momentum_factors.shape != (b,):
+        raise ValueError("directions and momentum_factors must be the "
+                         "carried bundle's")
+    if index.dtype != torch.int32 or index.dim() != 1:
+        raise TypeError("index must be a 1-D int32 tensor")
+    if n_base < 0 or phase_steps < 1:
+        raise ValueError("n_base must be >= 0 and phase_steps >= 1")
+    tensors = (*carry, index, directions, momentum_factors, frequencies)
+    if any(t.device != carry.y.device for t in tensors):
+        raise TypeError("the carried state, the index and the rays must "
+                        "share one device")
+    for t in (carry.y, carry.r_mid_prev, carry.intensity, carry.tau,
+              directions, momentum_factors, frequencies):
+        if t.dtype != carry.y.dtype:
+            raise TypeError("the carried state, the rays and the "
+                            "frequencies must share one dtype")
+    for t in (carry.n_samp, carry.masks, carry.bad):
+        if t.dtype != torch.int32:
+            raise TypeError("n_samp, masks and bad must be int32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the carried state, the index and the rays must be "
+                         "contiguous")
+
+
+def render_simulation_phase(carry: SimCarry, index, n_base: int,
+                            phase_steps: int, directions, momentum_factors,
+                            frequencies, params: geo.GeodesicParams,
+                            sp: SimKernelParams, grid: SimulationGrid,
+                            mass_msun: float, camera_x,
+                            integrator: str = "rk4") -> None:
+    """One phase of phased dispatch: advance the rays ``index`` (int32,
+    places in the bundle) of ``carry`` by the steps [n_base, n_base +
+    phase_steps) (ending at ray_max_steps), updating ``carry`` in place.
+    ``directions`` and ``momentum_factors`` are the bundle's camera rays
+    (p_0 and the momentum factor are constants of motion). rk4 and rk2
+    only: ValueError for dp, as the JAX package raises.
+
+    A CUDA device launches the phase kernel (csrc/simulation_kernel.cuh
+    simulation_phase_kernel; one launch per MAX_FREQUENCIES frequencies)
+    or raises; the CPU runs ``render_simulation_phase_reference``.
+    """
+    _check_phase(carry, index, n_base, phase_steps, directions,
+                 momentum_factors, frequencies, integrator)
+    run = _phase_runner(frequencies, params, sp, grid, mass_msun, camera_x,
+                        integrator, carry.y.device)
+    run(carry, index, n_base, phase_steps, directions, momentum_factors)
+
+
+def _phase_runner(frequencies, params, sp, grid, mass_msun, camera_x,
+                  integrator, device):
+    """run(carry, index, n_base, phase_steps, directions,
+    momentum_factors): one phase on ``device``, with what every phase of
+    a render shares (the parameter vector, the tables) built once."""
+    check_grid(grid)
+    if grid.prim.device != device:
+        raise TypeError("the grid and the rays must share one device")
+    if device.type == "cpu":
+        def run(carry, index, n_base, phase_steps, directions,
+                momentum_factors):
+            render_simulation_phase_reference(
+                carry, index, n_base, phase_steps, directions,
+                momentum_factors, frequencies, params, sp, grid, mass_msun,
+                camera_x, integrator)
+        return run
+    if device.type != "cuda":
+        raise ValueError(f"no simulation kernel for device {device}")
+    lib = _phase_library()
+    nf = frequencies.shape[0]
+    prm = torch.tensor(kernel_params(params, sp, float(frequencies[0]),
+                                     mass_msun, camera_x),
+                       dtype=torch.float64, device=device)
+    table, coords = kernel_tables(grid, frequencies.dtype)
+    n_k, n_j, n_i = table.shape[:3]
+    chunks = [(start, min(start + MAX_FREQUENCIES, nf),
+               frequencies[start:start + MAX_FREQUENCIES].contiguous())
+              for start in range(0, nf, MAX_FREQUENCIES)]
+
+    def run(carry, index, n_base, phase_steps, directions, momentum_factors):
+        """One launch per MAX_FREQUENCIES frequencies; only the last
+        writes the ray state back, so that every launch of the phase
+        starts from the same state (they run in order on the stream)."""
+        global PHASE_LAUNCHES
+        b, n_live = carry.y.shape[1], index.shape[0]
+        if not n_live:
+            return
+        for chunk, (start, stop, freqs) in enumerate(chunks):
+            with torch.cuda.device(device):
+                stream = torch.cuda.current_stream(device).cuda_stream
+                rc = lib.blacklight_simulation_phase_launch(
+                    _DTYPE_CODES[carry.y.dtype],
+                    INTEGRATORS.index(integrator), index.data_ptr(), n_live,
+                    n_base, phase_steps, int(chunk == len(chunks) - 1),
+                    directions.data_ptr(), momentum_factors.data_ptr(),
+                    freqs.data_ptr(), stop - start, prm.data_ptr(),
+                    table.data_ptr(), coords.data_ptr(), n_i, n_j, n_k,
+                    carry.y.data_ptr(), carry.r_mid_prev.data_ptr(),
+                    carry.n_samp.data_ptr(), carry.masks.data_ptr(),
+                    carry.intensity[start].data_ptr(),
+                    carry.tau[start].data_ptr(), carry.bad[chunk].data_ptr(),
+                    b, stream)
+            if rc != 0:
+                msg = lib.blacklight_cuda_error_string(rc).decode()
+                raise RuntimeError(f"simulation phase kernel launch failed: "
+                                   f"{msg} ({rc})")
+            PHASE_LAUNCHES += 1
+    return run
+
+
+@functools.cache
+def _phase_library() -> ctypes.CDLL:
+    """The built library with the C interface of csrc/simulation_phase.cu
+    declared as well."""
+    lib = _library()
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.blacklight_simulation_phase_launch.argtypes = [
+        i32, i32, ptr, i64, i32, i32, i32, ptr, ptr, ptr, i32, ptr, ptr, ptr,
+        i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr]
+    lib.blacklight_simulation_phase_launch.restype = ctypes.c_int
+    return lib
+
+
+def render_simulation_phase_reference(carry: SimCarry, index, n_base: int,
+                                      phase_steps: int, directions,
+                                      momentum_factors, frequencies,
+                                      params: geo.GeodesicParams,
+                                      sp: SimKernelParams,
+                                      grid: SimulationGrid, mass_msun: float,
+                                      camera_x, integrator: str = "rk4"):
+    """The phase kernel's function in plain torch ops: the rays ``index``
+    gathered from ``carry``, ``geodesic.trace_steps`` over the phase with
+    ``transfer_update`` at every sample, and the result scattered back
+    into ``carry`` in place."""
+    _check_phase(carry, index, n_base, phase_steps, directions,
+                 momentum_factors, frequencies, integrator)
+    nf = frequencies.shape[0]
+    idx = index.long()
+    masks = carry.masks[idx]
+    false = torch.zeros_like(masks, dtype=torch.bool)
+    state = geo.RayState(
+        y=tuple(carry.y[c, idx] for c in range(7)),
+        h=torch.zeros_like(carry.r_mid_prev[idx]),
+        alive=(masks & ALIVE) != 0, trunc=(masks & TRUNC) != 0,
+        flag=(masks & FLAG) != 0, prev_fail=false,
+        r_mid_prev=carry.r_mid_prev[idx], n_samples=carry.n_samp[idx],
+        num_retry=torch.zeros_like(masks))
+    acc = {"bad": _bad_bits(carry.bad[:, idx], nf),
+           "intensity": carry.intensity[:, idx].T,
+           "tau": carry.tau[:, idx].T}
+    update = transfer_update(acc, momentum_factors[idx], frequencies, sp,
+                             grid, params.bh_a, mass_msun, camera_x)
+    state = geo.trace_steps(state, directions[idx, 0], params, integrator,
+                            n_base, n_base + phase_steps, update)
+    carry.y[:, idx] = torch.stack(state.y)
+    carry.r_mid_prev[idx] = state.r_mid_prev
+    carry.n_samp[idx] = state.n_samples
+    carry.masks[idx] = _pack_masks(state)
+    carry.intensity[:, idx] = acc["intensity"].T
+    carry.tau[:, idx] = acc["tau"].T
+    f = torch.arange(nf, device=idx.device)
+    weights = (1 << (f % MAX_FREQUENCIES)).to(torch.int32)
+    for chunk in range(carry.bad.shape[0]):
+        cols = slice(chunk * MAX_FREQUENCIES, (chunk + 1) * MAX_FREQUENCIES)
+        carry.bad[chunk, idx] = (acc["bad"][:, cols].to(torch.int32)
+                                 * weights[cols]).sum(dim=1,
+                                                      dtype=torch.int32)
+
+
+def finish_rays(carry: SimCarry, index, frequencies, log_j_scale: float,
+                fallback_nan: bool):
+    """The outputs of the rays ``index`` as they leave the pool, in the
+    monolithic kernel's forms (one multiply by image_scale, NaN where a
+    sample was bad or, under fallback_nan, where the ray hit max_steps):
+    (I_nu (n, F), flags (n,) bool, n_samples (n,) int32)."""
+    idx = index.long()
+    flags = (carry.masks[idx] & FLAG) != 0
+    return _finish(carry.intensity[:, idx].T,
+                   _bad_bits(carry.bad[:, idx], frequencies.shape[0]), flags,
+                   carry.n_samp[idx], frequencies, log_j_scale, fallback_nan)
+
+
+def render_simulation_phased(positions, directions, momentum_factors,
+                             frequencies, params: geo.GeodesicParams,
+                             sp: SimKernelParams, grid: SimulationGrid,
+                             mass_msun: float, camera_x, log_j_scale: float,
+                             integrator: str = "rk4", phase_steps: int = 512,
+                             block: int = 1024, stats=None):
+    """Phased-dispatch render (``blacklight_tpu/ops/pallas_simulation.py``
+    render_simulation_phased :1588): the step budget is split into phases
+    of ``phase_steps``; after each phase the rays that finished leave the
+    pool with their outputs, and the survivors are re-tiled by
+    ``angular_order`` (``block``) on their current positions. A kernel
+    block then holds rays that are still running and near each other.
+
+    Everything stays on the rays' device: the carried state in place in
+    full-size buffers (``SimCarry``), the pool an int32 index list that
+    is compacted and re-ordered between launches. The survivor count is
+    the one host sync per phase. Unlike the JAX package, the pool is not
+    padded to a fixed chunk (that let one XLA executable serve every
+    launch; a CUDA launch takes any size), and no ray is re-rendered (the
+    port's kernel has no overflow latch).
+
+    stats: None, or a list that gets one dict per phase: its rays, its
+    survivors, each ray's samples in the phase (in launch order), and the
+    seconds of the kernel and of the compaction and ordering, each ended
+    by a device synchronization.
+
+    Returns what ``render_simulation`` returns, bit for bit on the card.
+    """
+    _check_rays(positions, directions, momentum_factors)
+    _check_frequencies(frequencies, positions)
+    device = positions.device
+    b, nf = positions.shape[0], frequencies.shape[0]
+    carry = initial_carry(positions, directions, params, nf)
+    index = torch.arange(b, dtype=torch.int32, device=device)
+    _check_phase(carry, index, 0, phase_steps, directions, momentum_factors,
+                 frequencies, integrator)
+    run = _phase_runner(frequencies, params, sp, grid, mass_msun, camera_x,
+                        integrator, device)
+    i_nu = torch.empty((b, nf), dtype=positions.dtype, device=device)
+    flags = torch.empty(b, dtype=torch.bool, device=device)
+    n_samples = torch.empty(b, dtype=torch.int32, device=device)
+    n_phases = -(-params.ray_max_steps // phase_steps)
+    for phase in range(n_phases):
+        t0 = _clock(device, stats)
+        before = carry.n_samp[index.long()] if stats is not None else None
+        run(carry, index, phase * phase_steps, phase_steps, directions,
+            momentum_factors)
+        t1 = _clock(device, stats)
+        # finished rays first, survivors after, each in pool order
+        alive = (carry.masks[index.long()] & ALIVE) != 0
+        if phase == n_phases - 1:
+            alive = torch.zeros_like(alive)
+        n_alive = int(alive.sum())
+        pool = index[torch.argsort(alive.to(torch.int8), stable=True)]
+        done, survivors = pool[:pool.shape[0] - n_alive], \
+            pool[pool.shape[0] - n_alive:]
+        out = finish_rays(carry, done, frequencies, log_j_scale,
+                          sp.sampler.fallback_nan)
+        for dest, value in zip((i_nu, flags, n_samples), out):
+            dest[done.long()] = value
+        if n_alive:
+            order = angular_order(carry.y[:4, survivors.long()].T, block)
+            survivors = survivors[order]
+        if stats is not None:
+            t2 = _clock(device, stats)
+            stats.append({
+                "phase": phase, "rays": index.shape[0], "survivors": n_alive,
+                "samples": (carry.n_samp[index.long()] - before).cpu().numpy(),
+                "kernel_s": t1 - t0, "compact_s": t2 - t1})
+        index = survivors
+        if not n_alive:
+            break
+    return i_nu, flags, n_samples
+
+
+def _clock(device, stats) -> float:
+    """perf_counter after the device's work so far, when stats are kept."""
+    if stats is None:
+        return 0.0
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()

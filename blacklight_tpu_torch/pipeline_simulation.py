@@ -5,15 +5,21 @@ for the port's slice (``pipeline.check_slice``): one Athena++ snapshot,
 read once onto the device, and one fused kernel that integrates the
 geodesics, samples the grid, evaluates the thermal synchrotron
 coefficients and accumulates the transfer: unpolarized
-(``ops/simulation_kernel.render_simulation``) or, with
+(``ops/simulation_kernel.render_simulation``, or with KERNEL_PHASED its
+phased dispatch ``render_simulation_phased``) or, with
 image_polarization, full-Stokes (``ops/polarized_kernel.render_polarized``
 followed by the camera-frame Stokes extraction). Each is the CUDA kernel
-for a CUDA device, its plain PyTorch version for the CPU.
+for a CUDA device, its plain PyTorch version for the CPU. Rays are
+launched in ``spatial_order``. The route is chosen from the config, the
+bundle's size and the constants below before anything launches; nothing
+falls back from one route to another.
 """
 
 from __future__ import annotations
 
 from typing import Optional
+
+import torch
 
 from blacklight_tpu_torch.constants import PlasmaModel, SimulationFormat
 from blacklight_tpu_torch.output import format_filename
@@ -23,6 +29,42 @@ from blacklight_tpu_torch.grid.athena import SimulationGrid, load_athdf
 from blacklight_tpu_torch.models import synchrotron
 from blacklight_tpu_torch.models.cuts import GeometricCuts
 from blacklight_tpu_torch.ops import polarized_kernel, simulation_kernel
+
+# Phased dispatch of the unpolarized kernel
+# (ops/simulation_kernel.render_simulation_phased), with the JAX package's
+# names and values (blacklight_tpu/pipeline_simulation.py:52-67): the step
+# budget is split into phases of KERNEL_PHASE_STEPS and finished rays leave
+# the pool between phases. It is off, as in the JAX package: whether it
+# pays on an H100 is measured by chip_smoke.py (PERF.md). It takes rk4 and
+# rk2 bundles of at least KERNEL_PHASE_CHUNK rays whose step budget is
+# longer than a phase.
+KERNEL_PHASED = False
+KERNEL_PHASE_STEPS = 512
+KERNEL_PHASE_CHUNK = 65536
+# Rays per tile of spatial_order, the order every kernel bundle is launched
+# in (and of angular_order, the order of the survivors between phases).
+# Chosen on an H100 (PERF.md, chip_smoke.py phase 13): at 1024^2 the
+# simulation kernel's 128-ray blocks do useful work 96.5 % of block-time
+# with 256 (83.8 % in camera order, 94.8 % with the JAX package's 1024;
+# 4096 and 16384 tie with 256), and the kernel took 140.94 ms there
+# against 143.84 ms at 1024 and 161.89 ms in camera order.
+KERNEL_ORDER_BLOCK = 256
+
+
+def use_phased(integrator: str, max_steps: int, n_rays: int) -> bool:
+    """Whether an unpolarized bundle takes phased dispatch (the JAX
+    package's condition, blacklight_tpu/pipeline_simulation.py:400-401,
+    :416)."""
+    return (KERNEL_PHASED and integrator in ("rk4", "rk2")
+            and max_steps > KERNEL_PHASE_STEPS
+            and n_rays >= KERNEL_PHASE_CHUNK)
+
+
+def _unorder(value, order):
+    """``value`` (rows in launch order) back in the caller's ray order."""
+    out = torch.empty_like(value)
+    out[order] = value
+    return out
 
 
 def plasma_params_from_config(cfg) -> synchrotron.PlasmaParams:
@@ -100,8 +142,11 @@ def make_simulation_renderer(cfg, snapshot: Optional[int] = None, *, device,
     render_fn(positions, directions, momentum_factors) renders a pixel
     bundle to a dict of tensors: "I_nu" (B, F) (and "Q_nu", "U_nu",
     "V_nu" with image_polarization), "_flags" (B,) bool and "_n_samples"
-    (B,). ``render_fn.kernel`` is the kernel wrapper it calls
-    (``render_simulation`` or ``render_polarized``), with
+    (B,). It launches the bundle in ``spatial_order`` and returns it in
+    the caller's order. ``render_fn.kernel`` is the kernel wrapper it
+    calls (``render_simulation`` or ``render_polarized``; an unpolarized
+    bundle that ``use_phased`` picks goes to
+    ``render_simulation_phased`` with the same arguments), with
     ``render_fn.kernel_args`` the arguments after the rays (the snapshot
     among them) and ``render_fn.kernel_kwargs`` the keywords.
     """
@@ -141,16 +186,30 @@ def make_simulation_renderer(cfg, snapshot: Optional[int] = None, *, device,
         kernel = simulation_kernel.render_simulation
 
     def render_fn(positions, directions, momentum_factors):
-        out = kernel(positions, directions, momentum_factors, *kernel_args,
-                     **kernel_kwargs)
-        if not polarized:
-            i_nu, flags, n_samples = out
-            return {"I_nu": i_nu, "_flags": flags, "_n_samples": n_samples}
-        nn_re, nn_im, flags, n_samples, bad = out
-        image = polarized_kernel.poisoned_stokes(
-            nn_re, nn_im, flags, bad, positions, directions, frequencies,
-            params, geom, log_scale, fallback_nan)
-        return {**image, "_flags": flags, "_n_samples": n_samples}
+        # launched in spatial_order (blacklight_tpu/pipeline_simulation.py
+        # :412-415, :513-517), returned in the caller's order
+        order = simulation_kernel.spatial_order(positions,
+                                                block=KERNEL_ORDER_BLOCK)
+        rays = [t[order] for t in (positions, directions, momentum_factors)]
+        if polarized:
+            nn_re, nn_im, flags, n_samples, bad = kernel(
+                *rays, *kernel_args, **kernel_kwargs)
+            image = polarized_kernel.poisoned_stokes(
+                nn_re, nn_im, flags, bad, rays[0], rays[1], frequencies,
+                params, geom, log_scale, fallback_nan)
+        elif use_phased(kernel_kwargs["integrator"], params.ray_max_steps,
+                        positions.shape[0]):
+            i_nu, flags, n_samples = \
+                simulation_kernel.render_simulation_phased(
+                    *rays, *kernel_args, **kernel_kwargs,
+                    phase_steps=KERNEL_PHASE_STEPS, block=KERNEL_ORDER_BLOCK)
+            image = {"I_nu": i_nu}
+        else:
+            i_nu, flags, n_samples = kernel(*rays, *kernel_args,
+                                            **kernel_kwargs)
+            image = {"I_nu": i_nu}
+        out = {**image, "_flags": flags, "_n_samples": n_samples}
+        return {k: _unorder(v, order) for k, v in out.items()}
 
     render_fn.kernel = kernel
     render_fn.kernel_args = kernel_args

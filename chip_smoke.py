@@ -22,6 +22,8 @@ and prints no final line):
      cn0, r0 and h (h = 0.4, absorption on): rk4 float64, dp float32;
    - simulation, 128^2 camera on golden_sim_rk4_32.input with
      mock_small.athdf: rk4 float64, rk2 float32, dp float32/float64;
+     and the phase kernel of phased dispatch (K2.3) on its second phase
+     from the carried state of its first: rk4 float64, rk2 float32;
    - polarized, 64^2 camera on golden_polarized_rk4_32.input with
      mock_small.athdf (ray_step 0.04, 400 steps), camera-frame I, Q, U,
      V: rk4 float64, dp float32, rk2 float32 with image_rotation_split
@@ -68,9 +70,19 @@ and prints no final line):
     subset;
 12. the fit: ``python -m blacklight_tpu_torch.fit_demo`` (32^2, 200 Adam
     iterations) must print FIT OK; then 10 iterations at 1024^2, whose
-    loss must be finite and fall.
+    loss must be finite and fall;
+13. K2.3, phased dispatch, run right after phase 7 on its snapshot:
+    phase 7's configuration through pipeline.run with
+    pipeline_simulation.KERNEL_PHASED on, counting phase launches (at
+    most 4), whose image must be phase 7's bit for bit; the phase kernel
+    held to its plain version on the image's second phase at full width;
+    warp and block efficiencies of each ray order (camera order,
+    spatial_order per tile size, each phase's launch order); best of 3 of
+    the monolithic kernel in camera order and in spatial_order and of the
+    phased render, with each phase's survivors, kernel time and
+    compaction time.
 
-Phases 4 to 12 run alone on the card, after phase 3.
+Phases 4 to 13 run alone on the card, after phase 3.
 
 ``python3 chip_smoke.py --window-sweep`` runs phases 1 and 2, then times
 the polarized kernel at 1024^2 (float32 rk4) for each window W from 32 to
@@ -85,8 +97,8 @@ and per further frequency and tangent FORMULA_OPS_PER_FREQUENCY,
 FORMULA_OPS_PER_TANGENT).
 
 Every line but the last two is a JSON object with the measurements (the
-kernels line lists formula K1.1/K1.2, K1.3, K1.4, simulation and
-polarized); then come the card's name and power limit, and the last line
+kernels line lists formula K1.1/K1.2, K1.3, K1.4, simulation, phased
+simulation and polarized); then come the card's name and power limit, and the last line
 is {"ok": true, "device": {...}}.
 """
 
@@ -115,6 +127,8 @@ TANGENT_REPLACES = ("blacklight_tpu/ops/pallas_formula.py:192 (_make_kernel "
                     "with diff_params, K1.4)")
 SIM_KERNEL_SOURCE = "blacklight_tpu_torch/csrc/simulation_kernel.cuh"
 SIM_KERNEL_REPLACES = "blacklight_tpu/ops/pallas_simulation.py:795"
+PHASE_REPLACES = ("blacklight_tpu/ops/pallas_simulation.py:795 (_make_kernel "
+                  "with carry_io=True, K2.3; launched at :1552)")
 POL_KERNEL_SOURCE = "blacklight_tpu_torch/csrc/polarized_kernel.cuh"
 POL_KERNEL_REPLACES = "blacklight_tpu/ops/pallas_polarized.py:286"
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s and
@@ -253,7 +267,8 @@ def _ptxas_table(report: str) -> dict:
 
 
 def _kernel_label(mangled: str) -> str:
-    m = re.search(r"(formula|simulation|polarized)_kernelI([fd])Li(\d)E"
+    m = re.search(r"(formula|simulation|simulation_phase|polarized)_kernelI"
+                  r"([fd])Li(\d)E"
                   r"(?:Li(\d+)E)?(?:Lb([01])E)?", mangled)
     if not m:
         return mangled
@@ -302,7 +317,7 @@ def phase_build():
     path = _build.build()
     build_s = time.perf_counter() - t0
     fk._library()
-    sk._library()
+    sk._phase_library()
     pk._library()
     emit("build", seconds=build_s, library=path.name,
          ptxas=_ptxas_table(_build.ptxas_report()), fp64_sass=_sass_fp64(path))
@@ -428,7 +443,9 @@ def phase_checks(pool) -> tuple:
         (check_polarized, ("rk4", "float64", False, 1)),
         (check_formula, ("rk2", "float32")),
         (check_simulation, ("rk4", "float64")),
-        (check_simulation, ("rk2", "float32")))]
+        (check_simulation, ("rk2", "float32")),
+        (check_simulation_phase, ("rk4", "float64")),
+        (check_simulation_phase, ("rk2", "float32")))]
     for check in checks:
         phase, result = check.get()
         emit(phase, workers=WORKERS, **result)
@@ -572,12 +589,16 @@ def phase_goldens(tmp: pathlib.Path):
             raise RuntimeError(f"golden {name} failed")
 
 
-def warp_efficiency(n_samples, order) -> float:
-    """Share of lane-steps doing work when rays run 32 to a warp in
-    ``order`` and a warp lasts as long as its longest ray, with n_samples
-    standing in for a ray's step count."""
-    lanes = n_samples[order].reshape(-1, 32).astype("int64")
-    return float(lanes.sum() / (32 * lanes.max(axis=1).sum()))
+def warp_efficiency(n_samples, order, width=32) -> float:
+    """Share of lane-steps doing work when rays run ``width`` to a warp
+    (or a block) in ``order`` and it lasts as long as its longest ray,
+    with n_samples standing in for a ray's step count; a ragged last
+    group's empty lanes count as idle."""
+    import numpy as np
+    lanes = n_samples[order].astype("int64")
+    lanes = np.concatenate([lanes, np.zeros(-lanes.size % width, "int64")])
+    lanes = lanes.reshape(-1, width)
+    return float(lanes.sum() / (width * lanes.max(axis=1).sum()))
 
 
 def phase_full_width(tmp: pathlib.Path, card: str, subset) -> dict:
@@ -712,6 +733,54 @@ def check_simulation(integrator, precision) -> tuple:
         plain_s=t_p, **_check_exact(out_k, out_p, 1e-7 if exact else None))
 
 
+def _second_phase(args, integrator, phase_steps):
+    """The carried state of ``args``' rays after the phase kernel's first
+    phase of ``phase_steps``, then their second phase through the kernel
+    and through its plain version from that state: (kernel outputs, plain
+    outputs, kernel seconds, plain seconds, rays in the second phase,
+    their samples in it), the outputs as finish_rays gives them."""
+    import torch
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+    positions, directions, mom, freqs, params, sp, grid, mass, cam, log_js \
+        = args
+    carry = sk.initial_carry(positions, directions, params, freqs.shape[0])
+    index = torch.arange(positions.shape[0], dtype=torch.int32,
+                         device=positions.device)
+    phase = (directions, mom, freqs, params, sp, grid, mass, cam, integrator)
+    sk.render_simulation_phase(carry, index, 0, phase_steps, *phase)
+    index = index[(carry.masks[index.long()] & sk.ALIVE) != 0]
+    plain = sk.SimCarry(*(t.clone() for t in carry))
+    before = carry.n_samp[index.long()]
+    _, t_k = _timed(sk.render_simulation_phase, carry, index, phase_steps,
+                    phase_steps, *phase)
+    _, t_p = _timed(sk.render_simulation_phase_reference, plain, index,
+                    phase_steps, phase_steps, *phase)
+    samples = int((carry.n_samp[index.long()] - before).sum())
+    fallback_nan = sp.sampler.fallback_nan
+    return (sk.finish_rays(carry, index, freqs, log_js, fallback_nan),
+            sk.finish_rays(plain, index, freqs, log_js, fallback_nan),
+            t_k, t_p, int(index.numel()), samples)
+
+
+def check_simulation_phase(integrator, precision) -> tuple:
+    """The phase kernel (K2.3) against its plain version, 128^2: the
+    second phase of KERNEL_PHASE_STEPS from the kernel's carried state
+    after the first; rk4 float64 exact flags, n_samples and NaN sets and
+    I within rtol 1e-7, rk2 float32 the statistical gate."""
+    from blacklight_tpu_torch import pipeline_simulation
+    cfg = _sim_config(camera_resolution=128, ray_integrator=integrator,
+                      precision=precision)
+    args, _ = _sim_args(cfg)
+    out_k, out_p, t_k, t_p, rays, _ = _second_phase(
+        args, integrator, pipeline_simulation.KERNEL_PHASE_STEPS)
+    exact = precision == "float64"
+    return "sim_phase_kernel_vs_plain", dict(
+        integrator=integrator, precision=precision,
+        phase_steps=pipeline_simulation.KERNEL_PHASE_STEPS, phase_rays=rays,
+        kernel_s=t_k, plain_s=t_p,
+        **_check_exact(out_k, out_p, 1e-7 if exact else None))
+
+
 def phase_sim_goldens(tmp: pathlib.Path):
     import numpy as np
     from blacklight_tpu_torch import pipeline
@@ -825,7 +894,169 @@ def phase_sim_full_width(tmp: pathlib.Path, card: str, grids: dict) -> dict:
             **bound("simulation", "rk4", "float32", res * res,
                     f32["mean_n_samples"], in_bytes=grid_bytes(grids["float32"]),
                     out_values=1),
-            "library_ms": None}
+            "library_ms": None}, arrays
+
+
+# Carried bytes per ray and phase launch besides the working type's
+# values: read the index, n_samp, masks and bad (16); write n_samp, masks
+# and bad (12). Values of the working type: read y (7), r_mid_prev, p_0,
+# the momentum factor and per frequency intensity and tau (10 + 2), write
+# y, r_mid_prev and per frequency intensity and tau (8 + 2).
+PHASE_INT_BYTES = 28
+PHASE_VALUES = 18
+SPATIAL_BLOCKS = (128, 256, 512, 1024, 2048, 4096, 16384)
+
+
+def phase_bound(rays, samples, precision, in_bytes) -> dict:
+    """bound() for one phase launch: the carried state of ``rays`` rays
+    and the snapshot read and written once, and ``samples`` samples of
+    rk4 work (this phase's, counted from n_samples)."""
+    item = 4 if precision == "float32" else 8
+    n_bytes = rays * (PHASE_VALUES * item + PHASE_INT_BYTES) + in_bytes
+    ops = samples * (OPS_PER_STEP["rk4"] + OPS_PER_SAMPLE["simulation"])
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[precision]
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "bound_ops": ops, "bound_bytes": n_bytes}
+
+
+def phase_phased_full_width(tmp: pathlib.Path, card: str, grids: dict,
+                            mono: dict) -> dict:
+    """Phase 13 (K2.3): phase 7's configuration through pipeline.run with
+    KERNEL_PHASED on, held bit for bit to phase 7's image ``mono``; the
+    phase kernel against its plain version on the second phase; the
+    efficiencies and times of each ray order."""
+    import numpy as np
+    import torch
+    from blacklight_tpu_torch import pipeline, pipeline_simulation as ps
+    from blacklight_tpu_torch.ops import formula_kernel as fk
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+
+    res, grid = 1024, grids["float32"]
+    cfg = _sim_config(camera_resolution=res, precision="float32",
+                      ray_integrator="rk4", ray_max_steps=2000,
+                      output_file=str(tmp / "phased_full_width.npz"))
+    ps.KERNEL_PHASED = True
+    try:
+        fk.LAUNCHES = sk.LAUNCHES = pk.LAUNCHES = sk.PHASE_LAUNCHES = 0
+        arrays, run_s = _timed(pipeline.run, cfg, quiet=True, device="cuda",
+                               grid=grid)
+        launches = sk.PHASE_LAUNCHES
+        others = fk.LAUNCHES + sk.LAUNCHES + pk.LAUNCHES
+    finally:
+        ps.KERNEL_PHASED = False
+    a, b = arrays["I_nu"], mono["I_nu"]
+    same = (a.shape == b.shape == (res, res)
+            and np.array_equal(np.isnan(a), np.isnan(b))
+            and np.array_equal(a[~np.isnan(a)], b[~np.isnan(b)])
+            and all(np.array_equal(arrays[k], mono[k])
+                    for k in mono if k != "I_nu"))
+    n_phases = -(-2000 // ps.KERNEL_PHASE_STEPS)
+    emit("phased_main_path", resolution=res, precision="float32",
+         integrator="rk4", max_steps=2000, phase_steps=ps.KERNEL_PHASE_STEPS,
+         seconds=run_s, launches=launches, other_launches=others,
+         identical_to_monolithic=bool(same),
+         nan_pixels=int(np.isnan(a).sum()))
+    if not same or not 0 < launches <= n_phases or others:
+        raise RuntimeError(f"the phased main path launched {launches} phase "
+                           f"kernels ({others} others), or its image "
+                           "differs from the monolithic kernel's")
+
+    args, kwargs = _sim_args(_sim_config(
+        camera_resolution=res, precision="float32", ray_integrator="rk4",
+        ray_max_steps=2000), grid)
+    out_k, out_p, t_k, t_p, rays2, samples2 = _second_phase(
+        args, "rk4", ps.KERNEL_PHASE_STEPS)
+    gate = _check_exact(out_k, out_p, None)
+    emit("phase_kernel_vs_plain", resolution=res, card=card,
+         second_phase_rays=rays2, kernel_ms=t_k * 1e3, plain_ms=t_p * 1e3,
+         **gate)
+    if not gate["ok"]:
+        raise RuntimeError(f"the phase kernel disagrees with plain at "
+                           f"{res}^2: {gate}")
+    both = np.isfinite(out_k[0].cpu().numpy()) & np.isfinite(
+        out_p[0].cpu().numpy())
+    max_abs_err = float(np.max(np.abs(out_k[0].cpu().numpy()[both]
+                                      - out_p[0].cpu().numpy()[both])))
+
+    # ray orders: the monolithic kernel's n_samples stand in for steps
+    positions, n = args[0], res * res
+    ns = sk.render_simulation(*args, **kwargs)[2].cpu().numpy()
+    eff = {"camera": {"warp": warp_efficiency(ns, np.arange(n)),
+                      "block": warp_efficiency(ns, np.arange(n), 128)}}
+    for block in SPATIAL_BLOCKS:
+        order = sk.spatial_order(positions, block=block)
+        rays = (*(t[order] for t in args[:3]), *args[3:])
+        kernel_ms = min(_timed(sk.render_simulation, *rays, **kwargs)[1]
+                        for _ in range(2)) * 1e3
+        order = order.cpu().numpy()
+        eff[f"spatial_{block}"] = {"warp": warp_efficiency(ns, order),
+                                   "block": warp_efficiency(ns, order, 128),
+                                   "kernel_ms": kernel_ms}
+    emit("ray_order_efficiency", resolution=res, card=card,
+         proxy="n_samples", blocks_of=128,
+         chosen_block=ps.KERNEL_ORDER_BLOCK, **eff)
+
+    order = sk.spatial_order(positions, block=ps.KERNEL_ORDER_BLOCK)
+    ordered = (*(t[order] for t in args[:3]), *args[3:])
+    phased_kwargs = dict(kwargs, phase_steps=ps.KERNEL_PHASE_STEPS,
+                         block=ps.KERNEL_ORDER_BLOCK)
+    routes = {"camera": lambda: sk.render_simulation(*args, **kwargs),
+              "spatial": lambda: sk.render_simulation(*ordered, **kwargs),
+              "phased": lambda: sk.render_simulation_phased(
+                  *ordered, **phased_kwargs)}
+    for fn in routes.values():
+        fn()  # warm up
+    best = dict.fromkeys(routes, float("inf"))
+    runs = {k: [] for k in routes}
+    for _ in range(3):
+        for name, fn in routes.items():
+            _, t = _timed(fn)
+            runs[name].append(t)
+            best[name] = min(best[name], t)
+    # each phase's times, from the best of 3 runs that synchronize at
+    # every phase boundary
+    stats_runs = [[] for _ in range(3)]
+    for stats in stats_runs:
+        sk.render_simulation_phased(*ordered, **phased_kwargs, stats=stats)
+    stats = min(stats_runs, key=lambda st: sum(p["kernel_s"] + p["compact_s"]
+                                               for p in st))
+    phases = []
+    for p in stats:
+        samples = p["samples"]
+        phases.append(dict(
+            phase=p["phase"], rays=p["rays"], survivors=p["survivors"],
+            kernel_ms=p["kernel_s"] * 1e3, compact_ms=p["compact_s"] * 1e3,
+            mean_samples=float(samples.mean()),
+            warp_efficiency=warp_efficiency(samples, np.arange(samples.size)),
+            block_efficiency=warp_efficiency(samples, np.arange(samples.size),
+                                             128),
+            **phase_bound(p["rays"], int(samples.sum()), "float32",
+                          grid_bytes(grid))))
+    kernel_ms = sum(p["kernel_ms"] for p in phases)
+    bound_ms = sum(p["bound_ms"] for p in phases)
+    emit("phased_timing", resolution=res, card=card, precision="float32",
+         integrator="rk4", order_block=ps.KERNEL_ORDER_BLOCK,
+         **{f"{k}_ms": v * 1e3 for k, v in best.items()},
+         **{f"{k}_s_runs": v for k, v in runs.items()},
+         phased_over_camera=best["phased"] / best["camera"],
+         spatial_over_camera=best["spatial"] / best["camera"],
+         phased_over_spatial=best["phased"] / best["spatial"],
+         phases=phases, phase_kernel_ms_total=kernel_ms,
+         compact_ms_total=sum(p["compact_ms"] for p in phases),
+         phases_bound_ms_total=bound_ms,
+         clocks_power=smi(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,"
+                           "temperature.gpu", "--format=csv,noheader"]))
+    second = phase_bound(rays2, samples2, "float32", grid_bytes(grid))
+    return {"name": "simulation_phase_kernel", "route": "cuda",
+            "source": SIM_KERNEL_SOURCE, "replaces": PHASE_REPLACES,
+            "launches": launches, "max_abs_err": max_abs_err,
+            "ms": t_k * 1e3, "plain_ms": t_p * 1e3,
+            "work": (f"phase 1 (steps {ps.KERNEL_PHASE_STEPS}-"
+                     f"{2 * ps.KERNEL_PHASE_STEPS - 1}) of the 1024^2 image, "
+                     f"{rays2} rays"),
+            **second, "library_ms": None}
 
 
 def grid_bytes(grid) -> int:
@@ -1502,7 +1733,8 @@ def main(argv=None) -> int:
             formula = phase_full_width(tmp, card, subsets["k11"])
             phase_sim_goldens(tmp)
             grids = {}
-            simulation = phase_sim_full_width(tmp, card, grids)
+            simulation, mono = phase_sim_full_width(tmp, card, grids)
+            phased = phase_phased_full_width(tmp, card, grids, mono)
             phase_pol_goldens(tmp)
             polarized = phase_pol_full_width(tmp, card, grids, truth)
             grids.clear()
@@ -1510,7 +1742,7 @@ def main(argv=None) -> int:
             tangent = phase_grad_full_width(card, subsets["k14"])
             phase_fit(card)
         print(json.dumps({"kernels": [formula, multi, tangent, simulation,
-                                      polarized]}), flush=True)
+                                      phased, polarized]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
