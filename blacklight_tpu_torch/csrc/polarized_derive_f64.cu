@@ -1,0 +1,13 @@
+// The polarized route's derive kernel (polarized_kernel.cuh,
+// polarized_derive_kernel) in double, a unit of its own so that nvcc builds
+// it beside the float one. Built without multiply-add contraction.
+
+#include "polarized_kernel.cuh"
+
+namespace bl {
+
+cudaError_t launch_polarized_derive_f64(const PolDeriveArgs& a) {
+  return launch_polarized_derive<double>(a);
+}
+
+}  // namespace bl

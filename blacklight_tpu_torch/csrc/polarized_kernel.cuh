@@ -1,54 +1,64 @@
-// Fused polarized (full-Stokes IQUV) simulation-model ray tracer for NVIDIA
-// Hopper (sm_90a): geodesic steps, GRMHD grid sampling, thermal polarized
-// synchrotron coefficients and coherency-tensor transfer with tetrad-frame
-// matter coupling, one ray per thread.
+// Polarized (full-Stokes IQUV) simulation-model ray tracer for NVIDIA
+// Hopper (sm_90a) in three stages: geodesic steps, GRMHD grid sampling,
+// thermal polarized synchrotron coefficients and coherency-tensor
+// transfer with tetrad-frame matter coupling.
 //
 // Replaces the TPU kernel blacklight_tpu/ops/pallas_polarized.py
-// _make_kernel (:286, launched by render_polarized :727; K3.1) for a
-// single-block SKS grid, thermal ti_te_beta electrons, dp, rk4 and rk2, and
-// float32 and float64. Its values follow the JAX package's exact (XLA)
-// path in each type's forms: transfer/polarized.py integrate_polarized
-// with pipeline_simulation.make_simulation_coeff_fns(polarized=True). The
-// plain PyTorch version is blacklight_tpu_torch/ops/polarized_kernel.py
-// render_polarized_reference (transfer/polarized.py, ops/connection.py,
+// _make_kernel (:286, launched by render_polarized :727, call :787; K3.1)
+// for a single-block SKS grid, thermal ti_te_beta electrons, dp, rk4 and
+// rk2, and float32 and float64. Its values follow the JAX package's exact
+// (XLA) path in each type's forms: transfer/polarized.py
+// integrate_polarized with pipeline_simulation.make_simulation_coeff_fns
+// (polarized=True). The plain PyTorch version is
+// blacklight_tpu_torch/ops/polarized_kernel.py render_polarized_reference
+// (transfer/polarized.py sample_record and apply_record, ops/connection.py,
 // ops/tetrad.py, transfer/polarized_coupling.py, models/synchrotron.py);
 // this file writes their operation forms. Like the TPU kernel it returns
 // the final coherency components; the caller takes camera-frame Stokes
 // (transfer/polarized.camera_stokes) and poisons NaN pixels.
 //
 // The transfer takes samples far end first while the geodesic runs from
-// the camera, so each thread makes two sweeps:
-//   sweep A integrates its ray forward and stores the state entering each
-//     window of W steps (RayState, trace.cuh) in a table in device memory,
-//     laid out [window][field][ray] so a warp's stores coalesce;
-//   sweep B walks the windows backwards: it replays a window from its
-//     entering state with the same step_ray (so the samples are sweep A's
-//     bit for bit, dp's rejected attempts included), keeps the window's
-//     samples in a per-thread array and applies the polarized update to
-//     them far end first: the grid sample and fluid state
-//     (sim_sample.cuh, shared with the unpolarized kernel), three
-//     transport matrices, the deferred second half of the previous
-//     sample's transport and this sample's first half, the fluid tetrad,
-//     N -> Stokes, the per-frequency coefficients, the matter coupling in
-//     the sample's own regime, and Stokes -> N.
-// At the camera end the nearest sample's second half is applied.
+// the camera, and almost all of a sample's work does not depend on the
+// coherency tensor N that the transfer carries from sample to sample. So
+// the route has three kernels (ops/polarized_kernel.py launches them):
+//   polarized_trace_kernel, one thread per ray: integrates the ray once,
+//     forward, with trace.cuh's step_ray and stores every valid sample
+//     (x, y, z, k1, k2, k3, h) in device memory;
+//   polarized_derive_kernel, one thread per stored sample: everything of
+//     the sample that does not touch N (the grid sample and fluid state of
+//     sim_sample.cuh, the three transport matrices, the step lengths, the
+//     fluid tetrad, the coefficients of each frequency times the step, and
+//     the bad-sample bits), written as one record per sample;
+//   polarized_chain_kernel, one thread per ray: reads its records far end
+//     first and applies the deferred second half of the previous sample's
+//     transport, this sample's first half, N -> Stokes, the matter coupling
+//     and Stokes -> N; at the camera end the nearest sample's second half.
+// Samples and records are laid out per warp of 32 rays, slot-major and
+// padded to the warp's longest ray ([warp][slot][value][lane]), so every
+// stage's loads and stores coalesce.
 //
-// What bounds it on this card: arithmetic and latency. Per sample and
-// frequency the update is ~2,000 floating-point operations (three 4x4
-// transport matrices, two 16-component transports, the tetrad, the
-// coupling's transcendentals), on top of two geodesic steps (sweep A and
-// the replay); the bytes are the grid's 256 per sample, mostly cache hits,
-// and the window table (~50 bytes per ray and window, written once and
-// read once). No brick, window vote, DMA or overflow latch: those exist in
-// the TPU kernel for Mosaic's DMA and VMEM rules, and no ray goes to the
-// host. The TPU kernel's Mosaic substitutes for sin, cos, sinh, cosh,
-// expm1, log1p, pow and tanh are not carried over: the card has them.
+// What bounds it on this card: the operations, ~4,700 a sample at one
+// frequency (the step ~830, the sample's ~2,700 and ~1,100 per
+// frequency; 52.6 ms for a 1024^2 float32 image of 721 samples a ray at
+// 67 TFLOP/s), and their latency. The TPU kernel's shape, one thread per
+// ray running all of it in two sweeps (a forward sweep keeping window
+// carries, then each window replayed and taken far end first), needs 229
+// registers here (8 warps an SM), integrates every step twice, keeps a
+// window's samples in local memory and runs each per-window loop as long
+// as the warp's longest window. Here the step runs once, the heavy
+// per-sample code runs one thread per sample with no per-ray state and
+// no ray-length divergence, and only the chain (~900 operations a
+// sample) stays sequential per ray. What that costs is bytes: the
+// records, 58 values a sample at one frequency, written once and read
+// once (~0.12 s of traffic for a 1024^2 image of 721 samples a ray at
+// 3.35 TB/s), which bound the derive and chain kernels.
 //
-// The instantiations live in three translation units that nvcc builds side
+// The instantiations live in four translation units that nvcc builds side
 // by side, none with multiply-add contraction (ops/_build.py), so that
-// each operation rounds as the plain version's does:
-// polarized_kernel.cu (rk4, rk2 in float), polarized_kernel_f64.cu (rk4,
-// rk2 in double) and polarized_kernel_dp.cu (dp in both).
+// each operation rounds as the plain version's does: polarized_trace.cu
+// (the trace kernel, every type and integrator), polarized_derive.cu and
+// polarized_derive_f64.cu (the derive kernel in float and double) and
+// polarized_chain.cu (the chain kernel and the C interface).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -59,10 +69,8 @@
 namespace bl {
 
 constexpr int POL_THREADS = 128;
-constexpr int POL_MAX_FREQUENCIES = 4;  // per launch; more go to more launches
-constexpr int POL_MAX_WINDOW = 512;     // steps per window, at most
-constexpr int POL_CARRY_REALS = 9;      // y[7], h, r_mid_prev
-constexpr int POL_CARRY_INTS = 2;       // n_samp; num_retry and the four bits
+constexpr int POL_WARP = 32;
+constexpr int POL_MAX_FREQUENCIES = 4;  // per derive/chain launch; more go to more launches
 constexpr double POL_DELTA_TAU_MAX = 100.0;  // unpolarized.cpp:96-110
 constexpr double THETA_E_ZERO = 0.01;        // radiation_integrator.hpp:190
 constexpr double PI = 3.141592653589793;
@@ -740,18 +748,16 @@ __device__ __forceinline__ void couple_matrix(T (&s)[4], T j0, T j1, T j3, T a1,
   for (int i = 0; i < 4; ++i) s[i] = pv[i] - exp_t * cv[i] + exp_t * ov[i];
 }
 
-// One matter-coupling step on tetrad-frame Stokes s (couple_matter_c),
-// clamped admissible. The coefficients are first rescaled to per-step
-// optical-depth units, under which the algebra is invariant (dl -> 1).
-// Only the sample's own regime is evaluated: the XLA form evaluates all
-// and selects, which gives the same value.
+// One matter-coupling step on tetrad-frame Stokes s
+// (couple_matter_scaled_c), clamped admissible. The coefficients come
+// rescaled to per-step optical-depth units (times the step, the derive
+// kernel's record), under which the algebra is invariant (dl -> 1). Only
+// the sample's own regime is evaluated: the XLA form evaluates all and
+// selects, which gives the same value.
 template <typename T>
-__device__ __forceinline__ void couple_matter(T (&s)[4], const PolCoeffs<T>& k, T dl_cgs,
-                                              bool rotation_split) {
+__device__ __forceinline__ void couple_matter(T (&s)[4], T j0, T j1, T j3, T a_i, T a1, T a3,
+                                              T rho1, T rho3, bool rotation_split) {
   const T dl = T(1);
-  const T j0 = k.j_i * dl_cgs, j1 = k.j_q * dl_cgs, j3 = k.j_v * dl_cgs;
-  const T a_i = k.a_i * dl_cgs, a1 = k.a_q * dl_cgs, a3 = k.a_v * dl_cgs;
-  const T rho1 = k.rho_q * dl_cgs, rho3 = k.rho_v * dl_cgs;
   const T alpha_sq = a1 * a1 + a3 * a3;
   const T rho_sq = rho1 * rho1 + rho3 * rho3;
   const bool a0_zero = a_i == T(0);
@@ -802,7 +808,8 @@ __device__ __forceinline__ void couple_matter(T (&s)[4], const PolCoeffs<T>& k, 
   admissibility_clamp(s);
 }
 
-// ---- the per-ray transfer -------------------------------------------------
+
+// ---- the three stages -----------------------------------------------------
 
 // Constants of one launch beyond the simulation kernel's.
 template <typename T>
@@ -819,134 +826,216 @@ struct PolConsts {
   }
 };
 
-// The transfer state of one ray (integrate_polarized's carry): N per
-// frequency, the previous sample's transport matrix, wavevector, position
-// and step, and the bad-sample bits. A sample far end first at a time.
-template <typename T, int NF>
-struct PolTransfer {
-  const TraceConsts<T>& tc;
-  const SimConsts<T>& c;
-  const PolConsts<T>& pk;
-  const GridView<T>& grid;
-  const T* __restrict__ freqs;
-  int nf;
-  T p0, mom;
-  Coherency<T> nn[NF];
-  T a_prev[4][4];
-  T kcon_pv[4];
-  T pos_pv[3];
-  T dl_pv;
-  bool started;
-  unsigned bad;  // bit f: frequency f met a sample the reference would NaN
+// A stored sample: x, y, z, k1, k2, k3 (the covariant spatial momentum; k_0
+// = p0) and the signed step h.
+constexpr int POL_SAMPLE_VALUES = 7;
+// A sample's record (transfer/polarized.py sample_record): its transport
+// matrix A(x, k) (the next-nearer sample's deferred second half uses it),
+// the averaged matrix of its first half, the two half-step lengths and the
+// fluid tetrad rows; then per frequency of the launch the coefficients
+// times the step in cm (couple_matter's arguments).
+enum RecordValue : int {
+  R_A_CUR = 0,     // 16, row-major
+  R_A_HALF = 16,   // 16
+  R_DL_SEC = 32,   // 0.25 (dl_prev + dl), dl = -h
+  R_DL_LOCAL = 33, // 0.5 (dl_prev + dl), dl_prev = 0 at the far end
+  R_E1 = 34,       // covariant tetrad rows e1, e2
+  R_E2 = 38,
+  R_T1 = 42,       // contravariant rows t1, t2
+  R_T2 = 46,
+  POL_GEOMETRY_VALUES = 50
+};
+constexpr int POL_COEFFICIENT_VALUES = 8;  // j0, j1, j3, a_i, a1, a3, rho1, rho3
 
-  __device__ PolTransfer(const TraceConsts<T>& tc_, const SimConsts<T>& c_,
-                         const PolConsts<T>& pk_, const GridView<T>& grid_,
-                         const T* __restrict__ freqs_, int nf_, T p0_, T mom_, const T* pos)
-      : tc(tc_), c(c_), pk(pk_), grid(grid_), freqs(freqs_), nf(nf_), p0(p0_), mom(mom_),
-        dl_pv(T(0)), started(false), bad(0u) {
-#pragma unroll
-    for (int f = 0; f < NF; ++f) {
-#pragma unroll
-      for (int i = 0; i < 10; ++i) nn[f].re[i] = T(0);
-#pragma unroll
-      for (int i = 0; i < 6; ++i) nn[f].im[i] = T(0);
+// Sample s of lane `lane` of warp w lies at values
+// ((w * cap + s) * POL_SAMPLE_VALUES + q) * POL_WARP + lane, q = 0..6: cap
+// slots per warp (the step budget), each a [value][lane] tile.
+__device__ __forceinline__ long long sample_at(long long w, int cap, int s, int lane) {
+  return ((w * cap + s) * POL_SAMPLE_VALUES) * POL_WARP + lane;
+}
+
+// Record slot `slot` of a launch (offsets[w] + s for sample s of warp w)
+// with `values` values: value q of lane `lane` at
+// (slot * values + q) * POL_WARP + lane.
+__device__ __forceinline__ long long record_at(long long slot, int values, int lane) {
+  return slot * values * POL_WARP + lane;
+}
+
+// Stage 1: one thread per ray integrates it from the camera with step_ray
+// and stores its valid samples in step order.
+template <typename T, int INTEGRATOR>
+__global__ void __launch_bounds__(POL_THREADS)
+    polarized_trace_kernel(const T* __restrict__ positions, const T* __restrict__ directions,
+                           const double* __restrict__ params, T* __restrict__ samples, int cap,
+                           int* __restrict__ flags_out, int* __restrict__ n_samples_out,
+                           long long n_rays) {
+  const long long ray = static_cast<long long>(blockIdx.x) * POL_THREADS + threadIdx.x;
+  if (ray >= n_rays) return;
+  const TraceConsts<T> tc(params);
+  T* __restrict__ out = samples + sample_at(ray / POL_WARP, cap, 0, ray % POL_WARP);
+  RayState<T> s;
+  init_ray_state(tc, positions + 4 * ray, directions + 4 * ray, s);
+  long long k = 0;
+  auto on_sample = [&](const T(&ym)[7], T k1, T k2, T k3, T hs) {
+    T* __restrict__ o = out + k * (POL_SAMPLE_VALUES * POL_WARP);
+    o[0 * POL_WARP] = ym[1];
+    o[1 * POL_WARP] = ym[2];
+    o[2 * POL_WARP] = ym[3];
+    o[3 * POL_WARP] = k1;
+    o[4 * POL_WARP] = k2;
+    o[5 * POL_WARP] = k3;
+    o[6 * POL_WARP] = hs;
+    ++k;
+  };
+  bool flag;
+  int n_samp;
+  trace_ray<T, INTEGRATOR>(tc, s, directions[4 * ray], on_sample, flag, n_samp);
+  flags_out[ray] = flag ? 1 : 0;
+  n_samples_out[ray] = n_samp;
+}
+
+// What the derive and chain kernels read of a launch's stored samples.
+template <typename T>
+struct SampleSet {
+  const T* __restrict__ samples;
+  int cap;
+  const int* __restrict__ n_samples;  // per ray
+  const long long* __restrict__ offsets;  // n_warps + 1: first record slot of each warp
+  int n_warps;
+  long long n_rays;
+};
+
+// Blocks of POL_THREADS the derive kernel asks each SM to hold: in float
+// its 220 registers then fit 128 with no spill, 16 warps an SM instead of
+// 8 (0.79x the route's time on an H100, PERF.md); double keeps its 254.
+template <typename T>
+struct DeriveBlocks {
+  static constexpr int value = TypeForms<T>::F64 ? 1 : 4;
+};
+
+// Stage 2: one thread per stored sample, which a hardware warp's 32 lanes
+// take at one slot of one warp of rays. GEOMETRY: the whole record (the
+// first frequency group); otherwise only the coefficients of this
+// launch's frequencies. Bit f of bad[ray] is set where frequency f met a
+// sample the reference would NaN (its coefficients are zeroed).
+template <typename T, bool GEOMETRY>
+__global__ void __launch_bounds__(POL_THREADS, DeriveBlocks<T>::value)
+    polarized_derive_kernel(SampleSet<T> set, long long n_slots,
+                            const T* __restrict__ directions,
+                            const T* __restrict__ momentum_factors, const T* __restrict__ freqs,
+                            int nf, const double* __restrict__ params, GridView<T> grid,
+                            T* __restrict__ geometry, T* __restrict__ coefficients,
+                            int* __restrict__ bad) {
+  using Forms = TypeForms<T>;
+  const long long g = static_cast<long long>(blockIdx.x) * POL_THREADS + threadIdx.x;
+  const long long slot = g / POL_WARP;
+  const int lane = static_cast<int>(g % POL_WARP);
+  if (slot >= n_slots) return;
+  // the warp of rays holding this slot: offsets[w] <= slot < offsets[w + 1]
+  int lo = 0, hi = set.n_warps;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(set.offsets + mid) <= slot) {
+      lo = mid;
+    } else {
+      hi = mid;
     }
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      kcon_pv[m] = T(0);
-#pragma unroll
-      for (int b = 0; b < 4; ++b) a_prev[m][b] = T(0);
-    }
-    pos_pv[0] = pos[1];
-    pos_pv[1] = pos[2];
-    pos_pv[2] = pos[3];
   }
+  const int t = static_cast<int>(slot - __ldg(set.offsets + lo));
+  const long long ray = static_cast<long long>(lo) * POL_WARP + lane;
+  if (ray >= set.n_rays) return;
+  const int n = __ldg(set.n_samples + ray);
+  if (t >= n) return;
 
-  __device__ __forceinline__ int n_freq() const { return NF == 1 ? 1 : nf; }
+  const TraceConsts<T> tc(params);
+  const SimConsts<T> c(params);
+  const PolConsts<T> pk(params);
+  const bool flat = tc.g.flat;
+  const T* __restrict__ smp = set.samples + sample_at(lo, set.cap, t, lane);
+  const T x = __ldg(smp), y = __ldg(smp + POL_WARP), z = __ldg(smp + 2 * POL_WARP);
+  const T k1 = __ldg(smp + 3 * POL_WARP), k2 = __ldg(smp + 4 * POL_WARP);
+  const T k3 = __ldg(smp + 5 * POL_WARP), h = __ldg(smp + 6 * POL_WARP);
+  const T p0 = __ldg(directions + 4 * ray);
+  const T mom = __ldg(momentum_factors + ray);
+  const T dl_cur = -h;
+  const T kcov[4] = {p0, k1, k2, k3};
 
-  // One valid sample at CKS (x, y, z) with covariant momentum (p0, k1, k2,
-  // k3) and signed step h.
-  __device__ __forceinline__ void update(T x, T y, T z, T k1, T k2, T k3, T h) {
-    using Forms = TypeForms<T>;
-    const bool flat = tc.g.flat;
-    const bool first = !started;
-    const T dl_cur = -h;
-    const T kcov[4] = {p0, k1, k2, k3};
-
-    // transport matrices; the averaged first-half matrix expands by
-    // bilinearity: 0.5 A(prev, k_old) + 0.25 A(cur, k_prev) + 0.25 A(cur, k)
-    KsDerivs<T> d;
+  KsDerivs<T> d;
+  T kcon[4];
+  if constexpr (GEOMETRY) {
     if (!flat) ks_derivatives(x, y, z, tc.g, d);
-    T kcon[4];
     kcon_of(flat, d, kcov, kcon);
-    T a_cur[4][4], a_half[4][4];
+    T* __restrict__ rec = geometry + record_at(slot, POL_GEOMETRY_VALUES, lane);
+    // transport matrices; the averaged first-half matrix expands by
+    // bilinearity: 0.5 A(prev, k_old) + 0.25 A(cur, k_prev) + 0.25 A(cur, k),
+    // prev the next-farther sample (t + 1)
+    T a_cur[4][4];
     transport_matrix(flat, d, kcon, a_cur);
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) rec[(R_A_CUR + 4 * m + b) * POL_WARP] = a_cur[m][b];
+    const bool first = t == n - 1;
+    T dl_pv = T(0);
     if (first) {
 #pragma unroll
       for (int m = 0; m < 4; ++m)
 #pragma unroll
-        for (int b = 0; b < 4; ++b) a_half[m][b] = a_cur[m][b];
+        for (int b = 0; b < 4; ++b) rec[(R_A_HALF + 4 * m + b) * POL_WARP] = a_cur[m][b];
     } else {
-      T kcon_old[4], a_kprev[4][4], a_pv[4][4];
+      const T* __restrict__ pv = smp + POL_SAMPLE_VALUES * POL_WARP;
+      const T xp = __ldg(pv), yp = __ldg(pv + POL_WARP), zp = __ldg(pv + 2 * POL_WARP);
+      const T kcov_pv[4] = {p0, __ldg(pv + 3 * POL_WARP), __ldg(pv + 4 * POL_WARP),
+                            __ldg(pv + 5 * POL_WARP)};
+      dl_pv = -__ldg(pv + 6 * POL_WARP);
+      KsDerivs<T> dpv;
+      if (!flat) ks_derivatives(xp, yp, zp, tc.g, dpv);
+      T kcon_pv[4], kcon_old[4], a_kprev[4][4], a_pv[4][4];
+      kcon_of(flat, dpv, kcov_pv, kcon_pv);
 #pragma unroll
       for (int m = 0; m < 4; ++m) kcon_old[m] = T(0.5) * (kcon_pv[m] + kcon[m]);
       transport_matrix(flat, d, kcon_pv, a_kprev);
-      KsDerivs<T> dpv;
-      if (!flat) ks_derivatives(pos_pv[0], pos_pv[1], pos_pv[2], tc.g, dpv);
       transport_matrix(flat, dpv, kcon_old, a_pv);
 #pragma unroll
       for (int m = 0; m < 4; ++m)
 #pragma unroll
         for (int b = 0; b < 4; ++b)
-          a_half[m][b] =
+          rec[(R_A_HALF + 4 * m + b) * POL_WARP] =
               T(0.5) * a_pv[m][b] + T(0.25) * a_kprev[m][b] + T(0.25) * a_cur[m][b];
     }
-    const T dl_sec = T(0.25) * (dl_pv + dl_cur);
-    const T dl_local = T(0.5) * ((first ? T(0) : dl_pv) + dl_cur);
+    rec[R_DL_SEC * POL_WARP] = T(0.25) * (dl_pv + dl_cur);
+    rec[R_DL_LOCAL * POL_WARP] = T(0.5) * ((first ? T(0) : dl_pv) + dl_cur);
+  }
 
-    // the grid sample: zeros where a geometric cut holds (the reference's
-    // sampler leaves zeros there, which the tetrad consumes), the fallback
-    // values off the grid
-    const SksPoint<T> pt = cks_to_sks(c, x, y, z);
-    const bool keep_geo =
-        geometric_keep(c.cuts, pt.x, pt.y, pt.z, pt.r, c.camera_r, c.cam1, c.cam2, c.cam3);
-    const bool off_grid = is_off_grid(grid, pt);
-    T v[8];
-    if (keep_geo && !off_grid) {
-      sample_cell(grid, pt, v);
-    } else {
+  // the grid sample: zeros where a geometric cut holds (the reference's
+  // sampler leaves zeros there, which the tetrad consumes), the fallback
+  // values off the grid
+  const SksPoint<T> pt = cks_to_sks(c, x, y, z);
+  const bool keep_geo =
+      geometric_keep(c.cuts, pt.x, pt.y, pt.z, pt.r, c.camera_r, c.cam1, c.cam2, c.cam3);
+  const bool off_grid = is_off_grid(grid, pt);
+  T v[8];
+  if (keep_geo && !off_grid) {
+    sample_cell(grid, pt, v);
+  } else {
 #pragma unroll
-      for (int q = 0; q < 8; ++q) v[q] = T(0);
-      if (keep_geo) {
-        v[0] = pk.fallback_rho;
-        v[1] = pk.fallback_pgas;
-      }
+    for (int q = 0; q < 8; ++q) v[q] = T(0);
+    if (keep_geo) {
+      v[0] = pk.fallback_rho;
+      v[1] = pk.fallback_pgas;
     }
-    FluidState<T> st;
-    fluid_state(c, pt, v, st);
-    const bool b_zero = v[5] == T(0) && v[6] == T(0) && v[7] == T(0);
-    const bool keep = keep_geo && !b_zero && value_keep(c, st);
-    const bool bad0 = off_grid && c.fallback_nan && keep_geo;
-    T ucon[4], bcon[4];
-    fluid_cks(pt, c.spin, st, ucon, bcon);
+  }
+  FluidState<T> st;
+  fluid_state(c, pt, v, st);
+  const bool b_zero = v[5] == T(0) && v[6] == T(0) && v[7] == T(0);
+  const bool keep = keep_geo && !b_zero && value_keep(c, st);
+  const bool bad0 = off_grid && c.fallback_nan && keep_geo;
+  T ucon[4], bcon[4];
+  fluid_cks(pt, c.spin, st, ucon, bcon);
 
-    PolCell<T> cell;
-    if (keep) {
-      const Pitch<T> pa = pitch_angle(p0, k1, k2, k3, ucon, bcon, st.b_sq);
-      cell.n_e = st.n_e_cgs;
-      cell.theta_e = st.theta_e;
-      cell.kb_tt_e = st.kb_tt_e;
-      cell.sin_b = safe_sqrt(pa.sin2);
-      cell.cos_b = safe_sqrt(pa.cos2) * (pa.b_dot_k >= T(0) ? T(1) : T(-1));
-      cell.sin2_b = pa.sin2;
-      cell.u_dot_k = pa.u_dot_k;
-      cell.nu_c = c.e_charge * st.bb_cgs / c.nu_c_div;
-      cell.nu_s = jmax(c.two_ninths * cell.nu_c * (st.theta_e * st.theta_e) * cell.sin_b,
-                       Forms::nu_s_floor());
-      pol_cell_bessel(cell);
-    }
-
+  if constexpr (GEOMETRY) {
     // the fluid tetrad; a field-free cell takes up = (0, 0, 0, 1)
+    T* __restrict__ rec = geometry + record_at(slot, POL_GEOMETRY_VALUES, lane);
     const T up[4] = {b_zero ? T(0) : bcon[0], b_zero ? T(0) : bcon[1],
                      b_zero ? T(0) : bcon[2], b_zero ? T(1) : bcon[3]};
     T t1[4], t2[4], e1[4], e2[4];
@@ -955,24 +1044,129 @@ struct PolTransfer {
     } else {
       tetrad_rows(ucon, kcon, kcov, up, d.f, d.l1, d.l2, d.l3, t1, t2, e1, e2);
     }
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      rec[(R_E1 + m) * POL_WARP] = e1[m];
+      rec[(R_E2 + m) * POL_WARP] = e2[m];
+      rec[(R_T1 + m) * POL_WARP] = t1[m];
+      rec[(R_T2 + m) * POL_WARP] = t2[m];
+    }
+  }
 
-    const T dl_lam = dl_cur * c.x_unit;
+  PolCell<T> cell;
+  if (keep) {
+    const Pitch<T> pa = pitch_angle(p0, k1, k2, k3, ucon, bcon, st.b_sq);
+    cell.n_e = st.n_e_cgs;
+    cell.theta_e = st.theta_e;
+    cell.kb_tt_e = st.kb_tt_e;
+    cell.sin_b = safe_sqrt(pa.sin2);
+    cell.cos_b = safe_sqrt(pa.cos2) * (pa.b_dot_k >= T(0) ? T(1) : T(-1));
+    cell.sin2_b = pa.sin2;
+    cell.u_dot_k = pa.u_dot_k;
+    cell.nu_c = c.e_charge * st.bb_cgs / c.nu_c_div;
+    cell.nu_s = jmax(c.two_ninths * cell.nu_c * (st.theta_e * st.theta_e) * cell.sin_b,
+                     Forms::nu_s_floor());
+    pol_cell_bessel(cell);
+  }
+  T* __restrict__ co =
+      coefficients + record_at(slot, POL_COEFFICIENT_VALUES * nf, lane);
+  const T dl_lam = dl_cur * c.x_unit;
+  unsigned bits = 0u;
 #pragma unroll 1
-    for (int f = 0; f < n_freq(); ++f) {
-      const T nu = __ldg(freqs + f);
-      PolCoeffs<T> k = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
-      bool cbad = bad0;
-      if (keep) {
-        const T nu_cgs = -cell.u_dot_k * nu * mom;
-        k = thermal_polarized(c, pk.e_squared, pk.me_c, cell, nu_cgs);
-        cbad = cbad || !(m_isfinite(k.j_i) && m_isfinite(k.j_q) && m_isfinite(k.j_v) &&
-                         m_isfinite(k.a_i) && m_isfinite(k.a_q) && m_isfinite(k.a_v) &&
-                         m_isfinite(k.rho_q) && m_isfinite(k.rho_v));
-      }
-      if (cbad) {
-        bad |= 1u << f;
-        k = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
-      }
+  for (int f = 0; f < nf; ++f) {
+    const T nu = __ldg(freqs + f);
+    PolCoeffs<T> k = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
+    bool cbad = bad0;
+    if (keep) {
+      const T nu_cgs = -cell.u_dot_k * nu * mom;
+      k = thermal_polarized(c, pk.e_squared, pk.me_c, cell, nu_cgs);
+      cbad = cbad || !(m_isfinite(k.j_i) && m_isfinite(k.j_q) && m_isfinite(k.j_v) &&
+                       m_isfinite(k.a_i) && m_isfinite(k.a_q) && m_isfinite(k.a_v) &&
+                       m_isfinite(k.rho_q) && m_isfinite(k.rho_v));
+    }
+    if (cbad) {
+      bits |= 1u << f;
+      k = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
+    }
+    // per-step optical-depth units (couple_matter)
+    const T dl_cgs = dl_lam / (nu * mom);
+    T* __restrict__ o = co + f * POL_COEFFICIENT_VALUES * POL_WARP;
+    o[0 * POL_WARP] = k.j_i * dl_cgs;
+    o[1 * POL_WARP] = k.j_q * dl_cgs;
+    o[2 * POL_WARP] = k.j_v * dl_cgs;
+    o[3 * POL_WARP] = k.a_i * dl_cgs;
+    o[4 * POL_WARP] = k.a_q * dl_cgs;
+    o[5 * POL_WARP] = k.a_v * dl_cgs;
+    o[6 * POL_WARP] = k.rho_q * dl_cgs;
+    o[7 * POL_WARP] = k.rho_v * dl_cgs;
+  }
+  if (bits) atomicOr(bad + ray, static_cast<int>(bits));
+}
+
+// The coherency tensor of each frequency of the launch: registers for one,
+// a local array for more.
+template <typename T, int NF>
+__device__ __forceinline__ void zero_coherency(Coherency<T> (&nn)[NF]) {
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+#pragma unroll
+    for (int i = 0; i < 10; ++i) nn[f].re[i] = T(0);
+#pragma unroll
+    for (int i = 0; i < 6; ++i) nn[f].im[i] = T(0);
+  }
+}
+
+// Stage 3: one thread per ray, a hardware warp per warp of rays, warps
+// taken longest first (order). The warp walks its slots from the far end;
+// a lane joins at its own farthest sample, so that every load of a record
+// value is one coalesced row. N and the previous record's A(x, k) stay in
+// registers.
+template <typename T, int NF>
+__global__ void __launch_bounds__(POL_THREADS)
+    polarized_chain_kernel(SampleSet<T> set, const int* __restrict__ order,
+                           const T* __restrict__ geometry, const T* __restrict__ coefficients,
+                           int nf, const double* __restrict__ params, T* __restrict__ nn_out) {
+  const int j = blockIdx.x * (POL_THREADS / POL_WARP) + threadIdx.x / POL_WARP;
+  if (j >= set.n_warps) return;
+  const int lane = threadIdx.x % POL_WARP;
+  const int w = __ldg(order + j);
+  const long long ray = static_cast<long long>(w) * POL_WARP + lane;
+  const bool live = ray < set.n_rays;
+  const int n = live ? __ldg(set.n_samples + ray) : 0;
+  const long long first_slot = __ldg(set.offsets + w);
+  const int len = static_cast<int>(__ldg(set.offsets + w + 1) - first_slot);
+  const bool rotation_split = flag_at<T>(params, P_ROTATION_SPLIT);
+  const int n_freq = NF == 1 ? 1 : nf;
+
+  Coherency<T> nn[NF];
+  zero_coherency(nn);
+  T a_prev[4][4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) a_prev[m][b] = T(0);
+
+  for (int t = len - 1; t >= 0; --t) {
+    if (t >= n) continue;
+    const T* __restrict__ rec =
+        geometry + record_at(first_slot + t, POL_GEOMETRY_VALUES, lane);
+    T a_half[4][4], e1[4], e2[4], t1[4], t2[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) a_half[m][b] = __ldcs(rec + (R_A_HALF + 4 * m + b) * POL_WARP);
+      e1[m] = __ldcs(rec + (R_E1 + m) * POL_WARP);
+      e2[m] = __ldcs(rec + (R_E2 + m) * POL_WARP);
+      t1[m] = __ldcs(rec + (R_T1 + m) * POL_WARP);
+      t2[m] = __ldcs(rec + (R_T2 + m) * POL_WARP);
+    }
+    const T dl_sec = __ldcs(rec + R_DL_SEC * POL_WARP);
+    const T dl_local = __ldcs(rec + R_DL_LOCAL * POL_WARP);
+    const T* __restrict__ co = coefficients +
+                               record_at(first_slot + t, POL_COEFFICIENT_VALUES * nf, lane);
+#pragma unroll 1
+    for (int f = 0; f < n_freq; ++f) {
+      const T* __restrict__ o = co + f * POL_COEFFICIENT_VALUES * POL_WARP;
       // the previous sample's deferred second half (its step is this
       // sample's), then this sample's first half (polarized.cpp:815-833)
       Coherency<T> sec, half;
@@ -980,135 +1174,64 @@ struct PolTransfer {
       transport(a_half, sec, nn[f], dl_local, half);
       T s[4];
       stokes_from_n(e1, e2, half, s);
-      couple_matter(s, k, dl_lam / (nu * mom), pk.rotation_split);
+      couple_matter(s, __ldcs(o), __ldcs(o + POL_WARP), __ldcs(o + 2 * POL_WARP),
+                    __ldcs(o + 3 * POL_WARP), __ldcs(o + 4 * POL_WARP), __ldcs(o + 5 * POL_WARP),
+                    __ldcs(o + 6 * POL_WARP), __ldcs(o + 7 * POL_WARP), rotation_split);
       n_from_stokes(t1, t2, s, nn[f]);
     }
-
 #pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      kcon_pv[m] = kcon[m];
+    for (int m = 0; m < 4; ++m)
 #pragma unroll
-      for (int b = 0; b < 4; ++b) a_prev[m][b] = a_cur[m][b];
-    }
-    pos_pv[0] = x;
-    pos_pv[1] = y;
-    pos_pv[2] = z;
-    dl_pv = dl_cur;
-    started = true;
+      for (int b = 0; b < 4; ++b) a_prev[m][b] = __ldcs(rec + (R_A_CUR + 4 * m + b) * POL_WARP);
   }
+  if (!live) return;
 
-  // The camera end: the nearest sample's second half, with its own step.
-  __device__ __forceinline__ void finish(T* __restrict__ out) {
+  // the camera end: the nearest sample's second half, with its own step
+  const T dl_pv =
+      n > 0 ? -__ldg(set.samples + sample_at(w, set.cap, 0, lane) + 6 * POL_WARP) : T(0);
+  T* __restrict__ out = nn_out + 16 * nf * ray;
 #pragma unroll 1
-    for (int f = 0; f < n_freq(); ++f) {
-      Coherency<T> fin;
-      transport(a_prev, nn[f], nn[f], T(0.5) * dl_pv, fin);
+  for (int f = 0; f < n_freq; ++f) {
+    Coherency<T> fin;
+    transport(a_prev, nn[f], nn[f], T(0.5) * dl_pv, fin);
 #pragma unroll
-      for (int i = 0; i < 10; ++i) out[16 * f + i] = fin.re[i];
+    for (int i = 0; i < 10; ++i) out[16 * f + i] = fin.re[i];
 #pragma unroll
-      for (int i = 0; i < 6; ++i) out[16 * f + 10 + i] = fin.im[i];
-    }
+    for (int i = 0; i < 6; ++i) out[16 * f + 10 + i] = fin.im[i];
   }
-};
-
-// The window-entry table: field q of window w of ray i at
-// reals[(w * POL_CARRY_REALS + q) * n + i] and ints[(w * POL_CARRY_INTS + q) * n + i].
-template <typename T>
-struct CarryTable {
-  T* __restrict__ reals;
-  int* __restrict__ ints;
-  long long n;
-
-  __device__ __forceinline__ void store(int w, long long ray, const RayState<T>& s) const {
-#pragma unroll
-    for (int q = 0; q < 7; ++q) reals[(w * POL_CARRY_REALS + q) * n + ray] = s.y[q];
-    reals[(w * POL_CARRY_REALS + 7) * n + ray] = s.h;
-    reals[(w * POL_CARRY_REALS + 8) * n + ray] = s.r_mid_prev;
-    ints[(w * POL_CARRY_INTS + 0) * n + ray] = s.n_samp;
-    ints[(w * POL_CARRY_INTS + 1) * n + ray] =
-        (s.num_retry << 4) | (s.alive ? 1 : 0) | (s.trunc ? 2 : 0) | (s.flag ? 4 : 0) |
-        (s.prev_fail ? 8 : 0);
-  }
-
-  __device__ __forceinline__ void load(int w, long long ray, RayState<T>& s) const {
-#pragma unroll
-    for (int q = 0; q < 7; ++q) s.y[q] = __ldcg(reals + (w * POL_CARRY_REALS + q) * n + ray);
-    s.h = __ldcg(reals + (w * POL_CARRY_REALS + 7) * n + ray);
-    s.r_mid_prev = __ldcg(reals + (w * POL_CARRY_REALS + 8) * n + ray);
-    s.n_samp = __ldcg(ints + (w * POL_CARRY_INTS + 0) * n + ray);
-    const int bits = __ldcg(ints + (w * POL_CARRY_INTS + 1) * n + ray);
-    s.num_retry = bits >> 4;
-    s.alive = bits & 1;
-    s.trunc = bits & 2;
-    s.flag = bits & 4;
-    s.prev_fail = bits & 8;
-  }
-};
-
-template <typename T, int INTEGRATOR, int NF>
-__global__ void __launch_bounds__(POL_THREADS)
-    polarized_kernel(const T* __restrict__ positions, const T* __restrict__ directions,
-                     const T* __restrict__ momentum_factors, const T* __restrict__ freqs, int nf,
-                     const double* __restrict__ params, GridView<T> grid, T* __restrict__ nn_out,
-                     int* __restrict__ flags_out, int* __restrict__ n_samples_out,
-                     int* __restrict__ bad_out, CarryTable<T> carries, int window,
-                     int n_windows, long long n_rays) {
-  const long long ray = static_cast<long long>(blockIdx.x) * POL_THREADS + threadIdx.x;
-  if (ray >= n_rays) return;
-  const TraceConsts<T> tc(params);
-  const SimConsts<T> sc(params);
-  const PolConsts<T> pc(params);
-  const T* pos = positions + 4 * ray;
-  const T p0 = directions[4 * ray + 0];
-
-  // sweep A: integrate forward, keeping the state entering each window
-  RayState<T> s;
-  init_ray_state(tc, pos, directions + 4 * ray, s);
-  int w_used = 0;
-  for (int w = 0; w < n_windows && s.alive; ++w) {
-    carries.store(w, ray, s);
-    w_used = w + 1;
-    const int n_end = min((w + 1) * window, tc.max_steps);
-    for (int n = w * window; n < n_end && s.alive; ++n) {
-      T ym[7], k1, k2, k3, hs;
-      step_ray<T, INTEGRATOR>(tc, s, p0, n, ym, k1, k2, k3, hs);
-    }
-  }
-  flags_out[ray] = s.flag ? 1 : 0;
-  n_samples_out[ray] = s.n_samp;
-
-  // sweep B: windows in reverse, each replayed and its samples taken far
-  // end first
-  PolTransfer<T, NF> tr(tc, sc, pc, grid, freqs, nf, p0, momentum_factors[ray], pos);
-  T smp[POL_MAX_WINDOW][7];
-  for (int w = w_used - 1; w >= 0; --w) {
-    carries.load(w, ray, s);
-    const int n_end = min((w + 1) * window, tc.max_steps);
-    int ns = 0;
-    for (int n = w * window; n < n_end && s.alive; ++n) {
-      T ym[7], k1, k2, k3, hs;
-      if (step_ray<T, INTEGRATOR>(tc, s, p0, n, ym, k1, k2, k3, hs)) {
-        smp[ns][0] = ym[1];
-        smp[ns][1] = ym[2];
-        smp[ns][2] = ym[3];
-        smp[ns][3] = k1;
-        smp[ns][4] = k2;
-        smp[ns][5] = k3;
-        smp[ns][6] = hs;
-        ++ns;
-      }
-    }
-    for (int t = ns - 1; t >= 0; --t) {
-      tr.update(smp[t][0], smp[t][1], smp[t][2], smp[t][3], smp[t][4], smp[t][5], smp[t][6]);
-    }
-  }
-  tr.finish(nn_out + 16 * nf * ray);
-  bad_out[ray] = static_cast<int>(tr.bad);
 }
 
-// Pointers and sizes of one launch, as the C interface receives them.
-struct PolLaunchArgs {
+// Pointers and sizes of the launches, as the C interface receives them.
+struct PolTraceArgs {
   const void* positions;
+  const void* directions;
+  const double* params;
+  void* samples;
+  int cap;
+  int* flags;
+  int* n_samples;
+  long long n_rays;
+  cudaStream_t stream;
+};
+
+struct PolSampleArgs {
+  const void* samples;
+  int cap;
+  const int* n_samples;
+  const long long* offsets;
+  int n_warps;
+  long long n_rays;
+
+  template <typename T>
+  SampleSet<T> view() const {
+    return {static_cast<const T*>(samples), cap, n_samples, offsets, n_warps, n_rays};
+  }
+};
+
+struct PolDeriveArgs {
+  PolSampleArgs set;
+  long long n_slots;
+  bool geometry;
   const void* directions;
   const void* momentum_factors;
   const void* freqs;
@@ -1117,46 +1240,63 @@ struct PolLaunchArgs {
   const float* table;
   const void* coords;
   int n_i, n_j, n_k;
-  void* nn;
-  int* flags;
-  int* n_samples;
+  void* geometry_records;
+  void* coefficient_records;
   int* bad;
-  void* carries;  // n_windows windows of POL_CARRY_REALS reals, then POL_CARRY_INTS ints
-  int window, n_windows;
-  long long n_rays;
   cudaStream_t stream;
 };
 
-template <typename T, int INTEGRATOR, int NF>
-cudaError_t launch_polarized(const PolLaunchArgs& a) {
-  const GridView<T> grid = make_grid_view<T>(a.table, a.coords, a.n_i, a.n_j, a.n_k);
-  // the integer fields follow the real ones
-  CarryTable<T> carries;
-  carries.reals = static_cast<T*>(a.carries);
-  carries.ints = reinterpret_cast<int*>(carries.reals +
-                                        static_cast<long long>(a.n_windows) * POL_CARRY_REALS *
-                                            a.n_rays);
-  carries.n = a.n_rays;
+struct PolChainArgs {
+  PolSampleArgs set;
+  const int* order;
+  const void* geometry_records;
+  const void* coefficient_records;
+  int nf;
+  const double* params;
+  void* nn;
+  cudaStream_t stream;
+};
+
+template <typename T, int INTEGRATOR>
+cudaError_t launch_polarized_trace(const PolTraceArgs& a) {
   const unsigned blocks = static_cast<unsigned>((a.n_rays + POL_THREADS - 1) / POL_THREADS);
-  polarized_kernel<T, INTEGRATOR, NF><<<blocks, POL_THREADS, 0, a.stream>>>(
-      static_cast<const T*>(a.positions), static_cast<const T*>(a.directions),
-      static_cast<const T*>(a.momentum_factors), static_cast<const T*>(a.freqs), a.nf, a.params,
-      grid, static_cast<T*>(a.nn), a.flags, a.n_samples, a.bad, carries, a.window, a.n_windows,
-      a.n_rays);
+  polarized_trace_kernel<T, INTEGRATOR><<<blocks, POL_THREADS, 0, a.stream>>>(
+      static_cast<const T*>(a.positions), static_cast<const T*>(a.directions), a.params,
+      static_cast<T*>(a.samples), a.cap, a.flags, a.n_samples, a.n_rays);
   return cudaGetLastError();
 }
 
-// One frequency keeps its coherency components in registers;
-// 2..POL_MAX_FREQUENCIES hold them in a local array.
-template <typename T, int INTEGRATOR>
-cudaError_t launch_polarized_nf(const PolLaunchArgs& a) {
-  if (a.nf == 1) return launch_polarized<T, INTEGRATOR, 1>(a);
-  return launch_polarized<T, INTEGRATOR, POL_MAX_FREQUENCIES>(a);
+template <typename T>
+cudaError_t launch_polarized_derive(const PolDeriveArgs& a) {
+  const GridView<T> grid = make_grid_view<T>(a.table, a.coords, a.n_i, a.n_j, a.n_k);
+  const long long threads = a.n_slots * POL_WARP;
+  const unsigned blocks = static_cast<unsigned>((threads + POL_THREADS - 1) / POL_THREADS);
+  auto kernel = a.geometry ? polarized_derive_kernel<T, true> : polarized_derive_kernel<T, false>;
+  kernel<<<blocks, POL_THREADS, 0, a.stream>>>(
+      a.set.view<T>(), a.n_slots, static_cast<const T*>(a.directions),
+      static_cast<const T*>(a.momentum_factors), static_cast<const T*>(a.freqs), a.nf, a.params,
+      grid, static_cast<T*>(a.geometry_records), static_cast<T*>(a.coefficient_records), a.bad);
+  return cudaGetLastError();
 }
 
-// rk4 / rk2 in double (polarized_kernel_f64.cu) and dp in float or double
-// (polarized_kernel_dp.cu).
-cudaError_t launch_polarized_rk_f64(int integrator, const PolLaunchArgs& a);
-cudaError_t launch_polarized_dp(int dtype_code, const PolLaunchArgs& a);
+template <typename T>
+cudaError_t launch_polarized_chain(const PolChainArgs& a) {
+  constexpr int warps_per_block = POL_THREADS / POL_WARP;
+  const unsigned blocks = static_cast<unsigned>((a.set.n_warps + warps_per_block - 1) /
+                                                warps_per_block);
+  auto kernel = a.nf == 1 ? polarized_chain_kernel<T, 1>
+                          : polarized_chain_kernel<T, POL_MAX_FREQUENCIES>;
+  kernel<<<blocks, POL_THREADS, 0, a.stream>>>(
+      a.set.view<T>(), a.order, static_cast<const T*>(a.geometry_records),
+      static_cast<const T*>(a.coefficient_records), a.nf, a.params, static_cast<T*>(a.nn));
+  return cudaGetLastError();
+}
+
+// The trace kernel for every type and integrator (polarized_trace.cu) and
+// the derive kernel in each type (polarized_derive.cu,
+// polarized_derive_f64.cu).
+cudaError_t launch_polarized_trace_any(int dtype_code, int integrator, const PolTraceArgs& a);
+cudaError_t launch_polarized_derive_f32(const PolDeriveArgs& a);
+cudaError_t launch_polarized_derive_f64(const PolDeriveArgs& a);
 
 }  // namespace bl

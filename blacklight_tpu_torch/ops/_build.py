@@ -41,9 +41,9 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # dp's image depend on its exact step sequence at the 1e-3 level, so dp
 # holds the statistical gate only when it rounds as the plain version
 # does (PERF.md). No polarized unit contracts either, for the same
-# reason. The phase kernel of phased dispatch (simulation_phase.cu) must
-# round as simulation_kernel.cu does: a phased image is held to the
-# monolithic one bit for bit.
+# reason. The phase kernel of phased dispatch
+# (simulation_phase.cu) must round as simulation_kernel.cu does: a phased
+# image is held to the monolithic one bit for bit.
 CONTRACT = {"formula_kernel.cu": False, "formula_kernel_dp.cu": True,
             "formula_kernel_multi.cu": False,
             "formula_kernel_multi_dp.cu": True,
@@ -51,8 +51,8 @@ CONTRACT = {"formula_kernel.cu": False, "formula_kernel_dp.cu": True,
             "formula_kernel_tangent_dp.cu": True,
             "simulation_kernel.cu": False,
             "simulation_kernel_dp.cu": False, "simulation_phase.cu": False,
-            "polarized_kernel.cu": False,
-            "polarized_kernel_f64.cu": False, "polarized_kernel_dp.cu": False}
+            "polarized_trace.cu": False, "polarized_derive.cu": False,
+            "polarized_derive_f64.cu": False, "polarized_chain.cu": False}
 
 
 def find_nvcc() -> str:

@@ -12,9 +12,13 @@ carried as 10 real-symmetric and 6 imaginary-antisymmetric components.
 Samples are taken far end first: the geodesic sweep keeps only each
 window's entering state (``ops/geodesic.segment_carries``) and replays
 one window at a time, so memory is O(S / W + W) in the S steps. Per
-sample: the previous sample's deferred second-half transport, the
-averaged first-half transport, the fluid tetrad, N -> Stokes, the matter
-coupling (``polarized_coupling.couple_matter_c``) and Stokes -> N.
+sample, ``sample_record`` forms everything that does not depend on N
+(the transport matrices, the step lengths, the fluid tetrad, the
+coefficients times the step) and ``apply_record`` applies it to N: the
+previous sample's deferred second-half transport, the averaged
+first-half transport, N -> Stokes, the matter coupling
+(``polarized_coupling.couple_matter_scaled_c``) and Stokes -> N. The
+CUDA route runs the two as separate kernels.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ from blacklight_tpu_torch.constants import Physics
 from blacklight_tpu_torch.ops import geodesic, geometry
 from blacklight_tpu_torch.ops.connection import transport_matrix_c
 from blacklight_tpu_torch.ops.tetrad import tetrad_rows_c
-from blacklight_tpu_torch.transfer.polarized_coupling import couple_matter_c
+from blacklight_tpu_torch.transfer.polarized_coupling import (
+    couple_matter_scaled_c)
 
 # Steps per replayed window of the plain version (JAX's XLA default).
 WINDOW = 64
@@ -176,6 +181,108 @@ def camera_stokes(nn_re, nn_im, positions, directions, spin, mass, flat,
     return s_i * scale, s_q * scale, s_u * scale, s_v * scale
 
 
+RECORD_COEFFICIENTS = ("j_i", "j_q", "j_v", "alpha_i", "alpha_q", "alpha_v",
+                       "rho_q", "rho_v")
+
+
+def sample_record(pos, kcov, h, first, prev, coeff_fn, *, nus, mom, x_unit,
+                  spin, mass, flat):
+    """Everything of one sample of each ray that does not depend on the
+    coherency tensor: the derive kernel's record
+    (csrc/polarized_kernel.cuh polarized_derive_kernel).
+
+    pos, kcov: 4-tuples of (B,) components; h the signed step (B,);
+    first (B,) marks the far end of each ray, where no farther sample
+    exists; prev = (pos_pv, kcon_pv, dl_pv) of the next-farther sample
+    (its position 4-tuple, contravariant momentum 4-tuple and step -h);
+    coeff_fn as integrate_polarized takes it; nus (1, F) and mom (B, 1)
+    the frequencies and momentum factors.
+
+    Returns a dict: "kcon" (4-tuple), "a_cur" (the sample's transport
+    matrix A(x, k), 4 x 4 nested tuples), "a_half" (the averaged matrix
+    of its first half), "dl_sec" and "dl_local" (the deferred and local
+    half-step lengths), the tetrad rows "e1", "e2" (covariant) and "t1",
+    "t2" (contravariant), "coef" (the coefficients in
+    RECORD_COEFFICIENTS order times the step in cm, each (B, F)) and
+    "bad" (B, F).
+    """
+    pos_pv, kcon_prev, dl_pv = prev
+    dl_cur = -h
+    dl_cgs = dl_cur[:, None] * x_unit / (nus * mom)
+
+    # transport matrices; the averaged first-half matrix expands by
+    # bilinearity: 0.5 A(prev, k_old) + 0.25 A(cur, k_prev)
+    # + 0.25 A(cur, k)
+    kcon = _kcon_scalar(pos, kcov, spin, mass, flat)
+    kcon_old = tuple(torch.where(first, kcon[m],
+                                 0.5 * (kcon_prev[m] + kcon[m]))
+                     for m in range(4))
+    derivs = None if flat else geometry.ks_derivatives_c(
+        pos[1], pos[2], pos[3], spin, mass)
+    a_cur = transport_matrix_c(pos[1], pos[2], pos[3], *kcon, spin, mass,
+                               flat=flat, derivs=derivs)
+    a_cur_kprev = transport_matrix_c(pos[1], pos[2], pos[3], *kcon_prev,
+                                     spin, mass, flat=flat, derivs=derivs)
+    a_prev_kold = transport_matrix_c(pos_pv[1], pos_pv[2], pos_pv[3],
+                                     *kcon_old, spin, mass, flat=flat)
+    a_half = tuple(tuple(torch.where(first, a_cur[m][n],
+                                     0.5 * a_prev_kold[m][n]
+                                     + 0.25 * a_cur_kprev[m][n]
+                                     + 0.25 * a_cur[m][n])
+                         for n in range(4)) for m in range(4))
+
+    coeffs = coeff_fn(pos, kcov)
+    if flat:
+        f_ks = torch.zeros_like(pos[0])
+        l_ks = (f_ks, f_ks, f_ks)
+    else:
+        _, f_ks, l_ks, _, _ = derivs
+    upcon = tuple(torch.where(coeffs["b_zero"], 1.0 if m == 3 else 0.0,
+                              coeffs["bcon"][m]) for m in range(4))
+    t1, t2, e1, e2 = tetrad_rows_c(coeffs["ucon"], kcon, kcov, upcon, f_ks,
+                                   l_ks)
+    return {"kcon": kcon, "a_cur": a_cur, "a_half": a_half,
+            "dl_sec": 0.25 * (dl_pv + dl_cur),
+            "dl_local": 0.5 * (torch.where(first, 0.0, dl_pv) + dl_cur),
+            "e1": e1, "e2": e2, "t1": t1, "t2": t2,
+            "coef": tuple(coeffs[k] * dl_cgs for k in RECORD_COEFFICIENTS),
+            "bad": coeffs["bad"]}
+
+
+def apply_record(re, im, a_prev, record, rotation_split: bool):
+    """One sample's step of the transfer on the coherency components
+    (re, im: 10- and 6-tuples of (B, F)): the next-farther sample's
+    deferred second half with its matrix ``a_prev`` (4 x 4 nested tuples
+    of (B,)), this sample's first half, N -> Stokes, the matter coupling
+    and Stokes -> N, from ``record`` (sample_record's). The chain kernel's
+    step (csrc/polarized_kernel.cuh polarized_chain_kernel). Returns the
+    new (re, im)."""
+    def col(v):
+        return v[:, None]
+
+    a_prev = [[col(v) for v in row] for row in a_prev]
+    a_half = [[col(v) for v in row] for row in record["a_half"]]
+    # the previous sample's deferred second half (its step is this
+    # sample's), then this sample's first half
+    nn_sec = _transport_c(a_prev, re, im, re, im, col(record["dl_sec"]))
+    nn_re, nn_im = _transport_c(a_half, *nn_sec, re, im,
+                                col(record["dl_local"]))
+    stokes = _stokes_from_n([col(c) for c in record["e1"]],
+                            [col(c) for c in record["e2"]], nn_re, nn_im)
+    stokes = couple_matter_scaled_c(*stokes, *record["coef"], rotation_split)
+    return _n_from_stokes([col(c) for c in record["t1"]],
+                          [col(c) for c in record["t2"]], *stokes)
+
+
+def finish_transport(re, im, a_prev, dl_pv):
+    """The camera end: the nearest sample's second half, with its own
+    step dl_pv (B,). Returns (nn_re (B, F, 10), nn_im (B, F, 6))."""
+    a_prev = [[v[:, None] for v in row] for row in a_prev]
+    nn_re, nn_im = _transport_c(a_prev, re, im, re, im,
+                                (0.5 * dl_pv)[:, None])
+    return torch.stack(nn_re, dim=-1), torch.stack(nn_im, dim=-1)
+
+
 def integrate_polarized(positions, directions, momentum_factors, frequencies,
                         *, params: geodesic.GeodesicParams, integrator: str,
                         coeff_fn: Callable, mass_msun: float,
@@ -211,79 +318,30 @@ def integrate_polarized(positions, directions, momentum_factors, frequencies,
           "kcon_pv": (zero_b,) * 4,
           "a_prev": tuple((zero_b,) * 4 for _ in range(4))}
 
-    def col(v):
-        return v[:, None]
-
     def update(sample):
         active, pos, kcov, h = sample
         first = active & ~st["started"]
-        pos_pv, dl_pv, kcon_prev = st["pos_pv"], st["dl_pv"], st["kcon_pv"]
-        dl_cur = -h
-        dl_cgs = col(dl_cur) * x_unit / (nus * mom)
-
-        # transport matrices; the averaged first-half matrix expands by
-        # bilinearity: 0.5 A(prev, k_old) + 0.25 A(cur, k_prev)
-        # + 0.25 A(cur, k)
-        kcon = _kcon_scalar(pos, kcov, spin, mass, flat)
-        kcon_old = tuple(torch.where(first, kcon[m],
-                                     0.5 * (kcon_prev[m] + kcon[m]))
-                         for m in range(4))
-        derivs = None if flat else geometry.ks_derivatives_c(
-            pos[1], pos[2], pos[3], spin, mass)
-        a_cur_k = transport_matrix_c(pos[1], pos[2], pos[3], *kcon, spin,
-                                     mass, flat=flat, derivs=derivs)
-        a_cur_kprev = transport_matrix_c(pos[1], pos[2], pos[3], *kcon_prev,
-                                         spin, mass, flat=flat, derivs=derivs)
-        a_prev_kold = transport_matrix_c(pos_pv[1], pos_pv[2], pos_pv[3],
-                                         *kcon_old, spin, mass, flat=flat)
-        a_half = [[col(torch.where(first, a_cur_k[m][n],
-                                   0.5 * a_prev_kold[m][n]
-                                   + 0.25 * a_cur_kprev[m][n]
-                                   + 0.25 * a_cur_k[m][n]))
-                   for n in range(4)] for m in range(4)]
-
-        # the previous sample's deferred second half (its step is this
-        # sample's), then this sample's first half
-        a_prev = [[col(v) for v in row] for row in st["a_prev"]]
-        nn_sec = _transport_c(a_prev, st["re"], st["im"], st["re"], st["im"],
-                              col(0.25 * (dl_pv + dl_cur)))
-        dl_local = 0.5 * (torch.where(first, 0.0, dl_pv) + dl_cur)
-        nn_re, nn_im = _transport_c(a_half, *nn_sec, st["re"], st["im"],
-                                    col(dl_local))
-
-        coeffs = coeff_fn(pos, kcov)
-        st["bad"] = st["bad"] | (col(active) & coeffs["bad"])
-        if flat:
-            f_ks = torch.zeros_like(pos[0])
-            l_ks = (f_ks, f_ks, f_ks)
-        else:
-            _, f_ks, l_ks, _, _ = derivs
-        upcon = tuple(torch.where(coeffs["b_zero"], 1.0 if m == 3 else 0.0,
-                                  coeffs["bcon"][m]) for m in range(4))
-        t1, t2, e1, e2 = tetrad_rows_c(coeffs["ucon"], kcon, kcov, upcon,
-                                       f_ks, l_ks)
-        stokes = _stokes_from_n([col(c) for c in e1], [col(c) for c in e2],
-                                nn_re, nn_im)
-        stokes = couple_matter_c(
-            *stokes, coeffs["j_i"], coeffs["j_q"], coeffs["j_v"],
-            coeffs["alpha_i"], coeffs["alpha_q"], coeffs["alpha_v"],
-            coeffs["rho_q"], coeffs["rho_v"], dl_cgs, rotation_split)
-        post_re, post_im = _n_from_stokes([col(c) for c in t1],
-                                          [col(c) for c in t2], *stokes)
-
-        act = col(active)
+        rec = sample_record(pos, kcov, h, first,
+                            (st["pos_pv"], st["kcon_pv"], st["dl_pv"]),
+                            coeff_fn, nus=nus, mom=mom, x_unit=x_unit,
+                            spin=spin, mass=mass, flat=flat)
+        post_re, post_im = apply_record(st["re"], st["im"], st["a_prev"],
+                                        rec, rotation_split)
+        act = active[:, None]
+        st["bad"] = st["bad"] | (act & rec["bad"])
         st["re"] = tuple(torch.where(act, n, o)
                          for n, o in zip(post_re, st["re"]))
         st["im"] = tuple(torch.where(act, n, o)
                          for n, o in zip(post_im, st["im"]))
-        st["a_prev"] = tuple(tuple(torch.where(active, a_cur_k[m][n],
+        st["a_prev"] = tuple(tuple(torch.where(active, rec["a_cur"][m][n],
                                                st["a_prev"][m][n])
                                    for n in range(4)) for m in range(4))
-        st["kcon_pv"] = tuple(torch.where(active, kcon[m], kcon_prev[m])
+        st["kcon_pv"] = tuple(torch.where(active, rec["kcon"][m],
+                                          st["kcon_pv"][m])
                               for m in range(4))
-        st["pos_pv"] = tuple(torch.where(active, pos[m], pos_pv[m])
+        st["pos_pv"] = tuple(torch.where(active, pos[m], st["pos_pv"][m])
                              for m in range(4))
-        st["dl_pv"] = torch.where(active, dl_cur, dl_pv)
+        st["dl_pv"] = torch.where(active, -h, st["dl_pv"])
         st["started"] = st["started"] | active
 
     for k in reversed(range(len(starts))):
@@ -293,9 +351,6 @@ def integrate_polarized(positions, directions, momentum_factors, frequencies,
             if bool(sample.valid.any()):
                 update(sample)
 
-    # the camera end: the nearest sample's second half, with its own step
-    a_prev = [[col(v) for v in row] for row in st["a_prev"]]
-    nn_re, nn_im = _transport_c(a_prev, st["re"], st["im"], st["re"],
-                                st["im"], col(0.5 * st["dl_pv"]))
-    return (torch.stack(nn_re, dim=-1), torch.stack(nn_im, dim=-1), flags,
-            n_samples, st["bad"])
+    nn_re, nn_im = finish_transport(st["re"], st["im"], st["a_prev"],
+                                    st["dl_pv"])
+    return nn_re, nn_im, flags, n_samples, st["bad"]

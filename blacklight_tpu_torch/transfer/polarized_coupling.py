@@ -219,11 +219,18 @@ def couple_matter_c(s0, s1, s2, s3, j0, j1, j3, a_i, a1, a3, rho1, rho3,
     coupling algebra is invariant. ``rotation_split`` Strang-splits the
     Faraday rotation from emission and absorption
     (image_rotation_split)."""
-    one = torch.ones_like(dl_cgs)
-    j0, j1, j3 = j0 * dl_cgs, j1 * dl_cgs, j3 * dl_cgs
-    a_i, a1, a3 = a_i * dl_cgs, a1 * dl_cgs, a3 * dl_cgs
-    rho1, rho3 = rho1 * dl_cgs, rho3 * dl_cgs
-    dl_cgs = one
+    return couple_matter_scaled_c(s0, s1, s2, s3, j0 * dl_cgs, j1 * dl_cgs,
+                                  j3 * dl_cgs, a_i * dl_cgs, a1 * dl_cgs,
+                                  a3 * dl_cgs, rho1 * dl_cgs, rho3 * dl_cgs,
+                                  rotation_split)
+
+
+def couple_matter_scaled_c(s0, s1, s2, s3, j0, j1, j3, a_i, a1, a3, rho1,
+                           rho3, rotation_split: bool):
+    """couple_matter_c with the coefficients already times the step (per
+    -step optical-depth units, dl = 1): the form the polarized record
+    holds (transfer/polarized.py sample_record)."""
+    dl_cgs = torch.ones_like(j0)
     alpha_sq = a1 * a1 + a3 * a3
     rho_sq = rho1 * rho1 + rho3 * rho3
     a0_zero = a_i == 0.0

@@ -30,7 +30,12 @@ and prints no final line):
      and two frequencies; each float32 case also against the plain
      version in float64 on the same rays (truth_gate);
    - the plain polarized version in float64 on 4,096 rays of phase 9's
-     main path, which phase 9 holds its float32 kernel against;
+     main path, which phase 9 holds its float32 route against;
+   - the polarized route's three kernels at phase 9's cell (4,096 of its
+     rays, every PLAIN_STRIDE-th in spatial_order), each against its plain
+     version on the same inputs: the trace kernel on the rays, the derive
+     kernel on the trace kernel's samples, the chain kernel on the derive
+     kernel's records;
    - the plain formula version on 4,096 rays (every PLAIN_STRIDE-th) of
      each full-width formula cell (phases 5, 10 and 11), which those
      phases hold their kernel against;
@@ -53,11 +58,16 @@ and prints no final line):
    tests/test_polarized_e2e.py;
 9. the polarized main path at full width: phase 7's snapshot, 1024^2
    camera, rk4, 2000 steps, float32, one frequency through pipeline.run,
-   counting kernel launches; then kernel times at 1024^2 in float32 rk4,
-   float64 rk4 and float32 dp, the plain version's in float32 rk4 on
-   4,096 of the same rays (every PLAIN_STRIDE-th; held to the kernel and
-   both to phase 3's float64 run), and one launch at WINDOW_CHECK steps
-   per window that must give the same image bit for bit;
+   counting the launches of each of the route's three kernels, with the
+   trace chunks, record pieces and peak device memory; a torch.profiler
+   trace of the same run (device idle share, kernel time by name); then
+   route times at 1024^2 in spatial_order (the order run launches) in
+   float32 rk4, float64 rk4 and float32 dp, float32 rk4 also in camera
+   order, each stage's time and the glue's, the plain version's in
+   float32 rk4 on 4,096 of the same rays (every PLAIN_STRIDE-th; held to
+   the route and both to phase 3's float64 run), and a render under
+   CHUNK_CHECK's byte caps (several trace chunks and record pieces) that
+   must give the same image bit for bit;
 10. K1.3 at full width: phase 5's cell at three frequencies (100-400 GHz,
     log-spaced) through pipeline.run, counting launches; the kernel time
     against phase 3's plain subset, and one, three and six frequencies
@@ -84,9 +94,11 @@ and prints no final line):
 
 Phases 4 to 13 run alone on the card, after phase 3.
 
-``python3 chip_smoke.py --window-sweep`` runs phases 1 and 2, then times
-the polarized kernel at 1024^2 (float32 rk4) for each window W from 32 to
-512 steps: how polarized_kernel.WINDOW was chosen.
+``python3 chip_smoke.py --chunk-sweep`` runs phases 1 and 2, then times
+the polarized route at 1024^2 (float32 rk4, spatial_order) for trace
+chunks of 2 to 14 GiB of samples (CHUNK_SWEEP) and at the route's own
+caps, each image bit for bit the first's: how polarized_kernel's
+SAMPLE_SHARE was chosen.
 
 Each kernel's bound is the least time the card could take for the same
 work: the larger of its bytes (each input read once, each output written
@@ -94,7 +106,9 @@ once) over the memory rate and its floating-point operations over the
 peak rate of its type. The operations are this run's mean samples per ray
 times hand counts per step and per sample (OPS_PER_STEP, OPS_PER_SAMPLE,
 and per further frequency and tangent FORMULA_OPS_PER_FREQUENCY,
-FORMULA_OPS_PER_TANGENT).
+FORMULA_OPS_PER_TANGENT). The polarized route's entry also carries each
+of its three kernels with its own bound: the bytes of its own inputs and
+outputs (samples, records) against its share of the operations.
 
 Every line but the last two is a JSON object with the measurements (the
 kernels line lists formula K1.1/K1.2, K1.3, K1.4, simulation, phased
@@ -132,19 +146,26 @@ PHASE_REPLACES = ("blacklight_tpu/ops/pallas_simulation.py:795 (_make_kernel "
 POL_KERNEL_SOURCE = "blacklight_tpu_torch/csrc/polarized_kernel.cuh"
 POL_KERNEL_REPLACES = "blacklight_tpu/ops/pallas_polarized.py:286"
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s and
-# floating-point operations/s outside the tensor cores.
+# floating-point operations/s outside the tensor cores, and the H100's
+# SMs and registers per SM (the chain kernel's fill figure).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
+N_SMS = 132
+REGISTERS_PER_SM = 65536
 # Floating-point operations, counted by hand from the CUDA sources (an
 # add, multiply, divide, square root, compare-and-select or transcendental
 # is one; about +-30 %): per geodesic step of each integrator (dp: per
 # attempt), and per stored sample of each kernel at one frequency. The
 # polarized sample counts its fluid state, three transport matrices and
-# the tetrad once and POL_OPS_PER_FREQUENCY per frequency; its every step
-# runs twice (sweep A and the replay).
+# the tetrad once and POL_OPS_PER_FREQUENCY per frequency, of which the
+# chain kernel's share is POL_CHAIN_OPS_PER_FREQUENCY (two 16-component
+# transports ~450, N -> Stokes ~140, the coupling ~200, Stokes -> N
+# ~110) and the rest (the coefficients) the derive kernel's; one step
+# per sample.
 OPS_PER_STEP = {"rk4": 830, "rk2": 500, "dp": 2020}
 OPS_PER_SAMPLE = {"formula": 130, "simulation": 495, "polarized": 2740}
 POL_OPS_PER_FREQUENCY = 1090
+POL_CHAIN_OPS_PER_FREQUENCY = 900
 # The formula sample beyond its first frequency (csrc/formula_kernel.cuh):
 # each further frequency's power laws and selects (formula_jalpha, ~21)
 # and its transfer update (~29); each tangent per frequency: dj, dalpha,
@@ -166,10 +187,13 @@ TRUTH_SLACK = 1e-7
 # on one card (an H100 host has 8 cores).
 WORKERS = 6
 # Phase 9: the plain version runs on every PLAIN_STRIDE-th ray of the
-# 1024^2 bundle, and one launch with WINDOW_CHECK steps per window (31
-# windows at 2000 steps) must reproduce the image bit for bit.
+# 1024^2 bundle, and a render with CHUNK_CHECK's byte caps (trace chunks of
+# 2 GiB of samples: 28 at 2000 steps of float32; records of 6 GiB: about
+# two pieces a chunk) must reproduce the image bit for bit.
+# --chunk-sweep: the trace byte caps it times.
 PLAIN_STRIDE = 256
-WINDOW_CHECK = 64
+CHUNK_CHECK = (2 << 30, 6 << 30)
+CHUNK_SWEEP = (2 << 30, 4 << 30, 7 << 30, 14 << 30)
 # K1.3 and K1.4 cells: three frequencies log-spaced over 100-400 GHz (the
 # ones tests/test_pallas_kernel.py:78-82 uses); tangents for cn0, r0 and h
 # with h = 0.4 (h = 0 zeroes the h tangent, tests/test_gradients.py:133).
@@ -267,6 +291,18 @@ def _ptxas_table(report: str) -> dict:
 
 
 def _kernel_label(mangled: str) -> str:
+    m = re.search(r"polarized_(trace|derive|chain)_kernelI([fd])"
+                  r"(?:Li(\d+)E|Lb([01])E)", mangled)
+    if m:
+        stage, tp, value, geometry = m.groups()
+        args = ["float" if tp == "f" else "double"]
+        if stage == "trace":
+            args.append(("dp", "rk4", "rk2")[int(value)])
+        elif stage == "chain":
+            args.append(f"NF={value}")
+        elif geometry == "0":
+            args.append("coefficients only")
+        return f"polarized_{stage}_kernel<{', '.join(args)}>"
     m = re.search(r"(formula|simulation|simulation_phase|polarized)_kernelI"
                   r"([fd])Li(\d)E"
                   r"(?:Li(\d+)E)?(?:Lb([01])E)?", mangled)
@@ -424,10 +460,12 @@ def _timed(fn, *args, **kwargs):
 def phase_checks(pool) -> tuple:
     """Phase 3 on ``pool``: every check at once, longest first; emits each
     result in that order and raises at the first that failed. Returns
-    phase 9's float64 reference (positions, Stokes) and the plain formula
-    version on the subsets of the full-width formula cells, by cell."""
+    phase 9's float64 reference (positions, Stokes), the plain formula
+    version on the subsets of the full-width formula cells, by cell, and
+    the polarized route's per-kernel checks."""
     t0 = time.perf_counter()
     truth = pool.apply_async(pol_full_width_truth)
+    stages = pool.apply_async(check_polarized_stages)
     subsets = {cell: pool.apply_async(formula_plain_subset, (cell,))
                for cell in ("k13", "k14", "k11")}
     checks = [pool.apply_async(fn, args) for fn, args in (
@@ -452,10 +490,15 @@ def phase_checks(pool) -> tuple:
         if not result["ok"]:
             raise RuntimeError(f"{phase}: kernel disagrees with plain: "
                                f"{result}")
+    phase, stages = stages.get()
+    emit(phase, workers=WORKERS, **stages)
+    if not stages["ok"]:
+        raise RuntimeError(f"{phase}: a polarized kernel disagrees with its "
+                           f"plain version: {stages}")
     truth = truth.get()
     subsets = {cell: result.get() for cell, result in subsets.items()}
     emit("checks", workers=WORKERS, seconds=time.perf_counter() - t0)
-    return truth, subsets
+    return truth, subsets, stages
 
 
 def _check_exact(kernel_out, plain_out, rtol) -> dict:
@@ -1081,8 +1124,7 @@ def bound(kernel, integrator, precision, rays, mean_samples, *, in_bytes,
         per_sample += FORMULA_OPS_PER_FREQUENCY * (frequencies - 1) \
             + FORMULA_OPS_PER_TANGENT * frequencies * tangents
     if kernel == "polarized":
-        per_sample += OPS_PER_STEP[integrator] \
-            + POL_OPS_PER_FREQUENCY * frequencies
+        per_sample += POL_OPS_PER_FREQUENCY * frequencies
     ops = rays * mean_samples * per_sample
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[precision]
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -1332,13 +1374,203 @@ def phase_pol_goldens(tmp: pathlib.Path):
             raise RuntimeError(f"golden {name} failed: {result}")
 
 
+def pol_stage_bounds(rays, samples, precision, frequencies=1) -> dict:
+    """Each kernel of the polarized route with its own bound: the bytes
+    of its own inputs and outputs (rays, samples, records, coherency
+    components) against its share of the operations (``samples`` stored
+    samples in all)."""
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    item = 4 if precision == "float32" else 8
+    sample = pk.SAMPLE_VALUES * item
+    record = (pk.GEOMETRY_VALUES + pk.COEFFICIENT_VALUES * frequencies) * item
+    chain_ops = POL_CHAIN_OPS_PER_FREQUENCY * frequencies
+    work = {
+        "trace": (rays * (9 * item + 8) + samples * sample,
+                  samples * OPS_PER_STEP["rk4"]),
+        "derive": (samples * (sample + record) + rays * 2 * item,
+                   samples * (OPS_PER_SAMPLE["polarized"]
+                              + POL_OPS_PER_FREQUENCY * frequencies
+                              - chain_ops)),
+        "chain": (samples * record + rays * (16 * frequencies * item + 4),
+                  samples * chain_ops),
+    }
+    out = {}
+    for stage, (n_bytes, ops) in work.items():
+        t_bytes = n_bytes / HBM_BYTES_PER_S
+        t_ops = ops / PEAK_OPS_PER_S[precision]
+        out[stage] = {"bound_ms": max(t_bytes, t_ops) * 1e3,
+                      "bound_by": "bytes" if t_bytes > t_ops
+                      else "operations"}
+    return out
+
+
+def _gate_columns(ours, plain) -> dict:
+    """The float32 gate of polarized_gate on value columns (N, V): each
+    value's |delta| over its column's peak, past 1e-3 for fewer than
+    0.5 % of the values (its 99.5th percentile below 1e-3) and below
+    1e-2 at the maximum."""
+    import torch
+    if not plain.numel():
+        return {"frac_past_1e-3": 0.0, "frac_max": 0.0, "max_abs_err": 0.0,
+                "finite": True, "ok": True}
+    scale = plain.abs().amax(dim=0).clamp_min(1e-30)
+    frac = (ours - plain).abs() / scale
+    past = float((frac > 1e-3).float().mean())
+    worst = float(frac.max())
+    finite = bool(torch.isfinite(ours).all())
+    return {"frac_past_1e-3": past, "frac_max": worst,
+            "max_abs_err": float((ours - plain).abs().max()),
+            "finite": finite, "ok": finite and past < 5e-3 and worst < 1e-2}
+
+
+def check_polarized_stages() -> tuple:
+    """The polarized route's three kernels at phase 9's cell, each against
+    its plain version on the same inputs: 4,096 rays (every PLAIN_STRIDE-th
+    of the 1024^2 float32 rk4 bundle in spatial_order, as run launches it);
+    the trace kernel against trace_samples_reference on the rays (sample
+    counts equal on 99 % of the rays, the samples of those rays at the
+    float32 gate), the derive kernel against derive_records_reference on
+    the trace kernel's samples (every record value of every stored sample;
+    the bad bits equal), the chain kernel against chain_records_reference
+    on the derive kernel's records (every coherency component)."""
+    import torch
+    from blacklight_tpu_torch import pipeline_simulation as ps
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+    grid = full_width_snapshot(torch.float32)
+    args, _, _ = _pol_args(_pol_full_config("float32", "rk4"), grid)
+    order = sk.spatial_order(args[0], block=ps.KERNEL_ORDER_BLOCK)
+    pick = order[::PLAIN_STRIDE]
+    positions, directions, mom = (a[pick].contiguous() for a in args[:3])
+    freqs, params, sp, grid, mass, cam, _ = args[3:]
+    # byte caps of one trace chunk and one piece for the 4,096 rays
+    stages = pk._CudaStages(positions, directions, mom, freqs, params, sp,
+                            grid, mass, cam, "rk4", False, None, 1 << 30,
+                            1 << 31)
+    b = positions.shape[0]
+    flags = torch.empty(b, dtype=torch.int32, device="cuda")
+    ns = torch.empty(b, dtype=torch.int32, device="cuda")
+    samples, t_k = _timed(stages.trace, 0, b, flags, ns)
+    (samples_p, flags_p, ns_p), t_p = _timed(
+        pk.trace_samples_reference, positions, directions, params, "rk4")
+    same = ns == ns_p
+    lengths = pk.warp_lengths(torch.where(same, ns, 0))
+    w, t, lane, _ = pk._stored(samples, torch.where(same, ns, 0), lengths)
+    trace = {"rays": b, "same_n_samples": float(same.float().mean()),
+             "same_flags": float((flags.bool() == flags_p).float().mean()),
+             "kernel_s": t_k, "plain_s": t_p,
+             **_gate_columns(samples[w, t, :, lane], samples_p[w, t, :, lane])}
+    trace["ok"] = trace["ok"] and trace["same_n_samples"] >= 0.99
+
+    lengths = pk.warp_lengths(ns)
+    piece = pk.Piece(0, b, samples, ns, lengths, pk.record_offsets(lengths),
+                     int(lengths.sum()))
+    (geometry, coefficients, bits), t_k = _timed(stages.derive, piece, 0, 1,
+                                                 None)
+    (geo_p, coef_p, bits_p), t_p = _timed(
+        pk.derive_records_reference, samples, ns, lengths, piece.offsets,
+        directions, mom, freqs, 0, 1, params, sp, grid, mass, cam)
+    w, t, lane, _ = pk._stored(samples, ns, lengths)
+    slot = piece.offsets[w] + t
+    derive = {"samples": int(w.numel()), "kernel_s": t_k, "plain_s": t_p,
+              "same_bad_bits": bool(torch.equal(bits, bits_p))}
+    g = _gate_columns(torch.cat((geometry[slot, :, lane],
+                                 coefficients[slot, :, lane]), 1),
+                      torch.cat((geo_p[slot, :, lane],
+                                 coef_p[slot, :, lane]), 1))
+    derive.update(g, ok=g["ok"] and derive["same_bad_bits"])
+
+    nn, t_k = _timed(stages.chain, piece, geometry, coefficients, 1)
+    nn_p, t_p = _timed(pk.chain_records_reference, samples, ns, lengths,
+                       piece.offsets, geometry, coefficients, 1, False)
+    chain = {"rays": b, "kernel_s": t_k, "plain_s": t_p,
+             **_gate_columns(nn.reshape(b, -1), nn_p.reshape(b, -1))}
+    ok = trace["ok"] and derive["ok"] and chain["ok"]
+    return "pol_stages_vs_plain", {
+        "trace": trace, "derive": derive, "chain": chain,
+        "gate": "float32: per value, |delta| over its peak below 1e-3 at "
+                "the 99.5th percentile and 1e-2 at the maximum",
+        "ok": bool(ok)}
+
+
+def device_busy_share(trace_file: str) -> dict:
+    """Device busy time (kernels, copies, sets; overlaps counted once)
+    over the trace's span, and kernel time by name, from a chrome
+    trace."""
+    events = json.loads(pathlib.Path(trace_file).read_text())["traceEvents"]
+    spans, by_name = [], {}
+    t_lo, t_hi = float("inf"), float("-inf")
+    for e in events:
+        if e.get("ph") != "X" or "dur" not in e:
+            continue
+        ts, dur = float(e["ts"]), float(e["dur"])
+        t_lo, t_hi = min(t_lo, ts), max(t_hi, ts + dur)
+        cat = e.get("cat", "")
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            spans.append((ts, ts + dur))
+            if cat == "kernel":
+                name = e.get("name", "?")[:80]
+                by_name[name] = by_name.get(name, 0.0) + dur
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b <= end:
+            continue
+        busy += b - max(a, end)
+        end = b
+    span = t_hi - t_lo
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {"span_ms": span / 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / span if span > 0 else None,
+            "kernel_ms_by_name": {k: v / 1e3 for k, v in top}}
+
+
+def profile_run(cfg, grid) -> dict:
+    """torch.profiler over one warm pipeline.run of ``cfg``: the device's
+    idle share and kernel time by name."""
+    import torch
+    from blacklight_tpu_torch import pipeline
+    pipeline.run(cfg, quiet=True, device="cuda", grid=grid)  # warm up
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = str(pathlib.Path(tmp) / "trace.json")
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            pipeline.run(cfg, quiet=True, device="cuda", grid=grid)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        prof.export_chrome_trace(trace)
+        return {"run_s": run_s, **device_busy_share(trace)}
+
+
+def _chain_fill(regs: int) -> dict:
+    """Rays the chain kernel needs in flight to fill every SM at ``regs``
+    registers a thread (a warp's registers allocated in 256s)."""
+    per_warp = -(-regs * 32 // 256) * 256
+    warps = min(64, REGISTERS_PER_SM // per_warp // 4 * 4)
+    return {"registers": regs, "warps_per_sm": warps,
+            "rays_to_fill": N_SMS * warps * 32}
+
+
+def _spatial(args):
+    """``args`` (a render_polarized argument tuple) with its rays in
+    spatial_order, as pipeline.run launches them."""
+    from blacklight_tpu_torch import pipeline_simulation as ps
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+    order = sk.spatial_order(args[0], block=ps.KERNEL_ORDER_BLOCK)
+    return (*(a[order].contiguous() for a in args[:3]), *args[3:])
+
+
 def phase_pol_full_width(tmp: pathlib.Path, card: str, grids: dict,
-                         truth: tuple) -> dict:
+                         truth: tuple, stage_checks: dict) -> dict:
     """Phase 9; ``truth`` is phase 3's float64 plain version on the
-    float32 plain version's rays (their positions, Stokes)."""
+    float32 plain version's rays (their positions, Stokes),
+    ``stage_checks`` phase 3's check of each kernel against its plain
+    version."""
     import numpy as np
     import torch
     from blacklight_tpu_torch import pipeline
+    from blacklight_tpu_torch.ops import _build
     from blacklight_tpu_torch.ops import formula_kernel as fk
     from blacklight_tpu_torch.ops import polarized_kernel as pk
     from blacklight_tpu_torch.ops import simulation_kernel as sk
@@ -1348,12 +1580,17 @@ def phase_pol_full_width(tmp: pathlib.Path, card: str, grids: dict,
         grids["float32"] = full_width_snapshot(torch.float32)
     cfg = _pol_full_config("float32", "rk4",
                            output_file=str(tmp / "pol_full_width.npz"))
+    free = pk.free_device_bytes(grids["float32"].prim.device)
     fk.LAUNCHES = sk.LAUNCHES = pk.LAUNCHES = 0
+    pk.STAGE_LAUNCHES.update(dict.fromkeys(pk.STAGE_LAUNCHES, 0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     arrays = pipeline.run(cfg, quiet=True, device="cuda",
                           grid=grids["float32"])
     run_s = time.perf_counter() - t0
-    launches = pk.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    launches, stage_launches = pk.LAUNCHES, dict(pk.STAGE_LAUNCHES)
     image = {k: arrays[k] for k in ("I_nu", "Q_nu", "U_nu", "V_nu")}
     finite_i = np.isfinite(image["I_nu"])
     if any(v.shape != (res, res) for v in image.values()) \
@@ -1361,74 +1598,138 @@ def phase_pol_full_width(tmp: pathlib.Path, card: str, grids: dict,
             or not all(np.isfinite(v[finite_i]).all() for v in image.values()):
         raise RuntimeError("full-width polarized image has the wrong shape or "
                            "non-finite Q/U/V where I is finite")
-    if launches == 0 or fk.LAUNCHES or sk.LAUNCHES:
-        raise RuntimeError("the polarized main path launched no polarized "
-                           "kernel, or another kernel")
+    if not all(stage_launches.values()) or fk.LAUNCHES or sk.LAUNCHES:
+        raise RuntimeError(f"the polarized main path did not launch each of "
+                           f"its kernels ({stage_launches}), or launched "
+                           f"another kernel")
+    ptxas = _ptxas_table(_build.ptxas_report())
+    chain_regs = ptxas.get("polarized_chain_kernel<float, NF=1>", {}).get(
+        "registers")
+    # the rays of a trace chunk, all but the last alike: the first holds
+    # at least the mean
+    chunk = res * res // stage_launches["trace"]
+    fill = _chain_fill(chain_regs) if chain_regs else {
+        "not_measured": "no ptxas report"}
     emit("pol_main_path", resolution=res, precision="float32",
          integrator="rk4", max_steps=steps, rotation_split=False,
-         seconds=run_s, launches=launches,
+         seconds=run_s, launches=launches, stage_launches=stage_launches,
+         trace_chunks=stage_launches["trace"],
+         record_pieces=stage_launches["chain"],
+         mean_rays_per_trace_chunk=chunk,
+         chain_fill=fill, chain_launch_fills_card=bool(
+             chain_regs and chunk >= fill["rays_to_fill"]),
+         peak_memory_bytes=peak, free_bytes_before_run=free,
+         byte_caps_before_run=pk.byte_caps(free),
          nan_pixels=int((~finite_i).sum()),
          max_I_nu=float(np.nanmax(image["I_nu"])),
          max_pol_frac=float(np.nanmax(
              np.sqrt(image["Q_nu"] ** 2 + image["U_nu"] ** 2
                      + image["V_nu"] ** 2) / image["I_nu"])),
-         window=pk.WINDOW,
-         carry_bytes=res * res * pk.carry_bytes_per_ray(
-             torch.float32, steps, pk.WINDOW),
          npz_written=(tmp / "pol_full_width.npz").exists())
+    cfg.output_file = str(tmp / "pol_profile.npz")
+    emit("pol_profile", resolution=res, card=card,
+         **profile_run(cfg, grids["float32"]))
 
-    timings = {}
+    timings, stages = {}, {}
     for precision, integrator in (("float32", "rk4"), ("float64", "rk4"),
                                   ("float32", "dp")):
         if precision not in grids:
             grids[precision] = full_width_snapshot(torch.float64)
         cfg = _pol_full_config(precision, integrator)
         (args, kwargs, geom), t_setup = _timed(_pol_args, cfg, grids[precision])
-        pk.render_polarized(*args, **kwargs)  # warm up
-        times = []
+        bundles = {"spatial_order": _spatial(args)}
+        if (precision, integrator) == ("float32", "rk4"):
+            bundles["camera_order"] = args
+        best = dict.fromkeys(bundles, float("inf"))
+        for bundle in bundles.values():
+            pk.render_polarized(*bundle, **kwargs)  # warm up
+        times, outs = {k: [] for k in bundles}, {}
         for _ in range(3):
-            out, t = _timed(pk.render_polarized, *args, **kwargs)
-            times.append(t)
-        ns = out[3].cpu().numpy()
-        entry = {"kernel_ms": min(times) * 1e3, "plain_ms": None,
+            for name, bundle in bundles.items():
+                outs[name], t = _timed(pk.render_polarized, *bundle,
+                                       **kwargs)
+                times[name].append(t)
+                best[name] = min(best[name], t)
+        ns = outs["spatial_order"][3].cpu().numpy()
+        entry = {"kernel_ms": best["spatial_order"] * 1e3, "plain_ms": None,
                  "max_abs_err": None, "mean_n_samples": float(ns.mean())}
         extra = {}
         if (precision, integrator) == ("float32", "rk4"):
-            extra = _pol_full_width_checks(args, kwargs, geom, out, truth)
+            extra = _pol_full_width_checks(args, kwargs, geom,
+                                           outs["camera_order"], truth)
             entry.update(plain_ms=extra.pop("plain_ms"),
                          max_abs_err=extra.pop("max_abs_err"))
+            extra["camera_order_ms"] = best["camera_order"] * 1e3
+            extra["camera_order_s_runs"] = times["camera_order"]
+            stages = _pol_stage_times(bundles["spatial_order"], kwargs)
+            extra["stages"] = stages
         b = bound("polarized", integrator, precision, res * res,
                   entry["mean_n_samples"], in_bytes=grid_bytes(grids[precision]),
                   out_values=16, extra_out_bytes=12)
         timings[precision, integrator] = {**entry, **b}
         emit("pol_timing", resolution=res, card=card, precision=precision,
-             integrator=integrator, camera_setup_s=t_setup,
-             kernel_s_runs=times, kernel_ms=entry["kernel_ms"],
-             kernel_rays_per_s=res * res / min(times),
+             integrator=integrator, order="spatial_order",
+             camera_setup_s=t_setup, kernel_s_runs=times["spatial_order"],
+             kernel_ms=entry["kernel_ms"],
+             kernel_rays_per_s=res * res / best["spatial_order"],
              plain_ms=entry["plain_ms"], max_abs_err=entry["max_abs_err"],
              mean_n_samples=entry["mean_n_samples"],
              max_n_samples=int(ns.max()),
-             warp_efficiency_rows=warp_efficiency(ns, np.arange(res * res)),
-             window=pk.WINDOW, **b,
+             warp_efficiency=warp_efficiency(ns, np.arange(res * res)),
+             **b,
              clocks_power=smi(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,"
                                "temperature.gpu", "--format=csv,noheader"]),
              **extra)
     f32 = timings["float32", "rk4"]
+    stage_bounds = pol_stage_bounds(res * res,
+                                    res * res * f32["mean_n_samples"],
+                                    "float32")
+    per_stage = {}
+    for stage in ("trace", "derive", "chain"):
+        check = stage_checks[stage]
+        per_stage[stage] = {
+            "launches": stage_launches[stage],
+            "ms": stages["stage_ms"][stage],
+            "plain_ms": check["plain_s"] * 1e3,
+            "plain_rays": res * res // PLAIN_STRIDE,
+            "kernel_ms_at_plain_rays": check["kernel_s"] * 1e3,
+            "max_abs_err": check["max_abs_err"], **stage_bounds[stage]}
     return {"name": "polarized_kernel", "route": "cuda",
             "source": POL_KERNEL_SOURCE, "replaces": POL_KERNEL_REPLACES,
             "launches": launches, "max_abs_err": f32["max_abs_err"],
             "ms": f32["kernel_ms"], "plain_ms": f32["plain_ms"],
             "plain_rays": res * res // PLAIN_STRIDE,
             "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
-            "library_ms": None}
+            "library_ms": None, "stages": per_stage}
+
+
+def _pol_stage_times(args, kwargs) -> dict:
+    """One route render of ``args`` with CUDA events around each launch:
+    each stage's device time and the rest of the wall time (the glue:
+    host syncs, offsets, orders, allocations)."""
+    import torch
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    events = []
+    out, wall = _timed(pk._render_cuda, *args, kwargs["integrator"],
+                       kwargs["rotation_split"], events=events)
+    stage_ms = dict.fromkeys(pk.STAGE_LAUNCHES, 0.0)
+    launches = dict.fromkeys(pk.STAGE_LAUNCHES, 0)
+    for stage, start, end in events:
+        stage_ms[stage] += start.elapsed_time(end)
+        launches[stage] += 1
+    return {"wall_ms": wall * 1e3, "stage_ms": stage_ms,
+            "glue_ms": wall * 1e3 - sum(stage_ms.values()),
+            "launches": launches,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
 
 
 def _pol_full_width_checks(args, kwargs, geom, out, truth) -> dict:
-    """Phase 9's checks of the float32 rk4 kernel output ``out``: the
-    plain version on every PLAIN_STRIDE-th ray against it (polarized_gate)
-    and both against phase 3's float64 run (truth_gate); one launch at
-    WINDOW_CHECK steps per window equal to ``out`` bit for bit. Raises on
-    a failure; returns the numbers for the timing line."""
+    """Phase 9's checks of the float32 rk4 route's output ``out`` (in
+    camera order): the plain version on every PLAIN_STRIDE-th ray against
+    it (polarized_gate) and both against phase 3's float64 run
+    (truth_gate); a render under CHUNK_CHECK's byte caps equal to ``out``
+    bit for bit. Raises on a failure; returns the numbers for the timing
+    line."""
     import numpy as np
     import torch
     from blacklight_tpu_torch.ops import polarized_kernel as pk
@@ -1442,47 +1743,71 @@ def _pol_full_width_checks(args, kwargs, geom, out, truth) -> dict:
     gate = polarized_gate(ours, ref, exact=False)
     to_truth = truth_gate(ours, ref, truth)
     if not (gate["ok"] and to_truth["ok"]):
-        raise RuntimeError(f"polarized kernel disagrees with plain at "
+        raise RuntimeError(f"polarized route disagrees with plain at "
                            f"1024^2: {gate}, against float64 {to_truth}")
+    before = dict(pk.STAGE_LAUNCHES)
     other = pk._render_cuda(*args, kwargs["integrator"],
-                            kwargs["rotation_split"], window=WINDOW_CHECK)
-    if not all(torch.equal(a, b) for a, b in zip(other, out)):
-        raise RuntimeError(f"the polarized image at window {WINDOW_CHECK} "
-                           f"differs from window {pk.WINDOW}")
+                            kwargs["rotation_split"],
+                            trace_bytes=CHUNK_CHECK[0],
+                            record_bytes=CHUNK_CHECK[1])
+    chunks = {k: pk.STAGE_LAUNCHES[k] - before[k] for k in before}
+    if not all(_same_bits(a, b) for a, b in zip(other, out)):
+        raise RuntimeError(f"the polarized image under byte caps "
+                           f"{CHUNK_CHECK} differs from the default's")
     return dict(plain_ms=t_plain * 1e3, max_abs_err=gate["max_abs_err"],
                 plain_rays=int(pick.numel()),
                 plain_rays_per_s=pick.numel() / t_plain,
-                gate="NaN sets, I flux, IQUV frac of max I; kernel within "
+                gate="NaN sets, I flux, IQUV frac of max I; route within "
                      "3x the plain version's error to float64",
                 **{k: v for k, v in gate.items()
                    if k not in ("ok", "max_abs_err")},
                 float64_truth=to_truth,
-                bit_identical_at_window=WINDOW_CHECK)
+                bit_identical_under_caps=dict(caps=list(CHUNK_CHECK),
+                                              launches=chunks))
 
 
-def phase_pol_window(card: str, grid):
-    """The window W of the polarized kernel's two sweeps (pk.WINDOW is
-    chosen from this): float32 rk4 at 1024^2 on the full-width snapshot,
-    best of 2 per W; every W must give the same image bit for bit."""
+def _same_bits(a, b) -> bool:
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        view = torch.int32 if a.element_size() == 4 else torch.int64
+        return torch.equal(a.view(view), b.view(view))
+    return torch.equal(a, b)
+
+
+def phase_pol_chunks(card: str, grid):
+    """The trace chunk size of the polarized route (how
+    polarized_kernel.SAMPLE_SHARE was chosen): float32 rk4 at 1024^2 in
+    spatial_order on the full-width snapshot, best of 2 for each trace
+    byte cap in CHUNK_SWEEP and for the route's own caps (None), the
+    records under the route's own cap; every cap must give the same image
+    bit for bit."""
     import torch
     from blacklight_tpu_torch.ops import polarized_kernel as pk
     args, kwargs, _ = _pol_args(_pol_full_config("float32", "rk4"), grid)
+    args = _spatial(args)
     ref = None
-    for window in (32, 64, 128, 256, 512):
+    for cap in (*CHUNK_SWEEP, None):
         def run():
             return pk._render_cuda(*args, kwargs["integrator"],
-                                   kwargs["rotation_split"], window=window)
+                                   kwargs["rotation_split"], trace_bytes=cap)
         run()  # warm up
         times = []
         for _ in range(2):
+            torch.cuda.reset_peak_memory_stats()
+            before = pk.STAGE_LAUNCHES["trace"]
             out, t = _timed(run)
+            chunks = pk.STAGE_LAUNCHES["trace"] - before
             times.append(t)
         if ref is None:
             ref = out
-        elif not all(torch.equal(a, b) for a, b in zip(out, ref)):
-            raise RuntimeError(f"window {window} changed the image")
-        emit("pol_window", window=window, card=card, kernel_s_runs=times,
-             kernel_ms=min(times) * 1e3, chosen=window == pk.WINDOW)
+        elif not all(_same_bits(a, b) for a, b in zip(out, ref)):
+            raise RuntimeError(f"trace cap {cap} changed the image")
+        emit("pol_chunks", trace_bytes=cap if cap else "route's own",
+             card=card, trace_chunks=chunks, kernel_s_runs=times,
+             kernel_ms=min(times) * 1e3,
+             peak_memory_bytes=torch.cuda.max_memory_allocated())
 
 
 def _only_formula_launched(fk, sk, pk, plain_before) -> bool:
@@ -1714,18 +2039,18 @@ def phase_fit(card: str):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--window-sweep", action="store_true",
-                        help="only build and time the polarized kernel at "
-                             "each window W")
+    parser.add_argument("--chunk-sweep", action="store_true",
+                        help="only build and time the polarized route at "
+                             "each trace chunk size")
     opts = parser.parse_args(argv)
     card = phase_device()
     import torch
     phase_build()
-    if opts.window_sweep:
-        phase_pol_window(card, full_width_snapshot(torch.float32))
+    if opts.chunk_sweep:
+        phase_pol_chunks(card, full_width_snapshot(torch.float32))
     else:
         with multiprocessing.get_context("spawn").Pool(WORKERS) as pool:
-            truth, subsets = phase_checks(pool)
+            truth, subsets, pol_stages = phase_checks(pool)
         with tempfile.TemporaryDirectory(dir=ROOT / "build" / "kernels") \
                 as tmp:
             tmp = pathlib.Path(tmp)
@@ -1736,7 +2061,8 @@ def main(argv=None) -> int:
             simulation, mono = phase_sim_full_width(tmp, card, grids)
             phased = phase_phased_full_width(tmp, card, grids, mono)
             phase_pol_goldens(tmp)
-            polarized = phase_pol_full_width(tmp, card, grids, truth)
+            polarized = phase_pol_full_width(tmp, card, grids, truth,
+                                             pol_stages)
             grids.clear()
             multi = phase_multi_full_width(tmp, card, subsets["k13"])
             tangent = phase_grad_full_width(card, subsets["k14"])

@@ -1,5 +1,5 @@
-"""PyTorch port: the CUDA polarized kernel against its plain PyTorch
-version, on the card.
+"""PyTorch port: the CUDA polarized route (three kernels) against its
+plain PyTorch version, on the card.
 
 This file imports neither jax nor the JAX package, so it runs on a GPU
 machine without JAX: ``python -m pytest --noconftest -m cuda
@@ -65,6 +65,8 @@ def _stokes(out, args, geom):
 
 
 def _compare(args, kwargs, geom, exact, launches):
+    """``launches``: the route's kernel launches for the bundle (trace,
+    then derive and chain per frequency group of MAX_FREQUENCIES)."""
     before = pk.LAUNCHES
     out_k = pk.render_polarized(*args, **kwargs)
     torch.cuda.synchronize()
@@ -104,47 +106,121 @@ def test_kernel_matches_plain(cuda_device, integrator, precision):
     99.5th percentile)."""
     args, kwargs, geom = _args(integrator, precision)
     exact = integrator != "dp" and precision == "float64"
-    _compare(args, kwargs, geom, exact, launches=1)
+    _compare(args, kwargs, geom, exact, launches=3)
 
 
 @pytest.mark.parametrize("rotation_split", [False, True])
 def test_kernel_frequencies_and_split(cuda_device, rotation_split):
-    """Six frequencies: two launches of at most MAX_FREQUENCIES, one
-    image; both rotation_split regimes."""
+    """Six frequencies: two groups of at most MAX_FREQUENCIES (one trace,
+    two derive and two chain launches), one image; both rotation_split
+    regimes."""
     args, kwargs, geom = _args(
         "rk4", "float64", image_num_frequencies=6,
         image_frequency_start=1e11, image_frequency_end=6e11,
         image_frequency_spacing=FrequencySpacing.log,
         image_rotation_split=rotation_split)
     assert args[3].shape == (6,) and kwargs["rotation_split"] is rotation_split
-    _compare(args, kwargs, geom, True, launches=2)
+    _compare(args, kwargs, geom, True, launches=5)
 
 
-def test_kernel_window_chunks(cuda_device, monkeypatch):
-    """A carry table too small for the bundle splits the rays into
-    launches; another window size gives the same samples."""
-    args, kwargs, geom = _args("rk4", "float64")
-    ref = pk.render_polarized(*args, **kwargs)
-    per_ray = pk.carry_bytes_per_ray(torch.float64, 400, pk.WINDOW)
-    monkeypatch.setattr(pk, "CARRY_BYTES_MAX", 100 * per_ray)
-    before = pk.LAUNCHES
-    out = pk.render_polarized(*args, **kwargs)
-    assert pk.LAUNCHES == before + 3  # 256 rays, 100 per launch
-    for a, b in zip(out, ref):
-        assert torch.equal(a, b)
-    # the samples and their order do not depend on the window
-    for window in (17, 32):
-        out = pk._render_cuda(*args, kwargs["integrator"],
-                              kwargs["rotation_split"], window=window)
-        for a, b in zip(out, ref):
-            assert torch.equal(a, b)
+def _same_bits(a, b) -> bool:
+    if a.is_floating_point():
+        view = torch.int32 if a.element_size() == 4 else torch.int64
+        return torch.equal(a.view(view), b.view(view))
+    return torch.equal(a, b)
+
+
+def test_kernel_window_chunks(cuda_device):
+    """Byte caps small enough for several trace chunks and record pieces
+    give the one-chunk image bit for bit, in float64 and float32."""
+    for precision in ("float64", "float32"):
+        args, kwargs, _ = _args("rk4", precision)
+        one = pk.render_polarized(*args, **kwargs)
+        item = args[0].element_size()
+        before = dict(pk.STAGE_LAUNCHES)
+        several = pk._render_cuda(
+            *args, kwargs["integrator"], kwargs["rotation_split"],
+            trace_bytes=3 * 32 * 400 * 7 * item,
+            record_bytes=pk.record_bytes_per_slot(args[0].dtype, 1) * 600)
+        torch.cuda.synchronize()
+        traces = pk.STAGE_LAUNCHES["trace"] - before["trace"]
+        chains = pk.STAGE_LAUNCHES["chain"] - before["chain"]
+        assert traces == 3  # 256 rays, 96 a chunk
+        assert chains > traces
+        for a, b in zip(several, one):
+            assert _same_bits(a, b)
+
+
+def test_derive_matches_plain(cuda_device):
+    """The derive kernel against derive_records_reference on the trace
+    kernel's samples: every record value of every stored sample, and the
+    bad bits; float64 to rounding, float32 at the rounding of its
+    transcendentals."""
+    for precision, rtol in (("float64", 1e-9), ("float32", 2e-3)):
+        args, kwargs, _ = _args("rk4", precision, image_num_frequencies=2,
+                                image_frequency_start=1.5e11,
+                                image_frequency_end=4.6e11,
+                                image_frequency_spacing=FrequencySpacing.log)
+        positions, directions, mom, freqs, params, sp, grid, mass, cam, _ = \
+            args
+        stages = pk._CudaStages(positions, directions, mom, freqs, params,
+                                sp, grid, mass, cam, "rk4", False, None,
+                                1 << 30, 1 << 30)
+        b = positions.shape[0]
+        flags = torch.empty(b, dtype=torch.int32, device="cuda")
+        n_samples = torch.empty(b, dtype=torch.int32, device="cuda")
+        samples = stages.trace(0, b, flags, n_samples)
+        lengths = pk.warp_lengths(n_samples)
+        piece = pk.Piece(0, b, samples, n_samples, lengths,
+                         pk.record_offsets(lengths), int(lengths.sum()))
+        geometry, coefficients, bits = stages.derive(piece, 0, 2, None)
+        torch.cuda.synchronize()
+        ref = pk.derive_records_reference(
+            samples, n_samples, lengths, piece.offsets, directions, mom,
+            freqs, 0, 2, params, sp, grid, mass, cam)
+        w, t, lane, _ = pk._stored(samples, n_samples, lengths)
+        slot = piece.offsets[w] + t
+        for ours, plain in ((geometry, ref[0]), (coefficients, ref[1])):
+            a, p = ours[slot, :, lane], plain[slot, :, lane]
+            scale = p.abs().amax(dim=0).clamp_min(1e-300)
+            err = ((a - p).abs() / scale).amax(dim=0)
+            assert torch.isfinite(a).all()
+            assert float(err.max()) < rtol, (precision, err)
+        assert torch.equal(bits, ref[2])
+
+
+def test_piece_without_samples(cuda_device):
+    """A piece whose rays have no stored sample launches no derive kernel
+    and is not counted as one; the chain kernel still writes its rays,
+    as its plain version does."""
+    args, kwargs, _ = _args("rk4", "float32")
+    stages = pk._CudaStages(*args[:9], "rk4", False, None, 1 << 30, 1 << 30)
+    b = 40
+    samples = torch.zeros((pk.n_warps(b), 400, pk.SAMPLE_VALUES, pk.WARP),
+                          dtype=torch.float32, device="cuda")
+    n_samples = torch.zeros(b, dtype=torch.int32, device="cuda")
+    lengths = pk.warp_lengths(n_samples)
+    piece = pk.Piece(0, b, samples, n_samples, lengths,
+                     pk.record_offsets(lengths), 0)
+    before, stage_before = pk.LAUNCHES, dict(pk.STAGE_LAUNCHES)
+    geometry, coefficients, bits = stages.derive(piece, 0, 1, None)
+    out = stages.chain(piece, geometry, coefficients, 1)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES == before + 1
+    assert pk.STAGE_LAUNCHES["derive"] == stage_before["derive"]
+    assert pk.STAGE_LAUNCHES["chain"] == stage_before["chain"] + 1
+    assert geometry.shape[0] == 0 and not bits.any()
+    plain = pk.chain_records_reference(samples, n_samples, lengths,
+                                       piece.offsets, geometry, coefficients,
+                                       1, False)
+    assert _same_bits(out, plain)
 
 
 def test_pipeline_run_on_cuda(cuda_device, tmp_path):
     cfg = _config(res=8, output_file=str(tmp_path / "out.npz"))
     before = pk.LAUNCHES
     arrays = pipeline.run(cfg, quiet=True, device="cuda")
-    assert pk.LAUNCHES == before + 1
+    assert pk.LAUNCHES == before + 3
     for k in STOKES:
         assert arrays[k].shape == (8, 8)
     assert np.isfinite(np.nanmax(arrays["I_nu"]))

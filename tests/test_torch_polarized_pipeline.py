@@ -156,9 +156,12 @@ def test_kernel_params(tmp_path):
     assert values["ROTATION_SPLIT"] == 1.0
     assert values["FALLBACK_RHO"] == 1e-4 and values["FALLBACK_PGAS"] == 0.0
     assert values["MAX_STEPS"] == 400.0
-    assert pk.n_windows(400, 32) == 13 and pk.n_windows(400, 400) == 1
-    assert pk.carry_bytes_per_ray(torch.float32, 400, 32) == 13 * (9 * 4 + 2 * 4)
-    assert pk.carry_bytes_per_ray(torch.float64, 400, 32) == 13 * (9 * 8 + 2 * 4)
+    # the route's buffers: 400 sample slots of 7 values a ray; a record
+    # slot of 32 rays holds 50 values and 8 per frequency
+    assert pk.sample_bytes_per_ray(torch.float32, 400) == 400 * 7 * 4
+    assert pk.sample_bytes_per_ray(torch.float64, 400) == 400 * 7 * 8
+    assert pk.record_bytes_per_slot(torch.float32, 1) == 32 * (50 + 8) * 4
+    assert pk.record_bytes_per_slot(torch.float64, 2) == 32 * (50 + 16) * 8
 
 
 def test_other_device_raises(tmp_path):
