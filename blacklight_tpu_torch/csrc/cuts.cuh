@@ -42,8 +42,10 @@ struct CutConsts {
   T in, out, mid_theta, mid_z;
   T plane_o[3], plane_n[3];
 
-  // c points at the block's first entry
-  __device__ explicit CutConsts(const double* c) {
+  // c points at the block's first entry: float64 values, or values the
+  // host already rounded to T
+  template <typename S>
+  __device__ explicit CutConsts(const S* c) {
     near = T(c[C_NEAR]) != T(0);
     far = T(c[C_FAR]) != T(0);
     in_on = T(c[C_IN_ON]) != T(0);

@@ -1,16 +1,54 @@
 // Fused formula-model ray tracer for NVIDIA Hopper (sm_90a): geodesic step,
-// formula coefficients and unpolarized transfer for one ray per thread, at
-// one or several frequencies, optionally carrying forward tangents dI/dp of
-// the emission parameters (cn0, r0, h).
+// formula coefficients and unpolarized transfer for one ray per thread at a
+// time, at one or several frequencies, optionally carrying forward tangents
+// dI/dp of the emission parameters (cn0, r0, h).
 //
 // Replaces the TPU kernel blacklight_tpu/ops/pallas_formula.py:_make_kernel
 // (:192-596, launched by render_formula :599-697): K1.1/K1.2 (one
 // frequency), K1.3 (len(nus) > 1) and K1.4 (diff_params). The dp body
 // follows :363-485, the rk4/rk2 body :487-578, the sample and transfer
 // update transfer_update :270-355 (tangents :322-354) and the finalization
-// :582-594. The step loop is trace.cuh's trace_ray, shared with the
-// simulation kernel; this file supplies the formula coefficients and the
-// transfer update at each stored sample.
+// :582-594. The plain PyTorch version is
+// blacklight_tpu_torch/ops/formula_kernel.py render_formula_reference.
+//
+// What bounds it on this card: issuing its instructions, then the latency
+// of its arithmetic at the occupancy its registers allow. A ray reads 9
+// values and writes 2 + F (1 + nd) over thousands of steps, so device
+// memory traffic is negligible. A dp step is seven right-hand sides (about
+// 60 operations each, with IEEE divisions and square roots, each of which
+// branches around a slow path), an error norm and two null
+// renormalizations, ~5,000 instructions for ~2,150 counted operations
+// (PERF.md §6); the seven stages are 49 live values. Each extra
+// frequency adds ~50 operations to a sample and each tangent ~25 per
+// frequency (chip_smoke.py FORMULA_OPS_PER_FREQUENCY,
+// FORMULA_OPS_PER_TANGENT).
+//
+// What the design does about it:
+// - Launch constants in the constant bank. Every geodesic, formula, cut
+//   and frequency constant arrives rounded to T by the host
+//   (FormulaLaunchConsts, packed by ops/formula_kernel.py launch_consts)
+//   as a kernel parameter passed by value, as the TPU kernel bakes them
+//   into its closure. Arithmetic reads them as constant-bank operands, so
+//   none of them holds a register across the step loop. theta (tangents)
+//   stays in device memory: a fit step never waits on the host.
+// - The step carries its endpoint geometry (formula_step). Dormand-Prince's
+//   7th stage is evaluated at the 5th-order endpoint (DP_A[6] is DP_B5,
+//   summed alike), and an accepted step keeps that position; its
+//   Kerr-Schild derivatives (r, f, l, df, dl) become the next step's first
+//   stage and its f, l the endpoint's renormalization, in place of
+//   recomputing them. rk4/rk2 carry r alone. At the sample point, r is
+//   computed once for the renormalization, the truncation test and
+//   formula_geometry. The same arithmetic in the same forms, so the units
+//   without contraction give the bits of trace.cuh's step_ray.
+// - Persistent lanes. The grid is the card's resident block count (or what
+//   the bundle needs, if fewer); when a lane's ray ends it writes that
+//   ray's outputs at the ray's own index and takes the next ray slot from
+//   a device counter, one warp-aggregated atomicAdd for all lanes of the
+//   warp that need one. A block no longer holds its SM until its longest
+//   ray ends; only the last rays leave lanes idle. A ray's arithmetic does
+//   not depend on its lane, so the outputs equal a launch without fetch,
+//   bit for bit, from run to run. Slots map to rays in camera order or
+//   through a permutation the wrapper passes.
 //
 // Frequencies: the geometry of a sample (velocity, density profile, u.k) is
 // shared; each frequency adds its power laws and an (I, tau) pair. NF = 1
@@ -31,23 +69,6 @@
 // w_r0 = r^2 / r0^3 and w_h = -h cos^2(theta). The tangent arithmetic is
 // written in the plain version's forms, operation for operation.
 //
-// What bounds it on this card: FP32 (or FP64) ALU work and register
-// pressure. A ray reads 9 values and writes 2 + F (1 + nd) over thousands
-// of steps, so device-memory traffic is negligible. A dp step is seven
-// right-hand sides (about 60 operations each, with divisions and square
-// roots), an error norm and two null renormalizations; the seven stages are
-// held in registers (49 values), and the double instantiations may spill
-// to local memory (-Xptxas -v reports it). Each extra frequency adds ~50
-// operations to a sample and each tangent ~25 per frequency
-// (chip_smoke.py FORMULA_OPS_PER_FREQUENCY, FORMULA_OPS_PER_TANGENT).
-//
-// Warp divergence: rays of one warp end at different steps, and a warp runs
-// until its longest ray ends. Rays come in the caller's order (row-major
-// pixels, so a warp covers 32 neighbouring pixels of one image row). Later
-// work may order rays by image tile, as bench.py:117-124 does for the JAX
-// scan, so that a warp holds rays of similar length, or use persistent
-// threads that fetch a new ray when theirs ends.
-//
 // Every constant is T(...): a bare double literal would promote the float
 // instantiation to FP64 arithmetic. Division by a constant is
 // multiplication by its reciprocal, rounded once on the host or at compile
@@ -64,6 +85,8 @@
 
 #include <cuda_runtime.h>
 
+#include <cstring>
+
 #include "cuts.cuh"
 #include "formula_params.cuh"
 #include "trace.cuh"
@@ -77,14 +100,36 @@ static_assert(P_PLANE_NZ - P_CUT_NEAR == C_PLANE_NZ,
 
 constexpr int THREADS = 128;
 constexpr int FORMULA_MAX_FREQUENCIES = 4;  // the larger frequency bucket
+constexpr unsigned FULL_WARP = 0xffffffffu;
+
+// At least FormulaBlocks<T> blocks of THREADS per SM (__launch_bounds__):
+// float holds every instantiation to 80 registers, 24 warps an SM, and
+// spills the rest to local memory, which the L1 cache holds: the kernel
+// waits on the latency of its arithmetic, and more warps hide more of it
+// than the spills cost (PERF.md §6: k = 3, 4, 5, 6 timed in turns; dp
+// float32 0.953x of k = 4's 128 registers, which do not spill; the stage
+// vectors in shared memory were slower at k = 5, 6 and 7). The double
+// builds take what they need, at most 255.
+template <typename T>
+constexpr int FormulaBlocks = sizeof(T) == 4 ? 6 : 1;
 constexpr double DELTA_TAU_MAX = 100.0;     // unpolarized.cpp:96-110
 
 // Parameters that can carry tangents; bit k of a launch's diff_mask selects
 // DiffParam k, and theta holds one value per set bit in this order.
 enum DiffParam : int { D_CN0, D_R0, D_H, D_COUNT };
 
+// The launch constants, rounded once to T on the host: the FormulaParam
+// block, then NF FrequencyParam blocks (zero beyond the launch's nf).
+// Passed by value as a kernel parameter, they live in the constant bank.
+template <typename T, int NF>
+struct FormulaLaunchConsts {
+  T v[P_COUNT + NF * PF_COUNT];
+};
+
 // Formula-model constants of one launch (FormulaParams and the frequency
-// blocks of its first nf <= NF frequencies).
+// blocks of its first nf <= NF frequencies), read from the launch
+// constants: copies of kernel parameters, which the compiler reads from
+// the constant bank where they are used.
 template <typename T, int NF>
 struct FormulaConsts {
   T bh_a, a2, two_a, two_m, neg_two_m_a, camera_r, l0, one_plus_q, inv_r0_sq;
@@ -92,37 +137,37 @@ struct FormulaConsts {
   bool ej_int, ea_int;
   CutConsts<T> cuts;
   T cam[4];
-  T nu[NF], x_unit_over_nu[NF];
+  T nu[NF], x_unit_over_nu[NF], i_scale[NF];
 
-  __device__ FormulaConsts(const double* p, int nf) : cuts(p + P_CUT_NEAR) {
-    bh_a = T(p[P_F_BH_A]);
-    a2 = T(p[P_F_A2]);
-    two_a = T(p[P_F_TWO_A]);
-    two_m = T(p[P_F_TWO_M]);
-    neg_two_m_a = T(p[P_F_NEG_TWO_M_A]);
-    camera_r = T(p[P_F_CAMERA_R]);
-    l0 = T(p[P_F_L0]);
-    one_plus_q = T(p[P_F_ONE_PLUS_Q]);
-    inv_r0_sq = T(p[P_F_INV_R0_SQ]);
-    h_sq = T(p[P_F_H_SQ]);
-    inv_nup = T(p[P_F_INV_NUP]);
-    a_param = T(p[P_F_A_PARAM]);
-    cn0 = T(p[P_F_CN0]);
-    ej = T(p[P_EJ]);
+  __device__ explicit FormulaConsts(const T* p) : cuts(p + P_CUT_NEAR) {
+    bh_a = p[P_F_BH_A];
+    a2 = p[P_F_A2];
+    two_a = p[P_F_TWO_A];
+    two_m = p[P_F_TWO_M];
+    neg_two_m_a = p[P_F_NEG_TWO_M_A];
+    camera_r = p[P_F_CAMERA_R];
+    l0 = p[P_F_L0];
+    one_plus_q = p[P_F_ONE_PLUS_Q];
+    inv_r0_sq = p[P_F_INV_R0_SQ];
+    h_sq = p[P_F_H_SQ];
+    inv_nup = p[P_F_INV_NUP];
+    a_param = p[P_F_A_PARAM];
+    cn0 = p[P_F_CN0];
+    ej = p[P_EJ];
     ej_int = flag_at<T>(p, P_EJ_IS_INT);
-    ej_sign = T(p[P_EJ_SIGN]);
-    ea = T(p[P_EA]);
+    ej_sign = p[P_EJ_SIGN];
+    ea = p[P_EA];
     ea_int = flag_at<T>(p, P_EA_IS_INT);
-    ea_sign = T(p[P_EA_SIGN]);
-    cam[0] = T(p[P_CAM_X0]);
-    cam[1] = T(p[P_CAM_X1]);
-    cam[2] = T(p[P_CAM_X2]);
-    cam[3] = T(p[P_CAM_X3]);
+    ea_sign = p[P_EA_SIGN];
+    cam[0] = p[P_CAM_X0];
+    cam[1] = p[P_CAM_X1];
+    cam[2] = p[P_CAM_X2];
+    cam[3] = p[P_CAM_X3];
 #pragma unroll
     for (int f = 0; f < NF; ++f) {
-      const bool on = NF == 1 || f < nf;
-      nu[f] = on ? T(p[P_COUNT + f * PF_COUNT + PF_NU]) : T(0);
-      x_unit_over_nu[f] = on ? T(p[P_COUNT + f * PF_COUNT + PF_X_UNIT_OVER_NU]) : T(0);
+      nu[f] = p[P_COUNT + f * PF_COUNT + PF_NU];
+      x_unit_over_nu[f] = p[P_COUNT + f * PF_COUNT + PF_X_UNIT_OVER_NU];
+      i_scale[f] = p[P_COUNT + f * PF_COUNT + PF_I_SCALE];
     }
   }
 };
@@ -135,6 +180,31 @@ struct Emission {
   T cn0, r0, h;
   bool runtime_r0, runtime_h;
 };
+
+template <typename T, int NF, bool TANGENTS>
+__device__ __forceinline__ Emission<T> emission(const FormulaConsts<T, NF>& c,
+                                                const T* __restrict__ theta,
+                                                unsigned diff_mask) {
+  Emission<T> em;
+  em.cn0 = c.cn0;
+  em.r0 = T(1);
+  em.h = T(0);
+  em.runtime_r0 = false;
+  em.runtime_h = false;
+  if (TANGENTS) {
+    int slot = 0;
+    if ((diff_mask >> D_CN0) & 1u) em.cn0 = theta[slot++];
+    if ((diff_mask >> D_R0) & 1u) {
+      em.r0 = theta[slot++];
+      em.runtime_r0 = true;
+    }
+    if ((diff_mask >> D_H) & 1u) {
+      em.h = theta[slot++];
+      em.runtime_h = true;
+    }
+  }
+  return em;
+}
 
 // C++ pow with a constant exponent e for a possibly negative base
 // (pallas_formula.py:159-175): sign^e |x|^e for integer e, 0 at x == 0.
@@ -152,14 +222,15 @@ struct FormulaGeom {
   bool keep, bad;  // bad: the disk velocity is not timelike
 };
 
+// r is the sample's Kerr-Schild radius, which formula_step computed once
+// (the geodesic's spin and a^2 are the formula model's: both come from
+// formula_spin).
 template <typename T, int NF>
 __device__ __forceinline__ FormulaGeom<T> formula_geometry(const FormulaConsts<T, NF>& c,
                                                            const Emission<T>& em, T x1,
-                                                           T x2, T x3, T k0, T k1, T k2,
+                                                           T x2, T x3, T r, T k0, T k1, T k2,
                                                            T k3) {
   const T a = c.bh_a;
-  const T rr2 = x1 * x1 + x2 * x2 + x3 * x3;
-  const T r = m_sqrt(T(0.5) * (rr2 - c.a2 + m_hypot(rr2 - c.a2, c.two_a * x3)));
 
   FormulaGeom<T> g;
   g.keep = geometric_keep(c.cuts, x1, x2, x3, r, c.camera_r, c.cam[1], c.cam[2], c.cam[3]);
@@ -226,40 +297,27 @@ __device__ __forceinline__ void formula_jalpha(const FormulaConsts<T, NF>& c,
 // The accumulators of one ray and the transfer update at each of its
 // stored samples (transfer_update, :270-355): the invariant source-function
 // recurrence with the optically thick trap, per frequency, and the forward
-// tangents of (I, tau) where TANGENTS.
+// tangents of (I, tau) where TANGENTS. reset() starts a ray.
 template <typename T, int NF, bool TANGENTS>
 struct FormulaSample {
   static constexpr int ND = TANGENTS ? D_COUNT : 1;
   const FormulaConsts<T, NF>& c;
-  Emission<T> em;
-  unsigned diff_mask;
-  int nf;
+  const Emission<T> em;
+  const unsigned diff_mask;
+  const int nf;
   T p0, mom;
   T intensity[NF], tau[NF];
   T d_intensity[ND][NF], d_tau[ND][NF];  // indexed by DiffParam
   bool bad;
 
-  __device__ FormulaSample(const FormulaConsts<T, NF>& c_, const T* __restrict__ theta,
-                           unsigned diff_mask_, int nf_, T p0_, T mom_)
-      : c(c_), diff_mask(TANGENTS ? diff_mask_ : 0u), nf(nf_), p0(p0_), mom(mom_),
-        bad(false) {
-    em.cn0 = c.cn0;
-    em.r0 = T(1);
-    em.h = T(0);
-    em.runtime_r0 = false;
-    em.runtime_h = false;
-    if (TANGENTS) {
-      int slot = 0;
-      if (diff(D_CN0)) em.cn0 = theta[slot++];
-      if (diff(D_R0)) {
-        em.r0 = theta[slot++];
-        em.runtime_r0 = true;
-      }
-      if (diff(D_H)) {
-        em.h = theta[slot++];
-        em.runtime_h = true;
-      }
-    }
+  __device__ FormulaSample(const FormulaConsts<T, NF>& c_, const Emission<T>& em_,
+                           unsigned diff_mask_, int nf_)
+      : c(c_), em(em_), diff_mask(TANGENTS ? diff_mask_ : 0u), nf(nf_) {}
+
+  __device__ __forceinline__ void reset(T p0_, T mom_) {
+    p0 = p0_;
+    mom = mom_;
+    bad = false;
 #pragma unroll
     for (int f = 0; f < NF; ++f) {
       intensity[f] = T(0);
@@ -277,8 +335,9 @@ struct FormulaSample {
   }
   __device__ __forceinline__ bool on(int f) const { return NF == 1 || f < nf; }
 
-  __device__ __forceinline__ void operator()(const T (&ym)[7], T k1, T k2, T k3, T h) {
-    const FormulaGeom<T> g = formula_geometry(c, em, ym[1], ym[2], ym[3], p0, k1, k2, k3);
+  __device__ __forceinline__ void operator()(const T (&ym)[7], T k1, T k2, T k3, T h, T r) {
+    const FormulaGeom<T> g =
+        formula_geometry(c, em, ym[1], ym[2], ym[3], r, p0, k1, k2, k3);
     T w_r0 = T(0), w_h = T(0);
     if (TANGENTS) {
       // log-derivatives of the density profile wrt r0 and h
@@ -343,81 +402,236 @@ struct FormulaSample {
   }
 };
 
-// i_nu: (n_rays, ld) row-major, this launch's frequencies at columns
-// [0, nf); d_i_nu (TANGENTS): (nd, n_rays, ld), one plane per set bit of
-// diff_mask in DiffParam order.
+// The geometry a ray carries from one step to the next: the Kerr-Schild
+// derivatives at its position y (dp), or its radius alone (rk4, rk2 and the
+// flat metric). start_geometry sets them at the camera.
+template <typename T, int INTEGRATOR>
+__device__ __forceinline__ void start_geometry(const KerrConsts<T>& g, const T (&y)[7],
+                                               KsDerivs<T>& here) {
+  if (INTEGRATOR == INTEGRATOR_DP && !g.flat) {
+    ks_derivatives(y[1], y[2], y[3], g, here);
+  } else {
+    here.r = ks_radius(y[1], y[2], y[3], g);
+  }
+}
+
+// The null-renormalization factor at a point x of radius q, with momentum
+// p (renormalize_factor with the radius already known).
+template <typename T>
+__device__ __forceinline__ T renormalize_factor_at(const T (&x)[7], const KsRadius<T>& q,
+                                                   T p0, const KerrConsts<T>& g) {
+  T a, b, c;
+  if (g.flat) {
+    renormalize_abc_flat(p0, x[4], x[5], x[6], a, b, c);
+  } else {
+    const KsScalars<T> sc = ks_scalars(x[1], x[2], x[3], q, g);
+    renormalize_abc(sc.f, sc.l1, sc.l2, sc.l3, p0, x[4], x[5], x[6], a, b, c);
+  }
+  return renormalize_root(a, b, c);
+}
+
+// trace.cuh's step_ray with the geometry carried in `here` (start_geometry):
+// the same stages, controller and end of step (trace.cuh rk_stages,
+// dp_step_size, dp_control, end_step) on the same values. dp's first stage
+// takes the carried derivatives, its 7th stage leaves those of the
+// endpoint, whose f and l renormalize it and whose r is r_new; rk4/rk2 take
+// r from the carry and compute the endpoint's once for both uses. r_mid is
+// the sample point's radius, computed once for its renormalization, the
+// truncation test and the sample.
+template <typename T, int INTEGRATOR>
+__device__ __forceinline__ bool formula_step(const TraceConsts<T>& tc, RayState<T>& s,
+                                             KsDerivs<T>& here, T p0, int n, T (&ym)[7],
+                                             T& k1, T& k2, T& k3, T& hs, T& r_mid) {
+  const KerrConsts<T>& g = tc.g;
+  const T(&y)[7] = s.y;
+  const T r = here.r;
+  T ye[7];  // step endpoint
+  T fac, r_new;
+  bool accept = true, retry_exceeded = false;
+
+  if (INTEGRATOR == INTEGRATOR_DP) {
+    T k[7][7], y4[7], ds;
+    KsDerivs<T> next;
+    geodesic_rhs_from(here, p0, y[4], y[5], y[6], g, k[0], &ds);
+    hs = dp_step_size(tc, s, r, ds);
+    dp_stages<T, true>(y, p0, hs, g, k, ye, y4, ym, &next);
+    dp_control(tc, s, y, ye, y4, hs, accept, retry_exceeded);
+    T a, b, c;
+    if (g.flat) {
+      renormalize_abc_flat(p0, ye[4], ye[5], ye[6], a, b, c);
+    } else {
+      renormalize_abc(next.f, next.l1, next.l2, next.l3, p0, ye[4], ye[5], ye[6], a, b, c);
+    }
+    fac = renormalize_root(a, b, c);
+    r_new = next.r;
+    // an accepted step moves to ye; a rejected one stays at y, whose
+    // derivatives it recomputes (bit for bit what it had) rather than
+    // holding them in registers through the seven stages
+    if (accept) {
+      here = next;
+    } else {
+      start_geometry<T, INTEGRATOR>(g, y, here);
+    }
+  } else {
+    // fixed step h = -ray_step (r - r_horizon) (geodesics.cpp:418-795)
+    hs = -tc.ray_step * (r - tc.r_horizon);
+    rk_stages<T, INTEGRATOR>(g, y, p0, hs, ye, ym);
+    const KsRadius<T> qe = ks_radius_parts(ye[1], ye[2], ye[3], g);
+    fac = renormalize_factor_at(ye, qe, p0, g);
+    r_new = qe.r;
+    here.r = r_new;
+  }
+
+  const KsRadius<T> qm = ks_radius_parts(ym[1], ym[2], ym[3], g);
+  const T facm = renormalize_factor_at(ym, qm, p0, g);
+  r_mid = qm.r;
+  return end_step(tc, s, n, accept, retry_exceeded, r, r_new, r_mid, fac, facm, ye, ym, k1,
+                  k2, k3);
+}
+
+// One thread is a lane that traces rays one after another: first the ray
+// of its own slot (block * THREADS + thread), then, each time its ray
+// ends, the slot that a warp-aggregated atomicAdd on *next_slot hands it
+// (offset by the grid's first slots). Slot i is ray order[i], or ray i
+// without an order. i_nu: (n_rays, ld) row-major, this launch's
+// frequencies at columns [0, nf); d_i_nu (TANGENTS): (nd, n_rays, ld),
+// one plane per set bit of diff_mask in DiffParam order; both written at
+// the ray's own index.
 template <typename T, int INTEGRATOR, int NF, bool TANGENTS>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, FormulaBlocks<T>)
     formula_kernel(const T* __restrict__ positions, const T* __restrict__ directions,
                    const T* __restrict__ momentum_factors,
-                   const double* __restrict__ params, const T* __restrict__ theta, int nf,
-                   unsigned diff_mask, int ld, T* __restrict__ i_nu, T* __restrict__ d_i_nu,
-                   int* __restrict__ flags_out, int* __restrict__ n_samples_out,
-                   long long n_rays) {
-  const long long ray = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
-  if (ray >= n_rays) return;
-  const TraceConsts<T> tc(params);
-  const FormulaConsts<T, NF> fc(params, nf);
+                   const __grid_constant__ FormulaLaunchConsts<T, NF> consts,
+                   const T* __restrict__ theta, int nf, unsigned diff_mask, int ld,
+                   const long long* __restrict__ order,
+                   unsigned long long* __restrict__ next_slot, T* __restrict__ i_nu,
+                   T* __restrict__ d_i_nu, int* __restrict__ flags_out,
+                   int* __restrict__ n_samples_out, long long n_rays) {
+  const TraceConsts<T> tc(consts.v);
+  const FormulaConsts<T, NF> fc(consts.v);
+  FormulaSample<T, NF, TANGENTS> sample(fc, emission<T, NF, TANGENTS>(fc, theta, diff_mask),
+                                        diff_mask, nf);
+  const unsigned lane = threadIdx.x & 31u;
+  const long long first_fetched = static_cast<long long>(gridDim.x) * THREADS;
 
-  // state: x^0..x^3, p_1..p_3 (p_0 is conserved)
   RayState<T> s;
-  init_ray_state(tc, positions + 4 * ray, directions + 4 * ray, s);
-  const T p0 = directions[4 * ray + 0];
+  KsDerivs<T> here;
+  long long ray = 0;
+  int n = 0;
+  auto start = [&](long long slot) {
+    ray = order ? order[slot] : slot;
+    init_ray_state(tc, positions + 4 * ray, directions + 4 * ray, s);
+    start_geometry<T, INTEGRATOR>(tc.g, s.y, here);
+    sample.reset(directions[4 * ray + 0], momentum_factors[ray]);
+    n = 0;
+  };
 
-  FormulaSample<T, NF, TANGENTS> sample(fc, theta, diff_mask, nf, p0, momentum_factors[ray]);
-  bool flag;
-  int n_samp;
-  trace_ray<T, INTEGRATOR>(tc, s, p0, sample, flag, n_samp);
-
-  // one bad mask for all frequencies, as the TPU kernel keeps it
-  const bool poison = sample.bad || (tc.fallback_nan && flag);
+  const long long own = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  bool busy = own < n_rays;
+  if (busy) start(own);
+  while (__any_sync(FULL_WARP, busy)) {
+    bool done = false;
+    if (busy) {
+      if (s.alive && n < tc.max_steps) {
+        T ym[7], k1, k2, k3, hs, r_mid;
+        if (formula_step<T, INTEGRATOR>(tc, s, here, sample.p0, n, ym, k1, k2, k3, hs,
+                                        r_mid)) {
+          sample(ym, k1, k2, k3, hs, r_mid);
+        }
+        ++n;
+      }
+      done = !(s.alive && n < tc.max_steps);
+    }
+    if (done) {
+      // one bad mask for all frequencies, as the TPU kernel keeps it
+      const bool poison = sample.bad || (tc.fallback_nan && s.flag);
 #pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    if (!sample.on(f)) continue;
-    const T i_scale = T(params[P_COUNT + f * PF_COUNT + PF_I_SCALE]);
-    i_nu[ray * ld + f] = poison ? T(NAN) : sample.intensity[f] * i_scale;
-    if (TANGENTS) {
-      // a poisoned pixel holds a constant NaN: its derivative is zero
-      int slot = 0;
+      for (int f = 0; f < NF; ++f) {
+        if (!sample.on(f)) continue;
+        i_nu[ray * ld + f] = poison ? T(NAN) : sample.intensity[f] * fc.i_scale[f];
+        if (TANGENTS) {
+          // a poisoned pixel holds a constant NaN: its derivative is zero
+          int plane = 0;
 #pragma unroll
-      for (int k = 0; k < D_COUNT; ++k) {
-        if (!sample.diff(k)) continue;
-        d_i_nu[(slot * n_rays + ray) * ld + f] =
-            poison ? T(0) : sample.d_intensity[k][f] * i_scale;
-        ++slot;
+          for (int k = 0; k < D_COUNT; ++k) {
+            if (!sample.diff(k)) continue;
+            d_i_nu[(plane * n_rays + ray) * ld + f] =
+                poison ? T(0) : sample.d_intensity[k][f] * fc.i_scale[f];
+            ++plane;
+          }
+        }
+      }
+      flags_out[ray] = s.flag ? 1 : 0;
+      n_samples_out[ray] = s.n_samp;
+    }
+    // the lanes whose ray ended take the next slots, one atomic a warp
+    const unsigned need = __ballot_sync(FULL_WARP, done);
+    if (need != 0u) {
+      const int leader = __ffs(need) - 1;
+      unsigned long long base = 0;
+      if (lane == static_cast<unsigned>(leader)) {
+        base = atomicAdd(next_slot, static_cast<unsigned long long>(__popc(need)));
+      }
+      base = __shfl_sync(FULL_WARP, base, leader);
+      if (done) {
+        const long long slot = first_fetched + static_cast<long long>(base) +
+                               __popc(need & ((1u << lane) - 1u));
+        busy = slot < n_rays;
+        if (busy) start(slot);
       }
     }
   }
-  flags_out[ray] = flag ? 1 : 0;
-  n_samples_out[ray] = n_samp;
 }
 
 // Pointers and sizes of one launch, as the C interface receives them.
+// consts: the host's FormulaLaunchConsts (consts_bytes long). With
+// resident set, the launch only reports there how many blocks of the
+// instantiation the card holds at once (blocks per SM times SMs).
 struct LaunchArgs {
   const void* positions;
   const void* directions;
   const void* momentum_factors;
-  const double* params;
+  const void* consts;
+  long long consts_bytes;
   const void* theta;
   int nf;
   unsigned diff_mask;
   int ld;
+  const long long* order;
+  unsigned long long* next_slot;
+  int grid;
   void* i_nu;
   void* d_i_nu;
   int* flags;
   int* n_samples;
   long long n_rays;
   cudaStream_t stream;
+  int* resident;
 };
 
 template <typename T, int INTEGRATOR, int NF, bool TANGENTS>
 cudaError_t launch(const LaunchArgs& a) {
-  const unsigned blocks = static_cast<unsigned>((a.n_rays + THREADS - 1) / THREADS);
-  formula_kernel<T, INTEGRATOR, NF, TANGENTS><<<blocks, THREADS, 0, a.stream>>>(
+  const auto kernel = formula_kernel<T, INTEGRATOR, NF, TANGENTS>;
+  if (a.resident) {
+    int per_sm = 0, device = 0, sms = 0;
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0);
+    if (err == cudaSuccess) err = cudaGetDevice(&device);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    }
+    *a.resident = per_sm * sms;
+    return err;
+  }
+  FormulaLaunchConsts<T, NF> consts;
+  if (a.consts_bytes != static_cast<long long>(sizeof(consts)) || a.grid < 1) {
+    return cudaErrorInvalidValue;
+  }
+  memcpy(&consts, a.consts, sizeof(consts));
+  kernel<<<static_cast<unsigned>(a.grid), THREADS, 0, a.stream>>>(
       static_cast<const T*>(a.positions), static_cast<const T*>(a.directions),
-      static_cast<const T*>(a.momentum_factors), a.params, static_cast<const T*>(a.theta),
-      a.nf, a.diff_mask, a.ld, static_cast<T*>(a.i_nu), static_cast<T*>(a.d_i_nu), a.flags,
-      a.n_samples, a.n_rays);
+      static_cast<const T*>(a.momentum_factors), consts, static_cast<const T*>(a.theta),
+      a.nf, a.diff_mask, a.ld, a.order, a.next_slot, static_cast<T*>(a.i_nu),
+      static_cast<T*>(a.d_i_nu), a.flags, a.n_samples, a.n_rays);
   return cudaGetLastError();
 }
 

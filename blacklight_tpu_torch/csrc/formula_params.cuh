@@ -1,12 +1,13 @@
-// Index order of the float64 parameter vector the formula kernel reads:
-// the fixed block (FormulaParam), then one block per frequency of the
-// launch (FrequencyParam), frequency f at P_COUNT + f * PF_COUNT.
+// Index order of the formula kernel's launch constants
+// (FormulaLaunchConsts in formula_kernel.cuh): the fixed block
+// (FormulaParam), then one block per frequency of the launch's bucket
+// (FrequencyParam), frequency f at P_COUNT + f * PF_COUNT.
 //
-// The host (blacklight_tpu_torch/ops/formula_kernel.py, PARAM_NAMES and
-// FREQUENCY_PARAM_NAMES) fills it in this order, with every derived
-// constant computed in float64; tests/test_torch_formula_kernel.py checks
-// that the orders agree. Flags are stored as 0.0 / 1.0 and integers as
-// exact doubles.
+// The host (blacklight_tpu_torch/ops/formula_kernel.py, PARAM_NAMES,
+// FREQUENCY_PARAM_NAMES and launch_consts) fills it in this order, with
+// every derived constant computed in float64 and rounded once to the
+// kernel's type; tests/test_torch_formula_kernel.py checks that the orders
+// agree. Flags are stored as 0 / 1 and integers as exact values.
 #pragma once
 
 namespace bl {

@@ -81,12 +81,47 @@ struct KerrConsts {
   bool flat;
 };
 
+// |x|^2, r^2 and r at (x, y, z) (geometry.py:36-53): computed once where
+// several quantities at one point need them.
+template <typename T>
+struct KsRadius {
+  T rr2, r2, r;
+};
+
+template <typename T>
+__device__ __forceinline__ KsRadius<T> ks_radius_parts(T x1, T x2, T x3,
+                                                       const KerrConsts<T>& g) {
+  KsRadius<T> q;
+  q.rr2 = x1 * x1 + x2 * x2 + x3 * x3;
+  q.r2 = T(0.5) * (q.rr2 - g.a2 + m_hypot(q.rr2 - g.a2, g.two_spin * x3));
+  q.r = m_sqrt(q.r2);
+  return q;
+}
+
 // r(x, y, z) (geometry.py:36-53)
 template <typename T>
 __device__ __forceinline__ T ks_radius(T x1, T x2, T x3, const KerrConsts<T>& g) {
-  const T rr2 = x1 * x1 + x2 * x2 + x3 * x3;
-  const T r2 = T(0.5) * (rr2 - g.a2 + m_hypot(rr2 - g.a2, g.two_spin * x3));
-  return m_sqrt(r2);
+  return ks_radius_parts(x1, x2, x3, g).r;
+}
+
+// The Kerr-Schild scalar f and the spatial covector l_i (l_0 = 1) at a
+// point of radius q (geometry.py ks_scalars), and r^2 + a^2.
+template <typename T>
+struct KsScalars {
+  T f, denom, l1, l2, l3;
+};
+
+template <typename T>
+__device__ __forceinline__ KsScalars<T> ks_scalars(T x1, T x2, T x3, const KsRadius<T>& q,
+                                                   const KerrConsts<T>& g) {
+  const T r2 = q.r2, r = q.r;
+  KsScalars<T> s;
+  s.f = g.two_mass * r2 * r / (r2 * r2 + g.a2 * x3 * x3);
+  s.denom = r2 + g.a2;
+  s.l1 = (r * x1 + g.spin * x2) / s.denom;
+  s.l2 = (r * x2 - g.spin * x1) / s.denom;
+  s.l3 = x3 / r;
+  return s;
 }
 
 // Kerr-Schild scalars at a point and their spatial derivatives
@@ -98,18 +133,14 @@ struct KsDerivs {
   T dl[3][3];
 };
 
+// ks_derivatives at a point whose radius q is already known.
 template <typename T>
-__device__ __forceinline__ void ks_derivatives(T x1, T x2, T x3, const KerrConsts<T>& g,
-                                               KsDerivs<T>& d) {
+__device__ __forceinline__ void ks_derivatives_at(T x1, T x2, T x3, const KsRadius<T>& q,
+                                                  const KerrConsts<T>& g, KsDerivs<T>& d) {
   const T spin = g.spin, a2 = g.a2;
-  const T rr2 = x1 * x1 + x2 * x2 + x3 * x3;
-  const T r2 = T(0.5) * (rr2 - a2 + m_hypot(rr2 - a2, g.two_spin * x3));
-  const T r = m_sqrt(r2);
-  const T f = g.two_mass * r2 * r / (r2 * r2 + a2 * x3 * x3);
-  const T denom = r2 + a2;
-  const T l1 = (r * x1 + spin * x2) / denom;
-  const T l2 = (r * x2 - spin * x1) / denom;
-  const T l3 = x3 / r;
+  const T rr2 = q.rr2, r2 = q.r2, r = q.r;
+  const KsScalars<T> s = ks_scalars(x1, x2, x3, q, g);
+  const T f = s.f, denom = s.denom, l1 = s.l1, l2 = s.l2, l3 = s.l3;
 
   const T dr_denom = T(2) * r2 - rr2 + a2;
   const T dr_dx = r * x1 / dr_denom;
@@ -140,21 +171,27 @@ __device__ __forceinline__ void ks_derivatives(T x1, T x2, T x3, const KerrConst
   d.l3 = l3;
 }
 
+template <typename T>
+__device__ __forceinline__ void ks_derivatives(T x1, T x2, T x3, const KerrConsts<T>& g,
+                                               KsDerivs<T>& d) {
+  ks_derivatives_at(x1, x2, x3, ks_radius_parts(x1, x2, x3, g), g, d);
+}
+
 // Geodesic right-hand side (geometry.py:243-315): dy/dlambda for the seven
 // dynamical components (x^0..x^3, p_1..p_3; p_0 is conserved) and, when
-// ds is given, the proper-distance rate.
+// ds is given, the proper-distance rate. geodesic_rhs_flat is the flat
+// metric's; geodesic_rhs_at takes the Kerr-Schild derivatives d at the
+// point.
 template <typename T>
-__device__ __forceinline__ void geodesic_rhs(T x1, T x2, T x3, T p0, T p1, T p2,
-                                             T p3, const KerrConsts<T>& g,
-                                             T out[7], T* ds) {
-  if (g.flat) {
-    out[0] = -p0; out[1] = p1; out[2] = p2; out[3] = p3;
-    out[4] = T(0); out[5] = T(0); out[6] = T(0);
-    if (ds) *ds = -m_sqrt(p1 * p1 + p2 * p2 + p3 * p3);
-    return;
-  }
-  KsDerivs<T> d;
-  ks_derivatives(x1, x2, x3, g, d);
+__device__ __forceinline__ void geodesic_rhs_flat(T p0, T p1, T p2, T p3, T out[7], T* ds) {
+  out[0] = -p0; out[1] = p1; out[2] = p2; out[3] = p3;
+  out[4] = T(0); out[5] = T(0); out[6] = T(0);
+  if (ds) *ds = -m_sqrt(p1 * p1 + p2 * p2 + p3 * p3);
+}
+
+template <typename T>
+__device__ __forceinline__ void geodesic_rhs_at(const KsDerivs<T>& d, T p0, T p1, T p2, T p3,
+                                                T out[7], T* ds) {
   const T f = d.f, l1 = d.l1, l2 = d.l2, l3 = d.l3;
   const T df_dx = d.df1, df_dy = d.df2, df_dz = d.df3;
   const T dl1x = d.dl[0][0], dl1y = d.dl[0][1], dl1z = d.dl[0][2];
@@ -188,33 +225,84 @@ __device__ __forceinline__ void geodesic_rhs(T x1, T x2, T x3, T p0, T p1, T p2,
   }
 }
 
-// Spatial momentum rescale for null renormalization (geometry.py:340-366).
+template <typename T>
+__device__ __forceinline__ void geodesic_rhs(T x1, T x2, T x3, T p0, T p1, T p2,
+                                             T p3, const KerrConsts<T>& g,
+                                             T out[7], T* ds) {
+  if (g.flat) {
+    geodesic_rhs_flat(p0, p1, p2, p3, out, ds);
+    return;
+  }
+  KsDerivs<T> d;
+  ks_derivatives(x1, x2, x3, g, d);
+  geodesic_rhs_at(d, p0, p1, p2, p3, out, ds);
+}
+
+// geodesic_rhs that also leaves the Kerr-Schild derivatives at the point
+// in d (in the flat metric only d.r), for a caller that carries them.
+template <typename T>
+__device__ __forceinline__ void geodesic_rhs_keep(T x1, T x2, T x3, T p0, T p1, T p2, T p3,
+                                                  const KerrConsts<T>& g, T out[7], T* ds,
+                                                  KsDerivs<T>& d) {
+  if (g.flat) {
+    geodesic_rhs_flat(p0, p1, p2, p3, out, ds);
+    d.r = ks_radius(x1, x2, x3, g);
+    return;
+  }
+  ks_derivatives(x1, x2, x3, g, d);
+  geodesic_rhs_at(d, p0, p1, p2, p3, out, ds);
+}
+
+// geodesic_rhs at a point whose derivatives d were carried in
+// (geodesic_rhs_keep).
+template <typename T>
+__device__ __forceinline__ void geodesic_rhs_from(const KsDerivs<T>& d, T p0, T p1, T p2, T p3,
+                                                  const KerrConsts<T>& g, T out[7], T* ds) {
+  if (g.flat) {
+    geodesic_rhs_flat(p0, p1, p2, p3, out, ds);
+    return;
+  }
+  geodesic_rhs_at(d, p0, p1, p2, p3, out, ds);
+}
+
+// Spatial momentum rescale for null renormalization (geometry.py:340-366):
+// the root of a x^2 + b x + c with the quadratic's coefficients from the
+// flat metric (renormalize_abc_flat) or from f and l at the point
+// (renormalize_abc), which a caller that knows them passes in.
+template <typename T>
+__device__ __forceinline__ void renormalize_abc_flat(T p0, T p1, T p2, T p3, T& a, T& b, T& c) {
+  a = p1 * p1 + p2 * p2 + p3 * p3;
+  b = T(0);
+  c = -p0 * p0;
+}
+
+template <typename T>
+__device__ __forceinline__ void renormalize_abc(T f, T l1, T l2, T l3, T p0, T p1, T p2, T p3,
+                                                T& a, T& b, T& c) {
+  const T lsps = l1 * p1 + l2 * p2 + l3 * p3;
+  a = p1 * p1 + p2 * p2 + p3 * p3 - f * lsps * lsps;
+  b = T(2) * f * lsps * p0;
+  c = -(T(1) + f) * p0 * p0;
+}
+
+template <typename T>
+__device__ __forceinline__ T renormalize_root(T a, T b, T c) {
+  const T d = m_sqrt(jmax(b * b - T(4) * a * c, T(1e-300)));
+  return (b < T(0)) ? (d - b) / (T(2) * a) : T(-2) * c / (b + d);
+}
+
 template <typename T>
 __device__ __forceinline__ T renormalize_factor(T x1, T x2, T x3, T p0, T p1,
                                                 T p2, T p3,
                                                 const KerrConsts<T>& g) {
   T a, b, c;
   if (g.flat) {
-    a = p1 * p1 + p2 * p2 + p3 * p3;
-    b = T(0);
-    c = -p0 * p0;
+    renormalize_abc_flat(p0, p1, p2, p3, a, b, c);
   } else {
-    const T a2s = g.a2, spin = g.spin;
-    const T rr2 = x1 * x1 + x2 * x2 + x3 * x3;
-    const T r2 = T(0.5) * (rr2 - a2s + m_hypot(rr2 - a2s, g.two_spin * x3));
-    const T r = m_sqrt(r2);
-    const T f = g.two_mass * r2 * r / (r2 * r2 + a2s * x3 * x3);
-    const T denom = r2 + a2s;
-    const T l1 = (r * x1 + spin * x2) / denom;
-    const T l2 = (r * x2 - spin * x1) / denom;
-    const T l3 = x3 / r;
-    const T lsps = l1 * p1 + l2 * p2 + l3 * p3;
-    a = p1 * p1 + p2 * p2 + p3 * p3 - f * lsps * lsps;
-    b = T(2) * f * lsps * p0;
-    c = -(T(1) + f) * p0 * p0;
+    const KsScalars<T> s = ks_scalars(x1, x2, x3, ks_radius_parts(x1, x2, x3, g), g);
+    renormalize_abc(s.f, s.l1, s.l2, s.l3, p0, p1, p2, p3, a, b, c);
   }
-  const T d = m_sqrt(jmax(b * b - T(4) * a * c, T(1e-300)));
-  return (b < T(0)) ? (d - b) / (T(2) * a) : T(-2) * c / (b + d);
+  return renormalize_root(a, b, c);
 }
 
 // base + sum_q (w_q h) k_q over the stages with a non-zero weight, summed
@@ -238,11 +326,15 @@ __device__ __forceinline__ T dp_combine(T base, const double (&w)[NQ], T h,
 // One Dormand-Prince attempt of step h from y (x^0..x^3, p_1..p_3) with
 // k[0] already evaluated: the six further stages, the 5th-order endpoint
 // y5, the embedded 4th-order endpoint y4 and the 4th-order midpoint y4m
-// (ops/pallas_formula.py:373-403).
-template <typename T>
+// (ops/pallas_formula.py:373-403). With KEEP_LAST, *last receives the
+// Kerr-Schild derivatives of the 7th stage (geodesic_rhs_keep): its
+// point is y5's position bit for bit (DP_A[6] is DP_B5, summed alike), so
+// an accepted step's next first stage can reuse them.
+template <typename T, bool KEEP_LAST = false>
 __device__ __forceinline__ void dp_stages(const T (&y)[7], T p0, T h,
                                           const KerrConsts<T>& g, T (&k)[7][7],
-                                          T (&y5)[7], T (&y4)[7], T (&y4m)[7]) {
+                                          T (&y5)[7], T (&y4)[7], T (&y4m)[7],
+                                          KsDerivs<T>* last = nullptr) {
   constexpr double DP_A[7][6] = {
       {0.0, 0.0, 0.0, 0.0, 0.0, 0.0},
       {1.0 / 5.0, 0.0, 0.0, 0.0, 0.0, 0.0},
@@ -272,8 +364,13 @@ __device__ __forceinline__ void dp_stages(const T (&y)[7], T p0, T h,
       // weights beyond stage i-1 are zero and skipped
       ys[c] = dp_combine<T, 6>(y[c], DP_A[i], h, k, c);
     }
-    geodesic_rhs(ys[1], ys[2], ys[3], p0, ys[4], ys[5], ys[6], g, k[i],
-                 static_cast<T*>(nullptr));
+    if (KEEP_LAST && i == 6) {
+      geodesic_rhs_keep(ys[1], ys[2], ys[3], p0, ys[4], ys[5], ys[6], g, k[i],
+                        static_cast<T*>(nullptr), *last);
+    } else {
+      geodesic_rhs(ys[1], ys[2], ys[3], p0, ys[4], ys[5], ys[6], g, k[i],
+                   static_cast<T*>(nullptr));
+    }
   }
 #pragma unroll
   for (int c = 0; c < 7; ++c) {

@@ -13,6 +13,13 @@ a CUDA device it launches the hand-written kernel
 (``csrc/formula_kernel.cuh``) or raises; on the CPU it runs
 ``render_formula_reference``, the same function in plain torch ops. There
 is no fallback from one to the other.
+
+A launch hands the kernel its constants by value (``launch_consts``: the
+parameter vector rounded once to the rays' type on the host), a zeroed
+slot counter and a grid of at most the card's resident blocks
+(``persistent_grid``): each thread traces rays one after another, taking
+the next slot from the counter when its ray ends, slot i being ray i or
+ray ``order[i]`` (``fetch_order``).
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from blacklight_tpu_torch.ops import geodesic as geo
 DELTA_TAU_MAX = 100.0
 INTEGRATORS = ("dp", "rk4", "rk2")
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
+_NUMPY_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 # The parameters that can carry tangents, in the order of their outputs
 # (the DiffParam enum of csrc/formula_kernel.cuh).
 DIFFABLE_PARAMS = ("cn0", "r0", "h")
@@ -51,6 +59,13 @@ DIFFABLE_PARAMS = ("cn0", "r0", "h")
 # once per this many frequencies, each launch retracing the rays.
 MAX_FREQUENCIES = 4
 
+# Threads per block of the kernel (THREADS of csrc/formula_kernel.cuh).
+THREADS = 128
+# Ray orders a launch can fetch in (fetch_order): camera order (ray i in
+# slot i), spatial_order's camera-plane tiles, or 8 x 4 pixel tiles.
+FETCH_ORDERS = ("camera", "spatial", "tiles")
+SPATIAL_BLOCK = 256
+
 # Kernel launches so far; render_formula adds one per launch of the CUDA
 # kernel and nowhere else.
 LAUNCHES = 0
@@ -59,7 +74,7 @@ LAUNCHES = 0
 # stand in for the kernel.
 PLAIN_CALLS = 0
 
-# Index order of the kernel's float64 parameter vector: the enums in
+# Index order of the kernel's parameter vector: the enums in
 # csrc/formula_params.cuh with their "P_" and "PF_" prefixes dropped, the
 # fixed block and then one FREQUENCY_PARAM_NAMES block per frequency.
 PARAM_NAMES = geo.GEODESIC_PARAM_NAMES + (
@@ -113,6 +128,65 @@ def kernel_params(params: geo.GeodesicParams, fp: FormulaParams, nus,
     return out
 
 
+def frequency_bucket(nf: int) -> int:
+    """The compile-time frequency bucket of a launch of nf frequencies
+    (csrc/formula_kernel.cuh NF): 1, or MAX_FREQUENCIES."""
+    if not 1 <= nf <= MAX_FREQUENCIES:
+        raise ValueError(f"a launch takes 1..{MAX_FREQUENCIES} frequencies")
+    return 1 if nf == 1 else MAX_FREQUENCIES
+
+
+def launch_consts(values, dtype: torch.dtype) -> np.ndarray:
+    """The kernel's launch constants (FormulaLaunchConsts) as the host
+    packs them: ``values`` (kernel_params for one launch's frequencies)
+    rounded once to the rays' dtype, the frequency blocks of the launch's
+    bucket beyond its own frequencies zero. numpy rounds float64 to
+    float32 to nearest, as the card's conversion does."""
+    nf, rest = divmod(len(values) - len(PARAM_NAMES),
+                      len(FREQUENCY_PARAM_NAMES))
+    if rest:
+        raise ValueError("values hold no whole number of frequency blocks")
+    size = len(PARAM_NAMES) + frequency_bucket(nf) * len(FREQUENCY_PARAM_NAMES)
+    out = np.zeros(size, dtype=_NUMPY_DTYPES[dtype])
+    out[:len(values)] = np.asarray(values, dtype=np.float64)
+    return out
+
+
+def persistent_grid(n_rays: int, resident_blocks: int) -> int:
+    """Blocks of a launch over n_rays rays: the card's resident blocks, or
+    as many as the rays fill if fewer (0 for no rays)."""
+    return min(resident_blocks, -(-n_rays // THREADS))
+
+
+def tile_order(n_rays: int, width: int, device=None) -> torch.Tensor:
+    """Slots in 8 x 4 pixel tiles of an image ``width`` pixels wide (rays
+    in row-major pixel order, a ragged last row or tile included): the
+    stable permutation that sorts by tile, then row and column within it.
+    (n_rays,) int64."""
+    pixel = torch.arange(n_rays, dtype=torch.int64, device=device)
+    row, col = pixel // width, pixel % width
+    tiles_x = -(-width // 8)
+    key = ((row // 4) * tiles_x + col // 8) * 32 + (row % 4) * 8 + col % 8
+    return torch.argsort(key, stable=True)
+
+
+def fetch_order(kind: str, positions: torch.Tensor, width: int):
+    """The slot order a launch fetches rays in: None for camera order
+    (ray i in slot i), else a permutation (B,) int64 on the rays' device:
+    "spatial" simulation_kernel.spatial_order's camera-plane tiles of
+    SPATIAL_BLOCK rays, "tiles" 8 x 4 pixel tiles of an image ``width``
+    pixels wide."""
+    if kind not in FETCH_ORDERS:
+        raise ValueError(f"fetch order must be one of {FETCH_ORDERS}")
+    b = positions.shape[0]
+    if kind == "camera":
+        return None
+    if kind == "tiles" or b < 2:
+        return tile_order(b, width, positions.device)
+    from blacklight_tpu_torch.ops.simulation_kernel import spatial_order
+    return spatial_order(positions, block=SPATIAL_BLOCK)
+
+
 def image_scale(nu: float, log_j_scale: float) -> float:
     """Factor from the scaled transfer sum to I_nu at frequency nu, formed
     in float64 on the host: cn0/nup^2 alone (~1e-41) underflows float32."""
@@ -151,6 +225,22 @@ def frequency_list(frequencies) -> list:
     return nus
 
 
+def _check_order(order, positions):
+    """Validate a fetch order: a permutation of range(B), (B,) int64 on the
+    rays' device, contiguous (the kernel reads and writes the rays it
+    names)."""
+    if order is None:
+        return
+    b = positions.shape[0]
+    if (order.shape != (b,) or order.dtype != torch.int64
+            or order.device != positions.device or not order.is_contiguous()):
+        raise ValueError("order must be a contiguous (B,) int64 tensor on "
+                         "the rays' device")
+    if b and (bool(order.min() < 0) or bool(order.max() >= b) or not bool(
+            (torch.bincount(order, minlength=b) == 1).all())):
+        raise ValueError("order must be a permutation of range(B)")
+
+
 def _theta(diff_values, cn0, positions):
     """(names, values): the differentiated parameters in DIFFABLE_PARAMS
     order and their values as one (nd,) tensor in the rays' dtype and on
@@ -177,7 +267,7 @@ def render_formula(positions, directions, momentum_factors, frequencies,
                    params: geo.GeodesicParams, fp: FormulaParams,
                    mass_msun: float, camera_x, log_j_scale: float,
                    fallback_nan: bool = True, integrator: str = "dp",
-                   cn0=None, diff_values=None):
+                   cn0=None, diff_values=None, order=None):
     """Fused render of a ray bundle.
 
     Args:
@@ -193,6 +283,9 @@ def render_formula(positions, directions, momentum_factors, frequencies,
         values (floats or 0-dim tensors, taken in the rays' dtype) that
         replace fp's in the coefficients; the kernel then also carries the
         forward tangent dI/dp of each.
+      order: the kernel's fetch order, a permutation (B,) int64 on the
+        rays' device (fetch_order), or None for camera order. It changes
+        no output; the plain version ignores it.
 
     Returns (I_nu (B, F), flags (B,) bool, n_samples (B,) int32), and with
     diff_values a list of dI_nu/dp, one (B, F) tensor per parameter in
@@ -208,29 +301,30 @@ def render_formula(positions, directions, momentum_factors, frequencies,
         raise ValueError(f"integrator must be one of {INTEGRATORS}")
     nus = frequency_list(frequencies)
     names, theta = _theta(diff_values, cn0, positions)
+    _check_order(order, positions)
     device = positions.device
     if device.type == "cuda":
         return _render_cuda(positions, directions, momentum_factors, nus,
                             params, fp, mass_msun, camera_x, log_j_scale,
-                            fallback_nan, integrator, names, theta)
+                            fallback_nan, integrator, names, theta, order)
     if device.type == "cpu":
         return render_formula_reference(
             positions, directions, momentum_factors, nus, params, fp,
             mass_msun, camera_x, log_j_scale, fallback_nan=fallback_nan,
-            integrator=integrator, cn0=cn0, diff_values=diff_values)
+            integrator=integrator, cn0=cn0, diff_values=diff_values,
+            order=order)
     raise ValueError(f"no formula kernel for device {device}")
 
 
 def _render_cuda(positions, directions, momentum_factors, nus, params, fp,
                  mass_msun, camera_x, log_j_scale, fallback_nan, integrator,
-                 names, theta):
+                 names, theta, order):
     """One launch per MAX_FREQUENCIES frequencies, each writing its columns
     of I_nu (and of every dI/dp plane); every launch traces the same rays,
-    so the flags and sample counts of the last stand. theta stays on the
-    card: the kernel reads it there, so a fit step never waits on the
-    host. The parameter vectors may be freed before the kernel ends: the
-    caching allocator hands their memory only to work queued after it on
-    the same stream."""
+    so the flags and sample counts of the last stand. The launch constants
+    go by value from the host; theta stays on the card, where the kernel
+    reads it, so a fit step never waits on the host. Each launch takes its
+    own zeroed slot counter."""
     global LAUNCHES
     lib = _library()
     device, dtype = positions.device, positions.dtype
@@ -242,19 +336,26 @@ def _render_cuda(positions, directions, momentum_factors, nus, params, fp,
     n_samples = torch.empty(b, dtype=torch.int32, device=device)
     if theta is not None:
         theta = theta.detach().contiguous()
+    starts = range(0, nf if b else 0, MAX_FREQUENCIES)
+    next_slots = torch.zeros(len(starts), dtype=torch.int64, device=device)
     item = i_nu.element_size()
-    for start in range(0, nf if b else 0, MAX_FREQUENCIES):
+    for launch, start in enumerate(starts):
         chunk = nus[start:start + MAX_FREQUENCIES]
-        prm = torch.tensor(kernel_params(params, fp, chunk, mass_msun,
-                                         camera_x, log_j_scale, fallback_nan),
-                           dtype=torch.float64, device=device)
+        consts = launch_consts(kernel_params(
+            params, fp, chunk, mass_msun, camera_x, log_j_scale,
+            fallback_nan), dtype)
+        code, integ = _DTYPE_CODES[dtype], INTEGRATORS.index(integrator)
         with torch.cuda.device(device):
+            grid = persistent_grid(b, _resident_blocks(
+                device.index, code, integ, len(chunk), mask))
             stream = torch.cuda.current_stream(device).cuda_stream
             rc = lib.blacklight_formula_launch(
-                _DTYPE_CODES[dtype], INTEGRATORS.index(integrator),
-                len(chunk), mask, positions.data_ptr(),
+                code, integ, len(chunk), mask, positions.data_ptr(),
                 directions.data_ptr(), momentum_factors.data_ptr(),
-                prm.data_ptr(), theta.data_ptr() if nd else None,
+                consts.ctypes.data, consts.nbytes,
+                theta.data_ptr() if nd else None,
+                order.data_ptr() if order is not None else None,
+                next_slots[launch:].data_ptr(), grid,
                 i_nu.data_ptr() + start * item,
                 d_i_nu.data_ptr() + start * item if nd else None, nf,
                 flags.data_ptr(), n_samples.data_ptr(), b, stream)
@@ -268,30 +369,73 @@ def _render_cuda(positions, directions, momentum_factors, nus, params, fp,
 
 
 @functools.cache
+def _resident_blocks(device_index, dtype_code, integrator, nf, mask) -> int:
+    """Blocks of the instantiation a launch takes that the current card
+    holds at once (blocks per SM times SMs)."""
+    blocks = ctypes.c_int(0)
+    rc = _library().blacklight_formula_resident_blocks(
+        dtype_code, integrator, nf, mask, ctypes.byref(blocks))
+    if rc != 0 or blocks.value < 1:
+        msg = _library().blacklight_cuda_error_string(rc).decode()
+        raise RuntimeError(f"formula kernel occupancy query failed: {msg} "
+                           f"({rc}, {blocks.value} blocks)")
+    return blocks.value
+
+
+@functools.cache
 def _library() -> ctypes.CDLL:
     """The built library with the C interface of csrc/formula_kernel.cu
     declared: every pointer and the stream as c_void_p."""
     lib = _build.load_library()
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.blacklight_formula_launch.argtypes = [
-        i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr, ptr,
-        ctypes.c_longlong, ptr]
-    lib.blacklight_formula_launch.restype = ctypes.c_int
+        i32, i32, i32, i32, ptr, ptr, ptr, ptr, i64, ptr, ptr, ptr, i32, ptr,
+        ptr, i32, ptr, ptr, i64, ptr]
+    lib.blacklight_formula_launch.restype = i32
+    lib.blacklight_formula_resident_blocks.argtypes = [
+        i32, i32, i32, i32, ctypes.POINTER(ctypes.c_int)]
+    lib.blacklight_formula_resident_blocks.restype = i32
+    lib.blacklight_formula_consts_bytes.argtypes = [i32, i32]
+    lib.blacklight_formula_consts_bytes.restype = i64
     for name in ("blacklight_formula_param_count",
                  "blacklight_formula_frequency_param_count",
-                 "blacklight_formula_max_frequencies"):
+                 "blacklight_formula_max_frequencies",
+                 "blacklight_formula_threads"):
         getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = ctypes.c_int
-    lib.blacklight_cuda_error_string.argtypes = [ctypes.c_int]
+        getattr(lib, name).restype = i32
+    lib.blacklight_cuda_error_string.argtypes = [i32]
     lib.blacklight_cuda_error_string.restype = ctypes.c_char_p
     if (lib.blacklight_formula_param_count() != len(PARAM_NAMES)
             or lib.blacklight_formula_frequency_param_count()
             != len(FREQUENCY_PARAM_NAMES)):
         raise RuntimeError("csrc/formula_params.cuh and PARAM_NAMES disagree")
-    if lib.blacklight_formula_max_frequencies() != MAX_FREQUENCIES:
-        raise RuntimeError("csrc/formula_kernel.cuh and MAX_FREQUENCIES "
-                           "disagree")
+    if (lib.blacklight_formula_max_frequencies() != MAX_FREQUENCIES
+            or lib.blacklight_formula_threads() != THREADS):
+        raise RuntimeError("csrc/formula_kernel.cuh and MAX_FREQUENCIES or "
+                           "THREADS disagree")
+    if consts_sizes(lib) != host_consts_sizes():
+        raise RuntimeError("FormulaLaunchConsts and launch_consts disagree: "
+                           f"{consts_sizes(lib)} != {host_consts_sizes()}")
     return lib
+
+
+def consts_sizes(lib) -> dict:
+    """sizeof(FormulaLaunchConsts) per (dtype, frequency bucket), from the
+    C side."""
+    return {(dtype, bucket): lib.blacklight_formula_consts_bytes(code, bucket)
+            for dtype, code in _DTYPE_CODES.items()
+            for bucket in (1, MAX_FREQUENCIES)}
+
+
+def host_consts_sizes() -> dict:
+    """The bytes launch_consts packs per (dtype, frequency bucket)."""
+    values = [0.0] * (len(PARAM_NAMES) + len(FREQUENCY_PARAM_NAMES))
+    sizes = {}
+    for dtype in _DTYPE_CODES:
+        for bucket in (1, MAX_FREQUENCIES):
+            blocks = values + [0.0] * len(FREQUENCY_PARAM_NAMES) * (bucket - 1)
+            sizes[dtype, bucket] = launch_consts(blocks, dtype).nbytes
+    return sizes
 
 
 def render_formula_reference(positions, directions, momentum_factors,
@@ -299,18 +443,21 @@ def render_formula_reference(positions, directions, momentum_factors,
                              fp: FormulaParams, mass_msun: float, camera_x,
                              log_j_scale: float, fallback_nan: bool = True,
                              integrator: str = "dp", cn0=None,
-                             diff_values=None):
+                             diff_values=None, order=None):
     """The kernel's function in plain torch ops over (B,) tensors: the
     shared lock-step loop (``geodesic.trace_reference``) with the formula
     coefficients, the transfer update and the forward tangents at every
     sample, in the kernel's operation forms. Returns what
     ``render_formula`` returns. The values of diff_values enter as they
     are (in the rays' dtype), so autograd reaches them through the
-    intensities as well as through the tangents.
+    intensities as well as through the tangents. The rays advance in lock
+    step, so a fetch order changes nothing here: ``order`` is only
+    checked.
     """
     global PLAIN_CALLS
     PLAIN_CALLS += 1
     _check_rays(positions, directions, momentum_factors)
+    _check_order(order, positions)
     nus = frequency_list(frequencies)
     names, theta = _theta(diff_values, cn0, positions)
     rt = dict(zip(names, theta)) if names else {}

@@ -43,9 +43,15 @@ from blacklight_tpu_torch.camera import CameraRays, make_camera
 from blacklight_tpu_torch.models import formula as formula_model
 from blacklight_tpu_torch.ops import geodesic
 from blacklight_tpu_torch.ops.formula_kernel import (
+    fetch_order,
     frequency_list,
     render_formula,
 )
+
+# The order in which the formula kernel's lanes fetch the camera's rays
+# (formula_kernel.fetch_order): timed against the other orders by
+# scripts/formula_kernel_ab.py (PERF.md §6).
+FORMULA_FETCH_ORDER = "camera"
 
 _AUX_IMAGES = ("image_time", "image_length", "image_lambda", "image_emission",
                "image_tau", "image_lambda_ave", "image_emission_ave",
@@ -176,11 +182,15 @@ def make_formula_renderer(cfg, *, device):
     log_j_scale = formula_model.formula_log_j_scale(fparams)
     fallback_nan = cfg.require("fallback_nan")
 
+    width = cfg.require("camera_resolution")
+
     def render_fn(positions, directions, momentum_factors):
+        order = (fetch_order(FORMULA_FETCH_ORDER, positions, width)
+                 if positions.device.type == "cuda" else None)
         i_nu, flags, n_samples = render_formula(
             positions, directions, momentum_factors, nus, params, fparams,
             mass_msun, camera_x, log_j_scale, fallback_nan=fallback_nan,
-            integrator=params.integrator.value)
+            integrator=params.integrator.value, order=order)
         return {"I_nu": i_nu, "_flags": flags, "_n_samples": n_samples}
 
     render_fn.geodesic_params = params

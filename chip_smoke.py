@@ -9,10 +9,13 @@ toolkit:
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no final line):
 
-1. device: the card's name and power limit (nvidia-smi);
+1. device: the card's name, power limit and maximum SM clock
+   (nvidia-smi);
 2. build: compile csrc/*.cu with nvcc (one process per source, all at
    once), report registers, spills and the FP64 instructions of each
-   kernel instantiation;
+   kernel instantiation, the static instruction mix of each formula
+   kernel's step loop (scripts/sass_step_mix.py) and the size of the
+   formula kernel's launch constants, held to the host's packing;
 3. checks, each kernel against its plain PyTorch version on identical
    rays, WORKERS processes at once on the one card (the plain versions
    are bound by the host's launches, so they overlap; their times here
@@ -44,7 +47,11 @@ and prints no final line):
 5. the formula main path at full width: golden_formula_32.input at
    1024^2, dp, float32 through pipeline.run, counting kernel launches;
    then kernel times (rays/s) at 1024^2 in float32 and float64, the
-   float32 kernel held to phase 3's plain run on its subset;
+   float32 kernel held to phase 3's plain run on its subset; each
+   formula timing (phases 5, 10 and 11) also prints the fetch order the
+   pipeline passes, the 128-ray block efficiency of camera order and of
+   that order, and the issue bound of phase 2's step loop over this
+   run's ray-steps;
 6. the 32^2 simulation goldens through pipeline.run(cfg, device="cuda"),
    reading the .athdf file, at the tolerances of
    tests/test_simulation_e2e.py;
@@ -106,7 +113,10 @@ once) over the memory rate and its floating-point operations over the
 peak rate of its type. The operations are this run's mean samples per ray
 times hand counts per step and per sample (OPS_PER_STEP, OPS_PER_SAMPLE,
 and per further frequency and tangent FORMULA_OPS_PER_FREQUENCY,
-FORMULA_OPS_PER_TANGENT). The polarized route's entry also carries each
+FORMULA_OPS_PER_TANGENT). A formula kernel's entry also carries its issue
+bound (issue_bound_ms): the static instructions of its step loop times
+this run's ray-steps over the card's issue rate, which it cannot beat
+either. The polarized route's entry also carries each
 of its three kernels with its own bound: the bytes of its own inputs and
 outputs (samples, records) against its share of the operations.
 
@@ -152,6 +162,17 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
 N_SMS = 132
 REGISTERS_PER_SM = 65536
+# An SM's four schedulers each issue one warp instruction (32 lanes) a
+# cycle: the issue bound of a kernel is its instructions per ray-step
+# (the static count of its step loop, phase 2) times this run's
+# ray-steps over N_SMS * ISSUE_LANES_PER_SM lanes at the card's maximum
+# SM clock (phase 1).
+ISSUE_LANES_PER_SM = 4 * 32
+# Phase 2's static instruction mix of each formula kernel's step loop, by
+# kernel label (scripts/sass_step_mix.py), and phase 1's maximum SM clock
+# in Hz.
+STEP_LOOPS = {}
+SM_CLOCK_HZ = {}
 # Floating-point operations, counted by hand from the CUDA sources (an
 # add, multiply, divide, square root, compare-and-select or transcendental
 # is one; about +-30 %): per geodesic step of each integrator (dp: per
@@ -260,9 +281,13 @@ def phase_device():
     sys.path.insert(0, str(ROOT))
     card = smi(SMI_QUERY)
     print(card, flush=True)
+    clock = smi(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                 "--format=csv,noheader,nounits"])
+    SM_CLOCK_HZ["max"] = float(clock) * 1e6
     emit("device", nvidia_smi=card, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda, python=sys.version.split()[0])
+         cuda=torch.version.cuda, python=sys.version.split()[0],
+         max_sm_clock_mhz=float(clock))
     return card
 
 
@@ -317,14 +342,35 @@ def _kernel_label(mangled: str) -> str:
     return f"{kind}_kernel<{', '.join(args)}>"
 
 
-def _sass_fp64(lib_path) -> dict:
+def _sass(lib_path):
+    """cuobjdump -sass of the library, or None without cuobjdump."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not pathlib.Path(cuobjdump).exists():
+        return None
+    return smi([cuobjdump, "-sass", str(lib_path)])
+
+
+def _step_loops(sass) -> dict:
+    """Each formula kernel's step-loop instruction mix
+    (scripts/sass_step_mix.py), by kernel label."""
+    if sass is None:
+        return {"not_measured": "cuobjdump not found"}
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "sass_step_mix", ROOT / "scripts" / "sass_step_mix.py")
+    mix = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mix)
+    return {_kernel_label(name): mix.mix(mix.step_loop(code))
+            for name, code in mix.functions(sass).items()
+            if "formula_kernel" in name}
+
+
+def _sass_fp64(sass) -> dict:
     """FP64 instructions per kernel in the compiled SASS: arithmetic
     (DADD, DMUL, DFMA) and everything else that touches FP64 (compares,
     min/max, conversions)."""
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not pathlib.Path(cuobjdump).exists():
+    if sass is None:
         return {"not_measured": "cuobjdump not found"}
-    sass = smi([cuobjdump, "-sass", str(lib_path)])
     counts, name = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -355,8 +401,15 @@ def phase_build():
     fk._library()
     sk._phase_library()
     pk._library()
+    sass = _sass(path)
+    STEP_LOOPS.update(_step_loops(sass))
     emit("build", seconds=build_s, library=path.name,
-         ptxas=_ptxas_table(_build.ptxas_report()), fp64_sass=_sass_fp64(path))
+         ptxas=_ptxas_table(_build.ptxas_report()), fp64_sass=_sass_fp64(sass),
+         formula_consts_bytes={f"{str(k[0])[6:]}, NF={k[1]}": v for k, v in
+                               fk.consts_sizes(fk._library()).items()},
+         formula_step_loops=STEP_LOOPS)
+    if fk.consts_sizes(fk._library()) != fk.host_consts_sizes():
+        raise RuntimeError("FormulaLaunchConsts and launch_consts disagree")
 
 
 def _config(name, **overrides):
@@ -374,9 +427,12 @@ def _config(name, **overrides):
 
 def _renderer(cfg):
     """The port's renderer on the card plus the arguments that render the
-    same rays with the plain version."""
+    same rays with the plain version: render_formula's, with the fetch
+    order the pipeline's renderer passes (none in camera order)."""
+    import inspect
     from blacklight_tpu_torch import pipeline
     from blacklight_tpu_torch.models import formula as formula_model
+    from blacklight_tpu_torch.ops import formula_kernel as fk
     render_fn, geom, rays, freqs, mass_msun = pipeline.make_formula_renderer(
         cfg, device="cuda")
     fp = formula_model.formula_params_from_config(cfg)
@@ -385,6 +441,11 @@ def _renderer(cfg):
             geom.cam_x.tolist(), formula_model.formula_log_j_scale(fp))
     kwargs = dict(fallback_nan=cfg.require("fallback_nan"),
                   integrator=cfg.require("ray_integrator").value)
+    if "order" in inspect.signature(fk.render_formula).parameters:
+        order = fk.fetch_order(pipeline.FORMULA_FETCH_ORDER, rays.positions,
+                               cfg.require("camera_resolution"))
+        if order is not None:
+            kwargs["order"] = order
     return args, kwargs
 
 
@@ -599,6 +660,7 @@ def formula_plain_subset(cell) -> tuple:
     from blacklight_tpu_torch.ops import formula_kernel as fk
     _, args, kwargs = _formula_cell(cell)
     _, sub = _plain_subset(args)
+    kwargs.pop("order", None)  # the whole bundle's; it changes no output
     out, t_plain = _timed(fk.render_formula_reference, *sub, **kwargs)
     return (sub[0].cpu().numpy(), [o.cpu().numpy() for o in _outputs(out)],
             t_plain)
@@ -677,11 +739,13 @@ def phase_full_width(tmp: pathlib.Path, card: str, subset) -> dict:
         cfg.precision = precision
         (args, kwargs), t_setup = _timed(_renderer, cfg)
         # the plain version runs in float32 only, on phase 3's subset
+        tp = "float" if precision == "float32" else "double"
         timings[precision] = time_kernel(
             "timing", fk.render_formula,
             subset if precision == "float32" else None,
-            args, kwargs, res, card, precision=precision, integrator="dp",
-            camera_setup_s=t_setup)
+            args, kwargs, res, card,
+            step_loop=f"formula_kernel<{tp}, dp, NF=1>",
+            precision=precision, integrator="dp", camera_setup_s=t_setup)
     f32 = timings["float32"]
     return {"name": "formula_kernel", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
@@ -690,16 +754,20 @@ def phase_full_width(tmp: pathlib.Path, card: str, subset) -> dict:
             "plain_rays": res * res // PLAIN_STRIDE,
             **bound("formula", "dp", "float32", res * res,
                     f32["mean_n_samples"], in_bytes=0, out_values=1),
+            "issue_bound_ms": f32["issue_bound_ms"],
             "library_ms": None}
 
 
-def time_kernel(phase, kernel, plain, args, kwargs, res, card, **fields):
+def time_kernel(phase, kernel, plain, args, kwargs, res, card,
+                step_loop=None, **fields):
     """Warm best of 3 of ``kernel`` on a res^2 ray bundle, and its outputs
     held to the plain version's by the statistical gate (per output and
     frequency): ``plain`` is None (no check), the plain version (run once
     on the same rays) or formula_plain_subset's result for these rays.
-    Emits the timing line and returns the numbers the kernels line
-    needs."""
+    Emits the timing line, with the 128-ray block efficiency of camera
+    order and of the kernel's fetch order (kwargs' order) and, for a
+    formula kernel, the issue bound of ``step_loop`` (a STEP_LOOPS label);
+    returns the numbers the kernels line needs."""
     import numpy as np
     kernel(*args, **kwargs)  # warm up
     times = []
@@ -734,6 +802,24 @@ def time_kernel(phase, kernel, plain, args, kwargs, res, card, **fields):
     # 8 x 4 pixel tiles, 32 rays each, in place of 32 pixels of one row
     tiles = np.arange(n).reshape(res // 4, 4, res // 8, 8).transpose(
         0, 2, 1, 3).reshape(-1)
+    if step_loop is not None:
+        from blacklight_tpu_torch import pipeline
+        order = kwargs.get("order")
+        fetch = np.arange(n) if order is None else order.cpu().numpy()
+        extra.update(
+            fetch_order=("camera" if order is None
+                         else pipeline.FORMULA_FETCH_ORDER),
+            block_efficiency_128={
+                "camera": warp_efficiency(ns, np.arange(n), 128),
+                "fetch_order": warp_efficiency(ns, fetch, 128)})
+        out["step_loop"] = step_loop
+        out["step_instructions"] = STEP_LOOPS.get(step_loop, {}).get("total")
+        out["ray_steps"] = int(ns.astype("int64").sum())
+        out["issue_bound_ms"] = None if out["step_instructions"] is None else (
+            out["step_instructions"] * out["ray_steps"]
+            / (N_SMS * ISSUE_LANES_PER_SM * SM_CLOCK_HZ["max"]) * 1e3)
+        extra.update({k: out[k] for k in ("step_loop", "step_instructions",
+                                          "ray_steps", "issue_bound_ms")})
     emit(phase, resolution=res, card=card, **fields, kernel_s_runs=times,
          kernel_ms=out["kernel_ms"], plain_ms=out["plain_ms"],
          kernel_rays_per_s=n / t_kernel, max_abs_err=out["max_abs_err"],
@@ -1854,8 +1940,9 @@ def phase_multi_full_width(tmp: pathlib.Path, card: str, subset) -> dict:
          max_I_nu=[float(np.nanmax(image[f])) for f in range(3)])
 
     timing = time_kernel("multi_timing", fk.render_formula, subset, args,
-                         kwargs, res, card, precision="float32",
-                         integrator="dp", frequencies=3)
+                         kwargs, res, card,
+                         step_loop="formula_kernel<float, dp, NF=4>",
+                         precision="float32", integrator="dp", frequencies=3)
     cases = {"one": args[3][:1], "three": args[3],
              "six": np.geomspace(1e11, 4e11, 6).tolist()}
     best = dict.fromkeys(cases, math.inf)
@@ -1876,6 +1963,7 @@ def phase_multi_full_width(tmp: pathlib.Path, card: str, subset) -> dict:
             **bound("formula", "dp", "float32", res * res,
                     timing["mean_n_samples"], in_bytes=0, out_values=3,
                     frequencies=3),
+            "issue_bound_ms": timing["issue_bound_ms"],
             "library_ms": None}
 
 
@@ -1904,9 +1992,10 @@ def phase_grad_full_width(card: str, subset) -> dict:
     _, args, kwargs = _formula_cell("k14")
     fp = args[5]
     timing = time_kernel("tangent_timing", fk.render_formula, subset, args,
-                         kwargs, res, card, precision="float32",
-                         integrator="dp", tangents=list(FIT_PARAMS),
-                         formula_h=FIT_H)
+                         kwargs, res, card,
+                         step_loop="formula_kernel<float, dp, NF=1, tangents>",
+                         precision="float32", integrator="dp",
+                         tangents=list(FIT_PARAMS), formula_h=FIT_H)
     # the same rays without tangents and with cn0 alone, in turns
     plain_kwargs = {k: v for k, v in kwargs.items() if k != "diff_values"}
     cases = {"none": plain_kwargs, "cn0": dict(plain_kwargs, cn0=fp.cn0),
@@ -1996,6 +2085,7 @@ def phase_grad_full_width(card: str, subset) -> dict:
                     timing["mean_n_samples"], in_bytes=0,
                     out_values=1 + len(FIT_PARAMS),
                     tangents=len(FIT_PARAMS)),
+            "issue_bound_ms": timing["issue_bound_ms"],
             "library_ms": None}
 
 

@@ -69,6 +69,59 @@ def _args(integrator, precision, **overrides):
     return args, dict(fallback_nan=False, integrator=integrator)
 
 
+def _outputs(out):
+    """I_nu, flags, n_samples and every dI/dp of a render_formula output."""
+    return [out[0], out[1], out[2], *(out[3] if len(out) == 4 else [])]
+
+
+def _same_bits(a, b):
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        view = torch.int32 if a.element_size() == 4 else torch.int64
+        return torch.equal(a.view(view), b.view(view))
+    return torch.equal(a, b)
+
+
+def _resident_threads(args, kwargs):
+    """Threads of the card's resident blocks of the instantiation a launch
+    with these arguments takes."""
+    device = args[0].device
+    mask = sum(1 << fk.DIFFABLE_PARAMS.index(p)
+               for p in kwargs.get("diff_values") or {})
+    with torch.cuda.device(device):
+        blocks = fk._resident_blocks(
+            device.index, 0 if args[0].dtype == torch.float32 else 1,
+            fk.INTEGRATORS.index(kwargs["integrator"]),
+            min(len(args[3]), fk.MAX_FREQUENCIES), mask)
+    return blocks * fk.THREADS
+
+
+def _check_bundles(args, kwargs, out):
+    """The persistent lanes change no ray's outputs: the first 1, 31 and
+    129 of the rays on their own, and the rays repeated past twice the
+    card's resident threads (more rays than lanes, so that lanes fetch),
+    give the 256-ray launch's outputs bit for bit; a second launch of the
+    large bundle, in camera order and in every fetch order, gives the
+    first's bit for bit."""
+    rays, rest = args[:3], args[3:]
+    ref = _outputs(out)
+    for b in (1, 31, 129):
+        sub = fk.render_formula(*(t[:b].contiguous() for t in rays), *rest,
+                                **kwargs)
+        assert all(_same_bits(x, y[:b]) for x, y in zip(_outputs(sub), ref))
+    reps = _resident_threads(args, kwargs) * 2 // rays[0].shape[0] + 1
+    big = [t.repeat(reps, *([1] * (t.dim() - 1))) for t in rays]
+    first = fk.render_formula(*big, *rest, **kwargs)
+    for x, y in zip(_outputs(first), ref):
+        assert _same_bits(x, y.repeat(reps, *([1] * (y.dim() - 1))))
+    for kind in fk.FETCH_ORDERS:
+        order = fk.fetch_order(kind, big[0], 16)
+        again = fk.render_formula(*big, *rest, **kwargs, order=order)
+        assert all(_same_bits(x, y) for x, y in zip(_outputs(again),
+                                                    _outputs(first)))
+
+
 def _statistical_gate(a, b):
     """bench.py:181-186: identical NaN sets, fewer than 0.5% of pixels past
     1e-3 relative, total flux within 1e-3; for a signed tangent the flux
@@ -86,10 +139,12 @@ def test_kernel_matches_plain(cuda_device, integrator, precision):
     and NaN sets agree exactly, I_nu to rtol 1e-9. dp and every float32
     case are held to the statistical gate of bench.py, since chaotic
     photon-ring rays and dp accept/reject decisions amplify one-ulp
-    differences."""
+    differences. Every bundle size gives the same rays' outputs bit for
+    bit (_check_bundles)."""
     args, kwargs = _args(integrator, precision)
     before = fk.LAUNCHES
-    i_k, f_k, n_k = fk.render_formula(*args, **kwargs)
+    out = fk.render_formula(*args, **kwargs)
+    i_k, f_k, n_k = out
     torch.cuda.synchronize()
     assert fk.LAUNCHES == before + 1
     i_p, f_p, n_p = fk.render_formula_reference(*args, **kwargs)
@@ -103,40 +158,77 @@ def test_kernel_matches_plain(cuda_device, integrator, precision):
         np.testing.assert_allclose(a, b, rtol=1e-9, atol=0.0)
     else:
         _statistical_gate(a, b)
+    _check_bundles(args, kwargs, out)
 
 
-@pytest.mark.parametrize("integrator,precision", [
-    ("rk4", "float64"), ("dp", "float32")])
+ALL_INTEGRATORS_PRECISIONS = [(i, p) for i in ("dp", "rk4", "rk2")
+                              for p in ("float32", "float64")]
+
+
+@pytest.mark.parametrize("integrator,precision", ALL_INTEGRATORS_PRECISIONS)
 def test_frequencies_and_tangents_match_plain(cuda_device, integrator,
                                               precision):
     """K1.3 and K1.4: three frequencies with tangents for cn0, r0 and h, at
-    chip_smoke.py phase 3's gates: rk4 float64 identical flags, n_samples
-    and NaN sets, I and every dI/dp within rtol 1e-9; dp float32 the
-    statistical gate per frequency on I and on each dI/dp."""
-    args, kwargs = _args(integrator, precision, **FREQUENCIES,
-                         **TANGENT_PARAMS)
+    chip_smoke.py phase 3's gates: rk4/rk2 float64 identical flags,
+    n_samples and NaN sets, I and every dI/dp within rtol 1e-9; otherwise
+    the statistical gate per frequency on I and on each dI/dp. Every
+    bundle size gives the same rays' outputs bit for bit."""
+    _check_variant(integrator, precision, 3, ("cn0", "r0", "h"))
+
+
+@pytest.mark.parametrize("integrator,precision", ALL_INTEGRATORS_PRECISIONS)
+@pytest.mark.parametrize("nf,tangents", [(3, ()), (1, ("cn0", "r0", "h"))])
+def test_bucket_variants_match_plain(cuda_device, integrator, precision, nf,
+                                     tangents):
+    """The two instantiations the tests above leave out, in every type and
+    integrator: the larger frequency bucket without tangents, and tangents
+    at one frequency; gates as above."""
+    _check_variant(integrator, precision, nf, tangents)
+
+
+def _check_variant(integrator, precision, nf, tangents):
+    overrides = dict(TANGENT_PARAMS)
+    if nf > 1:
+        overrides.update(FREQUENCIES)
+    args, kwargs = _args(integrator, precision, **overrides)
     fp = args[5]
-    kwargs["diff_values"] = {"cn0": fp.cn0, "r0": fp.r0, "h": fp.h}
+    if tangents:
+        kwargs["diff_values"] = {p: getattr(fp, p) for p in tangents}
     before = fk.LAUNCHES
     out_k = fk.render_formula(*args, **kwargs)
     torch.cuda.synchronize()
     assert fk.LAUNCHES == before + 1
     out_p = fk.render_formula_reference(*args, **kwargs)
-    assert out_k[0].shape == (256, 3) and len(out_k[3]) == 3
+    assert out_k[0].shape == (256, nf)
+    assert len(out_k) == (4 if tangents else 3)
+    if tangents:
+        assert len(out_k[3]) == len(tangents)
     exact = integrator != "dp" and precision == "float64"
     if exact:
         assert torch.equal(out_k[1], out_p[1])
         assert torch.equal(out_k[2], out_p[2])
-    for a, b in zip([out_k[0], *out_k[3]], [out_p[0], *out_p[3]]):
+    planes_k = [out_k[0], *(out_k[3] if tangents else [])]
+    planes_p = [out_p[0], *(out_p[3] if tangents else [])]
+    for a, b in zip(planes_k, planes_p):
         a, b = a.cpu().numpy(), b.cpu().numpy()
         assert np.nanmax(np.abs(b)) > 0.0
-        for f in range(3):
+        for f in range(nf):
             if exact:
                 assert np.array_equal(np.isnan(a[:, f]), np.isnan(b[:, f]))
                 np.testing.assert_allclose(a[:, f], b[:, f], rtol=1e-9,
                                            atol=0.0)
             else:
                 _statistical_gate(a[:, f], b[:, f])
+    _check_bundles(args, kwargs, out_k)
+
+
+def test_launch_consts_size_matches_host_packing(cuda_device):
+    """sizeof(FormulaLaunchConsts) on the C side equals the bytes
+    launch_consts packs, for each type and frequency bucket."""
+    sizes = fk.consts_sizes(fk._library())
+    assert sizes == fk.host_consts_sizes()
+    assert sizes[torch.float32, 1] == 4 * (len(fk.PARAM_NAMES)
+                                           + len(fk.FREQUENCY_PARAM_NAMES))
 
 
 def test_more_frequencies_than_a_launch(cuda_device):
