@@ -41,9 +41,8 @@ bool valid_shape(int nf, int diff_mask) {
 // diff_mask: the DiffParam bits carrying tangents (0: none); theta then
 // holds one value per set bit, in the rays' type, and d_i_nu receives
 // (nd, n_rays, ld) values. i_nu receives (n_rays, ld) values, this
-// launch's frequencies at columns [0, nf). order: the ray of each slot
-// (n_rays int64 values), or null for ray i in slot i. next_slot: one
-// uint64 counter in device memory, zero before the launch. grid: the
+// launch's frequencies at columns [0, nf). next_slot: one uint64 counter
+// in device memory, zero before the launch. grid: the
 // number of blocks (at most blacklight_formula_resident_blocks').
 // Launches on `stream`, does not synchronize, allocates nothing; returns
 // the cudaError_t of the launch (0 on success).
@@ -52,7 +51,7 @@ extern "C" int blacklight_formula_launch(int dtype_code, int integrator, int nf,
                                          const void* directions,
                                          const void* momentum_factors, const void* consts,
                                          long long consts_bytes, const void* theta,
-                                         const void* order, void* next_slot, int grid,
+                                         void* next_slot, int grid,
                                          void* i_nu, void* d_i_nu, int ld, void* flags,
                                          void* n_samples, long long n_rays, void* stream) {
   if (n_rays <= 0) return 0;
@@ -66,7 +65,6 @@ extern "C" int blacklight_formula_launch(int dtype_code, int integrator, int nf,
                          nf,
                          static_cast<unsigned>(diff_mask),
                          ld,
-                         static_cast<const long long*>(order),
                          static_cast<unsigned long long*>(next_slot),
                          grid,
                          i_nu,

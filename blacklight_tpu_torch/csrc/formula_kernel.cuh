@@ -17,8 +17,9 @@
 // memory traffic is negligible. A dp step is seven right-hand sides (about
 // 60 operations each, with IEEE divisions and square roots, each of which
 // branches around a slow path), an error norm and two null
-// renormalizations, ~5,000 instructions for ~2,150 counted operations
-// (PERF.md §6); the seven stages are 49 live values. Each extra
+// renormalizations: ~4,300 instructions on the float per-step path for
+// ~2,150 counted operations (scripts/sass_step_mix.py, PERF.md §6); the
+// seven stages are 49 live values. Each extra
 // frequency adds ~50 operations to a sample and each tangent ~25 per
 // frequency (chip_smoke.py FORMULA_OPS_PER_FREQUENCY,
 // FORMULA_OPS_PER_TANGENT).
@@ -47,8 +48,8 @@
 //   warp that need one. A block no longer holds its SM until its longest
 //   ray ends; only the last rays leave lanes idle. A ray's arithmetic does
 //   not depend on its lane, so the outputs equal a launch without fetch,
-//   bit for bit, from run to run. Slots map to rays in camera order or
-//   through a permutation the wrapper passes.
+//   bit for bit, from run to run. Rays are fetched in their order in the
+//   bundle; the wrapper's caller picks that order.
 //
 // Frequencies: the geometry of a sample (velocity, density profile, u.k) is
 // shared; each frequency adds its power laws and an (I, tau) pair. NF = 1
@@ -107,7 +108,8 @@ constexpr unsigned FULL_WARP = 0xffffffffu;
 // spills the rest to local memory, which the L1 cache holds: the kernel
 // waits on the latency of its arithmetic, and more warps hide more of it
 // than the spills cost (PERF.md §6: k = 3, 4, 5, 6 timed in turns; dp
-// float32 0.953x of k = 4's 128 registers, which do not spill; the stage
+// float32 0.953x of k = 4's 128 registers, which do not spill, three
+// frequencies with three tangents 0.97x, rk4 and rk2 a tie; the stage
 // vectors in shared memory were slower at k = 5, 6 and 7). The double
 // builds take what they need, at most 255.
 template <typename T>
@@ -415,21 +417,6 @@ __device__ __forceinline__ void start_geometry(const KerrConsts<T>& g, const T (
   }
 }
 
-// The null-renormalization factor at a point x of radius q, with momentum
-// p (renormalize_factor with the radius already known).
-template <typename T>
-__device__ __forceinline__ T renormalize_factor_at(const T (&x)[7], const KsRadius<T>& q,
-                                                   T p0, const KerrConsts<T>& g) {
-  T a, b, c;
-  if (g.flat) {
-    renormalize_abc_flat(p0, x[4], x[5], x[6], a, b, c);
-  } else {
-    const KsScalars<T> sc = ks_scalars(x[1], x[2], x[3], q, g);
-    renormalize_abc(sc.f, sc.l1, sc.l2, sc.l3, p0, x[4], x[5], x[6], a, b, c);
-  }
-  return renormalize_root(a, b, c);
-}
-
 // trace.cuh's step_ray with the geometry carried in `here` (start_geometry):
 // the same stages, controller and end of step (trace.cuh rk_stages,
 // dp_step_size, dp_control, end_step) on the same values. dp's first stage
@@ -456,13 +443,7 @@ __device__ __forceinline__ bool formula_step(const TraceConsts<T>& tc, RayState<
     hs = dp_step_size(tc, s, r, ds);
     dp_stages<T, true>(y, p0, hs, g, k, ye, y4, ym, &next);
     dp_control(tc, s, y, ye, y4, hs, accept, retry_exceeded);
-    T a, b, c;
-    if (g.flat) {
-      renormalize_abc_flat(p0, ye[4], ye[5], ye[6], a, b, c);
-    } else {
-      renormalize_abc(next.f, next.l1, next.l2, next.l3, p0, ye[4], ye[5], ye[6], a, b, c);
-    }
-    fac = renormalize_root(a, b, c);
+    fac = renormalize_factor_fl(next.f, next.l1, next.l2, next.l3, p0, ye[4], ye[5], ye[6], g);
     r_new = next.r;
     // an accepted step moves to ye; a rejected one stays at y, whose
     // derivatives it recomputes (bit for bit what it had) rather than
@@ -477,33 +458,33 @@ __device__ __forceinline__ bool formula_step(const TraceConsts<T>& tc, RayState<
     hs = -tc.ray_step * (r - tc.r_horizon);
     rk_stages<T, INTEGRATOR>(g, y, p0, hs, ye, ym);
     const KsRadius<T> qe = ks_radius_parts(ye[1], ye[2], ye[3], g);
-    fac = renormalize_factor_at(ye, qe, p0, g);
+    fac = renormalize_factor_at(ye[1], ye[2], ye[3], qe, p0, ye[4], ye[5], ye[6], g);
     r_new = qe.r;
     here.r = r_new;
   }
 
   const KsRadius<T> qm = ks_radius_parts(ym[1], ym[2], ym[3], g);
-  const T facm = renormalize_factor_at(ym, qm, p0, g);
+  const T facm = renormalize_factor_at(ym[1], ym[2], ym[3], qm, p0, ym[4], ym[5], ym[6], g);
   r_mid = qm.r;
   return end_step(tc, s, n, accept, retry_exceeded, r, r_new, r_mid, fac, facm, ye, ym, k1,
                   k2, k3);
 }
 
-// One thread is a lane that traces rays one after another: first the ray
-// of its own slot (block * THREADS + thread), then, each time its ray
-// ends, the slot that a warp-aggregated atomicAdd on *next_slot hands it
-// (offset by the grid's first slots). Slot i is ray order[i], or ray i
-// without an order. i_nu: (n_rays, ld) row-major, this launch's
+// One thread is a lane that traces ray after ray: first the ray of its own
+// slot (block * THREADS + thread), then, each time its ray ends, the ray
+// that a warp-aggregated atomicAdd on *next_slot hands it (offset by the
+// grid's own rays). i_nu: (n_rays, ld) row-major, this launch's
 // frequencies at columns [0, nf); d_i_nu (TANGENTS): (nd, n_rays, ld),
 // one plane per set bit of diff_mask in DiffParam order; both written at
-// the ray's own index.
+// the ray's own index. What a lane does once per ray (start_ray,
+// finish_ray, take_rays) stays out of the per-step path that
+// scripts/sass_step_mix.py counts.
 template <typename T, int INTEGRATOR, int NF, bool TANGENTS>
 __global__ void __launch_bounds__(THREADS, FormulaBlocks<T>)
     formula_kernel(const T* __restrict__ positions, const T* __restrict__ directions,
                    const T* __restrict__ momentum_factors,
                    const __grid_constant__ FormulaLaunchConsts<T, NF> consts,
                    const T* __restrict__ theta, int nf, unsigned diff_mask, int ld,
-                   const long long* __restrict__ order,
                    unsigned long long* __restrict__ next_slot, T* __restrict__ i_nu,
                    T* __restrict__ d_i_nu, int* __restrict__ flags_out,
                    int* __restrict__ n_samples_out, long long n_rays) {
@@ -518,17 +499,56 @@ __global__ void __launch_bounds__(THREADS, FormulaBlocks<T>)
   KsDerivs<T> here;
   long long ray = 0;
   int n = 0;
-  auto start = [&](long long slot) {
-    ray = order ? order[slot] : slot;
+  auto start_ray = [&](long long next) {
+    ray = next;
     init_ray_state(tc, positions + 4 * ray, directions + 4 * ray, s);
     start_geometry<T, INTEGRATOR>(tc.g, s.y, here);
     sample.reset(directions[4 * ray + 0], momentum_factors[ray]);
     n = 0;
   };
+  // the ended ray's outputs, at its own index
+  auto finish_ray = [&]() {
+    // one bad mask for all frequencies, as the TPU kernel keeps it
+    const bool poison = sample.bad || (tc.fallback_nan && s.flag);
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      if (!sample.on(f)) continue;
+      i_nu[ray * ld + f] = poison ? T(NAN) : sample.intensity[f] * fc.i_scale[f];
+      if (TANGENTS) {
+        // a poisoned pixel holds a constant NaN: its derivative is zero
+        int plane = 0;
+#pragma unroll
+        for (int k = 0; k < D_COUNT; ++k) {
+          if (!sample.diff(k)) continue;
+          d_i_nu[(plane * n_rays + ray) * ld + f] =
+              poison ? T(0) : sample.d_intensity[k][f] * fc.i_scale[f];
+          ++plane;
+        }
+      }
+    }
+    flags_out[ray] = s.flag ? 1 : 0;
+    n_samples_out[ray] = s.n_samp;
+  };
+  // the lanes of `need` (a ballot of those whose ray ended) take the next
+  // rays, one atomic a warp; returns whether this lane has a ray
+  auto take_rays = [&](unsigned need, bool done, bool busy) {
+    const int leader = __ffs(need) - 1;
+    unsigned long long base = 0;
+    if (lane == static_cast<unsigned>(leader)) {
+      base = atomicAdd(next_slot, static_cast<unsigned long long>(__popc(need)));
+    }
+    base = __shfl_sync(FULL_WARP, base, leader);
+    if (!done) return busy;
+    const long long next = first_fetched + static_cast<long long>(base) +
+                           __popc(need & ((1u << lane) - 1u));
+    if (next >= n_rays) return false;
+    start_ray(next);
+    return true;
+  };
 
   const long long own = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   bool busy = own < n_rays;
-  if (busy) start(own);
+  if (busy) start_ray(own);
   while (__any_sync(FULL_WARP, busy)) {
     bool done = false;
     if (busy) {
@@ -542,44 +562,9 @@ __global__ void __launch_bounds__(THREADS, FormulaBlocks<T>)
       }
       done = !(s.alive && n < tc.max_steps);
     }
-    if (done) {
-      // one bad mask for all frequencies, as the TPU kernel keeps it
-      const bool poison = sample.bad || (tc.fallback_nan && s.flag);
-#pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        if (!sample.on(f)) continue;
-        i_nu[ray * ld + f] = poison ? T(NAN) : sample.intensity[f] * fc.i_scale[f];
-        if (TANGENTS) {
-          // a poisoned pixel holds a constant NaN: its derivative is zero
-          int plane = 0;
-#pragma unroll
-          for (int k = 0; k < D_COUNT; ++k) {
-            if (!sample.diff(k)) continue;
-            d_i_nu[(plane * n_rays + ray) * ld + f] =
-                poison ? T(0) : sample.d_intensity[k][f] * fc.i_scale[f];
-            ++plane;
-          }
-        }
-      }
-      flags_out[ray] = s.flag ? 1 : 0;
-      n_samples_out[ray] = s.n_samp;
-    }
-    // the lanes whose ray ended take the next slots, one atomic a warp
+    if (done) finish_ray();
     const unsigned need = __ballot_sync(FULL_WARP, done);
-    if (need != 0u) {
-      const int leader = __ffs(need) - 1;
-      unsigned long long base = 0;
-      if (lane == static_cast<unsigned>(leader)) {
-        base = atomicAdd(next_slot, static_cast<unsigned long long>(__popc(need)));
-      }
-      base = __shfl_sync(FULL_WARP, base, leader);
-      if (done) {
-        const long long slot = first_fetched + static_cast<long long>(base) +
-                               __popc(need & ((1u << lane) - 1u));
-        busy = slot < n_rays;
-        if (busy) start(slot);
-      }
-    }
+    if (need != 0u) busy = take_rays(need, done, busy);
   }
 }
 
@@ -597,7 +582,6 @@ struct LaunchArgs {
   int nf;
   unsigned diff_mask;
   int ld;
-  const long long* order;
   unsigned long long* next_slot;
   int grid;
   void* i_nu;
@@ -630,7 +614,7 @@ cudaError_t launch(const LaunchArgs& a) {
   kernel<<<static_cast<unsigned>(a.grid), THREADS, 0, a.stream>>>(
       static_cast<const T*>(a.positions), static_cast<const T*>(a.directions),
       static_cast<const T*>(a.momentum_factors), consts, static_cast<const T*>(a.theta),
-      a.nf, a.diff_mask, a.ld, a.order, a.next_slot, static_cast<T*>(a.i_nu),
+      a.nf, a.diff_mask, a.ld, a.next_slot, static_cast<T*>(a.i_nu),
       static_cast<T*>(a.d_i_nu), a.flags, a.n_samples, a.n_rays);
   return cudaGetLastError();
 }

@@ -133,11 +133,11 @@ struct KsDerivs {
   T dl[3][3];
 };
 
-// ks_derivatives at a point whose radius q is already known.
 template <typename T>
-__device__ __forceinline__ void ks_derivatives_at(T x1, T x2, T x3, const KsRadius<T>& q,
-                                                  const KerrConsts<T>& g, KsDerivs<T>& d) {
+__device__ __forceinline__ void ks_derivatives(T x1, T x2, T x3, const KerrConsts<T>& g,
+                                               KsDerivs<T>& d) {
   const T spin = g.spin, a2 = g.a2;
+  const KsRadius<T> q = ks_radius_parts(x1, x2, x3, g);
   const T rr2 = q.rr2, r2 = q.r2, r = q.r;
   const KsScalars<T> s = ks_scalars(x1, x2, x3, q, g);
   const T f = s.f, denom = s.denom, l1 = s.l1, l2 = s.l2, l3 = s.l3;
@@ -169,12 +169,6 @@ __device__ __forceinline__ void ks_derivatives_at(T x1, T x2, T x3, const KsRadi
   d.l1 = l1;
   d.l2 = l2;
   d.l3 = l3;
-}
-
-template <typename T>
-__device__ __forceinline__ void ks_derivatives(T x1, T x2, T x3, const KerrConsts<T>& g,
-                                               KsDerivs<T>& d) {
-  ks_derivatives_at(x1, x2, x3, ks_radius_parts(x1, x2, x3, g), g, d);
 }
 
 // Geodesic right-hand side (geometry.py:243-315): dy/dlambda for the seven
@@ -266,43 +260,43 @@ __device__ __forceinline__ void geodesic_rhs_from(const KsDerivs<T>& d, T p0, T 
 }
 
 // Spatial momentum rescale for null renormalization (geometry.py:340-366):
-// the root of a x^2 + b x + c with the quadratic's coefficients from the
-// flat metric (renormalize_abc_flat) or from f and l at the point
-// (renormalize_abc), which a caller that knows them passes in.
+// the root of a x^2 + b x + c, whose coefficients come from the flat metric
+// or from f and l at the point. renormalize_factor_fl takes f and l from a
+// caller that knows them (it reads none of them in the flat metric);
+// renormalize_factor_at forms them at a point whose radius q is known;
+// renormalize_factor at a point alone.
 template <typename T>
-__device__ __forceinline__ void renormalize_abc_flat(T p0, T p1, T p2, T p3, T& a, T& b, T& c) {
-  a = p1 * p1 + p2 * p2 + p3 * p3;
-  b = T(0);
-  c = -p0 * p0;
-}
-
-template <typename T>
-__device__ __forceinline__ void renormalize_abc(T f, T l1, T l2, T l3, T p0, T p1, T p2, T p3,
-                                                T& a, T& b, T& c) {
-  const T lsps = l1 * p1 + l2 * p2 + l3 * p3;
-  a = p1 * p1 + p2 * p2 + p3 * p3 - f * lsps * lsps;
-  b = T(2) * f * lsps * p0;
-  c = -(T(1) + f) * p0 * p0;
-}
-
-template <typename T>
-__device__ __forceinline__ T renormalize_root(T a, T b, T c) {
+__device__ __forceinline__ T renormalize_factor_fl(T f, T l1, T l2, T l3, T p0, T p1, T p2,
+                                                   T p3, const KerrConsts<T>& g) {
+  T a, b, c;
+  if (g.flat) {
+    a = p1 * p1 + p2 * p2 + p3 * p3;
+    b = T(0);
+    c = -p0 * p0;
+  } else {
+    const T lsps = l1 * p1 + l2 * p2 + l3 * p3;
+    a = p1 * p1 + p2 * p2 + p3 * p3 - f * lsps * lsps;
+    b = T(2) * f * lsps * p0;
+    c = -(T(1) + f) * p0 * p0;
+  }
   const T d = m_sqrt(jmax(b * b - T(4) * a * c, T(1e-300)));
   return (b < T(0)) ? (d - b) / (T(2) * a) : T(-2) * c / (b + d);
 }
 
 template <typename T>
-__device__ __forceinline__ T renormalize_factor(T x1, T x2, T x3, T p0, T p1,
-                                                T p2, T p3,
+__device__ __forceinline__ T renormalize_factor_at(T x1, T x2, T x3, const KsRadius<T>& q,
+                                                   T p0, T p1, T p2, T p3,
+                                                   const KerrConsts<T>& g) {
+  KsScalars<T> s{};
+  if (!g.flat) s = ks_scalars(x1, x2, x3, q, g);
+  return renormalize_factor_fl(s.f, s.l1, s.l2, s.l3, p0, p1, p2, p3, g);
+}
+
+template <typename T>
+__device__ __forceinline__ T renormalize_factor(T x1, T x2, T x3, T p0, T p1, T p2, T p3,
                                                 const KerrConsts<T>& g) {
-  T a, b, c;
-  if (g.flat) {
-    renormalize_abc_flat(p0, p1, p2, p3, a, b, c);
-  } else {
-    const KsScalars<T> s = ks_scalars(x1, x2, x3, ks_radius_parts(x1, x2, x3, g), g);
-    renormalize_abc(s.f, s.l1, s.l2, s.l3, p0, p1, p2, p3, a, b, c);
-  }
-  return renormalize_root(a, b, c);
+  return renormalize_factor_at(x1, x2, x3, ks_radius_parts(x1, x2, x3, g), p0, p1, p2, p3,
+                               g);
 }
 
 // base + sum_q (w_q h) k_q over the stages with a non-zero weight, summed

@@ -18,8 +18,7 @@ A launch hands the kernel its constants by value (``launch_consts``: the
 parameter vector rounded once to the rays' type on the host), a zeroed
 slot counter and a grid of at most the card's resident blocks
 (``persistent_grid``): each thread traces rays one after another, taking
-the next slot from the counter when its ray ends, slot i being ray i or
-ray ``order[i]`` (``fetch_order``).
+the next ray from the counter when its ray ends, in the bundle's order.
 """
 
 from __future__ import annotations
@@ -61,10 +60,6 @@ MAX_FREQUENCIES = 4
 
 # Threads per block of the kernel (THREADS of csrc/formula_kernel.cuh).
 THREADS = 128
-# Ray orders a launch can fetch in (fetch_order): camera order (ray i in
-# slot i), spatial_order's camera-plane tiles, or 8 x 4 pixel tiles.
-FETCH_ORDERS = ("camera", "spatial", "tiles")
-SPATIAL_BLOCK = 256
 
 # Kernel launches so far; render_formula adds one per launch of the CUDA
 # kernel and nowhere else.
@@ -158,35 +153,6 @@ def persistent_grid(n_rays: int, resident_blocks: int) -> int:
     return min(resident_blocks, -(-n_rays // THREADS))
 
 
-def tile_order(n_rays: int, width: int, device=None) -> torch.Tensor:
-    """Slots in 8 x 4 pixel tiles of an image ``width`` pixels wide (rays
-    in row-major pixel order, a ragged last row or tile included): the
-    stable permutation that sorts by tile, then row and column within it.
-    (n_rays,) int64."""
-    pixel = torch.arange(n_rays, dtype=torch.int64, device=device)
-    row, col = pixel // width, pixel % width
-    tiles_x = -(-width // 8)
-    key = ((row // 4) * tiles_x + col // 8) * 32 + (row % 4) * 8 + col % 8
-    return torch.argsort(key, stable=True)
-
-
-def fetch_order(kind: str, positions: torch.Tensor, width: int):
-    """The slot order a launch fetches rays in: None for camera order
-    (ray i in slot i), else a permutation (B,) int64 on the rays' device:
-    "spatial" simulation_kernel.spatial_order's camera-plane tiles of
-    SPATIAL_BLOCK rays, "tiles" 8 x 4 pixel tiles of an image ``width``
-    pixels wide."""
-    if kind not in FETCH_ORDERS:
-        raise ValueError(f"fetch order must be one of {FETCH_ORDERS}")
-    b = positions.shape[0]
-    if kind == "camera":
-        return None
-    if kind == "tiles" or b < 2:
-        return tile_order(b, width, positions.device)
-    from blacklight_tpu_torch.ops.simulation_kernel import spatial_order
-    return spatial_order(positions, block=SPATIAL_BLOCK)
-
-
 def image_scale(nu: float, log_j_scale: float) -> float:
     """Factor from the scaled transfer sum to I_nu at frequency nu, formed
     in float64 on the host: cn0/nup^2 alone (~1e-41) underflows float32."""
@@ -225,22 +191,6 @@ def frequency_list(frequencies) -> list:
     return nus
 
 
-def _check_order(order, positions):
-    """Validate a fetch order: a permutation of range(B), (B,) int64 on the
-    rays' device, contiguous (the kernel reads and writes the rays it
-    names)."""
-    if order is None:
-        return
-    b = positions.shape[0]
-    if (order.shape != (b,) or order.dtype != torch.int64
-            or order.device != positions.device or not order.is_contiguous()):
-        raise ValueError("order must be a contiguous (B,) int64 tensor on "
-                         "the rays' device")
-    if b and (bool(order.min() < 0) or bool(order.max() >= b) or not bool(
-            (torch.bincount(order, minlength=b) == 1).all())):
-        raise ValueError("order must be a permutation of range(B)")
-
-
 def _theta(diff_values, cn0, positions):
     """(names, values): the differentiated parameters in DIFFABLE_PARAMS
     order and their values as one (nd,) tensor in the rays' dtype and on
@@ -267,7 +217,7 @@ def render_formula(positions, directions, momentum_factors, frequencies,
                    params: geo.GeodesicParams, fp: FormulaParams,
                    mass_msun: float, camera_x, log_j_scale: float,
                    fallback_nan: bool = True, integrator: str = "dp",
-                   cn0=None, diff_values=None, order=None):
+                   cn0=None, diff_values=None):
     """Fused render of a ray bundle.
 
     Args:
@@ -283,9 +233,6 @@ def render_formula(positions, directions, momentum_factors, frequencies,
         values (floats or 0-dim tensors, taken in the rays' dtype) that
         replace fp's in the coefficients; the kernel then also carries the
         forward tangent dI/dp of each.
-      order: the kernel's fetch order, a permutation (B,) int64 on the
-        rays' device (fetch_order), or None for camera order. It changes
-        no output; the plain version ignores it.
 
     Returns (I_nu (B, F), flags (B,) bool, n_samples (B,) int32), and with
     diff_values a list of dI_nu/dp, one (B, F) tensor per parameter in
@@ -301,24 +248,22 @@ def render_formula(positions, directions, momentum_factors, frequencies,
         raise ValueError(f"integrator must be one of {INTEGRATORS}")
     nus = frequency_list(frequencies)
     names, theta = _theta(diff_values, cn0, positions)
-    _check_order(order, positions)
     device = positions.device
     if device.type == "cuda":
         return _render_cuda(positions, directions, momentum_factors, nus,
                             params, fp, mass_msun, camera_x, log_j_scale,
-                            fallback_nan, integrator, names, theta, order)
+                            fallback_nan, integrator, names, theta)
     if device.type == "cpu":
         return render_formula_reference(
             positions, directions, momentum_factors, nus, params, fp,
             mass_msun, camera_x, log_j_scale, fallback_nan=fallback_nan,
-            integrator=integrator, cn0=cn0, diff_values=diff_values,
-            order=order)
+            integrator=integrator, cn0=cn0, diff_values=diff_values)
     raise ValueError(f"no formula kernel for device {device}")
 
 
 def _render_cuda(positions, directions, momentum_factors, nus, params, fp,
                  mass_msun, camera_x, log_j_scale, fallback_nan, integrator,
-                 names, theta, order):
+                 names, theta):
     """One launch per MAX_FREQUENCIES frequencies, each writing its columns
     of I_nu (and of every dI/dp plane); every launch traces the same rays,
     so the flags and sample counts of the last stand. The launch constants
@@ -354,7 +299,6 @@ def _render_cuda(positions, directions, momentum_factors, nus, params, fp,
                 directions.data_ptr(), momentum_factors.data_ptr(),
                 consts.ctypes.data, consts.nbytes,
                 theta.data_ptr() if nd else None,
-                order.data_ptr() if order is not None else None,
                 next_slots[launch:].data_ptr(), grid,
                 i_nu.data_ptr() + start * item,
                 d_i_nu.data_ptr() + start * item if nd else None, nf,
@@ -389,8 +333,8 @@ def _library() -> ctypes.CDLL:
     lib = _build.load_library()
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.blacklight_formula_launch.argtypes = [
-        i32, i32, i32, i32, ptr, ptr, ptr, ptr, i64, ptr, ptr, ptr, i32, ptr,
-        ptr, i32, ptr, ptr, i64, ptr]
+        i32, i32, i32, i32, ptr, ptr, ptr, ptr, i64, ptr, ptr, i32, ptr, ptr,
+        i32, ptr, ptr, i64, ptr]
     lib.blacklight_formula_launch.restype = i32
     lib.blacklight_formula_resident_blocks.argtypes = [
         i32, i32, i32, i32, ctypes.POINTER(ctypes.c_int)]
@@ -443,21 +387,18 @@ def render_formula_reference(positions, directions, momentum_factors,
                              fp: FormulaParams, mass_msun: float, camera_x,
                              log_j_scale: float, fallback_nan: bool = True,
                              integrator: str = "dp", cn0=None,
-                             diff_values=None, order=None):
+                             diff_values=None):
     """The kernel's function in plain torch ops over (B,) tensors: the
     shared lock-step loop (``geodesic.trace_reference``) with the formula
     coefficients, the transfer update and the forward tangents at every
     sample, in the kernel's operation forms. Returns what
     ``render_formula`` returns. The values of diff_values enter as they
     are (in the rays' dtype), so autograd reaches them through the
-    intensities as well as through the tangents. The rays advance in lock
-    step, so a fetch order changes nothing here: ``order`` is only
-    checked.
+    intensities as well as through the tangents.
     """
     global PLAIN_CALLS
     PLAIN_CALLS += 1
     _check_rays(positions, directions, momentum_factors)
-    _check_order(order, positions)
     nus = frequency_list(frequencies)
     names, theta = _theta(diff_values, cn0, positions)
     rt = dict(zip(names, theta)) if names else {}

@@ -43,15 +43,14 @@ from blacklight_tpu_torch.camera import CameraRays, make_camera
 from blacklight_tpu_torch.models import formula as formula_model
 from blacklight_tpu_torch.ops import geodesic
 from blacklight_tpu_torch.ops.formula_kernel import (
-    fetch_order,
     frequency_list,
     render_formula,
 )
+from blacklight_tpu_torch.ops.simulation_kernel import spatial_order
 
-# The order in which the formula kernel's lanes fetch the camera's rays
-# (formula_kernel.fetch_order): timed against the other orders by
-# scripts/formula_kernel_ab.py (PERF.md §6).
-FORMULA_FETCH_ORDER = "camera"
+# Rays per tile of the spatial_order that float64 formula bundles are
+# launched in (formula_launch_order).
+FORMULA_ORDER_BLOCK = 256
 
 _AUX_IMAGES = ("image_time", "image_length", "image_lambda", "image_emission",
                "image_tau", "image_lambda_ave", "image_emission_ave",
@@ -182,19 +181,35 @@ def make_formula_renderer(cfg, *, device):
     log_j_scale = formula_model.formula_log_j_scale(fparams)
     fallback_nan = cfg.require("fallback_nan")
 
-    width = cfg.require("camera_resolution")
-
     def render_fn(positions, directions, momentum_factors):
-        order = (fetch_order(FORMULA_FETCH_ORDER, positions, width)
-                 if positions.device.type == "cuda" else None)
+        order = formula_launch_order(positions)
+        rays = (positions, directions, momentum_factors)
+        if order is not None:
+            rays = tuple(t[order] for t in rays)
         i_nu, flags, n_samples = render_formula(
-            positions, directions, momentum_factors, nus, params, fparams,
-            mass_msun, camera_x, log_j_scale, fallback_nan=fallback_nan,
-            integrator=params.integrator.value, order=order)
-        return {"I_nu": i_nu, "_flags": flags, "_n_samples": n_samples}
+            *rays, nus, params, fparams, mass_msun, camera_x, log_j_scale,
+            fallback_nan=fallback_nan, integrator=params.integrator.value)
+        out = {"I_nu": i_nu, "_flags": flags, "_n_samples": n_samples}
+        if order is None:
+            return out
+        for key, value in out.items():
+            out[key] = torch.empty_like(value)
+            out[key][order] = value
+        return out
 
     render_fn.geodesic_params = params
     return render_fn, geom, rays, frequencies, mass_msun
+
+
+def formula_launch_order(positions):
+    """The order a formula bundle is launched in: None (as given) for
+    float32, spatial_order's camera-plane tiles for float64, where the
+    kernel ran faster in them (PERF.md §6). A permutation (B,) int64
+    on the rays' device; the renderer returns its outputs in the caller's
+    order."""
+    if positions.dtype != torch.float64 or positions.shape[0] < 2:
+        return None
+    return spatial_order(positions, block=FORMULA_ORDER_BLOCK)
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -14,7 +14,8 @@ and prints no final line):
 2. build: compile csrc/*.cu with nvcc (one process per source, all at
    once), report registers, spills and the FP64 instructions of each
    kernel instantiation, the static instruction mix of each formula
-   kernel's step loop (scripts/sass_step_mix.py) and the size of the
+   kernel's step loop and of its per-step path (scripts/sass_step_mix.py,
+   on the formula units built again with line tables) and the size of the
    formula kernel's launch constants, held to the host's packing;
 3. checks, each kernel against its plain PyTorch version on identical
    rays, WORKERS processes at once on the one card (the plain versions
@@ -47,11 +48,11 @@ and prints no final line):
 5. the formula main path at full width: golden_formula_32.input at
    1024^2, dp, float32 through pipeline.run, counting kernel launches;
    then kernel times (rays/s) at 1024^2 in float32 and float64, the
-   float32 kernel held to phase 3's plain run on its subset; each
-   formula timing (phases 5, 10 and 11) also prints the fetch order the
-   pipeline passes, the 128-ray block efficiency of camera order and of
-   that order, and the issue bound of phase 2's step loop over this
-   run's ray-steps;
+   float32 kernel held to phase 3's plain run on its subset, each in the
+   order the pipeline launches it (pipeline.formula_launch_order); each
+   formula timing (phases 5, 10 and 11) also prints that order, the
+   128-ray block efficiency of camera order and of that order, and the
+   issue estimate of phase 2's per-step path over this run's ray-steps;
 6. the 32^2 simulation goldens through pipeline.run(cfg, device="cuda"),
    reading the .athdf file, at the tolerances of
    tests/test_simulation_e2e.py;
@@ -113,10 +114,12 @@ once) over the memory rate and its floating-point operations over the
 peak rate of its type. The operations are this run's mean samples per ray
 times hand counts per step and per sample (OPS_PER_STEP, OPS_PER_SAMPLE,
 and per further frequency and tangent FORMULA_OPS_PER_FREQUENCY,
-FORMULA_OPS_PER_TANGENT). A formula kernel's entry also carries its issue
-bound (issue_bound_ms): the static instructions of its step loop times
-this run's ray-steps over the card's issue rate, which it cannot beat
-either. The polarized route's entry also carries each
+FORMULA_OPS_PER_TANGENT). A formula kernel's entry also carries a static
+issue estimate (issue_estimate_ms): the instructions of its step loop's
+per-step path times this run's ray-steps over the card's issue rate. It
+is not a bound: a step may skip some of those instructions (branches not
+taken) and run others more often (the code of a rejected dp step, of a
+ray's start and end, which it leaves out). The polarized route's entry also carries each
 of its three kernels with its own bound: the bytes of its own inputs and
 outputs (samples, records) against its share of the operations.
 
@@ -163,14 +166,14 @@ PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
 N_SMS = 132
 REGISTERS_PER_SM = 65536
 # An SM's four schedulers each issue one warp instruction (32 lanes) a
-# cycle: the issue bound of a kernel is its instructions per ray-step
-# (the static count of its step loop, phase 2) times this run's
-# ray-steps over N_SMS * ISSUE_LANES_PER_SM lanes at the card's maximum
-# SM clock (phase 1).
+# cycle: the issue estimate of a kernel is its instructions per ray-step
+# (the static count of its step loop's per-step path, phase 2) times this
+# run's ray-steps over N_SMS * ISSUE_LANES_PER_SM lanes at the card's
+# maximum SM clock (phase 1).
 ISSUE_LANES_PER_SM = 4 * 32
-# Phase 2's static instruction mix of each formula kernel's step loop, by
-# kernel label (scripts/sass_step_mix.py), and phase 1's maximum SM clock
-# in Hz.
+# Phase 2's static instruction mixes of each formula kernel's step loop
+# and its per-step path, by kernel label (scripts/sass_step_mix.py
+# loop_mixes), and phase 1's maximum SM clock in Hz.
 STEP_LOOPS = {}
 SM_CLOCK_HZ = {}
 # Floating-point operations, counted by hand from the CUDA sources (an
@@ -350,18 +353,22 @@ def _sass(lib_path):
     return smi([cuobjdump, "-sass", str(lib_path)])
 
 
-def _step_loops(sass) -> dict:
-    """Each formula kernel's step-loop instruction mix
-    (scripts/sass_step_mix.py), by kernel label."""
-    if sass is None:
-        return {"not_measured": "cuobjdump not found"}
+def _step_loops() -> dict:
+    """The instruction mixes of each formula kernel's step loop and its
+    per-step path (scripts/sass_step_mix.py, the formula units built with
+    line tables, all at once), by kernel label."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "sass_step_mix", ROOT / "scripts" / "sass_step_mix.py")
     mix = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mix)
-    return {_kernel_label(name): mix.mix(mix.step_loop(code))
-            for name, code in mix.functions(sass).items()
+    units = sorted(p.name for p in (ROOT / KERNEL_SOURCE).parent.glob(
+        "formula_kernel*.cu"))
+    per_ray = mix.per_ray_lines(ROOT)
+    with tempfile.TemporaryDirectory() as tmp:
+        sass = mix.disassemble(ROOT, units, pathlib.Path(tmp))
+    return {_kernel_label(name): mix.loop_mixes(code, per_ray)
+            for unit in sass.values() for name, code in unit.items()
             if "formula_kernel" in name}
 
 
@@ -402,7 +409,7 @@ def phase_build():
     sk._phase_library()
     pk._library()
     sass = _sass(path)
-    STEP_LOOPS.update(_step_loops(sass))
+    STEP_LOOPS.update(_step_loops())
     emit("build", seconds=build_s, library=path.name,
          ptxas=_ptxas_table(_build.ptxas_report()), fp64_sass=_sass_fp64(sass),
          formula_consts_bytes={f"{str(k[0])[6:]}, NF={k[1]}": v for k, v in
@@ -426,13 +433,10 @@ def _config(name, **overrides):
 
 
 def _renderer(cfg):
-    """The port's renderer on the card plus the arguments that render the
-    same rays with the plain version: render_formula's, with the fetch
-    order the pipeline's renderer passes (none in camera order)."""
-    import inspect
+    """The arguments and keywords of render_formula (the kernel on the
+    card, or the plain version) on the camera's rays, in camera order."""
     from blacklight_tpu_torch import pipeline
     from blacklight_tpu_torch.models import formula as formula_model
-    from blacklight_tpu_torch.ops import formula_kernel as fk
     render_fn, geom, rays, freqs, mass_msun = pipeline.make_formula_renderer(
         cfg, device="cuda")
     fp = formula_model.formula_params_from_config(cfg)
@@ -441,11 +445,6 @@ def _renderer(cfg):
             geom.cam_x.tolist(), formula_model.formula_log_j_scale(fp))
     kwargs = dict(fallback_nan=cfg.require("fallback_nan"),
                   integrator=cfg.require("ray_integrator").value)
-    if "order" in inspect.signature(fk.render_formula).parameters:
-        order = fk.fetch_order(pipeline.FORMULA_FETCH_ORDER, rays.positions,
-                               cfg.require("camera_resolution"))
-        if order is not None:
-            kwargs["order"] = order
     return args, kwargs
 
 
@@ -660,7 +659,6 @@ def formula_plain_subset(cell) -> tuple:
     from blacklight_tpu_torch.ops import formula_kernel as fk
     _, args, kwargs = _formula_cell(cell)
     _, sub = _plain_subset(args)
-    kwargs.pop("order", None)  # the whole bundle's; it changes no output
     out, t_plain = _timed(fk.render_formula_reference, *sub, **kwargs)
     return (sub[0].cpu().numpy(), [o.cpu().numpy() for o in _outputs(out)],
             t_plain)
@@ -738,13 +736,17 @@ def phase_full_width(tmp: pathlib.Path, card: str, subset) -> dict:
     for precision in ("float32", "float64"):
         cfg.precision = precision
         (args, kwargs), t_setup = _timed(_renderer, cfg)
-        # the plain version runs in float32 only, on phase 3's subset
+        # in the order run launches the bundle in; the plain version runs
+        # in float32 only (camera order), on phase 3's subset
+        order = pipeline.formula_launch_order(args[0])
+        if order is not None:
+            args = (*(t[order].contiguous() for t in args[:3]), *args[3:])
         tp = "float" if precision == "float32" else "double"
         timings[precision] = time_kernel(
             "timing", fk.render_formula,
             subset if precision == "float32" else None,
             args, kwargs, res, card,
-            step_loop=f"formula_kernel<{tp}, dp, NF=1>",
+            step_loop=f"formula_kernel<{tp}, dp, NF=1>", order=order,
             precision=precision, integrator="dp", camera_setup_s=t_setup)
     f32 = timings["float32"]
     return {"name": "formula_kernel", "route": "cuda",
@@ -754,20 +756,22 @@ def phase_full_width(tmp: pathlib.Path, card: str, subset) -> dict:
             "plain_rays": res * res // PLAIN_STRIDE,
             **bound("formula", "dp", "float32", res * res,
                     f32["mean_n_samples"], in_bytes=0, out_values=1),
-            "issue_bound_ms": f32["issue_bound_ms"],
+            "issue_estimate_ms": f32["issue_estimate_ms"],
             "library_ms": None}
 
 
 def time_kernel(phase, kernel, plain, args, kwargs, res, card,
-                step_loop=None, **fields):
+                step_loop=None, order=None, **fields):
     """Warm best of 3 of ``kernel`` on a res^2 ray bundle, and its outputs
     held to the plain version's by the statistical gate (per output and
     frequency): ``plain`` is None (no check), the plain version (run once
     on the same rays) or formula_plain_subset's result for these rays.
-    Emits the timing line, with the 128-ray block efficiency of camera
-    order and of the kernel's fetch order (kwargs' order) and, for a
-    formula kernel, the issue bound of ``step_loop`` (a STEP_LOOPS label);
-    returns the numbers the kernels line needs."""
+    Emits the timing line and, for a formula kernel, the order its rays
+    were launched in (``order``: the permutation of the camera's rays that
+    ``args`` hold, None for camera order), the 128-ray block efficiency of
+    camera order and of that order, and the issue estimate of
+    ``step_loop`` (a STEP_LOOPS label); returns the numbers the kernels
+    line needs."""
     import numpy as np
     kernel(*args, **kwargs)  # warm up
     times = []
@@ -799,33 +803,38 @@ def time_kernel(phase, kernel, plain, args, kwargs, res, card,
         extra = dict(plain_rays=n_plain, plain_rays_per_s=n_plain / t_plain,
                      gate="statistical (bench.py:181-186)", **gate)
     ns = nk.cpu().numpy()
+    camera = ns  # n_samples in camera order
+    if order is not None:
+        camera = np.empty_like(ns)
+        camera[order.cpu().numpy()] = ns
     # 8 x 4 pixel tiles, 32 rays each, in place of 32 pixels of one row
     tiles = np.arange(n).reshape(res // 4, 4, res // 8, 8).transpose(
         0, 2, 1, 3).reshape(-1)
     if step_loop is not None:
         from blacklight_tpu_torch import pipeline
-        order = kwargs.get("order")
-        fetch = np.arange(n) if order is None else order.cpu().numpy()
         extra.update(
-            fetch_order=("camera" if order is None
-                         else pipeline.FORMULA_FETCH_ORDER),
+            fetch_order=("camera" if order is None else
+                         f"spatial_order {pipeline.FORMULA_ORDER_BLOCK}"),
             block_efficiency_128={
-                "camera": warp_efficiency(ns, np.arange(n), 128),
-                "fetch_order": warp_efficiency(ns, fetch, 128)})
+                "camera": warp_efficiency(camera, np.arange(n), 128),
+                "fetch_order": warp_efficiency(ns, np.arange(n), 128)})
+        mixes = STEP_LOOPS.get(step_loop, {})
         out["step_loop"] = step_loop
-        out["step_instructions"] = STEP_LOOPS.get(step_loop, {}).get("total")
+        out["step_instructions"] = mixes.get("per_step", {}).get("total")
+        out["loop_instructions"] = mixes.get("step_loop", {}).get("total")
         out["ray_steps"] = int(ns.astype("int64").sum())
-        out["issue_bound_ms"] = None if out["step_instructions"] is None else (
-            out["step_instructions"] * out["ray_steps"]
-            / (N_SMS * ISSUE_LANES_PER_SM * SM_CLOCK_HZ["max"]) * 1e3)
-        extra.update({k: out[k] for k in ("step_loop", "step_instructions",
-                                          "ray_steps", "issue_bound_ms")})
+        out["issue_estimate_ms"] = None if out["step_instructions"] is None \
+            else (out["step_instructions"] * out["ray_steps"]
+                  / (N_SMS * ISSUE_LANES_PER_SM * SM_CLOCK_HZ["max"]) * 1e3)
+        extra.update({k: out[k] for k in (
+            "step_loop", "step_instructions", "loop_instructions",
+            "ray_steps", "issue_estimate_ms")})
     emit(phase, resolution=res, card=card, **fields, kernel_s_runs=times,
          kernel_ms=out["kernel_ms"], plain_ms=out["plain_ms"],
          kernel_rays_per_s=n / t_kernel, max_abs_err=out["max_abs_err"],
          mean_n_samples=float(ns.mean()), max_n_samples=int(ns.max()),
-         warp_efficiency_rows=warp_efficiency(ns, np.arange(n)),
-         warp_efficiency_8x4_tiles=warp_efficiency(ns, tiles),
+         warp_efficiency_rows=warp_efficiency(camera, np.arange(n)),
+         warp_efficiency_8x4_tiles=warp_efficiency(camera, tiles),
          clocks_power=smi(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,"
                            "temperature.gpu", "--format=csv,noheader"]),
          **extra)
@@ -1963,7 +1972,7 @@ def phase_multi_full_width(tmp: pathlib.Path, card: str, subset) -> dict:
             **bound("formula", "dp", "float32", res * res,
                     timing["mean_n_samples"], in_bytes=0, out_values=3,
                     frequencies=3),
-            "issue_bound_ms": timing["issue_bound_ms"],
+            "issue_estimate_ms": timing["issue_estimate_ms"],
             "library_ms": None}
 
 
@@ -2085,7 +2094,7 @@ def phase_grad_full_width(card: str, subset) -> dict:
                     timing["mean_n_samples"], in_bytes=0,
                     out_values=1 + len(FIT_PARAMS),
                     tangents=len(FIT_PARAMS)),
-            "issue_bound_ms": timing["issue_bound_ms"],
+            "issue_estimate_ms": timing["issue_estimate_ms"],
             "library_ms": None}
 
 

@@ -7,13 +7,16 @@ turns, on the same rays.
 runs a worker process per tree in the order parent, change, change,
 parent (each tree builds its own kernels into DIR/build/kernels) and
 times, at 1024^2 on golden_formula_32.input (chip_smoke.py's formula
-cells): K1.1 dp float32 (phase 5's cell), K1.1 rk4 float32, dp float64,
-K1.3 at three frequencies (phase 10's) and K1.4 with tangents for cn0, r0
-and h (phase 11's). It then holds the change's outputs (I_nu, every
-dI/dp, flags, n_samples) to the parent's: bit for bit for rk4 at 1024^2
-and for rk4 and rk2 in float32 and float64, at one frequency and at three
-with the three tangents (h = 0.4, formula_a = 1e5), at 256^2; by the
-statistical gate of bench.py:181-186 for dp. The simulation kernel, which
+cells): K1.1 dp float32 (phase 5's cell), K1.1 rk4 and rk2 float32, dp
+float64 in camera order and in spatial_order's 256-ray tiles, K1.3 at
+three frequencies (phase 10's), K1.4 with tangents for cn0, r0 and h
+(phase 11's) and both at once (three frequencies and three tangents, the
+larger frequency bucket with tangents). It then holds the change's
+outputs (I_nu, every dI/dp, flags, n_samples) to the parent's: bit for
+bit for rk4 and rk2 at 1024^2 and for rk4 and rk2 in float32 and
+float64, at one frequency and at three with the three tangents (h = 0.4,
+formula_a = 1e5), at 256^2; by the statistical gate of bench.py:181-186
+for dp. The simulation kernel, which
 shares the geodesic step's code, is held bit for bit too: chip_smoke.py
 phase 7's 1024^2 cell in rk4 float32 and float64 and dp float32. It prints one JSON line per
 worker and a last line with the times, the change over the parent per
@@ -21,27 +24,26 @@ cell (and whether every run of the change was below every run of the
 parent), and per cell and tree its ray-steps (the sum of n_samples), its
 128-ray block efficiency in camera order and in 8 x 4 tiles (n_samples as
 the proxy; chip_smoke.py warp_efficiency), the static instructions of its
-kernel's step loop (scripts/sass_step_mix.py) and the issue bound they
-give (chip_smoke.py ISSUE_LANES_PER_SM); it exits non-zero if an output
+kernel's step loop and of the loop's per-step path
+(scripts/sass_step_mix.py) and the issue estimate the latter gives
+(chip_smoke.py ISSUE_LANES_PER_SM); it exits non-zero if an output
 differs.
 
     python3 scripts/formula_kernel_ab.py worker --tree DIR --out DIR2 \\
-        [--times-only] [--orders camera,spatial,tiles]
+        [--times-only] [--cells k11,k13_tangents,...] [--reps N]
 
-is one worker: every cell (warm-up, then best of ``--reps`` in turns),
-outputs saved under DIR2, then (unless ``--times-only``) the step loops'
-instruction mix and issue bounds and the 256^2 cases.
-A tree whose render_formula takes a fetch order is timed in the order its
-pipeline's FORMULA_FETCH_ORDER names, and in each of ``--orders`` too
-(``*_order_<kind>_ms``). The worker runs the tree's package on the rays
-this checkout's chip_smoke.py makes, so both trees get the same inputs.
+is one worker: each cell (warm-up, then best of ``--reps``), outputs
+saved under DIR2, then (unless ``--times-only``) the step loops'
+instruction mixes and issue estimates and the 256^2 cases. Workers on
+copies of one tree that differ in one constant, run in turns, time that
+constant's choices. The worker runs the tree's package on the rays this
+checkout's chip_smoke.py makes, so both trees get the same inputs.
 """
 
 from __future__ import annotations
 
 import argparse
 import importlib.util
-import inspect
 import json
 import os
 import pathlib
@@ -50,14 +52,20 @@ import sys
 import tempfile
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-CELLS = ("k11", "k11_rk4", "k11_f64", "k13", "k14")
 # The kernel instantiation each cell launches (chip_smoke.py's labels) and
 # the units that hold them.
 CELL_KERNELS = {"k11": "formula_kernel<float, dp, NF=1>",
                 "k11_rk4": "formula_kernel<float, rk4, NF=1>",
+                "k11_rk2": "formula_kernel<float, rk2, NF=1>",
                 "k11_f64": "formula_kernel<double, dp, NF=1>",
+                "k11_f64_spatial": "formula_kernel<double, dp, NF=1>",
                 "k13": "formula_kernel<float, dp, NF=4>",
-                "k14": "formula_kernel<float, dp, NF=1, tangents>"}
+                "k14": "formula_kernel<float, dp, NF=1, tangents>",
+                "k13_tangents": "formula_kernel<float, dp, NF=4, tangents>"}
+CELLS = tuple(CELL_KERNELS)
+# Rays per tile of the spatial_order of k11_f64_spatial
+# (pipeline.FORMULA_ORDER_BLOCK).
+SPATIAL_BLOCK = 256
 STEP_UNITS = ("formula_kernel.cu", "formula_kernel_dp.cu",
               "formula_kernel_multi_dp.cu", "formula_kernel_tangent_dp.cu")
 EXACT_CASES = tuple((integrator, precision, full)
@@ -82,15 +90,17 @@ def _smoke():
 
 
 def _step_loops(cs, tree: pathlib.Path) -> dict:
-    """Static step-loop instruction mix (scripts/sass_step_mix.py) of the
-    tree's formula kernels, by chip_smoke.py kernel label."""
+    """Static instruction mixes of the step loop and its per-step path
+    (scripts/sass_step_mix.py) of the tree's formula kernels, by
+    chip_smoke.py kernel label."""
     spec = importlib.util.spec_from_file_location(
         "sass_step_mix", ROOT / "scripts" / "sass_step_mix.py")
     mix = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mix)
+    per_ray = mix.per_ray_lines(tree)
     with tempfile.TemporaryDirectory() as tmp:
         sass = mix.disassemble(tree, list(STEP_UNITS), pathlib.Path(tmp))
-    return {cs._kernel_label(name): mix.mix(mix.step_loop(code))
+    return {cs._kernel_label(name): mix.loop_mixes(code, per_ray)
             for unit in sass.values() for name, code in unit.items()
             if "formula_kernel" in name}
 
@@ -99,13 +109,23 @@ def _cell(cs, name):
     """Renderer arguments and keywords of a timed cell."""
     if name in ("k11", "k13", "k14"):
         return cs._formula_cell(name)[1:]
+    if name == "k13_tangents":
+        _, args, kwargs = cs._formula_cell("k14")
+        multi = cs._formula_cell("k13")[1]
+        return (*args[:3], multi[3], *args[4:]), kwargs
     overrides = dict(camera_resolution=1024, precision="float32",
                      ray_integrator="dp")
-    if name == "k11_rk4":
-        overrides["ray_integrator"] = "rk4"
+    if name in ("k11_rk4", "k11_rk2"):
+        overrides["ray_integrator"] = name[-3:]
     else:
         overrides["precision"] = "float64"
-    return cs._renderer(cs._config("golden_formula_32.input", **overrides))
+    args, kwargs = cs._renderer(cs._config("golden_formula_32.input",
+                                           **overrides))
+    if name == "k11_f64_spatial":
+        from blacklight_tpu_torch.ops.simulation_kernel import spatial_order
+        order = spatial_order(args[0], block=SPATIAL_BLOCK)
+        args = (*(t[order].contiguous() for t in args[:3]), *args[3:])
+    return args, kwargs
 
 
 def _exact_case(cs, integrator, precision, full):
@@ -131,27 +151,12 @@ def _save(out, path: pathlib.Path) -> None:
     torch.save({k: v.cpu() for k, v in fields.items()}, path)
 
 
-def _orders(fk, pipeline, args, extra: list) -> dict:
-    """{label: order} to time a cell in: the tree's own main-path order
-    (None for camera order, or a tree without fetch orders), then
-    ``extra``'s kinds."""
-    if "order" not in inspect.signature(fk.render_formula).parameters:
-        return {"main": None}
-    res = int(round(args[0].shape[0] ** 0.5))
-    kind = getattr(pipeline, "FORMULA_FETCH_ORDER", "camera")
-    out = {"main": fk.fetch_order(kind, args[0], res)}
-    for kind in extra:
-        out[f"order_{kind}"] = fk.fetch_order(kind, args[0], res)
-    return out
-
-
 def worker(opts) -> dict:
     tree = pathlib.Path(opts.tree).resolve()
     sys.path.insert(0, str(tree))
     os.chdir(tree)
     import torch
     cs = _smoke()
-    from blacklight_tpu_torch import pipeline
     from blacklight_tpu_torch.ops import formula_kernel as fk
     if not torch.cuda.is_available():
         raise RuntimeError("needs an NVIDIA GPU")
@@ -160,26 +165,18 @@ def worker(opts) -> dict:
     result = {"tree": str(tree), "label": opts.label, "card": cs.smi(
         cs.SMI_QUERY), "clocks_max": cs.smi(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"])}
-    extra = [k for k in opts.orders.split(",") if k] if opts.orders else []
+    cells = opts.cells.split(",") if opts.cells else CELLS
     runs = {}
-    for name in CELLS:
+    for name in cells:
         args, kwargs = _cell(cs, name)
-        orders = _orders(fk, pipeline, args, extra)
-        out = fk.render_formula(*args, **kwargs, **(
-            {"order": orders["main"]} if orders["main"] is not None else {}))
+        out = fk.render_formula(*args, **kwargs)  # also the warm-up
         _save(out, out_dir / f"{name}.pt")
         result[f"{name}_ray_steps"] = int(out[2].long().sum())
         result[f"{name}_block_efficiency_128"] = _block_efficiency(
-            cs, out[2].cpu())
-        for label, order in orders.items():
-            kw = dict(kwargs, order=order) if order is not None else kwargs
-            fk.render_formula(*args, **kw)  # warm up
-            runs[f"{name}_{label}"] = []
-        for _ in range(opts.reps):
-            for label, order in orders.items():
-                kw = dict(kwargs, order=order) if order is not None else kwargs
-                _, t = cs._timed(fk.render_formula, *args, **kw)
-                runs[f"{name}_{label}"].append(t * 1e3)
+            cs, out[2].cpu(), launched=name == "k11_f64_spatial")
+        runs[f"{name}_main"] = [
+            cs._timed(fk.render_formula, *args, **kwargs)[1] * 1e3
+            for _ in range(opts.reps)]
         del args, kwargs, out
         torch.cuda.empty_cache()
     result["runs_ms"] = runs
@@ -189,10 +186,12 @@ def worker(opts) -> dict:
         clock_hz = float(cs.smi(["nvidia-smi", "--query-gpu=clocks.max.sm",
                                  "--format=csv,noheader,nounits"])) * 1e6
         result["step_loops"] = loops
-        for name, label in CELL_KERNELS.items():
-            instr = loops[label]["total"]
+        for name in cells:
+            mixes = loops[CELL_KERNELS[name]]
+            instr = mixes["per_step"]["total"]
             result[f"{name}_step_instructions"] = instr
-            result[f"{name}_issue_bound_ms"] = (
+            result[f"{name}_loop_instructions"] = mixes["step_loop"]["total"]
+            result[f"{name}_issue_estimate_ms"] = (
                 instr * result[f"{name}_ray_steps"]
                 / (cs.N_SMS * cs.ISSUE_LANES_PER_SM * clock_hz) * 1e3)
         for case in EXACT_CASES:
@@ -217,11 +216,14 @@ def worker(opts) -> dict:
     return result
 
 
-def _block_efficiency(cs, n_samples) -> dict:
+def _block_efficiency(cs, n_samples, launched=False) -> dict:
     """128-ray block efficiency of a 1024^2 cell in camera order and in 8
-    x 4 tiles, n_samples standing in for a ray's steps."""
+    x 4 tiles, n_samples standing in for a ray's steps; of the order the
+    rays were launched in if they are not in camera order (``launched``)."""
     import numpy as np
     ns = n_samples.numpy()
+    if launched:
+        return {"launch": cs.warp_efficiency(ns, np.arange(ns.size), 128)}
     res = int(round(ns.size ** 0.5))
     tiles = np.arange(ns.size).reshape(res // 4, 4, res // 8, 8).transpose(
         0, 2, 1, 3).reshape(-1)
@@ -244,8 +246,7 @@ def compare(opts) -> int:
             out = pathlib.Path(tmp) / f"{i}_{label}"
             cmd = [sys.executable, str(script), "worker", "--tree", str(tree),
                    "--out", str(out), "--label", label,
-                   "--reps", str(opts.reps), "--orders",
-                   opts.orders if label == "change" else ""]
+                   "--reps", str(opts.reps)]
             if i >= 2:
                 cmd.append("--times-only")
             subprocess.run(cmd, check=True)
@@ -260,7 +261,8 @@ def compare(opts) -> int:
             b = torch.load(b_dir / f"{name}.pt")
             same = {k: cs._same_bits(a[k], b[k]) for k in a}
             identical[name] = same
-            if "dp" in name or name in ("k11", "k11_f64", "k13", "k14"):
+            if "dp" in name or name in ("k11", "k11_f64", "k11_f64_spatial",
+                                        "k13", "k14", "k13_tangents"):
                 ours = [b["I_nu"].numpy(), *(b["dI"].numpy() if "dI" in b
                                              else [])]
                 ref = [a["I_nu"].numpy(), *(a["dI"].numpy() if "dI" in a
@@ -274,7 +276,7 @@ def compare(opts) -> int:
                    card=results[0]["card"], clocks_max=results[0]["clocks_max"])
     for key in results[1]:
         if (not key.endswith("_ms") or key == "runs_ms"
-                or key.endswith("issue_bound_ms")):
+                or key.endswith("issue_estimate_ms")):
             continue
         c = min(r[key] for r in results if r["label"] == "change")
         if key in results[0]:
@@ -290,8 +292,8 @@ def compare(opts) -> int:
             summary[key] = {"change_ms": c}
     for name in CELLS:
         for key in ("ray_steps", "block_efficiency_128", "step_instructions",
-                    "issue_bound_ms"):
-            summary[f"{name}_{key}"] = {r["label"]: r[f"{name}_{key}"]
+                    "loop_instructions", "issue_estimate_ms"):
+            summary[f"{name}_{key}"] = {r["label"]: r.get(f"{name}_{key}")
                                         for r in results[:2]}
     print(json.dumps(summary), flush=True)
     return 0 if ok else 1
@@ -306,12 +308,11 @@ def main(argv=None) -> int:
     w.add_argument("--label", default="")
     w.add_argument("--reps", type=int, default=3)
     w.add_argument("--times-only", action="store_true")
-    w.add_argument("--orders", default="")
+    w.add_argument("--cells", default="")
     c = sub.add_parser("compare")
     c.add_argument("--parent", required=True)
     c.add_argument("--change", default=str(ROOT))
     c.add_argument("--reps", type=int, default=3)
-    c.add_argument("--orders", default="")
     opts = parser.parse_args(argv)
     if opts.mode == "worker":
         worker(opts)

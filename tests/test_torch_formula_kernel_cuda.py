@@ -18,6 +18,7 @@ from blacklight_tpu_torch import RayIntegrator, pipeline, read_config
 from blacklight_tpu_torch.models import formula as formula_model
 from blacklight_tpu_torch.ops import formula_fit
 from blacklight_tpu_torch.ops import formula_kernel as fk
+from blacklight_tpu_torch.ops.simulation_kernel import spatial_order
 
 torch.set_num_threads(2)
 
@@ -102,8 +103,8 @@ def _check_bundles(args, kwargs, out):
     129 of the rays on their own, and the rays repeated past twice the
     card's resident threads (more rays than lanes, so that lanes fetch),
     give the 256-ray launch's outputs bit for bit; a second launch of the
-    large bundle, in camera order and in every fetch order, gives the
-    first's bit for bit."""
+    large bundle gives the first's bit for bit, and the bundle in another
+    order (spatial_order's) gives them in that order."""
     rays, rest = args[:3], args[3:]
     ref = _outputs(out)
     for b in (1, 31, 129):
@@ -115,11 +116,13 @@ def _check_bundles(args, kwargs, out):
     first = fk.render_formula(*big, *rest, **kwargs)
     for x, y in zip(_outputs(first), ref):
         assert _same_bits(x, y.repeat(reps, *([1] * (y.dim() - 1))))
-    for kind in fk.FETCH_ORDERS:
-        order = fk.fetch_order(kind, big[0], 16)
-        again = fk.render_formula(*big, *rest, **kwargs, order=order)
-        assert all(_same_bits(x, y) for x, y in zip(_outputs(again),
-                                                    _outputs(first)))
+    again = fk.render_formula(*big, *rest, **kwargs)
+    assert all(_same_bits(x, y) for x, y in zip(_outputs(again),
+                                                _outputs(first)))
+    order = spatial_order(big[0], block=256)
+    moved = fk.render_formula(*(t[order] for t in big), *rest, **kwargs)
+    assert all(_same_bits(x, y[order]) for x, y in zip(_outputs(moved),
+                                                       _outputs(first)))
 
 
 def _statistical_gate(a, b):

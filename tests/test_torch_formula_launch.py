@@ -1,8 +1,8 @@
 """PyTorch port: what the formula kernel's wrapper hands a launch, checked
 on the CPU: the launch constants the host packs (the kernel reads them
-from its parameter, in the constant bank), the order the kernel's lanes
-fetch rays in and the size of the persistent grid; and the formula path
-against the JAX package at 16^2. The kernel itself is held to its plain
+from its parameter, in the constant bank), the order the renderer
+launches rays in and the size of the persistent grid; and the formula
+path against the JAX package at 16^2. The kernel itself is held to its plain
 version on the card by test_torch_formula_kernel_cuda.py."""
 
 import numpy as np
@@ -88,42 +88,47 @@ def test_launch_consts_sizes_and_buckets():
         fk.launch_consts([0.0] * (len(fk.PARAM_NAMES) + 1), torch.float32)
 
 
-@pytest.mark.parametrize("kind", fk.FETCH_ORDERS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("b", [0, 1, 31, 129, 256, 1000])
-def test_fetch_order_is_a_permutation(kind, b):
-    """The order the wrapper passes is None (camera order) or a
-    permutation of range(B) in int64 on the rays' device, for ragged
-    bundles too."""
+def test_launch_order_is_a_permutation(dtype, b):
+    """The order the formula renderer launches a bundle in is None (as
+    given) for float32 and for fewer than two rays, else a permutation of
+    range(B) in int64 on the rays' device, for ragged bundles too."""
     gen = np.random.default_rng(b)
-    positions = torch.from_numpy(gen.normal(size=(b, 4)))
-    order = fk.fetch_order(kind, positions, 16)
-    if kind == "camera":
+    positions = torch.from_numpy(gen.normal(size=(b, 4))).to(dtype)
+    order = pipeline.formula_launch_order(positions)
+    if dtype == torch.float32 or b < 2:
         assert order is None
         return
     assert order.dtype == torch.int64 and order.shape == (b,)
+    assert order.device == positions.device
     assert torch.equal(torch.sort(order).values, torch.arange(b))
-    fk._check_order(order, positions)
 
 
-def test_tile_order_walks_8x4_tiles():
-    """8 x 4 pixel tiles of a 16-pixel-wide image, row-major within a tile;
-    a ragged last row keeps its pixels."""
-    order = fk.tile_order(16 * 5 + 3, 16)
-    assert order[:8].tolist() == list(range(8))
-    assert order[8:16].tolist() == list(range(16, 24))
-    assert order[32:40].tolist() == list(range(8, 16))
-    assert sorted(order[-11:].tolist()) == list(range(72, 83))
-
-
-def test_check_order_rejects_what_the_kernel_cannot_take():
-    positions = torch.zeros(5, 4)
-    for bad in (torch.arange(4), torch.arange(5, dtype=torch.int32),
-                torch.arange(10)[::2], torch.tensor([0, 0, 1, 2, 3]),
-                torch.tensor([0, 1, 2, 3, 5]), torch.tensor([-1, 0, 1, 2, 3])):
-        with pytest.raises(ValueError):
-            fk._check_order(bad, positions)
-    with pytest.raises(ValueError):
-        fk.fetch_order("rows", positions, 4)
+@pytest.mark.parametrize("integrator", ["rk4", "rk2"])
+def test_renderer_returns_the_callers_order(tmp_path, integrator):
+    """A float64 bundle launched in spatial_order comes back in the
+    caller's order: the renderer's outputs equal render_formula's on the
+    rays as given, bit for bit (each ray's arithmetic is its own)."""
+    inp = _input(tmp_path / "f.input", tmp_path / "f.npz",
+                 ray_integrator=integrator)
+    cfg = read_config(str(inp))
+    render_fn, geom, rays, freqs, mass_msun = pipeline.make_formula_renderer(
+        cfg, device="cpu")
+    assert rays.positions.dtype == torch.float64
+    order = pipeline.formula_launch_order(rays.positions)
+    assert not torch.equal(order, torch.arange(order.numel()))
+    out = render_fn(rays.positions, rays.directions, rays.momentum_factors)
+    fp = formula_model.formula_params_from_config(cfg)
+    ref = fk.render_formula(
+        rays.positions, rays.directions, rays.momentum_factors,
+        freqs.tolist(), render_fn.geodesic_params, fp, mass_msun,
+        geom.cam_x.tolist(), formula_model.formula_log_j_scale(fp),
+        fallback_nan=cfg.require("fallback_nan"), integrator=integrator)
+    for got, want in zip((out["I_nu"], out["_flags"], out["_n_samples"]),
+                         ref):
+        assert got.dtype == want.dtype
+        assert np.array_equal(got.numpy(), want.numpy(), equal_nan=True)
 
 
 @pytest.mark.parametrize("b", [0, 1, 31, 129, 128 * 528 + 1, 1024 * 1024])
@@ -142,7 +147,7 @@ def test_persistent_grid_never_exceeds_what_the_bundle_needs(b, resident):
 
 @pytest.mark.parametrize("integrator,frequencies", [("rk4", 1), ("rk2", 3)])
 def test_formula_path_matches_jax_at_16(tmp_path, integrator, frequencies):
-    """pipeline.run on the CPU (which passes no fetch order there) writes
+    """pipeline.run on the CPU (float64 bundles in spatial_order) writes
     the JAX run's npz at 16^2, float64, rtol 1e-8: one frequency in rk4,
     three in rk2."""
     lines = dict(ray_integrator=integrator)
