@@ -24,7 +24,8 @@ bool sizes_ok(int cap, long long n_rays, int n_warps) {
 // returns the cudaError_t of the launch. dtype_code: 0 float32, 1 float64;
 // integrator: 0 dp, 1 rk4, 2 rk2. Rays, frequencies and coordinates are
 // in the working type; table is (n_k, n_j, n_i, 8) float32; coords holds
-// x1f, x1v, x2f, x2v, x3f, x3v.
+// x1f, x1v, x2f, x2v, x3f, x3v; guides and axes (a host array) are the
+// axes' guides as blacklight_simulation_launch takes them.
 //
 // Trace: n_rays rays; samples receives ceil(n_rays / 32) warps of `cap`
 // slots (cap >= ray_max_steps) of POL_SAMPLE_VALUES values x 32 lanes;
@@ -58,8 +59,9 @@ extern "C" int blacklight_polarized_derive(
     int dtype_code, int geometry, const void* samples, int cap, const void* n_samples,
     const void* offsets, int n_warps, long long n_slots, long long n_rays,
     const void* directions, const void* momentum_factors, const void* freqs, int nf,
-    const void* params, const void* table, const void* coords, int n_i, int n_j, int n_k,
-    void* geometry_records, void* coefficient_records, void* bad, void* stream) {
+    const void* params, const void* table, const void* coords, const void* guides,
+    const void* axes, int n_i, int n_j, int n_k, void* geometry_records,
+    void* coefficient_records, void* bad, void* stream) {
   if (n_slots <= 0) return 0;
   if (!sizes_ok(cap, n_rays, n_warps) || nf < 1 || nf > bl::POL_MAX_FREQUENCIES || n_i < 2 ||
       n_j < 2 || n_k < 2) {
@@ -76,6 +78,8 @@ extern "C" int blacklight_polarized_derive(
                             static_cast<const double*>(params),
                             static_cast<const float*>(table),
                             coords,
+                            static_cast<const int*>(guides),
+                            static_cast<const double*>(axes),
                             n_i,
                             n_j,
                             n_k,

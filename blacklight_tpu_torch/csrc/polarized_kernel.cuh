@@ -876,7 +876,7 @@ __global__ void __launch_bounds__(POL_THREADS)
   RayState<T> s;
   init_ray_state(tc, positions + 4 * ray, directions + 4 * ray, s);
   long long k = 0;
-  auto on_sample = [&](const T(&ym)[7], T k1, T k2, T k3, T hs) {
+  auto on_sample = [&](const T(&ym)[7], T k1, T k2, T k3, T hs, const KsRadius<T>&) {
     T* __restrict__ o = out + k * (POL_SAMPLE_VALUES * POL_WARP);
     o[0 * POL_WARP] = ym[1];
     o[1 * POL_WARP] = ym[2];
@@ -1016,7 +1016,8 @@ __global__ void __launch_bounds__(POL_THREADS, DeriveBlocks<T>::value)
   const bool off_grid = is_off_grid(grid, pt);
   T v[8];
   if (keep_geo && !off_grid) {
-    sample_cell(grid, pt, v);
+    int hint[3] = {-1, -1, -1};  // one sample a thread: no previous cell
+    sample_cell(grid, pt, v, hint);
   } else {
 #pragma unroll
     for (int q = 0; q < 8; ++q) v[q] = T(0);
@@ -1239,6 +1240,8 @@ struct PolDeriveArgs {
   const double* params;
   const float* table;
   const void* coords;
+  const int* guides;
+  const double* axes;
   int n_i, n_j, n_k;
   void* geometry_records;
   void* coefficient_records;
@@ -1268,7 +1271,7 @@ cudaError_t launch_polarized_trace(const PolTraceArgs& a) {
 
 template <typename T>
 cudaError_t launch_polarized_derive(const PolDeriveArgs& a) {
-  const GridView<T> grid = make_grid_view<T>(a.table, a.coords, a.n_i, a.n_j, a.n_k);
+  const GridView<T> grid = make_grid_view<T>(a.table, a.coords, a.guides, a.axes, a.n_i, a.n_j, a.n_k);
   const long long threads = a.n_slots * POL_WARP;
   const unsigned blocks = static_cast<unsigned>((threads + POL_THREADS - 1) / POL_THREADS);
   auto kernel = a.geometry ? polarized_derive_kernel<T, true> : polarized_derive_kernel<T, false>;

@@ -53,7 +53,15 @@ struct TypeForms<double> {
   static __device__ __forceinline__ double coupling_recip_guard() { return 0.0; }
 };
 
-// Constants of one launch, each rounded once to T.
+// Tag of SimConsts' constructor from launch constants the host already
+// rounded to T (ops/simulation_kernel.py launch_consts).
+struct RoundedConsts {};
+
+// Constants of one launch, each rounded once to T: from the float64
+// parameter vector in device memory (the polarized kernels), or from the
+// simulation kernels' launch constants, which the compiler then reads as
+// constant-bank operands where they are used. A value cut that is off is
+// -inf (a minimum) or +inf (a maximum), which no value fails.
 template <typename T>
 struct SimConsts {
   CutConsts<T> cuts;
@@ -63,9 +71,33 @@ struct SimConsts {
   T one_plus_ne_ni, ne_ni, gamma_m1, gamma_i_m1, ne_ni_over_gamma_e_m1, me_c2;
   T thermal_frac, e_charge, nu_c_div, two_ninths, var_a, var_b, h_planck, nu0,
       kirchhoff;
-  const double* value_cuts;  // S_RHO_MIN..S_BETA_INV_MAX as float64
+  T value_lo[7], value_hi[7];  // S_RHO_MIN..S_BETA_INV_MAX
 
+  // The float64 vector: a value cut is on where its value is >= 0.0 (the
+  // JAX package's test of the Python float).
   __device__ explicit SimConsts(const double* p) : cuts(p + S_CUT_NEAR) {
+    set(p);
+#pragma unroll
+    for (int q = 0; q < 7; ++q) {
+      const double lo = p[S_RHO_MIN + 2 * q], hi = p[S_RHO_MIN + 2 * q + 1];
+      value_lo[q] = lo >= 0.0 ? T(lo) : T(-INFINITY);
+      value_hi[q] = hi >= 0.0 ? T(hi) : T(INFINITY);
+    }
+  }
+
+  // Launch constants rounded to T, the cuts that are off already +-inf.
+  __device__ SimConsts(const T* p, RoundedConsts) : cuts(p + S_CUT_NEAR) {
+    set(p);
+#pragma unroll
+    for (int q = 0; q < 7; ++q) {
+      value_lo[q] = p[S_RHO_MIN + 2 * q];
+      value_hi[q] = p[S_RHO_MIN + 2 * q + 1];
+    }
+  }
+
+ private:
+  template <typename S>
+  __device__ void set(const S* p) {
     spin = T(p[S_SPIN]);
     a2 = T(p[S_A2]);
     two_spin = T(p[S_TWO_SPIN]);
@@ -99,43 +131,88 @@ struct SimConsts {
     h_planck = T(p[S_H_PLANCK]);
     nu0 = T(p[S_NU0]);
     kirchhoff = T(p[S_KIRCHHOFF]);
-    value_cuts = p + S_RHO_MIN;
   }
+};
+
+// One axis of the snapshot: its n + 1 faces (non-decreasing, checked on
+// the host) and n centres in device memory, and the guide that starts the
+// cell search near its answer: `bins` uniform bins over [lo, hi] = [xf[0],
+// xf[n]], bin b holding the count of faces below its lower edge
+// (ops/simulation_kernel.py guide_tables). lo, hi and scale = bins / (hi -
+// lo) are kernel parameters, read from the constant bank.
+template <typename T>
+struct GridAxis {
+  const T* __restrict__ xf;
+  const T* __restrict__ xv;
+  const int* __restrict__ guide;
+  T lo, hi, scale;
+  int n, bins;
 };
 
 // The kernels' view of the snapshot: a (n_k, n_j, n_i, 8) float32 table
 // (rho, pgas, uu1..3, bb1..3 of a cell side by side, two 16-byte loads) and
-// the face and centre coordinates of each axis in T.
+// the r, theta and phi axes (i, j, k) in T.
 template <typename T>
 struct GridView {
   const float4* __restrict__ table;
-  const T* __restrict__ x1f;
-  const T* __restrict__ x1v;
-  const T* __restrict__ x2f;
-  const T* __restrict__ x2v;
-  const T* __restrict__ x3f;
-  const T* __restrict__ x3v;
-  int n_i, n_j, n_k;
+  GridAxis<T> ax[3];
 };
 
-// The view of a (n_k, n_j, n_i, 8) float32 table and the concatenated
-// coordinates x1f, x1v, x2f, x2v, x3f, x3v.
+// The values of one axis in a grid launch's host array `axes` (4 doubles
+// an axis: lo, hi, scale, bins; GUIDE_AXIS_VALUES of guide_tables).
+constexpr int GUIDE_AXIS_VALUES = 4;
+
+// The view of a (n_k, n_j, n_i, 8) float32 table, the concatenated
+// coordinates x1f, x1v, x2f, x2v, x3f, x3v, the concatenated guides of the
+// three axes and their host array `axes`.
 template <typename T>
-GridView<T> make_grid_view(const float* table, const void* coords_, int n_i, int n_j,
-                           int n_k) {
+GridView<T> make_grid_view(const float* table, const void* coords_, const int* guides,
+                           const double* axes, int n_i, int n_j, int n_k) {
   const T* coords = static_cast<const T*>(coords_);
   GridView<T> grid;
   grid.table = reinterpret_cast<const float4*>(table);
-  grid.x1f = coords;
-  grid.x1v = grid.x1f + n_i + 1;
-  grid.x2f = grid.x1v + n_i;
-  grid.x2v = grid.x2f + n_j + 1;
-  grid.x3f = grid.x2v + n_j;
-  grid.x3v = grid.x3f + n_k + 1;
-  grid.n_i = n_i;
-  grid.n_j = n_j;
-  grid.n_k = n_k;
+  const int n[3] = {n_i, n_j, n_k};
+  for (int a = 0; a < 3; ++a) {
+    GridAxis<T>& ax = grid.ax[a];
+    const double* v = axes + GUIDE_AXIS_VALUES * a;
+    ax.xf = coords;
+    ax.xv = coords + n[a] + 1;
+    ax.guide = guides;
+    ax.lo = T(v[0]);
+    ax.hi = T(v[1]);
+    ax.scale = T(v[2]);
+    ax.n = n[a];
+    ax.bins = static_cast<int>(v[3]);
+    coords += 2 * n[a] + 1;
+    guides += ax.bins;
+  }
   return grid;
+}
+
+// The count of faces below x, which is what a binary search over the faces
+// gives (x NaN: 0): walked up or down face by face from `hint` (the count
+// at the ray's previous sample), or, with no hint (-1), from the count
+// below x's guide bin; the result becomes the hint. Faces are
+// non-decreasing, so `xf[q] < x` holds for a prefix of them and the walk
+// ends at its end from any start: the start only decides how far it
+// walks.
+template <typename T>
+__device__ __forceinline__ int faces_below(const GridAxis<T>& a, T x, int& hint) {
+  int q = hint;
+  if (q < 0) {
+    const T t = (x - a.lo) * a.scale;
+    const int bin = t > T(0) ? (t < T(a.bins - 1) ? static_cast<int>(t) : a.bins - 1) : 0;
+    q = __ldg(a.guide + bin);
+  }
+  if (q <= a.n && __ldg(a.xf + q) < x) {
+    do {
+      ++q;
+    } while (q <= a.n && __ldg(a.xf + q) < x);
+  } else {
+    while (q > 0 && !(__ldg(a.xf + q - 1) < x)) --q;
+  }
+  hint = q;
+  return q;
 }
 
 // Cell location along one axis (grid/sampling.py _locate :54-87): i is the
@@ -143,24 +220,16 @@ GridView<T> make_grid_view(const float* table, const void* coords_, int n_i, int
 // backs off by one when x lies before the centre of cell i (except at the
 // block edges), and the fraction f may leave [0, 1] near the edges.
 template <typename T>
-__device__ __forceinline__ void locate(const T* __restrict__ xf, const T* __restrict__ xv,
-                                       int n, T x, int& i_m, T& f) {
-  int lo = 0, hi = n + 1;  // faces are non-decreasing (checked on the host)
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(xf + mid) < x) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  const int i = min(max(lo - 1, 0), n - 1);
-  const T xv_i = __ldg(xv + i);
+__device__ __forceinline__ void locate(const GridAxis<T>& a, T x, int& i_m, T& f,
+                                       int& hint) {
+  const int n = a.n;
+  const int i = min(max(faces_below(a, x, hint) - 1, 0), n - 1);
+  const T xv_i = __ldg(a.xv + i);
   const bool use_i = (i == 0) || (i != n - 1 && x >= xv_i);
   i_m = use_i ? i : i - 1;
   // n >= 2, so cell i + 1 exists when use_i and cell i - 1 when not
-  const T x_lo = use_i ? xv_i : __ldg(xv + i - 1);
-  const T x_hi = use_i ? __ldg(xv + i + 1) : xv_i;
+  const T x_lo = use_i ? xv_i : __ldg(a.xv + i - 1);
+  const T x_hi = use_i ? __ldg(a.xv + i + 1) : xv_i;
   f = (x - x_lo) / (x_hi - x_lo);
 }
 
@@ -184,15 +253,18 @@ struct SksPoint {
   T x, y, z, r2, r, th, ph_raw, ph;
 };
 
+// The point of radius q (kerr.cuh ks_radius_parts: the step hands over the
+// parts it computed at the sample point, the same expression on the same
+// values as here).
 template <typename T>
-__device__ __forceinline__ SksPoint<T> cks_to_sks(const SimConsts<T>& c, T x, T y, T z) {
+__device__ __forceinline__ SksPoint<T> cks_to_sks(const SimConsts<T>& c, T x, T y, T z,
+                                                  const KsRadius<T>& q) {
   SksPoint<T> p;
   p.x = x;
   p.y = y;
   p.z = z;
-  const T rr2 = x * x + y * y + z * z;
-  p.r2 = T(0.5) * (rr2 - c.a2 + m_hypot(rr2 - c.a2, c.two_spin * z));
-  p.r = m_sqrt(p.r2);
+  p.r2 = q.r2;
+  p.r = q.r;
   p.th = m_acos(jmin(jmax(z / p.r, T(-1)), T(1)));
   p.ph_raw = m_atan2(y, x) - m_atan((T(1) / p.r) * c.spin);
   T ph = p.ph_raw < T(0) ? p.ph_raw + T(TWO_PI) : p.ph_raw;
@@ -201,25 +273,34 @@ __device__ __forceinline__ SksPoint<T> cks_to_sks(const SimConsts<T>& c, T x, T 
 }
 
 template <typename T>
+__device__ __forceinline__ SksPoint<T> cks_to_sks(const SimConsts<T>& c, T x, T y, T z) {
+  KsRadius<T> q;
+  q.rr2 = x * x + y * y + z * z;
+  q.r2 = T(0.5) * (q.rr2 - c.a2 + m_hypot(q.rr2 - c.a2, c.two_spin * z));
+  q.r = m_sqrt(q.r2);
+  return cks_to_sks(c, x, y, z, q);
+}
+
+template <typename T>
 __device__ __forceinline__ bool is_off_grid(const GridView<T>& grid, const SksPoint<T>& p) {
-  return p.r < __ldg(grid.x1f) || p.r > __ldg(grid.x1f + grid.n_i) ||
-         p.th < __ldg(grid.x2f) || p.th > __ldg(grid.x2f + grid.n_j) ||
-         p.ph < __ldg(grid.x3f) || p.ph > __ldg(grid.x3f + grid.n_k);
+  return p.r < grid.ax[0].lo || p.r > grid.ax[0].hi || p.th < grid.ax[1].lo ||
+         p.th > grid.ax[1].hi || p.ph < grid.ax[2].lo || p.ph > grid.ax[2].hi;
 }
 
 // Trilinear blend of the 8 corner cells (grid/sampling.py :284-371), the
 // positivity repair of rho and pgas against the anchor cell (:225-226) and
 // the reference's float32 storage of samples (:189); v in table order
-// (rho, pgas, uu1..3, bb1..3). For a point on the grid.
+// (rho, pgas, uu1..3, bb1..3). For a point on the grid; hint: each axis'
+// face count at the ray's previous sample (-1: none), updated.
 template <typename T>
 __device__ __forceinline__ void sample_cell(const GridView<T>& grid, const SksPoint<T>& p,
-                                            T (&v)[8]) {
-  const int n_i = grid.n_i, n_j = grid.n_j, n_k = grid.n_k;
+                                            T (&v)[8], int (&hint)[3]) {
+  const int n_i = grid.ax[0].n, n_j = grid.ax[1].n, n_k = grid.ax[2].n;
   int i_m, j_m, k_m;
   T f_i, f_j, f_k;
-  locate(grid.x1f, grid.x1v, n_i, p.r, i_m, f_i);
-  locate(grid.x2f, grid.x2v, n_j, p.th, j_m, f_j);
-  locate(grid.x3f, grid.x3v, n_k, p.ph, k_m, f_k);
+  locate(grid.ax[0], p.r, i_m, f_i, hint[0]);
+  locate(grid.ax[1], p.th, j_m, f_j, hint[1]);
+  locate(grid.ax[2], p.ph, k_m, f_k, hint[2]);
   i_m = min(max(i_m, 0), n_i - 2);
   j_m = min(max(j_m, 0), n_j - 2);
   k_m = min(max(k_m, 0), n_k - 2);
@@ -343,17 +424,16 @@ __device__ __forceinline__ void fluid_state(const SimConsts<T>& c, const SksPoin
   s.bph = bph;
 }
 
-// Value cuts (models/synchrotron.py value_cuts); the on/off test is on the
-// float64 value, as the JAX package tests the Python float.
+// Value cuts (models/synchrotron.py value_cuts); a cut that is off is
+// +-inf in SimConsts, which no value fails (NaN fails none either).
 template <typename T>
 __device__ __forceinline__ bool value_keep(const SimConsts<T>& c, const FluidState<T>& s) {
   const T cut_values[7] = {s.rho_cgs, s.n_e_cgs, s.pgas_cgs, s.theta_e,
                            s.bb_cgs,  s.sigma,   s.beta_inv};
 #pragma unroll
   for (int q = 0; q < 7; ++q) {
-    const double lo = c.value_cuts[2 * q], hi = c.value_cuts[2 * q + 1];
-    if (lo >= 0.0 && cut_values[q] < T(lo)) return false;
-    if (hi >= 0.0 && cut_values[q] > T(hi)) return false;
+    if (cut_values[q] < c.value_lo[q]) return false;
+    if (cut_values[q] > c.value_hi[q]) return false;
   }
   return true;
 }

@@ -22,50 +22,68 @@ cudaError_t launch_simulation_rk(int integrator, const SimLaunchArgs& a) {
 
 }  // namespace bl
 
+namespace {
+
+// The instantiation a launch takes, by its type and integrator (and a.nf).
+cudaError_t dispatch(int dtype_code, int integrator, const bl::SimLaunchArgs& a) {
+  if (a.nf < 1 || a.nf > bl::MAX_FREQUENCIES) return cudaErrorInvalidValue;
+  if (integrator == bl::INTEGRATOR_DP) return bl::launch_simulation_dp(dtype_code, a);
+  if (dtype_code == 0) return bl::launch_simulation_rk<float>(integrator, a);
+  if (dtype_code == 1) return bl::launch_simulation_rk<double>(integrator, a);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
 // Plain C interface, bound with ctypes by ops/simulation_kernel.py.
 // dtype_code: 0 float32, 1 float64. integrator: 0 dp, 1 rk4, 2 rk2.
-// freqs holds the nf frequencies, then the nf image scales, in the rays'
-// type; table is (n_k, n_j, n_i, 8) float32; coords holds x1f, x1v, x2f,
-// x2v, x3f, x3v in the rays' type. Launches on `stream`, does not
+// nf: 1..MAX_FREQUENCIES frequencies. consts: a host pointer to the launch
+// constants (SimLaunchConsts of the instantiation's frequency bucket, 1 or
+// MAX_FREQUENCIES, consts_bytes long), copied into the kernel parameter.
+// table is (n_k, n_j, n_i, 8) float32; coords holds x1f, x1v, x2f, x2v,
+// x3f, x3v in the rays' type; guides the three axes' guides (int32) and
+// axes, a host array, their lo, hi, scale and bins (4 doubles an axis).
+// i_nu receives (n_rays, nf) values. Launches on `stream`, does not
 // synchronize, allocates nothing; returns the cudaError_t of the launch.
 extern "C" int blacklight_simulation_launch(
-    int dtype_code, int integrator, const void* positions, const void* directions,
-    const void* momentum_factors, const void* freqs, int nf, const void* params,
-    const void* table, const void* coords, int n_i, int n_j, int n_k, void* i_nu,
-    void* flags, void* n_samples, long long n_rays, void* stream) {
+    int dtype_code, int integrator, int nf, const void* positions, const void* directions,
+    const void* momentum_factors, const void* consts, long long consts_bytes, const void* table,
+    const void* coords, const void* guides, const void* axes, int n_i, int n_j, int n_k,
+    void* i_nu, void* flags, void* n_samples, long long n_rays, void* stream) {
   if (n_rays <= 0) return 0;
-  if (nf < 1 || nf > bl::MAX_FREQUENCIES || n_i < 2 || n_j < 2 || n_k < 2) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (n_i < 2 || n_j < 2 || n_k < 2) return static_cast<int>(cudaErrorInvalidValue);
   const bl::SimLaunchArgs a{positions,
                             directions,
                             momentum_factors,
-                            freqs,
+                            consts,
+                            consts_bytes,
                             nf,
-                            static_cast<const double*>(params),
-                            static_cast<const float*>(table),
-                            coords,
-                            n_i,
-                            n_j,
-                            n_k,
+                            {static_cast<const float*>(table), coords,
+                             static_cast<const int*>(guides), static_cast<const double*>(axes),
+                             n_i, n_j, n_k},
                             i_nu,
                             static_cast<int*>(flags),
                             static_cast<int*>(n_samples),
                             n_rays,
                             static_cast<cudaStream_t>(stream)};
-  cudaError_t err;
-  if (integrator == bl::INTEGRATOR_DP) {
-    err = bl::launch_simulation_dp(dtype_code, a);
-  } else if (dtype_code == 0) {
-    err = bl::launch_simulation_rk<float>(integrator, a);
-  } else if (dtype_code == 1) {
-    err = bl::launch_simulation_rk<double>(integrator, a);
-  } else {
-    err = cudaErrorInvalidValue;
+  return static_cast<int>(dispatch(dtype_code, integrator, a));
+}
+
+// sizeof(SimLaunchConsts) of a frequency bucket (1 or MAX_FREQUENCIES) in
+// float (dtype_code 0) or double (1); -1 otherwise.
+extern "C" long long blacklight_simulation_consts_bytes(int dtype_code, int bucket) {
+  if (bucket == 1) {
+    if (dtype_code == 0) return sizeof(bl::SimLaunchConsts<float, 1>);
+    if (dtype_code == 1) return sizeof(bl::SimLaunchConsts<double, 1>);
+  } else if (bucket == bl::MAX_FREQUENCIES) {
+    if (dtype_code == 0) return sizeof(bl::SimLaunchConsts<float, bl::MAX_FREQUENCIES>);
+    if (dtype_code == 1) return sizeof(bl::SimLaunchConsts<double, bl::MAX_FREQUENCIES>);
   }
-  return static_cast<int>(err);
+  return -1;
 }
 
 extern "C" int blacklight_simulation_param_count() { return bl::S_COUNT; }
 
 extern "C" int blacklight_simulation_max_frequencies() { return bl::MAX_FREQUENCIES; }
+
+extern "C" int blacklight_simulation_guide_axis_values() { return bl::GUIDE_AXIS_VALUES; }

@@ -1,6 +1,6 @@
 // Fused simulation-model ray tracer for NVIDIA Hopper (sm_90a): geodesic
 // step, GRMHD grid sampling, thermal synchrotron coefficients and
-// unpolarized transfer for one ray per thread.
+// unpolarized transfer for one ray per thread at a time.
 //
 // Replaces the TPU kernel blacklight_tpu/ops/pallas_simulation.py
 // _make_kernel (:795, launched by render_simulation :1400; K2.1 rk4/rk2,
@@ -14,28 +14,49 @@
 // render_simulation_reference; this file writes its operation forms
 // (a scalar numerator s / t as (1 / t) * s, as PyTorch evaluates it).
 //
-// The step loop is trace.cuh's trace_ray. At each stored sample the
+// The step loop is trace.cuh's trace_steps. At each stored sample the
 // SimSample functor converts CKS to SKS with the native atan2/acos, applies
-// the geometric cuts, locates the cell on each axis by binary search over
-// the face coordinates (the count of faces below the coordinate, which the
-// JAX package takes by comparison count), blends the 8 corner cells'
-// primitives from a float32 table in global memory read through the
-// read-only cache, builds the fluid state, the pitch angle and j/alpha per
-// frequency (sim_sample.cuh, shared with the polarized kernel), and updates
-// the per-frequency intensity and optical depth.
-// A sample whose coefficients are zero (cut, off the grid, zero field)
-// leaves intensity and optical depth unchanged, so those return early;
-// an off-grid sample only marks its pixel bad under fallback_nan.
+// the geometric cuts, locates the cell on each axis (the count of faces
+// below the coordinate, which the JAX package takes by comparison count),
+// blends the 8 corner cells' primitives from a float32 table in global
+// memory read through the read-only cache, builds the fluid state, the
+// pitch angle and j/alpha per frequency (sim_sample.cuh, shared with the
+// polarized kernel), and updates the per-frequency intensity and optical
+// depth. A sample whose coefficients are zero (cut, off the grid, zero
+// field) leaves intensity and optical depth unchanged, so those return
+// early; an off-grid sample only marks its pixel bad under fallback_nan.
 //
-// What bounds it on this card: ALU work and latency of the geodesic step
-// (the same as the formula kernel) plus the sample's transcendentals, and
-// the grid reads. A sample reads 8 cells x 32 bytes = 256 bytes; a
-// 1024^2 image of ~1,000 samples per ray reads ~270 GB through the caches,
-// but neighbouring rays read neighbouring cells, so L1/L2 absorb most of
-// it. No brick, window or overflow latch: those exist in the TPU kernel
-// only because of Mosaic's DMA and VMEM rules, and no ray is re-rendered on
-// the host. Later work may stage cells in shared memory or order rays by
-// image tile.
+// What bounds it on this card: issuing the geodesic step's instructions
+// (the formula kernel's step) and the sample's transcendentals, and their
+// latency at the occupancy the registers allow. A sample reads 8 cells x
+// 32 bytes; neighbouring rays read neighbouring cells, so L1/L2 absorb most
+// of it. What the design does about it:
+// - Launch constants in the constant bank. Every geodesic, cut, fluid,
+//   thermal and camera constant, the value cuts (off as -inf / +inf) and
+//   the launch's frequencies and image scales arrive rounded to T by the
+//   host (SimLaunchConsts, packed by ops/simulation_kernel.py
+//   launch_consts) as a kernel parameter passed by value, like the grid's
+//   view and its axes' bounds; arithmetic reads them as constant-bank
+//   operands, so none holds a register across the step loop and the float
+//   kernel converts no float64 value at a sample.
+// - The sample's radius from the step: step_ray hands over the parts of
+//   r at the sample point, which cks_to_sks would compute again.
+// - A cell search that starts near the answer: from the previous sample's
+//   face counts, carried in registers (a ray moves about a cell a step),
+//   or at a ray's first sample from a guide per axis (uniform bins holding
+//   the count of faces below each bin), a walk of a face or two, in place
+//   of a binary search of ~9 dependent loads an axis.
+// - More warps per SM: SimBlocks blocks of SIM_THREADS per SM
+//   (__launch_bounds__), chosen per instantiation on an H100 (PERF.md).
+// One thread traces one ray, a block the 128 consecutive rays of the
+// caller's order (spatial_order: neighbours, whose samples share cells in
+// L1). Warps that fetch the next 32 rays from a counter when done, on a
+// grid of resident blocks, ended the blocks' tails but scattered a
+// block's warps over the launch order: slower in spatial_order in float32
+// and in float64 (PERF.md), so the grid is every block.
+// No brick, window or overflow latch: those exist in the TPU kernel only
+// because of Mosaic's DMA and VMEM rules, and no ray is re-rendered on the
+// host.
 //
 // The instantiations live in three translation units that nvcc builds side
 // by side, all without multiply-add contraction (ops/_build.py), so that
@@ -46,6 +67,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <cstring>
 
 #include "sim_sample.cuh"
 
@@ -60,21 +83,44 @@ constexpr int SIM_THREADS = 128;
 constexpr int MAX_FREQUENCIES = 16;  // the bad-sample mask is 32 bits
 constexpr double SIM_DELTA_TAU_MAX = 100.0;  // unpolarized.cpp:96-110
 
+// The launch constants, rounded once to T on the host: the SimulationParam
+// values (a value cut that is off as -inf, a minimum, or +inf, a maximum),
+// then the launch's frequencies and their image scales (zero beyond its
+// nf). Passed by value as a kernel parameter, they live in the constant
+// bank.
+template <typename T, int NF>
+struct SimLaunchConsts {
+  T v[S_COUNT];
+  T nu[NF];
+  T scale[NF];
+};
+
+// At least SimBlocks blocks of SIM_THREADS per SM (__launch_bounds__), per
+// instantiation: the float kernels trade registers, and spills that the L1
+// cache holds, for warps that hide the latency of their arithmetic
+// (PERF.md: k = 4 to 8 timed in turns at 1024^2 on an H100; rk4 and rk2 at
+// one and at 16 frequencies gain up to k = 8, 64 registers, dp is fastest
+// at k = 6, 80 registers, and slower beyond as its spills grow). The
+// double kernels take what they need, ~200-235 registers.
+template <typename T, int INTEGRATOR, int NF>
+constexpr int SimBlocks = sizeof(T) != 4 ? 1 : INTEGRATOR == INTEGRATOR_DP ? 6 : 8;
+
 // Accumulators of one ray and what happens at each of its stored samples.
 template <typename T, int NF>
 struct SimSample {
   const SimConsts<T>& c;
   const GridView<T>& grid;
-  const T* __restrict__ freqs;  // nus[0..nf), then the image scales
+  const T (&nu)[NF];  // the launch's frequencies
   int nf;
   T p0, mom;
   T intensity[NF];
   T tau[NF];
   unsigned bad;  // bit f: frequency f met a sample the reference would NaN
+  int hint[3];   // the face counts of the ray's previous sample (-1: none)
 
-  __device__ SimSample(const SimConsts<T>& c_, const GridView<T>& grid_,
-                       const T* __restrict__ freqs_, int nf_, T p0_, T mom_)
-      : c(c_), grid(grid_), freqs(freqs_), nf(nf_), p0(p0_), mom(mom_), bad(0u) {
+  __device__ SimSample(const SimConsts<T>& c_, const GridView<T>& grid_, const T (&nu_)[NF],
+                       int nf_, T p0_, T mom_)
+      : c(c_), grid(grid_), nu(nu_), nf(nf_), p0(p0_), mom(mom_), bad(0u), hint{-1, -1, -1} {
 #pragma unroll
     for (int f = 0; f < NF; ++f) {
       intensity[f] = T(0);
@@ -84,9 +130,10 @@ struct SimSample {
 
   __device__ __forceinline__ int n_freq() const { return NF == 1 ? 1 : nf; }
 
-  __device__ __forceinline__ void operator()(const T (&ym)[7], T k1, T k2, T k3, T h) {
+  __device__ __forceinline__ void operator()(const T (&ym)[7], T k1, T k2, T k3, T h,
+                                             const KsRadius<T>& q) {
     using Forms = TypeForms<T>;
-    const SksPoint<T> p = cks_to_sks(c, ym[1], ym[2], ym[3]);
+    const SksPoint<T> p = cks_to_sks(c, ym[1], ym[2], ym[3], q);
     if (!geometric_keep(c.cuts, p.x, p.y, p.z, p.r, c.camera_r, c.cam1, c.cam2, c.cam3)) return;
     if (is_off_grid(grid, p)) {
       // fallback values with zero field: zero coefficients, and NaN pixels
@@ -95,7 +142,7 @@ struct SimSample {
       return;
     }
     T v[8];
-    sample_cell(grid, p, v);
+    sample_cell(grid, p, v, hint);
     if (v[5] == T(0) && v[6] == T(0) && v[7] == T(0)) return;  // zero field
     FluidState<T> st;
     fluid_state(c, p, v, st);
@@ -113,8 +160,8 @@ struct SimSample {
     const T dl_lam = (-h) * c.x_unit;
 #pragma unroll 1
     for (int f = 0; f < n_freq(); ++f) {
-      const T nu = __ldg(freqs + f);
-      const T nu_cgs = -u_dot_k * nu * mom;
+      const T nu_f = nu[f];
+      const T nu_cgs = -u_dot_k * nu_f * mom;
       const ThermalI<T> ti = thermal_i(c, nu_cgs, st.n_e_cgs, nu_c, nu_s, sin_b, st.kb_tt_e);
       T j = ti.j, alpha = ti.alpha;
       if (!(m_isfinite(j) && m_isfinite(alpha))) {
@@ -123,7 +170,7 @@ struct SimSample {
         alpha = T(0);
       }
 
-      const T dl_cgs = dl_lam / (nu * mom);
+      const T dl_cgs = dl_lam / (nu_f * mom);
       const bool pos_alpha = alpha > T(0);
       const T ss = j / (pos_alpha ? alpha : T(1));
       const T delta_tau = alpha * dl_cgs;
@@ -136,47 +183,70 @@ struct SimSample {
   }
 };
 
+// i_nu: (n_rays, nf) row-major.
 template <typename T, int INTEGRATOR, int NF>
-__global__ void __launch_bounds__(SIM_THREADS)
+__global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR, NF>)
     simulation_kernel(const T* __restrict__ positions, const T* __restrict__ directions,
-                      const T* __restrict__ momentum_factors, const T* __restrict__ freqs,
-                      int nf, const double* __restrict__ params, GridView<T> grid,
-                      T* __restrict__ i_nu, int* __restrict__ flags_out,
-                      int* __restrict__ n_samples_out, long long n_rays) {
+                      const T* __restrict__ momentum_factors,
+                      const __grid_constant__ SimLaunchConsts<T, NF> consts, int nf,
+                      const __grid_constant__ GridView<T> grid, T* __restrict__ i_nu,
+                      int* __restrict__ flags_out, int* __restrict__ n_samples_out,
+                      long long n_rays) {
   const long long ray = static_cast<long long>(blockIdx.x) * SIM_THREADS + threadIdx.x;
   if (ray >= n_rays) return;
-  const TraceConsts<T> tc(params);
-  const SimConsts<T> sc(params);
+  const TraceConsts<T> tc(consts.v);
+  const SimConsts<T> sc(consts.v, RoundedConsts{});
 
   RayState<T> s;
   init_ray_state(tc, positions + 4 * ray, directions + 4 * ray, s);
   const T p0 = directions[4 * ray + 0];
-
-  SimSample<T, NF> sample(sc, grid, freqs, nf, p0, momentum_factors[ray]);
-  bool flag;
-  int n_samp;
-  trace_ray<T, INTEGRATOR>(tc, s, p0, sample, flag, n_samp);
+  SimSample<T, NF> sample(sc, grid, consts.nu, nf, p0, momentum_factors[ray]);
+  trace_steps<T, INTEGRATOR>(tc, s, p0, 0, tc.max_steps, sample);
 
 #pragma unroll 1
   for (int f = 0; f < sample.n_freq(); ++f) {
-    const bool poison = ((sample.bad >> f) & 1u) || (tc.fallback_nan && flag);
-    i_nu[ray * nf + f] = poison ? T(NAN) : sample.intensity[f] * __ldg(freqs + nf + f);
+    const bool poison = ((sample.bad >> f) & 1u) || (tc.fallback_nan && s.flag);
+    i_nu[ray * nf + f] = poison ? T(NAN) : sample.intensity[f] * consts.scale[f];
   }
-  flags_out[ray] = flag ? 1 : 0;
-  n_samples_out[ray] = n_samp;
+  flags_out[ray] = s.flag ? 1 : 0;
+  n_samples_out[ray] = s.n_samp;
+}
+
+// The snapshot as the C interface receives it: the (n_k, n_j, n_i, 8)
+// float32 table, the coordinates in the rays' type, the guides (int32)
+// and the host array of their axes (make_grid_view).
+struct SimGridArgs {
+  const float* table;
+  const void* coords;
+  const int* guides;
+  const double* axes;
+  int n_i, n_j, n_k;
+
+  template <typename T>
+  GridView<T> view() const {
+    return make_grid_view<T>(table, coords, guides, axes, n_i, n_j, n_k);
+  }
+};
+
+// The launch constants of an instantiation from the host's copy (bytes
+// long); false if the size is not the struct's.
+template <typename T, int NF>
+bool copy_consts(const void* host, long long bytes, SimLaunchConsts<T, NF>& consts) {
+  if (bytes != static_cast<long long>(sizeof(consts))) return false;
+  memcpy(&consts, host, sizeof(consts));
+  return true;
 }
 
 // Pointers and sizes of one launch, as the C interface receives them.
+// consts: the host's SimLaunchConsts (consts_bytes long).
 struct SimLaunchArgs {
   const void* positions;
   const void* directions;
   const void* momentum_factors;
-  const void* freqs;
+  const void* consts;
+  long long consts_bytes;
   int nf;
-  const double* params;
-  const float* table;
-  const void* coords;
-  int n_i, n_j, n_k;
+  SimGridArgs grid;
   void* i_nu;
   int* flags;
   int* n_samples;
@@ -186,12 +256,13 @@ struct SimLaunchArgs {
 
 template <typename T, int INTEGRATOR, int NF>
 cudaError_t launch_simulation(const SimLaunchArgs& a) {
-  const GridView<T> grid = make_grid_view<T>(a.table, a.coords, a.n_i, a.n_j, a.n_k);
+  SimLaunchConsts<T, NF> consts;
+  if (!copy_consts(a.consts, a.consts_bytes, consts)) return cudaErrorInvalidValue;
   const unsigned blocks = static_cast<unsigned>((a.n_rays + SIM_THREADS - 1) / SIM_THREADS);
   simulation_kernel<T, INTEGRATOR, NF><<<blocks, SIM_THREADS, 0, a.stream>>>(
       static_cast<const T*>(a.positions), static_cast<const T*>(a.directions),
-      static_cast<const T*>(a.momentum_factors), static_cast<const T*>(a.freqs), a.nf,
-      a.params, grid, static_cast<T*>(a.i_nu), a.flags, a.n_samples, a.n_rays);
+      static_cast<const T*>(a.momentum_factors), consts, a.nf, a.grid.view<T>(),
+      static_cast<T*>(a.i_nu), a.flags, a.n_samples, a.n_rays);
   return cudaGetLastError();
 }
 
@@ -248,27 +319,21 @@ struct SimCarryView {
   long long n_rays;
 };
 
-// At least PHASE_MIN_BLOCKS blocks per SM: the float kernel then keeps the
-// monolithic kernel's 128 registers (16 warps per SM) where the compiler
-// would take 168 (12 warps), so that the two differ in how they are
-// dispatched, not in occupancy (PERF.md). The double kernels use ~255
-// registers either way.
-template <typename T>
-constexpr int PHASE_MIN_BLOCKS = sizeof(T) == 4 ? 4 : 1;
-
+// The phase kernel takes the monolithic kernel's SimBlocks, so that the
+// two differ in how they are dispatched, not in occupancy.
 template <typename T, int INTEGRATOR, int NF>
-__global__ void __launch_bounds__(SIM_THREADS, PHASE_MIN_BLOCKS<T>)
+__global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR, NF>)
     simulation_phase_kernel(const int* __restrict__ index, long long n_live, int n_base,
                             int phase_steps, bool write_state, const T* __restrict__ directions,
-                            const T* __restrict__ momentum_factors, const T* __restrict__ freqs,
-                            int nf, const double* __restrict__ params, GridView<T> grid,
-                            SimCarryView<T> carry) {
+                            const T* __restrict__ momentum_factors,
+                            const __grid_constant__ SimLaunchConsts<T, NF> consts, int nf,
+                            const __grid_constant__ GridView<T> grid, SimCarryView<T> carry) {
   const long long slot = static_cast<long long>(blockIdx.x) * SIM_THREADS + threadIdx.x;
   if (slot >= n_live) return;
   const long long ray = index[slot];
   const long long n = carry.n_rays;
-  const TraceConsts<T> tc(params);
-  const SimConsts<T> sc(params);
+  const TraceConsts<T> tc(consts.v);
+  const SimConsts<T> sc(consts.v, RoundedConsts{});
 
   RayState<T> s;
 #pragma unroll
@@ -284,7 +349,8 @@ __global__ void __launch_bounds__(SIM_THREADS, PHASE_MIN_BLOCKS<T>)
   s.prev_fail = false;
   const T p0 = directions[4 * ray + 0];
 
-  SimSample<T, NF> sample(sc, grid, freqs, nf, p0, momentum_factors[ray]);
+  // the face counts are not carried: a phase starts its search afresh
+  SimSample<T, NF> sample(sc, grid, consts.nu, nf, p0, momentum_factors[ray]);
 #pragma unroll 1
   for (int f = 0; f < sample.n_freq(); ++f) {
     sample.intensity[f] = carry.intensity[f * n + ray];
@@ -308,7 +374,8 @@ __global__ void __launch_bounds__(SIM_THREADS, PHASE_MIN_BLOCKS<T>)
                      (s.flag ? CARRY_FLAG : 0);
 }
 
-// Pointers and sizes of one phase launch, as the C interface receives them.
+// Pointers and sizes of one phase launch, as the C interface receives
+// them.
 struct SimPhaseArgs {
   const int* index;
   long long n_live;
@@ -316,12 +383,10 @@ struct SimPhaseArgs {
   bool write_state;
   const void* directions;
   const void* momentum_factors;
-  const void* freqs;
+  const void* consts;
+  long long consts_bytes;
   int nf;
-  const double* params;
-  const float* table;
-  const void* coords;
-  int n_i, n_j, n_k;
+  SimGridArgs grid;
   void* y;
   void* r_mid_prev;
   int* n_samp;
@@ -335,7 +400,8 @@ struct SimPhaseArgs {
 
 template <typename T, int INTEGRATOR, int NF>
 cudaError_t launch_simulation_phase(const SimPhaseArgs& a) {
-  const GridView<T> grid = make_grid_view<T>(a.table, a.coords, a.n_i, a.n_j, a.n_k);
+  SimLaunchConsts<T, NF> consts;
+  if (!copy_consts(a.consts, a.consts_bytes, consts)) return cudaErrorInvalidValue;
   const SimCarryView<T> carry{static_cast<T*>(a.y),         static_cast<T*>(a.r_mid_prev),
                               a.n_samp,                      a.masks,
                               static_cast<T*>(a.intensity), static_cast<T*>(a.tau),
@@ -343,8 +409,8 @@ cudaError_t launch_simulation_phase(const SimPhaseArgs& a) {
   const unsigned blocks = static_cast<unsigned>((a.n_live + SIM_THREADS - 1) / SIM_THREADS);
   simulation_phase_kernel<T, INTEGRATOR, NF><<<blocks, SIM_THREADS, 0, a.stream>>>(
       a.index, a.n_live, a.n_base, a.phase_steps, a.write_state,
-      static_cast<const T*>(a.directions), static_cast<const T*>(a.momentum_factors),
-      static_cast<const T*>(a.freqs), a.nf, a.params, grid, carry);
+      static_cast<const T*>(a.directions), static_cast<const T*>(a.momentum_factors), consts,
+      a.nf, a.grid.view<T>(), carry);
   return cudaGetLastError();
 }
 

@@ -29,28 +29,42 @@ cudaError_t launch_simulation_phase_rk(int integrator, const SimPhaseArgs& a) {
 
 }  // namespace bl
 
+namespace {
+
+// The instantiation a phase launch takes, by its type and integrator (and
+// a.nf).
+cudaError_t dispatch_phase(int dtype_code, int integrator, const bl::SimPhaseArgs& a) {
+  if (a.nf < 1 || a.nf > bl::MAX_FREQUENCIES) return cudaErrorInvalidValue;
+  if (dtype_code == 0) return bl::launch_simulation_phase_rk<float>(integrator, a);
+  if (dtype_code == 1) return bl::launch_simulation_phase_rk<double>(integrator, a);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
 // Plain C interface, bound with ctypes by ops/simulation_kernel.py.
 // dtype_code: 0 float32, 1 float64. integrator: 1 rk4, 2 rk2 (dp is
 // refused). index holds n_live int32 ray indices below n_rays; directions
-// (n_rays, 4) and momentum_factors (n_rays,) are the bundle's; freqs holds
-// the nf frequencies; table and coords as blacklight_simulation_launch.
-// The carried state: y (7, n_rays), r_mid_prev, n_samp (int32), masks
-// (int32) and bad (int32), each (n_rays,), and intensity and tau (nf,
-// n_rays), in the rays' type where not named. Runs the steps [n_base, n_base + phase_steps) of every listed ray
-// and writes its transfer sums and bad bits back; with write_state also its
-// RayState (a launch for a further block of frequencies of the same phase
-// passes 0, so that every block starts from the same state). Launches on
-// `stream`, does not synchronize, allocates nothing; returns the cudaError_t
-// of the launch.
+// (n_rays, 4) and momentum_factors (n_rays,) are the bundle's; consts and
+// the snapshot (table, coords, guides, axes) as
+// blacklight_simulation_launch's. The carried state: y (7,
+// n_rays), r_mid_prev, n_samp (int32), masks (int32) and bad (int32), each
+// (n_rays,), and intensity and tau (nf, n_rays), in the rays' type where
+// not named. Runs the steps [n_base, n_base + phase_steps) of every listed
+// ray and writes its transfer sums and bad bits back; with write_state
+// also its RayState (a launch for a further block of frequencies of the
+// same phase passes 0, so that every block starts from the same state).
+// Launches on `stream`, does not synchronize, allocates nothing; returns
+// the cudaError_t of the launch.
 extern "C" int blacklight_simulation_phase_launch(
-    int dtype_code, int integrator, const void* index, long long n_live, int n_base,
+    int dtype_code, int integrator, int nf, const void* index, long long n_live, int n_base,
     int phase_steps, int write_state, const void* directions, const void* momentum_factors,
-    const void* freqs, int nf, const void* params, const void* table, const void* coords,
-    int n_i, int n_j, int n_k, void* y, void* r_mid_prev, void* n_samp, void* masks,
-    void* intensity, void* tau, void* bad, long long n_rays, void* stream) {
+    const void* consts, long long consts_bytes, const void* table, const void* coords,
+    const void* guides, const void* axes, int n_i, int n_j, int n_k, void* y, void* r_mid_prev,
+    void* n_samp, void* masks, void* intensity, void* tau, void* bad, long long n_rays,
+    void* stream) {
   if (n_live <= 0) return 0;
-  if (nf < 1 || nf > bl::MAX_FREQUENCIES || n_i < 2 || n_j < 2 || n_k < 2 ||
-      phase_steps < 1 || n_live > n_rays) {
+  if (n_i < 2 || n_j < 2 || n_k < 2 || phase_steps < 1 || n_live > n_rays) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bl::SimPhaseArgs a{static_cast<const int*>(index),
@@ -60,14 +74,12 @@ extern "C" int blacklight_simulation_phase_launch(
                            write_state != 0,
                            directions,
                            momentum_factors,
-                           freqs,
+                           consts,
+                           consts_bytes,
                            nf,
-                           static_cast<const double*>(params),
-                           static_cast<const float*>(table),
-                           coords,
-                           n_i,
-                           n_j,
-                           n_k,
+                           {static_cast<const float*>(table), coords,
+                            static_cast<const int*>(guides), static_cast<const double*>(axes),
+                            n_i, n_j, n_k},
                            y,
                            r_mid_prev,
                            static_cast<int*>(n_samp),
@@ -77,13 +89,5 @@ extern "C" int blacklight_simulation_phase_launch(
                            static_cast<int*>(bad),
                            n_rays,
                            static_cast<cudaStream_t>(stream)};
-  cudaError_t err;
-  if (dtype_code == 0) {
-    err = bl::launch_simulation_phase_rk<float>(integrator, a);
-  } else if (dtype_code == 1) {
-    err = bl::launch_simulation_phase_rk<double>(integrator, a);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch_phase(dtype_code, integrator, a));
 }

@@ -236,11 +236,13 @@ __device__ __forceinline__ bool end_step(const TraceConsts<T>& tc, RayState<T>& 
 // Advance a live ray by step index n (< max_steps). Returns whether the step
 // stored a sample that counts, and then sets ym (the sample position
 // x^0..x^3), k1..k3 (its null-renormalized covariant spatial momentum; k_0
-// = p0) and hs (the signed affine step). A ray that terminates, or runs
-// out of dp retries, leaves s.alive false and its y as it was.
+// = p0), hs (the signed affine step) and qm (the radius parts at ym, which
+// the sample's coordinates reuse). A ray that terminates, or runs out of
+// dp retries, leaves s.alive false and its y as it was.
 template <typename T, int INTEGRATOR>
 __device__ __forceinline__ bool step_ray(const TraceConsts<T>& tc, RayState<T>& s, T p0, int n,
-                                         T (&ym)[7], T& k1, T& k2, T& k3, T& hs) {
+                                         T (&ym)[7], T& k1, T& k2, T& k3, T& hs,
+                                         KsRadius<T>& qm) {
   const KerrConsts<T>& g = tc.g;
   T(&y)[7] = s.y;
   const T r = ks_radius(y[1], y[2], y[3], g);
@@ -262,15 +264,15 @@ __device__ __forceinline__ bool step_ray(const TraceConsts<T>& tc, RayState<T>& 
   // accepted endpoint and stored sample, null-renormalized
   const T fac = renormalize_factor(ye[1], ye[2], ye[3], p0, ye[4], ye[5], ye[6], g);
   const T r_new = ks_radius(ye[1], ye[2], ye[3], g);
-  const T facm = renormalize_factor(ym[1], ym[2], ym[3], p0, ym[4], ym[5], ym[6], g);
-  const T r_mid = ks_radius(ym[1], ym[2], ym[3], g);
-  return end_step(tc, s, n, accept, retry_exceeded, r, r_new, r_mid, fac, facm, ye, ym, k1,
+  qm = ks_radius_parts(ym[1], ym[2], ym[3], g);
+  const T facm = renormalize_factor_at(ym[1], ym[2], ym[3], qm, p0, ym[4], ym[5], ym[6], g);
+  return end_step(tc, s, n, accept, retry_exceeded, r, r_new, qm.r, fac, facm, ye, ym, k1,
                   k2, k3);
 }
 
 // Advance one ray by the steps n in [n_begin, min(n_end, max_steps)) while
-// it is alive, and call on_sample(ym, k1, k2, k3, h) at every stored sample
-// that counts, in step order (step_ray): one phase of phased dispatch
+// it is alive, and call on_sample(ym, k1, k2, k3, h, qm) at every stored
+// sample that counts, in step order (step_ray): one phase of phased dispatch
 // (simulation_kernel.cuh simulation_phase_kernel), or with [0, max_steps)
 // the whole trace. Its plain twin is ops/geodesic.py trace_steps.
 template <typename T, int INTEGRATOR, typename OnSample>
@@ -279,8 +281,9 @@ __device__ __forceinline__ void trace_steps(const TraceConsts<T>& tc, RayState<T
   const int n_stop = n_end < tc.max_steps ? n_end : tc.max_steps;
   for (int n = n_begin; n < n_stop && s.alive; ++n) {
     T ym[7], k1, k2, k3, hs;
-    if (step_ray<T, INTEGRATOR>(tc, s, p0, n, ym, k1, k2, k3, hs)) {
-      on_sample(ym, k1, k2, k3, hs);
+    KsRadius<T> qm;
+    if (step_ray<T, INTEGRATOR>(tc, s, p0, n, ym, k1, k2, k3, hs, qm)) {
+      on_sample(ym, k1, k2, k3, hs, qm);
     }
   }
 }

@@ -360,7 +360,7 @@ class _CudaStages:
         self.prm = torch.tensor(kernel_params(
             params, sp, float(frequencies[0]), mass_msun, camera_x,
             rotation_split), dtype=torch.float64, device=self.device)
-        self.table, self.coords = sk.kernel_tables(grid, self.dtype)
+        self.grid = sk.kernel_grid(grid, self.dtype)
         self.events = events
 
     def _launch(self, stage, fn, *args):
@@ -415,14 +415,12 @@ class _CudaStages:
         if not piece.n_slots:  # no stored sample: nothing to launch
             return geometry, coefficients, bits
         freqs = self.frequencies[f0:f1].contiguous()
-        n_k, n_j, n_i = self.table.shape[:3]
         self._launch("derive", self.lib.blacklight_polarized_derive,
                      self.dtype_code, int(first), *self._set(piece),
                      piece.n_slots, piece.r1 - piece.r0,
                      self._ray_ptr(1, piece.r0, 4),
                      self._ray_ptr(2, piece.r0, 1), freqs.data_ptr(), nf,
-                     self.prm.data_ptr(), self.table.data_ptr(),
-                     self.coords.data_ptr(), n_i, n_j, n_k,
+                     self.prm.data_ptr(), *self.grid.args(),
                      geometry.data_ptr(), coefficients.data_ptr(),
                      bits.data_ptr())
         return geometry, coefficients, bits
@@ -450,7 +448,7 @@ def _library() -> ctypes.CDLL:
     signatures = {
         "trace": [i32, i32, ptr, ptr, ptr, ptr, i32, ptr, ptr, i64, ptr],
         "derive": [i32, i32, *sample_set, i64, i64, ptr, ptr, ptr, i32, ptr,
-                   ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr],
+                   ptr, ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr],
         "chain": [i32, *sample_set, i64, ptr, ptr, ptr, i32, ptr, ptr, ptr],
     }
     for name, argtypes in signatures.items():

@@ -22,6 +22,11 @@ function a phase of steps at a time from a carried state
 ``render_simulation_phase_reference``, and drops finished rays between
 phases. ``spatial_order`` and ``angular_order`` are the JAX module's ray
 orderings (:440, :474), on the rays' device.
+
+A launch hands the kernel its constants by value (``launch_consts``: the
+parameter vector, the frequencies and the image scales rounded once to
+the rays' type on the host) and the snapshot's tables with a guide per
+axis, where each ray's cell search starts (``kernel_grid``).
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ from blacklight_tpu_torch.ops.formula_kernel import (
     DELTA_TAU_MAX,
     INTEGRATORS,
     _DTYPE_CODES,
+    _NUMPY_DTYPES,
     _check_rays,
 )
 
@@ -67,6 +73,13 @@ MAX_FREQUENCIES = 16
 # Kernel launches so far; render_simulation adds one per launch of the CUDA
 # kernel and nowhere else.
 LAUNCHES = 0
+
+# Most bins of an axis' guide (csrc/sim_sample.cuh GridAxis): 64 KB of
+# int32 an axis at most.
+GUIDE_MAX_BINS = 1 << 14
+# Values of an axis in guide_tables' axes array (GUIDE_AXIS_VALUES of
+# csrc/sim_sample.cuh): lo, hi, scale, bins.
+GUIDE_AXIS_VALUES = 4
 
 # Index order of the kernel's float64 parameter vector: the enum in
 # csrc/simulation_params.cuh with its "S_" prefix dropped. The geodesic
@@ -177,6 +190,124 @@ def kernel_tables(grid: SimulationGrid, dtype):
     return table.contiguous(), coords.contiguous()
 
 
+def axis_guide(faces):
+    """The guide of one axis (csrc/sim_sample.cuh GridAxis) from its n + 1
+    non-decreasing faces in the kernel's type (numpy): (guide (bins,)
+    int32, lo, hi, scale, bins). The bins are uniform over [lo, hi] =
+    [faces[0], faces[n]], as many as the span holds of the smallest
+    positive gap between faces (at most GUIDE_MAX_BINS, at least 1); bin
+    b holds the count of faces below its lower edge lo + b / scale. The
+    card walks from there to the exact count, so these only decide how
+    far it walks."""
+    xf = np.asarray(faces, dtype=np.float64)
+    lo, hi = float(xf[0]), float(xf[-1])
+    span = hi - lo
+    gaps = np.diff(xf)
+    gaps = gaps[gaps > 0.0]
+    bins = 1
+    if gaps.size and np.isfinite(span) and span > 0.0:
+        bins = int(min(GUIDE_MAX_BINS, math.ceil(span / gaps.min())))
+    scale = bins / span if bins > 1 else 0.0
+    edges = lo + np.arange(bins) / scale if bins > 1 else np.array([lo])
+    guide = np.searchsorted(xf, edges, side="left").astype(np.int32)
+    return guide, lo, hi, scale, bins
+
+
+def guide_tables(coords, n_i: int, n_j: int, n_k: int):
+    """The three axes' guides from ``coords`` as kernel_tables makes them
+    (numpy, the kernel's type): (guides, the r, theta and phi guides
+    concatenated, int32; axes (3 * GUIDE_AXIS_VALUES,) float64, lo, hi,
+    scale and bins of each axis)."""
+    coords = np.asarray(coords)
+    guides, axes, at = [], [], 0
+    for n in (n_i, n_j, n_k):
+        guide, *values = axis_guide(coords[at:at + n + 1])
+        guides.append(guide)
+        axes += values
+        at += 2 * n + 1
+    return np.concatenate(guides), np.asarray(axes, dtype=np.float64)
+
+
+class KernelGrid(NamedTuple):
+    """The snapshot as a kernel launch takes it: kernel_tables' table and
+    coords and guide_tables' guides on the grid's device, and the axes
+    array on the host."""
+
+    table: torch.Tensor
+    coords: torch.Tensor
+    guides: torch.Tensor
+    axes: np.ndarray
+
+    def args(self) -> tuple:
+        """The C interfaces' table, coords, guides, axes, n_i, n_j, n_k."""
+        n_k, n_j, n_i = self.table.shape[:3]
+        return (self.table.data_ptr(), self.coords.data_ptr(),
+                self.guides.data_ptr(), self.axes.ctypes.data, n_i, n_j, n_k)
+
+
+def kernel_grid(grid: SimulationGrid, dtype) -> KernelGrid:
+    """kernel_tables and guide_tables of ``grid`` for a launch in
+    ``dtype`` (the guides are built on the host from the coordinates read
+    back once)."""
+    table, coords = kernel_tables(grid, dtype)
+    n_k, n_j, n_i = table.shape[:3]
+    guides, axes = guide_tables(coords.cpu().numpy(), n_i, n_j, n_k)
+    return KernelGrid(table, coords,
+                      torch.from_numpy(guides).to(table.device), axes)
+
+
+def frequency_bucket(nf: int) -> int:
+    """The compile-time frequency bucket of a launch of nf frequencies
+    (csrc/simulation_kernel.cuh NF): 1, or MAX_FREQUENCIES."""
+    if not 1 <= nf <= MAX_FREQUENCIES:
+        raise ValueError(f"a launch takes 1..{MAX_FREQUENCIES} frequencies")
+    return 1 if nf == 1 else MAX_FREQUENCIES
+
+
+def launch_consts(values, nus, scales, dtype: torch.dtype) -> np.ndarray:
+    """The kernels' launch constants (SimLaunchConsts) as the host packs
+    them: ``values`` (kernel_params) rounded once to the rays' dtype, each
+    value cut that is off (a negative value, the same float64 test the
+    JAX package makes) as -inf for a minimum and +inf for a maximum, then
+    the launch's frequencies ``nus`` and image ``scales`` (already in the
+    rays' dtype), each padded with zeros to the launch's frequency
+    bucket. numpy rounds float64 to float32 to nearest, as the card's
+    conversion does."""
+    if len(values) != len(PARAM_NAMES) or len(nus) != len(scales):
+        raise ValueError("launch_consts takes PARAM_NAMES values and one "
+                         "image scale per frequency")
+    bucket = frequency_bucket(len(nus))
+    v = np.asarray(values, dtype=np.float64).copy()
+    for name in VALUE_CUT_NAMES:
+        for end, off in (("MIN", -math.inf), ("MAX", math.inf)):
+            at = PARAM_NAMES.index(f"{name}_{end}")
+            if not v[at] >= 0.0:
+                v[at] = off
+    out = np.zeros(len(PARAM_NAMES) + 2 * bucket, dtype=_NUMPY_DTYPES[dtype])
+    out[:len(PARAM_NAMES)] = v
+    out[len(PARAM_NAMES):len(PARAM_NAMES) + len(nus)] = np.asarray(nus)
+    out[len(PARAM_NAMES) + bucket:len(PARAM_NAMES) + bucket + len(scales)] = \
+        np.asarray(scales)
+    return out
+
+
+def host_consts_sizes() -> dict:
+    """The bytes launch_consts packs per (dtype, frequency bucket)."""
+    values = [0.0] * len(PARAM_NAMES)
+    return {(dtype, bucket): launch_consts(values, [1.0] * bucket,
+                                           [1.0] * bucket, dtype).nbytes
+            for dtype in _DTYPE_CODES for bucket in (1, MAX_FREQUENCIES)}
+
+
+def consts_sizes(lib) -> dict:
+    """sizeof(SimLaunchConsts) per (dtype, frequency bucket), from the C
+    side."""
+    return {(dtype, bucket): lib.blacklight_simulation_consts_bytes(code,
+                                                                    bucket)
+            for dtype, code in _DTYPE_CODES.items()
+            for bucket in (1, MAX_FREQUENCIES)}
+
+
 def render_simulation(positions, directions, momentum_factors, frequencies,
                       params: geo.GeodesicParams, sp: SimKernelParams,
                       grid: SimulationGrid, mass_msun: float, camera_x,
@@ -240,38 +371,40 @@ def _render_cuda(positions, directions, momentum_factors, frequencies,
                  integrator):
     """One launch per MAX_FREQUENCIES frequencies; every launch traces the
     same rays, so the flags and sample counts of the first stand. The
-    temporaries (parameters, tables, frequencies) may be freed before the
-    kernel ends: the caching allocator hands their memory only to work
-    queued after it on the same stream."""
+    frequencies and their image scales, formed on the card in the rays'
+    dtype, are read back once into the launch constants. The temporaries
+    (tables, guides) may be freed before the kernel ends: the caching
+    allocator hands their memory only to work queued after it on the same
+    stream."""
     global LAUNCHES
     lib = _library()
     device = positions.device
     b, nf = positions.shape[0], frequencies.shape[0]
-    prm = torch.tensor(kernel_params(params, sp, float(frequencies[0]),
-                                     mass_msun, camera_x),
-                       dtype=torch.float64, device=device)
-    table, coords = kernel_tables(grid, positions.dtype)
-    n_k, n_j, n_i = table.shape[:3]
-    scales = image_scale(frequencies, log_j_scale)
     i_nu = torch.empty((b, nf), dtype=positions.dtype, device=device)
     flags = torch.empty(b, dtype=torch.int32, device=device)
     n_samples = torch.empty(b, dtype=torch.int32, device=device)
     if not b:
         return i_nu, flags.bool(), n_samples
+    values = kernel_params(params, sp, float(frequencies[0]), mass_msun,
+                           camera_x)
+    kgrid = kernel_grid(grid, positions.dtype)
+    nus = frequencies.cpu().numpy()
+    scales = image_scale(frequencies, log_j_scale).cpu().numpy()
+    code, integ = _DTYPE_CODES[positions.dtype], INTEGRATORS.index(integrator)
     for start in range(0, nf, MAX_FREQUENCIES):
         stop = min(start + MAX_FREQUENCIES, nf)
-        freqs = torch.cat([frequencies[start:stop], scales[start:stop]])
+        consts = launch_consts(values, nus[start:stop], scales[start:stop],
+                               positions.dtype)
         out = i_nu if stop - start == nf else torch.empty(
             (b, stop - start), dtype=positions.dtype, device=device)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             rc = lib.blacklight_simulation_launch(
-                _DTYPE_CODES[positions.dtype], INTEGRATORS.index(integrator),
-                positions.data_ptr(), directions.data_ptr(),
-                momentum_factors.data_ptr(), freqs.data_ptr(), stop - start,
-                prm.data_ptr(), table.data_ptr(), coords.data_ptr(), n_i,
-                n_j, n_k, out.data_ptr(), flags.data_ptr(),
-                n_samples.data_ptr(), b, stream)
+                code, integ, stop - start, positions.data_ptr(),
+                directions.data_ptr(), momentum_factors.data_ptr(),
+                consts.ctypes.data, consts.nbytes, *kgrid.args(),
+                out.data_ptr(), flags.data_ptr(), n_samples.data_ptr(), b,
+                stream)
         if rc != 0:
             msg = lib.blacklight_cuda_error_string(rc).decode()
             raise RuntimeError(f"simulation kernel launch failed: {msg} "
@@ -287,23 +420,31 @@ def _library() -> ctypes.CDLL:
     """The built library with the C interface of csrc/simulation_kernel.cu
     declared: every pointer and the stream as c_void_p."""
     lib = _build.load_library()
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.blacklight_simulation_launch.argtypes = [
-        i32, i32, ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr, i32, i32, i32,
-        ptr, ptr, ptr, ctypes.c_longlong, ptr]
-    lib.blacklight_simulation_launch.restype = ctypes.c_int
-    lib.blacklight_simulation_param_count.argtypes = []
-    lib.blacklight_simulation_param_count.restype = ctypes.c_int
-    lib.blacklight_simulation_max_frequencies.argtypes = []
-    lib.blacklight_simulation_max_frequencies.restype = ctypes.c_int
-    lib.blacklight_cuda_error_string.argtypes = [ctypes.c_int]
+        i32, i32, i32, ptr, ptr, ptr, ptr, i64, ptr, ptr, ptr, ptr, i32, i32,
+        i32, ptr, ptr, ptr, i64, ptr]
+    lib.blacklight_simulation_launch.restype = i32
+    lib.blacklight_simulation_consts_bytes.argtypes = [i32, i32]
+    lib.blacklight_simulation_consts_bytes.restype = i64
+    for name in ("blacklight_simulation_param_count",
+                 "blacklight_simulation_max_frequencies",
+                 "blacklight_simulation_guide_axis_values"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i32
+    lib.blacklight_cuda_error_string.argtypes = [i32]
     lib.blacklight_cuda_error_string.restype = ctypes.c_char_p
     if lib.blacklight_simulation_param_count() != len(PARAM_NAMES):
         raise RuntimeError("csrc/simulation_params.cuh and PARAM_NAMES "
                            "disagree")
-    if lib.blacklight_simulation_max_frequencies() != MAX_FREQUENCIES:
+    if (lib.blacklight_simulation_max_frequencies() != MAX_FREQUENCIES
+            or lib.blacklight_simulation_guide_axis_values()
+            != GUIDE_AXIS_VALUES):
         raise RuntimeError("csrc/simulation_kernel.cuh and MAX_FREQUENCIES "
-                           "disagree")
+                           "or GUIDE_AXIS_VALUES disagree")
+    if consts_sizes(lib) != host_consts_sizes():
+        raise RuntimeError("SimLaunchConsts and launch_consts disagree: "
+                           f"{consts_sizes(lib)} != {host_consts_sizes()}")
     return lib
 
 
@@ -490,6 +631,11 @@ def angular_order(positions, block: int = 1024):
 # of the CUDA phase kernel and nowhere else.
 PHASE_LAUNCHES = 0
 
+# Steps a phase of render_simulation_phased by default: at 1024^2 with 2000
+# steps, 1000 (2 launches) beat the JAX package's 512 (4 launches) in turns
+# on an H100 (PERF.md).
+PHASE_STEPS = 1000
+
 # Bits of SimCarry.masks (csrc/simulation_kernel.cuh CARRY_*).
 ALIVE, TRUNC, FLAG = 1, 2, 4
 
@@ -627,15 +773,17 @@ def _phase_runner(frequencies, params, sp, grid, mass_msun, camera_x,
     if device.type != "cuda":
         raise ValueError(f"no simulation kernel for device {device}")
     lib = _phase_library()
-    nf = frequencies.shape[0]
-    prm = torch.tensor(kernel_params(params, sp, float(frequencies[0]),
-                                     mass_msun, camera_x),
-                       dtype=torch.float64, device=device)
-    table, coords = kernel_tables(grid, frequencies.dtype)
-    n_k, n_j, n_i = table.shape[:3]
-    chunks = [(start, min(start + MAX_FREQUENCIES, nf),
-               frequencies[start:start + MAX_FREQUENCIES].contiguous())
-              for start in range(0, nf, MAX_FREQUENCIES)]
+    nf, dtype = frequencies.shape[0], frequencies.dtype
+    values = kernel_params(params, sp, float(frequencies[0]), mass_msun,
+                           camera_x)
+    kgrid = kernel_grid(grid, dtype)
+    nus = frequencies.cpu().numpy()
+    code, integ = _DTYPE_CODES[dtype], INTEGRATORS.index(integrator)
+    # the phase kernel writes no image: its scales are zero
+    chunks = [(start, min(start + MAX_FREQUENCIES, nf), launch_consts(
+        values, nus[start:start + MAX_FREQUENCIES],
+        np.zeros_like(nus[start:start + MAX_FREQUENCIES]), dtype))
+        for start in range(0, nf, MAX_FREQUENCIES)]
 
     def run(carry, index, n_base, phase_steps, directions, momentum_factors):
         """One launch per MAX_FREQUENCIES frequencies; only the last
@@ -645,16 +793,14 @@ def _phase_runner(frequencies, params, sp, grid, mass_msun, camera_x,
         b, n_live = carry.y.shape[1], index.shape[0]
         if not n_live:
             return
-        for chunk, (start, stop, freqs) in enumerate(chunks):
+        for chunk, (start, stop, consts) in enumerate(chunks):
             with torch.cuda.device(device):
                 stream = torch.cuda.current_stream(device).cuda_stream
                 rc = lib.blacklight_simulation_phase_launch(
-                    _DTYPE_CODES[carry.y.dtype],
-                    INTEGRATORS.index(integrator), index.data_ptr(), n_live,
+                    code, integ, stop - start, index.data_ptr(), n_live,
                     n_base, phase_steps, int(chunk == len(chunks) - 1),
                     directions.data_ptr(), momentum_factors.data_ptr(),
-                    freqs.data_ptr(), stop - start, prm.data_ptr(),
-                    table.data_ptr(), coords.data_ptr(), n_i, n_j, n_k,
+                    consts.ctypes.data, consts.nbytes, *kgrid.args(),
                     carry.y.data_ptr(), carry.r_mid_prev.data_ptr(),
                     carry.n_samp.data_ptr(), carry.masks.data_ptr(),
                     carry.intensity[start].data_ptr(),
@@ -675,9 +821,9 @@ def _phase_library() -> ctypes.CDLL:
     lib = _library()
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.blacklight_simulation_phase_launch.argtypes = [
-        i32, i32, ptr, i64, i32, i32, i32, ptr, ptr, ptr, i32, ptr, ptr, ptr,
-        i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr]
-    lib.blacklight_simulation_phase_launch.restype = ctypes.c_int
+        i32, i32, i32, ptr, i64, i32, i32, i32, ptr, ptr, ptr, i64, ptr, ptr,
+        ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr]
+    lib.blacklight_simulation_phase_launch.restype = i32
     return lib
 
 
@@ -744,7 +890,8 @@ def render_simulation_phased(positions, directions, momentum_factors,
                              frequencies, params: geo.GeodesicParams,
                              sp: SimKernelParams, grid: SimulationGrid,
                              mass_msun: float, camera_x, log_j_scale: float,
-                             integrator: str = "rk4", phase_steps: int = 512,
+                             integrator: str = "rk4",
+                             phase_steps: int = PHASE_STEPS,
                              block: int = 1024, stats=None):
     """Phased-dispatch render (``blacklight_tpu/ops/pallas_simulation.py``
     render_simulation_phased :1588): the step budget is split into phases

@@ -32,14 +32,15 @@ from blacklight_tpu_torch.ops import polarized_kernel, simulation_kernel
 
 # Phased dispatch of the unpolarized kernel
 # (ops/simulation_kernel.render_simulation_phased), with the JAX package's
-# names and values (blacklight_tpu/pipeline_simulation.py:52-67): the step
-# budget is split into phases of KERNEL_PHASE_STEPS and finished rays leave
-# the pool between phases. It is off, as in the JAX package: whether it
-# pays on an H100 is measured by chip_smoke.py (PERF.md). It takes rk4 and
-# rk2 bundles of at least KERNEL_PHASE_CHUNK rays whose step budget is
-# longer than a phase.
+# names (blacklight_tpu/pipeline_simulation.py:52-67): the step budget is
+# split into phases of KERNEL_PHASE_STEPS and finished rays leave the pool
+# between phases. It is off, as in the JAX package: on an H100 the
+# monolithic kernel in spatial_order beats it (PERF.md, chip_smoke.py phase
+# 13). Phases are the port's PHASE_STEPS long (the JAX package's are 512).
+# It takes rk4 and rk2 bundles of at least KERNEL_PHASE_CHUNK rays whose
+# step budget is longer than a phase.
 KERNEL_PHASED = False
-KERNEL_PHASE_STEPS = 512
+KERNEL_PHASE_STEPS = simulation_kernel.PHASE_STEPS
 KERNEL_PHASE_CHUNK = 65536
 # Rays per tile of spatial_order, the order every kernel bundle is launched
 # in (and of angular_order, the order of the survivors between phases).

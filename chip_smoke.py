@@ -13,10 +13,12 @@ and prints no final line):
    (nvidia-smi);
 2. build: compile csrc/*.cu with nvcc (one process per source, all at
    once), report registers, spills and the FP64 instructions of each
-   kernel instantiation, the static instruction mix of each formula
-   kernel's step loop and of its per-step path (scripts/sass_step_mix.py,
-   on the formula units built again with line tables) and the size of the
-   formula kernel's launch constants, held to the host's packing;
+   kernel instantiation (every formula, simulation and polarized one), the
+   static instruction mix of each formula and simulation kernel's step
+   loop, of its per-step path and of the sample's part of that path
+   (scripts/sass_step_mix.py, on those units built again with line
+   tables) and the size of the formula and simulation kernels' launch
+   constants, each held to the host's packing;
 3. checks, each kernel against its plain PyTorch version on identical
    rays, WORKERS processes at once on the one card (the plain versions
    are bound by the host's launches, so they overlap; their times here
@@ -27,7 +29,8 @@ and prints no final line):
    - simulation, 128^2 camera on golden_sim_rk4_32.input with
      mock_small.athdf: rk4 float64, rk2 float32, dp float32/float64;
      and the phase kernel of phased dispatch (K2.3) on its second phase
-     from the carried state of its first: rk4 float64, rk2 float32;
+     from the carried state of its first (CHECK_PHASE_STEPS each): rk4
+     float64, rk2 float32;
    - polarized, 64^2 camera on golden_polarized_rk4_32.input with
      mock_small.athdf (ray_step 0.04, 400 steps), camera-frame I, Q, U,
      V: rk4 float64, dp float32, rk2 float32 with image_rotation_split
@@ -47,9 +50,10 @@ and prints no final line):
    the tolerances of tests/test_formula_e2e.py;
 5. the formula main path at full width: golden_formula_32.input at
    1024^2, dp, float32 through pipeline.run, counting kernel launches;
-   then kernel times (rays/s) at 1024^2 in float32 and float64, the
-   float32 kernel held to phase 3's plain run on its subset, each in the
-   order the pipeline launches it (pipeline.formula_launch_order); each
+   then kernel times (rays/s) at 1024^2 in float32 and float64 (float64
+   beside its bound), the float32 kernel held to phase 3's plain run on
+   its subset, each in the order the pipeline launches it
+   (pipeline.formula_launch_order); each
    formula timing (phases 5, 10 and 11) also prints that order, the
    128-ray block efficiency of camera order and of that order, and the
    issue estimate of phase 2's per-step path over this run's ray-steps;
@@ -59,8 +63,12 @@ and prints no final line):
 7. the simulation main path at full width: a 288 x 128 x 128 (r, theta,
    phi) SKS snapshot (the grid of the EHT GRMHD image library), 1024^2
    camera, rk4, 2000 steps, float32 through pipeline.run, counting kernel
-   launches; then kernel times at 1024^2 in float32 rk4, float64 rk4 and
-   float32 dp, and the plain version's in float32 rk4;
+   launches; a torch.profiler trace of one warm run (device idle share,
+   kernel time by name); the time of the snapshot's kernel tables and
+   guides (kernel_tables, kernel_grid); then kernel times at 1024^2 in
+   float32 rk4, float64 rk4 and float32 dp, each beside its bound and the
+   issue estimate of phase 2's per-step path, and the plain version's in
+   float32 rk4;
 8. the 32^2 polarized goldens through pipeline.run(cfg, device="cuda"),
    reading the .athdf file, at the tolerances of
    tests/test_polarized_e2e.py;
@@ -92,8 +100,10 @@ and prints no final line):
 13. K2.3, phased dispatch, run right after phase 7 on its snapshot:
     phase 7's configuration through pipeline.run with
     pipeline_simulation.KERNEL_PHASED on, counting phase launches (at
-    most 4), whose image must be phase 7's bit for bit; the phase kernel
-    held to its plain version on the image's second phase at full width;
+    most 2000 / KERNEL_PHASE_STEPS), whose image must be phase 7's bit for
+    bit; the phase kernel held to its plain version on the second phase
+    of CHECK_PHASE_STEPS at full width; the phased route's bound (each
+    phase's);
     warp and block efficiencies of each ray order (camera order,
     spatial_order per tile size, each phase's launch order); best of 3 of
     the monolithic kernel in camera order and in spatial_order and of the
@@ -354,22 +364,25 @@ def _sass(lib_path):
 
 
 def _step_loops() -> dict:
-    """The instruction mixes of each formula kernel's step loop and its
-    per-step path (scripts/sass_step_mix.py, the formula units built with
-    line tables, all at once), by kernel label."""
+    """The instruction mixes of each formula and simulation kernel's step
+    loop, its per-step path and the sample's part of it
+    (scripts/sass_step_mix.py, those units built with line tables, all at
+    once), by kernel label."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "sass_step_mix", ROOT / "scripts" / "sass_step_mix.py")
     mix = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mix)
-    units = sorted(p.name for p in (ROOT / KERNEL_SOURCE).parent.glob(
-        "formula_kernel*.cu"))
-    per_ray = mix.per_ray_lines(ROOT)
+    csrc = (ROOT / KERNEL_SOURCE).parent
+    units = sorted(p.name for pattern in ("formula_kernel*.cu",
+                                          "simulation_*.cu")
+                   for p in csrc.glob(pattern))
+    per_ray, per_sample = mix.per_ray_lines(ROOT), mix.per_sample_lines(ROOT)
     with tempfile.TemporaryDirectory() as tmp:
         sass = mix.disassemble(ROOT, units, pathlib.Path(tmp))
-    return {_kernel_label(name): mix.loop_mixes(code, per_ray)
+    return {_kernel_label(name): mix.loop_mixes(code, per_ray, per_sample)
             for unit in sass.values() for name, code in unit.items()
-            if "formula_kernel" in name}
+            if "formula_kernel" in name or "simulation" in name}
 
 
 def _sass_fp64(sass) -> dict:
@@ -410,13 +423,20 @@ def phase_build():
     pk._library()
     sass = _sass(path)
     STEP_LOOPS.update(_step_loops())
+    ptxas = _ptxas_table(_build.ptxas_report())
     emit("build", seconds=build_s, library=path.name,
-         ptxas=_ptxas_table(_build.ptxas_report()), fp64_sass=_sass_fp64(sass),
+         ptxas=ptxas, fp64_sass=_sass_fp64(sass),
          formula_consts_bytes={f"{str(k[0])[6:]}, NF={k[1]}": v for k, v in
                                fk.consts_sizes(fk._library()).items()},
-         formula_step_loops=STEP_LOOPS)
+         simulation_consts_bytes={f"{str(k[0])[6:]}, NF={k[1]}": v for k, v
+                                  in sk.consts_sizes(sk._library()).items()},
+         simulation_registers={k: v for k, v in ptxas.items()
+                               if k.startswith("simulation")},
+         step_loops=STEP_LOOPS)
     if fk.consts_sizes(fk._library()) != fk.host_consts_sizes():
         raise RuntimeError("FormulaLaunchConsts and launch_consts disagree")
+    if sk.consts_sizes(sk._library()) != sk.host_consts_sizes():
+        raise RuntimeError("SimLaunchConsts and launch_consts disagree")
 
 
 def _config(name, **overrides):
@@ -748,6 +768,13 @@ def phase_full_width(tmp: pathlib.Path, card: str, subset) -> dict:
             args, kwargs, res, card,
             step_loop=f"formula_kernel<{tp}, dp, NF=1>", order=order,
             precision=precision, integrator="dp", camera_setup_s=t_setup)
+    f64 = timings["float64"]
+    f64_bound = bound("formula", "dp", "float64", res * res,
+                      f64["mean_n_samples"], in_bytes=0, out_values=1)
+    emit("timing_bound", card=card, precision="float64", integrator="dp",
+         kernel_ms=f64["kernel_ms"],
+         kernel_over_bound=f64["kernel_ms"] / f64_bound["bound_ms"],
+         issue_estimate_ms=f64["issue_estimate_ms"], **f64_bound)
     f32 = timings["float32"]
     return {"name": "formula_kernel", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
@@ -820,6 +847,7 @@ def time_kernel(phase, kernel, plain, args, kwargs, res, card,
                 "fetch_order": warp_efficiency(ns, np.arange(n), 128)})
         mixes = STEP_LOOPS.get(step_loop, {})
         out["step_loop"] = step_loop
+        out["sample_instructions"] = mixes.get("per_sample", {}).get("total")
         out["step_instructions"] = mixes.get("per_step", {}).get("total")
         out["loop_instructions"] = mixes.get("step_loop", {}).get("total")
         out["ray_steps"] = int(ns.astype("int64").sum())
@@ -827,8 +855,8 @@ def time_kernel(phase, kernel, plain, args, kwargs, res, card,
             else (out["step_instructions"] * out["ray_steps"]
                   / (N_SMS * ISSUE_LANES_PER_SM * SM_CLOCK_HZ["max"]) * 1e3)
         extra.update({k: out[k] for k in (
-            "step_loop", "step_instructions", "loop_instructions",
-            "ray_steps", "issue_estimate_ms")})
+            "step_loop", "step_instructions", "sample_instructions",
+            "loop_instructions", "ray_steps", "issue_estimate_ms")})
     emit(phase, resolution=res, card=card, **fields, kernel_s_runs=times,
          kernel_ms=out["kernel_ms"], plain_ms=out["plain_ms"],
          kernel_rays_per_s=n / t_kernel, max_abs_err=out["max_abs_err"],
@@ -902,19 +930,18 @@ def _second_phase(args, integrator, phase_steps):
 
 def check_simulation_phase(integrator, precision) -> tuple:
     """The phase kernel (K2.3) against its plain version, 128^2: the
-    second phase of KERNEL_PHASE_STEPS from the kernel's carried state
+    second phase of CHECK_PHASE_STEPS from the kernel's carried state
     after the first; rk4 float64 exact flags, n_samples and NaN sets and
     I within rtol 1e-7, rk2 float32 the statistical gate."""
-    from blacklight_tpu_torch import pipeline_simulation
     cfg = _sim_config(camera_resolution=128, ray_integrator=integrator,
                       precision=precision)
     args, _ = _sim_args(cfg)
     out_k, out_p, t_k, t_p, rays, _ = _second_phase(
-        args, integrator, pipeline_simulation.KERNEL_PHASE_STEPS)
+        args, integrator, CHECK_PHASE_STEPS)
     exact = precision == "float64"
     return "sim_phase_kernel_vs_plain", dict(
         integrator=integrator, precision=precision,
-        phase_steps=pipeline_simulation.KERNEL_PHASE_STEPS, phase_rays=rays,
+        phase_steps=CHECK_PHASE_STEPS, phase_rays=rays,
         kernel_s=t_k, plain_s=t_p,
         **_check_exact(out_k, out_p, 1e-7 if exact else None))
 
@@ -1010,6 +1037,20 @@ def phase_sim_full_width(tmp: pathlib.Path, card: str, grids: dict) -> dict:
          max_I_nu=float(np.nanmax(image)),
          npz_written=(tmp / "sim_full_width.npz").exists())
 
+    cfg.output_file = str(tmp / "sim_profile.npz")
+    emit("sim_profile", resolution=res, card=card,
+         **profile_run(cfg, grids["float32"]))
+    tables = {}
+    for name, fn in (("kernel_tables", sk.kernel_tables),
+                     ("kernel_grid", sk.kernel_grid)):
+        tables[f"{name}_ms"] = min(
+            _timed(fn, grids["float32"], torch.float32)[1]
+            for _ in range(3)) * 1e3
+    emit("sim_kernel_tables", card=card, table_mb=grid_bytes(
+        grids["float32"]) / 1e6, guide_bins=sk.kernel_grid(
+        grids["float32"], torch.float32).axes[3::sk.GUIDE_AXIS_VALUES]
+        .tolist(), **tables)
+
     timings = {}
     for precision, integrator in (("float32", "rk4"), ("float64", "rk4"),
                                   ("float32", "dp")):
@@ -1020,21 +1061,38 @@ def phase_sim_full_width(tmp: pathlib.Path, card: str, grids: dict) -> dict:
         (args, kwargs), t_setup = _timed(_sim_args, cfg, grids[precision])
         plain = sk.render_simulation_reference \
             if (precision, integrator) == ("float32", "rk4") else None
-        timings[precision, integrator] = time_kernel(
+        tp = "float" if precision == "float32" else "double"
+        cell = time_kernel(
             "sim_timing", sk.render_simulation, plain, args, kwargs, res,
-            card, precision=precision, integrator=integrator,
+            card, step_loop=f"simulation_kernel<{tp}, {integrator}, NF=1>",
+            precision=precision, integrator=integrator,
             camera_setup_s=t_setup)
+        cell.update(bound("simulation", integrator, precision, res * res,
+                          cell["mean_n_samples"],
+                          in_bytes=grid_bytes(grids[precision]),
+                          out_values=1))
+        emit("sim_timing_bound", card=card, precision=precision,
+             integrator=integrator, order="camera",
+             kernel_ms=cell["kernel_ms"], bound_ms=cell["bound_ms"],
+             bound_by=cell["bound_by"],
+             kernel_over_bound=cell["kernel_ms"] / cell["bound_ms"],
+             issue_estimate_ms=cell["issue_estimate_ms"])
+        timings[precision, integrator] = cell
+        del args, kwargs
     f32 = timings["float32", "rk4"]
     return {"name": "simulation_kernel", "route": "cuda",
             "source": SIM_KERNEL_SOURCE, "replaces": SIM_KERNEL_REPLACES,
             "launches": launches, "max_abs_err": f32["max_abs_err"],
             "ms": f32["kernel_ms"], "plain_ms": f32["plain_ms"],
-            **bound("simulation", "rk4", "float32", res * res,
-                    f32["mean_n_samples"], in_bytes=grid_bytes(grids["float32"]),
-                    out_values=1),
+            **{k: f32[k] for k in ("bound_ms", "bound_by", "bound_ops",
+                                   "bound_bytes", "issue_estimate_ms")},
             "library_ms": None}, arrays
 
 
+# Steps of the first phase, whose carried state the phase kernel's second
+# phase starts from in its checks against the plain version (phases 3 and
+# 13): most rays are still alive after it.
+CHECK_PHASE_STEPS = 512
 # Carried bytes per ray and phase launch besides the working type's
 # values: read the index, n_samp, masks and bad (16); write n_samp, masks
 # and bad (12). Values of the working type: read y (7), r_mid_prev, p_0,
@@ -1105,7 +1163,7 @@ def phase_phased_full_width(tmp: pathlib.Path, card: str, grids: dict,
         camera_resolution=res, precision="float32", ray_integrator="rk4",
         ray_max_steps=2000), grid)
     out_k, out_p, t_k, t_p, rays2, samples2 = _second_phase(
-        args, "rk4", ps.KERNEL_PHASE_STEPS)
+        args, "rk4", CHECK_PHASE_STEPS)
     gate = _check_exact(out_k, out_p, None)
     emit("phase_kernel_vs_plain", resolution=res, card=card,
          second_phase_rays=rays2, kernel_ms=t_k * 1e3, plain_ms=t_p * 1e3,
@@ -1191,8 +1249,8 @@ def phase_phased_full_width(tmp: pathlib.Path, card: str, grids: dict,
             "source": SIM_KERNEL_SOURCE, "replaces": PHASE_REPLACES,
             "launches": launches, "max_abs_err": max_abs_err,
             "ms": t_k * 1e3, "plain_ms": t_p * 1e3,
-            "work": (f"phase 1 (steps {ps.KERNEL_PHASE_STEPS}-"
-                     f"{2 * ps.KERNEL_PHASE_STEPS - 1}) of the 1024^2 image, "
+            "work": (f"phase 1 (steps {CHECK_PHASE_STEPS}-"
+                     f"{2 * CHECK_PHASE_STEPS - 1}) of the 1024^2 image, "
                      f"{rays2} rays"),
             **second, "library_ms": None}
 

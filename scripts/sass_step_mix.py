@@ -11,11 +11,13 @@ with ``nvdisasm -gi`` and prints one JSON line per kernel whose mangled
 name contains SUBSTRING: its instruction count, the instruction mix of
 its step loop, taken as the backward branch that spans the most
 instructions (the loop over a ray's steps, or in a kernel whose lanes
-fetch rays, the loop over a lane's rays), and the mix of that loop's
+or warps fetch rays, the loop over their rays), the mix of that loop's
 per-step path: the loop without the instructions that come from the
 code a lane runs once per ray or on a rejected step, the bodies of
 PER_RAY_FUNCTIONS (by the source lines each instruction was inlined
-from). Classes: FP32 arithmetic (FADD, FMUL, FFMA, FMNMX), FP32 compare
+from), and the mix of the part of that path that comes from the sample
+functor (PER_SAMPLE_FUNCTIONS: what a step runs when it stores a
+sample). Classes: FP32 arithmetic (FADD, FMUL, FFMA, FMNMX), FP32 compare
 and select, MUFU (and among them the division and square root sequences:
 one FCHK or MUFU.RCP64H per division, one MUFU.RSQ or MUFU.RSQ64H per
 square root), FP64, conversions, integer, moves, branches and calls,
@@ -64,11 +66,19 @@ CLASSES = (
 )
 # The functions (and lambdas) whose code a lane of the formula kernel runs
 # once per ray, or on a rejected dp step (start_geometry), by source file:
-# a ray's start, the write of its outputs and the fetch of the next.
+# a ray's start, the write of its outputs and the fetch of the next. (A
+# simulation kernel's thread traces one ray: its per-ray code lies outside
+# the step loop.)
 PER_RAY_FUNCTIONS = {
     "formula_kernel.cuh": ("start_geometry", "reset", "start_ray",
                            "finish_ray", "take_rays"),
     "trace.cuh": ("init_ray_state",),
+}
+# The sample functors, whose code a step runs when it stores a sample: the
+# per-sample part of the per-step path.
+PER_SAMPLE_FUNCTIONS = {
+    "formula_kernel.cuh": ("operator()",),
+    "simulation_kernel.cuh": ("operator()",),
 }
 INSTRUCTION = re.compile(
     r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)([^;]*);")
@@ -169,12 +179,13 @@ def _bodies(text: str, name: str):
                text.count("\n", 0, end) + 1)
 
 
-def per_ray_lines(root: pathlib.Path) -> set:
-    """{(file name, line)} of the bodies of PER_RAY_FUNCTIONS in TREE's
-    csrc (what a tree does not define is not there)."""
+def per_ray_lines(root: pathlib.Path, functions=None) -> set:
+    """{(file name, line)} of the bodies of ``functions`` (by source file;
+    PER_RAY_FUNCTIONS unless given) in TREE's csrc (what a tree does not
+    define is not there)."""
     csrc = root / "blacklight_tpu_torch" / "csrc"
     lines = set()
-    for file, names in PER_RAY_FUNCTIONS.items():
+    for file, names in (functions or PER_RAY_FUNCTIONS).items():
         text = (csrc / file).read_text()
         for name in names:
             for first, last in _bodies(text, name):
@@ -207,10 +218,21 @@ def mix(code: list) -> dict:
     return counts
 
 
-def loop_mixes(code: list, per_ray: set) -> dict:
-    """The mixes of a kernel's step loop and of its per-step path."""
+def per_sample_lines(root: pathlib.Path) -> set:
+    """{(file name, line)} of the bodies of PER_SAMPLE_FUNCTIONS in TREE's
+    csrc."""
+    return per_ray_lines(root, PER_SAMPLE_FUNCTIONS)
+
+
+def loop_mixes(code: list, per_ray: set, per_sample=frozenset()) -> dict:
+    """The mixes of a kernel's step loop, of its per-step path and of the
+    part of that path that the sample functor's lines lead to
+    (``per_sample``)."""
     loop = step_loop(code)
-    return {"step_loop": mix(loop), "per_step": mix(per_step(loop, per_ray))}
+    step = per_step(loop, per_ray)
+    return {"step_loop": mix(loop), "per_step": mix(step),
+            "per_sample": mix([c for c in step
+                               if any(at in per_sample for at in c[3])])}
 
 
 def disassemble(root: pathlib.Path, units: list, tmp: pathlib.Path) -> dict:
@@ -238,7 +260,7 @@ def main(argv=None) -> int:
     parser.add_argument("--same-as", default=None)
     opts = parser.parse_args(argv)
     root = pathlib.Path(opts.root).resolve()
-    per_ray = per_ray_lines(root)
+    per_ray, per_sample = per_ray_lines(root), per_sample_lines(root)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
         ours = disassemble(root, opts.units, tmp)
@@ -258,7 +280,7 @@ def main(argv=None) -> int:
                 continue
             line = {"unit": unit, "kernel": readable[mangled],
                     "mangled": mangled, "instructions": len(code),
-                    **loop_mixes(code, per_ray)}
+                    **loop_mixes(code, per_ray, per_sample)}
             if other is not None:
                 theirs = other.get(unit, {}).get(mangled) or []
                 line["same_sass"] = [c[1:3] for c in theirs] \

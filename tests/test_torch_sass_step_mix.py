@@ -128,3 +128,27 @@ def test_per_ray_lines_cover_the_lanes_once_per_ray_code(mix):
     rejected = next(i for i, t in enumerate(source, 1)
                     if "start_geometry<T, INTEGRATOR>(g, y, here);" in t)
     assert ("formula_kernel.cuh", rejected) not in lines
+
+
+def test_per_sample_lines_cover_the_sample_functors(mix):
+    """The sample functors of this checkout's formula and simulation
+    kernels are found; in the simulation kernel the cell search is reached
+    through the functor's lines, and the step loop's call of the step and
+    the write of a ray's outputs are neither sample nor per-ray lines."""
+    samples = mix.per_sample_lines(ROOT)
+    per_ray = mix.per_ray_lines(ROOT)
+    for file in ("formula_kernel.cuh", "simulation_kernel.cuh"):
+        text = (CSRC / file).read_text()
+        assert list(mix._bodies(text, "operator()")), file
+    source = (CSRC / "simulation_kernel.cuh").read_text().splitlines()
+
+    def line(pattern):
+        return next(i for i, t in enumerate(source, 1) if pattern in t)
+
+    sample_cell = ("simulation_kernel.cuh",
+                   line("sample_cell(grid, p, v, hint);"))
+    assert sample_cell in samples and sample_cell not in per_ray
+    for pattern in ("trace_steps<T, INTEGRATOR>(tc, s, p0, 0, tc.max_steps",
+                    "flags_out[ray] = s.flag ? 1 : 0;"):
+        at = ("simulation_kernel.cuh", line(pattern))
+        assert at not in per_ray and at not in samples, pattern

@@ -131,3 +131,38 @@ def test_pipeline_run_on_cuda(cuda_device, tmp_path):
     assert arrays["I_nu"].shape == (8, 8)
     assert np.isfinite(np.nanmax(arrays["I_nu"]))
     assert (tmp_path / "out.npz").exists()
+
+
+def _bits(t):
+    """The tensor's bytes, so that NaNs compare equal to NaNs."""
+    return t.cpu().contiguous().numpy().tobytes()
+
+
+@pytest.mark.parametrize("precision", ["float32", "float64"])
+def test_bundles_match_the_full_launch(cuda_device, precision):
+    """Bundles of 1, 31, 129 and twice the threads the card holds at once,
+    and that bundle permuted: each ray's outputs are, bit for bit, those
+    it has in the largest launch, whatever its place in the launch (a
+    ray's cell search starts from its own previous sample)."""
+    args, kwargs, _ = _args("rk4", precision)
+    props = torch.cuda.get_device_properties(cuda_device)
+    big = 2 * props.multi_processor_count \
+        * props.max_threads_per_multi_processor
+    reps = -(-big // args[0].shape[0])
+    rays = [torch.cat([t] * reps)[:big].contiguous() for t in args[:3]]
+    ref = sk.render_simulation(*rays, *args[3:], **kwargs)
+    for n in (1, 31, 129):
+        out = sk.render_simulation(*(t[:n].contiguous() for t in rays),
+                                   *args[3:], **kwargs)
+        assert all(_bits(a) == _bits(b[:n]) for a, b in zip(out, ref)), n
+    perm = torch.randperm(big, generator=torch.Generator().manual_seed(0))
+    perm = perm.to(rays[0].device)
+    out = sk.render_simulation(*(t[perm].contiguous() for t in rays),
+                               *args[3:], **kwargs)
+    assert all(_bits(a) == _bits(b[perm]) for a, b in zip(out, ref))
+
+
+def test_launch_consts_size_on_both_sides(cuda_device):
+    """sizeof(SimLaunchConsts) per type and frequency bucket, from the
+    library, is what launch_consts packs."""
+    assert sk.consts_sizes(sk._library()) == sk.host_consts_sizes()
