@@ -138,7 +138,7 @@ struct SimConsts {
 // the host) and n centres in device memory, and the guide that starts the
 // cell search near its answer: `bins` uniform bins over [lo, hi] = [xf[0],
 // xf[n]], bin b holding the count of faces below its lower edge
-// (ops/simulation_kernel.py guide_tables). lo, hi and scale = bins / (hi -
+// (ops/simulation_kernel.py axis_bins, axis_guide). lo, hi and scale = bins / (hi -
 // lo) are kernel parameters, read from the constant bank.
 template <typename T>
 struct GridAxis {
@@ -159,7 +159,7 @@ struct GridView {
 };
 
 // The values of one axis in a grid launch's host array `axes` (4 doubles
-// an axis: lo, hi, scale, bins; GUIDE_AXIS_VALUES of guide_tables).
+// an axis: lo, hi, scale, bins; GUIDE_AXIS_VALUES of KernelGrid.axes).
 constexpr int GUIDE_AXIS_VALUES = 4;
 
 // The view of a (n_k, n_j, n_i, 8) float32 table, the concatenated

@@ -102,7 +102,7 @@ struct SimLaunchConsts {
 // one and at 16 frequencies gain up to k = 8, 64 registers, dp is fastest
 // at k = 6, 80 registers, and slower beyond as its spills grow). The
 // double kernels take what they need, ~200-235 registers.
-template <typename T, int INTEGRATOR, int NF>
+template <typename T, int INTEGRATOR>
 constexpr int SimBlocks = sizeof(T) != 4 ? 1 : INTEGRATOR == INTEGRATOR_DP ? 6 : 8;
 
 // Accumulators of one ray and what happens at each of its stored samples.
@@ -185,7 +185,7 @@ struct SimSample {
 
 // i_nu: (n_rays, nf) row-major.
 template <typename T, int INTEGRATOR, int NF>
-__global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR, NF>)
+__global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
     simulation_kernel(const T* __restrict__ positions, const T* __restrict__ directions,
                       const T* __restrict__ momentum_factors,
                       const __grid_constant__ SimLaunchConsts<T, NF> consts, int nf,
@@ -322,7 +322,7 @@ struct SimCarryView {
 // The phase kernel takes the monolithic kernel's SimBlocks, so that the
 // two differ in how they are dispatched, not in occupancy.
 template <typename T, int INTEGRATOR, int NF>
-__global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR, NF>)
+__global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
     simulation_phase_kernel(const int* __restrict__ index, long long n_live, int n_base,
                             int phase_steps, bool write_state, const T* __restrict__ directions,
                             const T* __restrict__ momentum_factors,

@@ -32,7 +32,9 @@ class SimulationGrid:
     prim is (n_var, n_b, n_k, n_j, n_i) float32 in the file's variable
     order; ``ind`` maps the sampler's names to its first axis. The face
     (x?f, (n_b, n+1)) and centre (x?v, (n_b, n)) coordinates are in the
-    working dtype.
+    working dtype. ``host_faces`` holds the faces x1f, x2f, x3f once more
+    on the host, in float64, for what a kernel launch works out there
+    without reading the device (ops/simulation_kernel.kernel_grid).
     """
 
     prim: torch.Tensor
@@ -44,6 +46,7 @@ class SimulationGrid:
     x3v: torch.Tensor
     ind: dict
     time: float
+    host_faces: tuple = dataclasses.field(compare=False, repr=False)
 
     @property
     def n_blocks(self) -> int:
@@ -65,7 +68,8 @@ def simulation_grid(prim, x1f, x1v, x2f, x2v, x3f, x3v, ind, time, *,
     return SimulationGrid(
         prim=host(prim, np.float32).to(device),
         x1f=coords(x1f), x1v=coords(x1v), x2f=coords(x2f), x2v=coords(x2v),
-        x3f=coords(x3f), x3v=coords(x3v), ind=dict(ind), time=float(time))
+        x3f=coords(x3f), x3v=coords(x3v), ind=dict(ind), time=float(time),
+        host_faces=tuple(np.array(f, np.float64) for f in (x1f, x2f, x3f)))
 
 
 def load_athdf(path: str, *, device, dtype=torch.float64) -> SimulationGrid:

@@ -26,7 +26,7 @@ orderings (:440, :474), on the rays' device.
 A launch hands the kernel its constants by value (``launch_consts``: the
 parameter vector, the frequencies and the image scales rounded once to
 the rays' type on the host) and the snapshot's tables with a guide per
-axis, where each ray's cell search starts (``kernel_grid``).
+axis, where a ray's first cell search starts (``kernel_grid``).
 """
 
 from __future__ import annotations
@@ -77,7 +77,7 @@ LAUNCHES = 0
 # Most bins of an axis' guide (csrc/sim_sample.cuh GridAxis): 64 KB of
 # int32 an axis at most.
 GUIDE_MAX_BINS = 1 << 14
-# Values of an axis in guide_tables' axes array (GUIDE_AXIS_VALUES of
+# Values of an axis in KernelGrid's axes array (GUIDE_AXIS_VALUES of
 # csrc/sim_sample.cuh): lo, hi, scale, bins.
 GUIDE_AXIS_VALUES = 4
 
@@ -159,8 +159,8 @@ def kernel_params(params: geo.GeodesicParams, sp: SimKernelParams,
 
 def check_grid(grid: SimulationGrid) -> None:
     """Raise ValueError for a grid outside the kernel's cover: one mesh
-    block of at least 2 cells per axis, faces in non-decreasing order (the kernel's binary search then finds the
-    cell the comparison count finds)."""
+    block of at least 2 cells per axis, faces in non-decreasing order (the
+    kernel's cell search then finds the cell the comparison count finds)."""
     if grid.n_blocks != 1:
         raise ValueError("the simulation kernel covers single-block grids")
     if min(grid.prim.shape[2:]) < 2:
@@ -190,15 +190,13 @@ def kernel_tables(grid: SimulationGrid, dtype):
     return table.contiguous(), coords.contiguous()
 
 
-def axis_guide(faces):
-    """The guide of one axis (csrc/sim_sample.cuh GridAxis) from its n + 1
-    non-decreasing faces in the kernel's type (numpy): (guide (bins,)
-    int32, lo, hi, scale, bins). The bins are uniform over [lo, hi] =
-    [faces[0], faces[n]], as many as the span holds of the smallest
-    positive gap between faces (at most GUIDE_MAX_BINS, at least 1); bin
-    b holds the count of faces below its lower edge lo + b / scale. The
-    card walks from there to the exact count, so these only decide how
-    far it walks."""
+def axis_bins(faces):
+    """Where one axis' guide (csrc/sim_sample.cuh GridAxis) puts its bins,
+    from the axis' n + 1 non-decreasing faces in the kernel's type (numpy,
+    on the host): (lo, hi, scale, bins). The bins are uniform over
+    [lo, hi] = [faces[0], faces[n]], as many as the span holds of the
+    smallest positive gap between faces (at most GUIDE_MAX_BINS, at least
+    1)."""
     xf = np.asarray(faces, dtype=np.float64)
     lo, hi = float(xf[0]), float(xf[-1])
     span = hi - lo
@@ -208,30 +206,26 @@ def axis_guide(faces):
     if gaps.size and np.isfinite(span) and span > 0.0:
         bins = int(min(GUIDE_MAX_BINS, math.ceil(span / gaps.min())))
     scale = bins / span if bins > 1 else 0.0
-    edges = lo + np.arange(bins) / scale if bins > 1 else np.array([lo])
-    guide = np.searchsorted(xf, edges, side="left").astype(np.int32)
-    return guide, lo, hi, scale, bins
+    return lo, hi, scale, bins
 
 
-def guide_tables(coords, n_i: int, n_j: int, n_k: int):
-    """The three axes' guides from ``coords`` as kernel_tables makes them
-    (numpy, the kernel's type): (guides, the r, theta and phi guides
-    concatenated, int32; axes (3 * GUIDE_AXIS_VALUES,) float64, lo, hi,
-    scale and bins of each axis)."""
-    coords = np.asarray(coords)
-    guides, axes, at = [], [], 0
-    for n in (n_i, n_j, n_k):
-        guide, *values = axis_guide(coords[at:at + n + 1])
-        guides.append(guide)
-        axes += values
-        at += 2 * n + 1
-    return np.concatenate(guides), np.asarray(axes, dtype=np.float64)
+def axis_guide(faces, lo: float, scale: float, bins: int):
+    """The guide of one axis on its faces' device: (bins,) int32, bin b
+    holding the count of ``faces`` (a tensor in the kernel's type) below
+    its lower edge lo + b / scale (axis_bins). The card walks from there
+    to the exact count, so these counts only decide how far it walks."""
+    xf = faces.to(torch.float64)
+    edges = lo + torch.arange(bins, dtype=torch.float64,
+                              device=xf.device) / scale if bins > 1 else \
+        torch.full((1,), lo, dtype=torch.float64, device=xf.device)
+    return torch.searchsorted(xf, edges, side="left", out_int32=True)
 
 
 class KernelGrid(NamedTuple):
     """The snapshot as a kernel launch takes it: kernel_tables' table and
-    coords and guide_tables' guides on the grid's device, and the axes
-    array on the host."""
+    coords and the three axes' guides, concatenated, on the grid's device,
+    and on the host the axes array: lo, hi, scale and bins of each axis
+    (GUIDE_AXIS_VALUES float64 values an axis)."""
 
     table: torch.Tensor
     coords: torch.Tensor
@@ -246,14 +240,20 @@ class KernelGrid(NamedTuple):
 
 
 def kernel_grid(grid: SimulationGrid, dtype) -> KernelGrid:
-    """kernel_tables and guide_tables of ``grid`` for a launch in
-    ``dtype`` (the guides are built on the host from the coordinates read
-    back once)."""
+    """kernel_tables and the axes' guides of ``grid`` for a launch in
+    ``dtype``. The bins follow from the grid's host copy of its faces
+    rounded to ``dtype``, as its device coordinates were; the guides are
+    counted on the device, so nothing is read back."""
     table, coords = kernel_tables(grid, dtype)
-    n_k, n_j, n_i = table.shape[:3]
-    guides, axes = guide_tables(coords.cpu().numpy(), n_i, n_j, n_k)
-    return KernelGrid(table, coords,
-                      torch.from_numpy(guides).to(table.device), axes)
+    guides, axes, at = [], [], 0
+    for host in grid.host_faces:
+        n = host.shape[1] - 1
+        lo, hi, scale, bins = axis_bins(host[0].astype(_NUMPY_DTYPES[dtype]))
+        guides.append(axis_guide(coords[at:at + n + 1], lo, scale, bins))
+        axes += (lo, hi, scale, bins)
+        at += 2 * n + 1
+    return KernelGrid(table, coords, torch.cat(guides),
+                      np.asarray(axes, dtype=np.float64))
 
 
 def frequency_bucket(nf: int) -> int:

@@ -29,8 +29,8 @@ and prints no final line):
    - simulation, 128^2 camera on golden_sim_rk4_32.input with
      mock_small.athdf: rk4 float64, rk2 float32, dp float32/float64;
      and the phase kernel of phased dispatch (K2.3) on its second phase
-     from the carried state of its first (CHECK_PHASE_STEPS each): rk4
-     float64, rk2 float32;
+     from the carried state of its first (KERNEL_PHASE_STEPS each, as the
+     phased route runs them): rk4 float64, rk2 float32;
    - polarized, 64^2 camera on golden_polarized_rk4_32.input with
      mock_small.athdf (ray_step 0.04, 400 steps), camera-frame I, Q, U,
      V: rk4 float64, dp float32, rk2 float32 with image_rotation_split
@@ -101,9 +101,9 @@ and prints no final line):
     phase 7's configuration through pipeline.run with
     pipeline_simulation.KERNEL_PHASED on, counting phase launches (at
     most 2000 / KERNEL_PHASE_STEPS), whose image must be phase 7's bit for
-    bit; the phase kernel held to its plain version on the second phase
-    of CHECK_PHASE_STEPS at full width; the phased route's bound (each
-    phase's);
+    bit; the phase kernel held to its plain version on the route's own
+    second phase (KERNEL_PHASE_STEPS) at full width; the phased route's
+    bound (each phase's);
     warp and block efficiencies of each ray order (camera order,
     spatial_order per tile size, each phase's launch order); best of 3 of
     the monolithic kernel in camera order and in spatial_order and of the
@@ -930,18 +930,19 @@ def _second_phase(args, integrator, phase_steps):
 
 def check_simulation_phase(integrator, precision) -> tuple:
     """The phase kernel (K2.3) against its plain version, 128^2: the
-    second phase of CHECK_PHASE_STEPS from the kernel's carried state
+    second phase of KERNEL_PHASE_STEPS from the kernel's carried state
     after the first; rk4 float64 exact flags, n_samples and NaN sets and
     I within rtol 1e-7, rk2 float32 the statistical gate."""
+    from blacklight_tpu_torch.pipeline_simulation import KERNEL_PHASE_STEPS
     cfg = _sim_config(camera_resolution=128, ray_integrator=integrator,
                       precision=precision)
     args, _ = _sim_args(cfg)
     out_k, out_p, t_k, t_p, rays, _ = _second_phase(
-        args, integrator, CHECK_PHASE_STEPS)
+        args, integrator, KERNEL_PHASE_STEPS)
     exact = precision == "float64"
     return "sim_phase_kernel_vs_plain", dict(
         integrator=integrator, precision=precision,
-        phase_steps=CHECK_PHASE_STEPS, phase_rays=rays,
+        phase_steps=KERNEL_PHASE_STEPS, phase_rays=rays,
         kernel_s=t_k, plain_s=t_p,
         **_check_exact(out_k, out_p, 1e-7 if exact else None))
 
@@ -1089,10 +1090,6 @@ def phase_sim_full_width(tmp: pathlib.Path, card: str, grids: dict) -> dict:
             "library_ms": None}, arrays
 
 
-# Steps of the first phase, whose carried state the phase kernel's second
-# phase starts from in its checks against the plain version (phases 3 and
-# 13): most rays are still alive after it.
-CHECK_PHASE_STEPS = 512
 # Carried bytes per ray and phase launch besides the working type's
 # values: read the index, n_samp, masks and bad (16); write n_samp, masks
 # and bad (12). Values of the working type: read y (7), r_mid_prev, p_0,
@@ -1162,12 +1159,13 @@ def phase_phased_full_width(tmp: pathlib.Path, card: str, grids: dict,
     args, kwargs = _sim_args(_sim_config(
         camera_resolution=res, precision="float32", ray_integrator="rk4",
         ray_max_steps=2000), grid)
-    out_k, out_p, t_k, t_p, rays2, samples2 = _second_phase(
-        args, "rk4", CHECK_PHASE_STEPS)
+    steps = ps.KERNEL_PHASE_STEPS
+    out_k, out_p, t_k, t_p, rays2, samples2 = _second_phase(args, "rk4",
+                                                            steps)
     gate = _check_exact(out_k, out_p, None)
     emit("phase_kernel_vs_plain", resolution=res, card=card,
-         second_phase_rays=rays2, kernel_ms=t_k * 1e3, plain_ms=t_p * 1e3,
-         **gate)
+         phase_steps=steps, second_phase_rays=rays2, kernel_ms=t_k * 1e3,
+         plain_ms=t_p * 1e3, **gate)
     if not gate["ok"]:
         raise RuntimeError(f"the phase kernel disagrees with plain at "
                            f"{res}^2: {gate}")
@@ -1249,9 +1247,8 @@ def phase_phased_full_width(tmp: pathlib.Path, card: str, grids: dict,
             "source": SIM_KERNEL_SOURCE, "replaces": PHASE_REPLACES,
             "launches": launches, "max_abs_err": max_abs_err,
             "ms": t_k * 1e3, "plain_ms": t_p * 1e3,
-            "work": (f"phase 1 (steps {CHECK_PHASE_STEPS}-"
-                     f"{2 * CHECK_PHASE_STEPS - 1}) of the 1024^2 image, "
-                     f"{rays2} rays"),
+            "work": (f"phase 1 (steps {steps}-{min(2 * steps, 2000) - 1}) "
+                     f"of the 1024^2 image, {rays2} rays"),
             **second, "library_ms": None}
 
 

@@ -54,8 +54,8 @@ so both trees get the same inputs.
     python3 scripts/formula_kernel_ab.py sweep --trees DIR1,DIR2,... \
         --cells sim_rk4_spatial,... [--rounds N] [--reps N]
 
-times copies of one tree that differ in one choice (a launch bound, a
-search, a grid): workers with ``--times-only`` in turns, DIR1 .. DIRn then
+times copies of one tree that differ in one choice (a launch bound,
+scripts/simulation_variants.py): workers with ``--times-only`` in turns, DIR1 .. DIRn then
 DIRn .. DIR1, ``--rounds`` times, and a last line with each cell's runs
 and best time per tree and its best over the first tree's.
 """

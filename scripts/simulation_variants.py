@@ -1,22 +1,12 @@
-"""Copies of a tree that differ from it in one choice of the simulation
-kernels' design, for ``scripts/formula_kernel_ab.py sweep``:
+"""Copies of a tree whose float simulation kernels ask for another launch
+bound, for ``scripts/formula_kernel_ab.py sweep``:
 
-    python3 scripts/simulation_variants.py --tree DIR --out DIR2 VARIANT
+    python3 scripts/simulation_variants.py --tree DIR --out DIR2 blocks=K
 
-VARIANT is one of
-  blocks=K      every float instantiation asks for K blocks of SIM_THREADS
-                per SM (SimBlocks in csrc/simulation_kernel.cuh);
-  search=guide  every sample's cell search starts from the guide, none
-                from the ray's previous sample (csrc/sim_sample.cuh
-                faces_below);
-  first=binary  a ray's first sample finds its cell by binary search over
-                the faces in place of the guide;
-  grid=fetch    warps that fetch: a grid of the card's resident blocks,
-                each warp tracing 32 consecutive slots and then taking the
-                next 32 from a device counter that the launch allocates
-                and zeroes (the monolithic and the phase kernel).
-Each edit is checked to apply. The copy leaves out the tree's build
-outputs. No card needed.
+makes DIR2 a copy of DIR in which every float instantiation of the
+monolithic and the phase kernel asks for K blocks of SIM_THREADS per SM
+(SimBlocks in csrc/simulation_kernel.cuh). The copy leaves out the tree's
+build outputs. No card needed.
 """
 
 from __future__ import annotations
@@ -27,161 +17,32 @@ import re
 import shutil
 import sys
 
-CSRC = pathlib.Path("blacklight_tpu_torch") / "csrc"
+KERNEL_CUH = pathlib.Path("blacklight_tpu_torch") / "csrc" / \
+    "simulation_kernel.cuh"
 IGNORE = shutil.ignore_patterns("build", "chip_archive", ".git",
                                 "__pycache__", "*.so")
-
-SAMPLE_CUH = CSRC / "sim_sample.cuh"
-KERNEL_CUH = CSRC / "simulation_kernel.cuh"
-GUIDE_START = (
-    "    const T t = (x - a.lo) * a.scale;\n"
-    "    const int bin = t > T(0) ? (t < T(a.bins - 1) ? static_cast<int>(t) : "
-    "a.bins - 1) : 0;\n"
-    "    q = __ldg(a.guide + bin);\n")
-# (file, old, new) replacements of each variant.
-EDITS = {
-    "search=guide": ((SAMPLE_CUH, "  int q = hint;\n  if (q < 0) {\n",
-                      "  int q = -1;\n  {\n"),),
-    "first=binary": ((SAMPLE_CUH, GUIDE_START,
-                      "    int lo = 0, hi = a.n + 1;\n"
-                      "    while (lo < hi) {\n"
-                      "      const int mid = (lo + hi) >> 1;\n"
-                      "      if (__ldg(a.xf + mid) < x) {\n"
-                      "        lo = mid + 1;\n"
-                      "      } else {\n"
-                      "        hi = mid;\n"
-                      "      }\n"
-                      "    }\n"
-                      "    q = lo;\n"),),
-    "grid=fetch": (
-        (KERNEL_CUH, "// i_nu: (n_rays, nf) row-major.\n",
-         "__device__ __forceinline__ long long take_warp_slots(\n"
-         "    unsigned long long* __restrict__ next_slot, unsigned lane,\n"
-         "    long long fetched) {\n"
-         "  unsigned long long base = 0;\n"
-         "  if (lane == 0) base = atomicAdd(next_slot, 32ull);\n"
-         "  return fetched + static_cast<long long>(\n"
-         "      __shfl_sync(0xffffffffu, base, 0));\n"
-         "}\n\n"
-         "template <typename Run>\n"
-         "__device__ __forceinline__ void for_warp_slots(\n"
-         "    long long n_slots, unsigned long long* __restrict__ next_slot,\n"
-         "    Run&& run) {\n"
-         "  const unsigned lane = threadIdx.x & 31u;\n"
-         "  const long long fetched = static_cast<long long>(gridDim.x) * "
-         "SIM_THREADS;\n"
-         "  long long first = static_cast<long long>(blockIdx.x) * SIM_THREADS "
-         "+ (threadIdx.x - lane);\n"
-         "  while (first < n_slots) {\n"
-         "    const long long slot = first + lane;\n"
-         "    if (slot < n_slots) run(slot);\n"
-         "    first = take_warp_slots(next_slot, lane, fetched);\n"
-         "  }\n"
-         "}\n\n"
-         "template <typename Kernel>\n"
-         "unsigned fetch_blocks(Kernel kernel, long long n) {\n"
-         "  int per_sm = 0, device = 0, sms = 0;\n"
-         "  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, "
-         "SIM_THREADS, 0);\n"
-         "  cudaGetDevice(&device);\n"
-         "  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, "
-         "device);\n"
-         "  const long long need = (n + SIM_THREADS - 1) / SIM_THREADS;\n"
-         "  return static_cast<unsigned>(need < per_sm * sms ? need : "
-         "per_sm * sms);\n"
-         "}\n\n"
-         "// i_nu: (n_rays, nf) row-major.\n"),
-        (KERNEL_CUH,
-         "                      long long n_rays) {\n"
-         "  const long long ray = static_cast<long long>(blockIdx.x) * "
-         "SIM_THREADS + threadIdx.x;\n"
-         "  if (ray >= n_rays) return;\n"
-         "  const TraceConsts<T> tc(consts.v);\n"
-         "  const SimConsts<T> sc(consts.v, RoundedConsts{});\n",
-         "                      long long n_rays,\n"
-         "                      unsigned long long* __restrict__ next_slot) {\n"
-         "  const TraceConsts<T> tc(consts.v);\n"
-         "  const SimConsts<T> sc(consts.v, RoundedConsts{});\n"
-         "  for_warp_slots(n_rays, next_slot, [&](long long ray) {\n"),
-        (KERNEL_CUH, "  n_samples_out[ray] = s.n_samp;\n}\n",
-         "  n_samples_out[ray] = s.n_samp;\n  });\n}\n"),
-        (KERNEL_CUH,
-         "  const unsigned blocks = static_cast<unsigned>((a.n_rays + "
-         "SIM_THREADS - 1) / SIM_THREADS);\n"
-         "  simulation_kernel<T, INTEGRATOR, NF><<<blocks, SIM_THREADS, 0, "
-         "a.stream>>>(\n",
-         "  const unsigned blocks = fetch_blocks("
-         "simulation_kernel<T, INTEGRATOR, NF>, a.n_rays);\n"
-         "  unsigned long long* next_slot = nullptr;\n"
-         "  cudaMallocAsync(&next_slot, 8, a.stream);\n"
-         "  cudaMemsetAsync(next_slot, 0, 8, a.stream);\n"
-         "  simulation_kernel<T, INTEGRATOR, NF><<<blocks, SIM_THREADS, 0, "
-         "a.stream>>>(\n"),
-        (KERNEL_CUH,
-         "      static_cast<T*>(a.i_nu), a.flags, a.n_samples, a.n_rays);\n",
-         "      static_cast<T*>(a.i_nu), a.flags, a.n_samples, a.n_rays, "
-         "next_slot);\n"
-         "  cudaFreeAsync(next_slot, a.stream);\n"),
-        (KERNEL_CUH, "SimCarryView<T> carry) {\n"
-         "  const long long slot = static_cast<long long>(blockIdx.x) * "
-         "SIM_THREADS + threadIdx.x;\n"
-         "  if (slot >= n_live) return;\n"
-         "  const long long ray = index[slot];\n"
-         "  const long long n = carry.n_rays;\n"
-         "  const TraceConsts<T> tc(consts.v);\n"
-         "  const SimConsts<T> sc(consts.v, RoundedConsts{});\n",
-         "SimCarryView<T> carry,\n"
-         "                            unsigned long long* __restrict__ "
-         "next_slot) {\n"
-         "  const long long n = carry.n_rays;\n"
-         "  const TraceConsts<T> tc(consts.v);\n"
-         "  const SimConsts<T> sc(consts.v, RoundedConsts{});\n"
-         "  for_warp_slots(n_live, next_slot, [&](long long slot) {\n"
-         "  const long long ray = index[slot];\n"),
-        (KERNEL_CUH, "(s.flag ? CARRY_FLAG : 0);\n}\n",
-         "(s.flag ? CARRY_FLAG : 0);\n  });\n}\n"),
-        (KERNEL_CUH,
-         "  const unsigned blocks = static_cast<unsigned>((a.n_live + "
-         "SIM_THREADS - 1) / SIM_THREADS);\n"
-         "  simulation_phase_kernel<T, INTEGRATOR, NF><<<blocks, SIM_THREADS, "
-         "0, a.stream>>>(\n",
-         "  const unsigned blocks = fetch_blocks("
-         "simulation_phase_kernel<T, INTEGRATOR, NF>, a.n_live);\n"
-         "  unsigned long long* next_slot = nullptr;\n"
-         "  cudaMallocAsync(&next_slot, 8, a.stream);\n"
-         "  cudaMemsetAsync(next_slot, 0, 8, a.stream);\n"
-         "  simulation_phase_kernel<T, INTEGRATOR, NF><<<blocks, SIM_THREADS, "
-         "0, a.stream>>>(\n"),
-        (KERNEL_CUH, "      a.nf, a.grid.view<T>(), carry);\n",
-         "      a.nf, a.grid.view<T>(), carry, next_slot);\n"
-         "  cudaFreeAsync(next_slot, a.stream);\n"),
-    ),
-}
+SIM_BLOCKS = r"constexpr int SimBlocks =[^;]*;"
 
 
-def _replace(path: pathlib.Path, old: str, new: str, regex=False) -> None:
-    text = path.read_text()
-    out, n = (re.subn(old, new, text) if regex
-              else (text.replace(old, new), text.count(old)))
-    if n < 1:
-        raise RuntimeError(f"{path}: the edit does not apply: {old[:60]!r}")
-    path.write_text(out)
+def with_blocks(text: str, blocks: int) -> str:
+    """simulation_kernel.cuh's text with SimBlocks set to ``blocks`` for
+    float and 1 for double."""
+    out, n = re.subn(SIM_BLOCKS, f"constexpr int SimBlocks = sizeof(T) == 4 "
+                     f"? {int(blocks)} : 1;", text)
+    if n != 1:
+        raise RuntimeError(f"{KERNEL_CUH}: no single SimBlocks definition")
+    return out
 
 
 def make(tree: pathlib.Path, out: pathlib.Path, variant: str) -> None:
     kind, _, value = variant.partition("=")
-    if kind != "blocks" and variant not in EDITS:
+    if kind != "blocks" or not value.isdigit():
         raise ValueError(f"unknown variant {variant!r}")
     if out.exists():
         shutil.rmtree(out)
     shutil.copytree(tree, out, ignore=IGNORE)
-    if kind == "blocks":
-        _replace(out / KERNEL_CUH, r"constexpr int SimBlocks =[^;]*;",
-                 f"constexpr int SimBlocks = sizeof(T) == 4 ? {int(value)} "
-                 ": 1;", regex=True)
-        return
-    for file, old, new in EDITS[variant]:
-        _replace(out / file, old, new)
+    path = out / KERNEL_CUH
+    path.write_text(with_blocks(path.read_text(), int(value)))
 
 
 def main(argv=None) -> int:

@@ -3,7 +3,7 @@ checked on the CPU: the launch constants the host packs (the kernels read
 them from their parameter, in the constant bank), the guides that start
 the cell search near its answer, with a Python transcription of the
 card's walk held to a binary search and to the JAX package's comparison
-count, and the variant trees the design's choices were timed on. The
+count, and the launch-bound variant the design's bounds were timed on. The
 kernels themselves are held to their plain version on the card by
 test_torch_simulation_kernel_cuda.py and
 test_torch_simulation_phased_cuda.py.
@@ -170,6 +170,14 @@ def _walk(faces, guide, lo, scale, bins, x, hint=-1):
     return q
 
 
+def _guide(faces):
+    """axis_bins and axis_guide of numpy ``faces`` (the kernel's type):
+    (guide as numpy int32, lo, hi, scale, bins)."""
+    lo, hi, scale, bins = sk.axis_bins(faces)
+    guide = sk.axis_guide(torch.from_numpy(faces), lo, scale, bins)
+    return guide.numpy(), lo, hi, scale, bins
+
+
 def _binary_search(faces, x):
     """The count of faces below x as the kernel's binary search takes it:
     torch.searchsorted on the left side, 0 for NaN."""
@@ -221,7 +229,7 @@ def _grids():
 @pytest.mark.parametrize("name", sorted(_grids()))
 def test_guide_walk_gives_the_binary_search_count(name, dtype):
     faces = _grids()[name].astype(dtype)
-    guide, lo, hi, scale, bins = sk.axis_guide(faces)
+    guide, lo, hi, scale, bins = _guide(faces)
     assert guide.dtype == np.int32 and guide.shape == (bins,)
     assert 1 <= bins <= sk.GUIDE_MAX_BINS
     assert lo == float(faces[0]) and hi == float(faces[-1])
@@ -248,7 +256,7 @@ def test_guide_walk_matches_the_jax_comparison_count():
         if name in ("repeats", "flat"):
             continue
         faces = faces.astype(np.float64)
-        guide, lo, hi, scale, bins = sk.axis_guide(faces)
+        guide, lo, hi, scale, bins = _guide(faces)
         n = faces.size - 1
         x = _points(faces, rng)
         x = x[np.isfinite(x)]
@@ -268,66 +276,68 @@ def test_guide_bins_fit_the_smallest_cell():
     grids = _grids()
     for name in ("full_r", "full_theta", "full_phi"):
         faces = grids[name].astype(np.float32)
-        guide, lo, hi, scale, bins = sk.axis_guide(faces)
+        guide, lo, hi, scale, bins = _guide(faces)
         assert np.max(np.diff(guide)) <= 1, name
         assert bins >= faces.size - 1
-    guide, *_, bins = sk.axis_guide(grids["clustered"])
+    guide, *_, bins = _guide(grids["clustered"])
     assert bins == sk.GUIDE_MAX_BINS
-    guide, lo, hi, scale, bins = sk.axis_guide(grids["flat"])
+    guide, lo, hi, scale, bins = _guide(grids["flat"])
     assert bins == 1 and scale == 0.0 and guide.tolist() == [0]
 
 
 def test_guide_tables_and_kernel_grid(tmp_path):
-    """guide_tables concatenates the r, theta and phi guides of the
-    coordinates kernel_tables lays out, and their lo, hi, scale and bins;
-    kernel_grid puts the guides beside the tables on the grid's device."""
-    grid = pipeline_simulation.load_grid(_config(tmp_path), device="cpu",
-                                         dtype=torch.float32)
-    kg = sk.kernel_grid(grid, torch.float32)
-    table, coords = sk.kernel_tables(grid, torch.float32)
-    assert torch.equal(kg.table, table) and torch.equal(kg.coords, coords)
-    n_k, n_j, n_i = table.shape[:3]
-    c = coords.numpy()
-    at, guides = 0, []
-    for a, n in enumerate((n_i, n_j, n_k)):
-        guide, *values = sk.axis_guide(c[at:at + n + 1])
-        guides.append(guide)
-        axis = kg.axes[a * sk.GUIDE_AXIS_VALUES:(a + 1) * sk.GUIDE_AXIS_VALUES]
-        assert axis.tolist() == [float(v) for v in values]
-        at += 2 * n + 1
-    assert torch.equal(kg.guides, torch.from_numpy(np.concatenate(guides)))
-    assert kg.guides.device == grid.prim.device
-    assert kg.axes.dtype == np.float64
-    assert kg.args()[4:] == (n_i, n_j, n_k)
+    """kernel_grid concatenates the r, theta and phi guides of the
+    coordinates kernel_tables lays out, with their lo, hi, scale and bins
+    taken on the host from the grid's host copy of its faces, which
+    rounds to each dtype as the device coordinates did; the guides lie
+    beside the tables on the grid's device."""
+    for dtype in (torch.float32, torch.float64):
+        grid = pipeline_simulation.load_grid(_config(tmp_path),
+                                             device="cpu", dtype=dtype)
+        for host, dev in zip(grid.host_faces, (grid.x1f, grid.x2f,
+                                               grid.x3f)):
+            assert host.dtype == np.float64
+            assert np.array_equal(host.astype(NUMPY[dtype]), dev.numpy())
+        kg = sk.kernel_grid(grid, dtype)
+        table, coords = sk.kernel_tables(grid, dtype)
+        assert torch.equal(kg.table, table) and torch.equal(kg.coords,
+                                                            coords)
+        n_k, n_j, n_i = table.shape[:3]
+        c = coords.numpy()
+        at, guides = 0, []
+        for a, n in enumerate((n_i, n_j, n_k)):
+            guide, *values = _guide(c[at:at + n + 1])
+            guides.append(guide)
+            axis = kg.axes[a * sk.GUIDE_AXIS_VALUES:
+                           (a + 1) * sk.GUIDE_AXIS_VALUES]
+            assert axis.tolist() == [float(v) for v in values]
+            at += 2 * n + 1
+        assert torch.equal(kg.guides,
+                           torch.from_numpy(np.concatenate(guides)))
+        assert kg.guides.dtype == torch.int32
+        assert kg.guides.device == grid.prim.device
+        assert kg.axes.dtype == np.float64
+        assert kg.args()[4:] == (n_i, n_j, n_k)
     header = (CSRC / "sim_sample.cuh").read_text()
     assert f"GUIDE_AXIS_VALUES = {sk.GUIDE_AXIS_VALUES};" in header
 
 
-@pytest.mark.parametrize("variant", ["blocks=5", "search=guide",
-                                     "first=binary", "grid=fetch"])
-def test_simulation_variants_apply(tmp_path, variant):
+@pytest.mark.parametrize("variant", ["blocks=5", "blocks=8"])
+def test_simulation_variants_apply(variant):
     """scripts/simulation_variants.py, which makes the trees the launch
-    bound, the cell search and the grid were timed against, still finds
-    every place it edits in this checkout's sources, and changes only the
-    simulation kernel's headers."""
+    bounds were timed on, finds the one SimBlocks definition of this
+    checkout's simulation_kernel.cuh and sets it, and takes no other
+    variant."""
     import importlib.util
     root = pathlib.Path(__file__).resolve().parents[1]
     spec = importlib.util.spec_from_file_location(
         "simulation_variants", root / "scripts" / "simulation_variants.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    out = tmp_path / "tree"
-    mod.make(root, out, variant)
-    changed = {f.relative_to(out).as_posix()
-               for f in (out / "blacklight_tpu_torch").rglob("*")
-               if f.is_file() and "__pycache__" not in f.parts
-               and f.read_bytes() != (root / f.relative_to(out)).read_bytes()}
-    assert changed and changed <= {
-        "blacklight_tpu_torch/csrc/simulation_kernel.cuh",
-        "blacklight_tpu_torch/csrc/sim_sample.cuh"}
-    if variant == "blocks=5":
-        assert "SimBlocks = sizeof(T) == 4 ? 5 : 1;" in (
-            out / mod.KERNEL_CUH).read_text()
-    assert not (out / "build").exists()
+    blocks = int(variant.partition("=")[2])
+    text = (root / mod.KERNEL_CUH).read_text()
+    out = mod.with_blocks(text, blocks)
+    assert f"SimBlocks = sizeof(T) == 4 ? {blocks} : 1;" in out
+    assert len(out.splitlines()) == len(text.splitlines())
     with pytest.raises(ValueError):
-        mod.make(root, tmp_path / "other", "grid=none")
+        mod.make(root, root / "unused", "grid=fetch")
