@@ -917,17 +917,20 @@ struct DeriveBlocks {
 // take at one slot of one warp of rays. GEOMETRY: the whole record (the
 // first frequency group); otherwise only the coefficients of this
 // launch's frequencies. Bit f of bad[ray] is set where frequency f met a
-// sample the reference would NaN (its coefficients are zeroed).
-template <typename T, bool GEOMETRY>
-__global__ void __launch_bounds__(POL_THREADS, DeriveBlocks<T>::value)
-    polarized_derive_kernel(SampleSet<T> set, long long n_slots,
-                            const T* __restrict__ directions,
-                            const T* __restrict__ momentum_factors, const T* __restrict__ freqs,
-                            int nf, const double* __restrict__ params, GridView<T> grid,
-                            T* __restrict__ geometry, T* __restrict__ coefficients,
-                            int* __restrict__ bad) {
+// sample the reference would NaN (its coefficients are zeroed). The grid
+// is sampled in MODE (sim_sample.cuh SAMPLE_*); g is the thread's index.
+// The set and the grid by value, as the kernels' parameters are taken.
+template <typename T, bool GEOMETRY, int MODE>
+__device__ __forceinline__ void derive_sample(long long g, SampleSet<T> set, long long n_slots,
+                                              const T* __restrict__ directions,
+                                              const T* __restrict__ momentum_factors,
+                                              const T* __restrict__ freqs, int nf,
+                                              const double* __restrict__ params,
+                                              SampleGrid<T, MODE> grid,
+                                              T* __restrict__ geometry,
+                                              T* __restrict__ coefficients,
+                                              int* __restrict__ bad) {
   using Forms = TypeForms<T>;
-  const long long g = static_cast<long long>(blockIdx.x) * POL_THREADS + threadIdx.x;
   const long long slot = g / POL_WARP;
   const int lane = static_cast<int>(g % POL_WARP);
   if (slot >= n_slots) return;
@@ -1013,12 +1016,22 @@ __global__ void __launch_bounds__(POL_THREADS, DeriveBlocks<T>::value)
   const SksPoint<T> pt = cks_to_sks(c, x, y, z);
   const bool keep_geo =
       geometric_keep(c.cuts, pt.x, pt.y, pt.z, pt.r, c.camera_r, c.cam1, c.cam2, c.cam3);
-  const bool off_grid = is_off_grid(grid, pt);
   T v[8];
-  if (keep_geo && !off_grid) {
-    int hint[3] = {-1, -1, -1};  // one sample a thread: no previous cell
-    sample_cell(grid, pt, v, hint);
+  bool off_grid, sampled;
+  if constexpr (MODE == SAMPLE_SINGLE) {
+    off_grid = is_off_grid(grid, pt);
+    sampled = keep_geo && !off_grid;
+    if (sampled) {
+      int hint[3] = {-1, -1, -1};  // one sample a thread: no previous cell
+      sample_cell(grid, pt, v, hint);
+    }
   } else {
+    // the block search only where the sample is not cut
+    int hint[3] = {-1, -1, -1}, block = -1;
+    sampled = keep_geo && sample_blocks<MODE>(grid, pt, v, hint, block);
+    off_grid = keep_geo && !sampled;
+  }
+  if (!sampled) {
 #pragma unroll
     for (int q = 0; q < 8; ++q) v[q] = T(0);
     if (keep_geo) {
@@ -1102,6 +1115,37 @@ __global__ void __launch_bounds__(POL_THREADS, DeriveBlocks<T>::value)
     o[7 * POL_WARP] = k.rho_v * dl_cgs;
   }
   if (bits) atomicOr(bad + ray, static_cast<int>(bits));
+}
+
+// The derive kernel on one mesh block, trilinear (SAMPLE_SINGLE).
+template <typename T, bool GEOMETRY>
+__global__ void __launch_bounds__(POL_THREADS, DeriveBlocks<T>::value)
+    polarized_derive_kernel(SampleSet<T> set, long long n_slots,
+                            const T* __restrict__ directions,
+                            const T* __restrict__ momentum_factors, const T* __restrict__ freqs,
+                            int nf, const double* __restrict__ params, GridView<T> grid,
+                            T* __restrict__ geometry, T* __restrict__ coefficients,
+                            int* __restrict__ bad) {
+  derive_sample<T, GEOMETRY, SAMPLE_SINGLE>(
+      static_cast<long long>(blockIdx.x) * POL_THREADS + threadIdx.x, set, n_slots, directions,
+      momentum_factors, freqs, nf, params, grid, geometry, coefficients, bad);
+}
+
+// The derive kernel on many mesh blocks or at the nearest cell (MODE
+// SAMPLE_BLOCKS or SAMPLE_INTERBLOCK), instantiated in
+// polarized_derive_blocks.cu.
+template <typename T, bool GEOMETRY, int MODE>
+__global__ void __launch_bounds__(POL_THREADS, DeriveBlocks<T>::value)
+    polarized_derive_mode_kernel(SampleSet<T> set, long long n_slots,
+                                 const T* __restrict__ directions,
+                                 const T* __restrict__ momentum_factors,
+                                 const T* __restrict__ freqs, int nf,
+                                 const double* __restrict__ params, BlockGridView<T> grid,
+                                 T* __restrict__ geometry, T* __restrict__ coefficients,
+                                 int* __restrict__ bad) {
+  derive_sample<T, GEOMETRY, MODE>(
+      static_cast<long long>(blockIdx.x) * POL_THREADS + threadIdx.x, set, n_slots, directions,
+      momentum_factors, freqs, nf, params, grid, geometry, coefficients, bad);
 }
 
 // The coherency tensor of each frequency of the launch: registers for one,
@@ -1238,11 +1282,7 @@ struct PolDeriveArgs {
   const void* freqs;
   int nf;
   const double* params;
-  const float* table;
-  const void* coords;
-  const int* guides;
-  const double* axes;
-  int n_i, n_j, n_k;
+  SimGridArgs grid;
   void* geometry_records;
   void* coefficient_records;
   int* bad;
@@ -1269,16 +1309,29 @@ cudaError_t launch_polarized_trace(const PolTraceArgs& a) {
   return cudaGetLastError();
 }
 
-template <typename T>
+// MODE SAMPLE_SINGLE launches polarized_derive_kernel, the others
+// polarized_derive_mode_kernel.
+template <typename T, int MODE = SAMPLE_SINGLE>
 cudaError_t launch_polarized_derive(const PolDeriveArgs& a) {
-  const GridView<T> grid = make_grid_view<T>(a.table, a.coords, a.guides, a.axes, a.n_i, a.n_j, a.n_k);
   const long long threads = a.n_slots * POL_WARP;
   const unsigned blocks = static_cast<unsigned>((threads + POL_THREADS - 1) / POL_THREADS);
-  auto kernel = a.geometry ? polarized_derive_kernel<T, true> : polarized_derive_kernel<T, false>;
-  kernel<<<blocks, POL_THREADS, 0, a.stream>>>(
-      a.set.view<T>(), a.n_slots, static_cast<const T*>(a.directions),
-      static_cast<const T*>(a.momentum_factors), static_cast<const T*>(a.freqs), a.nf, a.params,
-      grid, static_cast<T*>(a.geometry_records), static_cast<T*>(a.coefficient_records), a.bad);
+  if constexpr (MODE == SAMPLE_SINGLE) {
+    auto kernel =
+        a.geometry ? polarized_derive_kernel<T, true> : polarized_derive_kernel<T, false>;
+    kernel<<<blocks, POL_THREADS, 0, a.stream>>>(
+        a.set.view<T>(), a.n_slots, static_cast<const T*>(a.directions),
+        static_cast<const T*>(a.momentum_factors), static_cast<const T*>(a.freqs), a.nf,
+        a.params, a.grid.view<T>(), static_cast<T*>(a.geometry_records),
+        static_cast<T*>(a.coefficient_records), a.bad);
+  } else {
+    auto kernel = a.geometry ? polarized_derive_mode_kernel<T, true, MODE>
+                             : polarized_derive_mode_kernel<T, false, MODE>;
+    kernel<<<blocks, POL_THREADS, 0, a.stream>>>(
+        a.set.view<T>(), a.n_slots, static_cast<const T*>(a.directions),
+        static_cast<const T*>(a.momentum_factors), static_cast<const T*>(a.freqs), a.nf,
+        a.params, a.grid.block_view<T>(), static_cast<T*>(a.geometry_records),
+        static_cast<T*>(a.coefficient_records), a.bad);
+  }
   return cudaGetLastError();
 }
 
@@ -1301,5 +1354,8 @@ cudaError_t launch_polarized_chain(const PolChainArgs& a) {
 cudaError_t launch_polarized_trace_any(int dtype_code, int integrator, const PolTraceArgs& a);
 cudaError_t launch_polarized_derive_f32(const PolDeriveArgs& a);
 cudaError_t launch_polarized_derive_f64(const PolDeriveArgs& a);
+// The derive kernel on many blocks (a.grid.mode SAMPLE_BLOCKS or
+// SAMPLE_INTERBLOCK) in either type (polarized_derive_blocks.cu).
+cudaError_t launch_polarized_derive_blocks(int dtype_code, const PolDeriveArgs& a);
 
 }  // namespace bl

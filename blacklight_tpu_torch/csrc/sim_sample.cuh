@@ -162,12 +162,13 @@ struct GridView {
 // an axis: lo, hi, scale, bins; GUIDE_AXIS_VALUES of KernelGrid.axes).
 constexpr int GUIDE_AXIS_VALUES = 4;
 
-// The view of a (n_k, n_j, n_i, 8) float32 table, the concatenated
-// coordinates x1f, x1v, x2f, x2v, x3f, x3v, the concatenated guides of the
-// three axes and their host array `axes`.
+// The view of a (n_b, n_k, n_j, n_i, 8) float32 table, the concatenated
+// coordinates x1f, x1v, x2f, x2v, x3f, x3v ((n_b, n + 1) faces and
+// (n_b, n) centres an axis), the concatenated guides of the three axes and
+// their host array `axes`.
 template <typename T>
 GridView<T> make_grid_view(const float* table, const void* coords_, const int* guides,
-                           const double* axes, int n_i, int n_j, int n_k) {
+                           const double* axes, int n_i, int n_j, int n_k, int n_b = 1) {
   const T* coords = static_cast<const T*>(coords_);
   GridView<T> grid;
   grid.table = reinterpret_cast<const float4*>(table);
@@ -176,14 +177,14 @@ GridView<T> make_grid_view(const float* table, const void* coords_, const int* g
     GridAxis<T>& ax = grid.ax[a];
     const double* v = axes + GUIDE_AXIS_VALUES * a;
     ax.xf = coords;
-    ax.xv = coords + n[a] + 1;
+    ax.xv = coords + static_cast<long long>(n_b) * (n[a] + 1);
     ax.guide = guides;
     ax.lo = T(v[0]);
     ax.hi = T(v[1]);
     ax.scale = T(v[2]);
     ax.n = n[a];
     ax.bins = static_cast<int>(v[3]);
-    coords += 2 * n[a] + 1;
+    coords += static_cast<long long>(n_b) * (2 * n[a] + 1);
     guides += ax.bins;
   }
   return grid;
@@ -337,6 +338,358 @@ __device__ __forceinline__ void sample_cell(const GridView<T>& grid, const SksPo
 #pragma unroll
   for (int q = 0; q < 8; ++q) v[q] = T(static_cast<float>(v[q]));
 }
+
+// ---------------------------------------------------------------------------
+// Many mesh blocks (grid/sampling.py sample_sks): the modes of the
+// sampler, fixed at compile time so that the single-block code above stays
+// as it was. SAMPLE_SINGLE: one block, the guided walk and trilinear
+// interpolation clamped to the block (sample_cell). SAMPLE_BLOCKS: the
+// block search, then trilinear interpolation clamped to the block, or the
+// nearest cell where the launch says so (BlockGridView::nearest; a
+// one-block grid sampled at the nearest cell takes this mode too).
+// SAMPLE_INTERBLOCK: the block search, then exact trilinear interpolation
+// across block faces at the same, a coarser or a finer level, on the
+// host's neighbour table (grid/amr.py). The functions of many blocks below
+// keep their own face walk, anchor and blend (block_faces_below,
+// locate_in_block, blend_cells): sharing them with faces_below, locate and
+// sample_cell changes the single-block kernels' SASS.
+constexpr int SAMPLE_SINGLE = 0;
+constexpr int SAMPLE_BLOCKS = 1;
+constexpr int SAMPLE_INTERBLOCK = 2;
+// Values of a neighbour table entry (grid/amr.py TABLE_FIELDS): the block,
+// the case and the three crossings.
+constexpr int AMR_TABLE_FIELDS = 5;
+
+// The table (n_b, n_k, n_j, n_i, 8) and each axis' faces (n_b, n + 1) and
+// centres (n_b, n), block after block (cells; its axes' lo and hi bound
+// every block's box, and their guides are not read), each block's box
+// (bounds: r, theta, phi low and high faces, 6 values a block) and, under
+// SAMPLE_INTERBLOCK, the neighbour table (n_b, 27, 8, 5) and the
+// locations' parities (n_b, 3).
+template <typename T>
+struct BlockGridView {
+  GridView<T> cells;
+  const T* __restrict__ bounds;
+  const int* __restrict__ amr;
+  const int* __restrict__ parity;
+  int n_b;
+  bool nearest;
+};
+
+// The view a kernel of MODE takes.
+template <typename T, int MODE>
+struct SampleGridOf {
+  using type = BlockGridView<T>;
+};
+template <typename T>
+struct SampleGridOf<T, SAMPLE_SINGLE> {
+  using type = GridView<T>;
+};
+template <typename T, int MODE>
+using SampleGrid = typename SampleGridOf<T, MODE>::type;
+
+// The block that holds the point (grid/sampling.py locate_anchor): the
+// first in block order whose closed box holds it, or -1 (off the grid;
+// NaN coordinates are in no box). The previous sample's block (hint, -1:
+// none) is kept while the point lies strictly inside it: blocks do not
+// overlap in volume (ops/simulation_kernel.py check_grid), so no other
+// block's closed box holds such a point. A new block resets the face
+// counts, which belong to the old block's faces.
+template <typename T>
+__device__ __forceinline__ int find_block(const BlockGridView<T>& g, const SksPoint<T>& p,
+                                          int& hint, int (&faces)[3]) {
+  if (hint >= 0) {
+    const T* bb = g.bounds + 6 * hint;
+    if (p.r > __ldg(bb) && p.r < __ldg(bb + 1) && p.th > __ldg(bb + 2) &&
+        p.th < __ldg(bb + 3) && p.ph > __ldg(bb + 4) && p.ph < __ldg(bb + 5)) {
+      return hint;
+    }
+  }
+  int found = -1;
+  if (!is_off_grid(g.cells, p)) {
+#pragma unroll 1
+    for (int b = 0; b < g.n_b; ++b) {
+      const T* bb = g.bounds + 6 * b;
+      if (p.r >= __ldg(bb) && p.r <= __ldg(bb + 1) && p.th >= __ldg(bb + 2) &&
+          p.th <= __ldg(bb + 3) && p.ph >= __ldg(bb + 4) && p.ph <= __ldg(bb + 5)) {
+        found = b;
+        break;
+      }
+    }
+  }
+  if (found != hint) {
+    faces[0] = faces[1] = faces[2] = -1;
+    hint = found;
+  }
+  return found;
+}
+
+// The count of faces below x among a block's n + 1 faces xf: walked from
+// `hint` (the count at the ray's previous sample in this block), or, with
+// no hint (-1), a binary search; the result becomes the hint. As
+// faces_below: the faces are non-decreasing, x NaN gives 0.
+template <typename T>
+__device__ __forceinline__ int block_faces_below(const T* xf, int n, T x, int& hint) {
+  int q = hint;
+  if (q < 0) {
+    int lo = 0, hi = n + 1;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (__ldg(xf + mid) < x) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    q = lo;
+  } else if (q <= n && __ldg(xf + q) < x) {
+    do {
+      ++q;
+    } while (q <= n && __ldg(xf + q) < x);
+  } else {
+    while (q > 0 && !(__ldg(xf + q - 1) < x)) --q;
+  }
+  hint = q;
+  return q;
+}
+
+// One axis in block b: the containing cell i, the trilinear anchor i_m
+// and fraction f (locate, on the block's faces and centres).
+template <typename T>
+struct BlockAxis {
+  const T* xf;  // the block's n + 1 faces
+  const T* xv;  // its n centres
+  int n, i, i_m;
+  T f;
+};
+
+template <typename T>
+__device__ __forceinline__ BlockAxis<T> locate_in_block(const GridAxis<T>& a, int b, T x,
+                                                        int& hint) {
+  BlockAxis<T> o;
+  const int n = a.n;
+  o.n = n;
+  o.xf = a.xf + static_cast<long long>(b) * (n + 1);
+  o.xv = a.xv + static_cast<long long>(b) * n;
+  o.i = min(max(block_faces_below(o.xf, n, x, hint) - 1, 0), n - 1);
+  const T xv_i = __ldg(o.xv + o.i);
+  const bool use_i = (o.i == 0) || (o.i != n - 1 && x >= xv_i);
+  o.i_m = use_i ? o.i : o.i - 1;
+  const T x_lo = use_i ? xv_i : __ldg(o.xv + o.i - 1);
+  const T x_hi = use_i ? __ldg(o.xv + o.i + 1) : xv_i;
+  o.f = (x - x_lo) / (x_hi - x_lo);
+  return o;
+}
+
+// The trilinear blend of 8 cells (cell(corner) their table indices, in the
+// corner order of sample_cell), the positivity repair of rho and pgas
+// against corner 0 and the float32 storage of samples: sample_cell's sum.
+template <typename T, typename Cell>
+__device__ __forceinline__ void blend_cells(const float4* __restrict__ table, T f_i, T f_j, T f_k,
+                                            Cell cell, T (&v)[8]) {
+  const T w[8] = {(T(1) - f_k) * (T(1) - f_j) * (T(1) - f_i),
+                  (T(1) - f_k) * (T(1) - f_j) * f_i,
+                  (T(1) - f_k) * f_j * (T(1) - f_i),
+                  (T(1) - f_k) * f_j * f_i,
+                  f_k * (T(1) - f_j) * (T(1) - f_i),
+                  f_k * (T(1) - f_j) * f_i,
+                  f_k * f_j * (T(1) - f_i),
+                  f_k * f_j * f_i};
+  float anchor_rho = 0.0f, anchor_pgas = 0.0f;
+#pragma unroll
+  for (int corner = 0; corner < 8; ++corner) {
+    const long long c = cell(corner);
+    const float4 a = __ldg(table + 2 * c);
+    const float4 b = __ldg(table + 2 * c + 1);
+    if (corner == 0) {
+      anchor_rho = a.x;
+      anchor_pgas = a.y;
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const T term = w[corner] * T(prim_at(a, b, q));
+      v[q] = corner == 0 ? term : v[q] + term;
+    }
+  }
+  if (v[0] <= T(0)) v[0] = T(anchor_rho);
+  if (v[1] <= T(0)) v[1] = T(anchor_pgas);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) v[q] = T(static_cast<float>(v[q]));
+}
+
+// The cell index along one axis of an interblock corner (grid/sampling.py
+// interblock_corners axis_index): ck the corner's raw index in the home
+// block (-1..n), e its crossing left after clamping (table field), upper
+// ck > n / 2, par the home block's location parity, c the containing cell
+// and x, xv_c the coordinate and that cell's centre; case_ 0 same level, 1
+// coarser, 2 finer.
+__device__ __forceinline__ int interblock_index(int e, int par, int ck, bool upper, int n, int c,
+                                                bool past_centre, int case_) {
+  // a crossed axis with no grid there was clamped onto the home block:
+  // e == 0 takes the clamped index
+  const int cs = min(max(ck, 0), n - 1);
+  if (case_ == 0) return e == 0 ? cs : (e == -1 ? n - 1 : 0);
+  if (case_ == 1) return e == 0 ? (par * n + cs) >> 1 : (e == -1 ? n - 1 : 0);
+  int fine = e == 0 ? (upper ? (cs - n / 2) * 2 : cs * 2) : (e == -1 ? n - 2 : 0);
+  // nudged toward the sample; a crossed axis that exists compares its raw
+  // index
+  const int ca = e == 0 ? cs : ck;
+  return fine + ((ca < c || (ca == c && past_centre)) ? 1 : 0);
+}
+
+// Exact interblock interpolation in block b (grid/sampling.py
+// interblock_corners): unclamped anchors, fractions through ghost centres
+// past the block faces (past the upper face the reference's x?v(b, n),
+// the next block's first centre in the flat centre array, or for the last
+// block the mirror through its upper face), and each corner's cell through
+// the neighbour table.
+template <typename T>
+__device__ __forceinline__ void sample_interblock(const BlockGridView<T>& g, const SksPoint<T>& p,
+                                                  int b, T (&v)[8], int (&hint)[3]) {
+  const T x[3] = {p.r, p.th, p.ph};
+  int n[3], c[3], base[3];
+  bool past[3];
+  T f[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const BlockAxis<T> o = locate_in_block(g.cells.ax[a], b, x[a], hint[a]);
+    const int m = o.n;
+    const T xv_c = __ldg(o.xv + o.i);
+    past[a] = x[a] > xv_c;
+    base[a] = x[a] >= xv_c ? o.i : o.i - 1;
+    const T xv_last = __ldg(o.xv + m - 1);
+    const T lo = base[a] == -1 ? T(2) * __ldg(o.xf) - __ldg(o.xv) : __ldg(o.xv + base[a]);
+    T hi;
+    if (base[a] + 1 == m) {
+      const T nxt = b == g.n_b - 1 ? T(2) * __ldg(o.xf + m) - xv_last : __ldg(o.xv + m);
+      hi = T(2) * nxt - xv_last;
+    } else {
+      hi = __ldg(o.xv + base[a] + 1);
+    }
+    f[a] = (x[a] - lo) / (hi - lo);
+    n[a] = m;
+    c[a] = o.i;
+  }
+  const long long n_cells = static_cast<long long>(g.n_b) * n[2] * n[1] * n[0];
+  const int* par = g.parity + 3 * b;
+  blend_cells(g.cells.table, f[0], f[1], f[2],
+              [&](int corner) {
+                const int d[3] = {corner & 1, (corner >> 1) & 1, corner >> 2};
+                int ck[3], side[3];
+                bool upper[3];
+#pragma unroll
+                for (int a = 0; a < 3; ++a) {
+                  ck[a] = base[a] + d[a];
+                  side[a] = ck[a] == -1 ? -1 : (ck[a] == n[a] ? 1 : 0);
+                  upper[a] = ck[a] > n[a] / 2;
+                }
+                const int dir = (side[2] + 1) * 9 + (side[1] + 1) * 3 + (side[0] + 1);
+                const int half = (upper[2] ? 4 : 0) + (upper[1] ? 2 : 0) + (upper[0] ? 1 : 0);
+                const int* e = g.amr + ((b * 27 + dir) * 8 + half) * AMR_TABLE_FIELDS;
+                const int case_ = __ldg(e + 1);
+                int idx[3];
+#pragma unroll
+                for (int a = 0; a < 3; ++a) {
+                  idx[a] = interblock_index(__ldg(e + 2 + a), __ldg(par + a), ck[a], upper[a],
+                                            n[a], c[a], past[a], case_);
+                }
+                // a fine cell may lie one past its row: the flat index
+                // reads on, clamped at the table's end
+                const long long cell =
+                    ((static_cast<long long>(__ldg(e)) * n[2] + idx[2]) * n[1] + idx[1]) * n[0] +
+                    idx[0];
+                return min(max(cell, 0LL), n_cells - 1);
+              },
+              v);
+}
+
+// The sample at a point in block b under SAMPLE_BLOCKS: the nearest cell
+// (no repair; its float32 values as they are), or trilinear interpolation
+// clamped to the block.
+template <typename T>
+__device__ __forceinline__ void sample_block(const BlockGridView<T>& g, const SksPoint<T>& p,
+                                             int b, T (&v)[8], int (&hint)[3]) {
+  const BlockAxis<T> oi = locate_in_block(g.cells.ax[0], b, p.r, hint[0]);
+  const BlockAxis<T> oj = locate_in_block(g.cells.ax[1], b, p.th, hint[1]);
+  const BlockAxis<T> ok = locate_in_block(g.cells.ax[2], b, p.ph, hint[2]);
+  const int n_i = oi.n, n_j = oj.n, n_k = ok.n;
+  const long long first = static_cast<long long>(b) * n_k * n_j * n_i;
+  if (g.nearest) {
+    const long long cell = first + (static_cast<long long>(ok.i) * n_j + oj.i) * n_i + oi.i;
+    const float4 a = __ldg(g.cells.table + 2 * cell);
+    const float4 c = __ldg(g.cells.table + 2 * cell + 1);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) v[q] = T(prim_at(a, c, q));
+    return;
+  }
+  const int i_m = min(max(oi.i_m, 0), n_i - 2);
+  const int j_m = min(max(oj.i_m, 0), n_j - 2);
+  const int k_m = min(max(ok.i_m, 0), n_k - 2);
+  const long long anchor = first + (static_cast<long long>(k_m) * n_j + j_m) * n_i + i_m;
+  blend_cells(g.cells.table, oi.f, oj.f, ok.f,
+              [&](int corner) {
+                const int dk = corner >> 2, dj = (corner >> 1) & 1, di = corner & 1;
+                return anchor + (static_cast<long long>(dk) * n_j + dj) * n_i + di;
+              },
+              v);
+}
+
+// The sample of a point on the grid of many blocks (grid/sampling.py
+// sample_sks) in MODE; false off the grid (no block holds the point).
+// hint: the face counts of the ray's previous sample, block: its block
+// (-1: none), both updated.
+template <int MODE, typename T>
+__device__ __forceinline__ bool sample_blocks(const BlockGridView<T>& g, const SksPoint<T>& p,
+                                              T (&v)[8], int (&hint)[3], int& block) {
+  const int b = find_block(g, p, block, hint);
+  if (b < 0) return false;
+  if constexpr (MODE == SAMPLE_INTERBLOCK) {
+    sample_interblock(g, p, b, v, hint);
+  } else {
+    sample_block(g, p, b, v, hint);
+  }
+  return true;
+}
+
+// The snapshot as the C interface receives it: the (n_b, n_k, n_j, n_i, 8)
+// float32 table, the coordinates in the rays' type, the guides (int32) and
+// the host array of their axes (make_grid_view); the sampling mode
+// (SAMPLE_*), the nearest-cell flag, the blocks, their bounds in the rays'
+// type and, under SAMPLE_INTERBLOCK, the neighbour table and parities
+// (int32).
+struct SimGridArgs {
+  const float* table;
+  const void* coords;
+  const int* guides;
+  const double* axes;
+  int n_i, n_j, n_k;
+  int mode;
+  bool nearest;
+  int n_b;
+  const void* bounds;
+  const int* amr;
+  const int* parity;
+
+  template <typename T>
+  GridView<T> view() const {
+    return make_grid_view<T>(table, coords, guides, axes, n_i, n_j, n_k, n_b);
+  }
+
+  template <typename T>
+  BlockGridView<T> block_view() const {
+    return {view<T>(), static_cast<const T*>(bounds), amr, parity, n_b, nearest};
+  }
+
+  // Whether the mode and the blocks agree: one block for SAMPLE_SINGLE,
+  // the neighbour table for SAMPLE_INTERBLOCK.
+  bool valid() const {
+    if (n_i < 2 || n_j < 2 || n_k < 2 || n_b < 1) return false;
+    if (mode == SAMPLE_SINGLE) return n_b == 1 && !nearest;
+    if (mode == SAMPLE_BLOCKS) return bounds != nullptr;
+    return mode == SAMPLE_INTERBLOCK && bounds != nullptr && amr != nullptr &&
+           parity != nullptr && !nearest;
+  }
+};
 
 // CGS fluid state and SKS four-vectors from sampled primitives
 // (models/synchrotron.py fluid_state, ops/sks.py).

@@ -69,6 +69,7 @@
 #include <cuda_runtime.h>
 
 #include <cstring>
+#include <type_traits>
 
 #include "sim_sample.cuh"
 
@@ -102,14 +103,22 @@ struct SimLaunchConsts {
 // one and at 16 frequencies gain up to k = 8, 64 registers, dp is fastest
 // at k = 6, 80 registers, and slower beyond as its spills grow). The
 // double kernels take what they need, ~200-235 registers.
-template <typename T, int INTEGRATOR>
+template <typename T, int INTEGRATOR, int MODE = SAMPLE_SINGLE>
 constexpr int SimBlocks = sizeof(T) != 4 ? 1 : INTEGRATOR == INTEGRATOR_DP ? 6 : 8;
 
-// Accumulators of one ray and what happens at each of its stored samples.
-template <typename T, int NF>
-struct SimSample {
+// The block of the ray's previous sample (-1: none), which only the modes
+// of many blocks carry: SAMPLE_SINGLE's SimSample keeps its layout.
+struct BlockHint {
+  int block = -1;
+};
+struct NoBlockHint {};
+
+// Accumulators of one ray and what happens at each of its stored samples,
+// on a grid sampled in MODE (sim_sample.cuh SAMPLE_*).
+template <typename T, int NF, int MODE = SAMPLE_SINGLE>
+struct SimSample : std::conditional_t<MODE == SAMPLE_SINGLE, NoBlockHint, BlockHint> {
   const SimConsts<T>& c;
-  const GridView<T>& grid;
+  const SampleGrid<T, MODE>& grid;
   const T (&nu)[NF];  // the launch's frequencies
   int nf;
   T p0, mom;
@@ -118,8 +127,8 @@ struct SimSample {
   unsigned bad;  // bit f: frequency f met a sample the reference would NaN
   int hint[3];   // the face counts of the ray's previous sample (-1: none)
 
-  __device__ SimSample(const SimConsts<T>& c_, const GridView<T>& grid_, const T (&nu_)[NF],
-                       int nf_, T p0_, T mom_)
+  __device__ SimSample(const SimConsts<T>& c_, const SampleGrid<T, MODE>& grid_,
+                       const T (&nu_)[NF], int nf_, T p0_, T mom_)
       : c(c_), grid(grid_), nu(nu_), nf(nf_), p0(p0_), mom(mom_), bad(0u), hint{-1, -1, -1} {
 #pragma unroll
     for (int f = 0; f < NF; ++f) {
@@ -135,14 +144,20 @@ struct SimSample {
     using Forms = TypeForms<T>;
     const SksPoint<T> p = cks_to_sks(c, ym[1], ym[2], ym[3], q);
     if (!geometric_keep(c.cuts, p.x, p.y, p.z, p.r, c.camera_r, c.cam1, c.cam2, c.cam3)) return;
-    if (is_off_grid(grid, p)) {
+    T v[8];
+    bool on_grid;
+    if constexpr (MODE == SAMPLE_SINGLE) {
+      on_grid = !is_off_grid(grid, p);
+      if (on_grid) sample_cell(grid, p, v, hint);
+    } else {
+      on_grid = sample_blocks<MODE>(grid, p, v, hint, this->block);
+    }
+    if (!on_grid) {
       // fallback values with zero field: zero coefficients, and NaN pixels
       // under fallback_nan
       if (c.fallback_nan) bad = ~0u;
       return;
     }
-    T v[8];
-    sample_cell(grid, p, v, hint);
     if (v[5] == T(0) && v[6] == T(0) && v[7] == T(0)) return;  // zero field
     FluidState<T> st;
     fluid_state(c, p, v, st);
@@ -183,24 +198,22 @@ struct SimSample {
   }
 };
 
-// i_nu: (n_rays, nf) row-major.
-template <typename T, int INTEGRATOR, int NF>
-__global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
-    simulation_kernel(const T* __restrict__ positions, const T* __restrict__ directions,
-                      const T* __restrict__ momentum_factors,
-                      const __grid_constant__ SimLaunchConsts<T, NF> consts, int nf,
-                      const __grid_constant__ GridView<T> grid, T* __restrict__ i_nu,
-                      int* __restrict__ flags_out, int* __restrict__ n_samples_out,
-                      long long n_rays) {
-  const long long ray = static_cast<long long>(blockIdx.x) * SIM_THREADS + threadIdx.x;
-  if (ray >= n_rays) return;
+// One ray of the monolithic kernel; i_nu: (n_rays, nf) row-major.
+template <typename T, int INTEGRATOR, int NF, int MODE>
+__device__ __forceinline__ void simulation_ray(long long ray, const T* __restrict__ positions,
+                                               const T* __restrict__ directions,
+                                               const T* __restrict__ momentum_factors,
+                                               const SimLaunchConsts<T, NF>& consts, int nf,
+                                               const SampleGrid<T, MODE>& grid,
+                                               T* __restrict__ i_nu, int* __restrict__ flags_out,
+                                               int* __restrict__ n_samples_out) {
   const TraceConsts<T> tc(consts.v);
   const SimConsts<T> sc(consts.v, RoundedConsts{});
 
   RayState<T> s;
   init_ray_state(tc, positions + 4 * ray, directions + 4 * ray, s);
   const T p0 = directions[4 * ray + 0];
-  SimSample<T, NF> sample(sc, grid, consts.nu, nf, p0, momentum_factors[ray]);
+  SimSample<T, NF, MODE> sample(sc, grid, consts.nu, nf, p0, momentum_factors[ray]);
   trace_steps<T, INTEGRATOR>(tc, s, p0, 0, tc.max_steps, sample);
 
 #pragma unroll 1
@@ -212,21 +225,38 @@ __global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
   n_samples_out[ray] = s.n_samp;
 }
 
-// The snapshot as the C interface receives it: the (n_k, n_j, n_i, 8)
-// float32 table, the coordinates in the rays' type, the guides (int32)
-// and the host array of their axes (make_grid_view).
-struct SimGridArgs {
-  const float* table;
-  const void* coords;
-  const int* guides;
-  const double* axes;
-  int n_i, n_j, n_k;
+// One mesh block, trilinear (SAMPLE_SINGLE).
+template <typename T, int INTEGRATOR, int NF>
+__global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
+    simulation_kernel(const T* __restrict__ positions, const T* __restrict__ directions,
+                      const T* __restrict__ momentum_factors,
+                      const __grid_constant__ SimLaunchConsts<T, NF> consts, int nf,
+                      const __grid_constant__ GridView<T> grid, T* __restrict__ i_nu,
+                      int* __restrict__ flags_out, int* __restrict__ n_samples_out,
+                      long long n_rays) {
+  const long long ray = static_cast<long long>(blockIdx.x) * SIM_THREADS + threadIdx.x;
+  if (ray >= n_rays) return;
+  simulation_ray<T, INTEGRATOR, NF, SAMPLE_SINGLE>(ray, positions, directions, momentum_factors,
+                                                   consts, nf, grid, i_nu, flags_out,
+                                                   n_samples_out);
+}
 
-  template <typename T>
-  GridView<T> view() const {
-    return make_grid_view<T>(table, coords, guides, axes, n_i, n_j, n_k);
-  }
-};
+// Many mesh blocks or the nearest cell (MODE SAMPLE_BLOCKS or
+// SAMPLE_INTERBLOCK), instantiated in simulation_blocks.cu and
+// simulation_blocks_dp.cu.
+template <typename T, int INTEGRATOR, int NF, int MODE>
+__global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR, MODE>)
+    simulation_mode_kernel(const T* __restrict__ positions, const T* __restrict__ directions,
+                           const T* __restrict__ momentum_factors,
+                           const __grid_constant__ SimLaunchConsts<T, NF> consts, int nf,
+                           const __grid_constant__ BlockGridView<T> grid, T* __restrict__ i_nu,
+                           int* __restrict__ flags_out, int* __restrict__ n_samples_out,
+                           long long n_rays) {
+  const long long ray = static_cast<long long>(blockIdx.x) * SIM_THREADS + threadIdx.x;
+  if (ray >= n_rays) return;
+  simulation_ray<T, INTEGRATOR, NF, MODE>(ray, positions, directions, momentum_factors, consts,
+                                          nf, grid, i_nu, flags_out, n_samples_out);
+}
 
 // The launch constants of an instantiation from the host's copy (bytes
 // long); false if the size is not the struct's.
@@ -254,28 +284,58 @@ struct SimLaunchArgs {
   cudaStream_t stream;
 };
 
-template <typename T, int INTEGRATOR, int NF>
+// MODE SAMPLE_SINGLE launches simulation_kernel, the others
+// simulation_mode_kernel.
+template <typename T, int INTEGRATOR, int NF, int MODE>
 cudaError_t launch_simulation(const SimLaunchArgs& a) {
   SimLaunchConsts<T, NF> consts;
   if (!copy_consts(a.consts, a.consts_bytes, consts)) return cudaErrorInvalidValue;
   const unsigned blocks = static_cast<unsigned>((a.n_rays + SIM_THREADS - 1) / SIM_THREADS);
-  simulation_kernel<T, INTEGRATOR, NF><<<blocks, SIM_THREADS, 0, a.stream>>>(
-      static_cast<const T*>(a.positions), static_cast<const T*>(a.directions),
-      static_cast<const T*>(a.momentum_factors), consts, a.nf, a.grid.view<T>(),
-      static_cast<T*>(a.i_nu), a.flags, a.n_samples, a.n_rays);
+  if constexpr (MODE == SAMPLE_SINGLE) {
+    simulation_kernel<T, INTEGRATOR, NF><<<blocks, SIM_THREADS, 0, a.stream>>>(
+        static_cast<const T*>(a.positions), static_cast<const T*>(a.directions),
+        static_cast<const T*>(a.momentum_factors), consts, a.nf, a.grid.view<T>(),
+        static_cast<T*>(a.i_nu), a.flags, a.n_samples, a.n_rays);
+  } else {
+    simulation_mode_kernel<T, INTEGRATOR, NF, MODE><<<blocks, SIM_THREADS, 0, a.stream>>>(
+        static_cast<const T*>(a.positions), static_cast<const T*>(a.directions),
+        static_cast<const T*>(a.momentum_factors), consts, a.nf, a.grid.block_view<T>(),
+        static_cast<T*>(a.i_nu), a.flags, a.n_samples, a.n_rays);
+  }
   return cudaGetLastError();
 }
 
 // One frequency keeps its accumulators in registers; 2..MAX_FREQUENCIES
 // hold them in a local array.
-template <typename T, int INTEGRATOR>
+template <typename T, int INTEGRATOR, int MODE = SAMPLE_SINGLE>
 cudaError_t launch_simulation_nf(const SimLaunchArgs& a) {
-  if (a.nf == 1) return launch_simulation<T, INTEGRATOR, 1>(a);
-  return launch_simulation<T, INTEGRATOR, MAX_FREQUENCIES>(a);
+  if (a.nf == 1) return launch_simulation<T, INTEGRATOR, 1, MODE>(a);
+  return launch_simulation<T, INTEGRATOR, MAX_FREQUENCIES, MODE>(a);
 }
 
-// dp in float (dtype_code 0) or double (1); defined in simulation_kernel_dp.cu.
+// The modes of many blocks (a.grid.mode SAMPLE_BLOCKS or
+// SAMPLE_INTERBLOCK): rk4 and rk2 in simulation_blocks.cu, dp in
+// simulation_blocks_dp.cu.
+template <int INTEGRATOR>
+cudaError_t launch_simulation_blocks(int dtype_code, const SimLaunchArgs& a) {
+  const bool inter = a.grid.mode == SAMPLE_INTERBLOCK;
+  if (dtype_code == 0) {
+    return inter ? launch_simulation_nf<float, INTEGRATOR, SAMPLE_INTERBLOCK>(a)
+                 : launch_simulation_nf<float, INTEGRATOR, SAMPLE_BLOCKS>(a);
+  }
+  if (dtype_code == 1) {
+    return inter ? launch_simulation_nf<double, INTEGRATOR, SAMPLE_INTERBLOCK>(a)
+                 : launch_simulation_nf<double, INTEGRATOR, SAMPLE_BLOCKS>(a);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// dp in float (dtype_code 0) or double (1) on one block (defined in
+// simulation_kernel_dp.cu); every integrator on many blocks (defined in
+// simulation_blocks.cu and simulation_blocks_dp.cu).
 cudaError_t launch_simulation_dp(int dtype_code, const SimLaunchArgs& a);
+cudaError_t launch_simulation_rk_blocks(int dtype_code, int integrator, const SimLaunchArgs& a);
+cudaError_t launch_simulation_dp_blocks(int dtype_code, const SimLaunchArgs& a);
 
 // ---------------------------------------------------------------------------
 // Phased dispatch (K2.3): one phase of the kernel above from a carried state.
@@ -319,17 +379,13 @@ struct SimCarryView {
   long long n_rays;
 };
 
-// The phase kernel takes the monolithic kernel's SimBlocks, so that the
-// two differ in how they are dispatched, not in occupancy.
-template <typename T, int INTEGRATOR, int NF>
-__global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
-    simulation_phase_kernel(const int* __restrict__ index, long long n_live, int n_base,
-                            int phase_steps, bool write_state, const T* __restrict__ directions,
-                            const T* __restrict__ momentum_factors,
-                            const __grid_constant__ SimLaunchConsts<T, NF> consts, int nf,
-                            const __grid_constant__ GridView<T> grid, SimCarryView<T> carry) {
-  const long long slot = static_cast<long long>(blockIdx.x) * SIM_THREADS + threadIdx.x;
-  if (slot >= n_live) return;
+// One ray of a phase: the ray of the bundle at place `slot` of the list.
+template <typename T, int INTEGRATOR, int NF, int MODE>
+__device__ __forceinline__ void simulation_phase_ray(
+    long long slot, const int* __restrict__ index, int n_base, int phase_steps, bool write_state,
+    const T* __restrict__ directions, const T* __restrict__ momentum_factors,
+    const SimLaunchConsts<T, NF>& consts, int nf, const SampleGrid<T, MODE>& grid,
+    const SimCarryView<T>& carry) {
   const long long ray = index[slot];
   const long long n = carry.n_rays;
   const TraceConsts<T> tc(consts.v);
@@ -349,8 +405,9 @@ __global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
   s.prev_fail = false;
   const T p0 = directions[4 * ray + 0];
 
-  // the face counts are not carried: a phase starts its search afresh
-  SimSample<T, NF> sample(sc, grid, consts.nu, nf, p0, momentum_factors[ray]);
+  // the face counts and the block are not carried: a phase starts its
+  // search afresh
+  SimSample<T, NF, MODE> sample(sc, grid, consts.nu, nf, p0, momentum_factors[ray]);
 #pragma unroll 1
   for (int f = 0; f < sample.n_freq(); ++f) {
     sample.intensity[f] = carry.intensity[f * n + ray];
@@ -372,6 +429,42 @@ __global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
   carry.n_samp[ray] = s.n_samp;
   carry.masks[ray] = (s.alive ? CARRY_ALIVE : 0) | (s.trunc ? CARRY_TRUNC : 0) |
                      (s.flag ? CARRY_FLAG : 0);
+}
+
+// The phase kernel takes the monolithic kernel's SimBlocks, so that the
+// two differ in how they are dispatched, not in occupancy. One mesh block,
+// trilinear (SAMPLE_SINGLE).
+template <typename T, int INTEGRATOR, int NF>
+__global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
+    simulation_phase_kernel(const int* __restrict__ index, long long n_live, int n_base,
+                            int phase_steps, bool write_state, const T* __restrict__ directions,
+                            const T* __restrict__ momentum_factors,
+                            const __grid_constant__ SimLaunchConsts<T, NF> consts, int nf,
+                            const __grid_constant__ GridView<T> grid, SimCarryView<T> carry) {
+  const long long slot = static_cast<long long>(blockIdx.x) * SIM_THREADS + threadIdx.x;
+  if (slot >= n_live) return;
+  simulation_phase_ray<T, INTEGRATOR, NF, SAMPLE_SINGLE>(slot, index, n_base, phase_steps,
+                                                         write_state, directions,
+                                                         momentum_factors, consts, nf, grid,
+                                                         carry);
+}
+
+// Many mesh blocks or the nearest cell (MODE SAMPLE_BLOCKS or
+// SAMPLE_INTERBLOCK), instantiated in simulation_phase_blocks.cu.
+template <typename T, int INTEGRATOR, int NF, int MODE>
+__global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR, MODE>)
+    simulation_phase_mode_kernel(const int* __restrict__ index, long long n_live, int n_base,
+                                 int phase_steps, bool write_state,
+                                 const T* __restrict__ directions,
+                                 const T* __restrict__ momentum_factors,
+                                 const __grid_constant__ SimLaunchConsts<T, NF> consts, int nf,
+                                 const __grid_constant__ BlockGridView<T> grid,
+                                 SimCarryView<T> carry) {
+  const long long slot = static_cast<long long>(blockIdx.x) * SIM_THREADS + threadIdx.x;
+  if (slot >= n_live) return;
+  simulation_phase_ray<T, INTEGRATOR, NF, MODE>(slot, index, n_base, phase_steps, write_state,
+                                                directions, momentum_factors, consts, nf, grid,
+                                                carry);
 }
 
 // Pointers and sizes of one phase launch, as the C interface receives
@@ -398,7 +491,7 @@ struct SimPhaseArgs {
   cudaStream_t stream;
 };
 
-template <typename T, int INTEGRATOR, int NF>
+template <typename T, int INTEGRATOR, int NF, int MODE>
 cudaError_t launch_simulation_phase(const SimPhaseArgs& a) {
   SimLaunchConsts<T, NF> consts;
   if (!copy_consts(a.consts, a.consts_bytes, consts)) return cudaErrorInvalidValue;
@@ -407,11 +500,29 @@ cudaError_t launch_simulation_phase(const SimPhaseArgs& a) {
                               static_cast<T*>(a.intensity), static_cast<T*>(a.tau),
                               a.bad,                         a.n_rays};
   const unsigned blocks = static_cast<unsigned>((a.n_live + SIM_THREADS - 1) / SIM_THREADS);
-  simulation_phase_kernel<T, INTEGRATOR, NF><<<blocks, SIM_THREADS, 0, a.stream>>>(
-      a.index, a.n_live, a.n_base, a.phase_steps, a.write_state,
-      static_cast<const T*>(a.directions), static_cast<const T*>(a.momentum_factors), consts,
-      a.nf, a.grid.view<T>(), carry);
+  if constexpr (MODE == SAMPLE_SINGLE) {
+    simulation_phase_kernel<T, INTEGRATOR, NF><<<blocks, SIM_THREADS, 0, a.stream>>>(
+        a.index, a.n_live, a.n_base, a.phase_steps, a.write_state,
+        static_cast<const T*>(a.directions), static_cast<const T*>(a.momentum_factors), consts,
+        a.nf, a.grid.view<T>(), carry);
+  } else {
+    simulation_phase_mode_kernel<T, INTEGRATOR, NF, MODE><<<blocks, SIM_THREADS, 0, a.stream>>>(
+        a.index, a.n_live, a.n_base, a.phase_steps, a.write_state,
+        static_cast<const T*>(a.directions), static_cast<const T*>(a.momentum_factors), consts,
+        a.nf, a.grid.block_view<T>(), carry);
+  }
   return cudaGetLastError();
 }
+
+template <typename T, int INTEGRATOR, int MODE = SAMPLE_SINGLE>
+cudaError_t launch_simulation_phase_nf(const SimPhaseArgs& a) {
+  if (a.nf == 1) return launch_simulation_phase<T, INTEGRATOR, 1, MODE>(a);
+  return launch_simulation_phase<T, INTEGRATOR, MAX_FREQUENCIES, MODE>(a);
+}
+
+// The phase kernel on many blocks (a.grid.mode SAMPLE_BLOCKS or
+// SAMPLE_INTERBLOCK); defined in simulation_phase_blocks.cu.
+cudaError_t launch_simulation_phase_blocks(int dtype_code, int integrator,
+                                           const SimPhaseArgs& a);
 
 }  // namespace bl

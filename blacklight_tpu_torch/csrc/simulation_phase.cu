@@ -9,12 +9,6 @@
 
 namespace bl {
 
-template <typename T, int INTEGRATOR>
-cudaError_t launch_simulation_phase_nf(const SimPhaseArgs& a) {
-  if (a.nf == 1) return launch_simulation_phase<T, INTEGRATOR, 1>(a);
-  return launch_simulation_phase<T, INTEGRATOR, MAX_FREQUENCIES>(a);
-}
-
 template <typename T>
 cudaError_t launch_simulation_phase_rk(int integrator, const SimPhaseArgs& a) {
   switch (integrator) {
@@ -31,10 +25,13 @@ cudaError_t launch_simulation_phase_rk(int integrator, const SimPhaseArgs& a) {
 
 namespace {
 
-// The instantiation a phase launch takes, by its type and integrator (and
-// a.nf).
+// The instantiation a phase launch takes, by its type, integrator and
+// sampling mode (and a.nf).
 cudaError_t dispatch_phase(int dtype_code, int integrator, const bl::SimPhaseArgs& a) {
   if (a.nf < 1 || a.nf > bl::MAX_FREQUENCIES) return cudaErrorInvalidValue;
+  if (a.grid.mode != bl::SAMPLE_SINGLE) {
+    return bl::launch_simulation_phase_blocks(dtype_code, integrator, a);
+  }
   if (dtype_code == 0) return bl::launch_simulation_phase_rk<float>(integrator, a);
   if (dtype_code == 1) return bl::launch_simulation_phase_rk<double>(integrator, a);
   return cudaErrorInvalidValue;
@@ -46,8 +43,8 @@ cudaError_t dispatch_phase(int dtype_code, int integrator, const bl::SimPhaseArg
 // dtype_code: 0 float32, 1 float64. integrator: 1 rk4, 2 rk2 (dp is
 // refused). index holds n_live int32 ray indices below n_rays; directions
 // (n_rays, 4) and momentum_factors (n_rays,) are the bundle's; consts and
-// the snapshot (table, coords, guides, axes) as
-// blacklight_simulation_launch's. The carried state: y (7,
+// the snapshot (table, coords, guides, axes, n_i, n_j, n_k, mode,
+// nearest, n_b, bounds, amr, parity) as blacklight_simulation_launch's. The carried state: y (7,
 // n_rays), r_mid_prev, n_samp (int32), masks (int32) and bad (int32), each
 // (n_rays,), and intensity and tau (nf, n_rays), in the rays' type where
 // not named. Runs the steps [n_base, n_base + phase_steps) of every listed
@@ -60,11 +57,25 @@ extern "C" int blacklight_simulation_phase_launch(
     int dtype_code, int integrator, int nf, const void* index, long long n_live, int n_base,
     int phase_steps, int write_state, const void* directions, const void* momentum_factors,
     const void* consts, long long consts_bytes, const void* table, const void* coords,
-    const void* guides, const void* axes, int n_i, int n_j, int n_k, void* y, void* r_mid_prev,
+    const void* guides, const void* axes, int n_i, int n_j, int n_k, int mode, int nearest,
+    int n_b, const void* bounds, const void* amr, const void* parity, void* y, void* r_mid_prev,
     void* n_samp, void* masks, void* intensity, void* tau, void* bad, long long n_rays,
     void* stream) {
   if (n_live <= 0) return 0;
-  if (n_i < 2 || n_j < 2 || n_k < 2 || phase_steps < 1 || n_live > n_rays) {
+  const bl::SimGridArgs grid{static_cast<const float*>(table),
+                             coords,
+                             static_cast<const int*>(guides),
+                             static_cast<const double*>(axes),
+                             n_i,
+                             n_j,
+                             n_k,
+                             mode,
+                             nearest != 0,
+                             n_b,
+                             bounds,
+                             static_cast<const int*>(amr),
+                             static_cast<const int*>(parity)};
+  if (!grid.valid() || phase_steps < 1 || n_live > n_rays) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bl::SimPhaseArgs a{static_cast<const int*>(index),
@@ -77,9 +88,7 @@ extern "C" int blacklight_simulation_phase_launch(
                            consts,
                            consts_bytes,
                            nf,
-                           {static_cast<const float*>(table), coords,
-                            static_cast<const int*>(guides), static_cast<const double*>(axes),
-                            n_i, n_j, n_k},
+                           grid,
                            y,
                            r_mid_prev,
                            static_cast<int*>(n_samp),

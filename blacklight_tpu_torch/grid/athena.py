@@ -5,12 +5,16 @@ Port of ``blacklight_tpu/grid/athena.py`` (``SimulationGrid`` :23-94,
 one device, and the file is read by ``grid/hdf5.py`` (numpy and struct),
 so no h5py is needed. The layout is the one the reference parses
 (simulation_reader.cpp:593-781): datasets ``prim`` (rho, press, vel1-3)
-and ``B`` (Bcc1-3) with per-block face and centre coordinates.
+and ``B`` (Bcc1-3) with per-block face and centre coordinates, and the
+mesh's refinement metadata (``Levels``, ``LogicalLocations``, the
+``RootGridSize`` attribute; :697-712) that exact interblock sampling
+needs (``grid/amr.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -32,9 +36,16 @@ class SimulationGrid:
     prim is (n_var, n_b, n_k, n_j, n_i) float32 in the file's variable
     order; ``ind`` maps the sampler's names to its first axis. The face
     (x?f, (n_b, n+1)) and centre (x?v, (n_b, n)) coordinates are in the
-    working dtype. ``host_faces`` holds the faces x1f, x2f, x3f once more
-    on the host, in float64, for what a kernel launch works out there
-    without reading the device (ops/simulation_kernel.kernel_grid).
+    working dtype. ``host_faces`` holds every block's faces x1f, x2f, x3f
+    once more on the host, in float64, for what a kernel launch works out
+    there without reading the device (ops/simulation_kernel.kernel_grid).
+
+    The refinement metadata stays on the host as numpy: ``levels``
+    (n_b,) int32, ``locations`` (n_b, 3) int64, the logical (i, j, k) of
+    each block at its level, and ``n3_root``, the root grid's phi cells
+    (None / 0 where the file has none). ``amr_table`` (n_b, 27, 8, 5) and
+    ``loc_parity`` (n_b, 3), int32 on the grid's device, are the neighbour
+    table of exact interblock sampling (grid/amr.with_amr_table).
     """
 
     prim: torch.Tensor
@@ -47,6 +58,15 @@ class SimulationGrid:
     ind: dict
     time: float
     host_faces: tuple = dataclasses.field(compare=False, repr=False)
+    levels: Optional[np.ndarray] = dataclasses.field(
+        default=None, compare=False, repr=False)
+    locations: Optional[np.ndarray] = dataclasses.field(
+        default=None, compare=False, repr=False)
+    n3_root: int = 0
+    amr_table: Optional[torch.Tensor] = dataclasses.field(
+        default=None, compare=False, repr=False)
+    loc_parity: Optional[torch.Tensor] = dataclasses.field(
+        default=None, compare=False, repr=False)
 
     @property
     def n_blocks(self) -> int:
@@ -54,9 +74,12 @@ class SimulationGrid:
 
 
 def simulation_grid(prim, x1f, x1v, x2f, x2v, x3f, x3v, ind, time, *,
-                    device, dtype) -> SimulationGrid:
-    """SimulationGrid on ``device`` from array-likes: prim as float32,
-    the coordinates in ``dtype``. ``load_athdf`` ends here, and so does
+                    device, dtype, levels=None, locations=None,
+                    n3_root: int = 0) -> SimulationGrid:
+    """SimulationGrid on ``device`` from array-likes: prim (n_var, n_b,
+    n_k, n_j, n_i) as float32, the coordinates (n_b, n + 1) and (n_b, n)
+    in ``dtype``, and the optional refinement metadata (levels (n_b,),
+    locations (n_b, 3), n3_root). ``load_athdf`` ends here, and so does
     any caller that builds a snapshot in memory."""
     def host(a, dt):
         # torch takes no read-only arrays (a JAX array's numpy view is one)
@@ -69,7 +92,11 @@ def simulation_grid(prim, x1f, x1v, x2f, x2v, x3f, x3v, ind, time, *,
         prim=host(prim, np.float32).to(device),
         x1f=coords(x1f), x1v=coords(x1v), x2f=coords(x2f), x2v=coords(x2v),
         x3f=coords(x3f), x3v=coords(x3v), ind=dict(ind), time=float(time),
-        host_faces=tuple(np.array(f, np.float64) for f in (x1f, x2f, x3f)))
+        host_faces=tuple(np.array(f, np.float64) for f in (x1f, x2f, x3f)),
+        levels=None if levels is None else np.array(levels, np.int32),
+        locations=None if locations is None else np.array(locations,
+                                                          np.int64),
+        n3_root=int(n3_root))
 
 
 def load_athdf(path: str, *, device, dtype=torch.float64) -> SimulationGrid:
@@ -90,4 +117,9 @@ def load_athdf(path: str, *, device, dtype=torch.float64) -> SimulationGrid:
     return simulation_grid(
         prim, *(f[name].read() for name in
                 ("x1f", "x1v", "x2f", "x2v", "x3f", "x3v")),
-        ind, float(f.attrs["Time"]), device=device, dtype=dtype)
+        ind, float(f.attrs["Time"]), device=device, dtype=dtype,
+        levels=f["Levels"].read() if "Levels" in f else None,
+        locations=(f["LogicalLocations"].read()
+                   if "LogicalLocations" in f else None),
+        n3_root=(int(f.attrs["RootGridSize"][2])
+                 if "RootGridSize" in f.attrs else 0))

@@ -43,7 +43,9 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # does (PERF.md). No polarized unit contracts either, for the same
 # reason. The phase kernel of phased dispatch
 # (simulation_phase.cu) must round as simulation_kernel.cu does: a phased
-# image is held to the monolithic one bit for bit.
+# image is held to the monolithic one bit for bit. The units of many mesh
+# blocks (simulation_blocks*.cu, simulation_phase_blocks.cu,
+# polarized_derive_blocks.cu) follow their single-block units.
 CONTRACT = {"formula_kernel.cu": False, "formula_kernel_dp.cu": True,
             "formula_kernel_multi.cu": False,
             "formula_kernel_multi_dp.cu": True,
@@ -51,8 +53,11 @@ CONTRACT = {"formula_kernel.cu": False, "formula_kernel_dp.cu": True,
             "formula_kernel_tangent_dp.cu": True,
             "simulation_kernel.cu": False,
             "simulation_kernel_dp.cu": False, "simulation_phase.cu": False,
+            "simulation_blocks.cu": False, "simulation_blocks_dp.cu": False,
+            "simulation_phase_blocks.cu": False,
             "polarized_trace.cu": False, "polarized_derive.cu": False,
-            "polarized_derive_f64.cu": False, "polarized_chain.cu": False}
+            "polarized_derive_f64.cu": False,
+            "polarized_derive_blocks.cu": False, "polarized_chain.cu": False}
 
 
 def find_nvcc() -> str:

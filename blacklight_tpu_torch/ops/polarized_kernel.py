@@ -91,6 +91,10 @@ SAMPLE_SHARE = 14 / 66
 # of each.
 LAUNCHES = 0
 STAGE_LAUNCHES = {"trace": 0, "derive": 0, "chain": 0}
+# Of the derive launches, those of each sampling mode's kernel
+# (grid/sampling.py SINGLE: polarized_derive_kernel; BLOCKS, INTERBLOCK:
+# polarized_derive_mode_kernel).
+DERIVE_MODE_LAUNCHES = [0, 0, 0]
 
 # Index order of the kernel's float64 parameter vector: the simulation
 # kernel's (simulation_kernel.PARAM_NAMES), then the enum in
@@ -360,7 +364,7 @@ class _CudaStages:
         self.prm = torch.tensor(kernel_params(
             params, sp, float(frequencies[0]), mass_msun, camera_x,
             rotation_split), dtype=torch.float64, device=self.device)
-        self.grid = sk.kernel_grid(grid, self.dtype)
+        self.grid = sk.kernel_grid(grid, self.dtype, sp.sampler)
         self.events = events
 
     def _launch(self, stage, fn, *args):
@@ -381,6 +385,8 @@ class _CudaStages:
                                f"{msg} ({rc})")
         LAUNCHES += 1
         STAGE_LAUNCHES[stage] += 1
+        if stage == "derive":
+            DERIVE_MODE_LAUNCHES[self.grid.mode] += 1
 
     def _ray_ptr(self, k, r0, values):
         return self.rays[k].data_ptr() + values * r0 * self.item
@@ -448,7 +454,7 @@ def _library() -> ctypes.CDLL:
     signatures = {
         "trace": [i32, i32, ptr, ptr, ptr, ptr, i32, ptr, ptr, i64, ptr],
         "derive": [i32, i32, *sample_set, i64, i64, ptr, ptr, ptr, i32, ptr,
-                   ptr, ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr],
+                   *sk.GRID_ARGTYPES, ptr, ptr, ptr, ptr],
         "chain": [i32, *sample_set, i64, ptr, ptr, ptr, i32, ptr, ptr, ptr],
     }
     for name, argtypes in signatures.items():

@@ -42,11 +42,15 @@ import numpy as np
 import torch
 
 from blacklight_tpu_torch.constants import Math, Physics
+from blacklight_tpu_torch.grid import amr
 from blacklight_tpu_torch.grid.athena import SimulationGrid
 from blacklight_tpu_torch.grid.sampling import (
+    INTERBLOCK,
     SAMPLE_NAMES,
+    SINGLE,
     SamplerOptions,
     sample_grid,
+    sampling_mode,
 )
 from blacklight_tpu_torch.models import synchrotron
 from blacklight_tpu_torch.models.cuts import (
@@ -73,6 +77,9 @@ MAX_FREQUENCIES = 16
 # Kernel launches so far; render_simulation adds one per launch of the CUDA
 # kernel and nowhere else.
 LAUNCHES = 0
+# Of those, the launches of each sampling mode's kernel (grid/sampling.py
+# SINGLE: simulation_kernel; BLOCKS, INTERBLOCK: simulation_mode_kernel).
+MODE_LAUNCHES = [0, 0, 0]
 
 # Most bins of an axis' guide (csrc/sim_sample.cuh GridAxis): 64 KB of
 # int32 an axis at most.
@@ -118,6 +125,8 @@ def sim_kernel_params(cfg, cuts_geo: GeometricCuts,
     return SimKernelParams(
         plasma=plasma, cuts=cuts_val, geometric=cuts_geo,
         sampler=SamplerOptions(
+            interp=cfg.require("simulation_interp"),
+            block_interp=bool(cfg.simulation_block_interp),
             fallback_nan=cfg.require("fallback_nan"),
             fallback_rho=cfg.fallback_rho or 0.0,
             fallback_pgas=cfg.fallback_pgas or 0.0),
@@ -157,35 +166,59 @@ def kernel_params(params: geo.GeodesicParams, sp: SimKernelParams,
     return geo.pack_params(PARAM_NAMES, values)
 
 
+# Blocks a step of check_grid's overlap test compares with all the others.
+OVERLAP_ROWS = 256
+
+
 def check_grid(grid: SimulationGrid) -> None:
-    """Raise ValueError for a grid outside the kernel's cover: one mesh
-    block of at least 2 cells per axis, faces in non-decreasing order (the
-    kernel's cell search then finds the cell the comparison count finds)."""
-    if grid.n_blocks != 1:
-        raise ValueError("the simulation kernel covers single-block grids")
+    """Raise ValueError for a grid outside the kernels' cover: blocks of
+    at least 2 cells per axis with faces in non-decreasing order (the
+    cell search then finds the cell the comparison count finds); and, of
+    many blocks, each with some extent on every axis and no two
+    overlapping in volume, in float64 and rounded to float32 (a point
+    strictly inside a block then lies in no other block's closed box, so
+    the kernels keep the previous sample's block while the point stays
+    strictly inside it). Checked on the grid's host copy of its faces."""
     if min(grid.prim.shape[2:]) < 2:
         raise ValueError("the simulation kernel needs 2 cells per axis")
-    for faces in (grid.x1f, grid.x2f, grid.x3f):
-        if bool((faces[0, 1:] < faces[0, :-1]).any()):
+    for faces in grid.host_faces:
+        if bool((faces[:, 1:] < faces[:, :-1]).any()):
             raise ValueError("grid faces must be non-decreasing")
     missing = [n for n in SAMPLE_NAMES if n not in grid.ind]
     if missing:
         raise ValueError(f"grid lacks {missing}")
+    if grid.n_blocks == 1:
+        return
+    for dtype in (np.float64, np.float32):
+        lo = np.stack([f[:, 0] for f in grid.host_faces], 1).astype(dtype)
+        hi = np.stack([f[:, -1] for f in grid.host_faces], 1).astype(dtype)
+        if not (lo < hi).all():
+            raise ValueError("every mesh block needs some extent on each "
+                             "axis")
+        for first in range(0, grid.n_blocks, OVERLAP_ROWS):
+            rows = slice(first, first + OVERLAP_ROWS)
+            meets = ((lo[rows, None] < hi[None]) & (hi[rows, None] > lo[None])
+                     ).all(axis=2)
+            meets[np.arange(meets.shape[0]), np.arange(first, first
+                                                       + meets.shape[0])] = 0
+            if meets.any():
+                b, c = np.argwhere(meets)[0]
+                raise ValueError(f"mesh blocks {first + b} and {c} overlap")
 
 
 def kernel_tables(grid: SimulationGrid, dtype):
     """The two tables the kernel reads from device memory.
 
-    table: (n_k, n_j, n_i, 8) float32, the SAMPLE_NAMES primitives of a
-      cell side by side (32 bytes, two 16-byte loads per corner);
-    coords: x1f, x1v, x2f, x2v, x3f, x3v of the block, concatenated, in
-      ``dtype``.
+    table: (n_b, n_k, n_j, n_i, 8) float32, the SAMPLE_NAMES primitives of
+      a cell side by side (32 bytes, two 16-byte loads per corner);
+    coords: x1f, x1v, x2f, x2v, x3f, x3v, each (n_b, n + 1) or (n_b, n)
+      in block order, concatenated, in ``dtype``.
     Built on the grid's device at each launch (one pass over the table).
     """
     rows = torch.tensor([grid.ind[n] for n in SAMPLE_NAMES],
                         device=grid.prim.device)
-    table = grid.prim[:, 0].index_select(0, rows).permute(1, 2, 3, 0)
-    coords = torch.cat([c[0].to(dtype) for c in (
+    table = grid.prim.index_select(0, rows).permute(1, 2, 3, 4, 0)
+    coords = torch.cat([c.reshape(-1).to(dtype) for c in (
         grid.x1f, grid.x1v, grid.x2f, grid.x2v, grid.x3f, grid.x3v)])
     return table.contiguous(), coords.contiguous()
 
@@ -221,39 +254,79 @@ def axis_guide(faces, lo: float, scale: float, bins: int):
     return torch.searchsorted(xf, edges, side="left", out_int32=True)
 
 
+# ctypes of KernelGrid.args() in the C interfaces: table, coords, guides,
+# axes, n_i, n_j, n_k, mode, nearest, n_b, bounds, amr, parity.
+GRID_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6 \
+    + (ctypes.c_void_p,) * 3
+
+
 class KernelGrid(NamedTuple):
-    """The snapshot as a kernel launch takes it: kernel_tables' table and
-    coords and the three axes' guides, concatenated, on the grid's device,
-    and on the host the axes array: lo, hi, scale and bins of each axis
-    (GUIDE_AXIS_VALUES float64 values an axis)."""
+    """The snapshot as a kernel launch takes it, on the grid's device:
+    kernel_tables' table and coords, the three axes' guides concatenated,
+    and under the modes of many blocks the (n_b, 6) block bounds (r, theta,
+    phi low and high faces, in the coordinates' dtype) and, under
+    INTERBLOCK, the neighbour table and location parities (int32); on the
+    host the axes array: lo, hi, scale and bins of each axis
+    (GUIDE_AXIS_VALUES float64 values an axis; under the modes of many
+    blocks the box of every block and one bin); the sampling mode
+    (grid/sampling.py SINGLE, BLOCKS, INTERBLOCK) and the nearest-cell
+    flag."""
 
     table: torch.Tensor
     coords: torch.Tensor
     guides: torch.Tensor
     axes: np.ndarray
+    bounds: torch.Tensor
+    amr: torch.Tensor | None
+    parity: torch.Tensor | None
+    mode: int
+    nearest: bool
 
     def args(self) -> tuple:
-        """The C interfaces' table, coords, guides, axes, n_i, n_j, n_k."""
-        n_k, n_j, n_i = self.table.shape[:3]
+        """The C interfaces' table, coords, guides, axes, n_i, n_j, n_k,
+        mode, nearest, n_b, bounds, amr, parity (a missing table as a null
+        pointer)."""
+        n_b, n_k, n_j, n_i = self.table.shape[:4]
         return (self.table.data_ptr(), self.coords.data_ptr(),
-                self.guides.data_ptr(), self.axes.ctypes.data, n_i, n_j, n_k)
+                self.guides.data_ptr(), self.axes.ctypes.data, n_i, n_j, n_k,
+                self.mode, int(self.nearest), n_b, self.bounds.data_ptr(),
+                None if self.amr is None else self.amr.data_ptr(),
+                None if self.parity is None else self.parity.data_ptr())
 
 
-def kernel_grid(grid: SimulationGrid, dtype) -> KernelGrid:
-    """kernel_tables and the axes' guides of ``grid`` for a launch in
-    ``dtype``. The bins follow from the grid's host copy of its faces
-    rounded to ``dtype``, as its device coordinates were; the guides are
-    counted on the device, so nothing is read back."""
+def kernel_grid(grid: SimulationGrid, dtype,
+                sampler: SamplerOptions = SamplerOptions()) -> KernelGrid:
+    """kernel_tables and what else a launch in ``dtype`` under
+    ``sampler``'s mode (grid/sampling.sampling_mode, which raises for a
+    mode the grid cannot take) reads of ``grid``. The guides of a single
+    block follow from the grid's host copy of its faces rounded to
+    ``dtype``, as its device coordinates were, and are counted on the
+    device, so nothing is read back; the modes of many blocks search each
+    block's faces and take no guide."""
+    mode = sampling_mode(grid, sampler)
     table, coords = kernel_tables(grid, dtype)
+    rounded = [h.astype(_NUMPY_DTYPES[dtype]) for h in grid.host_faces]
+    bounds = torch.stack([c for f in (grid.x1f, grid.x2f, grid.x3f)
+                          for c in (f[:, 0], f[:, -1])], dim=1).to(dtype)
     guides, axes, at = [], [], 0
-    for host in grid.host_faces:
+    for host in rounded:
         n = host.shape[1] - 1
-        lo, hi, scale, bins = axis_bins(host[0].astype(_NUMPY_DTYPES[dtype]))
-        guides.append(axis_guide(coords[at:at + n + 1], lo, scale, bins))
+        if mode == SINGLE:
+            lo, hi, scale, bins = axis_bins(host[0])
+            guides.append(axis_guide(coords[at:at + n + 1], lo, scale, bins))
+        else:
+            lo, hi, scale, bins = float(host[:, 0].min()), \
+                float(host[:, -1].max()), 0.0, 1
+            guides.append(torch.zeros(1, dtype=torch.int32,
+                                      device=coords.device))
         axes += (lo, hi, scale, bins)
-        at += 2 * n + 1
+        at += host.size + host.shape[0] * n
+    interblock = mode == INTERBLOCK
     return KernelGrid(table, coords, torch.cat(guides),
-                      np.asarray(axes, dtype=np.float64))
+                      np.asarray(axes, dtype=np.float64), bounds.contiguous(),
+                      grid.amr_table.contiguous() if interblock else None,
+                      grid.loc_parity.contiguous() if interblock else None,
+                      mode, not sampler.interp)
 
 
 def frequency_bucket(nf: int) -> int:
@@ -387,7 +460,7 @@ def _render_cuda(positions, directions, momentum_factors, frequencies,
         return i_nu, flags.bool(), n_samples
     values = kernel_params(params, sp, float(frequencies[0]), mass_msun,
                            camera_x)
-    kgrid = kernel_grid(grid, positions.dtype)
+    kgrid = kernel_grid(grid, positions.dtype, sp.sampler)
     nus = frequencies.cpu().numpy()
     scales = image_scale(frequencies, log_j_scale).cpu().numpy()
     code, integ = _DTYPE_CODES[positions.dtype], INTEGRATORS.index(integrator)
@@ -410,6 +483,7 @@ def _render_cuda(positions, directions, momentum_factors, frequencies,
             raise RuntimeError(f"simulation kernel launch failed: {msg} "
                                f"({rc})")
         LAUNCHES += 1
+        MODE_LAUNCHES[kgrid.mode] += 1
         if out is not i_nu:
             i_nu[:, start:stop] = out
     return i_nu, flags.bool(), n_samples
@@ -422,14 +496,15 @@ def _library() -> ctypes.CDLL:
     lib = _build.load_library()
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.blacklight_simulation_launch.argtypes = [
-        i32, i32, i32, ptr, ptr, ptr, ptr, i64, ptr, ptr, ptr, ptr, i32, i32,
-        i32, ptr, ptr, ptr, i64, ptr]
+        i32, i32, i32, ptr, ptr, ptr, ptr, i64, *GRID_ARGTYPES, ptr, ptr, ptr,
+        i64, ptr]
     lib.blacklight_simulation_launch.restype = i32
     lib.blacklight_simulation_consts_bytes.argtypes = [i32, i32]
     lib.blacklight_simulation_consts_bytes.restype = i64
     for name in ("blacklight_simulation_param_count",
                  "blacklight_simulation_max_frequencies",
-                 "blacklight_simulation_guide_axis_values"):
+                 "blacklight_simulation_guide_axis_values",
+                 "blacklight_simulation_amr_table_fields"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i32
     lib.blacklight_cuda_error_string.argtypes = [i32]
@@ -439,9 +514,12 @@ def _library() -> ctypes.CDLL:
                            "disagree")
     if (lib.blacklight_simulation_max_frequencies() != MAX_FREQUENCIES
             or lib.blacklight_simulation_guide_axis_values()
-            != GUIDE_AXIS_VALUES):
-        raise RuntimeError("csrc/simulation_kernel.cuh and MAX_FREQUENCIES "
-                           "or GUIDE_AXIS_VALUES disagree")
+            != GUIDE_AXIS_VALUES
+            or lib.blacklight_simulation_amr_table_fields()
+            != amr.TABLE_FIELDS):
+        raise RuntimeError("csrc/simulation_kernel.cuh and MAX_FREQUENCIES, "
+                           "GUIDE_AXIS_VALUES or grid/amr.TABLE_FIELDS "
+                           "disagree")
     if consts_sizes(lib) != host_consts_sizes():
         raise RuntimeError("SimLaunchConsts and launch_consts disagree: "
                            f"{consts_sizes(lib)} != {host_consts_sizes()}")
@@ -630,6 +708,10 @@ def angular_order(positions, block: int = 1024):
 # Phase kernel launches so far; render_simulation_phase adds one per launch
 # of the CUDA phase kernel and nowhere else.
 PHASE_LAUNCHES = 0
+# Of those, the launches of each sampling mode's phase kernel (SINGLE:
+# simulation_phase_kernel; BLOCKS, INTERBLOCK:
+# simulation_phase_mode_kernel).
+PHASE_MODE_LAUNCHES = [0, 0, 0]
 
 # Steps a phase of render_simulation_phased by default: at 1024^2 with 2000
 # steps, 1000 (2 launches) beat the JAX package's 512 (4 launches) in turns
@@ -776,7 +858,7 @@ def _phase_runner(frequencies, params, sp, grid, mass_msun, camera_x,
     nf, dtype = frequencies.shape[0], frequencies.dtype
     values = kernel_params(params, sp, float(frequencies[0]), mass_msun,
                            camera_x)
-    kgrid = kernel_grid(grid, dtype)
+    kgrid = kernel_grid(grid, dtype, sp.sampler)
     nus = frequencies.cpu().numpy()
     code, integ = _DTYPE_CODES[dtype], INTEGRATORS.index(integrator)
     # the phase kernel writes no image: its scales are zero
@@ -811,6 +893,7 @@ def _phase_runner(frequencies, params, sp, grid, mass_msun, camera_x,
                 raise RuntimeError(f"simulation phase kernel launch failed: "
                                    f"{msg} ({rc})")
             PHASE_LAUNCHES += 1
+            PHASE_MODE_LAUNCHES[kgrid.mode] += 1
     return run
 
 
@@ -821,8 +904,8 @@ def _phase_library() -> ctypes.CDLL:
     lib = _library()
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.blacklight_simulation_phase_launch.argtypes = [
-        i32, i32, i32, ptr, i64, i32, i32, i32, ptr, ptr, ptr, i64, ptr, ptr,
-        ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr]
+        i32, i32, i32, ptr, i64, i32, i32, i32, ptr, ptr, ptr, i64,
+        *GRID_ARGTYPES, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr]
     lib.blacklight_simulation_phase_launch.restype = i32
     return lib
 

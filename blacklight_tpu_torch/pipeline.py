@@ -132,10 +132,6 @@ def _check_simulation_slice(cfg, refuse) -> None:
         coord = cfg.simulation_coord
         refuse(f"simulation_coord = {coord.value if coord else None}",
                "B.4")
-    if not cfg.require("simulation_interp"):
-        refuse("simulation_interp = false", "B.1b")
-    if cfg.simulation_block_interp:
-        refuse("simulation_block_interp = true (AMR)", "B.5")
     if cfg.require("simulation_multiple") and cfg.slow_light_on:
         refuse("slow light", "B.6")
     if cfg.require("plasma_model") != PlasmaModel.ti_te_beta:

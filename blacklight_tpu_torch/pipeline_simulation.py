@@ -1,10 +1,11 @@
 """Simulation-model pipeline: GRMHD snapshot -> fused ray trace -> image.
 
 Port of ``blacklight_tpu/pipeline_simulation.py`` (:70-254, :257-707)
-for the port's slice (``pipeline.check_slice``): one Athena++ snapshot,
-read once onto the device, and one fused kernel that integrates the
-geodesics, samples the grid, evaluates the thermal synchrotron
-coefficients and accumulates the transfer: unpolarized
+for the port's slice (``pipeline.check_slice``): one Athena++ snapshot
+of one or many mesh blocks (with its neighbour table for exact
+interblock sampling), read once onto the device, and one fused kernel
+that integrates the geodesics, samples the grid, evaluates the thermal
+synchrotron coefficients and accumulates the transfer: unpolarized
 (``ops/simulation_kernel.render_simulation``, or with KERNEL_PHASED its
 phased dispatch ``render_simulation_phased``) or, with
 image_polarization, full-Stokes (``ops/polarized_kernel.render_polarized``
@@ -25,7 +26,9 @@ from blacklight_tpu_torch.constants import PlasmaModel, SimulationFormat
 from blacklight_tpu_torch.output import format_filename
 from blacklight_tpu_torch.utils.errors import BlacklightError
 from blacklight_tpu_torch.camera import make_camera
+from blacklight_tpu_torch.grid.amr import with_amr_table
 from blacklight_tpu_torch.grid.athena import SimulationGrid, load_athdf
+from blacklight_tpu_torch.grid.sampling import sampling_mode
 from blacklight_tpu_torch.models import synchrotron
 from blacklight_tpu_torch.models.cuts import GeometricCuts
 from blacklight_tpu_torch.ops import polarized_kernel, simulation_kernel
@@ -162,17 +165,17 @@ def make_simulation_renderer(cfg, snapshot: Optional[int] = None, *, device,
     if grid.prim.device != device:
         raise BlacklightError(f"the grid is on {grid.prim.device}, not "
                               f"{device}")
-    if grid.n_blocks != 1:
-        raise BlacklightError(
-            f"blacklight_tpu_torch does not support multi-block grids "
-            f"({grid.n_blocks} mesh blocks) yet (ROADMAP B.1b); use "
-            "blacklight_tpu for this input.")
+    if cfg.simulation_block_interp and cfg.require("simulation_interp"):
+        # the neighbour table of exact interblock sampling
+        # (blacklight_tpu/pipeline_simulation.py:297-301)
+        grid = with_amr_table(grid)
     geom, rays, frequencies = make_camera(cfg, bh_m=bh_m, bh_a=bh_a,
                                           device=device, dtype=dtype)
     params = pipeline.geodesic_params_from_config(cfg, bh_m, bh_a)
     sp = simulation_kernel.sim_kernel_params(
         cfg, GeometricCuts.from_config(cfg), plasma_params_from_config(cfg),
         cut_params_from_config(cfg))
+    sampling_mode(grid, sp.sampler)  # raises for a mode the grid lacks
     nu0 = float(frequencies[0])
     log_scale = synchrotron.log_j_scale(nu0)
     kernel_args = (frequencies, params, sp, grid, mass_msun,

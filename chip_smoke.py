@@ -46,6 +46,17 @@ and prints no final line):
    - the plain formula version on 4,096 rays (every PLAIN_STRIDE-th) of
      each full-width formula cell (phases 5, 10 and 11), which those
      phases hold their kernel against;
+   - the instantiations of many mesh blocks and of the nearest cell, on
+     mock_amr.athdf (two refinement levels; exact interblock sampling, or
+     the nearest cell of its blocks), 400 steps of 0.04: the simulation
+     kernel at 128^2 in rk4 float64 and rk2 float64 at three frequencies
+     (exact), dp float32 and float64, rk2 float32; the phase kernel's
+     second phase of 200 steps in rk4 float64 and rk2 float32; the
+     polarized route at 64^2 in rk4 float64 and rk2 float32; the derive
+     kernel against its plain version at phase 14's mb-amr cell (4,096
+     rays) in float32 and float64; and the plain simulation version on
+     4,096 rays of phase 14's cells (MESH_PLAIN: each mode in float32
+     and float64), which phase 14 holds its kernels against;
 4. the 32^2 formula goldens through pipeline.run(cfg, device="cuda") at
    the tolerances of tests/test_formula_e2e.py;
 5. the formula main path at full width: golden_formula_32.input at
@@ -59,7 +70,9 @@ and prints no final line):
    issue estimate of phase 2's per-step path over this run's ray-steps;
 6. the 32^2 simulation goldens through pipeline.run(cfg, device="cuda"),
    reading the .athdf file, at the tolerances of
-   tests/test_simulation_e2e.py;
+   tests/test_simulation_e2e.py, and golden_amr_rk4_32 on mock_amr.athdf
+   (exact interblock sampling across two refinement levels) at rtol 1e-8
+   with its NaN set (tests/test_amr.py:39-52);
 7. the simulation main path at full width: a 288 x 128 x 128 (r, theta,
    phi) SKS snapshot (the grid of the EHT GRMHD image library), 1024^2
    camera, rk4, 2000 steps, float32 through pipeline.run, counting kernel
@@ -110,7 +123,27 @@ and prints no final line):
     phased render, with each phase's survivors, kernel time and
     compaction time.
 
-Phases 4 to 13 run alone on the card, after phase 3.
+14. mesh blocks, run right after phase 13: phase 7's snapshot built in
+    memory as Athena++ mesh blocks of 32^3 (athena_blocks, by
+    write_athena_amr's rules): mb-uniform, 9 x 4 x 4 blocks at level 0;
+    mb-amr, the 16 root blocks of the inner disk each in 8 level-1
+    children and the sentinel block (257 blocks, exact interblock
+    sampling); and phase 7's single block at the nearest cell. Each cell
+    through pipeline.run at 1024^2 (rk4, 2000 steps, float32), counting
+    each sampling mode's launches; each kernel alone in spatial_order,
+    best of 3 in turns with the single-block kernel, beside its bound
+    (the block search and the interblock corners counted in
+    OPS_PER_SAMPLE) and held to phase 3's plain version on 4,096 of its
+    rays (float32 statistical, float64 exact); on those rays in float64,
+    fields without phi structure in 4 phi blocks with interblock sampling
+    against the same fields in one block (within MESH_PHI_ATOL of I's
+    peak, tests/test_loaders.py:262), and mb-uniform with and without
+    interblock sampling against the single block (measured, and in
+    float32 on the whole image); K2.3 through pipeline.run with
+    KERNEL_PHASED on mb-amr, bit for bit the monolithic image; the
+    polarized route once on mb-amr.
+
+Phases 4 to 14 run alone on the card, after phase 3.
 
 ``python3 chip_smoke.py --chunk-sweep`` runs phases 1 and 2, then times
 the polarized route at 1024^2 (float32 rk4, spatial_order) for trace
@@ -135,8 +168,11 @@ outputs (samples, records) against its share of the operations.
 
 Every line but the last two is a JSON object with the measurements (the
 kernels line lists formula K1.1/K1.2, K1.3, K1.4, simulation, phased
-simulation and polarized); then come the card's name and power limit, and the last line
-is {"ok": true, "device": {...}}.
+simulation and polarized, then the instantiations of many blocks: the
+simulation kernel on mb-uniform, mb-amr and at the nearest cell, the
+phase kernel and the derive kernel of interblock sampling); then come the
+card's name and power limit, and the last line is {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -195,9 +231,17 @@ SM_CLOCK_HZ = {}
 # chain kernel's share is POL_CHAIN_OPS_PER_FREQUENCY (two 16-component
 # transports ~450, N -> Stokes ~140, the coupling ~200, Stokes -> N
 # ~110) and the rest (the coefficients) the derive kernel's; one step
-# per sample.
+# per sample. The simulation sample on many blocks (csrc/sim_sample.cuh
+# sample_blocks; compares and integer operations counted as operations):
+# the previous block's box (6) and the scan of the block list when a ray
+# leaves it (~6 a block, n_b / 2 blocks once a block's ~32 samples: ~20
+# a sample); exact interblock sampling adds the ghost fractions (~12) and
+# a cell index through the neighbour table for each of its 8 corners
+# (~65 each: the crossing and half of each axis, the entry, the case's
+# cell index and nudge per axis, the flat index) in place of ~3.
 OPS_PER_STEP = {"rk4": 830, "rk2": 500, "dp": 2020}
-OPS_PER_SAMPLE = {"formula": 130, "simulation": 495, "polarized": 2740}
+OPS_PER_SAMPLE = {"formula": 130, "simulation": 495, "polarized": 2740,
+                  "simulation_blocks": 520, "simulation_interblock": 1030}
 POL_OPS_PER_FREQUENCY = 1090
 POL_CHAIN_OPS_PER_FREQUENCY = 900
 # The formula sample beyond its first frequency (csrc/formula_kernel.cuh):
@@ -328,7 +372,26 @@ def _ptxas_table(report: str) -> dict:
     return {k: v for k, v in table.items() if v}
 
 
+SAMPLE_MODE_NAMES = ("single block", "blocks", "interblock")
+
+
 def _kernel_label(mangled: str) -> str:
+    m = re.search(r"(simulation|simulation_phase)_mode_kernelI([fd])Li(\d)E"
+                  r"Li(\d+)ELi(\d)E", mangled)
+    if m:
+        kind, tp, integrator, nf, mode = m.groups()
+        return (f"{kind}_mode_kernel<{'float' if tp == 'f' else 'double'}, "
+                f"{('dp', 'rk4', 'rk2')[int(integrator)]}, NF={nf}, "
+                f"{SAMPLE_MODE_NAMES[int(mode)]}>")
+    m = re.search(r"polarized_derive_mode_kernelI([fd])Lb([01])ELi(\d)E",
+                  mangled)
+    if m:
+        tp, geometry, mode = m.groups()
+        args = ["float" if tp == "f" else "double"]
+        if geometry == "0":
+            args.append("coefficients only")
+        args.append(SAMPLE_MODE_NAMES[int(mode)])
+        return f"polarized_derive_mode_kernel<{', '.join(args)}>"
     m = re.search(r"polarized_(trace|derive|chain)_kernelI([fd])"
                   r"(?:Li(\d+)E|Lb([01])E)", mangled)
     if m:
@@ -376,7 +439,7 @@ def _step_loops() -> dict:
     csrc = (ROOT / KERNEL_SOURCE).parent
     units = sorted(p.name for pattern in ("formula_kernel*.cu",
                                           "simulation_*.cu")
-                   for p in csrc.glob(pattern))
+                   for p in csrc.glob(pattern) if "blocks" not in p.name)
     per_ray, per_sample = mix.per_ray_lines(ROOT), mix.per_sample_lines(ROOT)
     with tempfile.TemporaryDirectory() as tmp:
         sass = mix.disassemble(ROOT, units, pathlib.Path(tmp))
@@ -541,11 +604,17 @@ def phase_checks(pool) -> tuple:
     """Phase 3 on ``pool``: every check at once, longest first; emits each
     result in that order and raises at the first that failed. Returns
     phase 9's float64 reference (positions, Stokes), the plain formula
-    version on the subsets of the full-width formula cells, by cell, and
-    the polarized route's per-kernel checks."""
+    version on the subsets of the full-width formula cells, by cell, the
+    polarized route's per-kernel checks, and phase 14's: the phase and
+    derive kernels of many blocks against their plain versions and the
+    plain version on the subset of each full-width mesh cell
+    (mesh_plain_subset, by cell and precision, under "plain")."""
     t0 = time.perf_counter()
     truth = pool.apply_async(pol_full_width_truth)
     stages = pool.apply_async(check_polarized_stages)
+    mesh_plain = {key: pool.apply_async(mesh_plain_subset, key)
+                  for key in MESH_PLAIN}
+    mesh_derive = pool.apply_async(check_mesh_derive, ("float32",))
     subsets = {cell: pool.apply_async(formula_plain_subset, (cell,))
                for cell in ("k13", "k14", "k11")}
     checks = [pool.apply_async(fn, args) for fn, args in (
@@ -563,7 +632,18 @@ def phase_checks(pool) -> tuple:
         (check_simulation, ("rk4", "float64")),
         (check_simulation, ("rk2", "float32")),
         (check_simulation_phase, ("rk4", "float64")),
-        (check_simulation_phase, ("rk2", "float32")))]
+        (check_simulation_phase, ("rk2", "float32")),
+        (check_mesh_derive, ("float64",)),
+        (check_mesh_polarized, ("interblock", "rk4", "float64")),
+        (check_mesh_polarized, ("nearest", "rk2", "float32")),
+        (check_mesh_simulation, ("interblock", "rk4", "float64", 1)),
+        (check_mesh_simulation, ("interblock", "rk2", "float64", 3)),
+        (check_mesh_simulation, ("interblock", "dp", "float32", 1)),
+        (check_mesh_simulation, ("interblock", "dp", "float64", 1)),
+        (check_mesh_simulation, ("nearest", "rk4", "float64", 3)),
+        (check_mesh_simulation, ("nearest", "rk2", "float32", 1)))]
+    mesh_phase = [pool.apply_async(check_mesh_phase, args) for args in (
+        ("interblock", "rk4", "float64"), ("nearest", "rk2", "float32"))]
     for check in checks:
         phase, result = check.get()
         emit(phase, workers=WORKERS, **result)
@@ -575,10 +655,21 @@ def phase_checks(pool) -> tuple:
     if not stages["ok"]:
         raise RuntimeError(f"{phase}: a polarized kernel disagrees with its "
                            f"plain version: {stages}")
+    mesh = {}
+    for name, job in (("phase", mesh_phase[0]), ("nearest phase",
+                                                mesh_phase[1]),
+                      ("derive", mesh_derive)):
+        phase, result = job.get()
+        emit(phase, workers=WORKERS, **result)
+        if not result["ok"]:
+            raise RuntimeError(f"{phase}: kernel disagrees with plain: "
+                               f"{result}")
+        mesh[name] = result
+    mesh["plain"] = {key: job.get() for key, job in mesh_plain.items()}
     truth = truth.get()
     subsets = {cell: result.get() for cell, result in subsets.items()}
     emit("checks", workers=WORKERS, seconds=time.perf_counter() - t0)
-    return truth, subsets, stages
+    return truth, subsets, stages, mesh
 
 
 def _check_exact(kernel_out, plain_out, rtol) -> dict:
@@ -870,8 +961,8 @@ def time_kernel(phase, kernel, plain, args, kwargs, res, card,
 
 
 def _sim_config(name="golden_sim_rk4_32.input", **overrides):
-    return _config(name, simulation_file=str(FIXTURES / "mock_small.athdf"),
-                   **overrides)
+    return _config(name, **{
+        "simulation_file": str(FIXTURES / "mock_small.athdf"), **overrides})
 
 
 def _sim_args(cfg, grid=None):
@@ -951,18 +1042,26 @@ def phase_sim_goldens(tmp: pathlib.Path):
     import numpy as np
     from blacklight_tpu_torch import pipeline
     from blacklight_tpu_torch.ops import simulation_kernel as sk
-    for name, exact in (("golden_sim_rk4_32", True), ("golden_sim_32", False)):
+    for name, exact, snapshot in (
+            ("golden_sim_rk4_32", True, "mock_small.athdf"),
+            ("golden_sim_32", False, "mock_small.athdf"),
+            ("golden_amr_rk4_32", True, "mock_amr.athdf")):
         cfg = _sim_config(f"{name}.input",
-                          output_file=str(tmp / f"{name}.npz"))
+                          output_file=str(tmp / f"{name}.npz"),
+                          simulation_file=str(FIXTURES / snapshot))
         before = sk.LAUNCHES
         arrays = pipeline.run(cfg, quiet=True, device="cuda")
         launched = sk.LAUNCHES - before
         ours = arrays["I_nu"]
         gold = np.load(FIXTURES / f"{name}.npz")["I_nu"]
-        rel = np.abs(ours - gold) / (np.abs(gold) + gold.max() * 1e-8)
+        rel = np.abs(ours - gold) / (np.abs(gold) + np.nanmax(gold) * 1e-8)
         if exact:
-            ok = bool(np.allclose(ours, gold, rtol=1e-8, atol=0.0))
-            gate = "rtol 1e-8"
+            # tests/test_simulation_e2e.py, with the NaN sets of
+            # tests/test_amr.py:39-52
+            ok = bool(np.array_equal(np.isnan(ours), np.isnan(gold))
+                      and np.allclose(ours, gold, rtol=1e-8, atol=0.0,
+                                      equal_nan=True))
+            gate = "NaN sets, rtol 1e-8"
         else:
             ok = bool(np.nanmax(rel) < 6e-2 and np.nanmean(rel) < 5e-3)
             gate = "max rel < 6e-2, mean rel < 5e-3"
@@ -1100,13 +1199,15 @@ PHASE_VALUES = 18
 SPATIAL_BLOCKS = (128, 256, 512, 1024, 2048, 4096, 16384)
 
 
-def phase_bound(rays, samples, precision, in_bytes) -> dict:
+def phase_bound(rays, samples, precision, in_bytes,
+                kind="simulation") -> dict:
     """bound() for one phase launch: the carried state of ``rays`` rays
     and the snapshot read and written once, and ``samples`` samples of
-    rk4 work (this phase's, counted from n_samples)."""
+    rk4 work (this phase's, counted from n_samples) with ``kind``'s
+    sample."""
     item = 4 if precision == "float32" else 8
     n_bytes = rays * (PHASE_VALUES * item + PHASE_INT_BYTES) + in_bytes
-    ops = samples * (OPS_PER_STEP["rk4"] + OPS_PER_SAMPLE["simulation"])
+    ops = samples * (OPS_PER_STEP["rk4"] + OPS_PER_SAMPLE[kind])
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[precision]
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
@@ -1252,12 +1353,604 @@ def phase_phased_full_width(tmp: pathlib.Path, card: str, grids: dict,
             **second, "library_ms": None}
 
 
+# Phase 14: FULL_GRID in Athena++ mesh blocks of MESH_BLOCK^3 cells laid
+# out by write_athena_amr's rules (scripts/generate_mock_simulation.py,
+# each block's values from eval_fields at its own centres): mb-uniform,
+# 9 x 4 x 4 blocks at level 0; mb-amr, the same with the 16 root blocks at
+# li, lj in {1, 2} (r 2.8-5.8, theta 45-135 degrees: the inner disk) each
+# replaced by its 8 level-1 children, and the sentinel block of
+# write_athena_amr(pad_block=True) (257 blocks). The nearest cell: FULL_GRID
+# in one block with simulation_interp = false. The reference's interblock
+# sampling takes its fraction past a block's upper face from x?v(b, n),
+# the next block's first centre in block order (grid/sampling.py
+# interblock_corners), which differs from the one-block trilinear
+# wherever the field varies across that face: mb-uniform is measured
+# against one block, not gated. The gate is tests/test_loaders.py:244-262's
+# case: fields without phi structure (pert_amp = 0) in PHI_SPLIT phi
+# blocks, within MESH_PHI_ATOL of I's peak of the same fields in one
+# block.
+MESH_BLOCK = 32
+AMR_REFINE = tuple((li, lj, lk) for li in (1, 2) for lj in (1, 2)
+                   for lk in range(4))
+PHI_SPLIT = 4
+MESH_PHI_ATOL = 2e-5
+# cell -> (layout, input overrides): layout "uniform", "amr", "phi" or
+# "single"
+MESH_CELLS = {
+    "mb_uniform": ("uniform", {}),
+    "mb_uniform_interblock": ("uniform", {"simulation_block_interp": True}),
+    "mb_amr": ("amr", {"simulation_block_interp": True}),
+    "nearest": ("single", {"simulation_interp": False}),
+}
+# Phase 3's checks of the new instantiations on mock_amr.athdf (two
+# levels, exact interblock sampling, or the nearest cell on its blocks).
+MESH_MODES = {"interblock": {"simulation_block_interp": True},
+              "nearest": {"simulation_interp": False}}
+# Their steps (as phase 3's polarized cases): a plain version's time goes
+# with its steps, not its rays.
+MESH_CHECK_STEPS = dict(ray_step=0.04, ray_max_steps=400)
+# Phase 14's cells held to the plain version on 4,096 rays, by precision:
+# each mode's float32 main path, and float64 (exact) for each mode.
+MESH_PLAIN = (("mb_uniform", "float32"), ("mb_amr", "float32"),
+              ("nearest", "float32"), ("mb_amr", "float64"),
+              ("nearest", "float64"))
+
+
+def athena_blocks(dtype, block_size, refine=(), sentinel=False,
+                  device=None, **fields):
+    """FULL_GRID as an Athena++ file of mesh blocks of ``block_size`` (n_i,
+    n_j, n_k) cells holds it, laid out by write_athena_amr's rules (the
+    unrefined root blocks in (lk, lj, li) order, then the 8 children of
+    each location in ``refine``, sorted; the sentinel block last), float32
+    values and coordinates, on ``device`` (None: the card) through
+    simulation_grid with the refinement metadata; the coordinates then in
+    ``dtype``. ``fields``: FULL_GRID's field parameters overridden."""
+    import numpy as np
+    import torch
+    from blacklight_tpu_torch.grid.athena import (
+        PRIMITIVE_NAMES,
+        simulation_grid,
+    )
+    mock = _mock()
+    p = dict(mock.DEFAULTS, **{**FULL_GRID, **fields})
+    n = (p["n_r"], p["n_th"], p["n_ph"])
+    layout = [n[a] // block_size[a] for a in range(3)]
+    refine = sorted(set(refine))
+    blocks = [(0, li, lj, lk) for lk in range(layout[2])
+              for lj in range(layout[1]) for li in range(layout[0])
+              if (li, lj, lk) not in refine]
+    blocks += [(1, 2 * li + ci, 2 * lj + cj, 2 * lk + ck)
+               for li, lj, lk in refine for ck in range(2)
+               for cj in range(2) for ci in range(2)]
+    n_b = len(blocks) + int(sentinel)
+    faces = [np.zeros((n_b, m + 1)) for m in block_size]
+    centres = [np.zeros((n_b, m)) for m in block_size]
+    prim = np.zeros((8, n_b, *block_size[::-1]), np.float32)
+    spans = ((np.log(p["r_min"]), np.log(p["r_max"])), (0.0, np.pi),
+             (0.0, 2.0 * np.pi))
+    for b, (level, *loc) in enumerate(blocks):
+        for a in range(3):
+            m = block_size[a]
+            f = np.linspace(*spans[a], (n[a] << level) + 1)[
+                loc[a] * m:(loc[a] + 1) * m + 1]
+            c = 0.5 * (f[:-1] + f[1:])
+            faces[a][b], centres[a][b] = (np.exp(f), np.exp(c)) if a == 0 \
+                else (f, c)
+        fl = mock.eval_fields(p, centres[0][b], centres[1][b],
+                              centres[2][b])
+        prim[:, b] = [fl[k] for k in ("rho", "pgas", "uur", "uuth", "uuph",
+                                      "bbr", "bbth", "bbph")]
+    locations = np.array([loc for _, *loc in blocks]
+                         + [(9999, 9999, 9999)] * int(sentinel), np.int64)
+    levels = np.array([lev for lev, *_ in blocks] + [0] * int(sentinel),
+                      np.int32)
+    if sentinel:
+        # far outside the domain, floor values (write_athena_amr)
+        for a, (lo, hi) in enumerate(((1e3, 1.001e3), (0.0, np.pi),
+                                      (0.0, 2.0 * np.pi))):
+            faces[a][-1] = np.linspace(lo, hi, block_size[a] + 1)
+            centres[a][-1] = 0.5 * (faces[a][-1][:-1] + faces[a][-1][1:])
+        prim[0, -1], prim[1, -1] = p["rho_floor"], p["pgas_floor"]
+    names = ["rho", "press", "vel1", "vel2", "vel3", "Bcc1", "Bcc2", "Bcc3"]
+    rows = [np.asarray(x, np.float32) for a in range(3)
+            for x in (faces[a], centres[a])]
+    return simulation_grid(
+        prim, *rows,
+        {key: names.index(var) for key, var in PRIMITIVE_NAMES.items()}, 0.0,
+        device=device or torch.device("cuda", torch.cuda.current_device()),
+        dtype=dtype, levels=levels, locations=locations, n3_root=n[2])
+
+
+def _mock():
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import generate_mock_simulation as mock
+    return mock
+
+
+def mesh_grid(layout, dtype):
+    """A phase-14 snapshot of ``layout`` ("uniform", "amr", "single"; "phi"
+    and "phi_single" without phi structure) in ``dtype``, with its
+    neighbour table where it has blocks (the table does not depend on the
+    type)."""
+    from blacklight_tpu_torch.grid.amr import with_amr_table
+    m = MESH_BLOCK
+    n = (FULL_GRID["n_r"], FULL_GRID["n_th"], FULL_GRID["n_ph"])
+    if layout == "single":
+        return full_width_snapshot(dtype)
+    if layout == "phi_single":
+        return athena_blocks(dtype, n, pert_amp=0.0)
+    if layout == "phi":
+        grid = athena_blocks(dtype, (n[0], n[1], n[2] // PHI_SPLIT),
+                             pert_amp=0.0)
+    else:
+        grid = athena_blocks(dtype, (m, m, m),
+                             AMR_REFINE if layout == "amr" else (),
+                             sentinel=layout == "amr")
+    return with_amr_table(grid)
+
+
+def _mesh_cell_config(cell, precision, res=1024):
+    """Phase 7's configuration (rk4, 2000 steps) with ``cell``'s sampling
+    overrides."""
+    return _sim_config(camera_resolution=res, precision=precision,
+                       ray_integrator="rk4", ray_max_steps=2000,
+                       **MESH_CELLS[cell][1])
+
+
+def mesh_plain_subset(cell, precision) -> tuple:
+    """The plain version on phase 14's ``cell`` at 1024^2 in ``precision``
+    on every PLAIN_STRIDE-th ray of the camera's: (their positions,
+    (I_nu, flags, n_samples), seconds), numpy."""
+    import torch
+    dtype = torch.float32 if precision == "float32" else torch.float64
+    grid = mesh_grid(MESH_CELLS[cell][0], dtype)
+    args, kwargs = _sim_args(_mesh_cell_config(cell, precision), grid)
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+    pick = torch.arange(0, args[0].shape[0], PLAIN_STRIDE,
+                        device=args[0].device)
+    sub = (*(a[pick].contiguous() for a in args[:3]), *args[3:])
+    out, t_p = _timed(sk.render_simulation_reference, *sub, **kwargs)
+    return (sub[0].cpu().numpy(), [o.cpu().numpy() for o in out], t_p)
+
+
+def _mesh_config(mode, **overrides):
+    return _sim_config(**{"simulation_file": str(FIXTURES / "mock_amr.athdf"),
+                          **MESH_MODES[mode], **overrides})
+
+
+def check_mesh_simulation(mode, integrator, precision, nf) -> tuple:
+    """The simulation kernel of many blocks (``mode`` of MESH_MODES on
+    mock_amr.athdf) against its plain version, 128^2 with MESH_CHECK_STEPS;
+    nf = 3 takes the 16-frequency instantiation."""
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+    cfg = _mesh_config(mode, camera_resolution=128, ray_integrator=integrator,
+                       precision=precision, **MESH_CHECK_STEPS,
+                       **(MULTI_FREQUENCIES if nf > 1 else {}))
+    args, kwargs = _sim_args(cfg)
+    out_k, t_k = _timed(sk.render_simulation, *args, **kwargs)
+    out_p, t_p = _timed(sk.render_simulation_reference, *args, **kwargs)
+    exact = integrator != "dp" and precision == "float64"
+    result = _check_exact(out_k, out_p, 1e-9 if exact else None)
+    if nf > 1 and result["ok"] and not exact:
+        result = _check_frequencies(out_k, out_p, result)
+    return "sim_mesh_kernel_vs_plain", dict(
+        mode=mode, integrator=integrator, precision=precision,
+        frequencies=nf, kernel_s=t_k, plain_s=t_p, **result)
+
+
+def _check_frequencies(out_k, out_p, result) -> dict:
+    """The statistical gate on every frequency after the first."""
+    for f in range(1, out_k[0].shape[1]):
+        gate = statistical_gate(out_k[0][:, f].cpu().numpy(),
+                                out_p[0][:, f].cpu().numpy())
+        result["ok"] = result["ok"] and gate["ok"]
+    return result
+
+
+def check_mesh_phase(mode, integrator, precision) -> tuple:
+    """The phase kernel of many blocks against its plain version, 128^2 on
+    mock_amr.athdf with MESH_CHECK_STEPS: the second of two phases from
+    the kernel's carried state after the first."""
+    import numpy as np
+    cfg = _mesh_config(mode, camera_resolution=128, ray_integrator=integrator,
+                       precision=precision, **MESH_CHECK_STEPS)
+    args, _ = _sim_args(cfg)
+    phase_steps = MESH_CHECK_STEPS["ray_max_steps"] // 2
+    out_k, out_p, t_k, t_p, rays, samples = _second_phase(
+        args, integrator, phase_steps)
+    exact = precision == "float64"
+    both = [o[0].cpu().numpy() for o in (out_k, out_p)]
+    finite = ~(np.isnan(both[0]) | np.isnan(both[1]))
+    return "sim_mesh_phase_kernel_vs_plain", dict(
+        mode=mode, integrator=integrator, precision=precision,
+        grid_bytes=grid_bytes(args[6]),
+        phase_steps=phase_steps, phase_rays=rays,
+        phase_samples=samples, kernel_s=t_k, plain_s=t_p,
+        max_abs_err=float(abs(both[0][finite] - both[1][finite]).max()),
+        **_check_exact(out_k, out_p, 1e-9 if exact else None))
+
+
+def check_mesh_polarized(mode, integrator, precision) -> tuple:
+    """The polarized route with the derive kernel of many blocks against
+    its plain version, 64^2 on mock_amr.athdf (phase 3's polarized case)."""
+    import torch
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    cfg = _pol_case_config(integrator, precision, False, 1)
+    cfg.simulation_file = str(FIXTURES / "mock_amr.athdf")
+    for key, value in MESH_MODES[mode].items():
+        setattr(cfg, key, value)
+    args, kwargs, geom = _pol_args(cfg)
+    out_k, t_k = _timed(pk.render_polarized, *args, **kwargs)
+    out_p, t_p = _timed(pk.render_polarized_reference, *args, **kwargs)
+    exact = precision == "float64" and integrator != "dp"
+    gate = polarized_gate(_pol_stokes(out_k, args, geom, True),
+                          _pol_stokes(out_p, args, geom, True), exact)
+    same = (torch.equal(out_k[2].cpu(), out_p[2].cpu())
+            and torch.equal(out_k[3].cpu(), out_p[3].cpu()))
+    ok = bool(gate.pop("ok") and (same or not exact))
+    return "pol_mesh_kernel_vs_plain", dict(
+        mode=mode, integrator=integrator, precision=precision,
+        rays=int(args[0].shape[0]), kernel_s=t_k, plain_s=t_p,
+        same_flags_n_samples=same, **gate, ok=ok)
+
+
+def check_mesh_derive(precision) -> tuple:
+    """The derive kernel of exact interblock sampling at phase 14's mb-amr
+    cell (the polarized configuration of phase 9) against
+    derive_records_reference on the trace kernel's samples of 4,096 rays
+    (every PLAIN_STRIDE-th in spatial_order): every record value of every
+    stored sample, float64 within 1e-9 of each value's peak, float32 at
+    the polarized stages' gate; the bad bits equal. Returns its times and
+    bound beside."""
+    import torch
+    from blacklight_tpu_torch import pipeline_simulation as ps
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+    dtype = torch.float32 if precision == "float32" else torch.float64
+    grid = mesh_grid("amr", dtype)
+    args, _, _ = _pol_args(_pol_full_config(
+        precision, "rk4", simulation_block_interp=True), grid)
+    order = sk.spatial_order(args[0], block=ps.KERNEL_ORDER_BLOCK)
+    pick = order[::PLAIN_STRIDE]
+    positions, directions, mom = (a[pick].contiguous() for a in args[:3])
+    freqs, params, sp, grid, mass, cam, _ = args[3:]
+    stages = pk._CudaStages(positions, directions, mom, freqs, params, sp,
+                            grid, mass, cam, "rk4", False, None, 1 << 30,
+                            1 << 31)
+    b = positions.shape[0]
+    flags = torch.empty(b, dtype=torch.int32, device="cuda")
+    ns = torch.empty(b, dtype=torch.int32, device="cuda")
+    samples = stages.trace(0, b, flags, ns)
+    lengths = pk.warp_lengths(ns)
+    piece = pk.Piece(0, b, samples, ns, lengths, pk.record_offsets(lengths),
+                     int(lengths.sum()))
+    stages.derive(piece, 0, 1, None)  # warm up
+    before = list(pk.DERIVE_MODE_LAUNCHES)
+    (geometry, coefficients, bits), t_k = _timed(stages.derive, piece, 0, 1,
+                                                 None)
+    launched = [a - b_ for a, b_ in zip(pk.DERIVE_MODE_LAUNCHES, before)]
+    (geo_p, coef_p, bits_p), t_p = _timed(
+        pk.derive_records_reference, samples, ns, lengths, piece.offsets,
+        directions, mom, freqs, 0, 1, params, sp, grid, mass, cam)
+    w, t, lane, _ = pk._stored(samples, ns, lengths)
+    slot = piece.offsets[w] + t
+    ours = torch.cat((geometry[slot, :, lane], coefficients[slot, :, lane]), 1)
+    ref = torch.cat((geo_p[slot, :, lane], coef_p[slot, :, lane]), 1)
+    if precision == "float64":
+        scale = ref.abs().amax(dim=0).clamp_min(1e-300)
+        err = float(((ours - ref).abs() / scale).amax())
+        gate = {"max_err_over_peak": err, "ok": err < 1e-9,
+                "gate": "every value within 1e-9 of its peak"}
+    else:
+        gate = _gate_columns(ours, ref)
+    gate["max_abs_err"] = float((ours - ref).abs().max())
+    n_samples = int(w.numel())
+    bounds = pol_stage_bounds(
+        b, n_samples, precision,
+        sample_ops=OPS_PER_SAMPLE["simulation_interblock"]
+        - OPS_PER_SAMPLE["simulation"])["derive"]
+    return "pol_mesh_derive_vs_plain", dict(
+        precision=precision, samples=n_samples, kernel_ms=t_k * 1e3,
+        plain_ms=t_p * 1e3, mode_launches=launched,
+        same_bad_bits=bool(torch.equal(bits, bits_p)), **bounds,
+        **{k: v for k, v in gate.items() if k != "ok"},
+        ok=bool(gate["ok"] and torch.equal(bits, bits_p)
+                and launched[sk.INTERBLOCK] == 1))
+
+
+def _launch_counts(fk, sk, pk) -> dict:
+    """Every kernel's launch count so far, by kernel and mode."""
+    return {"formula": fk.LAUNCHES, "simulation": list(sk.MODE_LAUNCHES),
+            "phase": list(sk.PHASE_MODE_LAUNCHES),
+            "polarized": pk.LAUNCHES,
+            "derive": list(pk.DERIVE_MODE_LAUNCHES)}
+
+
+def _zero_counts(fk, sk, pk) -> None:
+    fk.LAUNCHES = sk.LAUNCHES = pk.LAUNCHES = sk.PHASE_LAUNCHES = 0
+    sk.MODE_LAUNCHES[:] = sk.PHASE_MODE_LAUNCHES[:] = [0, 0, 0]
+    pk.DERIVE_MODE_LAUNCHES[:] = [0, 0, 0]
+    for stage in pk.STAGE_LAUNCHES:
+        pk.STAGE_LAUNCHES[stage] = 0
+
+
+def _subset_gate(out, plain, exact) -> dict:
+    """A kernel's (I_nu, flags, n_samples) on phase 14's plain rays
+    against the plain version's (numpy): float64 exact flags, n_samples
+    and NaN sets and I within rtol 1e-9, float32 the statistical gate."""
+    import numpy as np
+    a, b = out[0][:, 0].cpu().numpy(), plain[0][:, 0]
+    gate = statistical_gate(a, b)
+    finite = ~(np.isnan(a) | np.isnan(b))
+    gate["max_abs_err"] = float(np.abs(a[finite] - b[finite]).max())
+    if exact:
+        gate["ok"] = bool(
+            np.array_equal(out[1].cpu().numpy(), plain[1])
+            and np.array_equal(out[2].cpu().numpy(), plain[2])
+            and np.array_equal(np.isnan(a), np.isnan(b))
+            and np.allclose(a, b, rtol=1e-9, atol=0.0, equal_nan=True))
+        gate["gate"] = "exact flags/n_samples/NaN, rtol 1e-9"
+    else:
+        gate["gate"] = "statistical (bench.py:181-186)"
+    return gate
+
+
+def phase_mesh_blocks(tmp: pathlib.Path, card: str, grids: dict,
+                      plain: dict, checks: dict) -> list:
+    """Phase 14: Athena++ mesh blocks and the nearest cell at full width.
+    ``plain``: phase 3's mesh_plain_subset results by (cell, precision);
+    ``checks``: phase 3's mesh checks (their kernel and plain times)."""
+    import numpy as np
+    import torch
+    from blacklight_tpu_torch import pipeline, pipeline_simulation as ps
+    from blacklight_tpu_torch.grid import sampling
+    from blacklight_tpu_torch.ops import formula_kernel as fk
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+
+    res, t_phase = 1024, time.perf_counter()
+    t0 = time.perf_counter()
+    mesh = {"uniform": mesh_grid("uniform", torch.float32),
+            "amr": mesh_grid("amr", torch.float32),
+            "single": grids["float32"]}
+    emit("mesh_snapshots", seconds=time.perf_counter() - t0, **{
+        name: {"blocks": g.n_blocks, "cells": int(g.prim[0].numel()),
+               "table_mb": grid_bytes(g) / 1e6,
+               "levels": sorted(set(g.levels.tolist()))
+               if g.levels is not None else [0]}
+        for name, g in mesh.items()})
+
+    # the three cells through pipeline.run, each with every count zeroed
+    # just before and read just after
+    expect = {"mb_uniform": sampling.BLOCKS, "mb_amr": sampling.INTERBLOCK,
+              "nearest": sampling.BLOCKS}
+    images, launches = {}, {}
+    for cell, mode in expect.items():
+        layout, overrides = MESH_CELLS[cell]
+        cfg = _mesh_cell_config(cell, "float32")
+        cfg.output_file = str(tmp / f"{cell}.npz")
+        _zero_counts(fk, sk, pk)
+        arrays, run_s = _timed(pipeline.run, cfg, quiet=True, device="cuda",
+                               grid=mesh[layout])
+        counts = _launch_counts(fk, sk, pk)
+        image = arrays["I_nu"]
+        ok = (image.shape == (res, res) and np.isfinite(np.nanmax(image))
+              and counts["simulation"][mode] > 0
+              and sum(counts["simulation"]) == counts["simulation"][mode]
+              and not (counts["formula"] or counts["polarized"]
+                       or sum(counts["phase"])))
+        emit("mesh_main_path", cell=cell, resolution=res, precision="float32",
+             integrator="rk4", max_steps=2000, seconds=run_s,
+             launches=counts, nan_pixels=int(np.isnan(image).sum()),
+             max_I_nu=float(np.nanmax(image)), ok=bool(ok))
+        if not ok:
+            raise RuntimeError(f"{cell}: the main path did not render through "
+                               f"the kernel of its mode: {counts}")
+        images[cell], launches[cell] = image, counts["simulation"][mode]
+
+    # each kernel alone in spatial_order, best of 3 in turns with the
+    # single-block kernel (phase 7's cell)
+    variants = {"single": ("single", {})}
+    variants.update({c: MESH_CELLS[c] for c in MESH_CELLS})
+    runs = {}
+    for name, (layout, overrides) in variants.items():
+        cfg = _sim_config(camera_resolution=res, precision="float32",
+                          ray_integrator="rk4", ray_max_steps=2000,
+                          **overrides)
+        args, kwargs = _sim_args(cfg, mesh[layout])
+        order = sk.spatial_order(args[0], block=ps.KERNEL_ORDER_BLOCK)
+        runs[name] = ((*(a[order].contiguous() for a in args[:3]),
+                       *args[3:]), kwargs, args)
+    times = {name: [] for name in runs}
+    out = {}
+    for name, (args, kwargs, _) in runs.items():
+        out[name] = sk.render_simulation(*args, **kwargs)  # warm up
+    for _ in range(3):
+        for name, (args, kwargs, _) in runs.items():
+            times[name].append(_timed(sk.render_simulation, *args,
+                                      **kwargs)[1])
+    single_ms = min(times["single"]) * 1e3
+    cells = {}
+    for name, (args, kwargs, camera_args) in runs.items():
+        layout = variants[name][0]
+        mode = sampling.sampling_mode(args[6], args[5].sampler)
+        kind = ("simulation", "simulation_blocks",
+                "simulation_interblock")[mode]
+        mean = float(out[name][2].double().mean())
+        cell = {"kernel_ms": min(times[name]) * 1e3,
+                "kernel_s_runs": times[name], "mode": int(mode),
+                "mean_n_samples": mean,
+                "over_single": min(times[name]) * 1e3 / single_ms,
+                **bound(kind, "rk4", "float32", res * res, mean,
+                        in_bytes=grid_bytes(mesh[layout]), out_values=1)}
+        if (name, "float32") in plain:
+            # the plain version on phase 3's subset of the camera's rays
+            pick = torch.arange(0, res * res, PLAIN_STRIDE, device="cuda")
+            sub = (*(a[pick].contiguous() for a in camera_args[:3]),
+                   *camera_args[3:])
+            positions, ref, t_plain = plain[name, "float32"]
+            if not np.array_equal(positions, sub[0].cpu().numpy()):
+                raise RuntimeError("the plain version traced other rays")
+            gate = _subset_gate(sk.render_simulation(*sub, **kwargs), ref,
+                                False)
+            cell.update(plain_ms=t_plain * 1e3,
+                        plain_rays=res * res // PLAIN_STRIDE, **gate)
+            if not gate["ok"]:
+                raise RuntimeError(f"{name}: kernel disagrees with plain: "
+                                   f"{gate}")
+        cells[name] = cell
+        emit("mesh_timing", cell=name, resolution=res, card=card,
+             precision="float32", integrator="rk4",
+             order=f"spatial_order {ps.KERNEL_ORDER_BLOCK}", **cell)
+
+    # float64 on the plain subset: each kernel exact against its plain
+    # version, and mb-uniform with interblock sampling against the single
+    # block (and the phi split, which the reference keeps within
+    # MESH_PHI_ATOL of I's peak)
+    mesh64 = {"uniform": mesh_grid("uniform", torch.float64),
+              "amr": mesh_grid("amr", torch.float64),
+              "phi": mesh_grid("phi", torch.float64),
+              "phi_single": mesh_grid("phi_single", torch.float64),
+              "single": grids["float64"]}
+    interblock = MESH_CELLS["mb_uniform_interblock"][1]
+    sub64 = {}
+    for name, (layout, overrides) in [("single", ("single", {})),
+                                      ("phi", ("phi", interblock)),
+                                      ("phi_single", ("phi_single", {})),
+                                      *MESH_CELLS.items()]:
+        cfg = _sim_config(camera_resolution=res, precision="float64",
+                          ray_integrator="rk4", ray_max_steps=2000,
+                          **overrides)
+        args, kwargs = _sim_args(cfg, mesh64[layout])
+        pick = torch.arange(0, res * res, PLAIN_STRIDE, device="cuda")
+        sub = (*(a[pick].contiguous() for a in args[:3]), *args[3:])
+        sub64[name] = sk.render_simulation(*sub, **kwargs)
+        if (name, "float64") in plain:
+            _, ref, t_plain = plain[name, "float64"]
+            gate = _subset_gate(sub64[name], ref, True)
+            emit("mesh_kernel_vs_plain_f64", cell=name,
+                 rays=res * res // PLAIN_STRIDE, plain_s=t_plain, **gate)
+            if not gate["ok"]:
+                raise RuntimeError(f"{name}: float64 kernel disagrees with "
+                                   f"plain: {gate}")
+    against = {}
+    for name, one in (("phi", "phi_single"), ("mb_uniform_interblock",
+                                              "single"),
+                      ("mb_uniform", "single")):
+        a = sub64[name][0][:, 0].cpu().numpy()
+        i_one = sub64[one][0][:, 0].cpu().numpy()
+        same_nan = bool(np.array_equal(np.isnan(a), np.isnan(i_one)))
+        both = ~(np.isnan(a) | np.isnan(i_one))
+        against[name] = {"same_nan": same_nan,
+                         "max_abs_over_peak": float(np.abs(
+                             a[both] - i_one[both]).max()
+                             / np.nanmax(np.abs(i_one))),
+                         "flux_ratio": float(np.nansum(a) / np.nansum(i_one))}
+    phi_ok = (against["phi"]["same_nan"]
+              and against["phi"]["max_abs_over_peak"] < MESH_PHI_ATOL)
+    # float32: the whole images (the same rays in the same order) by the
+    # statistical gate's measures
+    single = out["single"][0][:, 0].cpu().numpy()
+    f32 = {name: statistical_gate(out[name][0][:, 0].cpu().numpy(), single)
+           for name in ("mb_uniform_interblock", "mb_uniform")}
+    emit("mesh_against_single_block", rays_float64=res * res // PLAIN_STRIDE,
+         float64=against, float32=f32, phi_split_ok=bool(phi_ok),
+         phi_gate=f"fields without phi structure, {PHI_SPLIT} phi blocks "
+                  f"against one: NaN sets, max |delta| < {MESH_PHI_ATOL:g} "
+                  "of I's peak (tests/test_loaders.py:262)",
+         note="mb-uniform is measured, not gated: the reference's "
+              "interblock fraction past a block's upper face reads "
+              "x?v(b, n), the next block's first centre in block order "
+              "(grid/sampling.py interblock_corners)")
+    if not phi_ok:
+        raise RuntimeError(f"the phi split disagrees with one block: "
+                           f"{against['phi']}")
+
+    # K2.3 and the polarized route once each on mb-amr
+    cfg = _mesh_cell_config("mb_amr", "float32")
+    cfg.output_file = str(tmp / "mb_amr_phased.npz")
+    ps.KERNEL_PHASED = True
+    try:
+        _zero_counts(fk, sk, pk)
+        arrays, phased_s = _timed(pipeline.run, cfg, quiet=True,
+                                  device="cuda", grid=mesh["amr"])
+        counts = _launch_counts(fk, sk, pk)
+    finally:
+        ps.KERNEL_PHASED = False
+    a, b = arrays["I_nu"], images["mb_amr"]
+    same = bool(np.array_equal(np.isnan(a), np.isnan(b))
+                and np.array_equal(a[~np.isnan(a)], b[~np.isnan(b)]))
+    phase_launches = counts["phase"][sampling.INTERBLOCK]
+    emit("mesh_phased_main_path", cell="mb_amr", seconds=phased_s,
+         launches=counts, identical_to_monolithic=same)
+    if not same or not phase_launches or sum(counts["simulation"]):
+        raise RuntimeError(f"phased mb_amr: {counts}, identical {same}")
+
+    cfg = _pol_full_config("float32", "rk4", simulation_block_interp=True,
+                           output_file=str(tmp / "mb_amr_pol.npz"))
+    _zero_counts(fk, sk, pk)
+    arrays, pol_s = _timed(pipeline.run, cfg, quiet=True, device="cuda",
+                           grid=mesh["amr"])
+    counts = _launch_counts(fk, sk, pk)
+    derive_launches = counts["derive"][sampling.INTERBLOCK]
+    image = arrays["I_nu"]
+    ok = (image.shape == (res, res) and np.isfinite(np.nanmax(image))
+          and derive_launches > 0 and sum(counts["derive"]) == derive_launches
+          and not sum(counts["simulation"]))
+    emit("mesh_polarized_main_path", cell="mb_amr", resolution=res,
+         precision="float32", seconds=pol_s, launches=counts,
+         stage_launches=dict(pk.STAGE_LAUNCHES),
+         nan_pixels=int(np.isnan(image).sum()),
+         max_I_nu=float(np.nanmax(image)), ok=bool(ok))
+    if not ok:
+        raise RuntimeError(f"polarized mb_amr: {counts}")
+    emit("mesh_phase", seconds=time.perf_counter() - t_phase)
+
+    def entry(name, replaces, n, **fields):
+        return {"name": name, "route": "cuda", "source": replaces[0],
+                "replaces": replaces[1], "launches": n,
+                "library_ms": None, **fields}
+
+    sim = (SIM_KERNEL_SOURCE, SIM_KERNEL_REPLACES)
+    kernels = []
+    for cell, label in (("mb_uniform", "blocks"), ("mb_amr", "interblock"),
+                        ("nearest", "blocks, nearest cell")):
+        c = cells[cell]
+        kernels.append(entry(
+            f"simulation_mode_kernel ({label}; {cell})", sim, launches[cell],
+            max_abs_err=c["max_abs_err"], ms=c["kernel_ms"],
+            plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+            bound_by=c["bound_by"], single_block_ms=single_ms))
+    ph = checks["phase"]
+    kernels.append(entry(
+        "simulation_phase_mode_kernel (interblock)",
+        (SIM_KERNEL_SOURCE, PHASE_REPLACES), phase_launches,
+        max_abs_err=ph["max_abs_err"], ms=ph["kernel_s"] * 1e3,
+        plain_ms=ph["plain_s"] * 1e3,
+        work=(f"the second phase of {ph['phase_steps']} steps at 128^2 on "
+              f"mock_amr.athdf, {ph['phase_rays']} rays"),
+        **phase_bound(ph["phase_rays"], ph["phase_samples"],
+                      ph["precision"], ph["grid_bytes"],
+                      kind="simulation_interblock")))
+    dv = checks["derive"]
+    kernels.append(entry(
+        "polarized_derive_mode_kernel (interblock)",
+        (POL_KERNEL_SOURCE, POL_KERNEL_REPLACES), derive_launches,
+        max_abs_err=dv["max_abs_err"], ms=dv["kernel_ms"],
+        plain_ms=dv["plain_ms"], bound_ms=dv["bound_ms"],
+        bound_by=dv["bound_by"],
+        work=(f"mb_amr at 1024^2, 4,096 rays (every {PLAIN_STRIDE}-th in "
+              f"spatial_order), {dv['samples']} samples")))
+    return kernels
+
+
 def grid_bytes(grid) -> int:
-    """Bytes the kernels read of a snapshot: the (k, j, i, 8) float32
-    table and the coordinates."""
-    nvar, _, n_k, n_j, n_i = grid.prim.shape
+    """Bytes the kernels read of a snapshot: each block's (k, j, i, 8)
+    float32 table and coordinates, and of many blocks their bounds."""
+    nvar, n_b, n_k, n_j, n_i = grid.prim.shape
     item = grid.x1f.element_size()
-    return 32 * n_k * n_j * n_i + item * (2 * (n_i + n_j + n_k) + 3)
+    per_block = 32 * n_k * n_j * n_i + item * (2 * (n_i + n_j + n_k) + 3)
+    return n_b * per_block + (6 * item * n_b if n_b > 1 else 0)
 
 
 def bound(kernel, integrator, precision, rays, mean_samples, *, in_bytes,
@@ -1524,11 +2217,13 @@ def phase_pol_goldens(tmp: pathlib.Path):
             raise RuntimeError(f"golden {name} failed: {result}")
 
 
-def pol_stage_bounds(rays, samples, precision, frequencies=1) -> dict:
+def pol_stage_bounds(rays, samples, precision, frequencies=1,
+                     sample_ops=0) -> dict:
     """Each kernel of the polarized route with its own bound: the bytes
     of its own inputs and outputs (rays, samples, records, coherency
     components) against its share of the operations (``samples`` stored
-    samples in all)."""
+    samples in all; ``sample_ops`` more a sample for the derive kernel's
+    grid sample)."""
     from blacklight_tpu_torch.ops import polarized_kernel as pk
     item = 4 if precision == "float32" else 8
     sample = pk.SAMPLE_VALUES * item
@@ -1538,7 +2233,7 @@ def pol_stage_bounds(rays, samples, precision, frequencies=1) -> dict:
         "trace": (rays * (9 * item + 8) + samples * sample,
                   samples * OPS_PER_STEP["rk4"]),
         "derive": (samples * (sample + record) + rays * 2 * item,
-                   samples * (OPS_PER_SAMPLE["polarized"]
+                   samples * (OPS_PER_SAMPLE["polarized"] + sample_ops
                               + POL_OPS_PER_FREQUENCY * frequencies
                               - chain_ops)),
         "chain": (samples * record + rays * (16 * frequencies * item + 4),
@@ -2204,7 +2899,7 @@ def main(argv=None) -> int:
         phase_pol_chunks(card, full_width_snapshot(torch.float32))
     else:
         with multiprocessing.get_context("spawn").Pool(WORKERS) as pool:
-            truth, subsets, pol_stages = phase_checks(pool)
+            truth, subsets, pol_stages, mesh_checks = phase_checks(pool)
         with tempfile.TemporaryDirectory(dir=ROOT / "build" / "kernels") \
                 as tmp:
             tmp = pathlib.Path(tmp)
@@ -2214,6 +2909,8 @@ def main(argv=None) -> int:
             grids = {}
             simulation, mono = phase_sim_full_width(tmp, card, grids)
             phased = phase_phased_full_width(tmp, card, grids, mono)
+            mesh = phase_mesh_blocks(tmp, card, grids, mesh_checks["plain"],
+                                     mesh_checks)
             phase_pol_goldens(tmp)
             polarized = phase_pol_full_width(tmp, card, grids, truth,
                                              pol_stages)
@@ -2222,7 +2919,8 @@ def main(argv=None) -> int:
             tangent = phase_grad_full_width(card, subsets["k14"])
             phase_fit(card)
         print(json.dumps({"kernels": [formula, multi, tangent, simulation,
-                                      phased, polarized]}), flush=True)
+                                      phased, polarized, *mesh]}),
+              flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -101,6 +101,14 @@ for _name, (_p, _i, _nf, _, _steps) in SIM_CELLS.items():
         f"simulation_kernel<{'float' if _p == 'float32' else 'double'}, "
         f"{_i}, NF={1 if _nf == 1 else 16}>" if _steps is None else
         f"simulation_phase_kernel<float, {_i}, NF=1>")
+# chip_smoke.py phase 14's cells (MESH_CELLS: mesh blocks and the nearest
+# cell), rk4 float32 in spatial_order: timed only (--times-only; a tree
+# from before the port took mesh blocks cannot run them).
+MESH_CELLS = {"sim_mb_uniform_spatial": ("mb_uniform", "blocks"),
+              "sim_mb_amr_spatial": ("mb_amr", "interblock"),
+              "sim_nearest_spatial": ("nearest", "blocks")}
+for _name, (_, _mode) in MESH_CELLS.items():
+    CELL_KERNELS[_name] = f"simulation_mode_kernel<float, rk4, NF=1, {_mode}>"
 CELLS = tuple(CELL_KERNELS)
 # Rays per tile of the spatial_order of k11_f64_spatial
 # (pipeline.FORMULA_ORDER_BLOCK).
@@ -172,12 +180,31 @@ def _sim_cell(cs, name, grids):
     return sk.render_simulation_phased, args, kwargs, perm
 
 
+def _mesh_cell(cs, name, grids):
+    """A MESH_CELLS cell as _sim_cell gives one; ``grids`` caches its
+    snapshot by layout."""
+    import torch
+    from blacklight_tpu_torch import pipeline_simulation as ps
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+    cell = MESH_CELLS[name][0]
+    layout = cs.MESH_CELLS[cell][0]
+    if layout not in grids:
+        grids[layout] = cs.mesh_grid(layout, torch.float32)
+    args, kwargs = cs._sim_args(cs._mesh_cell_config(cell, "float32"),
+                                grids[layout])
+    perm = sk.spatial_order(args[0], block=ps.KERNEL_ORDER_BLOCK)
+    args = (*(t[perm].contiguous() for t in args[:3]), *args[3:])
+    return sk.render_simulation, args, kwargs, perm
+
+
 def _cell(cs, name, grids):
     """The renderer, its arguments and keywords of a timed cell, and the
     permutation of the camera's rays it launches (None: camera order)."""
     from blacklight_tpu_torch.ops import formula_kernel as fk
     if name in SIM_CELLS:
         return _sim_cell(cs, name, grids)
+    if name in MESH_CELLS:
+        return _mesh_cell(cs, name, grids)
     if name in ("k11", "k13", "k14"):
         return (fk.render_formula, *cs._formula_cell(name)[1:], None)
     if name == "k13_tangents":
@@ -267,7 +294,7 @@ def worker(opts) -> dict:
         result[f"{name}_ray_steps"] = int(out[2].long().sum())
         result[f"{name}_block_efficiency_128"] = _block_efficiency(
             cs, out[2].cpu(), launched=order is not None)
-        if name in SIM_CELLS:
+        if name in SIM_CELLS or name in MESH_CELLS:
             ns = out[2].cpu().numpy()
             result[f"{name}_warp_efficiency"] = cs.warp_efficiency(
                 ns, np.arange(ns.size))

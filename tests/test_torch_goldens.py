@@ -45,6 +45,21 @@ def test_simulation_rk4_exact_parity(fixtures_dir, tmp_path):
     np.testing.assert_allclose(ours, gold, rtol=1e-8)
 
 
+def test_amr_rk4_exact_parity(fixtures_dir, tmp_path):
+    """golden_amr_rk4_32 on mock_amr.athdf (two refinement levels, exact
+    interblock sampling): identical NaN sets, rtol 1e-8
+    (tests/test_amr.py:39-52)."""
+    cfg = read_config(str(fixtures_dir / "golden_amr_rk4_32.input"))
+    cfg.output_file = str(tmp_path / "golden_amr_rk4_32.npz")
+    cfg.simulation_file = str(fixtures_dir / "mock_amr.athdf")
+    ours = pipeline.run(cfg, quiet=True, device="cpu")["I_nu"]
+    gold = np.load(fixtures_dir / "golden_amr_rk4_32.npz")["I_nu"]
+    assert np.array_equal(np.isnan(ours), np.isnan(gold))
+    scale = np.nanmax(np.abs(gold))
+    rel = np.abs(ours - gold) / (np.abs(gold) + scale * 1e-8)
+    assert np.nanmax(rel) < 1e-8, np.nanmax(rel)
+
+
 def test_simulation_dp_quadrature_parity(fixtures_dir, tmp_path):
     ours, gold = _render(fixtures_dir, tmp_path, "golden_sim_32")
     rel = np.abs(ours - gold) / (np.abs(gold) + gold.max() * 1e-8)

@@ -225,3 +225,35 @@ def test_pipeline_run_on_cuda(cuda_device, tmp_path):
         assert arrays[k].shape == (8, 8)
     assert np.isfinite(np.nanmax(arrays["I_nu"]))
     assert (tmp_path / "out.npz").exists()
+
+
+# sampling modes of many blocks and the nearest cell
+MESH_BLOCKS = {
+    "amr_interblock": {"simulation_file": str(FIXTURES / "mock_amr.athdf"),
+                       "simulation_block_interp": True},
+    "amr_nearest": {"simulation_file": str(FIXTURES / "mock_amr.athdf"),
+                    "simulation_interp": False},
+    "nearest": {"simulation_interp": False},
+}
+
+
+@pytest.mark.parametrize("integrator,precision", [("rk4", "float64"),
+                                                  ("rk2", "float32")])
+@pytest.mark.parametrize("mode", sorted(MESH_BLOCKS))
+def test_mesh_blocks_kernel_matches_plain(cuda_device, mode, integrator,
+                                          precision):
+    """The route with the derive kernel of many blocks or the nearest
+    cell, against the plain version, with the gates of
+    test_kernel_matches_plain."""
+    args, kwargs, geom = _args(integrator, precision, **MESH_BLOCKS[mode])
+    _compare(args, kwargs, geom, precision == "float64", launches=3)
+
+
+def test_mesh_blocks_pipeline_run_on_cuda(cuda_device, tmp_path):
+    cfg = _config(res=8, output_file=str(tmp_path / "out.npz"),
+                  simulation_file=str(FIXTURES / "mock_amr.athdf"),
+                  simulation_block_interp=True)
+    before = pk.LAUNCHES
+    arrays = pipeline.run(cfg, quiet=True, device="cuda")
+    assert pk.LAUNCHES == before + 3
+    assert np.isfinite(np.nanmax(arrays["I_nu"]))

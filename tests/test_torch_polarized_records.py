@@ -437,5 +437,6 @@ def test_polarized_units_do_not_contract():
     from blacklight_tpu_torch.ops import _build
     units = {p.name for p in _build.sources() if p.name.startswith("polar")}
     assert units == {"polarized_trace.cu", "polarized_derive.cu",
-                     "polarized_derive_f64.cu", "polarized_chain.cu"}
+                     "polarized_derive_f64.cu", "polarized_derive_blocks.cu",
+                     "polarized_chain.cu"}
     assert all(_build.CONTRACT[u] is False for u in units)

@@ -16,6 +16,8 @@ import torch
 
 from blacklight_tpu_torch.constants import FrequencySpacing
 from blacklight_tpu_torch import RayIntegrator, pipeline, read_config
+from blacklight_tpu_torch import pipeline_simulation
+from blacklight_tpu_torch.grid.athena import simulation_grid
 from blacklight_tpu_torch.pipeline_simulation import make_simulation_renderer
 from blacklight_tpu_torch.ops import simulation_kernel as sk
 
@@ -166,3 +168,92 @@ def test_launch_consts_size_on_both_sides(cuda_device):
     """sizeof(SimLaunchConsts) per type and frequency bucket, from the
     library, is what launch_consts packs."""
     assert sk.consts_sizes(sk._library()) == sk.host_consts_sizes()
+
+
+def phi_blocks(grid, n):
+    """``grid`` (one block) split into ``n`` mesh blocks along phi, with
+    the logical locations and levels Athena++ gives them (as
+    write_athena(..., phi_blocks=n) lays a file out)."""
+    nvar, _, n_k, n_j, n_i = grid.prim.shape
+    m = n_k // n
+    prim = grid.prim[:, 0].reshape(nvar, n, m, n_j, n_i)
+    x3f = torch.stack([grid.x3f[0, b * m:(b + 1) * m + 1] for b in range(n)])
+    x3v = grid.x3v[0].reshape(n, m)
+    rows = [grid.x1f[0], grid.x1v[0], grid.x2f[0], grid.x2v[0]]
+    rows = [r.expand(n, -1).cpu() for r in rows]
+    locations = np.zeros((n, 3), np.int64)
+    locations[:, 2] = np.arange(n)
+    return simulation_grid(
+        prim.cpu(), rows[0], rows[1], rows[2], rows[3], x3f.cpu(),
+        x3v.cpu(), grid.ind, grid.time, device=grid.prim.device,
+        dtype=grid.x1f.dtype, levels=np.zeros(n, np.int32),
+        locations=locations, n3_root=n_k)
+
+
+# mode -> (snapshot, overrides, split into 4 phi blocks)
+MODES = {
+    "amr_interblock": ("mock_amr.athdf",
+                       {"simulation_block_interp": True}, False),
+    "amr_blocks": ("mock_amr.athdf", {}, False),
+    "four_blocks_nearest": ("mock_small.athdf",
+                            {"simulation_interp": False}, True),
+    "nearest": ("mock_small.athdf", {"simulation_interp": False}, False),
+}
+
+
+def mode_args(mode, integrator, precision, res=16, **overrides):
+    """render_simulation's arguments on the card for a sampling mode of
+    MODES; fallback_nan where the comparison is exact, as _args."""
+    snapshot, mode_overrides, split = MODES[mode]
+    exact = integrator != "dp" and precision == "float64"
+    cfg = _config(res=res, ray_integrator=RayIntegrator(integrator),
+                  precision=precision, fallback_nan=exact,
+                  simulation_file=str(FIXTURES / snapshot),
+                  **mode_overrides, **overrides)
+    grid = None
+    if split:
+        grid = phi_blocks(pipeline_simulation.load_grid(
+            cfg, device="cuda", dtype=torch.float64 if precision == "float64"
+            else torch.float32), 4)
+    render_fn, geom, rays, freqs, _ = make_simulation_renderer(
+        cfg, device="cuda", grid=grid)
+    args = (rays.positions, rays.directions, rays.momentum_factors,
+            *render_fn.kernel_args)
+    return args, {"integrator": integrator}, exact
+
+
+@pytest.mark.parametrize("integrator,precision", [
+    ("rk4", "float64"), ("rk2", "float64"), ("rk4", "float32"),
+    ("dp", "float32")])
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_mode_kernel_matches_plain(cuda_device, mode, integrator,
+                                   precision):
+    """The kernels of many blocks, exact interblock sampling and the
+    nearest cell against the plain version: rk4 and rk2 in float64 exact
+    in flags, n_samples and NaN sets and I_nu to rtol 1e-7; float32 and
+    dp the statistical gate."""
+    args, kwargs, exact = mode_args(mode, integrator, precision)
+    kgrid = sk.kernel_grid(args[6], args[0].dtype, args[5].sampler)
+    assert kgrid.mode != sk.SINGLE
+    _compare(args, kwargs, exact, launches=1)
+
+
+def test_mode_kernel_many_frequencies(cuda_device):
+    """20 frequencies on mock_amr with interblock sampling: two launches."""
+    args, kwargs, exact = mode_args(
+        "amr_interblock", "rk4", "float64", image_num_frequencies=20,
+        image_frequency_start=5e10, image_frequency_end=1e12,
+        image_frequency_spacing=FrequencySpacing.log)
+    _compare(args, kwargs, exact, launches=2)
+
+
+def test_pipeline_run_mesh_blocks_on_cuda(cuda_device, tmp_path):
+    """pipeline.run on the card reads mock_amr.athdf and renders it with
+    interblock sampling through the kernel."""
+    cfg = _config(res=8, output_file=str(tmp_path / "out.npz"),
+                  simulation_file=str(FIXTURES / "mock_amr.athdf"),
+                  simulation_block_interp=True)
+    before = sk.LAUNCHES
+    arrays = pipeline.run(cfg, quiet=True, device="cuda")
+    assert sk.LAUNCHES == before + 1
+    assert np.isfinite(np.nanmax(arrays["I_nu"]))

@@ -302,7 +302,7 @@ def test_guide_tables_and_kernel_grid(tmp_path):
         table, coords = sk.kernel_tables(grid, dtype)
         assert torch.equal(kg.table, table) and torch.equal(kg.coords,
                                                             coords)
-        n_k, n_j, n_i = table.shape[:3]
+        n_k, n_j, n_i = table.shape[1:4]
         c = coords.numpy()
         at, guides = 0, []
         for a, n in enumerate((n_i, n_j, n_k)):
@@ -317,7 +317,7 @@ def test_guide_tables_and_kernel_grid(tmp_path):
         assert kg.guides.dtype == torch.int32
         assert kg.guides.device == grid.prim.device
         assert kg.axes.dtype == np.float64
-        assert kg.args()[4:] == (n_i, n_j, n_k)
+        assert kg.args()[4:7] == (n_i, n_j, n_k)
     header = (CSRC / "sim_sample.cuh").read_text()
     assert f"GUIDE_AXIS_VALUES = {sk.GUIDE_AXIS_VALUES};" in header
 
@@ -341,3 +341,21 @@ def test_simulation_variants_apply(variant):
     assert len(out.splitlines()) == len(text.splitlines())
     with pytest.raises(ValueError):
         mod.make(root, root / "unused", "grid=fetch")
+
+
+def test_simulation_mode_variants_apply():
+    """scripts/simulation_variants.py mode_blocks=K sets the launch bound
+    of the float rk4 and rk2 kernels of many mesh blocks and keeps the
+    tree's for the others."""
+    import importlib.util
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "simulation_variants", root / "scripts" / "simulation_variants.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    text = (root / mod.KERNEL_CUH).read_text()
+    out = mod.with_mode_blocks(text, 6)
+    assert ("SimBlocks = sizeof(T) == 4 && MODE != SAMPLE_SINGLE && "
+            "INTEGRATOR != INTEGRATOR_DP ? 6 : sizeof(T) != 4 ? 1 : "
+            "INTEGRATOR == INTEGRATOR_DP ? 6 : 8;") in out
+    assert len(out.splitlines()) == len(text.splitlines())

@@ -190,3 +190,58 @@ def test_pipeline_phased_run_on_cuda(cuda_device, tmp_path, monkeypatch):
     a, b = ours["I_nu"], ref["I_nu"]
     assert np.array_equal(np.isnan(a), np.isnan(b))
     assert np.array_equal(a[~np.isnan(a)], b[~np.isnan(b)])
+
+
+# sampling modes of many blocks and the nearest cell on mock_amr.athdf
+MESH_BLOCKS = {
+    "interblock": {"simulation_file": str(FIXTURES / "mock_amr.athdf"),
+                   "simulation_block_interp": True},
+    "nearest": {"simulation_file": str(FIXTURES / "mock_amr.athdf"),
+                "simulation_interp": False},
+}
+
+
+@pytest.mark.parametrize("integrator, precision", [("rk4", "float64"),
+                                                   ("rk2", "float32")])
+@pytest.mark.parametrize("mode", sorted(MESH_BLOCKS))
+def test_phased_mesh_blocks_match_monolithic(cuda_device, mode, integrator,
+                                             precision):
+    """The phase kernel of many blocks: the phased image is the
+    monolithic kernel's bit for bit (a phase starts its block search
+    afresh, which changes where it starts, not what it finds)."""
+    args = _args(integrator, precision, **MESH_BLOCKS[mode])
+    ref = sk.render_simulation(*args, integrator=integrator)
+    stats = []
+    ours = sk.render_simulation_phased(*args, integrator=integrator,
+                                       phase_steps=PHASE_STEPS, stats=stats)
+    assert len(stats) > 2
+    _assert_identical(ours, ref)
+
+
+@pytest.mark.parametrize("mode", sorted(MESH_BLOCKS))
+def test_phase_mesh_blocks_kernel_matches_plain(cuda_device, mode):
+    """One phase of the phase kernel of many blocks from the kernel's
+    carried state against its plain version, rk4 float64: identical
+    n_samples and NaN sets, I_nu within rtol 1e-7."""
+    args = _args("rk4", "float64", **MESH_BLOCKS[mode])
+    positions, directions, mom, freqs, params, sp, grid, mass, cam, log_js \
+        = args
+    carry = sk.initial_carry(positions, directions, params, 1)
+    index = torch.arange(positions.shape[0], dtype=torch.int32,
+                         device=cuda_device)
+    phase = (directions, mom, freqs, params, sp, grid, mass, cam, "rk4")
+    sk.render_simulation_phase(carry, index, 0, PHASE_STEPS, *phase)
+    plain = sk.SimCarry(*(t.clone() for t in carry))
+    before = sk.PHASE_LAUNCHES
+    sk.render_simulation_phase(carry, index, PHASE_STEPS, PHASE_STEPS,
+                               *phase)
+    sk.render_simulation_phase_reference(plain, index, PHASE_STEPS,
+                                         PHASE_STEPS, *phase)
+    assert sk.PHASE_LAUNCHES == before + 1
+    ours = sk.finish_rays(carry, index, freqs, log_js, True)
+    ref = sk.finish_rays(plain, index, freqs, log_js, True)
+    a, b = ours[0][:, 0].cpu().numpy(), ref[0][:, 0].cpu().numpy()
+    assert np.nanmax(b) > 0.0
+    assert torch.equal(carry.n_samp, plain.n_samp)
+    assert np.array_equal(np.isnan(a), np.isnan(b))
+    np.testing.assert_allclose(a, b, rtol=1e-7, atol=0.0)

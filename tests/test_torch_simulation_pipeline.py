@@ -144,16 +144,16 @@ def test_kernel_params_fold_in_float64(tmp_path):
 
 
 def test_kernel_tables(tmp_path):
-    """The (n_k, n_j, n_i, 8) primitive table and the coordinate rows that
-    the CUDA kernel reads."""
+    """The (n_b, n_k, n_j, n_i, 8) primitive table and the coordinate
+    rows that the CUDA kernel reads."""
     grid = pipeline_simulation.load_grid(_config(tmp_path), device="cpu",
                                          dtype=torch.float64)
     table, coords = sk.kernel_tables(grid, torch.float64)
     nvar, _, n_k, n_j, n_i = grid.prim.shape
-    assert table.shape == (n_k, n_j, n_i, 8) and table.is_contiguous()
+    assert table.shape == (1, n_k, n_j, n_i, 8) and table.is_contiguous()
     assert table.dtype == torch.float32
     for q, name in enumerate(sk.SAMPLE_NAMES):
-        assert torch.equal(table[..., q], grid.prim[grid.ind[name], 0])
+        assert torch.equal(table[0, ..., q], grid.prim[grid.ind[name], 0])
     assert coords.shape == (3 + 2 * (n_i + n_j + n_k),)
     assert torch.equal(coords[:n_i + 1], grid.x1f[0])
 
@@ -229,8 +229,6 @@ def test_grid_argument_skips_loading(tmp_path):
 OUT_OF_SLICE = {
     "harm3d": ({"simulation_format": "harm3d"}, "B.4"),
     "cks": ({"simulation_coord": "cks"}, "B.4"),
-    "no_interp": ({"simulation_interp": "false"}, "B.1b"),
-    "block_interp": ({"simulation_block_interp": "true"}, "B.5"),
     "slow_light": ({"simulation_multiple": "true", "slow_light_on": "true",
                     "slow_chunk_size": 2, "slow_t_start": 0.0,
                     "slow_dt": 1.0, "slow_interp": "false",
@@ -261,10 +259,3 @@ def test_out_of_slice_simulation_config_raises(tmp_path, case):
     assert not (tmp_path / "out.npz").exists()
 
 
-def test_multi_block_grid_raises(tmp_path):
-    """A snapshot of several mesh blocks is refused after it is read and
-    before any ray is traced."""
-    cfg = _config(tmp_path, simulation_file=FIXTURES / "mock_amr.athdf")
-    with pytest.raises(BlacklightError, match=re.escape("ROADMAP B.1b)")):
-        pipeline.run(cfg, quiet=True, device="cpu")
-    assert not (tmp_path / "out.npz").exists()
