@@ -101,9 +101,10 @@ struct SimLaunchConsts {
 // cache holds, for warps that hide the latency of their arithmetic
 // (PERF.md: k = 4 to 8 timed in turns at 1024^2 on an H100; rk4 and rk2 at
 // one and at 16 frequencies gain up to k = 8, 64 registers, dp is fastest
-// at k = 6, 80 registers, and slower beyond as its spills grow). The
-// double kernels take what they need, ~200-235 registers.
-template <typename T, int INTEGRATOR, int MODE = SAMPLE_SINGLE>
+// at k = 6, 80 registers, and slower beyond as its spills grow; the
+// kernels of many mesh blocks are fastest at the same k). The double
+// kernels take what they need, ~200-235 registers.
+template <typename T, int INTEGRATOR>
 constexpr int SimBlocks = sizeof(T) != 4 ? 1 : INTEGRATOR == INTEGRATOR_DP ? 6 : 8;
 
 // The block of the ray's previous sample (-1: none), which only the modes
@@ -245,7 +246,7 @@ __global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
 // SAMPLE_INTERBLOCK), instantiated in simulation_blocks.cu and
 // simulation_blocks_dp.cu.
 template <typename T, int INTEGRATOR, int NF, int MODE>
-__global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR, MODE>)
+__global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
     simulation_mode_kernel(const T* __restrict__ positions, const T* __restrict__ directions,
                            const T* __restrict__ momentum_factors,
                            const __grid_constant__ SimLaunchConsts<T, NF> consts, int nf,
@@ -452,7 +453,7 @@ __global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
 // Many mesh blocks or the nearest cell (MODE SAMPLE_BLOCKS or
 // SAMPLE_INTERBLOCK), instantiated in simulation_phase_blocks.cu.
 template <typename T, int INTEGRATOR, int NF, int MODE>
-__global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR, MODE>)
+__global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
     simulation_phase_mode_kernel(const int* __restrict__ index, long long n_live, int n_base,
                                  int phase_steps, bool write_state,
                                  const T* __restrict__ directions,

@@ -54,9 +54,11 @@ and prints no final line):
      second phase of 200 steps in rk4 float64 and rk2 float32; the
      polarized route at 64^2 in rk4 float64 and rk2 float32; the derive
      kernel against its plain version at phase 14's mb-amr cell (4,096
-     rays) in float32 and float64; and the plain simulation version on
+     rays) in float32 and float64; the plain simulation version on
      4,096 rays of phase 14's cells (MESH_PLAIN: each mode in float32
-     and float64), which phase 14 holds its kernels against;
+     and float64), and the plain phase version on 4,096 rays of mb-amr's
+     second phase (steps 1000-1999, float32), which phase 14 holds its
+     kernels against;
 4. the 32^2 formula goldens through pipeline.run(cfg, device="cuda") at
    the tolerances of tests/test_formula_e2e.py;
 5. the formula main path at full width: golden_formula_32.input at
@@ -140,8 +142,11 @@ and prints no final line):
     peak, tests/test_loaders.py:262), and mb-uniform with and without
     interblock sampling against the single block (measured, and in
     float32 on the whole image); K2.3 through pipeline.run with
-    KERNEL_PHASED on mb-amr, bit for bit the monolithic image; the
-    polarized route once on mb-amr.
+    KERNEL_PHASED on mb-amr, bit for bit the monolithic image, and its
+    phase kernel on the route's second phase (steps 1000-1999) of every
+    ray alive, best of 3, beside its bound and held to phase 3's plain
+    version on 4,096 of those rays (statistical gate); the polarized
+    route once on mb-amr.
 
 Phases 4 to 14 run alone on the card, after phase 3.
 
@@ -238,10 +243,17 @@ SM_CLOCK_HZ = {}
 # a sample); exact interblock sampling adds the ghost fractions (~12) and
 # a cell index through the neighbour table for each of its 8 corners
 # (~65 each: the crossing and half of each axis, the entry, the case's
-# cell index and nudge per axis, the flat index) in place of ~3.
+# cell index and nudge per axis, the flat index) in place of ~3. The
+# nearest cell of one block (sample_block with the nearest flag): the
+# block's box (6) and none of the trilinear sample's 170: the weights
+# (3 subtractions, 16 products), the 8 x 8 blend (a product and a sum
+# each, less the first corner's sums: 120), the repair (2), the float32
+# rounding (8), the fractions (3 x 3) and the anchors' selects and
+# clamps (3 x 4).
 OPS_PER_STEP = {"rk4": 830, "rk2": 500, "dp": 2020}
 OPS_PER_SAMPLE = {"formula": 130, "simulation": 495, "polarized": 2740,
-                  "simulation_blocks": 520, "simulation_interblock": 1030}
+                  "simulation_blocks": 520, "simulation_interblock": 1030,
+                  "simulation_nearest": 331}
 POL_OPS_PER_FREQUENCY = 1090
 POL_CHAIN_OPS_PER_FREQUENCY = 900
 # The formula sample beyond its first frequency (csrc/formula_kernel.cuh):
@@ -606,14 +618,16 @@ def phase_checks(pool) -> tuple:
     phase 9's float64 reference (positions, Stokes), the plain formula
     version on the subsets of the full-width formula cells, by cell, the
     polarized route's per-kernel checks, and phase 14's: the phase and
-    derive kernels of many blocks against their plain versions and the
-    plain version on the subset of each full-width mesh cell
-    (mesh_plain_subset, by cell and precision, under "plain")."""
+    derive kernels of many blocks against their plain versions, the plain
+    version on the subset of each full-width mesh cell (mesh_plain_subset,
+    by cell and precision, under "plain") and the plain phase version on
+    mb-amr's second phase (mesh_phase_plain_subset, "phase_plain")."""
     t0 = time.perf_counter()
     truth = pool.apply_async(pol_full_width_truth)
     stages = pool.apply_async(check_polarized_stages)
     mesh_plain = {key: pool.apply_async(mesh_plain_subset, key)
                   for key in MESH_PLAIN}
+    mesh_phase_plain = pool.apply_async(mesh_phase_plain_subset)
     mesh_derive = pool.apply_async(check_mesh_derive, ("float32",))
     subsets = {cell: pool.apply_async(formula_plain_subset, (cell,))
                for cell in ("k13", "k14", "k11")}
@@ -666,6 +680,7 @@ def phase_checks(pool) -> tuple:
                                f"{result}")
         mesh[name] = result
     mesh["plain"] = {key: job.get() for key, job in mesh_plain.items()}
+    mesh["phase_plain"] = mesh_phase_plain.get()
     truth = truth.get()
     subsets = {cell: result.get() for cell, result in subsets.items()}
     emit("checks", workers=WORKERS, seconds=time.perf_counter() - t0)
@@ -990,22 +1005,31 @@ def check_simulation(integrator, precision) -> tuple:
         plain_s=t_p, **_check_exact(out_k, out_p, 1e-7 if exact else None))
 
 
-def _second_phase(args, integrator, phase_steps):
-    """The carried state of ``args``' rays after the phase kernel's first
-    phase of ``phase_steps``, then their second phase through the kernel
-    and through its plain version from that state: (kernel outputs, plain
-    outputs, kernel seconds, plain seconds, rays in the second phase,
-    their samples in it), the outputs as finish_rays gives them."""
+def _first_phase(args, integrator, phase_steps):
+    """The phase kernel's first phase of ``phase_steps`` over ``args``'
+    rays: (the carried state after it, the indices of the rays still
+    alive, the phase kernel's arguments after the carried state's)."""
     import torch
     from blacklight_tpu_torch.ops import simulation_kernel as sk
-    positions, directions, mom, freqs, params, sp, grid, mass, cam, log_js \
-        = args
+    positions, directions, mom, freqs, params, sp, grid, mass, cam, _ = args
     carry = sk.initial_carry(positions, directions, params, freqs.shape[0])
     index = torch.arange(positions.shape[0], dtype=torch.int32,
                          device=positions.device)
     phase = (directions, mom, freqs, params, sp, grid, mass, cam, integrator)
     sk.render_simulation_phase(carry, index, 0, phase_steps, *phase)
     index = index[(carry.masks[index.long()] & sk.ALIVE) != 0]
+    return carry, index, phase
+
+
+def _second_phase(args, integrator, phase_steps):
+    """The carried state of ``args``' rays after the phase kernel's first
+    phase of ``phase_steps``, then their second phase through the kernel
+    and through its plain version from that state: (kernel outputs, plain
+    outputs, kernel seconds, plain seconds, rays in the second phase,
+    their samples in it), the outputs as finish_rays gives them."""
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+    carry, index, phase = _first_phase(args, integrator, phase_steps)
+    freqs, sp, log_js = args[3], args[5], args[9]
     plain = sk.SimCarry(*(t.clone() for t in carry))
     before = carry.n_samp[index.long()]
     _, t_k = _timed(sk.render_simulation_phase, carry, index, phase_steps,
@@ -1392,8 +1416,11 @@ MESH_CHECK_STEPS = dict(ray_step=0.04, ray_max_steps=400)
 # Phase 14's cells held to the plain version on 4,096 rays, by precision:
 # each mode's float32 main path, and float64 (exact) for each mode.
 MESH_PLAIN = (("mb_uniform", "float32"), ("mb_amr", "float32"),
-              ("nearest", "float32"), ("mb_amr", "float64"),
-              ("nearest", "float64"))
+              ("nearest", "float32"), ("mb_uniform", "float64"),
+              ("mb_amr", "float64"), ("nearest", "float64"))
+# The phase kernel of interblock sampling is held to its plain version on
+# this many of the rays alive in mb-amr's second phase.
+MESH_PHASE_RAYS = 4096
 
 
 def athena_blocks(dtype, block_size, refine=(), sentinel=False,
@@ -1511,6 +1538,35 @@ def mesh_plain_subset(cell, precision) -> tuple:
     sub = (*(a[pick].contiguous() for a in args[:3]), *args[3:])
     out, t_p = _timed(sk.render_simulation_reference, *sub, **kwargs)
     return (sub[0].cpu().numpy(), [o.cpu().numpy() for o in out], t_p)
+
+
+def mesh_phase_plain_subset() -> tuple:
+    """Phase 3: the plain phase version on mb-amr's second phase (float32,
+    rk4, steps KERNEL_PHASE_STEPS to twice that) from the phase kernel's
+    carried state after the first, on MESH_PHASE_RAYS of the rays alive
+    then (evenly spaced): (their indices, the carried state they enter
+    with, (I_nu, flags, n_samples), seconds, the rays alive), numpy."""
+    import torch
+    from blacklight_tpu_torch.pipeline_simulation import KERNEL_PHASE_STEPS
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+    args, _ = _sim_args(_mesh_cell_config("mb_amr", "float32"),
+                        mesh_grid("amr", torch.float32))
+    steps = KERNEL_PHASE_STEPS
+    carry, index, phase = _first_phase(args, "rk4", steps)
+    pick = _phase_pick(index)
+    carried = [t[..., pick.long()].cpu().numpy() for t in carry]
+    _, t_p = _timed(sk.render_simulation_phase_reference, carry, pick, steps,
+                    steps, *phase)
+    out = sk.finish_rays(carry, pick, args[3], args[9],
+                         args[5].sampler.fallback_nan)
+    return (pick.cpu().numpy(), carried, [o.cpu().numpy() for o in out], t_p,
+            int(index.numel()))
+
+
+def _phase_pick(index):
+    """MESH_PHASE_RAYS of the rays ``index``, evenly spaced."""
+    step = max(1, index.numel() // MESH_PHASE_RAYS)
+    return index[::step][:MESH_PHASE_RAYS].contiguous()
 
 
 def _mesh_config(mode, **overrides):
@@ -1776,6 +1832,8 @@ def phase_mesh_blocks(tmp: pathlib.Path, card: str, grids: dict,
         mode = sampling.sampling_mode(args[6], args[5].sampler)
         kind = ("simulation", "simulation_blocks",
                 "simulation_interblock")[mode]
+        if not args[5].sampler.interp:
+            kind = "simulation_nearest"
         mean = float(out[name][2].double().mean())
         cell = {"kernel_ms": min(times[name]) * 1e3,
                 "kernel_s_runs": times[name], "mode": int(mode),
@@ -1886,6 +1944,13 @@ def phase_mesh_blocks(tmp: pathlib.Path, card: str, grids: dict,
     if not same or not phase_launches or sum(counts["simulation"]):
         raise RuntimeError(f"phased mb_amr: {counts}, identical {same}")
 
+    phase_kernel = mesh_second_phase(mesh["amr"], checks["phase_plain"])
+    emit("mesh_phase_kernel_vs_plain", cell="mb_amr", resolution=res,
+         card=card, **phase_kernel)
+    if not phase_kernel["ok"]:
+        raise RuntimeError(f"mb_amr's second phase: kernel disagrees with "
+                           f"plain: {phase_kernel}")
+
     cfg = _pol_full_config("float32", "rk4", simulation_block_interp=True,
                            output_file=str(tmp / "mb_amr_pol.npz"))
     _zero_counts(fk, sk, pk)
@@ -1921,17 +1986,16 @@ def phase_mesh_blocks(tmp: pathlib.Path, card: str, grids: dict,
             max_abs_err=c["max_abs_err"], ms=c["kernel_ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], single_block_ms=single_ms))
-    ph = checks["phase"]
+    ph = phase_kernel
     kernels.append(entry(
         "simulation_phase_mode_kernel (interblock)",
         (SIM_KERNEL_SOURCE, PHASE_REPLACES), phase_launches,
-        max_abs_err=ph["max_abs_err"], ms=ph["kernel_s"] * 1e3,
-        plain_ms=ph["plain_s"] * 1e3,
-        work=(f"the second phase of {ph['phase_steps']} steps at 128^2 on "
-              f"mock_amr.athdf, {ph['phase_rays']} rays"),
-        **phase_bound(ph["phase_rays"], ph["phase_samples"],
-                      ph["precision"], ph["grid_bytes"],
-                      kind="simulation_interblock")))
+        max_abs_err=ph["max_abs_err"], ms=ph["kernel_ms"],
+        plain_ms=ph["plain_ms"], bound_ms=ph["bound_ms"],
+        bound_by=ph["bound_by"],
+        work=(f"phase 1 (steps {ph['steps']}) of mb_amr at 1024^2, "
+              f"{ph['rays']} rays (the plain version on {ph['plain_rays']} "
+              "of them)")))
     dv = checks["derive"]
     kernels.append(entry(
         "polarized_derive_mode_kernel (interblock)",
@@ -1942,6 +2006,45 @@ def phase_mesh_blocks(tmp: pathlib.Path, card: str, grids: dict,
         work=(f"mb_amr at 1024^2, 4,096 rays (every {PLAIN_STRIDE}-th in "
               f"spatial_order), {dv['samples']} samples")))
     return kernels
+
+
+def mesh_second_phase(grid, phase_plain) -> dict:
+    """The phase kernel of interblock sampling on mb-amr's second phase
+    (float32 rk4, steps KERNEL_PHASE_STEPS to twice that) over every ray
+    alive after the first, best of 3, beside its bound; held to phase 3's
+    plain version (``phase_plain``, mesh_phase_plain_subset) on its
+    MESH_PHASE_RAYS rays from the same carried state, which it checks
+    first."""
+    import numpy as np
+    from blacklight_tpu_torch.pipeline_simulation import KERNEL_PHASE_STEPS
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+    pick_np, carried, ref, t_plain, alive = phase_plain
+    args, _ = _sim_args(_mesh_cell_config("mb_amr", "float32"), grid)
+    steps = KERNEL_PHASE_STEPS
+    carry0, index, phase = _first_phase(args, "rk4", steps)
+    pick = _phase_pick(index)
+    if not (index.numel() == alive
+            and np.array_equal(pick.cpu().numpy(), pick_np)
+            and all(np.array_equal(t[..., pick.long()].cpu().numpy(), c)
+                    for t, c in zip(carry0, carried))):
+        raise RuntimeError("mb_amr's first phase carried another state than "
+                           "phase 3's")
+    times = []
+    for _ in range(3):
+        carry = sk.SimCarry(*(t.clone() for t in carry0))
+        times.append(_timed(sk.render_simulation_phase, carry, index, steps,
+                            steps, *phase)[1])
+    samples = int((carry.n_samp[index.long()]
+                   - carry0.n_samp[index.long()]).sum())
+    gate = _subset_gate(sk.finish_rays(carry, pick, args[3], args[9],
+                                       args[5].sampler.fallback_nan),
+                        ref, False)
+    return {"steps": f"{steps}-{2 * steps - 1}",
+            "kernel_ms": min(times) * 1e3, "kernel_s_runs": times,
+            "plain_ms": t_plain * 1e3, "rays": alive,
+            "plain_rays": int(pick.numel()), "samples": samples,
+            **phase_bound(alive, samples, "float32", grid_bytes(grid),
+                          kind="simulation_interblock"), **gate}
 
 
 def grid_bytes(grid) -> int:

@@ -2,15 +2,11 @@
 bound, for ``scripts/formula_kernel_ab.py sweep``:
 
     python3 scripts/simulation_variants.py --tree DIR --out DIR2 blocks=K
-    python3 scripts/simulation_variants.py --tree DIR --out DIR2 \
-        mode_blocks=K
 
 makes DIR2 a copy of DIR in which every float instantiation of the
 monolithic and the phase kernel asks for K blocks of SIM_THREADS per SM
-(SimBlocks in csrc/simulation_kernel.cuh); with mode_blocks, only the rk4
-and rk2 instantiations of many mesh blocks (MODE other than
-SAMPLE_SINGLE) do, and the others keep the tree's. The copy leaves out
-the tree's build outputs. No card needed.
+(SimBlocks in csrc/simulation_kernel.cuh). The copy leaves out the
+tree's build outputs. No card needed.
 """
 
 from __future__ import annotations
@@ -38,29 +34,15 @@ def with_blocks(text: str, blocks: int) -> str:
     return out
 
 
-def with_mode_blocks(text: str, blocks: int) -> str:
-    """simulation_kernel.cuh's text with SimBlocks set to ``blocks`` for
-    the float rk4 and rk2 kernels of many mesh blocks, the tree's value
-    for the others."""
-    m = re.search(SIM_BLOCKS, text)
-    if m is None or len(re.findall(SIM_BLOCKS, text)) != 1:
-        raise RuntimeError(f"{KERNEL_CUH}: no single SimBlocks definition")
-    value = m.group(0)[len("constexpr int SimBlocks ="):-1].strip()
-    return text.replace(m.group(0), (
-        f"constexpr int SimBlocks = sizeof(T) == 4 && MODE != SAMPLE_SINGLE "
-        f"&& INTEGRATOR != INTEGRATOR_DP ? {int(blocks)} : {value};"))
-
-
 def make(tree: pathlib.Path, out: pathlib.Path, variant: str) -> None:
     kind, _, value = variant.partition("=")
-    if kind not in ("blocks", "mode_blocks") or not value.isdigit():
+    if kind != "blocks" or not value.isdigit():
         raise ValueError(f"unknown variant {variant!r}")
     if out.exists():
         shutil.rmtree(out)
     shutil.copytree(tree, out, ignore=IGNORE)
     path = out / KERNEL_CUH
-    change = with_blocks if kind == "blocks" else with_mode_blocks
-    path.write_text(change(path.read_text(), int(value)))
+    path.write_text(with_blocks(path.read_text(), int(value)))
 
 
 def main(argv=None) -> int:

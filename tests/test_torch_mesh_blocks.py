@@ -3,9 +3,9 @@ refinement metadata, the neighbour table, the sampler's block search,
 nearest cell and exact interblock modes, the kernels' tables) against the
 JAX package on the same inputs.
 
-Grids: mock_amr.athdf (two levels and a sentinel block), a 4-block phi
-split written by write_athena(..., phi_blocks=4) and the single-block
-mock. Sample points come from a seeded numpy generator, placed as in
+Grids: mock_amr.athdf (two levels and a sentinel block), 4-block phi
+splits written by write_athena(..., phi_blocks=4) of fields without and
+with phi structure (pert_amp 0 and 0.1), and the single-block mock. Sample points come from a seeded numpy generator, placed as in
 tests/test_torch_sks_sampling.py: block faces and centres, points near
 them, random points inside and points off the grid. Both samplers take
 the same SKS coordinates (the JAX grid declared "cks", for which its
@@ -49,8 +49,15 @@ def files(tmp_path_factory):
                      phi_blocks=4)
     gen.write_athena_amr(str(tmp / "amr_b.athdf"), p, block_size=(8, 4, 4),
                          refine=((1, 0, 1), (2, 3, 0)), pad_block=False)
+    # fields that vary in phi, in 4 phi blocks and in one
+    p = dict(p, pert_amp=0.1)
+    fields = gen.make_fields(p)
+    gen.write_athena(str(tmp / "four_pert.athdf"), fields, p, phi_blocks=4)
+    gen.write_athena(str(tmp / "one_pert.athdf"), fields, p)
     return {"amr": str(FIXTURES / "mock_amr.athdf"),
             "four": str(tmp / "four.athdf"),
+            "four_pert": str(tmp / "four_pert.athdf"),
+            "one_pert": str(tmp / "one_pert.athdf"),
             "single": str(FIXTURES / "mock_small.athdf"),
             "amr_b": str(tmp / "amr_b.athdf")}
 
@@ -129,7 +136,7 @@ def test_with_amr_table_leaves_single_blocks(files):
 
 
 @pytest.mark.parametrize("mode", list(MODES))
-@pytest.mark.parametrize("name", ["amr", "four", "single"])
+@pytest.mark.parametrize("name", ["amr", "four", "four_pert", "single"])
 def test_sample_matches_jax(files, name, mode):
     """Every sampled primitive and the off-grid and NaN masks at rtol
     1e-12 in float64, in each grid and mode."""
@@ -149,6 +156,41 @@ def test_sample_matches_jax(files, name, mode):
         a, b = out[key].numpy(), np.asarray(jout[key])
         assert a.dtype == np.float64, key
         np.testing.assert_allclose(a, b, rtol=1e-12, atol=0.0, err_msg=key)
+
+
+def test_phi_split_differs_from_one_block_only_at_the_seam(files):
+    """Fields that vary in phi, in 4 phi blocks with interblock sampling
+    and in one block with trilinear sampling: the same values wherever
+    phi lies between the first and the last cell centre, since each
+    interior phi face's ghost is the next block's first centre; within
+    half a cell of the phi = 0 seam the blocks wrap through the
+    neighbour table while the one block extrapolates from its edge
+    cells, so the values differ there. The port and the JAX package
+    alike."""
+    four, four_ref = _grids(files["four_pert"])
+    one, one_ref = _grids(files["one_pert"])
+    rng = np.random.default_rng(11)
+    n = 4000
+    faces = one.x1f[0].numpy()
+    r = np.exp(rng.uniform(np.log(faces[0]), np.log(faces[-1]), n))
+    th = rng.uniform(0.1, np.pi - 0.1, n)
+    ph = rng.uniform(0.0, 2.0 * np.pi, n)
+    centres = one.x3v[0].numpy()
+    seam = (ph < centres[0]) | (ph > centres[-1])
+    assert 0 < seam.sum() < n
+    pts = tuple(map(torch.from_numpy, (r, th, ph)))
+    ours = (sampling.sample_sks(four, *pts, sampling.SamplerOptions(
+                **MODES["interblock"])),
+            sampling.sample_sks(one, *pts, sampling.SamplerOptions()))
+    theirs = (_jax_sample(four_ref, r, th, ph, jsampling.SamplerOptions(
+                  **MODES["interblock"])),
+              _jax_sample(one_ref, r, th, ph, jsampling.SamplerOptions()))
+    for split, whole in (ours, theirs):
+        for key in ("rho", "pgas"):
+            a, b = np.asarray(split[key]), np.asarray(whole[key])
+            np.testing.assert_allclose(a[~seam], b[~seam], rtol=1e-12,
+                                       atol=0.0, err_msg=key)
+            assert np.abs(a[seam] - b[seam]).max() > 1e-3 * np.abs(b).max()
 
 
 def test_interblock_matches_host_transcription(files):

@@ -6,8 +6,9 @@ The configurations are golden_sim_rk4_32.input / golden_amr_rk4_32.input
 / golden_polarized_rk4_32.input at 16^2 (8^2 polarized) with at most 300
 steps, rk4 in float64: I_nu at rtol 1e-8 with identical NaN sets (the
 polarized V at rtol 1e-5, as tests/test_torch_polarized_pipeline.py
-holds it). Grids: a 4-block phi split written by write_athena(...,
-phi_blocks=4), mock_amr.athdf (two refinement levels) and mock_small.athdf.
+holds it). Grids: 4-block phi splits written by write_athena(...,
+phi_blocks=4) of fields without and with phi structure (pert_amp 0 and
+0.1), mock_amr.athdf (two refinement levels) and mock_small.athdf.
 """
 
 import pathlib
@@ -40,6 +41,11 @@ CASES = {
     "four_blocks": ("golden_sim_rk4_32.input", "four", {}),
     "four_blocks_interblock": ("golden_sim_rk4_32.input", "four",
                                {"simulation_block_interp": "true"}),
+    "four_blocks_phi_structure": ("golden_sim_rk4_32.input", "four_pert",
+                                  {}),
+    "four_blocks_phi_structure_interblock": (
+        "golden_sim_rk4_32.input", "four_pert",
+        {"simulation_block_interp": "true"}),
     "amr_interblock": ("golden_amr_rk4_32.input", "amr", {}),
     "amr_trilinear": ("golden_amr_rk4_32.input", "amr",
                       {"simulation_block_interp": "false",
@@ -66,7 +72,13 @@ def snapshots(tmp_path_factory):
              r_max=52.2)
     gen.write_athena(str(tmp / "four.athdf"), gen.make_fields(p), p,
                      phi_blocks=4)
-    return {"four": tmp / "four.athdf", "amr": FIXTURES / "mock_amr.athdf",
+    # the same with fields that vary in phi, so that interblock sampling
+    # across the phi faces (and the phi seam) changes the image
+    p = dict(p, pert_amp=0.1)
+    gen.write_athena(str(tmp / "four_pert.athdf"), gen.make_fields(p), p,
+                     phi_blocks=4)
+    return {"four": tmp / "four.athdf", "four_pert": tmp / "four_pert.athdf",
+            "amr": FIXTURES / "mock_amr.athdf",
             "single": FIXTURES / "mock_small.athdf"}
 
 

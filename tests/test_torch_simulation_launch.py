@@ -341,21 +341,3 @@ def test_simulation_variants_apply(variant):
     assert len(out.splitlines()) == len(text.splitlines())
     with pytest.raises(ValueError):
         mod.make(root, root / "unused", "grid=fetch")
-
-
-def test_simulation_mode_variants_apply():
-    """scripts/simulation_variants.py mode_blocks=K sets the launch bound
-    of the float rk4 and rk2 kernels of many mesh blocks and keeps the
-    tree's for the others."""
-    import importlib.util
-    root = pathlib.Path(__file__).resolve().parents[1]
-    spec = importlib.util.spec_from_file_location(
-        "simulation_variants", root / "scripts" / "simulation_variants.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    text = (root / mod.KERNEL_CUH).read_text()
-    out = mod.with_mode_blocks(text, 6)
-    assert ("SimBlocks = sizeof(T) == 4 && MODE != SAMPLE_SINGLE && "
-            "INTEGRATOR != INTEGRATOR_DP ? 6 : sizeof(T) != 4 ? 1 : "
-            "INTEGRATOR == INTEGRATOR_DP ? 6 : 8;") in out
-    assert len(out.splitlines()) == len(text.splitlines())
