@@ -7,10 +7,14 @@ spatial cuts, disk four-velocity, Gaussian density profile, and the
 invariant j (in units of cn0/nup^2) and alpha at one frequency.
 
 The kernel forms differ from the JAX package's batched
-``formula_coefficients`` in two places, and this module follows the
-kernel: sin/cos of phi come in closed form rather than through atan2, and
-``pow`` of a zero base with a negative integer exponent gives 0 where the
-batched form flags the sample bad.
+``formula_coefficients`` in two places, and the component forms follow
+the kernel: sin/cos of phi come in closed form rather than through atan2,
+and ``pow`` of a zero base with a negative integer exponent gives 0 where
+the batched form flags the sample bad. The batched forms
+(``formula_coefficients``, ``cpp_pow``; formula.py:58-224) are ported as
+well, for the transfer route of the auxiliary image planes
+(``transfer/unpolarized.integrate_unpolarized``), which the JAX package's
+formula ``run`` takes.
 
 Division by a constant is written as multiplication by its float64
 reciprocal and a constant numerator as ``(1.0 / t) * s``: that is how
@@ -220,3 +224,133 @@ def formula_jalpha_c(keep, bad, n_n0, u_dot_k, mom, nu: float,
     if with_unit:
         return out + (torch.where(keep, alpha_unit, 0.0),)
     return out
+
+
+def formula_coefficients(pos, kcov, momentum_factors, frequencies,
+                         params: FormulaParams, camera_x):
+    """Invariant j (in units of cn0/nup^2) and alpha of a batch of
+    samples: the JAX package's batched form (formula.py:58-192).
+
+    pos, kcov: (B, 4) CKS positions and covariant momenta;
+    momentum_factors (B,); frequencies (F,); camera_x a 4-sequence of
+    Python floats.
+
+    Returns (j, alpha, keep, bad): j and alpha (B, F), zero where cut;
+    keep (B,) the sample mask after the cuts; bad (B, F) where the C++
+    computation gives NaN (``cpp_pow`` of a negative base with a
+    non-integer exponent or of zero with a negative one, a non-timelike
+    disk velocity), with finite placeholders in j and alpha there.
+    """
+    x, y, z = pos[..., 1], pos[..., 2], pos[..., 3]
+    bh_m, bh_a = params.bh_m, params.bh_a
+    r = radius_c(x, y, z, bh_a)
+
+    # cuts (formula_coefficients.cpp:73-116)
+    keep = r <= params.camera_r
+    if params.cut_omit_near or params.cut_omit_far:
+        dot = x * camera_x[1] + y * camera_x[2] + z * camera_x[3]
+        if params.cut_omit_near:
+            keep = keep & ~(dot > 0.0)
+        if params.cut_omit_far:
+            keep = keep & ~(dot < 0.0)
+    if params.cut_omit_in >= 0.0:
+        keep = keep & ~(r < params.cut_omit_in)
+    if params.cut_omit_out >= 0.0:
+        keep = keep & ~(r > params.cut_omit_out)
+    if params.cut_midplane_theta != 0.0:
+        off = torch.abs(torch.arccos(z / r) - math.pi / 2.0)
+        if params.cut_midplane_theta > 0.0:
+            keep = keep & ~(off > params.cut_midplane_theta)
+        else:
+            keep = keep & ~(off < -params.cut_midplane_theta)
+    if params.cut_midplane_z != 0.0:
+        if params.cut_midplane_z > 0.0:
+            keep = keep & ~(torch.abs(z) > params.cut_midplane_z)
+        else:
+            keep = keep & ~(torch.abs(z) < -params.cut_midplane_z)
+    if params.cut_plane:
+        ox, oy, oz = params.cut_plane_origin
+        nx, ny, nz = params.cut_plane_normal
+        keep = keep & ~((x - ox) * nx + (y - oy) * ny + (z - oz) * nz < 0.0)
+
+    # Boyer-Lindquist-like coordinates and metric (cpp:118-133)
+    rr = torch.sqrt(torch.clamp(r * r - z * z, min=1e-300))
+    cth = z / r
+    sth = torch.sqrt(torch.clamp(1.0 - cth * cth, min=0.0))
+    ph = torch.atan2(y, x) - torch.atan(bh_a / r)
+    sph = torch.sin(ph)
+    cph = torch.cos(ph)
+    delta = r * r - 2.0 * bh_m * r + bh_a * bh_a
+    sigma = r * r + bh_a * bh_a * cth * cth
+    gtt_bl = -(1.0 + 2.0 * bh_m * r * (r * r + bh_a * bh_a)
+               / (delta * sigma))
+    gtph_bl = -2.0 * bh_m * bh_a * r / (delta * sigma)
+    grr_bl = delta / sigma
+    gthth_bl = 1.0 / sigma
+    gphph_bl = (sigma - 2.0 * bh_m * r) / (delta * sigma * sth * sth)
+
+    # ell(r) and the four-velocity (C 6-8; cpp:135-157); a non-timelike
+    # profile (C++ sqrt of a negative) is a finite placeholder and bad
+    ll = params.l0 / (1.0 + rr) * torch.pow(rr, 1.0 + params.q)
+    u_arg = -gtt_bl + 2.0 * gtph_bl * ll - gphph_bl * ll * ll
+    bad = ~(u_arg > 0.0)
+    u_norm = 1.0 / torch.sqrt(torch.where(u_arg > 0.0, u_arg, 1.0))
+    u_t_bl = -u_norm
+    u_ph_bl = u_norm * ll
+    ut_bl = gtt_bl * u_t_bl + gtph_bl * u_ph_bl
+    ur_bl = grr_bl * 0.0
+    uth_bl = gthth_bl * 0.0
+    uph_bl = gtph_bl * u_t_bl + gphph_bl * u_ph_bl
+    ut = ut_bl + 2.0 * bh_m * r / delta * ur_bl
+    ur = ur_bl
+    uth = uth_bl
+    uph = uph_bl + bh_a / delta * ur_bl
+    u0 = ut
+    u1 = (sth * cph * ur + cth * (r * cph - bh_a * sph) * uth
+          + sth * (-r * sph - bh_a * cph) * uph)
+    u2 = (sth * sph * ur + cth * (r * sph + bh_a * cph) * uth
+          + sth * (r * cph - bh_a * sph) * uph)
+    u3 = cth * ur - r * sth * uth
+
+    # density profile and coefficients (C 5, 9-12; cpp:159-179)
+    n_n0 = torch.exp(-0.5 * (r * r / (params.r0 * params.r0)
+                             + params.h * params.h * cth * cth))
+    u_dot_k = (u0 * kcov[..., 0] + u1 * kcov[..., 1]
+               + u2 * kcov[..., 2] + u3 * kcov[..., 3])
+    nu_fluid = -u_dot_k[..., None] * frequencies[None, :] \
+        * momentum_factors[..., None]
+    x_raw = nu_fluid / params.nup
+    pow_j, bad_j = cpp_pow(x_raw, -params.alpha - 2.0)
+    pow_a, bad_a = cpp_pow(x_raw, -params.beta - params.alpha)
+    j_scaled = n_n0[..., None] * pow_j
+    alpha_fluid = params.a_param * params.cn0 * n_n0[..., None] * pow_a
+    alpha_invariant = alpha_fluid * nu_fluid
+    keep = keep[..., None].expand(j_scaled.shape)
+    # a bad j poisons the pixel; a bad alpha alone routes to the j-only
+    # branch (the reference's alpha > 0 test is false for NaN), as zero
+    bad = (bad[..., None] | bad_j) & keep
+    alpha_invariant = torch.where(bad_a, 0.0, alpha_invariant)
+    return (torch.where(keep, j_scaled, 0.0),
+            torch.where(keep, alpha_invariant, 0.0), keep[..., 0], bad)
+
+
+def cpp_pow(x, e: float):
+    """C++ ``std::pow`` of a possibly negative base by a constant exponent
+    e, without a NaN or inf primal (formula.py:195-224).
+
+    Returns (value, bad): value is finite, |x|^e with C++'s sign for an
+    integer e; bad marks where C++ gives NaN (a negative base with a
+    non-integer e) or, for e < 0, a zero base (inf, flagged rather than
+    formed).
+    """
+    x_safe = torch.where(x > 0.0, x, 1.0)
+    pos = torch.pow(x_safe, e)
+    xn_safe = torch.where(x < 0.0, -x, 1.0)
+    integer, sign = cpp_pow_exponent(e)
+    bad = torch.zeros_like(x, dtype=torch.bool) if integer else x < 0.0
+    neg = sign * torch.pow(xn_safe, e)
+    zero = torch.pow(torch.where(x == 0.0, x, 1.0), e)
+    if e < 0.0:
+        bad = bad | (x == 0.0)
+        zero = torch.where(x == 0.0, 1.0, zero)
+    return torch.where(x > 0.0, pos, torch.where(x < 0.0, neg, zero)), bad

@@ -169,6 +169,15 @@ def value_cuts(state, cuts: CutParams):
     return keep
 
 
+def cell_values(state):
+    """(B, NUM_CELL_VALUES) diagnostic values, in CELL_VALUE_NAMES order
+    (simulation_coefficients.cpp:377-387)."""
+    return torch.stack([
+        state["rho_cgs"], state["n_e_cgs"], state["pgas_cgs"],
+        state["theta_e"], state["bb_cgs"], state["sigma"], state["beta_inv"],
+    ], dim=-1)
+
+
 def pitch_angle(kcov, state):
     """Fluid-frame angle between the wavevector ``kcov`` (four (B,)
     covariant CKS components) and the field, from invariants:

@@ -44,8 +44,8 @@ from blacklight_tpu_torch.models.formula import (
 )
 from blacklight_tpu_torch.ops import _build
 from blacklight_tpu_torch.ops import geodesic as geo
+from blacklight_tpu_torch.transfer.unpolarized import DELTA_TAU_MAX
 
-DELTA_TAU_MAX = 100.0
 INTEGRATORS = ("dp", "rk4", "rk2")
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 _NUMPY_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}

@@ -24,6 +24,7 @@ __all__ = [
     "ks_scalars",
     "gcov",
     "gcon",
+    "gcov_gcon",
     "ks_derivatives_c",
     "geodesic_rhs_c",
     "renormalize_factor_c",
@@ -100,6 +101,20 @@ def gcon(x, spin, mass=1.0, flat=False):
     _, f, l_lower = ks_scalars(x, spin, mass)
     l_con = _l_four(l_lower, -1.0)
     return eta - f[..., None, None] * l_con[..., :, None] * l_con[..., None, :]
+
+
+def gcov_gcon(x, spin, mass=1.0, flat=False):
+    """Both metrics from one set of Kerr-Schild scalars: (g_{munu},
+    g^{munu}), each (..., 4, 4)."""
+    eta = minkowski(x.shape[:-1], dtype=x.dtype, device=x.device)
+    if flat:
+        return eta, eta
+    _, f, l_lower = ks_scalars(x, spin, mass)
+    l_cov = _l_four(l_lower, 1.0)
+    l_con = _l_four(l_lower, -1.0)
+    g_cov = eta + f[..., None, None] * l_cov[..., :, None] * l_cov[..., None, :]
+    g_con = eta - f[..., None, None] * l_con[..., :, None] * l_con[..., None, :]
+    return g_cov, g_con
 
 
 def ks_derivatives_c(xx, yy, z, spin, mass=1.0):

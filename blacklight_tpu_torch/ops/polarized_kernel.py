@@ -44,9 +44,7 @@ import torch
 
 from blacklight_tpu_torch.constants import Physics
 from blacklight_tpu_torch.grid.athena import SimulationGrid
-from blacklight_tpu_torch.grid.sampling import sample_grid
 from blacklight_tpu_torch.models import synchrotron
-from blacklight_tpu_torch.models.cuts import geometric_keep
 from blacklight_tpu_torch.ops import _build
 from blacklight_tpu_torch.ops import geodesic as geo
 from blacklight_tpu_torch.ops import simulation_kernel as sk
@@ -56,6 +54,7 @@ from blacklight_tpu_torch.ops.formula_kernel import (
     _check_rays,
 )
 from blacklight_tpu_torch.transfer import polarized as tp
+from blacklight_tpu_torch.transfer import unpolarized as tu
 
 # Frequencies one derive and chain launch take (csrc/polarized_kernel.cuh
 # POL_MAX_FREQUENCIES): the chain keeps one frequency's 16 coherency
@@ -480,7 +479,7 @@ def _library() -> ctypes.CDLL:
 
 def polarized_coefficients(pos, kcov, momentum_factors, frequencies,
                            sp: sk.SimKernelParams, grid: SimulationGrid,
-                           spin, camera_x, nu0: float):
+                           spin, camera_x, nu0: float, fluid=None):
     """The polarized coeff_fn of ``transfer/polarized.integrate_polarized``
     at CKS positions ``pos`` with covariant momenta ``kcov`` (4-tuples of
     (B,) components): make_simulation_coeff_fns(polarized=True) for the
@@ -489,18 +488,12 @@ def polarized_coefficients(pos, kcov, momentum_factors, frequencies,
     which the tetrad consumes); the coefficients are zero where a cut
     holds or the field vanishes, and zero with ``bad`` set where the
     reference would NaN (an uncut off-grid sample under fallback_nan, or
-    a coefficient that is not finite)."""
-    posb = torch.stack(pos, dim=-1)
-    samples = sample_grid(grid, posb, spin, sp.sampler)
-    keep_geo = geometric_keep(posb, spin, camera_x, sp.geometric)
-    samples = {k: v if k in ("off_grid", "nan_mask")
-               else torch.where(keep_geo, v, 0.0)
-               for k, v in samples.items()}
-    state = synchrotron.fluid_state(posb, samples, spin, sp.plasma,
-                                    sp.rho_unit)
-    keep_val = synchrotron.value_cuts(state, sp.cuts)
-    b_zero = ((samples["bb1"] == 0.0) & (samples["bb2"] == 0.0)
-              & (samples["bb3"] == 0.0))
+    a coefficient that is not finite). ``fluid``:
+    ``simulation_kernel.fluid_sample`` at ``pos`` with zero_cut, where
+    already formed."""
+    samples, state, keep_geo, keep_val, b_zero = \
+        sk.fluid_sample(torch.stack(pos, dim=-1), sp, grid, spin, camera_x,
+                        zero_cut=True) if fluid is None else fluid
     sin_b, cos_b, sin2_b, u_dot_k = synchrotron.pitch_angle(kcov, state)
     nu_cgs = -u_dot_k[:, None] * frequencies[None, :] \
         * momentum_factors[:, None]
@@ -529,10 +522,6 @@ def _coeff_fn(momentum_factors, frequencies, params, sp, grid, camera_x,
     return coeff_fn
 
 
-def _x_unit(mass_msun: float) -> float:
-    return Physics.gg_msun * mass_msun / (Physics.c * Physics.c)
-
-
 def render_polarized_reference(positions, directions, momentum_factors,
                                frequencies, params: geo.GeodesicParams,
                                sp: sk.SimKernelParams, grid: SimulationGrid,
@@ -553,7 +542,7 @@ def render_polarized_reference(positions, directions, momentum_factors,
     return tp.integrate_polarized(
         positions, directions, momentum_factors, frequencies, params=params,
         integrator=integrator, coeff_fn=coeff_fn, mass_msun=mass_msun,
-        rotation_split=rotation_split)
+        rotation_split=rotation_split)[:5]
 
 
 # ---- the stages' plain versions ---------------------------------------------
@@ -643,7 +632,7 @@ def derive_records_reference(samples, n_samples, lengths, offsets,
     rec = tp.sample_record(pos, kcov, here[:, 6], first,
                            (pos_pv, kcon_pv, dl_pv), coeff_fn,
                            nus=freqs[None, :], mom=mom[:, None],
-                           x_unit=_x_unit(mass_msun), spin=spin, mass=mass,
+                           x_unit=tu.x_unit(mass_msun), spin=spin, mass=mass,
                            flat=flat)
     slot = offsets[w] + t
     geometry[slot, :, lane] = pack_geometry(rec)

@@ -62,12 +62,12 @@ from blacklight_tpu_torch.models.cuts import (
 from blacklight_tpu_torch.ops import _build
 from blacklight_tpu_torch.ops import geodesic as geo
 from blacklight_tpu_torch.ops.formula_kernel import (
-    DELTA_TAU_MAX,
     INTEGRATORS,
     _DTYPE_CODES,
     _NUMPY_DTYPES,
     _check_rays,
 )
+from blacklight_tpu_torch.transfer import unpolarized as tu
 
 # Frequencies one launch takes (csrc/simulation_kernel.cuh): one frequency
 # keeps its accumulators in registers, more hold them in a local array.
@@ -526,21 +526,40 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def sample_coefficients(pos, kcov, momentum_factors, frequencies,
-                        sp: SimKernelParams, grid: SimulationGrid, spin,
-                        camera_x, nu0: float):
-    """Invariant j (scaled by exp(-log_j_scale)) and alpha, (B, F) each,
-    and the (B, F) mask of samples the reference would NaN, at CKS
-    positions ``pos`` (B, 4) with covariant momenta ``kcov`` (four (B,)
-    components): make_simulation_coeff_fns' coeff_fn for the slice.
-    Coefficients are zero where a cut holds or the field vanishes."""
+def fluid_sample(pos, sp: SimKernelParams, grid: SimulationGrid, spin,
+                 camera_x, zero_cut: bool = False):
+    """The grid sampled at CKS positions ``pos`` (B, 4) and the fluid
+    state there: (samples, state, keep_geo, keep_val, b_zero), the cut
+    masks and where the field vanishes (make_simulation_coeff_fns'
+    state_at). With ``zero_cut`` the primitives are zeroed at
+    geometrically cut samples before the fluid state, as the polarized
+    route takes them (the reference's sampler leaves zeros there)."""
     samples = sample_grid(grid, pos, spin, sp.sampler)
     keep_geo = geometric_keep(pos, spin, camera_x, sp.geometric)
+    if zero_cut:
+        samples = {k: v if k in ("off_grid", "nan_mask")
+                   else torch.where(keep_geo, v, 0.0)
+                   for k, v in samples.items()}
     state = synchrotron.fluid_state(pos, samples, spin, sp.plasma,
                                     sp.rho_unit)
     keep_val = synchrotron.value_cuts(state, sp.cuts)
     b_zero = ((samples["bb1"] == 0.0) & (samples["bb2"] == 0.0)
               & (samples["bb3"] == 0.0))
+    return samples, state, keep_geo, keep_val, b_zero
+
+
+def sample_coefficients(pos, kcov, momentum_factors, frequencies,
+                        sp: SimKernelParams, grid: SimulationGrid, spin,
+                        camera_x, nu0: float, fluid=None):
+    """Invariant j (scaled by exp(-log_j_scale)) and alpha, (B, F) each,
+    and the (B, F) mask of samples the reference would NaN, at CKS
+    positions ``pos`` (B, 4) with covariant momenta ``kcov`` (four (B,)
+    components): make_simulation_coeff_fns' coeff_fn for the slice.
+    Coefficients are zero where a cut holds or the field vanishes.
+    ``fluid``: ``fluid_sample`` at ``pos``, where already formed."""
+    samples, state, keep_geo, keep_val, b_zero = \
+        fluid_sample(pos, sp, grid, spin, camera_x) if fluid is None \
+        else fluid
     sin_b, _, _, u_dot_k = synchrotron.pitch_angle(kcov, state)
     nu_cgs = -u_dot_k[:, None] * frequencies[None, :] \
         * momentum_factors[:, None]
@@ -553,52 +572,38 @@ def sample_coefficients(pos, kcov, momentum_factors, frequencies,
     return j, alpha, bad
 
 
+def cell_values(fluid):
+    """make_simulation_coeff_fns' cell_fn from ``fluid_sample``'s
+    output: (B, NUM_CELL_VALUES), NaN where a cut holds or the reference
+    would NaN the sample."""
+    samples, state, keep_geo, keep_val, _ = fluid
+    keep = (keep_geo & keep_val & ~samples["nan_mask"])[:, None]
+    return torch.where(keep, synchrotron.cell_values(state), math.nan)
+
+
 def transfer_update(acc: dict, momentum_factors, frequencies,
                     sp: SimKernelParams, grid: SimulationGrid, spin: float,
                     mass_msun: float, camera_x):
     """The on_sample of ``geodesic.trace_steps`` for the kernel's plain
-    versions: ``sample_coefficients`` and the transfer update of
-    ``integrate_unpolarized`` at one step of the bundle. It updates
-    ``acc`` in place: "bad" (B, F) bool, the samples the reference would
-    NaN; "intensity" (B, F), the unscaled transfer sum; "tau" (B, F), the
-    optical depth."""
-    x_unit = Physics.gg_msun * mass_msun / (Physics.c * Physics.c)
+    versions: ``sample_coefficients`` and the light step of
+    ``transfer/unpolarized.integrate_unpolarized`` (``light_update``) at
+    one step of the bundle. It updates ``acc`` in place: "bad" (B, F)
+    bool, the samples the reference would NaN; "intensity" (B, F), the
+    unscaled transfer sum; "tau" (B, F), the optical depth."""
+    x_unit = tu.x_unit(mass_msun)
     nu0 = float(frequencies[0])
     cam = [float(v) for v in camera_x]
     mom = momentum_factors
 
     def update(valid, ym, k, h):
-        # Invalid samples hold dead rays' last state; evaluate them at the
-        # camera instead (their values are discarded through valid)
-        pos = torch.stack([torch.where(valid, ym[c], cam[c])
-                           for c in range(4)], dim=-1)
-        kcov = (torch.where(valid, k[0], -1.0), torch.where(valid, k[1], 1.0),
-                torch.where(valid, k[2], 0.0), torch.where(valid, k[3], 0.0))
-        j, alpha, cbad = sample_coefficients(
-            pos, kcov, mom, frequencies, sp, grid, spin, cam, nu0)
+        pos, kcov = tu.safe_sample(valid, ym, k, cam)
+        j, alpha, bad = tu.sanitize(*sample_coefficients(
+            pos, kcov, mom, frequencies, sp, grid, spin, cam, nu0))
         vcol = valid[:, None]
-        bad = cbad | ~(torch.isfinite(j) & torch.isfinite(alpha))
-        j = torch.where(bad, 0.0, j)
-        alpha = torch.where(bad, 0.0, alpha)
         acc["bad"] = acc["bad"] | (vcol & bad)
-
-        delta_lambda = -torch.where(valid, h, 0.0)
-        dl_cgs = delta_lambda[:, None] * x_unit \
-            / (frequencies[None, :] * mom[:, None])
-        pos_alpha = alpha > 0.0
-        ss = j / torch.where(pos_alpha, alpha, 1.0)
-        delta_tau = alpha * dl_cgs
-        atten = torch.exp(-acc["tau"])
-        thin = delta_tau <= DELTA_TAU_MAX
-        contrib = torch.where(pos_alpha,
-                              torch.where(thin, ss * -torch.expm1(-delta_tau),
-                                          ss),
-                              j * dl_cgs)
-        acc["intensity"] = acc["intensity"] + torch.where(
-            vcol, contrib * atten, 0.0)
-        dtau_eff = torch.where(pos_alpha,
-                               torch.where(thin, delta_tau, math.inf), 0.0)
-        acc["tau"] = acc["tau"] + torch.where(vcol, dtau_eff, 0.0)
+        _, dl_cgs = tu.path_cgs(valid, h, x_unit, frequencies, mom)
+        acc["intensity"], acc["tau"] = tu.light_update(
+            acc["intensity"], acc["tau"], j, alpha, dl_cgs, vcol)
 
     return update
 

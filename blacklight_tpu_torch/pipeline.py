@@ -3,10 +3,13 @@
 Port of ``blacklight_tpu/pipeline.py`` (:32-122, :221-334), with the same
 timing report, for the formula model and (through
 ``pipeline_simulation``) the simulation model. Geodesics, coefficients
-and transfer run as one fused kernel per model
+and transfer of the light image run as one fused kernel per model
 (``ops/formula_kernel.render_formula``,
 ``ops/simulation_kernel.render_simulation``): the CUDA kernel for a CUDA
-device, its plain PyTorch version for the CPU.
+device, its plain PyTorch version for the CPU. A configuration with an
+auxiliary image plane or image_light = false takes the scan route
+instead: ``transfer/unpolarized.integrate_unpolarized`` in torch ops on
+the rays' device, which the JAX package's formula ``run`` always takes.
 
 The configurations this package covers so far are decided from the
 config before any work starts; every other one raises BlacklightError
@@ -47,14 +50,11 @@ from blacklight_tpu_torch.ops.formula_kernel import (
     render_formula,
 )
 from blacklight_tpu_torch.ops.simulation_kernel import spatial_order
+from blacklight_tpu_torch.transfer import unpolarized as tu
 
 # Rays per tile of the spatial_order that float64 formula bundles are
 # launched in (formula_launch_order).
 FORMULA_ORDER_BLOCK = 256
-
-_AUX_IMAGES = ("image_time", "image_length", "image_lambda", "image_emission",
-               "image_tau", "image_lambda_ave", "image_emission_ave",
-               "image_tau_int", "image_crossings")
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -107,11 +107,6 @@ def check_slice(cfg) -> None:
             f"(ROADMAP {item}); use blacklight_tpu for this input.")
 
     simulation = cfg.require("model_type") == ModelType.simulation
-    if not cfg.require("image_light"):
-        refuse("image_light = false", "A.5")
-    for key in _AUX_IMAGES:
-        if getattr(cfg, key):
-            refuse(f"{key}", "A.5")
     if (cfg.adaptive_max_level or 0) > 0:
         refuse("adaptive_max_level > 0", "A.9")
     for key in ("checkpoint_geodesic_save", "checkpoint_geodesic_load",
@@ -161,8 +156,13 @@ def make_formula_renderer(cfg, *, device):
 
     Returns (render_fn, geom, rays, frequencies, mass_msun), where
     render_fn(positions, directions, momentum_factors) renders a pixel
-    bundle to a dict of tensors: "I_nu" (B, F), "_flags" (B,) bool and
-    "_n_samples" (B,).
+    bundle to a dict of tensors: "I_nu" (B, F) (none with image_light =
+    false), the auxiliary planes the config asks for, "_flags" (B,) bool
+    and "_n_samples" (B,). ``render_fn.route`` is "kernel" (the light
+    image alone: ``render_formula``) or "scan" (any auxiliary plane or
+    image_light = false: ``transfer/unpolarized.integrate_unpolarized``
+    with the batched ``formula_coefficients``, as the JAX package's
+    formula renderer, blacklight_tpu/pipeline.py:76-122).
     """
     check_slice(cfg)
     device = resolve_device(device)
@@ -176,8 +176,22 @@ def make_formula_renderer(cfg, *, device):
     camera_x = geom.cam_x.tolist()
     log_j_scale = formula_model.formula_log_j_scale(fparams)
     fallback_nan = cfg.require("fallback_nan")
+    opts = tu.ImageOptions.from_config(cfg)
 
-    def render_fn(positions, directions, momentum_factors):
+    def render_scan(positions, directions, momentum_factors):
+        def coeff_fn(pos, kcov):
+            j, alpha, _, bad = formula_model.formula_coefficients(
+                pos, torch.stack(kcov, dim=-1), momentum_factors,
+                frequencies, fparams, camera_x)
+            return j, alpha, bad
+
+        return tu.integrate_unpolarized(
+            positions, directions, momentum_factors, frequencies,
+            params=params, integrator=params.integrator.value,
+            coeff_fn=coeff_fn, opts=opts, mass_msun=mass_msun,
+            camera_x=camera_x, log_j_scale=log_j_scale)
+
+    def render_kernel(positions, directions, momentum_factors):
         order = formula_launch_order(positions)
         rays = (positions, directions, momentum_factors)
         if order is not None:
@@ -193,6 +207,9 @@ def make_formula_renderer(cfg, *, device):
             out[key][order] = value
         return out
 
+    scan = opts.aux or not opts.light
+    render_fn = render_scan if scan else render_kernel
+    render_fn.route = "scan" if scan else "kernel"
     render_fn.geodesic_params = params
     return render_fn, geom, rays, frequencies, mass_msun
 
@@ -263,9 +280,11 @@ def run(cfg, snapshot: Optional[int] = None, quiet: bool = False, *,
     path = format_filename(cfg.require("output_file"), file_number)
     packed = None
     if cfg.require("output_format") != OutputFormat.npz:
-        # the packed (quantities, res, res) block: I, or I, Q, U, V
+        # the packed (quantities, res, res) block: I, or I, Q, U, V; none
+        # without a light image (blacklight_tpu/pipeline.py:316-326)
         res = cfg.require("camera_resolution")
-        packed = image["I_nu"].reshape(1, res, res)
+        if "I_nu" in image:
+            packed = image["I_nu"].reshape(1, res, res)
         if "Q_nu" in image:
             packed = np.stack([image[k].reshape(res, res)
                                for k in ("I_nu", "Q_nu", "U_nu", "V_nu")])
@@ -273,7 +292,7 @@ def run(cfg, snapshot: Optional[int] = None, quiet: bool = False, *,
 
     if not quiet:
         # Reference timing report (blacklight.cpp:259-269); geodesic,
-        # sampling and image integration are one fused kernel
+        # sampling and image integration are one fused computation
         print("Calculation completed.")
         print(f"Elapsed time:                        {time.time() - t0:.6g} s")
         print(f"  Time reading simulation data:      {t_read:.6g} s")

@@ -3,17 +3,27 @@
 Port of ``blacklight_tpu/pipeline_simulation.py`` (:70-254, :257-707)
 for the port's slice (``pipeline.check_slice``): one Athena++ snapshot
 of one or many mesh blocks (with its neighbour table for exact
-interblock sampling), read once onto the device, and one fused kernel
-that integrates the geodesics, samples the grid, evaluates the thermal
-synchrotron coefficients and accumulates the transfer: unpolarized
-(``ops/simulation_kernel.render_simulation``, or with KERNEL_PHASED its
-phased dispatch ``render_simulation_phased``) or, with
-image_polarization, full-Stokes (``ops/polarized_kernel.render_polarized``
-followed by the camera-frame Stokes extraction). Each is the CUDA kernel
-for a CUDA device, its plain PyTorch version for the CPU. Rays are
-launched in ``spatial_order``. The route is chosen from the config, the
-bundle's size and the constants below before anything launches; nothing
-falls back from one route to another.
+interblock sampling), read once onto the device, and one of two routes,
+chosen from the config before anything launches, as the JAX package
+chooses between its kernels and its XLA path
+(blacklight_tpu/pipeline_simulation.py:348-370, :466-474):
+
+- "kernel", the light image alone: one fused kernel that integrates the
+  geodesics, samples the grid, evaluates the thermal synchrotron
+  coefficients and accumulates the transfer, unpolarized
+  (``ops/simulation_kernel.render_simulation``, or with KERNEL_PHASED its
+  phased dispatch ``render_simulation_phased``) or, with
+  image_polarization, full-Stokes (``ops/polarized_kernel.render_polarized``
+  followed by the camera-frame Stokes extraction); each the CUDA kernel
+  for a CUDA device, its plain PyTorch version for the CPU. Rays are
+  launched in ``spatial_order``.
+- "scan", any auxiliary image plane or image_light = false: the
+  transfer in torch ops on the rays' device
+  (``transfer/unpolarized.integrate_unpolarized``, or with
+  image_polarization ``transfer/polarized.integrate_polarized``), with
+  ``make_simulation_coeff_fns``' coefficients and cell values.
+
+Nothing falls back from one route to another.
 """
 
 from __future__ import annotations
@@ -32,6 +42,8 @@ from blacklight_tpu_torch.grid.sampling import sampling_mode
 from blacklight_tpu_torch.models import synchrotron
 from blacklight_tpu_torch.models.cuts import GeometricCuts
 from blacklight_tpu_torch.ops import polarized_kernel, simulation_kernel
+from blacklight_tpu_torch.transfer import polarized as tp
+from blacklight_tpu_torch.transfer import unpolarized as tu
 
 # Phased dispatch of the unpolarized kernel
 # (ops/simulation_kernel.render_simulation_phased), with the JAX package's
@@ -135,6 +147,46 @@ def load_grid(cfg, snapshot: Optional[int] = None, *, device,
     return load_grid_file(cfg, path, device=device, dtype=dtype)
 
 
+def make_simulation_coeff_fns(sp: simulation_kernel.SimKernelParams, grid,
+                              frequencies, momentum_factors, spin: float,
+                              camera_x, *, polarized: bool):
+    """(coeff_fn, cell_fn) of the scan route
+    (blacklight_tpu/pipeline_simulation.py:167-254) for a bundle with
+    ``momentum_factors``; camera_x four Python floats.
+
+    Unpolarized, coeff_fn(pos (B, 4), kcov four (B,)) is
+    ``simulation_kernel.sample_coefficients``; polarized, coeff_fn(pos,
+    kcov) on 4-tuples is ``polarized_kernel.polarized_coefficients``.
+    cell_fn(pos, kcov) gives the cell values, NaN where a cut holds or the
+    reference would NaN the sample. The two share one grid sample and
+    fluid state per sample: cell_fn called with the ``pos`` object of the
+    last coeff_fn call reuses them.
+    """
+    nu0 = float(frequencies[0])
+    last = {}
+
+    def fluid_at(pos):
+        if last.get("pos") is not pos:
+            posb = torch.stack(pos, dim=-1) if polarized else pos
+            last.update(pos=pos, fluid=simulation_kernel.fluid_sample(
+                posb, sp, grid, spin, camera_x, zero_cut=polarized))
+        return last["fluid"]
+
+    def coeff_fn(pos, kcov):
+        if polarized:
+            return polarized_kernel.polarized_coefficients(
+                pos, kcov, momentum_factors, frequencies, sp, grid, spin,
+                camera_x, nu0, fluid=fluid_at(pos))
+        return simulation_kernel.sample_coefficients(
+            pos, kcov, momentum_factors, frequencies, sp, grid, spin,
+            camera_x, nu0, fluid=fluid_at(pos))
+
+    def cell_fn(pos, kcov):
+        return simulation_kernel.cell_values(fluid_at(pos))
+
+    return coeff_fn, cell_fn
+
+
 def make_simulation_renderer(cfg, snapshot: Optional[int] = None, *, device,
                              grid: Optional[SimulationGrid] = None):
     """Build the simulation-model renderer on ``device``.
@@ -145,12 +197,15 @@ def make_simulation_renderer(cfg, snapshot: Optional[int] = None, *, device,
     Returns (render_fn, geom, rays, frequencies, mass_msun), where
     render_fn(positions, directions, momentum_factors) renders a pixel
     bundle to a dict of tensors: "I_nu" (B, F) (and "Q_nu", "U_nu",
-    "V_nu" with image_polarization), "_flags" (B,) bool and "_n_samples"
-    (B,). It launches the bundle in ``spatial_order`` and returns it in
-    the caller's order. ``render_fn.kernel`` is the kernel wrapper it
-    calls (``render_simulation`` or ``render_polarized``; an unpolarized
-    bundle that ``use_phased`` picks goes to
-    ``render_simulation_phased`` with the same arguments), with
+    "V_nu" with image_polarization; no light image with image_light =
+    false), the auxiliary planes the config asks for, "_flags" (B,) bool
+    and "_n_samples" (B,). ``render_fn.route`` is "kernel" or "scan" (the
+    module's docstring). On the kernel route it launches the bundle in
+    ``spatial_order`` and returns it in the caller's order;
+    ``render_fn.kernel`` is the kernel wrapper it calls
+    (``render_simulation`` or ``render_polarized``; an unpolarized bundle
+    that ``use_phased`` picks goes to ``render_simulation_phased`` with
+    the same arguments; None on the scan route), with
     ``render_fn.kernel_args`` the arguments after the rays (the snapshot
     among them) and ``render_fn.kernel_kwargs`` the keywords.
     """
@@ -178,18 +233,46 @@ def make_simulation_renderer(cfg, snapshot: Optional[int] = None, *, device,
     sampling_mode(grid, sp.sampler)  # raises for a mode the grid lacks
     nu0 = float(frequencies[0])
     log_scale = synchrotron.log_j_scale(nu0)
-    kernel_args = (frequencies, params, sp, grid, mass_msun,
-                   geom.cam_x.tolist(), log_scale)
+    camera_x = geom.cam_x.tolist()
+    kernel_args = (frequencies, params, sp, grid, mass_msun, camera_x,
+                   log_scale)
     kernel_kwargs = {"integrator": params.integrator.value}
     fallback_nan = cfg.require("fallback_nan")
-    polarized = cfg.require("image_polarization")
-    if polarized:
+    opts = tu.ImageOptions.from_config(cfg)
+    # (blacklight_tpu/pipeline_simulation.py:316-317)
+    polarized = cfg.require("image_polarization") if opts.light else False
+    route = "scan" if opts.aux or not opts.light else "kernel"
+    if route == "scan":
+        kernel = None
+    elif polarized:
         kernel = polarized_kernel.render_polarized
         kernel_kwargs["rotation_split"] = cfg.require("image_rotation_split")
     else:
         kernel = simulation_kernel.render_simulation
 
+    def render_scan(positions, directions, momentum_factors):
+        coeff_fn, cell_fn = make_simulation_coeff_fns(
+            sp, grid, frequencies, momentum_factors, bh_a, camera_x,
+            polarized=polarized)
+        common = dict(params=params, integrator=kernel_kwargs["integrator"],
+                      coeff_fn=coeff_fn, mass_msun=mass_msun, opts=opts,
+                      cell_fn=cell_fn if opts.cells else None,
+                      camera_x=camera_x, log_j_scale=log_scale)
+        if not polarized:
+            return tu.integrate_unpolarized(
+                positions, directions, momentum_factors, frequencies,
+                **common)
+        nn_re, nn_im, flags, n_samples, bad, planes = tp.integrate_polarized(
+            positions, directions, momentum_factors, frequencies,
+            rotation_split=cfg.require("image_rotation_split"), **common)
+        image = polarized_kernel.poisoned_stokes(
+            nn_re, nn_im, flags, bad, positions, directions, frequencies,
+            params, geom, log_scale, fallback_nan)
+        return {**image, **planes, "_flags": flags, "_n_samples": n_samples}
+
     def render_fn(positions, directions, momentum_factors):
+        if route == "scan":
+            return render_scan(positions, directions, momentum_factors)
         # launched in spatial_order (blacklight_tpu/pipeline_simulation.py
         # :412-415, :513-517), returned in the caller's order
         order = simulation_kernel.spatial_order(positions,
@@ -215,6 +298,7 @@ def make_simulation_renderer(cfg, snapshot: Optional[int] = None, *, device,
         out = {**image, "_flags": flags, "_n_samples": n_samples}
         return {k: _unorder(v, order) for k, v in out.items()}
 
+    render_fn.route = route
     render_fn.kernel = kernel
     render_fn.kernel_args = kernel_args
     render_fn.kernel_kwargs = kernel_kwargs

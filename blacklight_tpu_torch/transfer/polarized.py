@@ -1,11 +1,11 @@
 """Polarized (full-Stokes IQUV) radiative transfer on tensors.
 
-Port of ``blacklight_tpu/transfer/polarized.py`` for the light-only
-image: the coherency-tensor bookkeeping (``_SYM``, ``_ANT``,
-``_transport_c``, ``_stokes_from_n``, ``_n_from_stokes``, :49-140),
-``_kcon_scalar`` (:202), ``camera_stokes`` (:143) and
-``integrate_polarized`` (:216-613) without its aux planes and stored
-samples. The reference is polarized.cpp:51-973.
+Port of ``blacklight_tpu/transfer/polarized.py``: the coherency-tensor
+bookkeeping (``_SYM``, ``_ANT``, ``_transport_c``, ``_stokes_from_n``,
+``_n_from_stokes``, :49-140), ``_kcon_scalar`` (:202), ``camera_stokes``
+(:143) and ``integrate_polarized`` (:216-613) with its auxiliary image
+planes (``AuxPlanes``), without stored samples (ROADMAP A.8). The
+reference is polarized.cpp:51-973.
 
 The state per ray and frequency is the Hermitian coherency tensor N^{mn},
 carried as 10 real-symmetric and 6 imaginary-antisymmetric components.
@@ -23,14 +23,16 @@ CUDA route runs the two as separate kernels.
 
 from __future__ import annotations
 
-from typing import Callable
+import math
+from typing import Callable, Optional
 
 import torch
 
-from blacklight_tpu_torch.constants import Physics
+from blacklight_tpu_torch.constants import NUM_CELL_VALUES, Physics
 from blacklight_tpu_torch.ops import geodesic, geometry
 from blacklight_tpu_torch.ops.connection import transport_matrix_c
 from blacklight_tpu_torch.ops.tetrad import tetrad_rows_c
+from blacklight_tpu_torch.transfer import unpolarized as tu
 from blacklight_tpu_torch.transfer.polarized_coupling import (
     couple_matter_scaled_c)
 
@@ -203,8 +205,8 @@ def sample_record(pos, kcov, h, first, prev, coeff_fn, *, nus, mom, x_unit,
     of its first half), "dl_sec" and "dl_local" (the deferred and local
     half-step lengths), the tetrad rows "e1", "e2" (covariant) and "t1",
     "t2" (contravariant), "coef" (the coefficients in
-    RECORD_COEFFICIENTS order times the step in cm, each (B, F)) and
-    "bad" (B, F).
+    RECORD_COEFFICIENTS order times the step in cm, each (B, F)),
+    "dl_cgs" (B, F), that step, and "bad" (B, F).
     """
     pos_pv, kcon_prev, dl_pv = prev
     dl_cur = -h
@@ -246,7 +248,7 @@ def sample_record(pos, kcov, h, first, prev, coeff_fn, *, nus, mom, x_unit,
             "dl_local": 0.5 * (torch.where(first, 0.0, dl_pv) + dl_cur),
             "e1": e1, "e2": e2, "t1": t1, "t2": t2,
             "coef": tuple(coeffs[k] * dl_cgs for k in RECORD_COEFFICIENTS),
-            "bad": coeffs["bad"]}
+            "dl_cgs": dl_cgs, "bad": coeffs["bad"]}
 
 
 def apply_record(re, im, a_prev, record, rotation_split: bool):
@@ -286,23 +288,32 @@ def finish_transport(re, im, a_prev, dl_pv):
 def integrate_polarized(positions, directions, momentum_factors, frequencies,
                         *, params: geodesic.GeodesicParams, integrator: str,
                         coeff_fn: Callable, mass_msun: float,
-                        rotation_split: bool, window: int = WINDOW):
-    """Full-Stokes transfer over a ray bundle, light image only.
+                        rotation_split: bool, window: int = WINDOW,
+                        opts: Optional[tu.ImageOptions] = None,
+                        cell_fn: Optional[Callable] = None, camera_x=None,
+                        log_j_scale: float = 0.0):
+    """Full-Stokes transfer over a ray bundle, with the auxiliary image
+    planes that ``opts`` asks for.
 
     coeff_fn(pos, kcov) takes 4-tuples of (B,) components and returns a
     dict with (B, F) j_i/j_q/j_v (scaled as models/synchrotron does),
     alpha_i/alpha_q/alpha_v, rho_q/rho_v and "bad" (samples the reference
     would NaN, coefficients zeroed there), the 4-tuples "ucon" and "bcon"
-    and the (B,) "b_zero".
+    and the (B,) "b_zero". cell_fn(pos, kcov) -> (B, NUM_CELL_VALUES),
+    NaN where invalid, for the lambda_ave, emission_ave and tau_int
+    planes; camera_x (four Python floats) for crossings; log_j_scale the
+    unit of the scaled j, for emission.
 
     Returns (nn_re (B, F, 10), nn_im (B, F, 6), flags (B,) bool,
-    n_samples (B,) int32, bad (B, F) bool): the coherency components at
-    the camera end, before ``camera_stokes``.
+    n_samples (B,) int32, bad (B, F) bool, planes): the coherency
+    components at the camera end, before ``camera_stokes``, and the dict
+    of the finished auxiliary planes (``AuxPlanes``; empty without
+    opts).
     """
     b, nf = positions.shape[0], frequencies.shape[0]
     dtype, device = positions.dtype, positions.device
     spin, mass, flat = params.bh_a, params.bh_m, params.ray_flat
-    x_unit = Physics.gg_msun * mass_msun / (Physics.c * Physics.c)
+    x_unit = tu.x_unit(mass_msun)
     starts, flags, n_samples = geodesic.segment_carries(
         positions, directions, params, integrator, window)
     p0 = directions[:, 0]
@@ -317,6 +328,9 @@ def integrate_polarized(positions, directions, momentum_factors, frequencies,
           "pos_pv": tuple(positions.unbind(-1)), "dl_pv": zero_b,
           "kcon_pv": (zero_b,) * 4,
           "a_prev": tuple((zero_b,) * 4 for _ in range(4))}
+    planes = None if opts is None else AuxPlanes(
+        opts, b, nf, dtype, device, x_unit=x_unit, spin=spin, mass=mass,
+        flat=flat, cell_fn=cell_fn, camera_x=camera_x)
 
     def update(sample):
         active, pos, kcov, h = sample
@@ -325,6 +339,9 @@ def integrate_polarized(positions, directions, momentum_factors, frequencies,
                             (st["pos_pv"], st["kcon_pv"], st["dl_pv"]),
                             coeff_fn, nus=nus, mom=mom, x_unit=x_unit,
                             spin=spin, mass=mass, flat=flat)
+        if planes is not None:
+            planes.update(active, pos, kcov, h, st["started"], rec["coef"],
+                          rec["dl_cgs"])
         post_re, post_im = apply_record(st["re"], st["im"], st["a_prev"],
                                         rec, rotation_split)
         act = active[:, None]
@@ -353,4 +370,146 @@ def integrate_polarized(positions, directions, momentum_factors, frequencies,
 
     nn_re, nn_im = finish_transport(st["re"], st["im"], st["a_prev"],
                                     st["dl_pv"])
-    return nn_re, nn_im, flags, n_samples, st["bad"]
+    finished = {} if planes is None else planes.finish(
+        (flags & opts.fallback_nan)[:, None] | st["bad"], log_j_scale)
+    return nn_re, nn_im, flags, n_samples, st["bad"], finished
+
+
+class AuxPlanes:
+    """The auxiliary image planes of the polarized transfer
+    (polarized.py:298-320, :427-500, :589-612). Samples come far end
+    first, so these forms differ from integrate_unpolarized's: the
+    length's square root through a double where, lambda_tot and
+    emission_tot as the averages' denominators, the far-to-camera tau_int
+    recurrence, crossings counted from a ray's second sample on
+    (``started``)."""
+
+    def __init__(self, opts: tu.ImageOptions, b: int, nf: int, dtype, device,
+                 *, x_unit: float, spin: float, mass: float, flat: bool,
+                 cell_fn, camera_x):
+        if opts.cells and cell_fn is None:
+            raise ValueError(
+                "cell_fn required for lambda_ave/emission_ave/tau_int")
+        self.opts, self.cell_fn, self.dtype = opts, cell_fn, dtype
+        self.x_unit, self.t_unit = x_unit, x_unit / Physics.c
+        self.metric = (spin, mass, flat)
+        self.cam = None if camera_x is None else [float(v) for v in camera_x]
+
+        def zeros(*shape, kind=dtype):
+            return torch.zeros(shape, dtype=kind, device=device)
+
+        st = {}
+        if opts.time:
+            st["time"] = zeros(b)
+        if opts.length:
+            st["length"] = zeros(b)
+        if opts.lam:
+            st["lambda"] = zeros(b, nf)
+        if opts.emission:
+            st["emission"] = zeros(b, nf)
+        if opts.tau:
+            st["tau"] = zeros(b, nf)
+        if opts.crossings:
+            st["crossings"] = zeros(b, kind=torch.int32)
+            st["plane_sign"] = zeros(b, kind=torch.bool)
+        if opts.lambda_ave:
+            st["lambda_ave"] = zeros(b, nf, NUM_CELL_VALUES)
+            st["lambda_tot"] = zeros(b, nf)
+        if opts.emission_ave:
+            st["emission_ave"] = zeros(b, nf, NUM_CELL_VALUES)
+            st["emission_tot"] = zeros(b, nf)
+        if opts.tau_int:
+            st["tau_int"] = zeros(b, nf, NUM_CELL_VALUES)
+        self.st = st
+
+    def update(self, active, pos, kcov, h, started, coef, dl_cgs):
+        """One sample of each ray: ``active`` (B,) marks the rays whose
+        sample counts, ``pos``/``kcov`` 4-tuples, ``h`` the signed step,
+        ``started`` the rays with a farther sample, ``coef`` the record's
+        coefficients times dl_cgs (RECORD_COEFFICIENTS order)."""
+        opts, st = self.opts, self.st
+        acol = active[:, None]
+        dl_cur = -h
+        j_dl, alpha_dl = coef[0], coef[3]
+        if opts.time:
+            st["time"] = torch.where(
+                active, torch.minimum(st["time"], pos[0] * self.t_unit),
+                st["time"])
+        if opts.length:
+            dl2 = tu.proper_length(torch.stack(pos, dim=-1),
+                                   torch.stack(kcov, dim=-1), *self.metric)
+            # the square root through a double where: parked rays reach
+            # dl2 == 0 exactly
+            dl2_pos = dl2 > 0.0
+            root = torch.where(
+                dl2_pos, torch.sqrt(torch.where(dl2_pos, dl2, 1.0)), 0.0)
+            st["length"] = st["length"] + torch.where(
+                active, root * dl_cur * self.x_unit, 0.0)
+        if opts.lam:
+            st["lambda"] = st["lambda"] + torch.where(acol, dl_cgs, 0.0)
+        if opts.emission:
+            st["emission"] = st["emission"] + torch.where(acol, j_dl, 0.0)
+        if opts.tau:
+            st["tau"] = st["tau"] + torch.where(acol, alpha_dl, 0.0)
+        if opts.crossings:
+            sign_new = tu.plane_sign(self.cam, *pos[1:])
+            flipped = active & started & (sign_new != st["plane_sign"])
+            st["crossings"] = st["crossings"] + flipped.to(torch.int32)
+            st["plane_sign"] = torch.where(active, sign_new,
+                                           st["plane_sign"])
+        if not opts.cells:
+            return
+        cells = self.cell_fn(pos, kcov)
+        cells_ok = (acol & ~torch.isnan(cells[:, 0:1]))[:, :, None]
+        cells = torch.where(torch.isnan(cells), 0.0, cells)[:, None, :]
+        if opts.lambda_ave:
+            st["lambda_tot"] = st["lambda_tot"] + torch.where(acol, dl_cgs,
+                                                              0.0)
+            st["lambda_ave"] = st["lambda_ave"] + torch.where(
+                cells_ok, cells * dl_cgs[..., None], 0.0)
+        if opts.emission_ave:
+            st["emission_tot"] = st["emission_tot"] + torch.where(
+                acol, j_dl, 0.0)
+            st["emission_ave"] = st["emission_ave"] + torch.where(
+                cells_ok, cells * j_dl[..., None], 0.0)
+        if opts.tau_int:
+            thin = alpha_dl <= tu.DELTA_TAU_MAX
+            # exp(-dt) old + cells (1 - exp(-dt)), overflow-free
+            exp_neg = torch.exp(-alpha_dl)
+            new = torch.where(thin[..., None],
+                              exp_neg[..., None] * st["tau_int"]
+                              + cells * (1.0 - exp_neg)[..., None],
+                              cells.expand(st["tau_int"].shape))
+            st["tau_int"] = torch.where(cells_ok, new, st["tau_int"])
+
+    def finish(self, poison, log_j_scale: float) -> dict:
+        """The planes, NaN (zero for lambda_ave) where ``poison`` (B, F):
+        the flagged rays under fallback_nan and those that met a sample
+        the reference would NaN."""
+        opts, st = self.opts, self.st
+        out = {}
+        if opts.time:
+            out["time"] = st["time"]
+        if opts.length:
+            out["length"] = st["length"]
+        if opts.lam:
+            out["lambda"] = st["lambda"]
+        if opts.emission:
+            out["emission"] = torch.where(
+                poison, math.nan, st["emission"] * tu.emission_scale(
+                    log_j_scale, self.dtype, poison.device))
+        if opts.tau:
+            out["tau"] = torch.where(poison, math.nan, st["tau"])
+        if opts.lambda_ave:
+            ave = st["lambda_ave"] / st["lambda_tot"][..., None]
+            out["lambda_ave"] = torch.where(poison[..., None], 0.0, ave)
+        if opts.emission_ave:
+            ave = st["emission_ave"] / st["emission_tot"][..., None]
+            out["emission_ave"] = torch.where(poison[..., None], math.nan,
+                                              ave)
+        if opts.tau_int:
+            out["tau_int"] = torch.where(poison[..., None], math.nan,
+                                         st["tau_int"])
+        if opts.crossings:
+            out["crossings"] = st["crossings"].to(self.dtype)
+        return out

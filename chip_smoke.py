@@ -59,6 +59,10 @@ and prints no final line):
      and float64), and the plain phase version on 4,096 rays of mb-amr's
      second phase (steps 1000-1999, float32), which phase 14 holds its
      kernels against;
+   - phase 15's jobs (AUX_JOBS): the scan route on the CPU on 4,096 of
+     its rays, the 128^2 and polarized cases on the card and on the CPU,
+     and the two A.5 goldens on the card;
+   jobs start longest first (PHASE3_SECONDS);
 4. the 32^2 formula goldens through pipeline.run(cfg, device="cuda") at
    the tolerances of tests/test_formula_e2e.py;
 5. the formula main path at full width: golden_formula_32.input at
@@ -148,7 +152,30 @@ and prints no final line):
     version on 4,096 of those rays (statistical gate); the polarized
     route once on mb-amr.
 
-Phases 4 to 14 run alone on the card, after phase 3.
+15. the auxiliary image planes' scan route (ROADMAP A.5; torch ops on
+    the card, no kernel), run after phase 14: phase 7's cell (1024^2, rk4,
+    2000 steps, float32) with all nine planes through pipeline.run, after
+    a warm call (AUX_WARM_STEPS steps on 4,096 of its rays) that asserts
+    the route; no kernel launch counter may move; its I_nu held to phase
+    7's kernel image (statistical gate), every plane on every
+    PLAIN_STRIDE-th ray to phase 3's run of the route on the CPU on those
+    rays (aux_full_width_cpu: the statistical gate per plane, equal NaN
+    sets, crossings equal on AUX_CROSSINGS_SHARE of the rays); its wall
+    time, steps, time a step and peak device memory beside phase 7's
+    kernel time. From phase 3's
+    pool: 128^2 float64 rk4 on mock_small.athdf with every plane, the
+    route on the card against the kernel route's I_nu (equal flags,
+    n_samples and NaN sets, rtol 1e-9) and every plane against the route
+    on the CPU (every AUX_EXACT_STRIDE-th ray, rtol 1e-9); the goldens
+    golden_formula_aux_32 (tests/test_formula_e2e.py:38-69) and
+    golden_sim_tau_rk4_32 (rtol 1e-8) through pipeline.run on the card;
+    golden_polarized_rk4_32.input at 64^2 float64 rk4 with image_tau,
+    image_emission_ave and image_crossings, the route on the card against
+    the route on the CPU (rtol 1e-9 with the per-channel floor, V at
+    V_EXACT_RTOL) and its Stokes against the K3.1 route's
+    (polarized_gate, exact).
+
+Phases 4 to 15 run alone on the card, after phase 3.
 
 ``python3 chip_smoke.py --chunk-sweep`` runs phases 1 and 2, then times
 the polarized route at 1024^2 (float32 rk4, spatial_order) for trace
@@ -274,8 +301,9 @@ TRUTH_FACTOR = 3.0
 TRUTH_SLACK = 1e-7
 # Processes that run phase 3's checks at once: each plain version spends
 # its time launching small kernels from one host core, so several overlap
-# on one card (an H100 host has 8 cores).
-WORKERS = 6
+# on one card (an H100 host has 8 cores; 8 processes ran every job 25-40 %
+# slower than 7).
+WORKERS = 7
 # Phase 9: the plain version runs on every PLAIN_STRIDE-th ray of the
 # 1024^2 bundle, and a render with CHUNK_CHECK's byte caps (trace chunks of
 # 2 GiB of samples: 28 at 2000 steps of float32; records of 6 GiB: about
@@ -621,43 +649,43 @@ def phase_checks(pool) -> tuple:
     derive kernels of many blocks against their plain versions, the plain
     version on the subset of each full-width mesh cell (mesh_plain_subset,
     by cell and precision, under "plain") and the plain phase version on
-    mb-amr's second phase (mesh_phase_plain_subset, "phase_plain")."""
+    mb-amr's second phase (mesh_phase_plain_subset, "phase_plain"); and
+    phase 15's jobs (AUX_JOBS) by name. Jobs start longest first
+    (PHASE3_SECONDS)."""
     t0 = time.perf_counter()
-    truth = pool.apply_async(pol_full_width_truth)
-    stages = pool.apply_async(check_polarized_stages)
-    mesh_plain = {key: pool.apply_async(mesh_plain_subset, key)
-                  for key in MESH_PLAIN}
-    mesh_phase_plain = pool.apply_async(mesh_phase_plain_subset)
-    mesh_derive = pool.apply_async(check_mesh_derive, ("float32",))
-    subsets = {cell: pool.apply_async(formula_plain_subset, (cell,))
-               for cell in ("k13", "k14", "k11")}
-    checks = [pool.apply_async(fn, args) for fn, args in (
-        (check_formula_tangents, ("rk4", "float64")),
-        (check_formula_tangents, ("dp", "float32")),
-        (check_formula, ("dp", "float32")),
-        (check_formula, ("dp", "float64")),
-        (check_polarized, ("dp", "float32", False, 1)),
-        (check_polarized, ("rk2", "float32", True, 2)),
-        (check_formula, ("rk4", "float64")),
-        (check_simulation, ("dp", "float32")),
-        (check_simulation, ("dp", "float64")),
-        (check_polarized, ("rk4", "float64", False, 1)),
-        (check_formula, ("rk2", "float32")),
-        (check_simulation, ("rk4", "float64")),
-        (check_simulation, ("rk2", "float32")),
-        (check_simulation_phase, ("rk4", "float64")),
-        (check_simulation_phase, ("rk2", "float32")),
-        (check_mesh_derive, ("float64",)),
-        (check_mesh_polarized, ("interblock", "rk4", "float64")),
-        (check_mesh_polarized, ("nearest", "rk2", "float32")),
-        (check_mesh_simulation, ("interblock", "rk4", "float64", 1)),
-        (check_mesh_simulation, ("interblock", "rk2", "float64", 3)),
-        (check_mesh_simulation, ("interblock", "dp", "float32", 1)),
-        (check_mesh_simulation, ("interblock", "dp", "float64", 1)),
-        (check_mesh_simulation, ("nearest", "rk4", "float64", 3)),
-        (check_mesh_simulation, ("nearest", "rk2", "float32", 1)))]
-    mesh_phase = [pool.apply_async(check_mesh_phase, args) for args in (
-        ("interblock", "rk4", "float64"), ("nearest", "rk2", "float32"))]
+    jobs = {("check", fn.__name__, args): (fn, args) for fn, args in CHECKS}
+    jobs.update({("mesh_phase", "check_mesh_phase", args):
+                 (check_mesh_phase, args) for args in MESH_PHASE_CHECKS})
+    jobs.update({("subset", "formula_plain_subset", (cell,)):
+                 (formula_plain_subset, (cell,)) for cell in FORMULA_CELLS})
+    jobs.update({("mesh_plain", "mesh_plain_subset", key):
+                 (mesh_plain_subset, key) for key in MESH_PLAIN})
+    jobs.update({(kind, fn.__name__, ()): (fn, ()) for kind, fn in (
+        ("truth", pol_full_width_truth), ("stages", check_polarized_stages),
+        ("mesh_phase_plain", mesh_phase_plain_subset))})
+    jobs[("derive", "check_mesh_derive", ("float32",))] = (
+        check_mesh_derive, ("float32",))
+    jobs.update({("aux", fn.__name__, ()): (fn, ()) for _, fn in AUX_JOBS})
+    # longest first (a stable sort: jobs of no measured length keep the
+    # table's order after the measured ones)
+    order = sorted(jobs, key=lambda key: -PHASE3_SECONDS.get(key[1:], 0.0))
+    started = {key: pool.apply_async(*jobs[key]) for key in order}
+
+    def results(kind):
+        return {key[2]: job for key, job in started.items()
+                if key[0] == kind}
+
+    checks = [started[("check", fn.__name__, args)] for fn, args in CHECKS]
+    mesh_phase = [started[("mesh_phase", "check_mesh_phase", args)]
+                  for args in MESH_PHASE_CHECKS]
+    subsets = {args[0]: job for args, job in results("subset").items()}
+    mesh_plain = results("mesh_plain")
+    truth = started[("truth", "pol_full_width_truth", ())]
+    stages = started[("stages", "check_polarized_stages", ())]
+    mesh_phase_plain = started[("mesh_phase_plain",
+                                "mesh_phase_plain_subset", ())]
+    mesh_derive = started[("derive", "check_mesh_derive", ("float32",))]
+    aux = {name: started[("aux", fn.__name__, ())] for name, fn in AUX_JOBS}
     for check in checks:
         phase, result = check.get()
         emit(phase, workers=WORKERS, **result)
@@ -683,8 +711,9 @@ def phase_checks(pool) -> tuple:
     mesh["phase_plain"] = mesh_phase_plain.get()
     truth = truth.get()
     subsets = {cell: result.get() for cell, result in subsets.items()}
+    aux = {name: job.get() for name, job in aux.items()}
     emit("checks", workers=WORKERS, seconds=time.perf_counter() - t0)
-    return truth, subsets, stages, mesh
+    return truth, subsets, stages, mesh, aux
 
 
 def _check_exact(kernel_out, plain_out, rtol) -> dict:
@@ -1097,12 +1126,12 @@ def phase_sim_goldens(tmp: pathlib.Path):
             raise RuntimeError(f"golden {name} failed")
 
 
-def full_width_snapshot(dtype):
+def full_width_snapshot(dtype, device=None):
     """FULL_GRID from scripts/generate_mock_simulation.make_fields on the
-    card, as an Athena++ file would hold it (float32 values and
-    coordinates; the coordinates then in ``dtype``), through the function
-    that load_athdf ends in. The card's Python has no h5py to write the
-    file."""
+    card (or ``device``), as an Athena++ file would hold it (float32
+    values and coordinates; the coordinates then in ``dtype``), through
+    the function that load_athdf ends in. The card's Python has no h5py to
+    write the file."""
     import numpy as np
     import torch
     from blacklight_tpu_torch.grid.athena import (
@@ -1120,7 +1149,8 @@ def full_width_snapshot(dtype):
     return simulation_grid(
         prim[:, None].astype(np.float32), *rows,
         {key: names.index(var) for key, var in PRIMITIVE_NAMES.items()}, 0.0,
-        device=torch.device("cuda", torch.cuda.current_device()), dtype=dtype)
+        device=device or torch.device("cuda", torch.cuda.current_device()),
+        dtype=dtype)
 
 
 def phase_sim_full_width(tmp: pathlib.Path, card: str, grids: dict) -> dict:
@@ -2045,6 +2075,370 @@ def mesh_second_phase(grid, phase_plain) -> dict:
             "plain_rays": int(pick.numel()), "samples": samples,
             **phase_bound(alive, samples, "float32", grid_bytes(grid),
                           kind="simulation_interblock"), **gate}
+
+
+# Phase 15: the auxiliary image planes' scan route (ROADMAP A.5)
+
+# Every plane of the scan route, as config attributes.
+AUX_PLANES = dict(image_time=True, image_length=True, image_lambda=True,
+                  image_emission=True, image_tau=True, image_lambda_ave=True,
+                  image_emission_ave=True, image_tau_int=True,
+                  image_crossings=True)
+# The polarized case's planes.
+AUX_POL_PLANES = dict(image_tau=True, image_emission_ave=True,
+                      image_crossings=True)
+# Every AUX_EXACT_STRIDE-th ray of the 128^2 exact case also goes through
+# the route on the CPU.
+AUX_EXACT_STRIDE = 4
+# Share of the full width's subset rays whose crossings must equal the
+# CPU route's.
+AUX_CROSSINGS_SHARE = 0.99
+# Rays and steps of the warm call before the full-width render.
+AUX_WARM_RAYS = 4096
+AUX_WARM_STEPS = 50
+
+
+def _aux_full_config(**overrides):
+    """Phase 15's main path: phase 7's cell with every plane on."""
+    return _sim_config(**{"camera_resolution": 1024, "precision": "float32",
+                          "ray_integrator": "rk4", "ray_max_steps": 2000,
+                          **AUX_PLANES, **overrides})
+
+
+def _aux_exact_config(**overrides):
+    """The 128^2 float64 rk4 case on mock_small.athdf."""
+    return _sim_config(**{"camera_resolution": 128, "precision": "float64",
+                          "ray_integrator": "rk4", **overrides})
+
+
+def _aux_pol_config(**overrides):
+    """The polarized case: golden_polarized_rk4_32.input at 64^2,
+    float64 rk4. At the 400 steps of 0.04 of phase 3's polarized cases
+    its Q and U on the card part from the CPU's by 7e-9 (the Faraday
+    rotation over longer steps), past this case's 1e-9; at the golden's
+    2000 steps of 0.01 by 4e-10."""
+    return _pol_config(**{"camera_resolution": 64, "precision": "float64",
+                          "ray_integrator": "rk4", **overrides})
+
+
+def plane_columns(out) -> dict:
+    """A render's outputs (one frequency) as numpy columns (B,) under
+    their npz names (output.assemble_npz_arrays), "_flags" and
+    "_n_samples" included."""
+    import numpy as np
+    from blacklight_tpu_torch.constants import CELL_VALUE_NAMES
+    cols = {}
+    for key, value in out.items():
+        v = value.cpu().numpy() if hasattr(value, "cpu") else np.asarray(value)
+        if key in ("lambda_ave", "emission_ave", "tau_int"):
+            for c, name in enumerate(CELL_VALUE_NAMES):
+                cols[f"{key}_{name}"] = v[:, 0, c]
+        else:
+            cols[key] = v[:, 0] if v.ndim == 2 else v
+    return cols
+
+
+def _scan(cfg, device, grid=None, rays=None) -> tuple:
+    """cfg through the simulation renderer on ``device`` (its own camera
+    rays, or ``rays`` there): (plane_columns of the output, seconds)."""
+    from blacklight_tpu_torch.pipeline_simulation import (
+        make_simulation_renderer)
+    render_fn, _, own, _, _ = make_simulation_renderer(cfg, device=device,
+                                                       grid=grid)
+    rays = rays or (own.positions, own.directions, own.momentum_factors)
+    out, seconds = _timed(render_fn, *rays)
+    return plane_columns(out), seconds, render_fn.route
+
+
+def _card_rays(cfg, stride=1) -> tuple:
+    """Every ``stride``-th of the camera rays of ``cfg`` built on the card,
+    on the host: the rays the CPU route takes."""
+    args, _ = _sim_args(cfg)
+    return tuple(a[::stride].contiguous().cpu() for a in args[:3])
+
+
+def aux_full_width_cpu() -> tuple:
+    """Phase 3: phase 15's route on the CPU on every PLAIN_STRIDE-th ray
+    of its camera (built on the card) through FULL_GRID on the host:
+    (plane_columns, seconds, route, the rays' positions). Its time is not
+    comparable with a lone run."""
+    import torch
+    torch.set_num_threads(1)
+    cfg = _aux_full_config()
+    rays = _card_rays(cfg, PLAIN_STRIDE)
+    grid = full_width_snapshot(torch.float32, device=torch.device("cpu"))
+    return (*_scan(cfg, "cpu", grid, rays), rays[0].numpy())
+
+
+def aux_exact_card() -> dict:
+    """Phase 3: the 128^2 exact case on the card: the route's outputs with
+    every plane and the kernel route's (no plane), each with seconds."""
+    route = _scan(_aux_exact_config(**AUX_PLANES), "cuda")
+    kernel = _scan(_aux_exact_config(), "cuda")
+    return {"route": route, "kernel": kernel}
+
+
+def aux_exact_cpu() -> tuple:
+    """Phase 3: the 128^2 exact case's route on the CPU on every
+    AUX_EXACT_STRIDE-th ray of the card's camera."""
+    import torch
+    torch.set_num_threads(1)
+    cfg = _aux_exact_config(**AUX_PLANES)
+    return _scan(cfg, "cpu", rays=_card_rays(cfg, AUX_EXACT_STRIDE))
+
+
+def aux_pol_card() -> dict:
+    """Phase 3: the polarized case on the card, the scan route with
+    AUX_POL_PLANES and the K3.1 route (no plane)."""
+    route = _scan(_aux_pol_config(**AUX_POL_PLANES), "cuda")
+    kernel = _scan(_aux_pol_config(), "cuda")
+    return {"route": route, "kernel": kernel}
+
+
+def aux_pol_cpu() -> tuple:
+    """Phase 3: the polarized case's route on the CPU on the card's
+    camera rays."""
+    import torch
+    torch.set_num_threads(1)
+    cfg = _aux_pol_config(**AUX_POL_PLANES)
+    return _scan(cfg, "cpu", rays=_card_rays(cfg))
+
+
+def _aux_run(cfg) -> tuple:
+    """pipeline.run of ``cfg`` on the card, in a scratch directory: (the
+    arrays, seconds, kernel launches)."""
+    from blacklight_tpu_torch import pipeline
+    from blacklight_tpu_torch.ops import formula_kernel as fk
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+    with tempfile.TemporaryDirectory(dir=ROOT / "build" / "kernels") as tmp:
+        cfg.output_file = str(pathlib.Path(tmp) / "golden.npz")
+        _zero_counts(fk, sk, pk)
+        arrays, seconds = _timed(pipeline.run, cfg, quiet=True,
+                                 device="cuda")
+        launches = _launch_counts(fk, sk, pk)
+    return arrays, seconds, launches
+
+
+def aux_golden_formula() -> dict:
+    """Phase 3: golden_formula_aux_32 (dp, 7000 steps) through
+    pipeline.run on the card, at tests/test_formula_e2e.py:38-69's
+    tolerances."""
+    import numpy as np
+    arrays, seconds, launches = _aux_run(
+        _config("golden_formula_aux_32.input"))
+    gold = np.load(FIXTURES / "golden_formula_aux_32.npz")
+    result, ok = {}, True
+    for name, tol in (("time", 2e-2), ("length", 2e-2), ("lambda", 2e-2),
+                      ("emission", 1e-2)):
+        g = gold[name]
+        rel = np.abs(arrays[name] - g) / (np.abs(g)
+                                          + np.nanmax(np.abs(g)) * 1e-8)
+        result[name] = {"max_rel": float(np.nanmax(rel)), "tol": tol}
+        ok = ok and np.nanmax(rel) < tol
+    share = float(np.mean(arrays["crossings"] != gold["crossings"]))
+    result["crossings"] = {"share_differing": share, "tol": 0.02}
+    tau_ok = bool(np.allclose(arrays["tau"], gold["tau"], rtol=1e-7,
+                              atol=1e-300))
+    result["tau"] = {"identically_equal_to_gold": tau_ok}
+    return {"name": "golden_formula_aux_32", "seconds": seconds,
+            "launches": launches, **result,
+            "ok": bool(ok and share < 0.02 and tau_ok)}
+
+
+def aux_golden_sim_tau() -> dict:
+    """Phase 3: golden_sim_rk4_32.input with image_tau through
+    pipeline.run on the card against golden_sim_tau_rk4_32 (rtol 1e-8,
+    tests/test_simulation_e2e.py:119-123)."""
+    import numpy as np
+    arrays, seconds, launches = _aux_run(_sim_config(image_tau=True))
+    gold = np.load(FIXTURES / "golden_sim_tau_rk4_32.npz")["tau"]
+    ours = arrays["tau"]
+    rel = np.abs(ours - gold) / np.abs(gold)
+    ok = bool(np.array_equal(np.isnan(ours), np.isnan(gold))
+              and np.allclose(ours, gold, rtol=1e-8, atol=0.0,
+                              equal_nan=True))
+    return {"name": "golden_sim_tau_rk4_32", "seconds": seconds,
+            "launches": launches, "max_rel": float(np.nanmax(rel)),
+            "gate": "NaN sets, rtol 1e-8", "ok": ok}
+
+
+# Phase 15's jobs in phase 3's pool, by name.
+AUX_JOBS = (("pol_card", aux_pol_card), ("golden_formula", aux_golden_formula),
+            ("pol_cpu", aux_pol_cpu), ("exact_card", aux_exact_card),
+            ("full_cpu", aux_full_width_cpu), ("exact_cpu", aux_exact_cpu),
+            ("golden_sim_tau", aux_golden_sim_tau))
+
+
+def plane_gate(a, b) -> dict:
+    """The statistical gate on one plane column; equal columns (an
+    all-zero plane among them) pass as they are."""
+    import numpy as np
+    if np.array_equal(a, b, equal_nan=True):
+        return {"identical": True, "ok": True}
+    return statistical_gate(a, b)
+
+
+def exact_columns(ours: dict, ref: dict, rtol: float, floors=None) -> dict:
+    """Columns of two runs on the same rays: flags, n_samples, NaN sets
+    and crossings equal, the rest within ``rtol`` of ``ref`` over an
+    absolute floor of 1e-14 of each column's peak (``floors`` may set a
+    column's floor and rtol: {key: (floor, rtol)})."""
+    import numpy as np
+    result, ok = {}, True
+    for key, b in ref.items():
+        a = ours[key]
+        if b.dtype.kind != "f" or key == "crossings":
+            same = bool(np.array_equal(a, b))
+            result[key] = {"equal": same}
+            ok = ok and same
+            continue
+        peak = float(np.nanmax(np.abs(b))) if np.isfinite(b).any() else 0.0
+        floor, tol = (floors or {}).get(key, (1e-14 * peak, rtol))
+        with np.errstate(invalid="ignore", divide="ignore"):
+            rel = np.abs(a - b) / (np.abs(b) + floor)
+        worst = float(np.nanmax(rel)) if np.isfinite(rel).any() else 0.0
+        same_nan = bool(np.array_equal(np.isnan(a), np.isnan(b)))
+        result[key] = {"max_rel": worst, "rtol": tol, "same_nan": same_nan}
+        ok = ok and same_nan and worst <= tol
+    result["ok"] = bool(ok)
+    return result
+
+
+def phase_aux_planes(tmp: pathlib.Path, card: str, grids: dict, mono: dict,
+                     simulation: dict, aux: dict) -> None:
+    """Phase 15 (the module's docstring); ``mono`` and ``simulation``
+    are phase 7's arrays and kernels-line entry, ``aux`` phase 3's
+    AUX_JOBS results."""
+    import numpy as np
+    import torch
+    from blacklight_tpu_torch import pipeline
+    from blacklight_tpu_torch.ops import formula_kernel as fk
+    from blacklight_tpu_torch.ops import geodesic
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+    from blacklight_tpu_torch.pipeline_simulation import (
+        make_simulation_renderer)
+
+    cfg = _aux_full_config(output_file=str(tmp / "aux_full_width.npz"))
+    res = cfg.camera_resolution
+    render_fn, _, rays, _, _ = make_simulation_renderer(
+        _aux_full_config(ray_max_steps=AUX_WARM_STEPS), device="cuda",
+        grid=grids["float32"])
+    _, t_warm = _timed(render_fn, *(t[:AUX_WARM_RAYS] for t in (
+        rays.positions, rays.directions, rays.momentum_factors)))
+    route = render_fn.route
+    subset_positions = rays.positions[::PLAIN_STRIDE].cpu().numpy()
+    del render_fn, rays
+    cpu_cols, cpu_s, cpu_route, cpu_positions = aux["full_cpu"]
+    if route != "scan" or cpu_route != "scan":
+        raise RuntimeError(f"the aux planes took the {route} route")
+    if not np.array_equal(subset_positions, cpu_positions):
+        raise RuntimeError("phase 3's CPU route ran on other rays")
+
+    steps = [0]
+    step = geodesic.step
+
+    def counted(*args, **kwargs):
+        steps[0] += 1
+        return step(*args, **kwargs)
+
+    geodesic.step = counted
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _zero_counts(fk, sk, pk)
+        arrays, wall = _timed(pipeline.run, cfg, quiet=True, device="cuda",
+                              grid=grids["float32"])
+        launches = _launch_counts(fk, sk, pk)
+    finally:
+        geodesic.step = step
+    peak = torch.cuda.max_memory_allocated() - base
+    moved = [v for v in launches.values()
+             if (sum(v) if isinstance(v, list) else v)]
+    image = arrays["I_nu"]
+    if moved or image.shape != (res, res) \
+            or not np.isfinite(np.nanmax(image)):
+        raise RuntimeError(f"the aux route launched a kernel or its image "
+                           f"is wrong: {launches}")
+    kernel_gate = statistical_gate(image.ravel(), mono["I_nu"].ravel())
+    emit("aux_main_path", resolution=res, precision="float32",
+         integrator="rk4", max_steps=2000, planes=sorted(AUX_PLANES),
+         route=route, card=card, seconds=wall, steps=steps[0],
+         ms_per_step=wall / steps[0] * 1e3, warm_call_rays=AUX_WARM_RAYS,
+         warm_call_steps=AUX_WARM_STEPS, warm_call_s=t_warm, peak_device_bytes=peak, launches=launches,
+         phase7_kernel_ms=simulation["ms"],
+         route_over_kernel=wall * 1e3 / simulation["ms"],
+         i_nu_vs_kernel_image=kernel_gate,
+         nan_pixels=int(np.isnan(image).sum()))
+
+    ours = {k: arrays[k].ravel()[::PLAIN_STRIDE] for k in cpu_cols
+            if not k.startswith("_")}
+    gates = {}
+    for key, a in ours.items():
+        b = cpu_cols[key]
+        if key == "crossings":
+            share = float(np.mean(a == b))
+            gates[key] = {"share_equal": share,
+                          "ok": share >= AUX_CROSSINGS_SHARE}
+        else:
+            gates[key] = plane_gate(a, b)
+    subset_ok = all(g["ok"] for g in gates.values())
+    emit("aux_vs_cpu_route", rays=int(subset_positions.shape[0]),
+         cpu_route_s=cpu_s, workers=WORKERS, gates=gates,
+         ok=bool(subset_ok))
+
+    exact_card, exact_cpu = aux["exact_card"], aux["exact_cpu"]
+    route_cols, t_route, _ = exact_card["route"]
+    kernel_cols, t_kernel, _ = exact_card["kernel"]
+    vs_kernel = exact_columns(
+        {k: route_cols[k] for k in ("I_nu", "_flags", "_n_samples")},
+        {k: kernel_cols[k] for k in ("I_nu", "_flags", "_n_samples")},
+        1e-9)
+    stride = {k: v[::AUX_EXACT_STRIDE] for k, v in route_cols.items()}
+    vs_cpu = exact_columns(stride, exact_cpu[0], 1e-9)
+    emit("aux_exact_128", precision="float64", integrator="rk4",
+         route_s=t_route, kernel_route_s=t_kernel, cpu_route_s=exact_cpu[1],
+         cpu_rays=int(exact_cpu[0]["_flags"].shape[0]),
+         vs_kernel_route=vs_kernel, vs_cpu_route=vs_cpu)
+
+    goldens = [aux["golden_formula"], aux["golden_sim_tau"]]
+    for golden in goldens:
+        golden["ok"] = golden["ok"] and not any(
+            (sum(v) if isinstance(v, list) else v)
+            for v in golden["launches"].values())
+        emit("aux_golden", **golden)
+
+    pol_card, (pol_cpu, t_pol_cpu, _) = aux["pol_card"], aux["pol_cpu"]
+    pol_cols, t_pol, _ = pol_card["route"]
+    pol_kernel, t_pol_kernel, _ = pol_card["kernel"]
+    i_scale = float(np.nanmax(np.abs(pol_cpu["I_nu"])))
+    floors = {k: (max(float(np.nanmax(np.abs(pol_cpu[k]))) * 1e-4,
+                      i_scale * 1e-8), V_EXACT_RTOL if k == "V_nu" else 1e-9)
+              for k in STOKES}
+    pol_vs_cpu = exact_columns(pol_cols, pol_cpu, 1e-9, floors)
+    pol_vs_kernel = polarized_gate(
+        {k: pol_cols[k][:, None] for k in STOKES},
+        {k: pol_kernel[k][:, None] for k in STOKES}, exact=True)
+    pol_ok = pol_vs_kernel["ok"] and bool(
+        np.array_equal(pol_cols["_flags"], pol_kernel["_flags"])
+        and np.array_equal(pol_cols["_n_samples"], pol_kernel["_n_samples"]))
+    emit("aux_polarized", resolution=64, precision="float64",
+         integrator="rk4", planes=sorted(AUX_POL_PLANES), route_s=t_pol,
+         kernel_route_s=t_pol_kernel, cpu_route_s=t_pol_cpu,
+         vs_cpu_route=pol_vs_cpu, vs_kernel_route=pol_vs_kernel)
+
+    failed = [name for name, ok in (
+        ("I_nu against phase 7's kernel image", kernel_gate["ok"]),
+        ("full width against the CPU route", subset_ok),
+        ("128^2 against the kernel route", vs_kernel["ok"]),
+        ("128^2 against the CPU route", vs_cpu["ok"]),
+        *((g["name"], g["ok"]) for g in goldens),
+        ("polarized against the CPU route", pol_vs_cpu["ok"]),
+        ("polarized against the K3.1 route", pol_ok)) if not ok]
+    if failed:
+        raise RuntimeError(f"phase 15 failed: {failed}")
 
 
 def grid_bytes(grid) -> int:
@@ -2989,6 +3383,74 @@ def phase_fit(card: str):
                            "fall, or it ran no tangent kernel")
 
 
+# Phase 3's kernel-against-plain checks, emitted in this order.
+CHECKS = (
+    (check_formula_tangents, ("rk4", "float64")),
+    (check_formula_tangents, ("dp", "float32")),
+    (check_formula, ("dp", "float32")),
+    (check_formula, ("dp", "float64")),
+    (check_polarized, ("dp", "float32", False, 1)),
+    (check_polarized, ("rk2", "float32", True, 2)),
+    (check_formula, ("rk4", "float64")),
+    (check_simulation, ("dp", "float32")),
+    (check_simulation, ("dp", "float64")),
+    (check_polarized, ("rk4", "float64", False, 1)),
+    (check_formula, ("rk2", "float32")),
+    (check_simulation, ("rk4", "float64")),
+    (check_simulation, ("rk2", "float32")),
+    (check_simulation_phase, ("rk4", "float64")),
+    (check_simulation_phase, ("rk2", "float32")),
+    (check_mesh_derive, ("float64",)),
+    (check_mesh_polarized, ("interblock", "rk4", "float64")),
+    (check_mesh_polarized, ("nearest", "rk2", "float32")),
+    (check_mesh_simulation, ("interblock", "rk4", "float64", 1)),
+    (check_mesh_simulation, ("interblock", "rk2", "float64", 3)),
+    (check_mesh_simulation, ("interblock", "dp", "float32", 1)),
+    (check_mesh_simulation, ("interblock", "dp", "float64", 1)),
+    (check_mesh_simulation, ("nearest", "rk4", "float64", 3)),
+    (check_mesh_simulation, ("nearest", "rk2", "float32", 1)))
+MESH_PHASE_CHECKS = (("interblock", "rk4", "float64"),
+                     ("nearest", "rk2", "float32"))
+FORMULA_CELLS = ("k13", "k14", "k11")
+# Seconds of phase 3's longer jobs in a pool of 7 on an H100 host (my chip
+# run of the port with phase 15, chip_smoke.py's job and plain times), by
+# (function name, arguments): the pool starts the longest first, so that
+# no long job starts last.
+PHASE3_SECONDS = {
+    ("check_formula_tangents", ("dp", "float32")): 208.4,
+    ("aux_pol_card", ()): 201.0,
+    ("check_formula", ("dp", "float32")): 199.8,
+    ("formula_plain_subset", ("k13",)): 190.6,
+    ("formula_plain_subset", ("k14",)): 189.5,
+    ("formula_plain_subset", ("k11",)): 183.3,
+    ("check_formula", ("dp", "float64")): 176.9,
+    ("pol_full_width_truth", ()): 150.1,
+    ("aux_golden_formula", ()): 128.9,
+    ("check_formula_tangents", ("rk4", "float64")): 128.2,
+    ("check_formula", ("rk4", "float64")): 120.6,
+    ("mesh_plain_subset", ("mb_amr", "float64")): 112.3,
+    ("mesh_plain_subset", ("mb_amr", "float32")): 95.6,
+    ("aux_pol_cpu", ()): 95.3,
+    ("check_simulation", ("dp", "float64")): 90.9,
+    ("check_simulation", ("dp", "float32")): 86.0,
+    ("mesh_plain_subset", ("mb_uniform", "float64")): 76.1,
+    ("check_simulation", ("rk4", "float64")): 74.9,
+    ("check_formula", ("rk2", "float32")): 62.0,
+    ("check_mesh_polarized", ("interblock", "rk4", "float64")): 58.7,
+    ("mesh_plain_subset", ("nearest", "float64")): 56.5,
+    ("check_polarized", ("rk4", "float64", False, 1)): 56.1,
+    ("mesh_phase_plain_subset", ()): 54.6,
+    ("aux_exact_card", ()): 53.3,
+    ("check_polarized", ("dp", "float32", False, 1)): 53.3,
+    ("check_simulation", ("rk2", "float32")): 52.1,
+    ("mesh_plain_subset", ("nearest", "float32")): 51.2,
+    ("mesh_plain_subset", ("mb_uniform", "float32")): 45.6,
+    ("aux_full_width_cpu", ()): 42.1,
+    ("check_simulation_phase", ("rk4", "float64")): 37.6,
+    ("aux_exact_cpu", ()): 36.9,
+}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--chunk-sweep", action="store_true",
@@ -3002,7 +3464,7 @@ def main(argv=None) -> int:
         phase_pol_chunks(card, full_width_snapshot(torch.float32))
     else:
         with multiprocessing.get_context("spawn").Pool(WORKERS) as pool:
-            truth, subsets, pol_stages, mesh_checks = phase_checks(pool)
+            truth, subsets, pol_stages, mesh_checks, aux = phase_checks(pool)
         with tempfile.TemporaryDirectory(dir=ROOT / "build" / "kernels") \
                 as tmp:
             tmp = pathlib.Path(tmp)
@@ -3014,6 +3476,7 @@ def main(argv=None) -> int:
             phased = phase_phased_full_width(tmp, card, grids, mono)
             mesh = phase_mesh_blocks(tmp, card, grids, mesh_checks["plain"],
                                      mesh_checks)
+            phase_aux_planes(tmp, card, grids, mono, simulation, aux)
             phase_pol_goldens(tmp)
             polarized = phase_pol_full_width(tmp, card, grids, truth,
                                              pol_stages)

@@ -1,8 +1,8 @@
 """PyTorch port: the 32^2 formula, simulation and polarized goldens
 through pipeline.run or the CLI on the CPU, at the tolerances of
 test_formula_e2e.py, test_simulation_e2e.py and test_polarized_e2e.py
-(reference-binary outputs), and the CLI's npz against the JAX
-package's."""
+(reference-binary outputs), the auxiliary image planes' goldens among
+them, and the CLI's npz against the JAX package's."""
 
 import numpy as np
 import pytest
@@ -58,6 +58,38 @@ def test_amr_rk4_exact_parity(fixtures_dir, tmp_path):
     scale = np.nanmax(np.abs(gold))
     rel = np.abs(ours - gold) / (np.abs(gold) + scale * 1e-8)
     assert np.nanmax(rel) < 1e-8, np.nanmax(rel)
+
+
+def test_formula_aux_images(fixtures_dir, tmp_path):
+    """golden_formula_aux_32 (dp, 7000 steps) through the scan route, at
+    the tolerances of tests/test_formula_e2e.py:38-69."""
+    cfg = read_config(str(fixtures_dir / "golden_formula_aux_32.input"))
+    cfg.output_file = str(tmp_path / "golden_formula_aux_32.npz")
+    arrays = pipeline.run(cfg, quiet=True, device="cpu")
+    gold = np.load(fixtures_dir / "golden_formula_aux_32.npz")
+    for name, tol in (("time", 2e-2), ("length", 2e-2), ("lambda", 2e-2),
+                      ("emission", 1e-2)):
+        g = gold[name]
+        rel = np.abs(arrays[name] - g) / (np.abs(g)
+                                          + np.nanmax(np.abs(g)) * 1e-8)
+        assert np.nanmax(rel) < tol, (name, np.nanmax(rel))
+    # integer counts; a handful of pixels may differ by one where a
+    # crossing lands within a sample spacing of a path's end
+    assert np.mean(arrays["crossings"] != gold["crossings"]) < 0.02
+    # tau is identically zero here (formula_a = 0)
+    np.testing.assert_allclose(arrays["tau"], gold["tau"], atol=1e-300)
+
+
+def test_thermal_tau_parity(fixtures_dir, tmp_path):
+    """golden_sim_rk4_32.input with image_tau against
+    golden_sim_tau_rk4_32 (tests/test_simulation_e2e.py:119-123)."""
+    cfg = read_config(str(fixtures_dir / "golden_sim_rk4_32.input"))
+    cfg.output_file = str(tmp_path / "golden_sim_tau_rk4_32.npz")
+    cfg.simulation_file = str(fixtures_dir / "mock_small.athdf")
+    cfg.image_tau = True
+    ours = pipeline.run(cfg, quiet=True, device="cpu")["tau"]
+    gold = np.load(fixtures_dir / "golden_sim_tau_rk4_32.npz")["tau"]
+    np.testing.assert_allclose(ours, gold, rtol=1e-8)
 
 
 def test_simulation_dp_quadrature_parity(fixtures_dir, tmp_path):

@@ -118,16 +118,6 @@ def test_npy_output(tmp_path):
 OUT_OF_SLICE = {
     "simulation": ({"model_type": "simulation", "image_polarization": False},
                    "ROADMAP B"),
-    "no_light": ({"image_light": False}, "A.5"),
-    "time": ({"image_time": True}, "A.5"),
-    "length": ({"image_length": True}, "A.5"),
-    "lambda": ({"image_lambda": True}, "A.5"),
-    "emission": ({"image_emission": True}, "A.5"),
-    "tau": ({"image_tau": True}, "A.5"),
-    "lambda_ave": ({"image_lambda_ave": True}, "A.5"),
-    "emission_ave": ({"image_emission_ave": True}, "A.5"),
-    "tau_int": ({"image_tau_int": True}, "A.5"),
-    "crossings": ({"image_crossings": True}, "A.5"),
     "adaptive": ({"adaptive_max_level": 1}, "A.9"),
     "geodesic_save": ({"checkpoint_geodesic_save": True,
                        "checkpoint_geodesic_file": "g.npz"}, "A.8"),
@@ -135,7 +125,6 @@ OUT_OF_SLICE = {
                        "checkpoint_geodesic_file": "g.npz"}, "A.8"),
     "sample_save": ({"checkpoint_sample_save": True}, "A.8"),
     "sample_load": ({"checkpoint_sample_load": True}, "A.8"),
-    "polarization": ({"image_polarization": True, "image_tau": True}, "A.5"),
     "rendering": ({"render_num_images": 1}, "D.1"),
 }
 

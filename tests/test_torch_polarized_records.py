@@ -24,6 +24,7 @@ from blacklight_tpu.utils.config import parse_config as jax_parse_config
 from blacklight_tpu_torch import interop, parse_config, pipeline_simulation
 from blacklight_tpu_torch.ops import polarized_kernel as pk
 from blacklight_tpu_torch.transfer import polarized as tp
+from blacklight_tpu_torch.transfer import unpolarized as tu
 
 torch.set_num_threads(2)
 
@@ -375,7 +376,7 @@ def test_derive_and_chain_match_per_ray_loop(traced):
     nn = pk.chain_records_reference(samples, counts, lengths, offsets,
                                     geometry, coefficients, 2, False)
     assert nn.shape == (b, 2, 16)
-    x_unit = pk._x_unit(mass_msun)
+    x_unit = tu.x_unit(mass_msun)
     zero = torch.zeros(1, dtype=torch.float64)
     for ray in range(0, b, 7):
         n = int(counts[ray])

@@ -242,9 +242,6 @@ OUT_OF_SLICE = {
                "plasma_w": 0.5}, "B.2"),
     "code_kappa": ({"plasma_model": "code_kappa",
                     "simulation_kappa_name": "kappa"}, "B.2"),
-    "polarization": ({"image_polarization": "true", "image_tau": "true"},
-                     "A.5"),
-    "aux_image": ({"image_tau": "true"}, "A.5"),
     "adaptive": ({"adaptive_max_level": 1, "adaptive_block_size": 4,
                   "adaptive_num_regions": 0}, "A.9"),
 }
