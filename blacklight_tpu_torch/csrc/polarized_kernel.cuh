@@ -1,7 +1,8 @@
 // Polarized (full-Stokes IQUV) simulation-model ray tracer for NVIDIA
 // Hopper (sm_90a) in three stages: geodesic steps, GRMHD grid sampling,
-// thermal polarized synchrotron coefficients and coherency-tensor
-// transfer with tetrad-frame matter coupling.
+// polarized synchrotron coefficients (thermal, or mixed with power-law
+// and kappa electrons) and coherency-tensor transfer with tetrad-frame
+// matter coupling.
 //
 // Replaces the TPU kernel blacklight_tpu/ops/pallas_polarized.py
 // _make_kernel (:286, launched by render_polarized :727, call :787; K3.1)
@@ -53,12 +54,19 @@
 // once (~0.12 s of traffic for a 1024^2 image of 721 samples a ray at
 // 3.35 TB/s), which bound the derive and chain kernels.
 //
-// The instantiations live in four translation units that nvcc builds side
-// by side, none with multiply-add contraction (ops/_build.py), so that
-// each operation rounds as the plain version's does: polarized_trace.cu
-// (the trace kernel, every type and integrator), polarized_derive.cu and
-// polarized_derive_f64.cu (the derive kernel in float and double) and
-// polarized_chain.cu (the chain kernel and the C interface).
+// The instantiations live in translation units that nvcc builds side by
+// side, none with multiply-add contraction (ops/_build.py), so that each
+// operation rounds as the plain version's does: polarized_trace.cu (the
+// trace kernel, every type and integrator), polarized_derive.cu and
+// polarized_derive_f64.cu (the derive kernel in float and double),
+// polarized_derive_blocks.cu (on many mesh blocks) and polarized_chain.cu
+// (the chain kernel and the C interface). The derive kernel of the
+// thermal, power-law and kappa populations summed
+// (polarized_derive_mixture_kernel, POP_MIXTURE: mixture_polarized, with
+// the populations' constants after the parameter vector) lives in units
+// of its own, polarized_derive_mixture{,_f64,_blocks}.cu, so that the
+// thermal units compile as they did; the trace and chain kernels do not
+// depend on the population (a record holds the same eight coefficients).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -306,6 +314,167 @@ __device__ __forceinline__ PolCoeffs<T> thermal_polarized(const SimConsts<T>& c,
   const bool cold = theta_e < T(THETA_E_ZERO);
   o.rho_q = coefficient_q * (cold ? T(0) : factor_q);
   o.rho_v = coefficient_v * (cold ? T(1) : factor_v);
+  return o;
+}
+
+// ---- the power-law and kappa populations, polarized ------------------------
+// models/synchrotron.py powerlaw_coefficients (:556-641) and
+// kappa_coefficients (:665-748) with polarized=True, and their sum with the
+// thermal coefficients (all_coefficients :751-782). float64 keeps the
+// reference's literal forms (inf and NaN at exactly degenerate cells flag
+// the sample), float32 the hardened ones (floors, sin clamped into
+// [1e-6, 1 - 1e-7] in its fractional powers, 0 * inf cancelled).
+template <typename T>
+__device__ __forceinline__ PolCoeffs<T> powerlaw_polarized(const MixConsts<T>& m,
+                                                           const PolCell<T>& pc, T r2,
+                                                           T nu_cgs) {
+  using Forms = TypeForms<T>;
+  const T n_e = pc.n_e, nu_c = pc.nu_c, sin_b = pc.sin_b, cos_b = pc.cos_b;
+  const T ncs = jmax(nu_c * sin_b, Forms::pop_floor());
+  const T sin_c = Forms::F64 ? sin_b : jmin(jmax(sin_b, T(1e-6)), T(1.0 - 1e-7));
+  const T ratio = nu_cgs / ncs;
+  const T frac = m[M_PL_FRAC];
+  PolCoeffs<T> o;
+  const T var_a = pow_s(ratio, m[M_PL_J_EXP]);
+  const T coeff_j = frac * n_e * nu_c * r2 * m[M_PL_JJ] * sin_b * var_a;
+  o.j_i = coeff_j;
+  o.j_q = coeff_j * m[M_PL_JJ_Q];
+  if constexpr (Forms::F64) {
+    const T var_b = cos_b / sin_b;
+    const T var_c = T(1) / m_sqrt(nu_cgs / (T(3) * nu_c * sin_b));
+    o.j_v = coeff_j * m[M_PL_JJ_V] * var_b * var_c;
+  } else {
+    // (cos / sin) sqrt(3 nu_c sin / nu) with sin cancelled
+    const T arg = T(3) * ncs / nu_cgs;
+    const T root = arg > T(1e-30) ? m_sqrt(arg) : T(0);
+    const T coeff_j_nosin = frac * n_e * nu_c * r2 * m[M_PL_JJ] * var_a;
+    o.j_v = coeff_j_nosin * m[M_PL_JJ_V] * cos_b * root;
+  }
+  const T coeff_a = frac * n_e * m[M_KA] * m[M_PL_AA] * pow_s(ratio, m[M_PL_A_EXP]);
+  o.a_i = coeff_a;
+  const T var_b2 = pow_s(pow_s(sin_c, T(-1.92)) * T(3.1) - T(3.1), T(0.512));
+  const T var_c2 = T(1) / m_sqrt(ratio);
+  o.a_q = coeff_a * m[M_PL_AA_Q];
+  o.a_v = coeff_a * m[M_PL_AA_V] * var_b2 * var_c2 * cos_sign(cos_b);
+  const T e3_arg = T(2) * nu_c * m[M_PL_GMIN2] * sin_b / (T(3) * nu_cgs);
+  if constexpr (Forms::F64) {
+    // rotativities (M 40-42), literal forms
+    const T var_a3 = n_e * m[M_KA] * nu_cgs / (nu_c * sin_b);
+    const T var_b3 = nu_c * sin_b / nu_cgs;
+    const T var_c3 = var_b3 * var_b3;
+    const T var_d3 = var_c3 * var_b3;
+    const T var_e3 = T(1) - pow_s(e3_arg, m[M_PL_E3_EXP]);
+    const T var_f3 = cos_b / sin_b;
+    const T coeff_r = m[M_PL_FRAC_RHO] * var_a3;
+    o.rho_q = coeff_r * m[M_PL_RHO_Q] * var_d3 * var_e3;
+    o.rho_v = coeff_r * m[M_PL_RHO_V] * var_c3 * var_f3;
+  } else {
+    // the 1 / (nu_c sin) of var_a3 cancelled into var_d3 and var_c3
+    const T var_e3 = T(1) - pow_s(jmax(e3_arg, T(1e-20)), m[M_PL_E3_EXP]);
+    const T coeff_r = m[M_PL_FRAC_RHO] * n_e * m[M_KA];
+    const T q = ncs / nu_cgs;
+    o.rho_q = coeff_r * m[M_PL_RHO_Q] * (q * q) * var_e3;
+    o.rho_v = coeff_r * m[M_PL_RHO_V] * nu_c * cos_b / nu_cgs;
+  }
+  return o;
+}
+
+// One bracket's rho_Q and rho_V terms of the kappa rotativities.
+template <typename T>
+__device__ __forceinline__ T kappa_rho_q_term(T var_a3, T xx, T a, T b, T c, T d, T e) {
+  return var_a3 * a *
+         (T(1) - m_exp(pow_s(xx, T(0.84)) * b) - m_sin(xx * c) * m_exp(pow_s(xx, e) * d));
+}
+
+template <typename T>
+__device__ __forceinline__ T kappa_rho_v_term(T rho_v, T var_b3, T var_c3, T a, T bb) {
+  return var_b3 * rho_v * a * (T(1) - m_log1p(var_c3 * bb) * T(0.17));
+}
+
+template <typename T>
+__device__ __forceinline__ PolCoeffs<T> kappa_polarized(const MixConsts<T>& m,
+                                                        const PolCell<T>& pc, T r2,
+                                                        T nu_cgs) {
+  using Forms = TypeForms<T>;
+  const T n_e = pc.n_e, nu_c = pc.nu_c, sin_b = pc.sin_b, cos_b = pc.cos_b;
+  const KappaTerms<T> k = kappa_terms(m, r2, nu_cgs, n_e, nu_c, sin_b);
+  const T xx = k.xx;
+  const T sin_cl = Forms::F64 ? sin_b : jmin(jmax(sin_b, T(1e-6)), T(1.0 - 1e-7));
+  const T sign = cos_sign(cos_b);
+  PolCoeffs<T> o;
+  o.j_i = bridge(k.c_low, k.c_high, m[M_KP_X_JI], m[M_KP_NX_JI]);
+  const T var_d = pow_s(pow_s(sin_cl, T(-2.4)) - T(1), T(0.48));
+  const T var_e = pow_s(xx, T(-0.35));
+  const T var_f = pow_s(pow_s(sin_cl, T(-2.5)) - T(1), T(0.44));
+  const T var_g = T(1) / m_sqrt(xx);
+  o.j_q = -bridge(k.c_low * m[M_KP_JJ_LOW_Q], k.c_high * m[M_KP_JJ_HIGH_Q], m[M_KP_X_JQ],
+                  m[M_KP_NX_JQ]);
+  o.j_v = bridge(k.c_low * m[M_KP_JJ_LOW_V] * var_d * var_e,
+                 k.c_high * m[M_KP_JJ_HIGH_V] * var_f * var_g, m[M_KP_X_JV], m[M_KP_NX_JV]) *
+          sign;
+  o.a_i = bridge(k.a_low, k.a_high * m[M_KP_AA_HIGH_I], m[M_KP_X_AI], m[M_KP_NX_AI]);
+  const T var_d2 = pow_s(pow_s(sin_cl, T(-2.28)) - T(1), T(0.446));
+  const T var_e2 = pow_s(xx, T(-0.35));
+  const T var_f2 = m_sqrt(pow_s(sin_cl, T(-2.05)) - T(1));
+  const T var_g2 = T(1) / m_sqrt(xx);
+  o.a_q = -bridge(k.a_low * m[M_KP_AA_LOW_Q], k.a_high * m[M_KP_AA_HIGH_Q], m[M_KP_X_AQ],
+                  m[M_KP_NX_AQ]);
+  o.a_v = bridge(k.a_low * m[M_KP_AA_LOW_V] * var_d2 * var_e2,
+                 k.a_high * m[M_KP_AA_HIGH_V] * var_f2 * var_g2, m[M_KP_X_AV], m[M_KP_NX_AV]) *
+          sign;
+
+  // rotativities (M 51-54), blended between the kappa brackets
+  const T var_a3 =
+      m[M_KP_NEG_FRAC] * n_e * m[M_KA] * (nu_c * nu_c) * pc.sin2_b / (nu_cgs * nu_cgs);
+  const T var_b3 = m[M_KP_TWO_FRAC] * n_e * m[M_KA] * nu_c * cos_b / nu_cgs;
+  const T var_c3 = T(1) / m_sqrt(xx);
+  o.rho_q = m[M_KP_RHO_1M_FRAC] * kappa_rho_q_term(var_a3, xx, m[M_KP_QL_A], m[M_KP_QL_B],
+                                                   m[M_KP_QL_C], m[M_KP_QL_D], m[M_KP_QL_E]) +
+            m[M_KP_RHO_FRAC] * kappa_rho_q_term(var_a3, xx, m[M_KP_QH_A], m[M_KP_QH_B],
+                                                m[M_KP_QH_C], m[M_KP_QH_D], m[M_KP_QH_E]);
+  o.rho_v = m[M_KP_RHO_1M_FRAC] *
+                kappa_rho_v_term(m[M_KP_RHO_V], var_b3, var_c3, m[M_KP_VL_A], m[M_KP_VL_B]) +
+            m[M_KP_RHO_FRAC] *
+                kappa_rho_v_term(m[M_KP_RHO_V], var_b3, var_c3, m[M_KP_VH_A], m[M_KP_VH_B]);
+  return o;
+}
+
+template <typename T>
+__device__ __forceinline__ void add_coeffs(PolCoeffs<T>& o, const PolCoeffs<T>& p, bool have) {
+  if (!have) {
+    o = p;
+    return;
+  }
+  o.j_i = o.j_i + p.j_i;
+  o.j_q = o.j_q + p.j_q;
+  o.j_v = o.j_v + p.j_v;
+  o.a_i = o.a_i + p.a_i;
+  o.a_q = o.a_q + p.a_q;
+  o.a_v = o.a_v + p.a_v;
+  o.rho_q = o.rho_q + p.rho_q;
+  o.rho_v = o.rho_v + p.rho_v;
+}
+
+// The eight coefficients of the mixture at one fluid-frame frequency: the
+// thermal ones where the thermal fraction is not 0, then the power-law
+// and the kappa ones where theirs are not, summed in that order.
+template <typename T>
+__device__ __forceinline__ PolCoeffs<T> mixture_polarized(const MixConsts<T>& m,
+                                                          const SimConsts<T>& c, T e_squared,
+                                                          T me_c, const PolCell<T>& pc,
+                                                          T nu_cgs) {
+  PolCoeffs<T> o = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
+  bool have = false;
+  if (m.on(M_THERMAL_ON)) {
+    o = thermal_polarized(c, e_squared, me_c, pc, nu_cgs);
+    have = true;
+  }
+  const T r2 = nu0_ratio_sq(c, nu_cgs);
+  if (m.on(M_POWER_ON)) {
+    add_coeffs(o, powerlaw_polarized(m, pc, r2, nu_cgs), have);
+    have = true;
+  }
+  if (m.on(M_KAPPA_ON)) add_coeffs(o, kappa_polarized(m, pc, r2, nu_cgs), have);
   return o;
 }
 
@@ -920,7 +1089,7 @@ struct DeriveBlocks {
 // sample the reference would NaN (its coefficients are zeroed). The grid
 // is sampled in MODE (sim_sample.cuh SAMPLE_*); g is the thread's index.
 // The set and the grid by value, as the kernels' parameters are taken.
-template <typename T, bool GEOMETRY, int MODE>
+template <typename T, bool GEOMETRY, int MODE, int POP = POP_THERMAL>
 __device__ __forceinline__ void derive_sample(long long g, SampleSet<T> set, long long n_slots,
                                               const T* __restrict__ directions,
                                               const T* __restrict__ momentum_factors,
@@ -1093,7 +1262,12 @@ __device__ __forceinline__ void derive_sample(long long g, SampleSet<T> set, lon
     bool cbad = bad0;
     if (keep) {
       const T nu_cgs = -cell.u_dot_k * nu * mom;
-      k = thermal_polarized(c, pk.e_squared, pk.me_c, cell, nu_cgs);
+      if constexpr (POP == POP_MIXTURE) {
+        k = mixture_polarized(MixConsts<T>(params + P_COUNT), c, pk.e_squared, pk.me_c, cell,
+                              nu_cgs);
+      } else {
+        k = thermal_polarized(c, pk.e_squared, pk.me_c, cell, nu_cgs);
+      }
       cbad = cbad || !(m_isfinite(k.j_i) && m_isfinite(k.j_q) && m_isfinite(k.j_v) &&
                        m_isfinite(k.a_i) && m_isfinite(k.a_q) && m_isfinite(k.a_v) &&
                        m_isfinite(k.rho_q) && m_isfinite(k.rho_v));
@@ -1144,6 +1318,23 @@ __global__ void __launch_bounds__(POL_THREADS, DeriveBlocks<T>::value)
                                  T* __restrict__ geometry, T* __restrict__ coefficients,
                                  int* __restrict__ bad) {
   derive_sample<T, GEOMETRY, MODE>(
+      static_cast<long long>(blockIdx.x) * POL_THREADS + threadIdx.x, set, n_slots, directions,
+      momentum_factors, freqs, nf, params, grid, geometry, coefficients, bad);
+}
+
+// The derive kernel of the mixture population (POP_MIXTURE) on one block or
+// many, in any mode, instantiated in polarized_derive_mixture*.cu; params
+// holds the MixtureParam values after P_COUNT.
+template <typename T, bool GEOMETRY, int MODE>
+__global__ void __launch_bounds__(POL_THREADS, DeriveBlocks<T>::value)
+    polarized_derive_mixture_kernel(SampleSet<T> set, long long n_slots,
+                                    const T* __restrict__ directions,
+                                    const T* __restrict__ momentum_factors,
+                                    const T* __restrict__ freqs, int nf,
+                                    const double* __restrict__ params,
+                                    SampleGrid<T, MODE> grid, T* __restrict__ geometry,
+                                    T* __restrict__ coefficients, int* __restrict__ bad) {
+  derive_sample<T, GEOMETRY, MODE, POP_MIXTURE>(
       static_cast<long long>(blockIdx.x) * POL_THREADS + threadIdx.x, set, n_slots, directions,
       momentum_factors, freqs, nf, params, grid, geometry, coefficients, bad);
 }
@@ -1310,12 +1501,20 @@ cudaError_t launch_polarized_trace(const PolTraceArgs& a) {
 }
 
 // MODE SAMPLE_SINGLE launches polarized_derive_kernel, the others
-// polarized_derive_mode_kernel.
-template <typename T, int MODE = SAMPLE_SINGLE>
+// polarized_derive_mode_kernel; POP_MIXTURE polarized_derive_mixture_kernel.
+template <typename T, int MODE = SAMPLE_SINGLE, int POP = POP_THERMAL>
 cudaError_t launch_polarized_derive(const PolDeriveArgs& a) {
   const long long threads = a.n_slots * POL_WARP;
   const unsigned blocks = static_cast<unsigned>((threads + POL_THREADS - 1) / POL_THREADS);
-  if constexpr (MODE == SAMPLE_SINGLE) {
+  if constexpr (POP == POP_MIXTURE) {
+    auto kernel = a.geometry ? polarized_derive_mixture_kernel<T, true, MODE>
+                             : polarized_derive_mixture_kernel<T, false, MODE>;
+    kernel<<<blocks, POL_THREADS, 0, a.stream>>>(
+        a.set.view<T>(), a.n_slots, static_cast<const T*>(a.directions),
+        static_cast<const T*>(a.momentum_factors), static_cast<const T*>(a.freqs), a.nf,
+        a.params, grid_view_of<T, MODE>(a.grid), static_cast<T*>(a.geometry_records),
+        static_cast<T*>(a.coefficient_records), a.bad);
+  } else if constexpr (MODE == SAMPLE_SINGLE) {
     auto kernel =
         a.geometry ? polarized_derive_kernel<T, true> : polarized_derive_kernel<T, false>;
     kernel<<<blocks, POL_THREADS, 0, a.stream>>>(
@@ -1357,5 +1556,11 @@ cudaError_t launch_polarized_derive_f64(const PolDeriveArgs& a);
 // The derive kernel on many blocks (a.grid.mode SAMPLE_BLOCKS or
 // SAMPLE_INTERBLOCK) in either type (polarized_derive_blocks.cu).
 cudaError_t launch_polarized_derive_blocks(int dtype_code, const PolDeriveArgs& a);
+// The mixture's derive kernel on one block in float
+// (polarized_derive_mixture.cu, with its C interface) and double
+// (polarized_derive_mixture_f64.cu), and on many blocks in either
+// (polarized_derive_mixture_blocks.cu).
+cudaError_t launch_polarized_derive_mixture_f64(const PolDeriveArgs& a);
+cudaError_t launch_polarized_derive_mixture_blocks(int dtype_code, const PolDeriveArgs& a);
 
 }  // namespace bl

@@ -1,7 +1,8 @@
 // What the simulation-model kernels do at one stored sample before the
 // transfer: CKS -> SKS, the cell search and trilinear blend of the GRMHD
 // table, the fluid state, the value cuts, u and b in CKS, the pitch angle
-// and the thermal j_I / alpha_I. The unpolarized kernel
+// and the thermal j_I / alpha_I, or their sum with the power-law and kappa
+// populations' (a compile-time population, POP_THERMAL or POP_MIXTURE). The unpolarized kernel
 // (simulation_kernel.cuh) and the polarized one (polarized_kernel.cuh)
 // both call these, so the two cannot drift.
 //
@@ -40,6 +41,10 @@ struct TypeForms<float> {
   static __device__ __forceinline__ float coupling_sqrt_floor() { return 1e-16f; }
   static __device__ __forceinline__ float coupling_exp_max() { return 80.0f; }
   static __device__ __forceinline__ float coupling_recip_guard() { return 1e-16f; }
+  // the power-law and kappa populations: the floor of nu_c sin and
+  // nu_kappa, the bridge's floor of its larger term
+  static __device__ __forceinline__ float pop_floor() { return 1e-12f; }
+  static __device__ __forceinline__ float bridge_floor() { return 1e-18f; }
 };
 template <>
 struct TypeForms<double> {
@@ -51,6 +56,8 @@ struct TypeForms<double> {
   static __device__ __forceinline__ double coupling_sqrt_floor() { return 1e-40; }
   static __device__ __forceinline__ double coupling_exp_max() { return 705.0; }
   static __device__ __forceinline__ double coupling_recip_guard() { return 0.0; }
+  static __device__ __forceinline__ double pop_floor() { return 1e-300; }
+  static __device__ __forceinline__ double bridge_floor() { return 1e-150; }
 };
 
 // Tag of SimConsts' constructor from launch constants the host already
@@ -691,6 +698,16 @@ struct SimGridArgs {
   }
 };
 
+// The view of the snapshot a kernel of MODE takes.
+template <typename T, int MODE>
+SampleGrid<T, MODE> grid_view_of(const SimGridArgs& g) {
+  if constexpr (MODE == SAMPLE_SINGLE) {
+    return g.view<T>();
+  } else {
+    return g.block_view<T>();
+  }
+}
+
 // CGS fluid state and SKS four-vectors from sampled primitives
 // (models/synchrotron.py fluid_state, ops/sks.py).
 template <typename T>
@@ -875,6 +892,138 @@ __device__ __forceinline__ ThermalI<T> thermal_i(const SimConsts<T>& c, T nu_cgs
   t.trap = m_isinf((T(1) / (t.alpha * t.alpha)));
   if (t.trap) t.alpha = T(0);
   return t;
+}
+
+// ---------------------------------------------------------------------------
+// The power-law and kappa populations (models/synchrotron.py
+// powerlaw_coefficients :556-641, _bridge, kappa_coefficients :665-748,
+// all_coefficients :751-782), beside the thermal one. A kernel sums them
+// only in its POP_MIXTURE instantiations, which live in units of their
+// own; the POP_THERMAL ones are the kernels as they were.
+constexpr int POP_THERMAL = 0;
+constexpr int POP_MIXTURE = 1;
+
+// The MixtureParam constants of a launch, each rounded once to T: from
+// the float64 vector in device memory (the polarized derive kernel), or
+// from launch constants the host already rounded to T (the simulation
+// kernels, which then read them from the constant bank).
+template <typename T>
+struct MixConsts {
+  T v[M_COUNT];
+
+  __device__ explicit MixConsts(const double* p) {
+#pragma unroll
+    for (int m = 0; m < M_COUNT; ++m) v[m] = T(p[m]);
+  }
+  __device__ MixConsts(const T* p, RoundedConsts) {
+#pragma unroll
+    for (int m = 0; m < M_COUNT; ++m) v[m] = p[m];
+  }
+  __device__ __forceinline__ T operator[](int m) const { return v[m]; }
+  __device__ __forceinline__ bool on(int m) const { return v[m] != T(0); }
+};
+
+// torch.pow(x, e) of a scalar exponent as PyTorch evaluates it: its
+// special exponents by their own forms, the rest by pow.
+template <typename T>
+__device__ __forceinline__ T pow_s(T x, T e) {
+  if (e == T(0.5)) return m_sqrt(x);
+  if (e == T(1)) return x;
+  if (e == T(2)) return x * x;
+  if (e == T(3)) return x * x * x;
+  if (e == T(-0.5)) return T(1) / m_sqrt(x);
+  if (e == T(-1)) return T(1) / x;
+  if (e == T(-2)) return T(1) / (x * x);
+  return m_pow(x, e);
+}
+
+// models/synchrotron.py cbrt: the real cube root, odd in x.
+template <typename T>
+__device__ __forceinline__ T cbrt_s(T x) {
+  return m_copysign(m_pow(m_abs(x), T(1.0 / 3.0)), x);
+}
+
+// sign(cos theta_B) as the coefficients take it: +1 where cos >= 0.
+template <typename T>
+__device__ __forceinline__ T cos_sign(T cos_b) {
+  return cos_b >= T(0) ? T(1) : T(-1);
+}
+
+// The bridge (low^-x + high^-x)^(-1/x) as m (1 + (m / M)^x)^(-1/x)
+// (models/synchrotron.py _bridge); nx = -1 / x, folded on the host. NaN
+// propagates through the min and max, as torch.minimum's does.
+template <typename T>
+__device__ __forceinline__ T bridge(T low, T high, T x, T nx) {
+  const T mn = jmin(low, high);
+  const T mx = jmax(low, high);
+  const bool ok = mx > TypeForms<T>::bridge_floor();
+  const T r = (ok ? mn : T(0)) / (ok ? mx : T(1));
+  const bool pos = r > T(1e-30);
+  const T rx = pos ? pow_s(r, x) : T(0);
+  return mn * pow_s(T(1) + rx, nx);
+}
+
+// What the power-law and kappa coefficients share at one frequency:
+// (nu0 / nu_cgs)^2 in torch's form of a scalar numerator.
+template <typename T>
+__device__ __forceinline__ T nu0_ratio_sq(const SimConsts<T>& c, T nu_cgs) {
+  const T ratio = (T(1) / nu_cgs) * c.nu0;
+  return ratio * ratio;
+}
+
+// The kappa population's xx = nu / nu_kappa and the two bracket terms of
+// its j_I and alpha_I (models/synchrotron.py kappa_coefficients).
+template <typename T>
+struct KappaTerms {
+  T xx, c_low, c_high, a_low, a_high;
+};
+
+template <typename T>
+__device__ __forceinline__ KappaTerms<T> kappa_terms(const MixConsts<T>& m, T r2, T nu_cgs,
+                                                     T n_e, T nu_c, T sin_b) {
+  KappaTerms<T> k;
+  const T nu_kappa = nu_c * m[M_KP_W] * m[M_KP_W] * m[M_KP_KAPPA] * m[M_KP_KAPPA] * sin_b;
+  k.xx = nu_cgs / jmax(nu_kappa, TypeForms<T>::pop_floor());
+  const T var_a = m[M_KP_FRAC] * n_e * nu_c * r2;
+  const T var_b = cbrt_s(k.xx) * sin_b;
+  const T var_c = pow_s(k.xx, m[M_KP_J_EXP]) * sin_b;
+  k.c_low = var_a * m[M_KP_JJ_LOW] * var_b;
+  k.c_high = var_a * m[M_KP_JJ_HIGH] * var_c;
+  const T var_a2 = m[M_KP_FRAC] * n_e * m[M_KA];
+  k.a_low = var_a2 * m[M_KP_AA_LOW] * pow_s(k.xx, T(-2.0 / 3.0));
+  k.a_high = var_a2 * m[M_KP_AA_HIGH] * pow_s(k.xx, m[M_KP_A_EXP]);
+  return k;
+}
+
+// j_I and alpha_I of the mixture at one fluid-frame frequency: the
+// thermal ones (ti, from thermal_i) where the thermal fraction is not 0,
+// plus the power-law and the kappa ones where theirs are not, summed in
+// that order (models/synchrotron.py all_coefficients).
+template <typename T>
+__device__ __forceinline__ void mixture_i(const MixConsts<T>& m, const SimConsts<T>& c,
+                                          const ThermalI<T>& ti, T nu_cgs, T n_e, T nu_c,
+                                          T sin_b, T& j, T& alpha) {
+  bool have = m.on(M_THERMAL_ON);
+  j = ti.j;
+  alpha = ti.alpha;
+  const T r2 = nu0_ratio_sq(c, nu_cgs);
+  if (m.on(M_POWER_ON)) {
+    const T ncs = jmax(nu_c * sin_b, TypeForms<T>::pop_floor());
+    const T ratio = nu_cgs / ncs;
+    const T var_a = pow_s(ratio, m[M_PL_J_EXP]);
+    const T pj = m[M_PL_FRAC] * n_e * nu_c * r2 * m[M_PL_JJ] * sin_b * var_a;
+    const T pa = m[M_PL_FRAC] * n_e * m[M_KA] * m[M_PL_AA] * pow_s(ratio, m[M_PL_A_EXP]);
+    j = have ? j + pj : pj;
+    alpha = have ? alpha + pa : pa;
+    have = true;
+  }
+  if (m.on(M_KAPPA_ON)) {
+    const KappaTerms<T> k = kappa_terms(m, r2, nu_cgs, n_e, nu_c, sin_b);
+    const T kj = bridge(k.c_low, k.c_high, m[M_KP_X_JI], m[M_KP_NX_JI]);
+    const T ka = bridge(k.a_low, k.a_high * m[M_KP_AA_HIGH_I], m[M_KP_X_AI], m[M_KP_NX_AI]);
+    j = have ? j + kj : kj;
+    alpha = have ? alpha + ka : ka;
+  }
 }
 
 }  // namespace bl

@@ -1,11 +1,12 @@
 // Fused simulation-model ray tracer for NVIDIA Hopper (sm_90a): geodesic
-// step, GRMHD grid sampling, thermal synchrotron coefficients and
-// unpolarized transfer for one ray per thread at a time.
+// step, GRMHD grid sampling, synchrotron coefficients and unpolarized
+// transfer for one ray per thread at a time.
 //
 // Replaces the TPU kernel blacklight_tpu/ops/pallas_simulation.py
 // _make_kernel (:795, launched by render_simulation :1400; K2.1 rk4/rk2,
-// K2.2 dp) for a single-block SKS grid, thermal ti_te_beta electrons and
-// up to MAX_FREQUENCIES frequencies. Its values follow the JAX package's
+// K2.2 dp) for SKS grids, ti_te_beta electrons (thermal, as the TPU
+// kernel, or mixed with power-law and kappa ones, below) and up to
+// MAX_FREQUENCIES frequencies. Its values follow the JAX package's
 // exact (XLA) path in each type's forms: grid/sampling.py sample_grid,
 // models/cuts.py geometric_keep, models/synchrotron.py fluid_state,
 // value_cuts, pitch_angle and thermal_coefficients, and the update of
@@ -58,12 +59,23 @@
 // because of Mosaic's DMA and VMEM rules, and no ray is re-rendered on the
 // host.
 //
-// The instantiations live in three translation units that nvcc builds side
-// by side, all without multiply-add contraction (ops/_build.py), so that
+// The instantiations live in translation units that nvcc builds side by
+// side, all without multiply-add contraction (ops/_build.py), so that
 // each operation rounds as the plain version's does:
 // simulation_kernel.cu holds rk4 and rk2, simulation_kernel_dp.cu dp, and
 // simulation_phase.cu the phase kernel of phased dispatch (below), which
-// must round as simulation_kernel.cu does to give its image bit for bit.
+// must round as simulation_kernel.cu does to give its image bit for bit;
+// the units of many blocks follow them.
+//
+// The electron population is a compile-time parameter too: POP_THERMAL
+// (simulation_kernel, simulation_mode_kernel and the phase kernels, the
+// thermal ti_te_beta electrons alone) or POP_MIXTURE (the *_mixture_kernel
+// templates: the thermal, power-law and kappa populations summed at each
+// sample, sim_sample.cuh mixture_i, with the populations' constants after
+// the launch constants, SimMixLaunchConsts). The mixture's
+// instantiations live in units of their own (simulation_mixture*.cu,
+// simulation_phase_mixture*.cu), so that the thermal units compile to the
+// code they compiled to before the mixture existed.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -96,6 +108,14 @@ struct SimLaunchConsts {
   T scale[NF];
 };
 
+// A mixture launch's constants: the above, then the MixtureParam values
+// rounded to T (ops/simulation_kernel.py launch_consts with mix).
+template <typename T, int NF>
+struct SimMixLaunchConsts {
+  SimLaunchConsts<T, NF> sim;
+  T mix[M_COUNT];
+};
+
 // At least SimBlocks blocks of SIM_THREADS per SM (__launch_bounds__), per
 // instantiation: the float kernels trade registers, and spills that the L1
 // cache holds, for warps that hide the latency of their arithmetic
@@ -114,10 +134,20 @@ struct BlockHint {
 };
 struct NoBlockHint {};
 
+// The mixture's constants, which only POP_MIXTURE's SimSample carries.
+template <typename T, int POP>
+struct PopulationRef {};
+template <typename T>
+struct PopulationRef<T, POP_MIXTURE> {
+  const MixConsts<T>* mix = nullptr;
+};
+
 // Accumulators of one ray and what happens at each of its stored samples,
-// on a grid sampled in MODE (sim_sample.cuh SAMPLE_*).
-template <typename T, int NF, int MODE = SAMPLE_SINGLE>
-struct SimSample : std::conditional_t<MODE == SAMPLE_SINGLE, NoBlockHint, BlockHint> {
+// on a grid sampled in MODE (sim_sample.cuh SAMPLE_*), of the population
+// POP (POP_MIXTURE: this->mix points at the launch's MixConsts).
+template <typename T, int NF, int MODE = SAMPLE_SINGLE, int POP = POP_THERMAL>
+struct SimSample : std::conditional_t<MODE == SAMPLE_SINGLE, NoBlockHint, BlockHint>,
+                   PopulationRef<T, POP> {
   const SimConsts<T>& c;
   const SampleGrid<T, MODE>& grid;
   const T (&nu)[NF];  // the launch's frequencies
@@ -180,6 +210,9 @@ struct SimSample : std::conditional_t<MODE == SAMPLE_SINGLE, NoBlockHint, BlockH
       const T nu_cgs = -u_dot_k * nu_f * mom;
       const ThermalI<T> ti = thermal_i(c, nu_cgs, st.n_e_cgs, nu_c, nu_s, sin_b, st.kb_tt_e);
       T j = ti.j, alpha = ti.alpha;
+      if constexpr (POP == POP_MIXTURE) {
+        mixture_i(*this->mix, c, ti, nu_cgs, st.n_e_cgs, nu_c, sin_b, j, alpha);
+      }
       if (!(m_isfinite(j) && m_isfinite(alpha))) {
         bad |= 1u << f;
         j = T(0);
@@ -199,22 +232,44 @@ struct SimSample : std::conditional_t<MODE == SAMPLE_SINGLE, NoBlockHint, BlockH
   }
 };
 
-// One ray of the monolithic kernel; i_nu: (n_rays, nf) row-major.
-template <typename T, int INTEGRATOR, int NF, int MODE>
+// The MixConsts of a POP_MIXTURE launch (from its launch constants
+// `mix`); nothing for POP_THERMAL.
+template <typename T, int POP>
+struct MixHolder {
+  __device__ explicit MixHolder(const T*) {}
+  template <typename S>
+  __device__ void attach(S&) const {}
+};
+template <typename T>
+struct MixHolder<T, POP_MIXTURE> {
+  MixConsts<T> m;
+  __device__ explicit MixHolder(const T* mix) : m(mix, RoundedConsts{}) {}
+  template <typename S>
+  __device__ void attach(S& sample) const {
+    sample.mix = &m;
+  }
+};
+
+// One ray of the monolithic kernel; i_nu: (n_rays, nf) row-major. mix:
+// POP_MIXTURE's MixtureParam launch constants.
+template <typename T, int INTEGRATOR, int NF, int MODE, int POP = POP_THERMAL>
 __device__ __forceinline__ void simulation_ray(long long ray, const T* __restrict__ positions,
                                                const T* __restrict__ directions,
                                                const T* __restrict__ momentum_factors,
                                                const SimLaunchConsts<T, NF>& consts, int nf,
                                                const SampleGrid<T, MODE>& grid,
                                                T* __restrict__ i_nu, int* __restrict__ flags_out,
-                                               int* __restrict__ n_samples_out) {
+                                               int* __restrict__ n_samples_out,
+                                               const T* mix = nullptr) {
   const TraceConsts<T> tc(consts.v);
   const SimConsts<T> sc(consts.v, RoundedConsts{});
+  const MixHolder<T, POP> mc(mix);
 
   RayState<T> s;
   init_ray_state(tc, positions + 4 * ray, directions + 4 * ray, s);
   const T p0 = directions[4 * ray + 0];
-  SimSample<T, NF, MODE> sample(sc, grid, consts.nu, nf, p0, momentum_factors[ray]);
+  SimSample<T, NF, MODE, POP> sample(sc, grid, consts.nu, nf, p0, momentum_factors[ray]);
+  mc.attach(sample);
   trace_steps<T, INTEGRATOR>(tc, s, p0, 0, tc.max_steps, sample);
 
 #pragma unroll 1
@@ -259,10 +314,28 @@ __global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
                                           nf, grid, i_nu, flags_out, n_samples_out);
 }
 
+// The thermal, power-law and kappa populations (POP_MIXTURE) on one block
+// or many, in any mode, instantiated in simulation_mixture*.cu.
+template <typename T, int INTEGRATOR, int NF, int MODE>
+__global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
+    simulation_mixture_kernel(const T* __restrict__ positions, const T* __restrict__ directions,
+                              const T* __restrict__ momentum_factors,
+                              const __grid_constant__ SimMixLaunchConsts<T, NF> consts, int nf,
+                              const __grid_constant__ SampleGrid<T, MODE> grid,
+                              T* __restrict__ i_nu, int* __restrict__ flags_out,
+                              int* __restrict__ n_samples_out, long long n_rays) {
+  const long long ray = static_cast<long long>(blockIdx.x) * SIM_THREADS + threadIdx.x;
+  if (ray >= n_rays) return;
+  simulation_ray<T, INTEGRATOR, NF, MODE, POP_MIXTURE>(ray, positions, directions,
+                                                       momentum_factors, consts.sim, nf, grid,
+                                                       i_nu, flags_out, n_samples_out,
+                                                       consts.mix);
+}
+
 // The launch constants of an instantiation from the host's copy (bytes
 // long); false if the size is not the struct's.
-template <typename T, int NF>
-bool copy_consts(const void* host, long long bytes, SimLaunchConsts<T, NF>& consts) {
+template <typename C>
+bool copy_consts(const void* host, long long bytes, C& consts) {
   if (bytes != static_cast<long long>(sizeof(consts))) return false;
   memcpy(&consts, host, sizeof(consts));
   return true;
@@ -286,47 +359,64 @@ struct SimLaunchArgs {
 };
 
 // MODE SAMPLE_SINGLE launches simulation_kernel, the others
-// simulation_mode_kernel.
-template <typename T, int INTEGRATOR, int NF, int MODE>
+// simulation_mode_kernel; POP_MIXTURE simulation_mixture_kernel.
+template <typename T, int INTEGRATOR, int NF, int MODE, int POP = POP_THERMAL>
 cudaError_t launch_simulation(const SimLaunchArgs& a) {
-  SimLaunchConsts<T, NF> consts;
-  if (!copy_consts(a.consts, a.consts_bytes, consts)) return cudaErrorInvalidValue;
   const unsigned blocks = static_cast<unsigned>((a.n_rays + SIM_THREADS - 1) / SIM_THREADS);
-  if constexpr (MODE == SAMPLE_SINGLE) {
-    simulation_kernel<T, INTEGRATOR, NF><<<blocks, SIM_THREADS, 0, a.stream>>>(
+  if constexpr (POP == POP_MIXTURE) {
+    SimMixLaunchConsts<T, NF> consts;
+    if (!copy_consts(a.consts, a.consts_bytes, consts)) return cudaErrorInvalidValue;
+    simulation_mixture_kernel<T, INTEGRATOR, NF, MODE><<<blocks, SIM_THREADS, 0, a.stream>>>(
         static_cast<const T*>(a.positions), static_cast<const T*>(a.directions),
-        static_cast<const T*>(a.momentum_factors), consts, a.nf, a.grid.view<T>(),
+        static_cast<const T*>(a.momentum_factors), consts, a.nf, grid_view_of<T, MODE>(a.grid),
         static_cast<T*>(a.i_nu), a.flags, a.n_samples, a.n_rays);
   } else {
-    simulation_mode_kernel<T, INTEGRATOR, NF, MODE><<<blocks, SIM_THREADS, 0, a.stream>>>(
-        static_cast<const T*>(a.positions), static_cast<const T*>(a.directions),
-        static_cast<const T*>(a.momentum_factors), consts, a.nf, a.grid.block_view<T>(),
-        static_cast<T*>(a.i_nu), a.flags, a.n_samples, a.n_rays);
+    SimLaunchConsts<T, NF> consts;
+    if (!copy_consts(a.consts, a.consts_bytes, consts)) return cudaErrorInvalidValue;
+    if constexpr (MODE == SAMPLE_SINGLE) {
+      simulation_kernel<T, INTEGRATOR, NF><<<blocks, SIM_THREADS, 0, a.stream>>>(
+          static_cast<const T*>(a.positions), static_cast<const T*>(a.directions),
+          static_cast<const T*>(a.momentum_factors), consts, a.nf, a.grid.view<T>(),
+          static_cast<T*>(a.i_nu), a.flags, a.n_samples, a.n_rays);
+    } else {
+      simulation_mode_kernel<T, INTEGRATOR, NF, MODE><<<blocks, SIM_THREADS, 0, a.stream>>>(
+          static_cast<const T*>(a.positions), static_cast<const T*>(a.directions),
+          static_cast<const T*>(a.momentum_factors), consts, a.nf, a.grid.block_view<T>(),
+          static_cast<T*>(a.i_nu), a.flags, a.n_samples, a.n_rays);
+    }
   }
   return cudaGetLastError();
 }
 
-// One frequency keeps its accumulators in registers; 2..MAX_FREQUENCIES
-// hold them in a local array.
-template <typename T, int INTEGRATOR, int MODE = SAMPLE_SINGLE>
+// The frequency bucket of a launch of nf frequencies (ops/simulation_kernel.py
+// frequency_bucket): one frequency keeps its accumulators in registers,
+// 2..MAX_FREQUENCIES hold them in a local array. The mixture's kernels of
+// many blocks and its phase kernels are built for MAX_FREQUENCIES alone,
+// which takes one frequency too, so that the build stays short.
+template <int MODE, int POP>
+constexpr bool OneFrequencyBucket = POP == POP_THERMAL || MODE == SAMPLE_SINGLE;
+
+template <typename T, int INTEGRATOR, int MODE = SAMPLE_SINGLE, int POP = POP_THERMAL>
 cudaError_t launch_simulation_nf(const SimLaunchArgs& a) {
-  if (a.nf == 1) return launch_simulation<T, INTEGRATOR, 1, MODE>(a);
-  return launch_simulation<T, INTEGRATOR, MAX_FREQUENCIES, MODE>(a);
+  if constexpr (OneFrequencyBucket<MODE, POP>) {
+    if (a.nf == 1) return launch_simulation<T, INTEGRATOR, 1, MODE, POP>(a);
+  }
+  return launch_simulation<T, INTEGRATOR, MAX_FREQUENCIES, MODE, POP>(a);
 }
 
 // The modes of many blocks (a.grid.mode SAMPLE_BLOCKS or
 // SAMPLE_INTERBLOCK): rk4 and rk2 in simulation_blocks.cu, dp in
-// simulation_blocks_dp.cu.
-template <int INTEGRATOR>
+// simulation_blocks_dp.cu (the mixture's in simulation_mixture_blocks*.cu).
+template <int INTEGRATOR, int POP = POP_THERMAL>
 cudaError_t launch_simulation_blocks(int dtype_code, const SimLaunchArgs& a) {
   const bool inter = a.grid.mode == SAMPLE_INTERBLOCK;
   if (dtype_code == 0) {
-    return inter ? launch_simulation_nf<float, INTEGRATOR, SAMPLE_INTERBLOCK>(a)
-                 : launch_simulation_nf<float, INTEGRATOR, SAMPLE_BLOCKS>(a);
+    return inter ? launch_simulation_nf<float, INTEGRATOR, SAMPLE_INTERBLOCK, POP>(a)
+                 : launch_simulation_nf<float, INTEGRATOR, SAMPLE_BLOCKS, POP>(a);
   }
   if (dtype_code == 1) {
-    return inter ? launch_simulation_nf<double, INTEGRATOR, SAMPLE_INTERBLOCK>(a)
-                 : launch_simulation_nf<double, INTEGRATOR, SAMPLE_BLOCKS>(a);
+    return inter ? launch_simulation_nf<double, INTEGRATOR, SAMPLE_INTERBLOCK, POP>(a)
+                 : launch_simulation_nf<double, INTEGRATOR, SAMPLE_BLOCKS, POP>(a);
   }
   return cudaErrorInvalidValue;
 }
@@ -337,6 +427,13 @@ cudaError_t launch_simulation_blocks(int dtype_code, const SimLaunchArgs& a) {
 cudaError_t launch_simulation_dp(int dtype_code, const SimLaunchArgs& a);
 cudaError_t launch_simulation_rk_blocks(int dtype_code, int integrator, const SimLaunchArgs& a);
 cudaError_t launch_simulation_dp_blocks(int dtype_code, const SimLaunchArgs& a);
+// The mixture (POP_MIXTURE): dp on one block (simulation_mixture_dp.cu),
+// rk4 and rk2 on many (simulation_mixture_blocks.cu), dp on many
+// (simulation_mixture_blocks_dp.cu).
+cudaError_t launch_simulation_mixture_dp(int dtype_code, const SimLaunchArgs& a);
+cudaError_t launch_simulation_mixture_rk_blocks(int dtype_code, int integrator,
+                                                const SimLaunchArgs& a);
+cudaError_t launch_simulation_mixture_dp_blocks(int dtype_code, const SimLaunchArgs& a);
 
 // ---------------------------------------------------------------------------
 // Phased dispatch (K2.3): one phase of the kernel above from a carried state.
@@ -381,16 +478,17 @@ struct SimCarryView {
 };
 
 // One ray of a phase: the ray of the bundle at place `slot` of the list.
-template <typename T, int INTEGRATOR, int NF, int MODE>
+template <typename T, int INTEGRATOR, int NF, int MODE, int POP = POP_THERMAL>
 __device__ __forceinline__ void simulation_phase_ray(
     long long slot, const int* __restrict__ index, int n_base, int phase_steps, bool write_state,
     const T* __restrict__ directions, const T* __restrict__ momentum_factors,
     const SimLaunchConsts<T, NF>& consts, int nf, const SampleGrid<T, MODE>& grid,
-    const SimCarryView<T>& carry) {
+    const SimCarryView<T>& carry, const T* mix = nullptr) {
   const long long ray = index[slot];
   const long long n = carry.n_rays;
   const TraceConsts<T> tc(consts.v);
   const SimConsts<T> sc(consts.v, RoundedConsts{});
+  const MixHolder<T, POP> mc(mix);
 
   RayState<T> s;
 #pragma unroll
@@ -408,7 +506,8 @@ __device__ __forceinline__ void simulation_phase_ray(
 
   // the face counts and the block are not carried: a phase starts its
   // search afresh
-  SimSample<T, NF, MODE> sample(sc, grid, consts.nu, nf, p0, momentum_factors[ray]);
+  SimSample<T, NF, MODE, POP> sample(sc, grid, consts.nu, nf, p0, momentum_factors[ray]);
+  mc.attach(sample);
 #pragma unroll 1
   for (int f = 0; f < sample.n_freq(); ++f) {
     sample.intensity[f] = carry.intensity[f * n + ray];
@@ -468,6 +567,24 @@ __global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
                                                 carry);
 }
 
+// The mixture (POP_MIXTURE) on one block or many, in any mode,
+// instantiated in simulation_phase_mixture*.cu.
+template <typename T, int INTEGRATOR, int NF, int MODE>
+__global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
+    simulation_phase_mixture_kernel(const int* __restrict__ index, long long n_live, int n_base,
+                                    int phase_steps, bool write_state,
+                                    const T* __restrict__ directions,
+                                    const T* __restrict__ momentum_factors,
+                                    const __grid_constant__ SimMixLaunchConsts<T, NF> consts,
+                                    int nf, const __grid_constant__ SampleGrid<T, MODE> grid,
+                                    SimCarryView<T> carry) {
+  const long long slot = static_cast<long long>(blockIdx.x) * SIM_THREADS + threadIdx.x;
+  if (slot >= n_live) return;
+  simulation_phase_ray<T, INTEGRATOR, NF, MODE, POP_MIXTURE>(
+      slot, index, n_base, phase_steps, write_state, directions, momentum_factors, consts.sim,
+      nf, grid, carry, consts.mix);
+}
+
 // Pointers and sizes of one phase launch, as the C interface receives
 // them.
 struct SimPhaseArgs {
@@ -492,38 +609,52 @@ struct SimPhaseArgs {
   cudaStream_t stream;
 };
 
-template <typename T, int INTEGRATOR, int NF, int MODE>
+template <typename T, int INTEGRATOR, int NF, int MODE, int POP = POP_THERMAL>
 cudaError_t launch_simulation_phase(const SimPhaseArgs& a) {
-  SimLaunchConsts<T, NF> consts;
-  if (!copy_consts(a.consts, a.consts_bytes, consts)) return cudaErrorInvalidValue;
   const SimCarryView<T> carry{static_cast<T*>(a.y),         static_cast<T*>(a.r_mid_prev),
                               a.n_samp,                      a.masks,
                               static_cast<T*>(a.intensity), static_cast<T*>(a.tau),
                               a.bad,                         a.n_rays};
   const unsigned blocks = static_cast<unsigned>((a.n_live + SIM_THREADS - 1) / SIM_THREADS);
-  if constexpr (MODE == SAMPLE_SINGLE) {
-    simulation_phase_kernel<T, INTEGRATOR, NF><<<blocks, SIM_THREADS, 0, a.stream>>>(
+  if constexpr (POP == POP_MIXTURE) {
+    SimMixLaunchConsts<T, NF> consts;
+    if (!copy_consts(a.consts, a.consts_bytes, consts)) return cudaErrorInvalidValue;
+    simulation_phase_mixture_kernel<T, INTEGRATOR, NF, MODE><<<blocks, SIM_THREADS, 0, a.stream>>>(
         a.index, a.n_live, a.n_base, a.phase_steps, a.write_state,
         static_cast<const T*>(a.directions), static_cast<const T*>(a.momentum_factors), consts,
-        a.nf, a.grid.view<T>(), carry);
+        a.nf, grid_view_of<T, MODE>(a.grid), carry);
   } else {
-    simulation_phase_mode_kernel<T, INTEGRATOR, NF, MODE><<<blocks, SIM_THREADS, 0, a.stream>>>(
-        a.index, a.n_live, a.n_base, a.phase_steps, a.write_state,
-        static_cast<const T*>(a.directions), static_cast<const T*>(a.momentum_factors), consts,
-        a.nf, a.grid.block_view<T>(), carry);
+    SimLaunchConsts<T, NF> consts;
+    if (!copy_consts(a.consts, a.consts_bytes, consts)) return cudaErrorInvalidValue;
+    if constexpr (MODE == SAMPLE_SINGLE) {
+      simulation_phase_kernel<T, INTEGRATOR, NF><<<blocks, SIM_THREADS, 0, a.stream>>>(
+          a.index, a.n_live, a.n_base, a.phase_steps, a.write_state,
+          static_cast<const T*>(a.directions), static_cast<const T*>(a.momentum_factors), consts,
+          a.nf, a.grid.view<T>(), carry);
+    } else {
+      simulation_phase_mode_kernel<T, INTEGRATOR, NF, MODE><<<blocks, SIM_THREADS, 0, a.stream>>>(
+          a.index, a.n_live, a.n_base, a.phase_steps, a.write_state,
+          static_cast<const T*>(a.directions), static_cast<const T*>(a.momentum_factors), consts,
+          a.nf, a.grid.block_view<T>(), carry);
+    }
   }
   return cudaGetLastError();
 }
 
-template <typename T, int INTEGRATOR, int MODE = SAMPLE_SINGLE>
+template <typename T, int INTEGRATOR, int MODE = SAMPLE_SINGLE, int POP = POP_THERMAL>
 cudaError_t launch_simulation_phase_nf(const SimPhaseArgs& a) {
-  if (a.nf == 1) return launch_simulation_phase<T, INTEGRATOR, 1, MODE>(a);
-  return launch_simulation_phase<T, INTEGRATOR, MAX_FREQUENCIES, MODE>(a);
+  if constexpr (POP == POP_THERMAL) {
+    if (a.nf == 1) return launch_simulation_phase<T, INTEGRATOR, 1, MODE, POP>(a);
+  }
+  return launch_simulation_phase<T, INTEGRATOR, MAX_FREQUENCIES, MODE, POP>(a);
 }
 
 // The phase kernel on many blocks (a.grid.mode SAMPLE_BLOCKS or
-// SAMPLE_INTERBLOCK); defined in simulation_phase_blocks.cu.
+// SAMPLE_INTERBLOCK); defined in simulation_phase_blocks.cu, the mixture's
+// in simulation_phase_mixture_blocks.cu.
 cudaError_t launch_simulation_phase_blocks(int dtype_code, int integrator,
                                            const SimPhaseArgs& a);
+cudaError_t launch_simulation_phase_mixture_blocks(int dtype_code, int integrator,
+                                                   const SimPhaseArgs& a);
 
 }  // namespace bl

@@ -5,6 +5,11 @@
 // as the JAX package folds it in Python before it meets an array;
 // tests/test_torch_simulation_pipeline.py checks that the two orders agree.
 // Flags are stored as 0.0 / 1.0 and integers as exact doubles.
+//
+// MixtureParam indexes the constants of the power-law and kappa
+// populations, which a launch of a mixture instantiation carries after
+// these (ops/simulation_kernel.py MIX_PARAM_NAMES, mixture_params): the
+// thermal instantiations read none of them.
 #pragma once
 
 namespace bl {
@@ -92,6 +97,90 @@ enum SimulationParam : int {
   S_CAM_X3,
   S_X_UNIT,
   S_COUNT
+};
+
+// The power-law and kappa populations (models/synchrotron.py
+// powerlaw_constants, kappa_constants, powerlaw_coefficients,
+// kappa_coefficients), each constant folded in float64 on the host as the
+// Python expressions fold it before it meets a tensor.
+enum MixtureParam : int {
+  // which populations the sum holds (fraction != 0), and e^2 / (m_e c)
+  M_THERMAL_ON,
+  M_POWER_ON,
+  M_KAPPA_ON,
+  M_KA,
+  // power law: the fraction, the exponents of nu / (nu_c sin), the
+  // constants, frac * rho, gamma_min^2 and the exponent of var_e3
+  M_PL_FRAC,
+  M_PL_J_EXP,
+  M_PL_A_EXP,
+  M_PL_JJ,
+  M_PL_AA,
+  M_PL_JJ_Q,
+  M_PL_JJ_V,
+  M_PL_AA_Q,
+  M_PL_AA_V,
+  M_PL_FRAC_RHO,
+  M_PL_RHO_Q,
+  M_PL_RHO_V,
+  M_PL_GMIN2,
+  M_PL_E3_EXP,
+  // kappa: the fraction, -frac, 2 frac, w, kappa, the exponents of xx
+  M_KP_FRAC,
+  M_KP_NEG_FRAC,
+  M_KP_TWO_FRAC,
+  M_KP_W,
+  M_KP_KAPPA,
+  M_KP_J_EXP,
+  M_KP_A_EXP,
+  // the low- and high-frequency constants of each bridge
+  M_KP_JJ_LOW,
+  M_KP_JJ_HIGH,
+  M_KP_AA_LOW,
+  M_KP_AA_HIGH,
+  M_KP_AA_HIGH_I,
+  M_KP_JJ_LOW_Q,
+  M_KP_JJ_HIGH_Q,
+  M_KP_JJ_LOW_V,
+  M_KP_JJ_HIGH_V,
+  M_KP_AA_LOW_Q,
+  M_KP_AA_HIGH_Q,
+  M_KP_AA_LOW_V,
+  M_KP_AA_HIGH_V,
+  // each bridge's exponent x and -1 / x: j_I, j_Q, j_V, alpha_I,
+  // alpha_Q, alpha_V
+  M_KP_X_JI,
+  M_KP_NX_JI,
+  M_KP_X_JQ,
+  M_KP_NX_JQ,
+  M_KP_X_JV,
+  M_KP_NX_JV,
+  M_KP_X_AI,
+  M_KP_NX_AI,
+  M_KP_X_AQ,
+  M_KP_NX_AQ,
+  M_KP_X_AV,
+  M_KP_NX_AV,
+  // rotativities: K0 / K2 at 1 / w, the bracket blend's fr and 1 - fr,
+  // the low and high brackets' rho_Q (a..e) and rho_V (a, b)
+  M_KP_RHO_V,
+  M_KP_RHO_FRAC,
+  M_KP_RHO_1M_FRAC,
+  M_KP_QL_A,
+  M_KP_QL_B,
+  M_KP_QL_C,
+  M_KP_QL_D,
+  M_KP_QL_E,
+  M_KP_QH_A,
+  M_KP_QH_B,
+  M_KP_QH_C,
+  M_KP_QH_D,
+  M_KP_QH_E,
+  M_KP_VL_A,
+  M_KP_VL_B,
+  M_KP_VH_A,
+  M_KP_VH_B,
+  M_COUNT
 };
 
 }  // namespace bl

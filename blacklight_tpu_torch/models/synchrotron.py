@@ -1,13 +1,17 @@
-"""Thermal synchrotron emission and absorption from sampled GRMHD, on
+"""Synchrotron emission, absorption and rotation from sampled GRMHD, on
 tensors.
 
-Port of the thermal subset of ``blacklight_tpu/models/synchrotron.py``:
-``PlasmaParams`` and ``CutParams`` (:36-78), ``fluid_state`` in SKS
-(:81-209), ``value_cuts`` (:212-230), ``pitch_angle`` (:242-276), the
-Bessel K functions (:291-428), ``thermal_coefficients`` with its polarized
-branch (j_Q, j_V, alpha_Q, alpha_V, rho_Q, rho_V; :785-936) and
-``log_j_scale`` (:429-431); the reference is
-simulation_coefficients.cpp:51-556 (2021 ApJ 921 17, eqs. 28-37).
+Port of ``blacklight_tpu/models/synchrotron.py`` for ti_te_beta
+electrons: ``PlasmaParams`` and ``CutParams`` (:36-78), ``fluid_state``
+in SKS (:81-209), ``value_cuts`` (:212-230), ``pitch_angle`` (:242-276),
+the Bessel K functions (:291-428), ``log_j_scale`` (:429-431), the
+thermal population (``thermal_coefficients`` with its polarized branch:
+j_Q, j_V, alpha_Q, alpha_V, rho_Q, rho_V; :785-936), the power-law and
+kappa populations with their host constants (``hypergeometric`` :434,
+``powerlaw_constants`` :451, ``kappa_constants`` :475,
+``powerlaw_coefficients`` :556, ``kappa_coefficients`` :665) and their
+sum, ``all_coefficients`` (:751); the reference is
+simulation_coefficients.cpp:51-773 (2021 ApJ 921 17, eqs. 28-54).
 
 Where the JAX package's forms depend on the dtype (floors in the fluid
 state and the pitch angle, the float32 caps on nu_s, xx and h nu / kT,
@@ -19,6 +23,7 @@ forms, float32 the ones that keep single precision finite.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -458,3 +463,364 @@ def thermal_coefficients(nu_cgs, nu0: float, state, sin_theta_b,
     out["rho_q"] = coefficient_q * torch.where(cold, 0.0, factor_q)
     out["rho_v"] = coefficient_v * torch.where(cold, 1.0, factor_v)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Power-law and kappa populations (M 38-54)
+
+
+def hypergeometric(alpha: float, beta: float, gamma: float, z: float) -> float:
+    """2F1 by the Pfaff transformation and a 10-term series
+    (simulation_coefficients.cpp:740-773); a host scalar."""
+    a, bb, c = alpha, gamma - beta, gamma
+    x = z / (z - 1.0)
+    result = 1.0
+    a_k = b_k = c_k = xk = k_fact = 1.0
+    for k in range(1, 11):
+        a_k *= a + k - 1.0
+        b_k *= bb + k - 1.0
+        c_k *= c + k - 1.0
+        xk *= x
+        k_fact *= k
+        result += a_k * b_k * xk / (c_k * k_fact)
+    return result * (1.0 - z) ** (-alpha)
+
+
+def powerlaw_constants(p: PlasmaParams) -> dict:
+    """The power-law population's constants (M 38-42;
+    simulation_coefficients.cpp:54-80), float64 host scalars."""
+    pp = p.power_p
+    var_c = p.gamma_min ** (1.0 - pp) - p.gamma_max ** (1.0 - pp)
+    return {
+        "jj": (3.0 ** (pp / 2.0) * (pp - 1.0)) / (2.0 * (pp + 1.0)) / var_c
+              * math.gamma((3.0 * pp - 1.0) / 12.0)
+              * math.gamma((3.0 * pp + 19.0) / 12.0),
+        "aa": (3.0 ** ((pp + 1.0) / 2.0) * (pp - 1.0) / 4.0) / var_c
+              * math.gamma((3.0 * pp + 2.0) / 12.0)
+              * math.gamma((3.0 * pp + 22.0) / 12.0),
+        "jj_q": -(pp + 1.0) / (pp + 7.0 / 3.0),
+        "jj_v": 0.684 * pp ** 0.49,
+        "aa_q": -((0.034 * pp - 0.0344) ** 0.086),
+        "aa_v": (0.71 * pp + 0.0352) ** 0.394,
+        "rho": (pp - 1.0) / var_c,
+        "rho_q": -(p.gamma_min ** (2.0 - pp)) / (pp / 2.0 - 1.0),
+        "rho_v": (2.0 * (pp + 2.0) / (pp + 1.0)) * p.gamma_min ** (-(pp + 1.0))
+                 * math.log(p.gamma_min),
+    }
+
+
+def kappa_constants(p: PlasmaParams, polarized: bool = False) -> dict:
+    """The kappa population's constants (M 43-54;
+    simulation_coefficients.cpp:82-193): the bracket coefficients, the
+    Bessel ratio K0 / K2 at 1 / w and the interpolation between the two
+    kappa brackets around p.kappa, float64 host scalars.
+
+    The reference's quirk stays: kappa_aa_high_i is set only for a
+    polarized image (simulation_coefficients.cpp:120) yet the unpolarized
+    alpha_I bridge reads it (:661), so an unpolarized run has no kappa
+    absorption; ``polarized`` is the route's."""
+    kap, w = p.kappa, p.w
+    var_h = w * kap
+    one_over_w = torch.tensor(1.0 / w, dtype=torch.float64)
+    out = {
+        "jj_low": (4.0 * Math.pi * math.gamma(kap - 4.0 / 3.0))
+                  / (3.0 ** (7.0 / 3.0) * math.gamma(kap - 2.0)),
+        "jj_high": (3.0 ** ((kap - 1.0) / 2.0) * (kap - 2.0) * (kap - 1.0) / 4.0
+                    * math.gamma(kap / 4.0 - 1.0 / 3.0)
+                    * math.gamma(kap / 4.0 + 4.0 / 3.0)),
+        "jj_x_i": 3.0 * kap ** (-1.5),
+        "aa_low": (3.0 ** (1.0 / 6.0) * 10.0 / 41.0
+                   * 2.0 * Math.pi * var_h ** (kap - 10.0 / 3.0)
+                   * ((kap - 2.0) * (kap - 1.0) * kap) / (3.0 * kap - 1.0)
+                   * math.gamma(5.0 / 3.0)
+                   * hypergeometric(kap - 1.0 / 3.0, kap + 1.0, kap + 2.0 / 3.0,
+                                    -var_h)),
+        "aa_high": (Math.pi ** 1.5 / 3.0
+                    * ((kap - 2.0) * (kap - 1.0) * kap / var_h ** 3)
+                    * (2.0 * math.gamma(2.0 + kap / 2.0) / (2.0 + kap) - 1.0)),
+        "aa_x_i": (-1.75 + 1.6 * kap) ** (-0.86),
+        "jj_low_q": 0.5,
+        "jj_low_v": 0.5625 * kap ** (-0.528) / w,
+        "jj_high_q": 0.64 + 0.02 * kap,
+        "jj_high_v": 0.765625 * kap ** (-0.44) / w,
+        "jj_x_q": 3.7 * kap ** (-1.6),
+        "jj_x_v": 3.0 * kap ** (-1.5),
+        "aa_low_q": 25.0 / 48.0,
+        "aa_low_v": 77.0 / (100.0 * w) * kap ** (-0.7),
+        "aa_high_i": ((3.0 / kap) ** 4.75 + 0.6) if polarized else 0.0,
+        "aa_high_q": 441.0 * kap ** (-5.76) + 0.55,
+        "aa_high_v": (14.3 * w ** (-0.928))
+                     * (169.0 * kap ** (-8.0) + 0.0052 * kap - 0.0526
+                        + 47.0 / (200.0 * kap)),
+        "aa_x_q": 1.4 * kap ** (-1.15),
+        "aa_x_v": 1.22 * kap ** (-1.136) + 0.007,
+        "rho_v": float(_bessel_k(0, one_over_w) / _bessel_k(2, one_over_w)),
+    }
+
+    def q_set(a, bb, c, d, e):
+        return dict(a=a, b=bb, c=c, d=d, e=e)
+
+    q35 = q_set(17.0 * w + math.sqrt(w) * (-3.0 + 7.0 * math.exp(-5.0 * w)),
+                -1.0 / 30.0, 0.1, -1.5, 0.471)
+    q40 = q_set(46.0 / 3.0 * w + math.sqrt(w) * (-5.0 / 3.0
+                                                 + 17.0 / 3.0 * math.exp(-5.0 * w)),
+                -1.0 / 18.0, 1.0 / 6.0, -1.75, 0.5)
+    q45 = q_set(14.0 * w + math.sqrt(w) * (-1.625 + 4.5 * math.exp(-5.0 * w)),
+                -1.0 / 12.0, 0.25, -2.0, 0.525)
+    q50 = q_set(12.5 * w + math.sqrt(w) * (-1.0 + 5.0 * math.exp(-5.0 * w)),
+                -0.125, 0.375, -2.25, 0.541)
+    v35 = ((w * w + 2.0 * w + 1.0) / (3.125 * w * w + 4.0 * w + 1.0), 0.447)
+    v40 = ((w * w + 54.0 * w + 50.0) / (30.0 / 11.0 * w * w + 134.0 * w + 50.0),
+           0.391)
+    v45 = ((w * w + 43.0 * w + 38.0) / (7.0 / 3.0 * w * w + 92.5 * w + 38.0),
+           0.348)
+    v50 = ((w + 13.0 / 14.0) / (2.0 * w + 13.0 / 14.0), 0.313)
+    if kap < 4.0:
+        out["rho_frac"] = (kap - 3.5) / 0.5
+        out["rho_q_low"], out["rho_q_high"] = q35, q40
+        out["rho_v_low"], out["rho_v_high"] = v35, v40
+    elif kap < 4.5:
+        out["rho_frac"] = (kap - 4.0) / 0.5
+        out["rho_q_low"], out["rho_q_high"] = q40, q45
+        out["rho_v_low"], out["rho_v_high"] = v40, v45
+    else:
+        out["rho_frac"] = (kap - 4.5) / 0.5
+        out["rho_q_low"], out["rho_q_high"] = q45, q50
+        out["rho_v_low"], out["rho_v_high"] = v45, v50
+    return out
+
+
+@functools.lru_cache(maxsize=32)
+def population_constants(plasma: PlasmaParams, polarized: bool):
+    """(powerlaw_constants or None, kappa_constants or None) of the
+    populations ``plasma`` mixes in, once per configuration and route."""
+    return (powerlaw_constants(plasma) if plasma.power_frac != 0.0 else None,
+            kappa_constants(plasma, polarized=polarized)
+            if plasma.kappa_frac != 0.0 else None)
+
+
+def _nu_c(state):
+    return Physics.e * state["bb_cgs"][..., None] \
+        / (2.0 * Math.pi * Physics.m_e * Physics.c)
+
+
+def _sign(cos_b):
+    return torch.where(cos_b >= 0.0, 1.0, -1.0)
+
+
+def powerlaw_coefficients(nu_cgs, nu0: float, state, sin_theta_b,
+                          cos_theta_b, plasma: PlasmaParams, consts: dict,
+                          polarized: bool) -> dict:
+    """The power-law population's coefficients (M 28-29, 38-42;
+    simulation_coefficients.cpp:558-605), scaled as the thermal ones.
+
+    float64 keeps the reference's literal expressions, with their inf and
+    NaN at exactly degenerate cells (sin theta_B = 0, B = 0), which flag
+    the sample bad and poison the pixel as the reference's NaNs do.
+    float32 takes the hardened forms: a 1e-12 floor on nu_c sin, sin
+    clamped into [1e-6, 1 - 1e-7] in its fractional powers, and the
+    0 * inf products of j_V and rho cancelled algebraically."""
+    out = {}
+    n_e = state["n_e_cgs"][..., None]
+    sin_b = sin_theta_b[..., None]
+    frac = plasma.power_frac
+    pp = plasma.power_p
+    nu_c = _nu_c(state)
+    f64 = nu_cgs.dtype == torch.float64
+    ncs = torch.clamp(nu_c * sin_b, min=1e-300 if f64 else 1e-12)
+    sin_c = sin_b if f64 else torch.clamp(sin_b, 1e-6, 1.0 - 1e-7)
+    ratio = nu_cgs / ncs
+
+    var_a = torch.pow(ratio, -(pp - 1.0) / 2.0)
+    coeff_j = frac * n_e * nu_c * (nu0 / nu_cgs) ** 2 * consts["jj"] \
+        * sin_b * var_a
+    out["j_i"] = coeff_j
+    if polarized:
+        cos_b = cos_theta_b[..., None]
+        out["j_q"] = coeff_j * consts["jj_q"]
+        if f64:
+            var_b = cos_b / sin_b
+            var_c = 1.0 / torch.sqrt(nu_cgs / (3.0 * nu_c * sin_b))
+            out["j_v"] = coeff_j * consts["jj_v"] * var_b * var_c
+        else:
+            # (cos / sin) sqrt(3 nu_c sin / nu) with sin cancelled: the
+            # literal product is 0 * inf at sin = 0
+            arg = 3.0 * ncs / nu_cgs
+            root = torch.where(arg > 1e-30,
+                               torch.sqrt(torch.where(arg > 1e-30, arg, 1.0)),
+                               0.0)
+            coeff_j_nosin = frac * n_e * nu_c * (nu0 / nu_cgs) ** 2 \
+                * consts["jj"] * var_a
+            out["j_v"] = coeff_j_nosin * consts["jj_v"] * cos_b * root
+
+    # absorptivities, true invariant CGS: e^2 / (m_e c) times n_e
+    ka = Physics.e * Physics.e / (Physics.m_e * Physics.c)
+    var_a2 = torch.pow(ratio, -(pp + 2.0) / 2.0)
+    coeff_a = frac * n_e * ka * consts["aa"] * var_a2
+    out["alpha_i"] = coeff_a
+    if polarized:
+        var_b2 = torch.pow(torch.pow(sin_c, -1.92) * 3.1 - 3.1, 0.512)
+        var_c2 = 1.0 / torch.sqrt(ratio)
+        out["alpha_q"] = coeff_a * consts["aa_q"]
+        out["alpha_v"] = coeff_a * consts["aa_v"] * var_b2 * var_c2 \
+            * _sign(cos_b)
+        if f64:
+            # rotativities (M 40-42), literal forms
+            var_a3 = n_e * ka * nu_cgs / (nu_c * sin_b)
+            var_b3 = nu_c * sin_b / nu_cgs
+            var_c3 = var_b3 * var_b3
+            var_d3 = var_c3 * var_b3
+            var_e3 = 1.0 - torch.pow(
+                2.0 * nu_c * plasma.gamma_min ** 2 * sin_b / (3.0 * nu_cgs),
+                pp / 2.0 - 1.0)
+            var_f3 = cos_b / sin_b
+            coeff_r = frac * consts["rho"] * var_a3
+            out["rho_q"] = coeff_r * consts["rho_q"] * var_d3 * var_e3
+            out["rho_v"] = coeff_r * consts["rho_v"] * var_c3 * var_f3
+        else:
+            # the 1 / (nu_c sin) of var_a3 cancelled into var_d3 and
+            # var_c3 (the literal products are inf * 0 at B = 0)
+            var_e3 = 1.0 - torch.pow(torch.clamp(
+                2.0 * nu_c * plasma.gamma_min ** 2 * sin_b / (3.0 * nu_cgs),
+                min=1e-20), pp / 2.0 - 1.0)
+            coeff_r = frac * consts["rho"] * n_e * ka
+            out["rho_q"] = coeff_r * consts["rho_q"] \
+                * (ncs / nu_cgs) ** 2 * var_e3
+            out["rho_v"] = coeff_r * consts["rho_v"] * nu_c * cos_b / nu_cgs
+    return out
+
+
+def _bridge(low, high, x: float):
+    """The bridge (low^-x + high^-x)^(-1/x) between the low- and
+    high-frequency forms, as m (1 + (m / M)^x)^(-1/x) with m, M the
+    smaller and the larger: the literal low^-x is inf at low = 0; the
+    ratio stays in [0, 1]. The floor on M follows the type."""
+    m = torch.minimum(low, high)
+    mm = torch.maximum(low, high)
+    tiny = 1e-150 if m.dtype == torch.float64 else 1e-18
+    ok = mm > tiny
+    r = torch.where(ok, m, 0.0) / torch.where(ok, mm, 1.0)
+    pos = r > 1e-30
+    rx = torch.where(pos, torch.pow(torch.where(pos, r, 1.0), x), 0.0)
+    return m * torch.pow(1.0 + rx, -1.0 / x)
+
+
+def kappa_coefficients(nu_cgs, nu0: float, state, sin_theta_b, cos_theta_b,
+                       sin2_theta_b, plasma: PlasmaParams, consts: dict,
+                       polarized: bool) -> dict:
+    """The kappa population's coefficients (M 28-29, 43-54;
+    simulation_coefficients.cpp:607-698). float64 keeps the literal
+    forms; float32 floors nu_kappa at 1e-12 and clamps sin into
+    [1e-6, 1 - 1e-7] in its fractional powers."""
+    out = {}
+    n_e = state["n_e_cgs"][..., None]
+    sin_b = sin_theta_b[..., None]
+    frac = plasma.kappa_frac
+    kap, w = plasma.kappa, plasma.w
+    nu_c = _nu_c(state)
+    nu_kappa = nu_c * w * w * kap * kap * sin_b
+    f64 = nu_cgs.dtype == torch.float64
+    xx = nu_cgs / torch.clamp(nu_kappa, min=1e-300 if f64 else 1e-12)
+    sin_cl = sin_b if f64 else torch.clamp(sin_b, 1e-6, 1.0 - 1e-7)
+
+    # emissivities, scaled by e^2 nu0^2 / c
+    var_a = frac * n_e * nu_c * (nu0 / nu_cgs) ** 2
+    var_b = cbrt(xx) * sin_b
+    var_c = torch.pow(xx, -(kap - 2.0) / 2.0) * sin_b
+    c_low = consts["jj_low"] * var_a * var_b
+    c_high = consts["jj_high"] * var_a * var_c
+    out["j_i"] = _bridge(c_low, c_high, consts["jj_x_i"])
+    if polarized:
+        cos_b = cos_theta_b[..., None]
+        var_d = torch.pow(torch.pow(sin_cl, -2.4) - 1.0, 0.48)
+        var_e = torch.pow(xx, -0.35)
+        var_f = torch.pow(torch.pow(sin_cl, -2.5) - 1.0, 0.44)
+        var_g = 1.0 / torch.sqrt(xx)
+        out["j_q"] = -_bridge(c_low * consts["jj_low_q"],
+                              c_high * consts["jj_high_q"], consts["jj_x_q"])
+        out["j_v"] = _bridge(c_low * consts["jj_low_v"] * var_d * var_e,
+                             c_high * consts["jj_high_v"] * var_f * var_g,
+                             consts["jj_x_v"]) * _sign(cos_b)
+
+    # absorptivities (true CGS)
+    ka = Physics.e * Physics.e / (Physics.m_e * Physics.c)
+    var_a2 = frac * n_e * ka
+    a_low = consts["aa_low"] * var_a2 * torch.pow(xx, -2.0 / 3.0)
+    a_high = consts["aa_high"] * var_a2 * torch.pow(xx, -(1.0 + kap) / 2.0)
+    out["alpha_i"] = _bridge(a_low, a_high * consts["aa_high_i"],
+                             consts["aa_x_i"])
+    if polarized:
+        sin2_b = sin2_theta_b[..., None]
+        var_d2 = torch.pow(torch.pow(sin_cl, -2.28) - 1.0, 0.446)
+        var_e2 = torch.pow(xx, -0.35)
+        var_f2 = torch.sqrt(torch.pow(sin_cl, -2.05) - 1.0)
+        var_g2 = 1.0 / torch.sqrt(xx)
+        out["alpha_q"] = -_bridge(a_low * consts["aa_low_q"],
+                                  a_high * consts["aa_high_q"],
+                                  consts["aa_x_q"])
+        out["alpha_v"] = _bridge(a_low * consts["aa_low_v"] * var_d2 * var_e2,
+                                 a_high * consts["aa_high_v"] * var_f2 * var_g2,
+                                 consts["aa_x_v"]) * _sign(cos_b)
+
+        # rotativities (M 51-54), blended between the kappa brackets
+        var_a3 = -frac * n_e * ka * nu_c ** 2 * sin2_b / (nu_cgs * nu_cgs)
+        var_b3 = frac * 2.0 * n_e * ka * nu_c * cos_b / nu_cgs
+        var_c3 = 1.0 / torch.sqrt(xx)
+
+        def rho_q_term(q):
+            return var_a3 * q["a"] * (
+                1.0 - torch.exp(q["b"] * torch.pow(xx, 0.84))
+                - torch.sin(q["c"] * xx)
+                * torch.exp(q["d"] * torch.pow(xx, q["e"])))
+
+        def rho_v_term(v):
+            a, bb = v
+            return consts["rho_v"] * var_b3 * a \
+                * (1.0 - 0.17 * torch.log1p(bb * var_c3))
+
+        fr = consts["rho_frac"]
+        out["rho_q"] = (1.0 - fr) * rho_q_term(consts["rho_q_low"]) \
+            + fr * rho_q_term(consts["rho_q_high"])
+        out["rho_v"] = (1.0 - fr) * rho_v_term(consts["rho_v_low"]) \
+            + fr * rho_v_term(consts["rho_v_high"])
+    return out
+
+
+COEFFICIENT_KEYS = ("j_i", "j_q", "j_v", "alpha_i", "alpha_q", "alpha_v",
+                    "rho_q", "rho_v")
+
+
+def all_coefficients(nu_cgs, nu0: float, state, sin_theta_b,
+                     plasma: PlasmaParams, *, cos_theta_b=None,
+                     sin2_theta_b=None, polarized: bool = False):
+    """The thermal, power-law and kappa populations summed in that order,
+    each only where its fraction is not 0 (the reference accumulates
+    into shared arrays), with ``population_constants(plasma,
+    polarized)``. Returns what ``thermal_coefficients`` returns: (j_i,
+    alpha_i), or with ``polarized`` the dict of all eight, each (B, F)."""
+    pl_consts, kp_consts = population_constants(plasma, polarized)
+    keys = COEFFICIENT_KEYS if polarized else ("j_i", "alpha_i")
+    total = None
+    if plasma.thermal_frac != 0.0:
+        total = thermal_coefficients(
+            nu_cgs, nu0, state, sin_theta_b, plasma, cos_theta_b=cos_theta_b,
+            sin2_theta_b=sin2_theta_b, polarized=polarized)
+        if not polarized:
+            total = dict(zip(keys, total))
+    parts = []
+    if plasma.power_frac != 0.0:
+        parts.append(powerlaw_coefficients(
+            nu_cgs, nu0, state, sin_theta_b, cos_theta_b, plasma, pl_consts,
+            polarized))
+    if plasma.kappa_frac != 0.0:
+        parts.append(kappa_coefficients(
+            nu_cgs, nu0, state, sin_theta_b, cos_theta_b, sin2_theta_b,
+            plasma, kp_consts, polarized))
+    for part in parts:
+        total = part if total is None else {k: total[k] + part[k]
+                                            for k in keys}
+    if total is None:
+        total = {k: torch.zeros_like(nu_cgs) for k in keys}
+    if polarized:
+        return total
+    return total["j_i"], total["alpha_i"]

@@ -45,7 +45,9 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # (simulation_phase.cu) must round as simulation_kernel.cu does: a phased
 # image is held to the monolithic one bit for bit. The units of many mesh
 # blocks (simulation_blocks*.cu, simulation_phase_blocks.cu,
-# polarized_derive_blocks.cu) follow their single-block units.
+# polarized_derive_blocks.cu) and of the mixture of populations
+# (simulation_mixture*.cu, simulation_phase_mixture*.cu,
+# polarized_derive_mixture*.cu) follow their thermal units.
 CONTRACT = {"formula_kernel.cu": False, "formula_kernel_dp.cu": True,
             "formula_kernel_multi.cu": False,
             "formula_kernel_multi_dp.cu": True,
@@ -55,9 +57,17 @@ CONTRACT = {"formula_kernel.cu": False, "formula_kernel_dp.cu": True,
             "simulation_kernel_dp.cu": False, "simulation_phase.cu": False,
             "simulation_blocks.cu": False, "simulation_blocks_dp.cu": False,
             "simulation_phase_blocks.cu": False,
+            "simulation_mixture.cu": False, "simulation_mixture_dp.cu": False,
+            "simulation_mixture_blocks.cu": False,
+            "simulation_mixture_blocks_dp.cu": False,
+            "simulation_phase_mixture.cu": False,
+            "simulation_phase_mixture_blocks.cu": False,
             "polarized_trace.cu": False, "polarized_derive.cu": False,
             "polarized_derive_f64.cu": False,
-            "polarized_derive_blocks.cu": False, "polarized_chain.cu": False}
+            "polarized_derive_blocks.cu": False, "polarized_chain.cu": False,
+            "polarized_derive_mixture.cu": False,
+            "polarized_derive_mixture_f64.cu": False,
+            "polarized_derive_mixture_blocks.cu": False}
 
 
 def find_nvcc() -> str:

@@ -92,8 +92,10 @@ LAUNCHES = 0
 STAGE_LAUNCHES = {"trace": 0, "derive": 0, "chain": 0}
 # Of the derive launches, those of each sampling mode's kernel
 # (grid/sampling.py SINGLE: polarized_derive_kernel; BLOCKS, INTERBLOCK:
-# polarized_derive_mode_kernel).
+# polarized_derive_mode_kernel), and those of the mixture's
+# (polarized_derive_mixture_kernel, any mode).
 DERIVE_MODE_LAUNCHES = [0, 0, 0]
+DERIVE_MIXTURE_LAUNCHES = 0
 
 # Index order of the kernel's float64 parameter vector: the simulation
 # kernel's (simulation_kernel.PARAM_NAMES), then the enum in
@@ -105,7 +107,9 @@ PARAM_NAMES = sk.PARAM_NAMES + ("ROTATION_SPLIT", "FALLBACK_RHO",
 def kernel_params(params: geo.GeodesicParams, sp: sk.SimKernelParams,
                   nu0: float, mass_msun: float, camera_x,
                   rotation_split: bool) -> list:
-    """The kernel's parameter vector in PARAM_NAMES order."""
+    """The kernel's parameter vector in PARAM_NAMES order; for a mixture
+    of populations (simulation_kernel.is_mixture) followed by its
+    constants in simulation_kernel.MIX_PARAM_NAMES order, polarized."""
     values = dict(zip(sk.PARAM_NAMES, sk.kernel_params(
         params, sp, nu0, mass_msun, camera_x)))
     values.update({
@@ -113,7 +117,9 @@ def kernel_params(params: geo.GeodesicParams, sp: sk.SimKernelParams,
         "FALLBACK_RHO": sp.sampler.fallback_rho,
         "FALLBACK_PGAS": sp.sampler.fallback_pgas,
         "E_SQUARED": Physics.e ** 2, "ME_C": Physics.m_e * Physics.c})
-    return geo.pack_params(PARAM_NAMES, values)
+    mix = sk.mixture_params(sp.plasma, polarized=True) \
+        if sk.is_mixture(sp.plasma) else []
+    return geo.pack_params(PARAM_NAMES, values) + mix
 
 
 # ---- the glue of the route (the same for the kernels and their plain
@@ -363,11 +369,12 @@ class _CudaStages:
         self.prm = torch.tensor(kernel_params(
             params, sp, float(frequencies[0]), mass_msun, camera_x,
             rotation_split), dtype=torch.float64, device=self.device)
+        self.mixture = sk.is_mixture(sp.plasma)
         self.grid = sk.kernel_grid(grid, self.dtype, sp.sampler)
         self.events = events
 
     def _launch(self, stage, fn, *args):
-        global LAUNCHES
+        global LAUNCHES, DERIVE_MIXTURE_LAUNCHES
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream(self.device)
             if self.events is not None:
@@ -384,7 +391,9 @@ class _CudaStages:
                                f"{msg} ({rc})")
         LAUNCHES += 1
         STAGE_LAUNCHES[stage] += 1
-        if stage == "derive":
+        if stage == "derive" and self.mixture:
+            DERIVE_MIXTURE_LAUNCHES += 1
+        elif stage == "derive":
             DERIVE_MODE_LAUNCHES[self.grid.mode] += 1
 
     def _ray_ptr(self, k, r0, values):
@@ -420,7 +429,9 @@ class _CudaStages:
         if not piece.n_slots:  # no stored sample: nothing to launch
             return geometry, coefficients, bits
         freqs = self.frequencies[f0:f1].contiguous()
-        self._launch("derive", self.lib.blacklight_polarized_derive,
+        derive = self.lib.blacklight_polarized_derive_mixture \
+            if self.mixture else self.lib.blacklight_polarized_derive
+        self._launch("derive", derive,
                      self.dtype_code, int(first), *self._set(piece),
                      piece.n_slots, piece.r1 - piece.r0,
                      self._ray_ptr(1, piece.r0, 4),
@@ -456,11 +467,14 @@ def _library() -> ctypes.CDLL:
                    *sk.GRID_ARGTYPES, ptr, ptr, ptr, ptr],
         "chain": [i32, *sample_set, i64, ptr, ptr, ptr, i32, ptr, ptr, ptr],
     }
+    signatures["derive_mixture"] = signatures["derive"]
     for name, argtypes in signatures.items():
         fn = getattr(lib, f"blacklight_polarized_{name}")
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     expected = {"param_count": len(PARAM_NAMES),
+                "mixture_param_count": len(PARAM_NAMES)
+                + len(sk.MIX_PARAM_NAMES),
                 "max_frequencies": MAX_FREQUENCIES,
                 "sample_values": SAMPLE_VALUES,
                 "geometry_values": GEOMETRY_VALUES,
@@ -497,7 +511,7 @@ def polarized_coefficients(pos, kcov, momentum_factors, frequencies,
     sin_b, cos_b, sin2_b, u_dot_k = synchrotron.pitch_angle(kcov, state)
     nu_cgs = -u_dot_k[:, None] * frequencies[None, :] \
         * momentum_factors[:, None]
-    coeffs = synchrotron.thermal_coefficients(
+    coeffs = synchrotron.all_coefficients(
         nu_cgs, nu0, state, sin_b, sp.plasma, cos_theta_b=cos_b,
         sin2_theta_b=sin2_b, polarized=True)
     keep = (keep_geo & keep_val & ~b_zero)[:, None]

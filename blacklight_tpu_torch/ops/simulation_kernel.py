@@ -1,12 +1,16 @@
 """Fused simulation-model kernel: geodesics + GRMHD grid sampling +
-thermal synchrotron coefficients + unpolarized transfer.
+synchrotron coefficients + unpolarized transfer.
 
 Port of ``blacklight_tpu/ops/pallas_simulation.py`` (``_make_kernel``
 :795, launched by ``render_simulation`` :1400; K2.1 rk4/rk2 and K2.2
-dp) for a single-block SKS grid, thermal ti_te_beta electrons and any
-number of frequencies. The values follow the JAX package's exact (XLA)
-path, ``pipeline_simulation.make_simulation_coeff_fns`` inside
+dp) for Athena++ SKS grids, ti_te_beta electrons and any number of
+frequencies. The values follow the JAX package's exact (XLA) path,
+``pipeline_simulation.make_simulation_coeff_fns`` inside
 ``transfer/unpolarized.integrate_unpolarized``, in each dtype's forms.
+The TPU kernel is thermal only; a configuration that mixes in power-law
+or kappa electrons (``is_mixture``) launches the same kernel's mixture
+instantiation (csrc/simulation_kernel.cuh POP_MIXTURE), whose constants
+``mixture_params`` folds, where the JAX package takes its XLA path.
 
 ``render_simulation`` dispatches on the device of the rays it is given:
 on a CUDA device it launches the hand-written kernel
@@ -78,8 +82,11 @@ MAX_FREQUENCIES = 16
 # kernel and nowhere else.
 LAUNCHES = 0
 # Of those, the launches of each sampling mode's kernel (grid/sampling.py
-# SINGLE: simulation_kernel; BLOCKS, INTERBLOCK: simulation_mode_kernel).
+# SINGLE: simulation_kernel; BLOCKS, INTERBLOCK: simulation_mode_kernel),
+# and the launches of the mixture's kernel (simulation_mixture_kernel, any
+# mode).
 MODE_LAUNCHES = [0, 0, 0]
+MIXTURE_LAUNCHES = 0
 
 # Most bins of an axis' guide (csrc/sim_sample.cuh GridAxis): 64 KB of
 # int32 an axis at most.
@@ -104,6 +111,76 @@ PARAM_NAMES = geo.GEODESIC_PARAM_NAMES + CUT_PARAM_NAMES + (
     "H_PLANCK", "NU0", "KIRCHHOFF",
     "CAM_X1", "CAM_X2", "CAM_X3", "X_UNIT",
 )
+
+
+# Index order of a mixture launch's constants after the launch constants:
+# the enum MixtureParam in csrc/simulation_params.cuh with its "M_" prefix
+# dropped.
+MIX_PARAM_NAMES = (
+    "THERMAL_ON", "POWER_ON", "KAPPA_ON", "KA",
+    "PL_FRAC", "PL_J_EXP", "PL_A_EXP", "PL_JJ", "PL_AA", "PL_JJ_Q", "PL_JJ_V",
+    "PL_AA_Q", "PL_AA_V", "PL_FRAC_RHO", "PL_RHO_Q", "PL_RHO_V", "PL_GMIN2",
+    "PL_E3_EXP",
+    "KP_FRAC", "KP_NEG_FRAC", "KP_TWO_FRAC", "KP_W", "KP_KAPPA", "KP_J_EXP",
+    "KP_A_EXP", "KP_JJ_LOW", "KP_JJ_HIGH", "KP_AA_LOW", "KP_AA_HIGH",
+    "KP_AA_HIGH_I", "KP_JJ_LOW_Q", "KP_JJ_HIGH_Q", "KP_JJ_LOW_V",
+    "KP_JJ_HIGH_V", "KP_AA_LOW_Q", "KP_AA_HIGH_Q", "KP_AA_LOW_V",
+    "KP_AA_HIGH_V",
+) + tuple(f"KP_{kind}_{c}" for c in ("JI", "JQ", "JV", "AI", "AQ", "AV")
+          for kind in ("X", "NX")) + (
+    "KP_RHO_V", "KP_RHO_FRAC", "KP_RHO_1M_FRAC",
+) + tuple(f"KP_Q{b}_{v}" for b in "LH" for v in "ABCDE") + (
+    "KP_VL_A", "KP_VL_B", "KP_VH_A", "KP_VH_B")
+
+
+def is_mixture(plasma: synchrotron.PlasmaParams) -> bool:
+    """Whether the configuration mixes power-law or kappa electrons into
+    the thermal ones (the kernels' POP_MIXTURE instantiations)."""
+    return plasma.power_frac != 0.0 or plasma.kappa_frac != 0.0
+
+
+def mixture_params(plasma: synchrotron.PlasmaParams, polarized: bool) -> list:
+    """The mixture's constants in MIX_PARAM_NAMES order
+    (models/synchrotron.py powerlaw_constants, kappa_constants with the
+    route's ``polarized``), each folded in float64 as the plain version's
+    Python expressions fold it before it meets a tensor; zeros for a
+    population the mixture leaves out."""
+    pl, kp = synchrotron.population_constants(plasma, polarized)
+    values = dict.fromkeys(MIX_PARAM_NAMES, 0.0)
+    values.update({
+        "THERMAL_ON": plasma.thermal_frac != 0.0,
+        "POWER_ON": pl is not None, "KAPPA_ON": kp is not None,
+        "KA": Physics.e * Physics.e / (Physics.m_e * Physics.c)})
+    if pl is not None:
+        pp, frac = plasma.power_p, plasma.power_frac
+        values.update({
+            "PL_FRAC": frac, "PL_J_EXP": -(pp - 1.0) / 2.0,
+            "PL_A_EXP": -(pp + 2.0) / 2.0, "PL_FRAC_RHO": frac * pl["rho"],
+            "PL_GMIN2": plasma.gamma_min ** 2, "PL_E3_EXP": pp / 2.0 - 1.0,
+            **{f"PL_{k.upper()}": pl[k] for k in (
+                "jj", "aa", "jj_q", "jj_v", "aa_q", "aa_v", "rho_q",
+                "rho_v")}})
+    if kp is not None:
+        kap, frac = plasma.kappa, plasma.kappa_frac
+        values.update({
+            "KP_FRAC": frac, "KP_NEG_FRAC": -frac, "KP_TWO_FRAC": frac * 2.0,
+            "KP_W": plasma.w, "KP_KAPPA": kap, "KP_J_EXP": -(kap - 2.0) / 2.0,
+            "KP_A_EXP": -(1.0 + kap) / 2.0, "KP_RHO_V": kp["rho_v"],
+            "KP_RHO_FRAC": kp["rho_frac"],
+            "KP_RHO_1M_FRAC": 1.0 - kp["rho_frac"],
+            **{f"KP_{k.upper()}": kp[k] for k in (
+                "jj_low", "jj_high", "aa_low", "aa_high", "aa_high_i",
+                "jj_low_q", "jj_high_q", "jj_low_v", "jj_high_v", "aa_low_q",
+                "aa_high_q", "aa_low_v", "aa_high_v")}})
+        for c, key in (("JI", "jj_x_i"), ("JQ", "jj_x_q"), ("JV", "jj_x_v"),
+                       ("AI", "aa_x_i"), ("AQ", "aa_x_q"), ("AV", "aa_x_v")):
+            values[f"KP_X_{c}"], values[f"KP_NX_{c}"] = kp[key], -1.0 / kp[key]
+        for b, bracket in (("L", "low"), ("H", "high")):
+            q = kp[f"rho_q_{bracket}"]
+            for v in "abcde":
+                values[f"KP_Q{b}_{v.upper()}"] = q[v]
+            values[f"KP_V{b}_A"], values[f"KP_V{b}_B"] = kp[f"rho_v_{bracket}"]
+    return [float(values[name]) for name in MIX_PARAM_NAMES]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -329,54 +406,72 @@ def kernel_grid(grid: SimulationGrid, dtype,
                       mode, not sampler.interp)
 
 
-def frequency_bucket(nf: int) -> int:
+def frequency_bucket(nf: int, one: bool = True) -> int:
     """The compile-time frequency bucket of a launch of nf frequencies
-    (csrc/simulation_kernel.cuh NF): 1, or MAX_FREQUENCIES."""
+    (csrc/simulation_kernel.cuh NF): 1, or MAX_FREQUENCIES; always
+    MAX_FREQUENCIES where the instantiation has no bucket of one
+    (``one`` False: the mixture's kernels of many blocks and its phase
+    kernels, csrc/simulation_kernel.cuh OneFrequencyBucket)."""
     if not 1 <= nf <= MAX_FREQUENCIES:
         raise ValueError(f"a launch takes 1..{MAX_FREQUENCIES} frequencies")
-    return 1 if nf == 1 else MAX_FREQUENCIES
+    return 1 if nf == 1 and one else MAX_FREQUENCIES
 
 
-def launch_consts(values, nus, scales, dtype: torch.dtype) -> np.ndarray:
+def launch_consts(values, nus, scales, dtype: torch.dtype, mix=None,
+                  bucket=None) -> np.ndarray:
     """The kernels' launch constants (SimLaunchConsts) as the host packs
     them: ``values`` (kernel_params) rounded once to the rays' dtype, each
     value cut that is off (a negative value, the same float64 test the
     JAX package makes) as -inf for a minimum and +inf for a maximum, then
     the launch's frequencies ``nus`` and image ``scales`` (already in the
     rays' dtype), each padded with zeros to the launch's frequency
-    bucket. numpy rounds float64 to float32 to nearest, as the card's
-    conversion does."""
+    ``bucket`` (frequency_bucket(len(nus)) by default); for a mixture
+    launch (SimMixLaunchConsts) then ``mix`` (mixture_params) rounded
+    once to the rays' dtype. numpy rounds float64 to float32 to nearest,
+    as the card's conversion does."""
     if len(values) != len(PARAM_NAMES) or len(nus) != len(scales):
         raise ValueError("launch_consts takes PARAM_NAMES values and one "
                          "image scale per frequency")
-    bucket = frequency_bucket(len(nus))
+    if mix is not None and len(mix) != len(MIX_PARAM_NAMES):
+        raise ValueError("launch_consts takes MIX_PARAM_NAMES values")
+    if bucket is None:
+        bucket = frequency_bucket(len(nus))
+    if not len(nus) <= bucket:
+        raise ValueError("more frequencies than the bucket holds")
     v = np.asarray(values, dtype=np.float64).copy()
     for name in VALUE_CUT_NAMES:
         for end, off in (("MIN", -math.inf), ("MAX", math.inf)):
             at = PARAM_NAMES.index(f"{name}_{end}")
             if not v[at] >= 0.0:
                 v[at] = off
-    out = np.zeros(len(PARAM_NAMES) + 2 * bucket, dtype=_NUMPY_DTYPES[dtype])
+    n = len(PARAM_NAMES) + 2 * bucket
+    out = np.zeros(n + (0 if mix is None else len(mix)),
+                   dtype=_NUMPY_DTYPES[dtype])
     out[:len(PARAM_NAMES)] = v
     out[len(PARAM_NAMES):len(PARAM_NAMES) + len(nus)] = np.asarray(nus)
     out[len(PARAM_NAMES) + bucket:len(PARAM_NAMES) + bucket + len(scales)] = \
         np.asarray(scales)
+    if mix is not None:
+        out[n:] = np.asarray(mix, dtype=np.float64)
     return out
 
 
-def host_consts_sizes() -> dict:
-    """The bytes launch_consts packs per (dtype, frequency bucket)."""
+def host_consts_sizes(mixture: bool = False) -> dict:
+    """The bytes launch_consts packs per (dtype, frequency bucket), of a
+    thermal or a ``mixture`` launch."""
     values = [0.0] * len(PARAM_NAMES)
+    mix = [0.0] * len(MIX_PARAM_NAMES) if mixture else None
     return {(dtype, bucket): launch_consts(values, [1.0] * bucket,
-                                           [1.0] * bucket, dtype).nbytes
+                                           [1.0] * bucket, dtype, mix).nbytes
             for dtype in _DTYPE_CODES for bucket in (1, MAX_FREQUENCIES)}
 
 
-def consts_sizes(lib) -> dict:
-    """sizeof(SimLaunchConsts) per (dtype, frequency bucket), from the C
-    side."""
-    return {(dtype, bucket): lib.blacklight_simulation_consts_bytes(code,
-                                                                    bucket)
+def consts_sizes(lib, mixture: bool = False) -> dict:
+    """sizeof(SimLaunchConsts) (or, for a ``mixture``, of
+    SimMixLaunchConsts) per (dtype, frequency bucket), from the C side."""
+    fn = lib.blacklight_simulation_mixture_consts_bytes if mixture \
+        else lib.blacklight_simulation_consts_bytes
+    return {(dtype, bucket): fn(code, bucket)
             for dtype, code in _DTYPE_CODES.items()
             for bucket in (1, MAX_FREQUENCIES)}
 
@@ -449,7 +544,7 @@ def _render_cuda(positions, directions, momentum_factors, frequencies,
     (tables, guides) may be freed before the kernel ends: the caching
     allocator hands their memory only to work queued after it on the same
     stream."""
-    global LAUNCHES
+    global LAUNCHES, MIXTURE_LAUNCHES
     lib = _library()
     device = positions.device
     b, nf = positions.shape[0], frequencies.shape[0]
@@ -464,15 +559,21 @@ def _render_cuda(positions, directions, momentum_factors, frequencies,
     nus = frequencies.cpu().numpy()
     scales = image_scale(frequencies, log_j_scale).cpu().numpy()
     code, integ = _DTYPE_CODES[positions.dtype], INTEGRATORS.index(integrator)
+    mixture = is_mixture(sp.plasma)
+    mix = mixture_params(sp.plasma, polarized=False) if mixture else None
+    launch = lib.blacklight_simulation_mixture_launch if mixture \
+        else lib.blacklight_simulation_launch
     for start in range(0, nf, MAX_FREQUENCIES):
         stop = min(start + MAX_FREQUENCIES, nf)
-        consts = launch_consts(values, nus[start:stop], scales[start:stop],
-                               positions.dtype)
+        consts = launch_consts(
+            values, nus[start:stop], scales[start:stop], positions.dtype, mix,
+            frequency_bucket(stop - start,
+                             one=not mixture or kgrid.mode == SINGLE))
         out = i_nu if stop - start == nf else torch.empty(
             (b, stop - start), dtype=positions.dtype, device=device)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            rc = lib.blacklight_simulation_launch(
+            rc = launch(
                 code, integ, stop - start, positions.data_ptr(),
                 directions.data_ptr(), momentum_factors.data_ptr(),
                 consts.ctypes.data, consts.nbytes, *kgrid.args(),
@@ -483,7 +584,10 @@ def _render_cuda(positions, directions, momentum_factors, frequencies,
             raise RuntimeError(f"simulation kernel launch failed: {msg} "
                                f"({rc})")
         LAUNCHES += 1
-        MODE_LAUNCHES[kgrid.mode] += 1
+        if mixture:
+            MIXTURE_LAUNCHES += 1
+        else:
+            MODE_LAUNCHES[kgrid.mode] += 1
         if out is not i_nu:
             i_nu[:, start:stop] = out
     return i_nu, flags.bool(), n_samples
@@ -495,13 +599,18 @@ def _library() -> ctypes.CDLL:
     declared: every pointer and the stream as c_void_p."""
     lib = _build.load_library()
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.blacklight_simulation_launch.argtypes = [
-        i32, i32, i32, ptr, ptr, ptr, ptr, i64, *GRID_ARGTYPES, ptr, ptr, ptr,
-        i64, ptr]
-    lib.blacklight_simulation_launch.restype = i32
-    lib.blacklight_simulation_consts_bytes.argtypes = [i32, i32]
-    lib.blacklight_simulation_consts_bytes.restype = i64
+    for name in ("blacklight_simulation_launch",
+                 "blacklight_simulation_mixture_launch"):
+        getattr(lib, name).argtypes = [
+            i32, i32, i32, ptr, ptr, ptr, ptr, i64, *GRID_ARGTYPES, ptr, ptr,
+            ptr, i64, ptr]
+        getattr(lib, name).restype = i32
+    for name in ("blacklight_simulation_consts_bytes",
+                 "blacklight_simulation_mixture_consts_bytes"):
+        getattr(lib, name).argtypes = [i32, i32]
+        getattr(lib, name).restype = i64
     for name in ("blacklight_simulation_param_count",
+                 "blacklight_simulation_mixture_param_count",
                  "blacklight_simulation_max_frequencies",
                  "blacklight_simulation_guide_axis_values",
                  "blacklight_simulation_amr_table_fields"):
@@ -509,9 +618,11 @@ def _library() -> ctypes.CDLL:
         getattr(lib, name).restype = i32
     lib.blacklight_cuda_error_string.argtypes = [i32]
     lib.blacklight_cuda_error_string.restype = ctypes.c_char_p
-    if lib.blacklight_simulation_param_count() != len(PARAM_NAMES):
-        raise RuntimeError("csrc/simulation_params.cuh and PARAM_NAMES "
-                           "disagree")
+    if (lib.blacklight_simulation_param_count() != len(PARAM_NAMES)
+            or lib.blacklight_simulation_mixture_param_count()
+            != len(MIX_PARAM_NAMES)):
+        raise RuntimeError("csrc/simulation_params.cuh and PARAM_NAMES or "
+                           "MIX_PARAM_NAMES disagree")
     if (lib.blacklight_simulation_max_frequencies() != MAX_FREQUENCIES
             or lib.blacklight_simulation_guide_axis_values()
             != GUIDE_AXIS_VALUES
@@ -520,9 +631,12 @@ def _library() -> ctypes.CDLL:
         raise RuntimeError("csrc/simulation_kernel.cuh and MAX_FREQUENCIES, "
                            "GUIDE_AXIS_VALUES or grid/amr.TABLE_FIELDS "
                            "disagree")
-    if consts_sizes(lib) != host_consts_sizes():
-        raise RuntimeError("SimLaunchConsts and launch_consts disagree: "
-                           f"{consts_sizes(lib)} != {host_consts_sizes()}")
+    for mixture in (False, True):
+        if consts_sizes(lib, mixture) != host_consts_sizes(mixture):
+            raise RuntimeError(
+                "SimLaunchConsts (SimMixLaunchConsts) and launch_consts "
+                f"disagree: {consts_sizes(lib, mixture)} != "
+                f"{host_consts_sizes(mixture)}")
     return lib
 
 
@@ -560,11 +674,12 @@ def sample_coefficients(pos, kcov, momentum_factors, frequencies,
     samples, state, keep_geo, keep_val, b_zero = \
         fluid_sample(pos, sp, grid, spin, camera_x) if fluid is None \
         else fluid
-    sin_b, _, _, u_dot_k = synchrotron.pitch_angle(kcov, state)
+    sin_b, cos_b, sin2_b, u_dot_k = synchrotron.pitch_angle(kcov, state)
     nu_cgs = -u_dot_k[:, None] * frequencies[None, :] \
         * momentum_factors[:, None]
-    j, alpha = synchrotron.thermal_coefficients(nu_cgs, nu0, state, sin_b,
-                                                sp.plasma)
+    j, alpha = synchrotron.all_coefficients(
+        nu_cgs, nu0, state, sin_b, sp.plasma, cos_theta_b=cos_b,
+        sin2_theta_b=sin2_b)
     keep = (keep_geo & keep_val & ~b_zero)[:, None]
     j = torch.where(keep, j, 0.0)
     alpha = torch.where(keep, alpha, 0.0)
@@ -715,8 +830,10 @@ def angular_order(positions, block: int = 1024):
 PHASE_LAUNCHES = 0
 # Of those, the launches of each sampling mode's phase kernel (SINGLE:
 # simulation_phase_kernel; BLOCKS, INTERBLOCK:
-# simulation_phase_mode_kernel).
+# simulation_phase_mode_kernel), and of the mixture's
+# (simulation_phase_mixture_kernel, any mode).
 PHASE_MODE_LAUNCHES = [0, 0, 0]
+PHASE_MIXTURE_LAUNCHES = 0
 
 # Steps a phase of render_simulation_phased by default: at 1024^2 with 2000
 # steps, 1000 (2 launches) beat the JAX package's 512 (4 launches) in turns
@@ -866,24 +983,30 @@ def _phase_runner(frequencies, params, sp, grid, mass_msun, camera_x,
     kgrid = kernel_grid(grid, dtype, sp.sampler)
     nus = frequencies.cpu().numpy()
     code, integ = _DTYPE_CODES[dtype], INTEGRATORS.index(integrator)
+    mixture = is_mixture(sp.plasma)
+    mix = mixture_params(sp.plasma, polarized=False) if mixture else None
+    launch = lib.blacklight_simulation_phase_mixture_launch if mixture \
+        else lib.blacklight_simulation_phase_launch
     # the phase kernel writes no image: its scales are zero
     chunks = [(start, min(start + MAX_FREQUENCIES, nf), launch_consts(
         values, nus[start:start + MAX_FREQUENCIES],
-        np.zeros_like(nus[start:start + MAX_FREQUENCIES]), dtype))
+        np.zeros_like(nus[start:start + MAX_FREQUENCIES]), dtype, mix,
+        frequency_bucket(len(nus[start:start + MAX_FREQUENCIES]),
+                         one=not mixture)))
         for start in range(0, nf, MAX_FREQUENCIES)]
 
     def run(carry, index, n_base, phase_steps, directions, momentum_factors):
         """One launch per MAX_FREQUENCIES frequencies; only the last
         writes the ray state back, so that every launch of the phase
         starts from the same state (they run in order on the stream)."""
-        global PHASE_LAUNCHES
+        global PHASE_LAUNCHES, PHASE_MIXTURE_LAUNCHES
         b, n_live = carry.y.shape[1], index.shape[0]
         if not n_live:
             return
         for chunk, (start, stop, consts) in enumerate(chunks):
             with torch.cuda.device(device):
                 stream = torch.cuda.current_stream(device).cuda_stream
-                rc = lib.blacklight_simulation_phase_launch(
+                rc = launch(
                     code, integ, stop - start, index.data_ptr(), n_live,
                     n_base, phase_steps, int(chunk == len(chunks) - 1),
                     directions.data_ptr(), momentum_factors.data_ptr(),
@@ -898,7 +1021,10 @@ def _phase_runner(frequencies, params, sp, grid, mass_msun, camera_x,
                 raise RuntimeError(f"simulation phase kernel launch failed: "
                                    f"{msg} ({rc})")
             PHASE_LAUNCHES += 1
-            PHASE_MODE_LAUNCHES[kgrid.mode] += 1
+            if mixture:
+                PHASE_MIXTURE_LAUNCHES += 1
+            else:
+                PHASE_MODE_LAUNCHES[kgrid.mode] += 1
     return run
 
 
@@ -908,10 +1034,12 @@ def _phase_library() -> ctypes.CDLL:
     declared as well."""
     lib = _library()
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.blacklight_simulation_phase_launch.argtypes = [
-        i32, i32, i32, ptr, i64, i32, i32, i32, ptr, ptr, ptr, i64,
-        *GRID_ARGTYPES, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr]
-    lib.blacklight_simulation_phase_launch.restype = i32
+    for name in ("blacklight_simulation_phase_launch",
+                 "blacklight_simulation_phase_mixture_launch"):
+        getattr(lib, name).argtypes = [
+            i32, i32, i32, ptr, i64, i32, i32, i32, ptr, ptr, ptr, i64,
+            *GRID_ARGTYPES, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr]
+        getattr(lib, name).restype = i32
     return lib
 
 

@@ -131,9 +131,6 @@ def _check_simulation_slice(cfg, refuse) -> None:
         refuse("slow light", "B.6")
     if cfg.require("plasma_model") != PlasmaModel.ti_te_beta:
         refuse(f"plasma_model = {cfg.plasma_model.value}", "B.2")
-    for key in ("plasma_power_frac", "plasma_kappa_frac"):
-        if cfg.require(key) != 0.0:
-            refuse(f"{key} != 0", "B.2")
 
 
 def resolve_device(device) -> torch.device:

@@ -9,8 +9,10 @@ chooses between its kernels and its XLA path
 (blacklight_tpu/pipeline_simulation.py:348-370, :466-474):
 
 - "kernel", the light image alone: one fused kernel that integrates the
-  geodesics, samples the grid, evaluates the thermal synchrotron
-  coefficients and accumulates the transfer, unpolarized
+  geodesics, samples the grid, evaluates the synchrotron coefficients
+  (thermal electrons, or their mixture with power-law and kappa ones:
+  the kernels' mixture instantiations) and accumulates the transfer,
+  unpolarized
   (``ops/simulation_kernel.render_simulation``, or with KERNEL_PHASED its
   phased dispatch ``render_simulation_phased``) or, with
   image_polarization, full-Stokes (``ops/polarized_kernel.render_polarized``

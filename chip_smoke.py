@@ -36,8 +36,9 @@ and prints no final line):
      V: rk4 float64, dp float32, rk2 float32 with image_rotation_split
      and two frequencies; each float32 case also against the plain
      version in float64 on the same rays (truth_gate);
-   - the plain polarized version in float64 on 4,096 rays of phase 9's
-     main path, which phase 9 holds its float32 route against;
+   - the plain polarized version in float64 and in float32 on 4,096 rays
+     of phase 9's main path, which phase 9 holds its float32 route
+     against;
    - the polarized route's three kernels at phase 9's cell (4,096 of its
      rays, every PLAIN_STRIDE-th in spatial_order), each against its plain
      version on the same inputs: the trace kernel on the rays, the derive
@@ -98,7 +99,7 @@ and prints no final line):
    trace of the same run (device idle share, kernel time by name); then
    route times at 1024^2 in spatial_order (the order run launches) in
    float32 rk4, float64 rk4 and float32 dp, float32 rk4 also in camera
-   order, each stage's time and the glue's, the plain version's in
+   order, each stage's time and the glue's, phase 3's plain version in
    float32 rk4 on 4,096 of the same rays (every PLAIN_STRIDE-th; held to
    the route and both to phase 3's float64 run), and a render under
    CHUNK_CHECK's byte caps (several trace chunks and record pieces) that
@@ -175,7 +176,33 @@ and prints no final line):
     V_EXACT_RTOL) and its Stokes against the K3.1 route's
     (polarized_gate, exact).
 
-Phases 4 to 15 run alone on the card, after phase 3.
+16. the power-law and kappa populations (ROADMAP B.2), run after phase
+    9: phase 7's cell with thermal + power-law 0.3 + kappa 0.2 electrons
+    (golden_plasma_mix_rk4_32.input's plasma; 1024^2, rk4, 2000 steps,
+    float32) through pipeline.run, counting the launches of the mixture's
+    kernel (simulation_mixture_kernel), then the mixture kernel and the
+    thermal one in spatial_order, best of 3 in turns, the mixture's held to
+    phase 3's plain version on every PLAIN_STRIDE-th ray (statistical
+    gate) beside its bound (OPS_PER_SAMPLE "simulation_mixture"); the
+    phased route of the mixture (KERNEL_PHASED on) bit for bit the
+    mixture's image, with its time; the same cell polarized
+    (golden_plasma_mix_pol_rk4_32.input) through pipeline.run, counting
+    the mixture's derive kernel (polarized_derive_mixture_kernel), the
+    route best of 3 in turns with the thermal route, held to phase 3's
+    plain version on every PLAIN_STRIDE-th ray (polarized_gate, float32).
+    Phase 2 also holds every thermal kernel's SASS to the digests of
+    scripts/thermal_sass.json (scripts/sass_digests.py: the kernels as
+    built before the mixture existed) and reports the mixture
+    instantiations' registers and spills; phase 3 holds the mixture
+    kernels to their plain versions at 128^2 (rk4 float64 exact at 400
+    steps of 0.04, dp float32 statistical at 2000 of 0.01; the phase kernel
+    on its second phase of 200 steps, rk4 float64 exact), and phases 6 and
+    8 render the
+    plasma goldens golden_plasma_{pow,kap,mix}_rk4_32 and
+    golden_plasma_mix_pol_rk4_32 through the kernel route
+    (tests/test_simulation_e2e.py:88-114).
+
+Phases 4 to 16 run alone on the card, after phase 3.
 
 ``python3 chip_smoke.py --chunk-sweep`` runs phases 1 and 2, then times
 the polarized route at 1024^2 (float32 rk4, spatial_order) for trace
@@ -202,9 +229,11 @@ Every line but the last two is a JSON object with the measurements (the
 kernels line lists formula K1.1/K1.2, K1.3, K1.4, simulation, phased
 simulation and polarized, then the instantiations of many blocks: the
 simulation kernel on mb-uniform, mb-amr and at the nearest cell, the
-phase kernel and the derive kernel of interblock sampling); then come the
-card's name and power limit, and the last line is {"ok": true, "device":
-{...}}.
+phase kernel and the derive kernel of interblock sampling, then the
+mixture's: the simulation kernel, the phase kernel and the polarized
+route's derive kernel); then come the card's name and power limit, and
+the last line is {"ok": true, "device": {...}}. The script prints its
+total time on the line before the kernels line.
 """
 
 from __future__ import annotations
@@ -277,11 +306,24 @@ SM_CLOCK_HZ = {}
 # each, less the first corner's sums: 120), the repair (2), the float32
 # rounding (8), the fractions (3 x 3) and the anchors' selects and
 # clamps (3 x 4).
+# The mixture of populations (csrc/sim_sample.cuh mixture_i) adds at a
+# sample and frequency to the thermal j and alpha the power law's (the
+# ratio, its two powers and ten products: ~17) and the kappa
+# population's (nu_kappa and xx, the cube root and two powers, the
+# bracket terms: ~36; two bridges of ~12: a min, a max, two compares, two
+# selects, a division, two powers, a sum and a product), and the shared
+# (nu0 / nu)^2 and sums (~5): ~80; polarized (csrc/polarized_kernel.cuh
+# mixture_polarized), per frequency, the power law's eight coefficients
+# (~60) and the kappa population's six bridges (~72), eight sin and xx
+# powers (~16), rotativities of two brackets (~70) and the rest (~40):
+# ~260 more than the thermal POL_OPS_PER_FREQUENCY.
 OPS_PER_STEP = {"rk4": 830, "rk2": 500, "dp": 2020}
 OPS_PER_SAMPLE = {"formula": 130, "simulation": 495, "polarized": 2740,
                   "simulation_blocks": 520, "simulation_interblock": 1030,
-                  "simulation_nearest": 331}
+                  "simulation_nearest": 331, "simulation_mixture": 575,
+                  "polarized_mixture": 2740}
 POL_OPS_PER_FREQUENCY = 1090
+POL_MIX_OPS_PER_FREQUENCY = 260
 POL_CHAIN_OPS_PER_FREQUENCY = 900
 # The formula sample beyond its first frequency (csrc/formula_kernel.cuh):
 # each further frequency's power laws and selects (formula_jalpha, ~21)
@@ -416,6 +458,22 @@ SAMPLE_MODE_NAMES = ("single block", "blocks", "interblock")
 
 
 def _kernel_label(mangled: str) -> str:
+    m = re.search(r"(simulation|simulation_phase)_mixture_kernelI([fd])"
+                  r"Li(\d)ELi(\d+)ELi(\d)E", mangled)
+    if m:
+        kind, tp, integrator, nf, mode = m.groups()
+        return (f"{kind}_mixture_kernel<{'float' if tp == 'f' else 'double'}"
+                f", {('dp', 'rk4', 'rk2')[int(integrator)]}, NF={nf}, "
+                f"{SAMPLE_MODE_NAMES[int(mode)]}>")
+    m = re.search(r"polarized_derive_mixture_kernelI([fd])Lb([01])ELi(\d)E",
+                  mangled)
+    if m:
+        tp, geometry, mode = m.groups()
+        args = ["float" if tp == "f" else "double"]
+        if geometry == "0":
+            args.append("coefficients only")
+        args.append(SAMPLE_MODE_NAMES[int(mode)])
+        return f"polarized_derive_mixture_kernel<{', '.join(args)}>"
     m = re.search(r"(simulation|simulation_phase)_mode_kernelI([fd])Li(\d)E"
                   r"Li(\d+)ELi(\d)E", mangled)
     if m:
@@ -479,7 +537,8 @@ def _step_loops() -> dict:
     csrc = (ROOT / KERNEL_SOURCE).parent
     units = sorted(p.name for pattern in ("formula_kernel*.cu",
                                           "simulation_*.cu")
-                   for p in csrc.glob(pattern) if "blocks" not in p.name)
+                   for p in csrc.glob(pattern)
+                   if "blocks" not in p.name and "mixture" not in p.name)
     per_ray, per_sample = mix.per_ray_lines(ROOT), mix.per_sample_lines(ROOT)
     with tempfile.TemporaryDirectory() as tmp:
         sass = mix.disassemble(ROOT, units, pathlib.Path(tmp))
@@ -527,19 +586,58 @@ def phase_build():
     sass = _sass(path)
     STEP_LOOPS.update(_step_loops())
     ptxas = _ptxas_table(_build.ptxas_report())
-    emit("build", seconds=build_s, library=path.name,
+    thermal_sass = _thermal_sass(sass)
+    emit("build", seconds=build_s, library=path.name, units=len(
+        _build.sources()),
          ptxas=ptxas, fp64_sass=_sass_fp64(sass),
          formula_consts_bytes={f"{str(k[0])[6:]}, NF={k[1]}": v for k, v in
                                fk.consts_sizes(fk._library()).items()},
          simulation_consts_bytes={f"{str(k[0])[6:]}, NF={k[1]}": v for k, v
                                   in sk.consts_sizes(sk._library()).items()},
+         simulation_mixture_consts_bytes={
+             f"{str(k[0])[6:]}, NF={k[1]}": v for k, v in
+             sk.consts_sizes(sk._library(), mixture=True).items()},
          simulation_registers={k: v for k, v in ptxas.items()
                                if k.startswith("simulation")},
          step_loops=STEP_LOOPS)
+    emit("mixture_registers", ptxas={k: v for k, v in ptxas.items()
+                                     if "mixture" in k})
+    emit("thermal_sass", **thermal_sass)
     if fk.consts_sizes(fk._library()) != fk.host_consts_sizes():
         raise RuntimeError("FormulaLaunchConsts and launch_consts disagree")
-    if sk.consts_sizes(sk._library()) != sk.host_consts_sizes():
-        raise RuntimeError("SimLaunchConsts and launch_consts disagree")
+    for mixture in (False, True):
+        if sk.consts_sizes(sk._library(), mixture) \
+                != sk.host_consts_sizes(mixture):
+            raise RuntimeError("SimLaunchConsts (SimMixLaunchConsts) and "
+                               "launch_consts disagree")
+    if not thermal_sass["ok"]:
+        raise RuntimeError(f"a thermal kernel's SASS changed: {thermal_sass}")
+
+
+def _thermal_sass(sass) -> dict:
+    """Every kernel of scripts/thermal_sass.json (the kernels as built
+    before the mixture of populations existed) against this build's SASS
+    (scripts/sass_digests.py), instruction for instruction; the kernels
+    whose SASS varies between builds of the same sources (UNSTABLE: the
+    polarized chain kernels) are reported, not held. Not ok where another
+    kernel differs or is missing under the nvcc that built the reference;
+    under another nvcc the comparison is reported and not held."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "sass_digests", ROOT / "scripts" / "sass_digests.py")
+    digests = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(digests)
+    reference = json.loads(digests.REFERENCE.read_text())
+    if sass is None:
+        return {"ok": False, "not_measured": "cuobjdump not found"}
+    nvcc = digests.nvcc_version()
+    result = digests.compare(digests.digests(sass), reference["kernels"])
+    comparable = nvcc == reference["nvcc"]
+    return {"nvcc": nvcc, "reference_nvcc": reference["nvcc"],
+            "reference_kernels": len(reference["kernels"]),
+            "comparable": comparable, **result,
+            "ok": not comparable or not (result["different"]
+                                          or result["missing"])}
 
 
 def _config(name, **overrides):
@@ -643,14 +741,17 @@ def _timed(fn, *args, **kwargs):
 def phase_checks(pool) -> tuple:
     """Phase 3 on ``pool``: every check at once, longest first; emits each
     result in that order and raises at the first that failed. Returns
-    phase 9's float64 reference (positions, Stokes), the plain formula
+    phase 9's float64 reference (positions, Stokes) with its float32 plain
+    version (pol_full_width_plain's result), the plain formula
     version on the subsets of the full-width formula cells, by cell, the
     polarized route's per-kernel checks, and phase 14's: the phase and
     derive kernels of many blocks against their plain versions, the plain
     version on the subset of each full-width mesh cell (mesh_plain_subset,
     by cell and precision, under "plain") and the plain phase version on
     mb-amr's second phase (mesh_phase_plain_subset, "phase_plain"); and
-    phase 15's jobs (AUX_JOBS) by name. Jobs start longest first
+    phase 15's jobs (AUX_JOBS) by name; and phase 16's: the mixture's
+    phase kernel against its plain version ("phase"), the plain version
+    on its cells' subsets ("plain", "pol_plain"). Jobs start longest first
     (PHASE3_SECONDS)."""
     t0 = time.perf_counter()
     jobs = {("check", fn.__name__, args): (fn, args) for fn, args in CHECKS}
@@ -662,10 +763,13 @@ def phase_checks(pool) -> tuple:
                  (mesh_plain_subset, key) for key in MESH_PLAIN})
     jobs.update({(kind, fn.__name__, ()): (fn, ()) for kind, fn in (
         ("truth", pol_full_width_truth), ("stages", check_polarized_stages),
-        ("mesh_phase_plain", mesh_phase_plain_subset))})
+        ("mesh_phase_plain", mesh_phase_plain_subset),
+        ("pol_plain", pol_full_width_plain))})
     jobs[("derive", "check_mesh_derive", ("float32",))] = (
         check_mesh_derive, ("float32",))
     jobs.update({("aux", fn.__name__, ()): (fn, ()) for _, fn in AUX_JOBS})
+    jobs.update({("mixture", fn.__name__, ()): (fn, ()) for fn in (
+        check_mixture_phase, mixture_plain_subset, mixture_pol_plain_subset)})
     # longest first (a stable sort: jobs of no measured length keep the
     # table's order after the measured ones)
     order = sorted(jobs, key=lambda key: -PHASE3_SECONDS.get(key[1:], 0.0))
@@ -681,11 +785,14 @@ def phase_checks(pool) -> tuple:
     subsets = {args[0]: job for args, job in results("subset").items()}
     mesh_plain = results("mesh_plain")
     truth = started[("truth", "pol_full_width_truth", ())]
+    pol_plain = started[("pol_plain", "pol_full_width_plain", ())]
     stages = started[("stages", "check_polarized_stages", ())]
     mesh_phase_plain = started[("mesh_phase_plain",
                                 "mesh_phase_plain_subset", ())]
     mesh_derive = started[("derive", "check_mesh_derive", ("float32",))]
     aux = {name: started[("aux", fn.__name__, ())] for name, fn in AUX_JOBS}
+    mixture = {key[1]: job for key, job in started.items()
+               if key[0] == "mixture"}
     for check in checks:
         phase, result = check.get()
         emit(phase, workers=WORKERS, **result)
@@ -709,11 +816,18 @@ def phase_checks(pool) -> tuple:
         mesh[name] = result
     mesh["plain"] = {key: job.get() for key, job in mesh_plain.items()}
     mesh["phase_plain"] = mesh_phase_plain.get()
-    truth = truth.get()
+    truth = (*truth.get(), pol_plain.get())
     subsets = {cell: result.get() for cell, result in subsets.items()}
     aux = {name: job.get() for name, job in aux.items()}
+    phase, result = mixture["check_mixture_phase"].get()
+    emit(phase, workers=WORKERS, **result)
+    if not result["ok"]:
+        raise RuntimeError(f"{phase}: kernel disagrees with plain: {result}")
+    mixture = {"phase": result,
+               "plain": mixture["mixture_plain_subset"].get(),
+               "pol_plain": mixture["mixture_pol_plain_subset"].get()}
     emit("checks", workers=WORKERS, seconds=time.perf_counter() - t0)
-    return truth, subsets, stages, mesh, aux
+    return truth, subsets, stages, mesh, aux, mixture
 
 
 def _check_exact(kernel_out, plain_out, rtol) -> dict:
@@ -1050,25 +1164,29 @@ def _first_phase(args, integrator, phase_steps):
     return carry, index, phase
 
 
-def _second_phase(args, integrator, phase_steps):
+def _second_phase(args, integrator, phase_steps, with_plain=True):
     """The carried state of ``args``' rays after the phase kernel's first
     phase of ``phase_steps``, then their second phase through the kernel
-    and through its plain version from that state: (kernel outputs, plain
-    outputs, kernel seconds, plain seconds, rays in the second phase,
-    their samples in it), the outputs as finish_rays gives them."""
+    and (``with_plain``) through its plain version from that state:
+    (kernel outputs, plain outputs, kernel seconds, plain seconds, rays in
+    the second phase, their samples in it), the outputs as finish_rays
+    gives them (None and 0.0 for the plain version without it)."""
     from blacklight_tpu_torch.ops import simulation_kernel as sk
     carry, index, phase = _first_phase(args, integrator, phase_steps)
     freqs, sp, log_js = args[3], args[5], args[9]
-    plain = sk.SimCarry(*(t.clone() for t in carry))
+    plain = sk.SimCarry(*(t.clone() for t in carry)) if with_plain else None
     before = carry.n_samp[index.long()]
     _, t_k = _timed(sk.render_simulation_phase, carry, index, phase_steps,
                     phase_steps, *phase)
-    _, t_p = _timed(sk.render_simulation_phase_reference, plain, index,
-                    phase_steps, phase_steps, *phase)
+    t_p = 0.0
+    if with_plain:
+        _, t_p = _timed(sk.render_simulation_phase_reference, plain, index,
+                        phase_steps, phase_steps, *phase)
     samples = int((carry.n_samp[index.long()] - before).sum())
     fallback_nan = sp.sampler.fallback_nan
     return (sk.finish_rays(carry, index, freqs, log_js, fallback_nan),
-            sk.finish_rays(plain, index, freqs, log_js, fallback_nan),
+            sk.finish_rays(plain, index, freqs, log_js, fallback_nan)
+            if with_plain else None,
             t_k, t_p, int(index.numel()), samples)
 
 
@@ -1098,13 +1216,17 @@ def phase_sim_goldens(tmp: pathlib.Path):
     for name, exact, snapshot in (
             ("golden_sim_rk4_32", True, "mock_small.athdf"),
             ("golden_sim_32", False, "mock_small.athdf"),
-            ("golden_amr_rk4_32", True, "mock_amr.athdf")):
+            ("golden_amr_rk4_32", True, "mock_amr.athdf"),
+            ("golden_plasma_pow_rk4_32", True, "mock_small.athdf"),
+            ("golden_plasma_kap_rk4_32", True, "mock_small.athdf"),
+            ("golden_plasma_mix_rk4_32", True, "mock_small.athdf")):
         cfg = _sim_config(f"{name}.input",
                           output_file=str(tmp / f"{name}.npz"),
                           simulation_file=str(FIXTURES / snapshot))
-        before = sk.LAUNCHES
+        before = sk.LAUNCHES, sk.MIXTURE_LAUNCHES
         arrays = pipeline.run(cfg, quiet=True, device="cuda")
-        launched = sk.LAUNCHES - before
+        launched = sk.LAUNCHES - before[0]
+        mixture = sk.MIXTURE_LAUNCHES - before[1]
         ours = arrays["I_nu"]
         gold = np.load(FIXTURES / f"{name}.npz")["I_nu"]
         rel = np.abs(ours - gold) / (np.abs(gold) + np.nanmax(gold) * 1e-8)
@@ -1118,8 +1240,12 @@ def phase_sim_goldens(tmp: pathlib.Path):
         else:
             ok = bool(np.nanmax(rel) < 6e-2 and np.nanmean(rel) < 5e-3)
             gate = "max rel < 6e-2, mean rel < 5e-3"
-        ok = ok and launched > 0
+        # the plasma goldens through the mixture's kernel, the others
+        # through the thermal one
+        ok = ok and launched > 0 and (mixture == launched) == ("plasma"
+                                                                in name)
         emit("sim_golden", name=name, gate=gate, launches=launched,
+             mixture_launches=mixture,
              max_rel=float(np.nanmax(rel)), mean_rel=float(np.nanmean(rel)),
              ok=ok)
         if not ok:
@@ -2465,6 +2591,9 @@ def bound(kernel, integrator, precision, rays, mean_samples, *, in_bytes,
             + FORMULA_OPS_PER_TANGENT * frequencies * tangents
     if kernel == "polarized":
         per_sample += POL_OPS_PER_FREQUENCY * frequencies
+    if kernel == "polarized_mixture":
+        per_sample += (POL_OPS_PER_FREQUENCY + POL_MIX_OPS_PER_FREQUENCY) \
+            * frequencies
     ops = rays * mean_samples * per_sample
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[precision]
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -2673,24 +2802,49 @@ def pol_full_width_truth() -> tuple:
     return sub[0].cpu().numpy(), truth
 
 
+def pol_full_width_plain() -> tuple:
+    """The plain version in float32 on phase 9's plain-version rays (every
+    PLAIN_STRIDE-th of its 1024^2 bundle in camera order), through the
+    float32 snapshot: (their positions, Stokes, seconds). Run in phase 3's
+    pool, beside the float64 run on the same rays."""
+    import torch
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    args, kwargs, geom = _pol_args(_pol_full_config("float32", "rk4"),
+                                   full_width_snapshot(torch.float32))
+    _, sub = _plain_subset(args)
+    out, t_plain = _timed(pk.render_polarized_reference, *sub, **kwargs)
+    return sub[0].cpu().numpy(), _pol_stokes(out, sub, geom, True), t_plain
+
+
 def phase_pol_goldens(tmp: pathlib.Path):
     import numpy as np
     from blacklight_tpu_torch import pipeline
     from blacklight_tpu_torch.ops import polarized_kernel as pk
     tols = {"I_nu": 1e-8, "Q_nu": 1e-6, "U_nu": 1e-7, "V_nu": 1e-6}
+    # tests/test_simulation_e2e.py:104-114
+    mix_tols = {"I_nu": 1e-7, "Q_nu": 1e-3, "U_nu": 1e-3, "V_nu": 1e-3}
     for name, exact in (("golden_polarized_rk4_32", True),
-                        ("golden_polarized_32", False)):
+                        ("golden_polarized_32", False),
+                        ("golden_plasma_mix_pol_rk4_32", "mix")):
         cfg = _pol_config(f"{name}.input",
                           output_file=str(tmp / f"{name}.npz"))
-        before = pk.LAUNCHES
+        before = pk.LAUNCHES, pk.DERIVE_MIXTURE_LAUNCHES
         arrays = pipeline.run(cfg, quiet=True, device="cuda")
-        launched = pk.LAUNCHES - before
+        launched = pk.LAUNCHES - before[0]
+        mixture = pk.DERIVE_MIXTURE_LAUNCHES - before[1]
         gold = np.load(FIXTURES / f"{name}.npz")
         i_scale = float(np.nanmax(np.abs(gold["I_nu"])))
-        ok, result = launched > 0, {}
+        ok = launched > 0 and (mixture > 0) == (exact == "mix")
+        result = {"mixture_derive_launches": mixture}
         for k in ("I_nu", "Q_nu", "U_nu", "V_nu"):
             ours, g = arrays[k], gold[k]
-            if exact:
+            if exact == "mix":
+                rel = float(np.nanmax(np.abs(ours - g)
+                                      / (np.abs(g) + i_scale * 1e-8)))
+                result[k] = {"max_rel": rel, "tol": mix_tols[k]}
+                ok = ok and rel < mix_tols[k] and bool(np.array_equal(
+                    np.isnan(ours), np.isnan(g)))
+            elif exact:
                 floor = max(float(np.nanmax(np.abs(g))) * 1e-4, i_scale * 1e-8)
                 rel = float(np.nanmax(np.abs(ours - g) / (np.abs(g) + floor)))
                 result[k] = {"max_rel_floor": rel, "tol": tols[k]}
@@ -2707,7 +2861,8 @@ def phase_pol_goldens(tmp: pathlib.Path):
                              "tol": [5e-3, 1e-1]}
                 ok = ok and np.nanmean(frac) < 5e-3 and np.nanmax(frac) < 1e-1
         emit("pol_golden", name=name, launches=launched,
-             gate=("tests/test_polarized_e2e.py:28-42" if exact
+             gate=("tests/test_simulation_e2e.py:104-114" if exact == "mix"
+                   else "tests/test_polarized_e2e.py:28-42" if exact
                    else "tests/test_polarized_e2e.py:53-61"),
              **result, ok=bool(ok))
         if not ok:
@@ -2906,9 +3061,9 @@ def _spatial(args):
 def phase_pol_full_width(tmp: pathlib.Path, card: str, grids: dict,
                          truth: tuple, stage_checks: dict) -> dict:
     """Phase 9; ``truth`` is phase 3's float64 plain version on the
-    float32 plain version's rays (their positions, Stokes),
-    ``stage_checks`` phase 3's check of each kernel against its plain
-    version."""
+    float32 plain version's rays (their positions, Stokes) and its float32
+    plain version there (pol_full_width_plain), ``stage_checks`` phase 3's
+    check of each kernel against its plain version."""
     import numpy as np
     import torch
     from blacklight_tpu_torch import pipeline
@@ -3067,21 +3222,20 @@ def _pol_stage_times(args, kwargs) -> dict:
 
 def _pol_full_width_checks(args, kwargs, geom, out, truth) -> dict:
     """Phase 9's checks of the float32 rk4 route's output ``out`` (in
-    camera order): the plain version on every PLAIN_STRIDE-th ray against
-    it (polarized_gate) and both against phase 3's float64 run
+    camera order): phase 3's plain version on every PLAIN_STRIDE-th ray
+    against it (polarized_gate) and both against phase 3's float64 run
     (truth_gate); a render under CHUNK_CHECK's byte caps equal to ``out``
     bit for bit. Raises on a failure; returns the numbers for the timing
     line."""
     import numpy as np
-    import torch
     from blacklight_tpu_torch.ops import polarized_kernel as pk
     pick, sub = _plain_subset(args)
-    positions, truth = truth
-    if not np.array_equal(positions, sub[0].cpu().numpy()):
-        raise RuntimeError("the float64 reference traced other rays")
-    out_p, t_plain = _timed(pk.render_polarized_reference, *sub, **kwargs)
+    positions, truth, (plain_positions, ref, t_plain) = truth
+    if not (np.array_equal(positions, sub[0].cpu().numpy())
+            and np.array_equal(plain_positions, positions)):
+        raise RuntimeError("the plain and float64 references traced other "
+                           "rays")
     ours = _pol_stokes(tuple(o[pick] for o in out), sub, geom, True)
-    ref = _pol_stokes(out_p, sub, geom, True)
     gate = polarized_gate(ours, ref, exact=False)
     to_truth = truth_gate(ours, ref, truth)
     if not (gate["ok"] and to_truth["ok"]):
@@ -3383,6 +3537,320 @@ def phase_fit(card: str):
                            "fall, or it ran no tangent kernel")
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the power-law and kappa populations (ROADMAP B.2)
+
+MIX_INPUT = "golden_plasma_mix_rk4_32.input"
+MIX_POL_INPUT = "golden_plasma_mix_pol_rk4_32.input"
+MIX_SOURCE = "blacklight_tpu_torch/csrc/sim_sample.cuh"
+POL_MIX_SOURCE = "blacklight_tpu_torch/csrc/polarized_kernel.cuh"
+# Phase 3's checks of the mixture: 128^2, 400 steps of 0.04; the phase
+# kernel's second phase of MIX_PHASE_STEPS.
+MIX_CHECK_STEPS = dict(ray_step=0.04, ray_max_steps=400)
+MIX_PHASE_STEPS = 200
+# Phase 16's cells: phase 7's and phase 9's resolution and step budget.
+MIX_RES, MIX_STEPS = 1024, 2000
+# Phase 16's polarized cell is held to the plain version on every
+# MIX_POL_STRIDE-th ray (1,024 rays: the plain polarized version takes
+# ~35 ms a ray on one host core, and phase 3 has little room left).
+MIX_POL_STRIDE = 4 * PLAIN_STRIDE
+
+
+def _mix_full_config(**overrides):
+    """Phase 16's cell: phase 7's (1024^2, rk4, 2000 steps, float32) with
+    the mixed golden's plasma."""
+    return _sim_config(MIX_INPUT, camera_resolution=MIX_RES,
+                       precision="float32", ray_integrator="rk4",
+                       ray_max_steps=MIX_STEPS, **overrides)
+
+
+def _mix_pol_full_config(**overrides):
+    """Phase 16's polarized cell: phase 9's with the mixed plasma."""
+    return _pol_config(MIX_POL_INPUT, camera_resolution=MIX_RES,
+                       precision="float32", ray_integrator="rk4",
+                       ray_max_steps=MIX_STEPS, image_rotation_split=False,
+                       **overrides)
+
+
+def check_mixture_simulation(integrator, precision) -> tuple:
+    """The mixture's simulation kernel against its plain version, 128^2:
+    rk4 float64 exact (rtol 1e-9) in MIX_CHECK_STEPS; dp at the input's
+    2000 steps of 0.01, as check_simulation runs it (a float32 dp ray
+    whose step count nears a budget of 400 can end flagged in one version
+    and not the other), statistical."""
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+    cfg = _sim_config(MIX_INPUT, camera_resolution=128,
+                      ray_integrator=integrator, precision=precision,
+                      **(MIX_CHECK_STEPS if integrator != "dp" else {}))
+    args, kwargs = _sim_args(cfg)
+    before = sk.MIXTURE_LAUNCHES
+    out_k, t_k = _timed(sk.render_simulation, *args, **kwargs)
+    launched = sk.MIXTURE_LAUNCHES - before
+    out_p, t_p = _timed(sk.render_simulation_reference, *args, **kwargs)
+    exact = integrator != "dp" and precision == "float64"
+    result = _check_exact(out_k, out_p, 1e-9 if exact else None)
+    result["ok"] = bool(result["ok"] and launched == 1)
+    return "mixture_kernel_vs_plain", dict(
+        integrator=integrator, precision=precision, mixture_launches=launched,
+        kernel_s=t_k, plain_s=t_p, **result)
+
+
+def check_mixture_phase() -> tuple:
+    """The mixture's phase kernel against its plain version, 128^2
+    (MIX_CHECK_STEPS): the second phase of MIX_PHASE_STEPS from the
+    kernel's carried state after the first, rk4 float64 exact."""
+    import numpy as np
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+    cfg = _sim_config(MIX_INPUT, camera_resolution=128, ray_integrator="rk4",
+                      precision="float64", **MIX_CHECK_STEPS)
+    args, _ = _sim_args(cfg)
+    before = sk.PHASE_MIXTURE_LAUNCHES
+    out_k, out_p, t_k, t_p, rays, samples = _second_phase(
+        args, "rk4", MIX_PHASE_STEPS)
+    launched = sk.PHASE_MIXTURE_LAUNCHES - before
+    result = _check_exact(out_k, out_p, 1e-9)
+    result["ok"] = bool(result["ok"] and launched == 2)
+    a, b = out_k[0].cpu().numpy(), out_p[0].cpu().numpy()
+    both = np.isfinite(a) & np.isfinite(b)
+    result["max_abs_err"] = float(np.max(np.abs(a[both] - b[both]))) \
+        if both.any() else 0.0
+    return "mixture_phase_kernel_vs_plain", dict(
+        integrator="rk4", precision="float64", phase_steps=MIX_PHASE_STEPS,
+        phase_rays=rays, phase_samples=samples, mixture_launches=launched,
+        kernel_s=t_k, plain_s=t_p, **result)
+
+
+def mixture_plain_subset() -> tuple:
+    """The plain version on phase 16's cell on every PLAIN_STRIDE-th ray:
+    (their positions, (I_nu, flags, n_samples), seconds), numpy."""
+    import torch
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+    args, kwargs = _sim_args(_mix_full_config(),
+                             full_width_snapshot(torch.float32))
+    _, sub = _plain_subset(args)
+    out, t_p = _timed(sk.render_simulation_reference, *sub, **kwargs)
+    return (sub[0].cpu().numpy(), [o.cpu().numpy() for o in out], t_p)
+
+
+def mixture_pol_plain_subset() -> tuple:
+    """The plain polarized version on phase 16's polarized cell on every
+    MIX_POL_STRIDE-th ray: (their positions, Stokes, seconds)."""
+    import torch
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    args, kwargs, geom = _pol_args(_mix_pol_full_config(),
+                                   full_width_snapshot(torch.float32))
+    pick = torch.arange(0, args[0].shape[0], MIX_POL_STRIDE,
+                        device=args[0].device)
+    sub = (*(a[pick].contiguous() for a in args[:3]), *args[3:])
+    out, t_p = _timed(pk.render_polarized_reference, *sub, **kwargs)
+    return sub[0].cpu().numpy(), _pol_stokes(out, sub, geom, True), t_p
+
+
+def _best_in_turns(fns: dict, rounds=3) -> tuple:
+    """Each of ``fns`` (name: callable) warm, then ``rounds`` rounds in
+    turns: (best seconds by name, every run's seconds by name, the last
+    outputs by name)."""
+    for fn in fns.values():
+        fn()
+    runs, outs = {k: [] for k in fns}, {}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            outs[name], t = _timed(fn)
+            runs[name].append(t)
+    return {k: min(v) for k, v in runs.items()}, runs, outs
+
+
+def phase_mixture_full_width(tmp: pathlib.Path, card: str, grids: dict,
+                             checks: dict) -> list:
+    """Phase 16; ``checks``: phase 3's mixture results ("plain",
+    "pol_plain", "phase", each the job's result). Returns the kernels
+    line's entries of the mixture's simulation, phase and polarized
+    routes."""
+    import numpy as np
+    import torch
+    from blacklight_tpu_torch import pipeline, pipeline_simulation as ps
+    from blacklight_tpu_torch.ops import formula_kernel as fk
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+
+    res, steps = MIX_RES, MIX_STEPS
+    if "float32" not in grids:
+        grids["float32"] = full_width_snapshot(torch.float32)
+    grid = grids["float32"]
+    n = res * res
+
+    # the unpolarized mixture through pipeline.run
+    fk.LAUNCHES = sk.LAUNCHES = pk.LAUNCHES = sk.MIXTURE_LAUNCHES = 0
+    arrays, run_s = _timed(pipeline.run, _mix_full_config(
+        output_file=str(tmp / "mix_full_width.npz")), quiet=True,
+        device="cuda", grid=grid)
+    launches = sk.MIXTURE_LAUNCHES
+    others = fk.LAUNCHES + pk.LAUNCHES + sk.LAUNCHES - launches
+    image = arrays["I_nu"]
+    emit("mixture_main_path", resolution=res, precision="float32",
+         integrator="rk4", max_steps=steps, seconds=run_s,
+         mixture_launches=launches, other_launches=others,
+         nan_pixels=int(np.isnan(image).sum()),
+         max_I_nu=float(np.nanmax(image)))
+    if image.shape != (res, res) or not np.isfinite(np.nanmax(image)) \
+            or launches == 0 or others:
+        raise RuntimeError("the mixture's main path launched no mixture "
+                           "kernel, another kernel, or gave no finite image")
+
+    # the mixture and the thermal kernel in turns, as run launches them
+    (args_m, kwargs), t_setup = _timed(_sim_args, _mix_full_config(), grid)
+    args_t, _ = _sim_args(_sim_config(camera_resolution=res,
+                                      precision="float32",
+                                      ray_integrator="rk4",
+                                      ray_max_steps=steps), grid)
+    bundles = {"mixture": _spatial(args_m), "thermal": _spatial(args_t)}
+    best, runs, outs = _best_in_turns({
+        name: (lambda b=b: sk.render_simulation(*b, **kwargs))
+        for name, b in bundles.items()})
+    mean_samples = float(outs["mixture"][2].double().mean())
+    positions, plain, t_plain = checks["plain"]
+    pick = np.arange(0, n, PLAIN_STRIDE)
+    out_cam = sk.render_simulation(*args_m, **kwargs)
+    if not np.array_equal(positions, args_m[0][pick].cpu().numpy()):
+        raise RuntimeError("the plain version traced other rays")
+    gate = gate_outputs([out_cam[0].cpu().numpy()[pick]], [plain[0]])
+    b_mix = bound("simulation_mixture", "rk4", "float32", n, mean_samples,
+                  in_bytes=grid_bytes(grid), out_values=1)
+    b_th = bound("simulation", "rk4", "float32", n,
+                 float(outs["thermal"][2].double().mean()),
+                 in_bytes=grid_bytes(grid), out_values=1)
+    emit("mixture_timing", resolution=res, card=card, order="spatial_order",
+         camera_setup_s=t_setup, kernel_s_runs=runs,
+         kernel_ms=best["mixture"] * 1e3,
+         thermal_kernel_ms=best["thermal"] * 1e3,
+         mixture_over_thermal=best["mixture"] / best["thermal"],
+         mean_n_samples=mean_samples, plain_ms=t_plain * 1e3,
+         plain_rays=pick.size, gate="statistical (bench.py:181-186)",
+         **gate, **b_mix, thermal_bound_ms=b_th["bound_ms"],
+         clocks_power=smi(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,"
+                           "temperature.gpu", "--format=csv,noheader"]))
+    if not gate["ok"]:
+        raise RuntimeError(f"the mixture kernel disagrees with plain at "
+                           f"{res}^2: {gate}")
+    simulation = {"name": "simulation_mixture_kernel", "route": "cuda",
+                  "source": MIX_SOURCE, "replaces": SIM_KERNEL_REPLACES,
+                  "launches": launches, "max_abs_err": gate["max_abs_err"],
+                  "ms": best["mixture"] * 1e3, "plain_ms": t_plain * 1e3,
+                  "plain_rays": int(pick.size),
+                  **{k: b_mix[k] for k in ("bound_ms", "bound_by")},
+                  "thermal_ms": best["thermal"] * 1e3, "library_ms": None}
+
+    # the phased route of the mixture: bit for bit its monolithic image
+    ps.KERNEL_PHASED = True
+    try:
+        fk.LAUNCHES = sk.LAUNCHES = pk.LAUNCHES = sk.PHASE_LAUNCHES = 0
+        sk.PHASE_MIXTURE_LAUNCHES = 0
+        phased = pipeline.run(_mix_full_config(), quiet=True, device="cuda",
+                              grid=grid)
+        phase_launches = sk.PHASE_MIXTURE_LAUNCHES
+        others = fk.LAUNCHES + sk.LAUNCHES + pk.LAUNCHES \
+            + sk.PHASE_LAUNCHES - phase_launches
+    finally:
+        ps.KERNEL_PHASED = False
+    a = phased["I_nu"]
+    same = bool(a.shape == image.shape and np.array_equal(
+        np.isnan(a), np.isnan(image)) and np.array_equal(
+        a[~np.isnan(a)], image[~np.isnan(image)]))
+    out2_k, _, t2_k, _, rays2, samples2 = _second_phase(
+        args_m, "rk4", ps.KERNEL_PHASE_STEPS, with_plain=False)
+    b_phase = phase_bound(rays2, samples2, "float32", grid_bytes(grid),
+                          kind="simulation_mixture")
+    phase_check = checks["phase"]
+    emit("mixture_phased", resolution=res, card=card,
+         phase_steps=ps.KERNEL_PHASE_STEPS, phase_launches=phase_launches,
+         other_launches=others, identical_to_monolithic=same,
+         second_phase_rays=rays2, second_phase_kernel_ms=t2_k * 1e3,
+         **b_phase)
+    if not same or not phase_launches or others:
+        raise RuntimeError("the mixture's phased route launched no mixture "
+                           "phase kernel, another kernel, or its image "
+                           "differs from the monolithic one")
+    phase_entry = {"name": "simulation_phase_mixture_kernel", "route": "cuda",
+                   "source": SIM_KERNEL_SOURCE, "replaces": PHASE_REPLACES,
+                   "launches": phase_launches,
+                   "max_abs_err": phase_check["max_abs_err"],
+                   "ms": t2_k * 1e3, "plain_ms": phase_check["plain_s"] * 1e3,
+                   "plain_rays": phase_check["phase_rays"],
+                   "kernel_ms_at_plain_rays": phase_check["kernel_s"] * 1e3,
+                   **{k: b_phase[k] for k in ("bound_ms", "bound_by")},
+                   "library_ms": None}
+
+    # the polarized mixture through pipeline.run
+    fk.LAUNCHES = sk.LAUNCHES = pk.LAUNCHES = pk.DERIVE_MIXTURE_LAUNCHES = 0
+    pk.STAGE_LAUNCHES.update(dict.fromkeys(pk.STAGE_LAUNCHES, 0))
+    arrays, run_s = _timed(pipeline.run, _mix_pol_full_config(
+        output_file=str(tmp / "mix_pol_full_width.npz")), quiet=True,
+        device="cuda", grid=grid)
+    stage_launches = dict(pk.STAGE_LAUNCHES)
+    derive_launches = pk.DERIVE_MIXTURE_LAUNCHES
+    pol_launches = pk.LAUNCHES
+    finite_i = np.isfinite(arrays["I_nu"])
+    emit("mixture_pol_main_path", resolution=res, seconds=run_s,
+         launches=pol_launches, stage_launches=stage_launches,
+         mixture_derive_launches=derive_launches,
+         nan_pixels=int((~finite_i).sum()),
+         max_I_nu=float(np.nanmax(arrays["I_nu"])))
+    if not all(stage_launches.values()) or fk.LAUNCHES or sk.LAUNCHES \
+            or derive_launches != stage_launches["derive"] \
+            or not all(np.isfinite(arrays[k][finite_i]).all()
+                       for k in STOKES):
+        raise RuntimeError("the polarized mixture did not launch each stage "
+                           "with the mixture's derive kernel, or its image "
+                           "is not finite where I is")
+    (args_pm, kw_p, geom), _ = _timed(_pol_args, _mix_pol_full_config(),
+                                      grid)
+    args_pt, _, _ = _pol_args(_pol_config(
+        camera_resolution=res, precision="float32", ray_integrator="rk4",
+        ray_max_steps=steps, image_rotation_split=False), grid)
+    pol_bundles = {"mixture": _spatial(args_pm), "thermal": _spatial(args_pt)}
+    best_p, runs_p, outs_p = _best_in_turns({
+        name: (lambda b=b: pk.render_polarized(*b, **kw_p))
+        for name, b in pol_bundles.items()})
+    stages = {name: _pol_stage_times(b, kw_p)["stage_ms"]
+              for name, b in pol_bundles.items()}
+    positions, plain_stokes, t_plain_p = checks["pol_plain"]
+    pol_pick = np.arange(0, n, MIX_POL_STRIDE)
+    if not np.array_equal(positions, args_pm[0][pol_pick].cpu().numpy()):
+        raise RuntimeError("the plain version traced other rays")
+    ours = _pol_stokes(pk.render_polarized(*args_pm, **kw_p), args_pm, geom,
+                       True)
+    pol_gate = polarized_gate({k: v[pol_pick] for k, v in ours.items()},
+                              plain_stokes, exact=False)
+    mean_p = float(outs_p["mixture"][3].double().mean())
+    b_pol = bound("polarized_mixture", "rk4", "float32", n, mean_p,
+                  in_bytes=grid_bytes(grid), out_values=16,
+                  extra_out_bytes=12)
+    emit("mixture_pol_timing", resolution=res, card=card,
+         order="spatial_order", kernel_s_runs=runs_p,
+         route_ms=best_p["mixture"] * 1e3,
+         thermal_route_ms=best_p["thermal"] * 1e3,
+         mixture_over_thermal=best_p["mixture"] / best_p["thermal"],
+         stage_ms=stages, mean_n_samples=mean_p, plain_ms=t_plain_p * 1e3,
+         plain_rays=pol_pick.size, gate=pol_gate, **b_pol)
+    if not pol_gate["ok"]:
+        raise RuntimeError(f"the polarized mixture disagrees with plain at "
+                           f"{res}^2: {pol_gate}")
+    polarized = {"name": "polarized_kernel (mixture derive)",
+                 "route": "cuda", "source": POL_MIX_SOURCE,
+                 "replaces": POL_KERNEL_REPLACES,
+                 "launches": pol_launches,
+                 "derive_launches": derive_launches,
+                 "max_abs_err": pol_gate["max_abs_err"],
+                 "ms": best_p["mixture"] * 1e3, "plain_ms": t_plain_p * 1e3,
+                 "plain_rays": int(pol_pick.size),
+                 **{k: b_pol[k] for k in ("bound_ms", "bound_by")},
+                 "thermal_ms": best_p["thermal"] * 1e3,
+                 "derive_ms": stages["mixture"]["derive"],
+                 "thermal_derive_ms": stages["thermal"]["derive"],
+                 "library_ms": None}
+    return [simulation, phase_entry, polarized]
+
+
 # Phase 3's kernel-against-plain checks, emitted in this order.
 CHECKS = (
     (check_formula_tangents, ("rk4", "float64")),
@@ -3408,7 +3876,9 @@ CHECKS = (
     (check_mesh_simulation, ("interblock", "dp", "float32", 1)),
     (check_mesh_simulation, ("interblock", "dp", "float64", 1)),
     (check_mesh_simulation, ("nearest", "rk4", "float64", 3)),
-    (check_mesh_simulation, ("nearest", "rk2", "float32", 1)))
+    (check_mesh_simulation, ("nearest", "rk2", "float32", 1)),
+    (check_mixture_simulation, ("rk4", "float64")),
+    (check_mixture_simulation, ("dp", "float32")))
 MESH_PHASE_CHECKS = (("interblock", "rk4", "float64"),
                      ("nearest", "rk2", "float32"))
 FORMULA_CELLS = ("k13", "k14", "k11")
@@ -3425,6 +3895,9 @@ PHASE3_SECONDS = {
     ("formula_plain_subset", ("k11",)): 183.3,
     ("check_formula", ("dp", "float64")): 176.9,
     ("pol_full_width_truth", ()): 150.1,
+    # phase 9's float32 plain version, which ran in the main process
+    # (143,073.76 ms alone in the main process on an H100, PERF.md)
+    ("pol_full_width_plain", ()): 150.0,
     ("aux_golden_formula", ()): 128.9,
     ("check_formula_tangents", ("rk4", "float64")): 128.2,
     ("check_formula", ("rk4", "float64")): 120.6,
@@ -3448,6 +3921,10 @@ PHASE3_SECONDS = {
     ("aux_full_width_cpu", ()): 42.1,
     ("check_simulation_phase", ("rk4", "float64")): 37.6,
     ("aux_exact_cpu", ()): 36.9,
+    # the mixture's jobs, estimated from the thermal ones of their size
+    ("check_mixture_simulation", ("dp", "float32")): 90.0,
+    ("mixture_plain_subset", ()): 60.0,
+    ("mixture_pol_plain_subset", ()): 50.0,
 }
 
 
@@ -3457,6 +3934,7 @@ def main(argv=None) -> int:
                         help="only build and time the polarized route at "
                              "each trace chunk size")
     opts = parser.parse_args(argv)
+    started = time.perf_counter()
     card = phase_device()
     import torch
     phase_build()
@@ -3464,7 +3942,8 @@ def main(argv=None) -> int:
         phase_pol_chunks(card, full_width_snapshot(torch.float32))
     else:
         with multiprocessing.get_context("spawn").Pool(WORKERS) as pool:
-            truth, subsets, pol_stages, mesh_checks, aux = phase_checks(pool)
+            truth, subsets, pol_stages, mesh_checks, aux, mixture_checks = \
+                phase_checks(pool)
         with tempfile.TemporaryDirectory(dir=ROOT / "build" / "kernels") \
                 as tmp:
             tmp = pathlib.Path(tmp)
@@ -3480,12 +3959,15 @@ def main(argv=None) -> int:
             phase_pol_goldens(tmp)
             polarized = phase_pol_full_width(tmp, card, grids, truth,
                                              pol_stages)
+            mixture = phase_mixture_full_width(tmp, card, grids,
+                                               mixture_checks)
             grids.clear()
             multi = phase_multi_full_width(tmp, card, subsets["k13"])
             tangent = phase_grad_full_width(card, subsets["k14"])
             phase_fit(card)
+        emit("total", seconds=time.perf_counter() - started)
         print(json.dumps({"kernels": [formula, multi, tangent, simulation,
-                                      phased, polarized, *mesh]}),
+                                      phased, polarized, *mesh, *mixture]}),
               flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -160,3 +160,52 @@ def test_polarized_dp_quadrature_parity(fixtures_dir, tmp_path):
         frac = np.abs(arrays[key] - gold[key]) / i_scale
         assert np.nanmean(frac) < 5e-3, key
         assert np.nanmax(frac) < 1e-1, key
+
+
+# ---- the power-law and kappa populations (ROADMAP B.2) ---------------------
+
+@pytest.mark.parametrize("name", ["golden_plasma_pow_rk4_32",
+                                  "golden_plasma_kap_rk4_32",
+                                  "golden_plasma_mix_rk4_32"])
+def test_plasma_rk4_exact_parity(fixtures_dir, tmp_path, name):
+    """Power law, kappa (no kappa absorption unpolarized, the reference's
+    quirk) and the thermal + power-law + kappa mixture at rtol 1e-8
+    (tests/test_simulation_e2e.py:88-101). golden_plasma_mix_rk4_32 has
+    no JAX test; the JAX package reproduces it at 1.2e-12."""
+    ours, gold = _render(fixtures_dir, tmp_path, name)
+    assert np.array_equal(np.isnan(ours), np.isnan(gold))
+    np.testing.assert_allclose(ours, gold, rtol=1e-8)
+
+
+def test_plasma_mix_polarized_parity(fixtures_dir, tmp_path):
+    """The mixture through the polarized transfer, at
+    tests/test_simulation_e2e.py:104-114's tolerances."""
+    cfg = read_config(str(fixtures_dir / "golden_plasma_mix_pol_rk4_32.input"))
+    cfg.output_file = str(tmp_path / "mix_pol.npz")
+    cfg.simulation_file = str(fixtures_dir / "mock_small.athdf")
+    arrays = pipeline.run(cfg, quiet=True, device="cpu")
+    gold = np.load(fixtures_dir / "golden_plasma_mix_pol_rk4_32.npz")
+    iscale = np.nanmax(np.abs(gold["I_nu"]))
+    for key, tol in (("I_nu", 1e-7), ("Q_nu", 1e-3), ("U_nu", 1e-3),
+                     ("V_nu", 1e-3)):
+        rel = np.abs(arrays[key] - gold[key]) / (np.abs(gold[key])
+                                                 + iscale * 1e-8)
+        assert np.nanmax(rel) < tol, (key, np.nanmax(rel))
+
+
+def test_plasma_kappa_tau_parity(fixtures_dir, tmp_path):
+    """golden_plasma_kap_tau_rk4_32 (I_nu, emission and tau; no .input
+    and no JAX test): golden_plasma_kap_rk4_32.input with image_emission
+    and image_tau, the scan route, at rtol 1e-8 on every plane. The JAX
+    package reproduces it with that configuration at 2.4e-12."""
+    cfg = read_config(str(fixtures_dir / "golden_plasma_kap_rk4_32.input"))
+    cfg.output_file = str(tmp_path / "kap_tau.npz")
+    cfg.simulation_file = str(fixtures_dir / "mock_small.athdf")
+    cfg.image_emission = True
+    cfg.image_tau = True
+    arrays = pipeline.run(cfg, quiet=True, device="cpu")
+    gold = np.load(fixtures_dir / "golden_plasma_kap_tau_rk4_32.npz")
+    for key in ("I_nu", "emission", "tau"):
+        assert np.array_equal(np.isnan(arrays[key]), np.isnan(gold[key])), key
+        np.testing.assert_allclose(arrays[key], gold[key], rtol=1e-8,
+                                   err_msg=key)

@@ -326,14 +326,19 @@ def test_check_grid_blocks(files):
 
 
 def test_simulation_units_do_not_contract():
-    """The units of many blocks build, as the single-block units, without
-    multiply-add contraction: their kernels round as the plain version
-    does, and a phased render on many blocks stays the monolithic
-    kernel's bit for bit."""
+    """The units of many blocks and of the mixture of populations build,
+    as the single-block units, without multiply-add contraction: their
+    kernels round as the plain version does, and a phased render on many
+    blocks stays the monolithic kernel's bit for bit."""
     from blacklight_tpu_torch.ops import _build
     units = {p.name for p in _build.sources()
              if p.name.startswith("simulation")}
     assert units == {"simulation_kernel.cu", "simulation_kernel_dp.cu",
                      "simulation_phase.cu", "simulation_blocks.cu",
-                     "simulation_blocks_dp.cu", "simulation_phase_blocks.cu"}
+                     "simulation_blocks_dp.cu", "simulation_phase_blocks.cu",
+                     "simulation_mixture.cu", "simulation_mixture_dp.cu",
+                     "simulation_mixture_blocks.cu",
+                     "simulation_mixture_blocks_dp.cu",
+                     "simulation_phase_mixture.cu",
+                     "simulation_phase_mixture_blocks.cu"}
     assert all(_build.CONTRACT[u] is False for u in units)

@@ -235,7 +235,6 @@ def read_config_text(tmp_path, out, **overrides):
 
 
 OUT_OF_SLICE = {
-    "power_law_and_kappa": ({}, "golden_plasma_mix_pol_rk4_32.input", "B.2"),
     "checkpoint": ({"checkpoint_sample_save": "true",
                     "checkpoint_sample_file": "s.npz"},
                    "golden_polarized_rk4_32.input", "A.8"),

@@ -439,5 +439,7 @@ def test_polarized_units_do_not_contract():
     units = {p.name for p in _build.sources() if p.name.startswith("polar")}
     assert units == {"polarized_trace.cu", "polarized_derive.cu",
                      "polarized_derive_f64.cu", "polarized_derive_blocks.cu",
-                     "polarized_chain.cu"}
+                     "polarized_chain.cu", "polarized_derive_mixture.cu",
+                     "polarized_derive_mixture_f64.cu",
+                     "polarized_derive_mixture_blocks.cu"}
     assert all(_build.CONTRACT[u] is False for u in units)

@@ -235,11 +235,6 @@ OUT_OF_SLICE = {
                     "slow_num_images": 1, "slow_offset": 0,
                     "simulation_start": 0, "simulation_end": 1},
                    "B.6"),
-    "power_law": ({"plasma_power_frac": 0.5, "plasma_p": 3.0,
-                   "plasma_gamma_min": 10.0, "plasma_gamma_max": 1e4},
-                  "B.2"),
-    "kappa": ({"plasma_kappa_frac": 0.5, "plasma_kappa": 3.5,
-               "plasma_w": 0.5}, "B.2"),
     "code_kappa": ({"plasma_model": "code_kappa",
                     "simulation_kappa_name": "kappa"}, "B.2"),
     "adaptive": ({"adaptive_max_level": 1, "adaptive_block_size": 4,

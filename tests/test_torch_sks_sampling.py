@@ -94,10 +94,49 @@ def _assert_close(a, b, rtol, polar, polar_atol, err_msg=""):
                            f"worst |a - b| {np.nanmax(np.abs(a - b))}")
 
 
+# float32 theta: each package is held to the float64 theta of the same
+# float32 inputs within THETA_ULPS ulps of z / r carried through acos, plus
+# as many ulps of theta itself. theta = acos(z / r) turns one float32 ulp
+# of z / r into ulp / sin(theta) (3.3e-6 at theta = 0.018), and into
+# sqrt(2 ulp) on the axis; on the suite's 1,500 points torch's error
+# reaches 2.8 and XLA's 1.6 of these one-ulp units, so 4 leaves a margin.
+THETA_ULPS = 4
+
+
+def _theta_truth(p32):
+    """(theta, z / r) in float64 from the float32 points ``p32`` (n, 4)."""
+    x, y, z = (torch.from_numpy(p32[:, c].astype(np.float64))
+               for c in (1, 2, 3))
+    r, th, _ = sks.cks_to_sks(x, y, z, SPIN)
+    return th.numpy(), (z / r).numpy()
+
+
+def _theta_bound(theta, cos_th, ulps):
+    """How far ``ulps`` float32 ulps of z / r and of theta move theta:
+    |acos(z / r +- ulps ulp) - theta| + ulps ulp(theta)."""
+    du = ulps * np.spacing(np.abs(cos_th).astype(np.float32)).astype(
+        np.float64)
+    moved = np.maximum(np.abs(np.arccos(np.clip(cos_th - du, -1.0, 1.0))
+                              - theta),
+                       np.abs(np.arccos(np.clip(cos_th + du, -1.0, 1.0))
+                              - theta))
+    return moved + ulps * np.spacing(theta.astype(np.float32)).astype(
+        np.float64)
+
+
+def _theta_outside(theta_pkg, theta, cos_th):
+    """Entries where a package's float32 theta is past _theta_bound."""
+    err = np.abs(np.asarray(theta_pkg, dtype=np.float64) - theta)
+    return ~(err <= _theta_bound(theta, cos_th, THETA_ULPS))
+
+
 @pytest.mark.parametrize("precision", ["float64", "float32"])
 def test_cks_to_sks(positions, precision):
     """float32: atan2/acos round differently in XLA and in torch, 2e-6
-    relative. Near the axis theta is ill-conditioned (see _polar)."""
+    relative; r and phi are held to each other at that, theta wherever
+    the conditioning of acos (THETA_ULPS ulps of z / r) stays inside it,
+    and each package's theta to the float64 theta everywhere. Near the
+    axis phi is ill-conditioned too (see _polar)."""
     p = positions.astype(precision)
     ours = sks.cks_to_sks(*(torch.from_numpy(p[:, c]) for c in (1, 2, 3)),
                           SPIN)
@@ -106,9 +145,43 @@ def test_cks_to_sks(positions, precision):
     polar = _polar(positions, precision)
     for a, b in zip(ours, ref):
         assert a.dtype == TORCH_DTYPE[precision]
-        _assert_close(a.numpy(), np.asarray(b), rtol, polar,
-                      1e-8 if precision == "float64" else 1e-3)
+    if precision == "float64":
+        for a, b in zip(ours, ref):
+            _assert_close(a.numpy(), np.asarray(b), rtol, polar, 1e-8)
+    else:
+        for c in (0, 2):  # r, phi
+            _assert_close(ours[c].numpy(), np.asarray(ref[c]), rtol, polar,
+                          1e-3)
+        theta, cos_th = _theta_truth(p)
+        for name, th in (("torch", ours[1].numpy()),
+                         ("xla", np.asarray(ref[1]))):
+            out = _theta_outside(th, theta, cos_th)
+            assert not out.any(), (
+                f"{name} theta past {THETA_ULPS} ulps at {np.flatnonzero(out)}")
+        scale = float(np.nanmax(np.abs(theta)))
+        well = _theta_bound(theta, cos_th, THETA_ULPS) <= rtol * scale
+        _assert_close(ours[1].numpy()[well], np.asarray(ref[1])[well], rtol,
+                      polar[well], 1e-3, err_msg="theta")
     assert float(ours[2].min()) >= 0.0 and float(ours[2].max()) < 2 * np.pi
+
+
+def test_theta_bound_catches_ten_ulps(positions):
+    """The float32 theta gate of test_cks_to_sks lets torch's theta
+    through at a point 0.018 rad off the axis (cos theta = 0.99984, where
+    torch's theta is 1.7 ulps of z / r off the float64 one and outside
+    the 2e-6 cross-library floor) and refuses a theta that is wrong by 10
+    of the one-ulp units at every point."""
+    p = positions.astype(np.float32)
+    theta, cos_th = _theta_truth(p)
+    torch_theta = sks.cks_to_sks(
+        *(torch.from_numpy(p[:, c]) for c in (1, 2, 3)), SPIN)[1].numpy()
+    near_axis = (np.abs(theta - 0.018037) < 1e-5) & (cos_th > 0.9998)
+    assert near_axis.any()
+    assert not _theta_outside(torch_theta, theta, cos_th)[near_axis].any()
+    unit = _theta_bound(theta, cos_th, 1)
+    for sign in (1.0, -1.0):
+        wrong = theta + sign * 10.0 * unit
+        assert _theta_outside(wrong, theta, cos_th).all()
 
 
 def test_sks_metric_velocity_and_jacobian(positions):
