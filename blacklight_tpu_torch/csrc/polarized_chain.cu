@@ -55,15 +55,15 @@ extern "C" int blacklight_polarized_trace(int dtype_code, int integrator, const 
 // POL_COEFFICIENT_VALUES per frequency (nf <= POL_MAX_FREQUENCIES) into
 // coefficient_records and ORs bit f of bad (one int32 per ray) where
 // frequency f met a sample the reference would NaN. The snapshot (table
-// ... parity) as blacklight_simulation_launch takes it.
+// ... map) as blacklight_simulation_launch takes it.
 extern "C" int blacklight_polarized_derive(
     int dtype_code, int geometry, const void* samples, int cap, const void* n_samples,
     const void* offsets, int n_warps, long long n_slots, long long n_rays,
     const void* directions, const void* momentum_factors, const void* freqs, int nf,
     const void* params, const void* table, const void* coords, const void* guides,
     const void* axes, int n_i, int n_j, int n_k, int mode, int nearest, int n_b,
-    const void* bounds, const void* amr, const void* parity, void* geometry_records,
-    void* coefficient_records, void* bad, void* stream) {
+    const void* bounds, const void* amr, const void* parity, const void* map,
+    void* geometry_records, void* coefficient_records, void* bad, void* stream) {
   if (n_slots <= 0) return 0;
   const bl::SimGridArgs grid{static_cast<const float*>(table),
                              coords,
@@ -77,7 +77,8 @@ extern "C" int blacklight_polarized_derive(
                              n_b,
                              bounds,
                              static_cast<const int*>(amr),
-                             static_cast<const int*>(parity)};
+                             static_cast<const int*>(parity),
+                             map};
   if (!sizes_ok(cap, n_rays, n_warps) || nf < 1 || nf > bl::POL_MAX_FREQUENCIES ||
       !grid.valid()) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -96,6 +97,9 @@ extern "C" int blacklight_polarized_derive(
                             coefficient_records,
                             static_cast<int*>(bad),
                             static_cast<cudaStream_t>(stream)};
+  if (mode == bl::SAMPLE_FMKS) {
+    return static_cast<int>(bl::launch_polarized_derive_fmks(dtype_code, bl::POP_THERMAL, a));
+  }
   if (mode != bl::SAMPLE_SINGLE) {
     return static_cast<int>(bl::launch_polarized_derive_blocks(dtype_code, a));
   }

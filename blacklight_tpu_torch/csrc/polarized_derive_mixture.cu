@@ -17,8 +17,8 @@ extern "C" int blacklight_polarized_derive_mixture(
     const void* directions, const void* momentum_factors, const void* freqs, int nf,
     const void* params, const void* table, const void* coords, const void* guides,
     const void* axes, int n_i, int n_j, int n_k, int mode, int nearest, int n_b,
-    const void* bounds, const void* amr, const void* parity, void* geometry_records,
-    void* coefficient_records, void* bad, void* stream) {
+    const void* bounds, const void* amr, const void* parity, const void* map,
+    void* geometry_records, void* coefficient_records, void* bad, void* stream) {
   if (n_slots <= 0) return 0;
   const bl::SimGridArgs grid{static_cast<const float*>(table),
                              coords,
@@ -32,7 +32,8 @@ extern "C" int blacklight_polarized_derive_mixture(
                              n_b,
                              bounds,
                              static_cast<const int*>(amr),
-                             static_cast<const int*>(parity)};
+                             static_cast<const int*>(parity),
+                             map};
   if (cap < 1 || n_rays < 0 || n_warps < 0 ||
       static_cast<long long>(n_warps) * bl::POL_WARP < n_rays || nf < 1 ||
       nf > bl::POL_MAX_FREQUENCIES || !grid.valid()) {
@@ -53,7 +54,9 @@ extern "C" int blacklight_polarized_derive_mixture(
                             static_cast<int*>(bad),
                             static_cast<cudaStream_t>(stream)};
   cudaError_t err;
-  if (mode != bl::SAMPLE_SINGLE) {
+  if (mode == bl::SAMPLE_FMKS) {
+    err = bl::launch_polarized_derive_fmks(dtype_code, bl::POP_MIXTURE, a);
+  } else if (mode != bl::SAMPLE_SINGLE) {
     err = bl::launch_polarized_derive_mixture_blocks(dtype_code, a);
   } else if (dtype_code == 0) {
     err = bl::launch_polarized_derive<float, bl::SAMPLE_SINGLE, bl::POP_MIXTURE>(a);

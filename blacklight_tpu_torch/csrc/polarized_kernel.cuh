@@ -1194,6 +1194,11 @@ __device__ __forceinline__ void derive_sample(long long g, SampleSet<T> set, lon
       int hint[3] = {-1, -1, -1};  // one sample a thread: no previous cell
       sample_cell(grid, pt, v, hint);
     }
+  } else if constexpr (MODE == SAMPLE_FMKS) {
+    // the map only where the sample is not cut
+    int hint[3] = {-1, -1, -1};
+    sampled = keep_geo && sample_fmks(grid, pt, v, hint);
+    off_grid = keep_geo && !sampled;
   } else {
     // the block search only where the sample is not cut
     int hint[3] = {-1, -1, -1}, block = -1;
@@ -1322,9 +1327,26 @@ __global__ void __launch_bounds__(POL_THREADS, DeriveBlocks<T>::value)
       momentum_factors, freqs, nf, params, grid, geometry, coefficients, bad);
 }
 
+// The derive kernel on one FMKS block (SAMPLE_FMKS), instantiated in
+// polarized_derive_fmks.cu and polarized_derive_fmks_f64.cu.
+template <typename T, bool GEOMETRY>
+__global__ void __launch_bounds__(POL_THREADS, DeriveBlocks<T>::value)
+    polarized_derive_fmks_kernel(SampleSet<T> set, long long n_slots,
+                                 const T* __restrict__ directions,
+                                 const T* __restrict__ momentum_factors,
+                                 const T* __restrict__ freqs, int nf,
+                                 const double* __restrict__ params, FmksGridView<T> grid,
+                                 T* __restrict__ geometry, T* __restrict__ coefficients,
+                                 int* __restrict__ bad) {
+  derive_sample<T, GEOMETRY, SAMPLE_FMKS>(
+      static_cast<long long>(blockIdx.x) * POL_THREADS + threadIdx.x, set, n_slots, directions,
+      momentum_factors, freqs, nf, params, grid, geometry, coefficients, bad);
+}
+
 // The derive kernel of the mixture population (POP_MIXTURE) on one block or
-// many, in any mode, instantiated in polarized_derive_mixture*.cu; params
-// holds the MixtureParam values after P_COUNT.
+// many, in any mode, instantiated in polarized_derive_mixture*.cu (and
+// SAMPLE_FMKS in polarized_derive_fmks*.cu); params holds the MixtureParam
+// values after P_COUNT.
 template <typename T, bool GEOMETRY, int MODE>
 __global__ void __launch_bounds__(POL_THREADS, DeriveBlocks<T>::value)
     polarized_derive_mixture_kernel(SampleSet<T> set, long long n_slots,
@@ -1500,8 +1522,9 @@ cudaError_t launch_polarized_trace(const PolTraceArgs& a) {
   return cudaGetLastError();
 }
 
-// MODE SAMPLE_SINGLE launches polarized_derive_kernel, the others
-// polarized_derive_mode_kernel; POP_MIXTURE polarized_derive_mixture_kernel.
+// MODE SAMPLE_SINGLE launches polarized_derive_kernel, SAMPLE_FMKS
+// polarized_derive_fmks_kernel, the others polarized_derive_mode_kernel;
+// POP_MIXTURE polarized_derive_mixture_kernel.
 template <typename T, int MODE = SAMPLE_SINGLE, int POP = POP_THERMAL>
 cudaError_t launch_polarized_derive(const PolDeriveArgs& a) {
   const long long threads = a.n_slots * POL_WARP;
@@ -1521,6 +1544,14 @@ cudaError_t launch_polarized_derive(const PolDeriveArgs& a) {
         a.set.view<T>(), a.n_slots, static_cast<const T*>(a.directions),
         static_cast<const T*>(a.momentum_factors), static_cast<const T*>(a.freqs), a.nf,
         a.params, a.grid.view<T>(), static_cast<T*>(a.geometry_records),
+        static_cast<T*>(a.coefficient_records), a.bad);
+  } else if constexpr (MODE == SAMPLE_FMKS) {
+    auto kernel = a.geometry ? polarized_derive_fmks_kernel<T, true>
+                             : polarized_derive_fmks_kernel<T, false>;
+    kernel<<<blocks, POL_THREADS, 0, a.stream>>>(
+        a.set.view<T>(), a.n_slots, static_cast<const T*>(a.directions),
+        static_cast<const T*>(a.momentum_factors), static_cast<const T*>(a.freqs), a.nf,
+        a.params, a.grid.fmks_view<T>(), static_cast<T*>(a.geometry_records),
         static_cast<T*>(a.coefficient_records), a.bad);
   } else {
     auto kernel = a.geometry ? polarized_derive_mode_kernel<T, true, MODE>
@@ -1562,5 +1593,10 @@ cudaError_t launch_polarized_derive_blocks(int dtype_code, const PolDeriveArgs& 
 // (polarized_derive_mixture_blocks.cu).
 cudaError_t launch_polarized_derive_mixture_f64(const PolDeriveArgs& a);
 cudaError_t launch_polarized_derive_mixture_blocks(int dtype_code, const PolDeriveArgs& a);
+// The derive kernel on one FMKS block (a.grid.mode SAMPLE_FMKS), thermal
+// (pop POP_THERMAL) or the mixture (POP_MIXTURE): float in
+// polarized_derive_fmks.cu, double in polarized_derive_fmks_f64.cu.
+cudaError_t launch_polarized_derive_fmks(int dtype_code, int pop, const PolDeriveArgs& a);
+cudaError_t launch_polarized_derive_fmks_f64(int pop, const PolDeriveArgs& a);
 
 }  // namespace bl

@@ -658,12 +658,99 @@ __device__ __forceinline__ bool sample_blocks(const BlockGridView<T>& g, const S
   return true;
 }
 
+// ---------------------------------------------------------------------------
+// FMKS (iharm3d's funky modified Kerr-Schild coordinates; grid/iharm3d.py):
+// SAMPLE_FMKS, a coordinate map in front of the one-block search. The grid
+// keeps its native (x^1, x^2, phi) faces and centres; a sample inside the
+// SKS domain (the launch's bounds, not the faces) becomes (x^1, x^2) by a
+// bilinear lookup in the inverse table (grid/sampling.py fmks_native, the
+// JAX package's forms and clamps), and is then sampled as SAMPLE_SINGLE
+// samples its point (sample_cell), or at the nearest cell where the launch
+// says so. An FMKS file holds one block.
+constexpr int SAMPLE_FMKS = 3;
+// Values of the map in a grid launch's host array `axes`, after the three
+// axes' GUIDE_AXIS_VALUES: r_in, dr, dtheta, the SKS domain's r, theta and
+// phi low and high, and the table's n1m and n2m.
+constexpr int FMKS_MAP_VALUES = 11;
+
+// The native grid (guided, as SAMPLE_SINGLE's), the table (2, n2m, n1m):
+// x^1 and x^2 at r = r_in + i dr, theta = j dtheta, and the SKS domain.
+template <typename T>
+struct FmksGridView {
+  GridView<T> cells;
+  const T* __restrict__ map;
+  T r_in, dr, dtheta;
+  T lo[3], hi[3];
+  int n1m, n2m;
+  bool nearest;
+};
+
+template <typename T>
+struct SampleGridOf<T, SAMPLE_FMKS> {
+  using type = FmksGridView<T>;
+};
+
+__device__ __forceinline__ float m_floor(float x) { return floorf(x); }
+__device__ __forceinline__ double m_floor(double x) { return floor(x); }
+
+// The table cell below t along an axis of top + 2 entries: floor(t)
+// clamped to [0, top] before the conversion (0 for NaN).
+template <typename T>
+__device__ __forceinline__ int fmks_cell(T t, int top) {
+  const T c = m_floor(t);
+  return c > T(0) ? (c < T(top) ? static_cast<int>(c) : top) : 0;
+}
+
+// The sample of a point under SAMPLE_FMKS; false off the SKS domain.
+// hint: each native axis' face count at the ray's previous sample (-1:
+// none), updated.
+template <typename T>
+__device__ __forceinline__ bool sample_fmks(const FmksGridView<T>& g, const SksPoint<T>& p,
+                                            T (&v)[8], int (&hint)[3]) {
+  if (p.r < g.lo[0] || p.r > g.hi[0] || p.th < g.lo[1] || p.th > g.hi[1] || p.ph < g.lo[2] ||
+      p.ph > g.hi[2]) {
+    return false;
+  }
+  const T fi = (p.r - g.r_in) / g.dr;
+  const T fj = p.th / g.dtheta;
+  const int i0 = fmks_cell(fi, g.n1m - 2);
+  const int j0 = fmks_cell(fj, g.n2m - 2);
+  const T wi = jmin(jmax(fi - T(i0), T(0)), T(1));
+  const T wj = jmin(jmax(fj - T(j0), T(0)), T(1));
+  const T* x1 = g.map + static_cast<long long>(j0) * g.n1m + i0;
+  const T* x2 = x1 + static_cast<long long>(g.n2m) * g.n1m;
+  SksPoint<T> q = p;
+  q.r = (T(1) - wi) * __ldg(x1) + wi * __ldg(x1 + 1);
+  q.th = (T(1) - wj) * ((T(1) - wi) * __ldg(x2) + wi * __ldg(x2 + 1)) +
+         wj * ((T(1) - wi) * __ldg(x2 + g.n1m) + wi * __ldg(x2 + g.n1m + 1));
+  if (!g.nearest) {
+    sample_cell(g.cells, q, v, hint);
+    return true;
+  }
+  // the nearest cell: the containing cell of each axis, its float32
+  // values as they are
+  const T x[3] = {q.r, q.th, q.ph};
+  int c[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    c[a] = min(max(faces_below(g.cells.ax[a], x[a], hint[a]) - 1, 0), g.cells.ax[a].n - 1);
+  }
+  const long long cell =
+      (static_cast<long long>(c[2]) * g.cells.ax[1].n + c[1]) * g.cells.ax[0].n + c[0];
+  const float4 a = __ldg(g.cells.table + 2 * cell);
+  const float4 b = __ldg(g.cells.table + 2 * cell + 1);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = T(prim_at(a, b, k));
+  return true;
+}
+
 // The snapshot as the C interface receives it: the (n_b, n_k, n_j, n_i, 8)
 // float32 table, the coordinates in the rays' type, the guides (int32) and
 // the host array of their axes (make_grid_view); the sampling mode
 // (SAMPLE_*), the nearest-cell flag, the blocks, their bounds in the rays'
-// type and, under SAMPLE_INTERBLOCK, the neighbour table and parities
-// (int32).
+// type, under SAMPLE_INTERBLOCK the neighbour table and parities (int32),
+// and under SAMPLE_FMKS the map's table in the rays' type (its values
+// follow the axes' in `axes`).
 struct SimGridArgs {
   const float* table;
   const void* coords;
@@ -676,6 +763,7 @@ struct SimGridArgs {
   const void* bounds;
   const int* amr;
   const int* parity;
+  const void* map;
 
   template <typename T>
   GridView<T> view() const {
@@ -687,11 +775,35 @@ struct SimGridArgs {
     return {view<T>(), static_cast<const T*>(bounds), amr, parity, n_b, nearest};
   }
 
+  template <typename T>
+  FmksGridView<T> fmks_view() const {
+    FmksGridView<T> g;
+    g.cells = view<T>();
+    g.map = static_cast<const T*>(map);
+    const double* v = axes + 3 * GUIDE_AXIS_VALUES;
+    g.r_in = T(v[0]);
+    g.dr = T(v[1]);
+    g.dtheta = T(v[2]);
+    for (int a = 0; a < 3; ++a) {
+      g.lo[a] = T(v[3 + 2 * a]);
+      g.hi[a] = T(v[4 + 2 * a]);
+    }
+    g.n1m = static_cast<int>(v[9]);
+    g.n2m = static_cast<int>(v[10]);
+    g.nearest = nearest;
+    return g;
+  }
+
   // Whether the mode and the blocks agree: one block for SAMPLE_SINGLE,
-  // the neighbour table for SAMPLE_INTERBLOCK.
+  // the neighbour table for SAMPLE_INTERBLOCK, one block and a table of at
+  // least 2 x 2 for SAMPLE_FMKS.
   bool valid() const {
     if (n_i < 2 || n_j < 2 || n_k < 2 || n_b < 1) return false;
     if (mode == SAMPLE_SINGLE) return n_b == 1 && !nearest;
+    if (mode == SAMPLE_FMKS) {
+      const double* v = axes + 3 * GUIDE_AXIS_VALUES;
+      return n_b == 1 && map != nullptr && v[9] >= 2.0 && v[10] >= 2.0;
+    }
     if (mode == SAMPLE_BLOCKS) return bounds != nullptr;
     return mode == SAMPLE_INTERBLOCK && bounds != nullptr && amr != nullptr &&
            parity != nullptr && !nearest;
@@ -703,6 +815,8 @@ template <typename T, int MODE>
 SampleGrid<T, MODE> grid_view_of(const SimGridArgs& g) {
   if constexpr (MODE == SAMPLE_SINGLE) {
     return g.view<T>();
+  } else if constexpr (MODE == SAMPLE_FMKS) {
+    return g.fmks_view<T>();
   } else {
     return g.block_view<T>();
   }

@@ -28,6 +28,7 @@ namespace {
 // mode (and a.nf).
 cudaError_t dispatch(int dtype_code, int integrator, const bl::SimLaunchArgs& a) {
   if (a.nf < 1 || a.nf > bl::MAX_FREQUENCIES) return cudaErrorInvalidValue;
+  if (a.grid.mode == bl::SAMPLE_FMKS) return bl::launch_simulation_fmks(dtype_code, integrator, a);
   if (a.grid.mode != bl::SAMPLE_SINGLE) {
     if (integrator == bl::INTEGRATOR_DP) return bl::launch_simulation_dp_blocks(dtype_code, a);
     return bl::launch_simulation_rk_blocks(dtype_code, integrator, a);
@@ -50,9 +51,11 @@ cudaError_t dispatch(int dtype_code, int integrator, const bl::SimLaunchArgs& a)
 // the three axes' guides (int32) and axes, a host array, their lo, hi,
 // scale and bins (4 doubles an axis). mode: the sampling mode
 // (sim_sample.cuh SAMPLE_*: 0 one block, 1 many blocks or the nearest
-// cell, 2 exact interblock); nearest: 1 for the nearest cell (mode 1);
-// bounds (n_b, 6) in the rays' type (modes 1 and 2); amr (n_b, 27, 8, 5)
-// and parity (n_b, 3) int32 (mode 2). i_nu receives (n_rays, nf) values.
+// cell, 2 exact interblock, 3 one FMKS block); nearest: 1 for the nearest
+// cell (modes 1 and 3); bounds (n_b, 6) in the rays' type (modes 1 and 2);
+// amr (n_b, 27, 8, 5) and parity (n_b, 3) int32 (mode 2); map the FMKS
+// table (2, n2m, n1m) in the rays' type, with FMKS_MAP_VALUES more values
+// in axes after the axes' (mode 3). i_nu receives (n_rays, nf) values.
 // Launches on `stream`, does not synchronize, allocates nothing; returns
 // the cudaError_t of the launch.
 extern "C" int blacklight_simulation_launch(
@@ -60,7 +63,7 @@ extern "C" int blacklight_simulation_launch(
     const void* momentum_factors, const void* consts, long long consts_bytes, const void* table,
     const void* coords, const void* guides, const void* axes, int n_i, int n_j, int n_k,
     int mode, int nearest, int n_b, const void* bounds, const void* amr, const void* parity,
-    void* i_nu, void* flags, void* n_samples, long long n_rays, void* stream) {
+    const void* map, void* i_nu, void* flags, void* n_samples, long long n_rays, void* stream) {
   if (n_rays <= 0) return 0;
   const bl::SimGridArgs grid{static_cast<const float*>(table),
                              coords,
@@ -74,7 +77,8 @@ extern "C" int blacklight_simulation_launch(
                              n_b,
                              bounds,
                              static_cast<const int*>(amr),
-                             static_cast<const int*>(parity)};
+                             static_cast<const int*>(parity),
+                             map};
   if (!grid.valid()) return static_cast<int>(cudaErrorInvalidValue);
   const bl::SimLaunchArgs a{positions,
                             directions,
@@ -111,3 +115,5 @@ extern "C" int blacklight_simulation_max_frequencies() { return bl::MAX_FREQUENC
 extern "C" int blacklight_simulation_guide_axis_values() { return bl::GUIDE_AXIS_VALUES; }
 
 extern "C" int blacklight_simulation_amr_table_fields() { return bl::AMR_TABLE_FIELDS; }
+
+extern "C" int blacklight_simulation_fmks_map_values() { return bl::FMKS_MAP_VALUES; }

@@ -128,7 +128,8 @@ template <typename T, int INTEGRATOR>
 constexpr int SimBlocks = sizeof(T) != 4 ? 1 : INTEGRATOR == INTEGRATOR_DP ? 6 : 8;
 
 // The block of the ray's previous sample (-1: none), which only the modes
-// of many blocks carry: SAMPLE_SINGLE's SimSample keeps its layout.
+// of many blocks carry: SAMPLE_SINGLE's SimSample keeps its layout
+// (SAMPLE_FMKS's, one block, has none either).
 struct BlockHint {
   int block = -1;
 };
@@ -146,7 +147,8 @@ struct PopulationRef<T, POP_MIXTURE> {
 // on a grid sampled in MODE (sim_sample.cuh SAMPLE_*), of the population
 // POP (POP_MIXTURE: this->mix points at the launch's MixConsts).
 template <typename T, int NF, int MODE = SAMPLE_SINGLE, int POP = POP_THERMAL>
-struct SimSample : std::conditional_t<MODE == SAMPLE_SINGLE, NoBlockHint, BlockHint>,
+struct SimSample : std::conditional_t<MODE == SAMPLE_SINGLE || MODE == SAMPLE_FMKS, NoBlockHint,
+                                      BlockHint>,
                    PopulationRef<T, POP> {
   const SimConsts<T>& c;
   const SampleGrid<T, MODE>& grid;
@@ -180,6 +182,8 @@ struct SimSample : std::conditional_t<MODE == SAMPLE_SINGLE, NoBlockHint, BlockH
     if constexpr (MODE == SAMPLE_SINGLE) {
       on_grid = !is_off_grid(grid, p);
       if (on_grid) sample_cell(grid, p, v, hint);
+    } else if constexpr (MODE == SAMPLE_FMKS) {
+      on_grid = sample_fmks(grid, p, v, hint);
     } else {
       on_grid = sample_blocks<MODE>(grid, p, v, hint, this->block);
     }
@@ -314,8 +318,25 @@ __global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
                                           nf, grid, i_nu, flags_out, n_samples_out);
 }
 
+// One FMKS block (SAMPLE_FMKS), trilinear or at the nearest cell,
+// instantiated in simulation_fmks.cu and simulation_fmks_dp.cu.
+template <typename T, int INTEGRATOR, int NF>
+__global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
+    simulation_fmks_kernel(const T* __restrict__ positions, const T* __restrict__ directions,
+                           const T* __restrict__ momentum_factors,
+                           const __grid_constant__ SimLaunchConsts<T, NF> consts, int nf,
+                           const __grid_constant__ FmksGridView<T> grid, T* __restrict__ i_nu,
+                           int* __restrict__ flags_out, int* __restrict__ n_samples_out,
+                           long long n_rays) {
+  const long long ray = static_cast<long long>(blockIdx.x) * SIM_THREADS + threadIdx.x;
+  if (ray >= n_rays) return;
+  simulation_ray<T, INTEGRATOR, NF, SAMPLE_FMKS>(ray, positions, directions, momentum_factors,
+                                                 consts, nf, grid, i_nu, flags_out, n_samples_out);
+}
+
 // The thermal, power-law and kappa populations (POP_MIXTURE) on one block
-// or many, in any mode, instantiated in simulation_mixture*.cu.
+// or many, in any mode, instantiated in simulation_mixture*.cu (SAMPLE_FMKS
+// in simulation_mixture_fmks.cu).
 template <typename T, int INTEGRATOR, int NF, int MODE>
 __global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
     simulation_mixture_kernel(const T* __restrict__ positions, const T* __restrict__ directions,
@@ -358,8 +379,9 @@ struct SimLaunchArgs {
   cudaStream_t stream;
 };
 
-// MODE SAMPLE_SINGLE launches simulation_kernel, the others
-// simulation_mode_kernel; POP_MIXTURE simulation_mixture_kernel.
+// MODE SAMPLE_SINGLE launches simulation_kernel, SAMPLE_FMKS
+// simulation_fmks_kernel, the others simulation_mode_kernel; POP_MIXTURE
+// simulation_mixture_kernel.
 template <typename T, int INTEGRATOR, int NF, int MODE, int POP = POP_THERMAL>
 cudaError_t launch_simulation(const SimLaunchArgs& a) {
   const unsigned blocks = static_cast<unsigned>((a.n_rays + SIM_THREADS - 1) / SIM_THREADS);
@@ -377,6 +399,11 @@ cudaError_t launch_simulation(const SimLaunchArgs& a) {
       simulation_kernel<T, INTEGRATOR, NF><<<blocks, SIM_THREADS, 0, a.stream>>>(
           static_cast<const T*>(a.positions), static_cast<const T*>(a.directions),
           static_cast<const T*>(a.momentum_factors), consts, a.nf, a.grid.view<T>(),
+          static_cast<T*>(a.i_nu), a.flags, a.n_samples, a.n_rays);
+    } else if constexpr (MODE == SAMPLE_FMKS) {
+      simulation_fmks_kernel<T, INTEGRATOR, NF><<<blocks, SIM_THREADS, 0, a.stream>>>(
+          static_cast<const T*>(a.positions), static_cast<const T*>(a.directions),
+          static_cast<const T*>(a.momentum_factors), consts, a.nf, a.grid.fmks_view<T>(),
           static_cast<T*>(a.i_nu), a.flags, a.n_samples, a.n_rays);
     } else {
       simulation_mode_kernel<T, INTEGRATOR, NF, MODE><<<blocks, SIM_THREADS, 0, a.stream>>>(
@@ -434,6 +461,13 @@ cudaError_t launch_simulation_mixture_dp(int dtype_code, const SimLaunchArgs& a)
 cudaError_t launch_simulation_mixture_rk_blocks(int dtype_code, int integrator,
                                                 const SimLaunchArgs& a);
 cudaError_t launch_simulation_mixture_dp_blocks(int dtype_code, const SimLaunchArgs& a);
+// One FMKS block (a.grid.mode SAMPLE_FMKS): every integrator, rk4 and rk2
+// in simulation_fmks.cu and dp in simulation_fmks_dp.cu; the mixture's
+// in simulation_mixture_fmks.cu.
+cudaError_t launch_simulation_fmks(int dtype_code, int integrator, const SimLaunchArgs& a);
+cudaError_t launch_simulation_fmks_dp(int dtype_code, const SimLaunchArgs& a);
+cudaError_t launch_simulation_mixture_fmks(int dtype_code, int integrator,
+                                           const SimLaunchArgs& a);
 
 // ---------------------------------------------------------------------------
 // Phased dispatch (K2.3): one phase of the kernel above from a carried state.
@@ -567,8 +601,27 @@ __global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
                                                 carry);
 }
 
+// One FMKS block (SAMPLE_FMKS), instantiated in simulation_phase_fmks.cu.
+template <typename T, int INTEGRATOR, int NF>
+__global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
+    simulation_phase_fmks_kernel(const int* __restrict__ index, long long n_live, int n_base,
+                                 int phase_steps, bool write_state,
+                                 const T* __restrict__ directions,
+                                 const T* __restrict__ momentum_factors,
+                                 const __grid_constant__ SimLaunchConsts<T, NF> consts, int nf,
+                                 const __grid_constant__ FmksGridView<T> grid,
+                                 SimCarryView<T> carry) {
+  const long long slot = static_cast<long long>(blockIdx.x) * SIM_THREADS + threadIdx.x;
+  if (slot >= n_live) return;
+  simulation_phase_ray<T, INTEGRATOR, NF, SAMPLE_FMKS>(slot, index, n_base, phase_steps,
+                                                       write_state, directions,
+                                                       momentum_factors, consts, nf, grid,
+                                                       carry);
+}
+
 // The mixture (POP_MIXTURE) on one block or many, in any mode,
-// instantiated in simulation_phase_mixture*.cu.
+// instantiated in simulation_phase_mixture*.cu (SAMPLE_FMKS in
+// simulation_phase_mixture_fmks.cu).
 template <typename T, int INTEGRATOR, int NF, int MODE>
 __global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
     simulation_phase_mixture_kernel(const int* __restrict__ index, long long n_live, int n_base,
@@ -631,6 +684,11 @@ cudaError_t launch_simulation_phase(const SimPhaseArgs& a) {
           a.index, a.n_live, a.n_base, a.phase_steps, a.write_state,
           static_cast<const T*>(a.directions), static_cast<const T*>(a.momentum_factors), consts,
           a.nf, a.grid.view<T>(), carry);
+    } else if constexpr (MODE == SAMPLE_FMKS) {
+      simulation_phase_fmks_kernel<T, INTEGRATOR, NF><<<blocks, SIM_THREADS, 0, a.stream>>>(
+          a.index, a.n_live, a.n_base, a.phase_steps, a.write_state,
+          static_cast<const T*>(a.directions), static_cast<const T*>(a.momentum_factors), consts,
+          a.nf, a.grid.fmks_view<T>(), carry);
     } else {
       simulation_phase_mode_kernel<T, INTEGRATOR, NF, MODE><<<blocks, SIM_THREADS, 0, a.stream>>>(
           a.index, a.n_live, a.n_base, a.phase_steps, a.write_state,
@@ -656,5 +714,11 @@ cudaError_t launch_simulation_phase_blocks(int dtype_code, int integrator,
                                            const SimPhaseArgs& a);
 cudaError_t launch_simulation_phase_mixture_blocks(int dtype_code, int integrator,
                                                    const SimPhaseArgs& a);
+// The phase kernel on one FMKS block (SAMPLE_FMKS); defined in
+// simulation_phase_fmks.cu, the mixture's in
+// simulation_phase_mixture_fmks.cu.
+cudaError_t launch_simulation_phase_fmks(int dtype_code, int integrator, const SimPhaseArgs& a);
+cudaError_t launch_simulation_phase_mixture_fmks(int dtype_code, int integrator,
+                                                 const SimPhaseArgs& a);
 
 }  // namespace bl

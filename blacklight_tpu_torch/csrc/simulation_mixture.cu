@@ -29,6 +29,9 @@ namespace {
 
 cudaError_t dispatch_mixture(int dtype_code, int integrator, const bl::SimLaunchArgs& a) {
   if (a.nf < 1 || a.nf > bl::MAX_FREQUENCIES) return cudaErrorInvalidValue;
+  if (a.grid.mode == bl::SAMPLE_FMKS) {
+    return bl::launch_simulation_mixture_fmks(dtype_code, integrator, a);
+  }
   if (a.grid.mode != bl::SAMPLE_SINGLE) {
     if (integrator == bl::INTEGRATOR_DP) {
       return bl::launch_simulation_mixture_dp_blocks(dtype_code, a);
@@ -52,7 +55,7 @@ extern "C" int blacklight_simulation_mixture_launch(
     const void* momentum_factors, const void* consts, long long consts_bytes, const void* table,
     const void* coords, const void* guides, const void* axes, int n_i, int n_j, int n_k,
     int mode, int nearest, int n_b, const void* bounds, const void* amr, const void* parity,
-    void* i_nu, void* flags, void* n_samples, long long n_rays, void* stream) {
+    const void* map, void* i_nu, void* flags, void* n_samples, long long n_rays, void* stream) {
   if (n_rays <= 0) return 0;
   const bl::SimGridArgs grid{static_cast<const float*>(table),
                              coords,
@@ -66,7 +69,8 @@ extern "C" int blacklight_simulation_mixture_launch(
                              n_b,
                              bounds,
                              static_cast<const int*>(amr),
-                             static_cast<const int*>(parity)};
+                             static_cast<const int*>(parity),
+                             map};
   if (!grid.valid()) return static_cast<int>(cudaErrorInvalidValue);
   const bl::SimLaunchArgs a{positions,
                             directions,

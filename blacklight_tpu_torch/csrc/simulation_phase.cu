@@ -29,6 +29,9 @@ namespace {
 // sampling mode (and a.nf).
 cudaError_t dispatch_phase(int dtype_code, int integrator, const bl::SimPhaseArgs& a) {
   if (a.nf < 1 || a.nf > bl::MAX_FREQUENCIES) return cudaErrorInvalidValue;
+  if (a.grid.mode == bl::SAMPLE_FMKS) {
+    return bl::launch_simulation_phase_fmks(dtype_code, integrator, a);
+  }
   if (a.grid.mode != bl::SAMPLE_SINGLE) {
     return bl::launch_simulation_phase_blocks(dtype_code, integrator, a);
   }
@@ -44,11 +47,12 @@ cudaError_t dispatch_phase(int dtype_code, int integrator, const bl::SimPhaseArg
 // refused). index holds n_live int32 ray indices below n_rays; directions
 // (n_rays, 4) and momentum_factors (n_rays,) are the bundle's; consts and
 // the snapshot (table, coords, guides, axes, n_i, n_j, n_k, mode,
-// nearest, n_b, bounds, amr, parity) as blacklight_simulation_launch's. The carried state: y (7,
-// n_rays), r_mid_prev, n_samp (int32), masks (int32) and bad (int32), each
-// (n_rays,), and intensity and tau (nf, n_rays), in the rays' type where
-// not named. Runs the steps [n_base, n_base + phase_steps) of every listed
-// ray and writes its transfer sums and bad bits back; with write_state
+// nearest, n_b, bounds, amr, parity, map) as blacklight_simulation_launch's.
+// The carried state: y (7, n_rays), r_mid_prev, n_samp (int32), masks
+// (int32) and bad (int32), each (n_rays,), and intensity and tau (nf,
+// n_rays), in the rays' type where not named. Runs the steps [n_base,
+// n_base + phase_steps) of every listed ray and writes its transfer sums
+// and bad bits back; with write_state
 // also its RayState (a launch for a further block of frequencies of the
 // same phase passes 0, so that every block starts from the same state).
 // Launches on `stream`, does not synchronize, allocates nothing; returns
@@ -58,9 +62,9 @@ extern "C" int blacklight_simulation_phase_launch(
     int phase_steps, int write_state, const void* directions, const void* momentum_factors,
     const void* consts, long long consts_bytes, const void* table, const void* coords,
     const void* guides, const void* axes, int n_i, int n_j, int n_k, int mode, int nearest,
-    int n_b, const void* bounds, const void* amr, const void* parity, void* y, void* r_mid_prev,
-    void* n_samp, void* masks, void* intensity, void* tau, void* bad, long long n_rays,
-    void* stream) {
+    int n_b, const void* bounds, const void* amr, const void* parity, const void* map, void* y,
+    void* r_mid_prev, void* n_samp, void* masks, void* intensity, void* tau, void* bad,
+    long long n_rays, void* stream) {
   if (n_live <= 0) return 0;
   const bl::SimGridArgs grid{static_cast<const float*>(table),
                              coords,
@@ -74,7 +78,8 @@ extern "C" int blacklight_simulation_phase_launch(
                              n_b,
                              bounds,
                              static_cast<const int*>(amr),
-                             static_cast<const int*>(parity)};
+                             static_cast<const int*>(parity),
+                             map};
   if (!grid.valid() || phase_steps < 1 || n_live > n_rays) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

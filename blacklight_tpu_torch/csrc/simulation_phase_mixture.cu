@@ -27,6 +27,9 @@ namespace {
 
 cudaError_t dispatch_phase_mixture(int dtype_code, int integrator, const bl::SimPhaseArgs& a) {
   if (a.nf < 1 || a.nf > bl::MAX_FREQUENCIES) return cudaErrorInvalidValue;
+  if (a.grid.mode == bl::SAMPLE_FMKS) {
+    return bl::launch_simulation_phase_mixture_fmks(dtype_code, integrator, a);
+  }
   if (a.grid.mode != bl::SAMPLE_SINGLE) {
     return bl::launch_simulation_phase_mixture_blocks(dtype_code, integrator, a);
   }
@@ -45,9 +48,9 @@ extern "C" int blacklight_simulation_phase_mixture_launch(
     int phase_steps, int write_state, const void* directions, const void* momentum_factors,
     const void* consts, long long consts_bytes, const void* table, const void* coords,
     const void* guides, const void* axes, int n_i, int n_j, int n_k, int mode, int nearest,
-    int n_b, const void* bounds, const void* amr, const void* parity, void* y, void* r_mid_prev,
-    void* n_samp, void* masks, void* intensity, void* tau, void* bad, long long n_rays,
-    void* stream) {
+    int n_b, const void* bounds, const void* amr, const void* parity, const void* map, void* y,
+    void* r_mid_prev, void* n_samp, void* masks, void* intensity, void* tau, void* bad,
+    long long n_rays, void* stream) {
   if (n_live <= 0) return 0;
   const bl::SimGridArgs grid{static_cast<const float*>(table),
                              coords,
@@ -61,7 +64,8 @@ extern "C" int blacklight_simulation_phase_mixture_launch(
                              n_b,
                              bounds,
                              static_cast<const int*>(amr),
-                             static_cast<const int*>(parity)};
+                             static_cast<const int*>(parity),
+                             map};
   if (!grid.valid() || phase_steps < 1 || n_live > n_rays) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -46,6 +46,14 @@ class SimulationGrid:
     (None / 0 where the file has none). ``amr_table`` (n_b, 27, 8, 5) and
     ``loc_parity`` (n_b, 3), int32 on the grid's device, are the neighbour
     table of exact interblock sampling (grid/amr.with_amr_table).
+
+    An FMKS grid (grid/iharm3d.py, one block) keeps its native (x^1, x^2)
+    faces and centres: ``sks_map`` (2, n2m, n1m) in the working dtype on
+    the grid's device holds x^1 and x^2 at uniform (r, theta), r from
+    ``map_r_in`` in steps of ``map_dr`` and theta from 0 in steps of
+    ``map_dtheta`` (grid/mks.generate_sks_map), and ``bounds`` the SKS
+    domain (r, theta, phi low and high; Python floats) of the off-grid
+    test. None for a grid whose coordinates are SKS.
     """
 
     prim: torch.Tensor
@@ -67,6 +75,12 @@ class SimulationGrid:
         default=None, compare=False, repr=False)
     loc_parity: Optional[torch.Tensor] = dataclasses.field(
         default=None, compare=False, repr=False)
+    sks_map: Optional[torch.Tensor] = dataclasses.field(
+        default=None, compare=False, repr=False)
+    map_r_in: float = 0.0
+    map_dr: float = 0.0
+    map_dtheta: float = 0.0
+    bounds: Optional[tuple] = None
 
     @property
     def n_blocks(self) -> int:
@@ -75,12 +89,13 @@ class SimulationGrid:
 
 def simulation_grid(prim, x1f, x1v, x2f, x2v, x3f, x3v, ind, time, *,
                     device, dtype, levels=None, locations=None,
-                    n3_root: int = 0) -> SimulationGrid:
+                    n3_root: int = 0, fmks_map=None) -> SimulationGrid:
     """SimulationGrid on ``device`` from array-likes: prim (n_var, n_b,
     n_k, n_j, n_i) as float32, the coordinates (n_b, n + 1) and (n_b, n)
     in ``dtype``, and the optional refinement metadata (levels (n_b,),
-    locations (n_b, 3), n3_root). ``load_athdf`` ends here, and so does
-    any caller that builds a snapshot in memory."""
+    locations (n_b, 3), n3_root) or FMKS map (sks_map, map_r_in, map_dr,
+    map_dtheta, bounds; the table a float64 tensor or array). The loaders
+    end here, and so does any caller that builds a snapshot in memory."""
     def host(a, dt):
         # torch takes no read-only arrays (a JAX array's numpy view is one)
         return torch.as_tensor(np.require(a, dt, "W"))
@@ -96,7 +111,18 @@ def simulation_grid(prim, x1f, x1v, x2f, x2v, x3f, x3v, ind, time, *,
         levels=None if levels is None else np.array(levels, np.int32),
         locations=None if locations is None else np.array(locations,
                                                           np.int64),
-        n3_root=int(n3_root))
+        n3_root=int(n3_root), **_fmks_fields(fmks_map, device, dtype))
+
+
+def _fmks_fields(fmks_map, device, dtype) -> dict:
+    if fmks_map is None:
+        return {}
+    table, r_in, dr, dtheta, bounds = fmks_map
+    return dict(sks_map=torch.as_tensor(table).to(device=device,
+                                                  dtype=dtype),
+                map_r_in=float(r_in), map_dr=float(dr),
+                map_dtheta=float(dtheta),
+                bounds=tuple(float(b) for b in bounds))
 
 
 def load_athdf(path: str, *, device, dtype=torch.float64) -> SimulationGrid:

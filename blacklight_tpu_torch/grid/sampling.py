@@ -21,6 +21,13 @@ corner table) compute the same values as plain indexing; the port
 indexes. Its approximate interblock branch, for grids without refinement
 metadata, is not ported (ROADMAP B.5b): Athena++ files carry the
 metadata.
+
+An FMKS grid (iharm3d, one block; grid/iharm3d.py) keeps its native
+(x^1, x^2) coordinates: the off-grid test is made in SKS against the
+grid's ``bounds``, and each sample's (r, theta) becomes (x^1, x^2) by a
+bilinear lookup in the grid's inverse table ``sks_map`` (the JAX
+package's forms and clamps, blacklight_tpu/grid/sampling.py:104-128)
+before the cell search on the native faces.
 """
 
 from __future__ import annotations
@@ -41,8 +48,9 @@ SAMPLE_NAMES = ("rho", "pgas", "uu1", "uu2", "uu3", "bb1", "bb2", "bb3")
 
 # Sampling modes (csrc/sim_sample.cuh SAMPLE_*): one block, trilinear
 # clamped to it; many blocks (or nearest cell), the block search first;
-# many blocks with exact interblock interpolation.
-SINGLE, BLOCKS, INTERBLOCK = 0, 1, 2
+# many blocks with exact interblock interpolation; one FMKS block, its
+# map first, then trilinear clamped to it or the nearest cell.
+SINGLE, BLOCKS, INTERBLOCK, FMKS = 0, 1, 2, 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,11 +95,16 @@ def locate(xf_row, xv_row, x):
 
 def sampling_mode(grid: SimulationGrid, opts: SamplerOptions) -> int:
     """The sampler's mode for ``grid`` under ``opts``: SINGLE (one block,
-    trilinear), BLOCKS (many blocks, or the nearest cell) or INTERBLOCK
+    trilinear), BLOCKS (many blocks, or the nearest cell), INTERBLOCK
     (many blocks, simulation_block_interp, on the neighbour table of
-    grid/amr.with_amr_table). Raises BlacklightError for interblock
-    sampling of a grid without refinement metadata, ValueError for one
-    whose table is not attached."""
+    grid/amr.with_amr_table) or FMKS (a grid with an FMKS map, trilinear
+    or the nearest cell). Raises BlacklightError for interblock sampling
+    of a grid without refinement metadata, ValueError for one whose table
+    is not attached and for an FMKS grid of more than one block."""
+    if grid.sks_map is not None:
+        if grid.n_blocks != 1:
+            raise ValueError("an FMKS grid has one block")
+        return FMKS
     if grid.n_blocks == 1:
         return SINGLE if opts.interp else BLOCKS
     if not (opts.interp and opts.block_interp):
@@ -108,19 +121,53 @@ def sampling_mode(grid: SimulationGrid, opts: SamplerOptions) -> int:
     return INTERBLOCK
 
 
+def fmks_native(grid: SimulationGrid, r, th):
+    """Native (x^1, x^2) of SKS (r, theta) on an FMKS grid: bilinear in
+    the inverse table (simulation_sampling.cpp:397-412, bilinear where
+    the reference interpolates x^1 in r only and x^2 in theta only), the
+    table cell clamped to the table and the weights to [0, 1]. The cell
+    index is clamped before its conversion to an integer (0 for NaN),
+    which gives the JAX package's saturating conversion."""
+    table = grid.sks_map
+    n2m, n1m = table.shape[1], table.shape[2]
+    fi = (r - grid.map_r_in) / grid.map_dr
+    fj = th / grid.map_dtheta
+
+    def cell(t, top):
+        t = torch.floor(t)
+        return torch.where(t > 0.0, t.clamp(max=top), 0.0).long()
+
+    i0, j0 = cell(fi, n1m - 2), cell(fj, n2m - 2)
+    wi = torch.clamp(fi - i0, 0.0, 1.0)
+    wj = torch.clamp(fj - j0, 0.0, 1.0)
+    x1, x2 = table[0], table[1]
+    q1 = (1 - wi) * x1[j0, i0] + wi * x1[j0, i0 + 1]
+    q2 = ((1 - wj) * ((1 - wi) * x2[j0, i0] + wi * x2[j0, i0 + 1])
+          + wj * ((1 - wi) * x2[j0 + 1, i0] + wi * x2[j0 + 1, i0 + 1]))
+    return q1, q2
+
+
 def locate_anchor(grid: SimulationGrid, r, th, ph):
     """Block and cell location: (b, (i, j, k), (i_m, j_m, k_m)
     unclamped, (f_i, f_j, f_k), off_grid). The block is the first in file
     order whose closed box holds the point (the reference's linear
     search, simulation_sampling.cpp:352-394); off_grid where none does.
+    An FMKS grid is tested against its SKS bounds and searched at the
+    point's native (x^1, x^2) (fmks_native).
     """
+    if grid.sks_map is not None:
+        r_lo, r_hi, th_lo, th_hi, ph_lo, ph_hi = grid.bounds
+        off_grid = ((r < r_lo) | (r > r_hi) | (th < th_lo) | (th > th_hi)
+                    | (ph < ph_lo) | (ph > ph_hi))
+        r, th = fmks_native(grid, r, th)
     if grid.n_blocks == 1:
         b = torch.zeros(r.shape, dtype=torch.int64, device=r.device)
         x1f, x1v = grid.x1f[0], grid.x1v[0]
         x2f, x2v = grid.x2f[0], grid.x2v[0]
         x3f, x3v = grid.x3f[0], grid.x3v[0]
-        off_grid = ((r < x1f[0]) | (r > x1f[-1]) | (th < x2f[0])
-                    | (th > x2f[-1]) | (ph < x3f[0]) | (ph > x3f[-1]))
+        if grid.sks_map is None:
+            off_grid = ((r < x1f[0]) | (r > x1f[-1]) | (th < x2f[0])
+                        | (th > x2f[-1]) | (ph < x3f[0]) | (ph > x3f[-1]))
     else:
         contains = ((r[:, None] >= grid.x1f[None, :, 0])
                     & (r[:, None] <= grid.x1f[None, :, -1])

@@ -45,7 +45,9 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # (simulation_phase.cu) must round as simulation_kernel.cu does: a phased
 # image is held to the monolithic one bit for bit. The units of many mesh
 # blocks (simulation_blocks*.cu, simulation_phase_blocks.cu,
-# polarized_derive_blocks.cu) and of the mixture of populations
+# polarized_derive_blocks.cu), of one FMKS block (simulation_fmks*.cu,
+# simulation_mixture_fmks.cu, simulation_phase*_fmks.cu,
+# polarized_derive_fmks*.cu) and of the mixture of populations
 # (simulation_mixture*.cu, simulation_phase_mixture*.cu,
 # polarized_derive_mixture*.cu) follow their thermal units.
 CONTRACT = {"formula_kernel.cu": False, "formula_kernel_dp.cu": True,
@@ -62,12 +64,18 @@ CONTRACT = {"formula_kernel.cu": False, "formula_kernel_dp.cu": True,
             "simulation_mixture_blocks_dp.cu": False,
             "simulation_phase_mixture.cu": False,
             "simulation_phase_mixture_blocks.cu": False,
+            "simulation_fmks.cu": False, "simulation_fmks_dp.cu": False,
+            "simulation_mixture_fmks.cu": False,
+            "simulation_phase_fmks.cu": False,
+            "simulation_phase_mixture_fmks.cu": False,
             "polarized_trace.cu": False, "polarized_derive.cu": False,
             "polarized_derive_f64.cu": False,
             "polarized_derive_blocks.cu": False, "polarized_chain.cu": False,
             "polarized_derive_mixture.cu": False,
             "polarized_derive_mixture_f64.cu": False,
-            "polarized_derive_mixture_blocks.cu": False}
+            "polarized_derive_mixture_blocks.cu": False,
+            "polarized_derive_fmks.cu": False,
+            "polarized_derive_fmks_f64.cu": False}
 
 
 def find_nvcc() -> str:

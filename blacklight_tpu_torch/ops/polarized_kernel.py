@@ -92,10 +92,12 @@ LAUNCHES = 0
 STAGE_LAUNCHES = {"trace": 0, "derive": 0, "chain": 0}
 # Of the derive launches, those of each sampling mode's kernel
 # (grid/sampling.py SINGLE: polarized_derive_kernel; BLOCKS, INTERBLOCK:
-# polarized_derive_mode_kernel), and those of the mixture's
-# (polarized_derive_mixture_kernel, any mode).
-DERIVE_MODE_LAUNCHES = [0, 0, 0]
+# polarized_derive_mode_kernel; FMKS: polarized_derive_fmks_kernel), and
+# those of the mixture's (polarized_derive_mixture_kernel, any mode), also
+# by mode.
+DERIVE_MODE_LAUNCHES = [0, 0, 0, 0]
 DERIVE_MIXTURE_LAUNCHES = 0
+DERIVE_MIXTURE_MODE_LAUNCHES = [0, 0, 0, 0]
 
 # Index order of the kernel's float64 parameter vector: the simulation
 # kernel's (simulation_kernel.PARAM_NAMES), then the enum in
@@ -393,6 +395,7 @@ class _CudaStages:
         STAGE_LAUNCHES[stage] += 1
         if stage == "derive" and self.mixture:
             DERIVE_MIXTURE_LAUNCHES += 1
+            DERIVE_MIXTURE_MODE_LAUNCHES[self.grid.mode] += 1
         elif stage == "derive":
             DERIVE_MODE_LAUNCHES[self.grid.mode] += 1
 

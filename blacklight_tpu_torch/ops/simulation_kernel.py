@@ -49,6 +49,7 @@ from blacklight_tpu_torch.constants import Math, Physics
 from blacklight_tpu_torch.grid import amr
 from blacklight_tpu_torch.grid.athena import SimulationGrid
 from blacklight_tpu_torch.grid.sampling import (
+    FMKS,
     INTERBLOCK,
     SAMPLE_NAMES,
     SINGLE,
@@ -82,11 +83,12 @@ MAX_FREQUENCIES = 16
 # kernel and nowhere else.
 LAUNCHES = 0
 # Of those, the launches of each sampling mode's kernel (grid/sampling.py
-# SINGLE: simulation_kernel; BLOCKS, INTERBLOCK: simulation_mode_kernel),
-# and the launches of the mixture's kernel (simulation_mixture_kernel, any
-# mode).
-MODE_LAUNCHES = [0, 0, 0]
+# SINGLE: simulation_kernel; BLOCKS, INTERBLOCK: simulation_mode_kernel;
+# FMKS: simulation_fmks_kernel), and the launches of the mixture's kernel
+# (simulation_mixture_kernel, any mode), also by mode.
+MODE_LAUNCHES = [0, 0, 0, 0]
 MIXTURE_LAUNCHES = 0
+MIXTURE_MODE_LAUNCHES = [0, 0, 0, 0]
 
 # Most bins of an axis' guide (csrc/sim_sample.cuh GridAxis): 64 KB of
 # int32 an axis at most.
@@ -94,6 +96,10 @@ GUIDE_MAX_BINS = 1 << 14
 # Values of an axis in KernelGrid's axes array (GUIDE_AXIS_VALUES of
 # csrc/sim_sample.cuh): lo, hi, scale, bins.
 GUIDE_AXIS_VALUES = 4
+# Values of an FMKS map after the axes' (FMKS_MAP_VALUES of
+# csrc/sim_sample.cuh): r_in, dr, dtheta, the SKS bounds (r, theta, phi
+# low and high), n1m, n2m.
+FMKS_MAP_VALUES = 11
 
 # Index order of the kernel's float64 parameter vector: the enum in
 # csrc/simulation_params.cuh with its "S_" prefix dropped. The geodesic
@@ -332,9 +338,9 @@ def axis_guide(faces, lo: float, scale: float, bins: int):
 
 
 # ctypes of KernelGrid.args() in the C interfaces: table, coords, guides,
-# axes, n_i, n_j, n_k, mode, nearest, n_b, bounds, amr, parity.
+# axes, n_i, n_j, n_k, mode, nearest, n_b, bounds, amr, parity, map.
 GRID_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6 \
-    + (ctypes.c_void_p,) * 3
+    + (ctypes.c_void_p,) * 4
 
 
 class KernelGrid(NamedTuple):
@@ -342,12 +348,13 @@ class KernelGrid(NamedTuple):
     kernel_tables' table and coords, the three axes' guides concatenated,
     and under the modes of many blocks the (n_b, 6) block bounds (r, theta,
     phi low and high faces, in the coordinates' dtype) and, under
-    INTERBLOCK, the neighbour table and location parities (int32); on the
+    INTERBLOCK, the neighbour table and location parities (int32), under
+    FMKS the map's table (2, n2m, n1m) in the coordinates' dtype; on the
     host the axes array: lo, hi, scale and bins of each axis
     (GUIDE_AXIS_VALUES float64 values an axis; under the modes of many
-    blocks the box of every block and one bin); the sampling mode
-    (grid/sampling.py SINGLE, BLOCKS, INTERBLOCK) and the nearest-cell
-    flag."""
+    blocks the box of every block and one bin), under FMKS followed by the
+    map's FMKS_MAP_VALUES; the sampling mode (grid/sampling.py SINGLE,
+    BLOCKS, INTERBLOCK, FMKS) and the nearest-cell flag."""
 
     table: torch.Tensor
     coords: torch.Tensor
@@ -358,17 +365,19 @@ class KernelGrid(NamedTuple):
     parity: torch.Tensor | None
     mode: int
     nearest: bool
+    map: torch.Tensor | None = None
 
     def args(self) -> tuple:
         """The C interfaces' table, coords, guides, axes, n_i, n_j, n_k,
-        mode, nearest, n_b, bounds, amr, parity (a missing table as a null
-        pointer)."""
+        mode, nearest, n_b, bounds, amr, parity, map (a missing table as a
+        null pointer)."""
         n_b, n_k, n_j, n_i = self.table.shape[:4]
         return (self.table.data_ptr(), self.coords.data_ptr(),
                 self.guides.data_ptr(), self.axes.ctypes.data, n_i, n_j, n_k,
                 self.mode, int(self.nearest), n_b, self.bounds.data_ptr(),
                 None if self.amr is None else self.amr.data_ptr(),
-                None if self.parity is None else self.parity.data_ptr())
+                None if self.parity is None else self.parity.data_ptr(),
+                None if self.map is None else self.map.data_ptr())
 
 
 def kernel_grid(grid: SimulationGrid, dtype,
@@ -379,7 +388,11 @@ def kernel_grid(grid: SimulationGrid, dtype,
     block follow from the grid's host copy of its faces rounded to
     ``dtype``, as its device coordinates were, and are counted on the
     device, so nothing is read back; the modes of many blocks search each
-    block's faces and take no guide."""
+    block's faces and take no guide. FMKS guides its native faces as
+    SINGLE does, and adds the grid's map: its table rounded to ``dtype``
+    and its values (grid.map_r_in, map_dr, map_dtheta, bounds and the
+    table's shape), which the card rounds to ``dtype`` as the plain
+    version's Python floats are rounded."""
     mode = sampling_mode(grid, sampler)
     table, coords = kernel_tables(grid, dtype)
     rounded = [h.astype(_NUMPY_DTYPES[dtype]) for h in grid.host_faces]
@@ -388,7 +401,7 @@ def kernel_grid(grid: SimulationGrid, dtype,
     guides, axes, at = [], [], 0
     for host in rounded:
         n = host.shape[1] - 1
-        if mode == SINGLE:
+        if mode in (SINGLE, FMKS):
             lo, hi, scale, bins = axis_bins(host[0])
             guides.append(axis_guide(coords[at:at + n + 1], lo, scale, bins))
         else:
@@ -398,12 +411,16 @@ def kernel_grid(grid: SimulationGrid, dtype,
                                       device=coords.device))
         axes += (lo, hi, scale, bins)
         at += host.size + host.shape[0] * n
-    interblock = mode == INTERBLOCK
+    interblock, fmks = mode == INTERBLOCK, mode == FMKS
+    if fmks:
+        axes += (grid.map_r_in, grid.map_dr, grid.map_dtheta, *grid.bounds,
+                 grid.sks_map.shape[2], grid.sks_map.shape[1])
     return KernelGrid(table, coords, torch.cat(guides),
                       np.asarray(axes, dtype=np.float64), bounds.contiguous(),
                       grid.amr_table.contiguous() if interblock else None,
                       grid.loc_parity.contiguous() if interblock else None,
-                      mode, not sampler.interp)
+                      mode, not sampler.interp,
+                      grid.sks_map.to(dtype).contiguous() if fmks else None)
 
 
 def frequency_bucket(nf: int, one: bool = True) -> int:
@@ -586,6 +603,7 @@ def _render_cuda(positions, directions, momentum_factors, frequencies,
         LAUNCHES += 1
         if mixture:
             MIXTURE_LAUNCHES += 1
+            MIXTURE_MODE_LAUNCHES[kgrid.mode] += 1
         else:
             MODE_LAUNCHES[kgrid.mode] += 1
         if out is not i_nu:
@@ -613,7 +631,8 @@ def _library() -> ctypes.CDLL:
                  "blacklight_simulation_mixture_param_count",
                  "blacklight_simulation_max_frequencies",
                  "blacklight_simulation_guide_axis_values",
-                 "blacklight_simulation_amr_table_fields"):
+                 "blacklight_simulation_amr_table_fields",
+                 "blacklight_simulation_fmks_map_values"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i32
     lib.blacklight_cuda_error_string.argtypes = [i32]
@@ -627,10 +646,12 @@ def _library() -> ctypes.CDLL:
             or lib.blacklight_simulation_guide_axis_values()
             != GUIDE_AXIS_VALUES
             or lib.blacklight_simulation_amr_table_fields()
-            != amr.TABLE_FIELDS):
+            != amr.TABLE_FIELDS
+            or lib.blacklight_simulation_fmks_map_values()
+            != FMKS_MAP_VALUES):
         raise RuntimeError("csrc/simulation_kernel.cuh and MAX_FREQUENCIES, "
-                           "GUIDE_AXIS_VALUES or grid/amr.TABLE_FIELDS "
-                           "disagree")
+                           "GUIDE_AXIS_VALUES, FMKS_MAP_VALUES or "
+                           "grid/amr.TABLE_FIELDS disagree")
     for mixture in (False, True):
         if consts_sizes(lib, mixture) != host_consts_sizes(mixture):
             raise RuntimeError(
@@ -830,10 +851,11 @@ def angular_order(positions, block: int = 1024):
 PHASE_LAUNCHES = 0
 # Of those, the launches of each sampling mode's phase kernel (SINGLE:
 # simulation_phase_kernel; BLOCKS, INTERBLOCK:
-# simulation_phase_mode_kernel), and of the mixture's
-# (simulation_phase_mixture_kernel, any mode).
-PHASE_MODE_LAUNCHES = [0, 0, 0]
+# simulation_phase_mode_kernel; FMKS: simulation_phase_fmks_kernel), and of
+# the mixture's (simulation_phase_mixture_kernel, any mode), also by mode.
+PHASE_MODE_LAUNCHES = [0, 0, 0, 0]
 PHASE_MIXTURE_LAUNCHES = 0
+PHASE_MIXTURE_MODE_LAUNCHES = [0, 0, 0, 0]
 
 # Steps a phase of render_simulation_phased by default: at 1024^2 with 2000
 # steps, 1000 (2 launches) beat the JAX package's 512 (4 launches) in turns
@@ -1023,6 +1045,7 @@ def _phase_runner(frequencies, params, sp, grid, mass_msun, camera_x,
             PHASE_LAUNCHES += 1
             if mixture:
                 PHASE_MIXTURE_LAUNCHES += 1
+                PHASE_MIXTURE_MODE_LAUNCHES[kgrid.mode] += 1
             else:
                 PHASE_MODE_LAUNCHES[kgrid.mode] += 1
     return run

@@ -121,12 +121,18 @@ def check_slice(cfg) -> None:
 
 def _check_simulation_slice(cfg, refuse) -> None:
     fmt = cfg.simulation_format
-    if fmt != SimulationFormat.athena:
+    coord = cfg.simulation_coord
+    # the port reads Athena++ (SKS), iharm3d (MKS as SKS, or FMKS) and
+    # harm3d (MKS as SKS) files; the iharm3d and harm3d loaders check
+    # their coordinates as the JAX package's do
+    readers = (SimulationFormat.athena, SimulationFormat.iharm3d,
+               SimulationFormat.harm3d)
+    if fmt not in readers:
         refuse(f"simulation_format = {fmt.value if fmt else None}", "B.4")
-    if cfg.simulation_coord != Coordinates.sks:
-        coord = cfg.simulation_coord
-        refuse(f"simulation_coord = {coord.value if coord else None}",
-               "B.4")
+    if coord == Coordinates.cks or (fmt == SimulationFormat.athena
+                                    and coord != Coordinates.sks):
+        refuse(f"simulation_coord = {coord.value if coord else None} with "
+               f"simulation_format = {fmt.value}", "B.4")
     if cfg.require("simulation_multiple") and cfg.slow_light_on:
         refuse("slow light", "B.6")
     if cfg.require("plasma_model") != PlasmaModel.ti_te_beta:

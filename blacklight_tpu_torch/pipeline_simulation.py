@@ -3,7 +3,8 @@
 Port of ``blacklight_tpu/pipeline_simulation.py`` (:70-254, :257-707)
 for the port's slice (``pipeline.check_slice``): one Athena++ snapshot
 of one or many mesh blocks (with its neighbour table for exact
-interblock sampling), read once onto the device, and one of two routes,
+interblock sampling), or one iharm3d (MKS or FMKS) or harm3d snapshot,
+read once onto the device, and one of two routes,
 chosen from the config before anything launches, as the JAX package
 chooses between its kernels and its XLA path
 (blacklight_tpu/pipeline_simulation.py:348-370, :466-474):
@@ -40,6 +41,8 @@ from blacklight_tpu_torch.utils.errors import BlacklightError
 from blacklight_tpu_torch.camera import make_camera
 from blacklight_tpu_torch.grid.amr import with_amr_table
 from blacklight_tpu_torch.grid.athena import SimulationGrid, load_athdf
+from blacklight_tpu_torch.grid.harm3d import load_harm3d
+from blacklight_tpu_torch.grid.iharm3d import load_iharm3d
 from blacklight_tpu_torch.grid.sampling import sampling_mode
 from blacklight_tpu_torch.models import synchrotron
 from blacklight_tpu_torch.models.cuts import GeometricCuts
@@ -130,11 +133,18 @@ def cut_params_from_config(cfg) -> synchrotron.CutParams:
 
 
 def load_grid_file(cfg, path: str, *, device, dtype) -> SimulationGrid:
-    """Load one snapshot file (Athena++ only in this slice)."""
-    if cfg.require("simulation_format") != SimulationFormat.athena:
-        raise BlacklightError("blacklight_tpu_torch reads Athena++ "
-                              "snapshots only (ROADMAP B.4).")
-    return load_athdf(path, device=device, dtype=dtype)
+    """Load one snapshot file in the configured format
+    (blacklight_tpu/pipeline_simulation.py:133-155; AthenaK is refused by
+    pipeline.check_slice, ROADMAP B.4)."""
+    fmt = cfg.require("simulation_format")
+    if fmt == SimulationFormat.athena:
+        return load_athdf(path, device=device, dtype=dtype)
+    if fmt == SimulationFormat.iharm3d:
+        return load_iharm3d(path, cfg, device=device, dtype=dtype)
+    if fmt == SimulationFormat.harm3d:
+        return load_harm3d(path, cfg, device=device, dtype=dtype)
+    raise BlacklightError("blacklight_tpu_torch does not read "
+                          f"simulation_format = {fmt.value} (ROADMAP B.4).")
 
 
 def load_grid(cfg, snapshot: Optional[int] = None, *, device,

@@ -63,6 +63,15 @@ and prints no final line):
    - phase 15's jobs (AUX_JOBS): the scan route on the CPU on 4,096 of
      its rays, the 128^2 and polarized cases on the card and on the CPU,
      and the two A.5 goldens on the card;
+   - phase 17's: the FMKS instantiations on the FMKS torus over
+     mock_small.athdf's grid (FMKS_CHECK_GRID), 128^2 against their plain
+     versions: the simulation kernel in rk4 float64 trilinear and at the
+     nearest cell and the mixture's in rk4 float64 (400 steps of 0.04,
+     exact), dp float32 (steps of 0.04, statistical); the phase kernel on
+     its second phase of 200 steps (rk4 float64, exact); and the plain
+     version on one host core on 4,096 of the card's rays of each of
+     phase 17's cells (1,024 polarized, in float32 and in float64), which
+     phase 17 holds its kernels against;
    jobs start longest first (PHASE3_SECONDS);
 4. the 32^2 formula goldens through pipeline.run(cfg, device="cuda") at
    the tolerances of tests/test_formula_e2e.py;
@@ -202,7 +211,31 @@ and prints no final line):
     golden_plasma_mix_pol_rk4_32 through the kernel route
     (tests/test_simulation_e2e.py:88-114).
 
-Phases 4 to 16 run alone on the card, after phase 3.
+17. iharm3d and harm3d snapshots (ROADMAP B.4), run after phase 16:
+    FULL_GRID's torus written by write_iharm3d_fmks (FMKS, the writer's
+    parameters: hslope 0.3, mks_smooth 0.5, poly_xt 0.82, poly_alpha 14),
+    recorded in memory (scripts/mock_iharm3d_datasets.py) and built by
+    grid/iharm3d.iharm3d_grid (the writer's and the loader's host times,
+    the inverse table's time on the card); write_harm3d's file of
+    FULL_GRID, read by load_harm3d. Through pipeline.run at 1024^2 (rk4,
+    2000 steps, float32), each with every launch count zeroed just before
+    and read just after: fmks-rk4-f32 (simulation_fmks_kernel), its
+    mixture (golden_plasma_mix_rk4_32.input's electrons,
+    simulation_mixture_kernel in SAMPLE_FMKS), the polarized route
+    (polarized_derive_fmks_kernel) and harm3d-rk4-f32 (the file read by
+    the run; simulation_kernel, SAMPLE_SINGLE); the phased route
+    (KERNEL_PHASED) bit for bit the FMKS image. Then each kernel alone in
+    spatial_order, best of 3 in turns with phase 7's SKS single block,
+    beside its bound and held to phase 3's plain version on its subset
+    (statistical gate); the FMKS phase kernel on the route's second phase;
+    the polarized route in turns with phase 9's, with each stage's time,
+    held as phase 9's is (within TRUTH_FACTOR of the float32 plain
+    version's error to the float64 one, truth_gate, with equal NaN sets)
+    and its float64 run on the same 1,024 rays exact (polarized_gate).
+    The script's host work for phase 17 (the FMKS datasets, the harm3d
+    file) runs in the main process while phase 3's jobs run.
+
+Phases 4 to 17 run alone on the card, after phase 3.
 
 ``python3 chip_smoke.py --chunk-sweep`` runs phases 1 and 2, then times
 the polarized route at 1024^2 (float32 rk4, spatial_order) for trace
@@ -225,13 +258,17 @@ ray's start and end, which it leaves out). The polarized route's entry also carr
 of its three kernels with its own bound: the bytes of its own inputs and
 outputs (samples, records) against its share of the operations.
 
-Every line but the last two is a JSON object with the measurements (the
+Every line but the last two is a JSON object with the measurements and
+its seconds since the script started ("at_s") (the
 kernels line lists formula K1.1/K1.2, K1.3, K1.4, simulation, phased
 simulation and polarized, then the instantiations of many blocks: the
 simulation kernel on mb-uniform, mb-amr and at the nearest cell, the
 phase kernel and the derive kernel of interblock sampling, then the
 mixture's: the simulation kernel, the phase kernel and the polarized
-route's derive kernel); then come the card's name and power limit, and
+route's derive kernel, then phase 17's: the FMKS simulation kernel, the
+mixture's on FMKS, the single-block kernel on the harm3d grid, the FMKS
+phase kernel and the polarized route with the FMKS derive kernel); then
+come the card's name and power limit, and
 the last line is {"ok": true, "device": {...}}. The script prints its
 total time on the line before the kernels line.
 """
@@ -317,11 +354,17 @@ SM_CLOCK_HZ = {}
 # (~60) and the kappa population's six bridges (~72), eight sin and xx
 # powers (~16), rotativities of two brackets (~70) and the rest (~40):
 # ~260 more than the thermal POL_OPS_PER_FREQUENCY.
+# The FMKS map (csrc/sim_sample.cuh sample_fmks) adds at a sample the SKS
+# domain test (6), the table coordinates (2 subtractions or divisions
+# each, a floor, 2 compares and a clamp: ~10), the weights (2 subtractions
+# and 4 clamps) and the bilinear lookup (9 products, 5 sums, 3
+# subtractions): ~40, in front of the single block's sample.
 OPS_PER_STEP = {"rk4": 830, "rk2": 500, "dp": 2020}
 OPS_PER_SAMPLE = {"formula": 130, "simulation": 495, "polarized": 2740,
                   "simulation_blocks": 520, "simulation_interblock": 1030,
                   "simulation_nearest": 331, "simulation_mixture": 575,
-                  "polarized_mixture": 2740}
+                  "polarized_mixture": 2740, "simulation_fmks": 535,
+                  "simulation_mixture_fmks": 615, "polarized_fmks": 2780}
 POL_OPS_PER_FREQUENCY = 1090
 POL_MIX_OPS_PER_FREQUENCY = 260
 POL_CHAIN_OPS_PER_FREQUENCY = 900
@@ -381,8 +424,13 @@ FULL_GRID = dict(n_r=288, n_th=128, n_ph=128, r_min=1.916, r_max=52.2,
                  pert_amp=0.1)
 
 
+# The script's start: each line carries its seconds since then ("at_s")
+STARTED = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": time.perf_counter() - STARTED}), flush=True)
 
 
 def smi(query) -> str:
@@ -454,10 +502,23 @@ def _ptxas_table(report: str) -> dict:
     return {k: v for k, v in table.items() if v}
 
 
-SAMPLE_MODE_NAMES = ("single block", "blocks", "interblock")
+SAMPLE_MODE_NAMES = ("single block", "blocks", "interblock", "fmks")
 
 
 def _kernel_label(mangled: str) -> str:
+    m = re.search(r"(simulation|simulation_phase)_fmks_kernelI([fd])Li(\d)E"
+                  r"Li(\d+)E", mangled)
+    if m:
+        kind, tp, integrator, nf = m.groups()
+        return (f"{kind}_fmks_kernel<{'float' if tp == 'f' else 'double'}, "
+                f"{('dp', 'rk4', 'rk2')[int(integrator)]}, NF={nf}>")
+    m = re.search(r"polarized_derive_fmks_kernelI([fd])Lb([01])E", mangled)
+    if m:
+        tp, geometry = m.groups()
+        args = ["float" if tp == "f" else "double"]
+        if geometry == "0":
+            args.append("coefficients only")
+        return f"polarized_derive_fmks_kernel<{', '.join(args)}>"
     m = re.search(r"(simulation|simulation_phase)_mixture_kernelI([fd])"
                   r"Li(\d)ELi(\d+)ELi(\d)E", mangled)
     if m:
@@ -538,7 +599,8 @@ def _step_loops() -> dict:
     units = sorted(p.name for pattern in ("formula_kernel*.cu",
                                           "simulation_*.cu")
                    for p in csrc.glob(pattern)
-                   if "blocks" not in p.name and "mixture" not in p.name)
+                   if not any(kind in p.name for kind in ("blocks", "mixture",
+                                                          "fmks")))
     per_ray, per_sample = mix.per_ray_lines(ROOT), mix.per_sample_lines(ROOT)
     with tempfile.TemporaryDirectory() as tmp:
         sass = mix.disassemble(ROOT, units, pathlib.Path(tmp))
@@ -602,6 +664,8 @@ def phase_build():
          step_loops=STEP_LOOPS)
     emit("mixture_registers", ptxas={k: v for k, v in ptxas.items()
                                      if "mixture" in k})
+    emit("fmks_registers", ptxas={k: v for k, v in ptxas.items()
+                                  if "fmks" in k})
     emit("thermal_sass", **thermal_sass)
     if fk.consts_sizes(fk._library()) != fk.host_consts_sizes():
         raise RuntimeError("FormulaLaunchConsts and launch_consts disagree")
@@ -738,9 +802,12 @@ def _timed(fn, *args, **kwargs):
     return out, time.perf_counter() - t0
 
 
-def phase_checks(pool) -> tuple:
+def phase_checks(pool, prep=None) -> tuple:
     """Phase 3 on ``pool``: every check at once, longest first; emits each
-    result in that order and raises at the first that failed. Returns
+    result in that order and raises at the first that failed. ``prep``, if
+    given, is called once every job is queued, so that the main process's
+    own host work overlaps the jobs, and its result is returned last.
+    Returns
     phase 9's float64 reference (positions, Stokes) with its float32 plain
     version (pol_full_width_plain's result), the plain formula
     version on the subsets of the full-width formula cells, by cell, the
@@ -751,8 +818,9 @@ def phase_checks(pool) -> tuple:
     mb-amr's second phase (mesh_phase_plain_subset, "phase_plain"); and
     phase 15's jobs (AUX_JOBS) by name; and phase 16's: the mixture's
     phase kernel against its plain version ("phase"), the plain version
-    on its cells' subsets ("plain", "pol_plain"). Jobs start longest first
-    (PHASE3_SECONDS)."""
+    on its cells' subsets ("plain", "pol_plain"); and phase 17's, alike,
+    with the float64 polarized subset ("pol_truth"). Jobs start longest
+    first (PHASE3_SECONDS)."""
     t0 = time.perf_counter()
     jobs = {("check", fn.__name__, args): (fn, args) for fn, args in CHECKS}
     jobs.update({("mesh_phase", "check_mesh_phase", args):
@@ -770,10 +838,18 @@ def phase_checks(pool) -> tuple:
     jobs.update({("aux", fn.__name__, ()): (fn, ()) for _, fn in AUX_JOBS})
     jobs.update({("mixture", fn.__name__, ()): (fn, ()) for fn in (
         check_mixture_phase, mixture_plain_subset, mixture_pol_plain_subset)})
+    jobs.update({("fmks", "check_fmks_simulation", args):
+                 (check_fmks_simulation, args) for args in FMKS_CHECKS})
+    jobs.update({("fmks_plain", "fmks_plain_subset", (cell,)):
+                 (fmks_plain_subset, (cell,)) for cell in FMKS_CELLS})
+    jobs[("fmks_phase", "check_fmks_phase", ())] = (check_fmks_phase, ())
+    jobs.update({("fmks_pol", "fmks_pol_subset", (p,)):
+                 (fmks_pol_subset, (p,)) for p in ("float32", "float64")})
     # longest first (a stable sort: jobs of no measured length keep the
     # table's order after the measured ones)
     order = sorted(jobs, key=lambda key: -PHASE3_SECONDS.get(key[1:], 0.0))
     started = {key: pool.apply_async(*jobs[key]) for key in order}
+    prepared = prep() if prep is not None else None
 
     def results(kind):
         return {key[2]: job for key, job in started.items()
@@ -826,8 +902,21 @@ def phase_checks(pool) -> tuple:
     mixture = {"phase": result,
                "plain": mixture["mixture_plain_subset"].get(),
                "pol_plain": mixture["mixture_pol_plain_subset"].get()}
+    fmks_phase = started[("fmks_phase", "check_fmks_phase", ())]
+    for job in (*(started[("fmks", "check_fmks_simulation", args)]
+                  for args in FMKS_CHECKS), fmks_phase):
+        phase, result = job.get()
+        emit(phase, workers=WORKERS, **result)
+        if not result["ok"]:
+            raise RuntimeError(f"{phase}: kernel disagrees with plain: "
+                               f"{result}")
+    fmks = {"phase": fmks_phase.get()[1],
+            "plain": {args[0]: job.get()
+                      for args, job in results("fmks_plain").items()},
+            "pol_plain": results("fmks_pol")[("float32",)].get(),
+            "pol_truth": results("fmks_pol")[("float64",)].get()}
     emit("checks", workers=WORKERS, seconds=time.perf_counter() - t0)
-    return truth, subsets, stages, mesh, aux, mixture
+    return truth, subsets, stages, mesh, aux, mixture, fmks, prepared
 
 
 def _check_exact(kernel_out, plain_out, rtol) -> dict:
@@ -1880,8 +1969,9 @@ def _launch_counts(fk, sk, pk) -> dict:
 
 def _zero_counts(fk, sk, pk) -> None:
     fk.LAUNCHES = sk.LAUNCHES = pk.LAUNCHES = sk.PHASE_LAUNCHES = 0
-    sk.MODE_LAUNCHES[:] = sk.PHASE_MODE_LAUNCHES[:] = [0, 0, 0]
-    pk.DERIVE_MODE_LAUNCHES[:] = [0, 0, 0]
+    for counts in (sk.MODE_LAUNCHES, sk.PHASE_MODE_LAUNCHES,
+                   pk.DERIVE_MODE_LAUNCHES):
+        counts[:] = [0] * len(counts)
     for stage in pk.STAGE_LAUNCHES:
         pk.STAGE_LAUNCHES[stage] = 0
 
@@ -2569,11 +2659,13 @@ def phase_aux_planes(tmp: pathlib.Path, card: str, grids: dict, mono: dict,
 
 def grid_bytes(grid) -> int:
     """Bytes the kernels read of a snapshot: each block's (k, j, i, 8)
-    float32 table and coordinates, and of many blocks their bounds."""
+    float32 table and coordinates, of many blocks their bounds, and of an
+    FMKS grid its inverse table."""
     nvar, n_b, n_k, n_j, n_i = grid.prim.shape
     item = grid.x1f.element_size()
     per_block = 32 * n_k * n_j * n_i + item * (2 * (n_i + n_j + n_k) + 3)
-    return n_b * per_block + (6 * item * n_b if n_b > 1 else 0)
+    fmks = 0 if grid.sks_map is None else grid.sks_map.numel() * item
+    return n_b * per_block + (6 * item * n_b if n_b > 1 else 0) + fmks
 
 
 def bound(kernel, integrator, precision, rays, mean_samples, *, in_bytes,
@@ -2589,7 +2681,7 @@ def bound(kernel, integrator, precision, rays, mean_samples, *, in_bytes,
     if kernel == "formula":
         per_sample += FORMULA_OPS_PER_FREQUENCY * (frequencies - 1) \
             + FORMULA_OPS_PER_TANGENT * frequencies * tangents
-    if kernel == "polarized":
+    if kernel in ("polarized", "polarized_fmks"):
         per_sample += POL_OPS_PER_FREQUENCY * frequencies
     if kernel == "polarized_mixture":
         per_sample += (POL_OPS_PER_FREQUENCY + POL_MIX_OPS_PER_FREQUENCY) \
@@ -3851,6 +3943,554 @@ def phase_mixture_full_width(tmp: pathlib.Path, card: str, grids: dict,
     return [simulation, phase_entry, polarized]
 
 
+# Phase 17: iharm3d (FMKS) and harm3d snapshots (ROADMAP B.4). The FMKS
+# torus of scripts/generate_mock_simulation.write_iharm3d_fmks with the
+# writer's parameters (hslope 0.3, mks_smooth 0.5, poly_xt 0.82,
+# poly_alpha 14: those of the EHT library's iharm3d runs) on FULL_GRID,
+# recorded in memory (scripts/mock_iharm3d_datasets.py: the card's Python
+# has no h5py) and built by grid/iharm3d.iharm3d_grid; the harm3d file of
+# write_harm3d on FULL_GRID, written and read by load_harm3d.
+FMKS_SOURCE = "blacklight_tpu_torch/csrc/sim_sample.cuh"
+FMKS_RES, FMKS_STEPS = 1024, 2000
+# Phase 3's FMKS checks run on the FMKS torus over mock_small.athdf's
+# grid and radii (the camera of the golden inputs), 400 steps of 0.04 (dp
+# within the inputs' budget of 2000), at FMKS_CHECK_RES^2.
+FMKS_CHECK_GRID = dict(n_r=64, n_th=32, n_ph=32, r_min=1.916, r_max=52.2)
+FMKS_CHECK_RES = 128
+# The polarized FMKS cell's plain rays: every FMKS_POL_STRIDE-th (1,024),
+# in float32 and in float64
+FMKS_POL_STRIDE = 4 * PLAIN_STRIDE
+
+
+def fmks_datasets(size=None) -> tuple:
+    """The datasets write_iharm3d_fmks writes for the torus on ``size``
+    (FULL_GRID by default), recorded in memory: (datasets, the writer's
+    host seconds)."""
+    mock = _mock()
+    from mock_iharm3d_datasets import record_datasets
+    p = dict(mock.DEFAULTS, **(size or FULL_GRID))
+    t0 = time.perf_counter()
+    datasets = record_datasets(mock.write_iharm3d_fmks, mock.make_fields(p),
+                               p)
+    return datasets, time.perf_counter() - t0
+
+
+def fmks_snapshot(dtype, size=None, datasets=None) -> tuple:
+    """The FMKS torus on ``size`` (FULL_GRID by default; or ``datasets``,
+    fmks_datasets' recorded ones) on the card in ``dtype``: (grid,
+    {"write_s": the mock writer's host time, "load_s": iharm3d_grid's,
+    the inverse table on the card included})."""
+    import torch
+    from blacklight_tpu_torch import pipeline
+    from blacklight_tpu_torch.grid.iharm3d import iharm3d_grid
+    write_s = None
+    if datasets is None:
+        datasets, write_s = fmks_datasets(size)
+    t1 = time.perf_counter()
+    grid = iharm3d_grid(datasets, _fmks_config(), dtype=dtype,
+                        device=pipeline.resolve_device("cuda"))
+    torch.cuda.synchronize()
+    return grid, {"write_s": write_s, "load_s": time.perf_counter() - t1}
+
+
+def fmks_host_prep(directory: pathlib.Path) -> dict:
+    """Phase 17's host work, which the main process does while phase 3's
+    jobs run: the FMKS datasets of FULL_GRID and the harm3d file of
+    FULL_GRID in ``directory``, with the writers' seconds."""
+    datasets, write_s = fmks_datasets()
+    path, harm_s = write_harm3d_file(directory)
+    return {"datasets": datasets, "write_s": write_s, "harm3d_path": path,
+            "harm3d_write_s": harm_s}
+
+
+def write_harm3d_file(directory: pathlib.Path) -> tuple:
+    """write_harm3d's file of FULL_GRID in ``directory``: (path, the
+    writer's seconds)."""
+    mock = _mock()
+    p = dict(mock.DEFAULTS, **FULL_GRID)
+    path = directory / "full_width.harm"
+    t0 = time.perf_counter()
+    mock.write_harm3d(str(path), mock.make_fields(p), p)
+    return path, time.perf_counter() - t0
+
+
+def _fmks_config(name="golden_sim_rk4_32.input", **overrides):
+    """``name`` as an FMKS iharm3d configuration (the snapshot is passed
+    to the renderer, not read from simulation_file)."""
+    from blacklight_tpu_torch.constants import Coordinates, SimulationFormat
+    return _sim_config(name, simulation_format=SimulationFormat.iharm3d,
+                       simulation_coord=Coordinates.fmks, **overrides)
+
+
+def _fmks_full_config(name="golden_sim_rk4_32.input", **overrides):
+    """Phase 17's cells: phase 7's (1024^2, rk4, 2000 steps, float32)."""
+    return _fmks_config(name, camera_resolution=FMKS_RES,
+                        precision="float32", ray_integrator="rk4",
+                        ray_max_steps=FMKS_STEPS, **overrides)
+
+
+def _harm3d_full_config(path, **overrides):
+    from blacklight_tpu_torch.constants import SimulationFormat
+    return _sim_config(simulation_format=SimulationFormat.harm3d,
+                       simulation_file=str(path), camera_resolution=FMKS_RES,
+                       precision="float32", ray_integrator="rk4",
+                       ray_max_steps=FMKS_STEPS, **overrides)
+
+
+# Phase 17's unpolarized cells: name -> (input, snapshot)
+FMKS_CELLS = {"fmks": ("golden_sim_rk4_32.input", "fmks"),
+              "fmks_mix": (MIX_INPUT, "fmks"),
+              "harm3d": ("golden_sim_rk4_32.input", "harm3d")}
+
+
+def _fmks_cell_config(cell):
+    name, snapshot = FMKS_CELLS[cell]
+    if snapshot == "fmks":
+        return _fmks_full_config(name)
+    return _sim_config(name, camera_resolution=FMKS_RES, precision="float32",
+                       ray_integrator="rk4", ray_max_steps=FMKS_STEPS)
+
+
+def _host_grid(grid):
+    """``grid`` with its tensors on the host."""
+    import dataclasses
+    import torch
+    return dataclasses.replace(grid, **{
+        f.name: getattr(grid, f.name).cpu() for f in dataclasses.fields(grid)
+        if isinstance(getattr(grid, f.name), torch.Tensor)})
+
+
+def _host_subset(cfg, card_args, grid, stride, cfg64=None):
+    """Every ``stride``-th of the card's camera rays ``card_args`` (a
+    render_simulation argument tuple, float32) on the host, with the
+    renderer arguments of ``cfg`` (or, widened, of ``cfg64``) on the host
+    through ``grid`` (the host copy of the snapshot in that precision):
+    (the argument tuple, the keywords, the camera geometry). The plain
+    versions of phase 17's cells run there, one host core each: in phase
+    3's pool they are launch-bound on the card (PERF.md)."""
+    from blacklight_tpu_torch.pipeline_simulation import (
+        make_simulation_renderer)
+    rays = [a[::stride].contiguous().cpu() for a in card_args[:3]]
+    render_fn, geom, _, _, _ = make_simulation_renderer(
+        cfg64 or cfg, device="cpu", grid=grid)
+    rest = render_fn.kernel_args
+    if cfg64 is not None:
+        rays = [r.double() for r in rays]
+    # the float32 configuration's frequencies and log_j_scale (widened)
+    args = (*rays, card_args[3].cpu().to(rays[0].dtype), *rest[1:-1],
+            card_args[-1])
+    return args, dict(render_fn.kernel_kwargs), geom
+
+
+def fmks_plain_subset(cell) -> tuple:
+    """Phase 3: the plain version on phase 17's ``cell`` on every
+    PLAIN_STRIDE-th ray, on one host core: (their positions, (I_nu, flags,
+    n_samples), seconds), numpy."""
+    import torch
+    from blacklight_tpu_torch import pipeline
+    from blacklight_tpu_torch.grid.harm3d import load_harm3d
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+    torch.set_num_threads(1)
+    if FMKS_CELLS[cell][1] == "fmks":
+        grid, _ = fmks_snapshot(torch.float32)
+    else:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build" / "kernels") \
+                as tmp:
+            path, _ = write_harm3d_file(pathlib.Path(tmp))
+            grid = load_harm3d(str(path), _harm3d_full_config(path),
+                               device=pipeline.resolve_device("cuda"),
+                               dtype=torch.float32)
+    cfg = _fmks_cell_config(cell)
+    card_args, _ = _sim_args(cfg, grid)
+    sub, kwargs, _ = _host_subset(cfg, card_args, _host_grid(grid),
+                                  PLAIN_STRIDE)
+    del card_args, grid
+    out, t_p = _timed(sk.render_simulation_reference, *sub, **kwargs)
+    return (sub[0].numpy(), [o.numpy() for o in out], t_p)
+
+
+def fmks_pol_subset(precision) -> tuple:
+    """Phase 3: the plain polarized version on phase 17's polarized cell
+    in ``precision`` on every FMKS_POL_STRIDE-th ray of the float32
+    camera's (float64 widens them), on one host core: (their positions,
+    Stokes, seconds). Phase 17 holds its float64 route to the float64 run
+    (exact) and both float32 versions to it (truth_gate)."""
+    import torch
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    torch.set_num_threads(1)
+    datasets, _ = fmks_datasets()
+    grid, _ = fmks_snapshot(torch.float32, datasets=datasets)
+    cfg = _fmks_pol_full_config()
+    card_args, _, _ = _pol_args(cfg, grid)
+    if precision == "float64":
+        grid, _ = fmks_snapshot(torch.float64, datasets=datasets)
+    sub, kwargs, geom = _host_subset(
+        cfg, card_args, _host_grid(grid), FMKS_POL_STRIDE,
+        _fmks_pol_full_config("float64") if precision == "float64" else None)
+    del card_args, grid
+    out, t_p = _timed(pk.render_polarized_reference, *sub, **kwargs)
+    return sub[0].numpy(), _pol_stokes(out, sub, geom, True), t_p
+
+
+def _fmks_pol_full_config(precision="float32"):
+    return _fmks_config("golden_polarized_rk4_32.input",
+                        camera_resolution=FMKS_RES, precision=precision,
+                        ray_integrator="rk4", ray_max_steps=FMKS_STEPS,
+                        image_rotation_split=False)
+
+
+def _fmks_check_args(name, precision, **overrides):
+    """The small FMKS check's renderer arguments (FMKS_CHECK_GRID)."""
+    import torch
+    dtype = torch.float32 if precision == "float32" else torch.float64
+    grid, _ = fmks_snapshot(dtype, FMKS_CHECK_GRID)
+    return _fmks_config(name, precision=precision, **overrides), grid
+
+
+def check_fmks_simulation(population, integrator, precision,
+                          interp=True) -> tuple:
+    """The FMKS instantiation of the simulation kernel (thermal or the
+    mixture) against its plain version at FMKS_CHECK_RES^2: rk4 float64
+    exact (rtol 1e-9, 400 steps of 0.04), dp float32 statistical (steps of
+    0.04 within the input's budget of 2000, which no ray nears: a float32
+    dp ray near its budget can end flagged in one version and not the
+    other)."""
+    from blacklight_tpu_torch.grid import sampling
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+    steps = MIX_CHECK_STEPS if integrator != "dp" else {"ray_step": 0.04}
+    cfg, grid = _fmks_check_args(
+        "golden_sim_rk4_32.input" if population == "thermal" else MIX_INPUT,
+        precision, camera_resolution=FMKS_CHECK_RES,
+        ray_integrator=integrator, simulation_interp=interp, **steps)
+    args, kwargs = _sim_args(cfg, grid)
+    counts = sk.MODE_LAUNCHES if population == "thermal" \
+        else sk.MIXTURE_MODE_LAUNCHES
+    before = counts[sampling.FMKS]
+    out_k, t_k = _timed(sk.render_simulation, *args, **kwargs)
+    launched = counts[sampling.FMKS] - before
+    out_p, t_p = _timed(sk.render_simulation_reference, *args, **kwargs)
+    exact = integrator != "dp" and precision == "float64"
+    result = _check_exact(out_k, out_p, 1e-9 if exact else None)
+    result["ok"] = bool(result["ok"] and launched == 1)
+    return "fmks_kernel_vs_plain", dict(
+        population=population, integrator=integrator, precision=precision,
+        interp=interp, fmks_launches=launched, kernel_s=t_k, plain_s=t_p,
+        **result)
+
+
+def check_fmks_phase() -> tuple:
+    """The FMKS phase kernel against its plain version at
+    FMKS_CHECK_RES^2 (MIX_CHECK_STEPS): the second phase of
+    MIX_PHASE_STEPS from the kernel's carried state after the first, rk4
+    float64 exact."""
+    import numpy as np
+    from blacklight_tpu_torch.grid import sampling
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+    cfg, grid = _fmks_check_args("golden_sim_rk4_32.input", "float64",
+                                 camera_resolution=FMKS_CHECK_RES,
+                                 ray_integrator="rk4", **MIX_CHECK_STEPS)
+    args, _ = _sim_args(cfg, grid)
+    before = sk.PHASE_MODE_LAUNCHES[sampling.FMKS]
+    out_k, out_p, t_k, t_p, rays, samples = _second_phase(
+        args, "rk4", MIX_PHASE_STEPS)
+    launched = sk.PHASE_MODE_LAUNCHES[sampling.FMKS] - before
+    result = _check_exact(out_k, out_p, 1e-9)
+    result["ok"] = bool(result["ok"] and launched == 2)
+    a, b = out_k[0].cpu().numpy(), out_p[0].cpu().numpy()
+    both = np.isfinite(a) & np.isfinite(b)
+    result["max_abs_err"] = float(np.max(np.abs(a[both] - b[both]))) \
+        if both.any() else 0.0
+    return "fmks_phase_kernel_vs_plain", dict(
+        integrator="rk4", precision="float64", phase_steps=MIX_PHASE_STEPS,
+        phase_rays=rays, phase_samples=samples, fmks_launches=launched,
+        kernel_s=t_k, plain_s=t_p, **result)
+
+
+FMKS_CHECKS = (("thermal", "rk4", "float64", True),
+               ("thermal", "rk4", "float64", False),
+               ("mixture", "rk4", "float64", True),
+               ("thermal", "dp", "float32", True))
+
+
+def _only_mode(counts, kind, mode) -> bool:
+    """Whether ``counts`` (_launch_counts) hold launches of ``kind``'s
+    kernel in ``mode`` and of no other kernel or mode."""
+    launched = sum(sum(v) if isinstance(v, list) else v
+                   for v in counts.values())
+    return counts[kind][mode] > 0 and launched == counts[kind][mode]
+
+
+def _fmks_counts(fk, sk, pk) -> dict:
+    """_launch_counts with the mixture's kernels by mode."""
+    return {**_launch_counts(fk, sk, pk),
+            "mixture": list(sk.MIXTURE_MODE_LAUNCHES),
+            "phase_mixture": list(sk.PHASE_MIXTURE_MODE_LAUNCHES),
+            "derive_mixture": list(pk.DERIVE_MIXTURE_MODE_LAUNCHES)}
+
+
+def _zero_fmks_counts(fk, sk, pk) -> None:
+    _zero_counts(fk, sk, pk)
+    for counts in (sk.MIXTURE_MODE_LAUNCHES, sk.PHASE_MIXTURE_MODE_LAUNCHES,
+                   pk.DERIVE_MIXTURE_MODE_LAUNCHES):
+        counts[:] = [0] * len(counts)
+    sk.MIXTURE_LAUNCHES = sk.PHASE_MIXTURE_LAUNCHES = 0
+    pk.DERIVE_MIXTURE_LAUNCHES = 0
+
+
+def phase_fmks_full_width(card: str, grids: dict, checks: dict,
+                          host: dict) -> list:
+    """Phase 17; ``checks``: phase 3's FMKS results ("plain" by cell,
+    "pol_plain", "phase"); ``host``: fmks_host_prep's result (the FMKS
+    datasets and the harm3d file, made while phase 3 ran). Returns the
+    kernels line's entries."""
+    import numpy as np
+    import torch
+    from blacklight_tpu_torch import pipeline, pipeline_simulation as ps
+    from blacklight_tpu_torch.grid import mks, sampling
+    from blacklight_tpu_torch.grid.harm3d import load_harm3d
+    from blacklight_tpu_torch.ops import formula_kernel as fk
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+
+    res, n = FMKS_RES, FMKS_RES * FMKS_RES
+    if "float32" not in grids:
+        grids["float32"] = full_width_snapshot(torch.float32)
+    t_phase = time.perf_counter()
+    fmks, t_fmks = fmks_snapshot(torch.float32, datasets=host["datasets"])
+    # the inverse table alone, on the card (part of load_s)
+    params = mks.FmksParams(h=0.3, r_in=fmks.map_r_in, poly_xt=0.82,
+                            poly_alpha=14.0, mks_smooth=0.5)
+    r_out = float(np.exp(fmks.host_faces[0][0, -1]))
+    _, t_map = _timed(mks.generate_sks_map, params, fmks.map_r_in, r_out,
+                      device=fmks.prim.device)
+    harm_path = host["harm3d_path"]
+    tmp = harm_path.parent
+    harm, t_harm = _timed(load_harm3d, str(harm_path),
+                          _harm3d_full_config(harm_path),
+                          device=fmks.prim.device, dtype=torch.float32)
+    emit("fmks_snapshots", card=card, grid=list(fmks.prim.shape[:1:-1]),
+         fmks_write_s=host["write_s"], fmks_load_s=t_fmks["load_s"],
+         generate_sks_map_s=t_map, sks_map=list(fmks.sks_map.shape),
+         sks_map_mb=fmks.sks_map.numel() * 4 / 1e6,
+         fmks_table_mb=grid_bytes(fmks) / 1e6,
+         harm3d_write_s=host["harm3d_write_s"],
+         harm3d_file_mb=harm_path.stat().st_size / 1e6,
+         harm3d_load_s=t_harm, harm3d_table_mb=grid_bytes(harm) / 1e6)
+
+    # each cell through pipeline.run, every count zeroed just before and
+    # read just after
+    runs = {
+        "fmks": (_fmks_full_config(), fmks, "simulation", sampling.FMKS),
+        "fmks_mix": (_fmks_full_config(MIX_INPUT), fmks, "mixture",
+                     sampling.FMKS),
+        "fmks_pol": (_fmks_pol_full_config(), fmks, "derive",
+                     sampling.FMKS),
+        "harm3d": (_harm3d_full_config(harm_path), None, "simulation",
+                   sampling.SINGLE)}
+    images, launches = {}, {}
+    for cell, (cfg, grid, kind, mode) in runs.items():
+        cfg.output_file = str(tmp / f"{cell}.npz")
+        _zero_fmks_counts(fk, sk, pk)
+        arrays, run_s = _timed(pipeline.run, cfg, quiet=True, device="cuda",
+                               grid=grid)
+        counts = _fmks_counts(fk, sk, pk)
+        image = arrays["I_nu"]
+        finite = np.isfinite(image)
+        if kind == "derive":
+            # the route's three kernels, its derive launches all FMKS
+            stages = dict(pk.STAGE_LAUNCHES)
+            only = (all(stages.values())
+                    and counts["derive"][mode] == stages["derive"]
+                    and counts["polarized"] == sum(stages.values())
+                    and not (counts["formula"] or sum(counts["simulation"])
+                             or sum(counts["phase"])
+                             or sum(counts["derive_mixture"])))
+        else:
+            only = _only_mode(counts, kind, mode)
+        ok = bool(image.shape == (res, res) and finite.any() and only)
+        if cell == "fmks_pol":
+            ok = ok and all(np.isfinite(arrays[k][finite]).all()
+                            for k in STOKES)
+        emit("fmks_main_path", cell=cell, resolution=res,
+             precision="float32", integrator="rk4", max_steps=FMKS_STEPS,
+             seconds=run_s, launches=counts,
+             stage_launches=dict(pk.STAGE_LAUNCHES) if kind == "derive"
+             else None, nan_pixels=int((~finite).sum()),
+             max_I_nu=float(np.nanmax(image)), ok=ok)
+        if not ok:
+            raise RuntimeError(f"{cell}: the main path did not render through "
+                               f"the kernel of its mode: {counts}")
+        images[cell] = image
+        launches[cell] = counts[kind][mode] if kind != "derive" \
+            else counts["polarized"]
+
+    # the phased route on fmks: bit for bit its monolithic image
+    ps.KERNEL_PHASED = True
+    try:
+        _zero_fmks_counts(fk, sk, pk)
+        phased = pipeline.run(_fmks_full_config(), quiet=True, device="cuda",
+                              grid=fmks)
+        counts = _fmks_counts(fk, sk, pk)
+    finally:
+        ps.KERNEL_PHASED = False
+    a, b = phased["I_nu"], images["fmks"]
+    same = bool(np.array_equal(np.isnan(a), np.isnan(b))
+                and np.array_equal(a[~np.isnan(a)], b[~np.isnan(b)]))
+    phase_launches = counts["phase"][sampling.FMKS]
+    emit("fmks_phased", resolution=res, card=card,
+         phase_steps=ps.KERNEL_PHASE_STEPS, launches=counts,
+         identical_to_monolithic=same)
+    if not same or not _only_mode(counts, "phase", sampling.FMKS):
+        raise RuntimeError("the FMKS phased route launched no FMKS phase "
+                           "kernel, another kernel, or its image differs "
+                           f"from the monolithic one: {counts}")
+
+    # each kernel alone in spatial_order, best of 3 in turns with the SKS
+    # single block (phase 7's cell), each held to phase 3's plain version
+    # on every PLAIN_STRIDE-th ray of the camera's
+    cells = {"single": _sim_args(_sim_config(
+        camera_resolution=res, precision="float32", ray_integrator="rk4",
+        ray_max_steps=FMKS_STEPS), grids["float32"])}
+    cells.update({c: _sim_args(_fmks_cell_config(c),
+                               fmks if c != "harm3d" else harm)
+                  for c in FMKS_CELLS})
+    bundles = {c: _spatial(args) for c, (args, _) in cells.items()}
+    kwargs = cells["single"][1]
+    best, times, outs = _best_in_turns({
+        c: (lambda b=b: sk.render_simulation(*b, **kwargs))
+        for c, b in bundles.items()})
+    entries, pick = [], np.arange(0, n, PLAIN_STRIDE)
+    kinds = {"fmks": "simulation_fmks", "fmks_mix": "simulation_mixture_fmks",
+             "harm3d": "simulation"}
+    names = {"fmks": "simulation_fmks_kernel",
+             "fmks_mix": "simulation_mixture_kernel (FMKS)",
+             "harm3d": "simulation_kernel (harm3d grid)"}
+    for c in FMKS_CELLS:
+        args = cells[c][0]
+        positions, plain, t_plain = checks["plain"][c]
+        if not np.array_equal(positions, args[0][pick].cpu().numpy()):
+            raise RuntimeError("the plain version traced other rays")
+        out_cam = sk.render_simulation(*args, **kwargs)
+        gate = gate_outputs([out_cam[0].cpu().numpy()[pick]], [plain[0]])
+        mean = float(outs[c][2].double().mean())
+        grid = args[6]
+        b = bound(kinds[c], "rk4", "float32", n, mean,
+                  in_bytes=grid_bytes(grid), out_values=1)
+        emit("fmks_timing", cell=c, resolution=res, card=card,
+             order="spatial_order", kernel_s_runs=times[c],
+             kernel_ms=best[c] * 1e3, single_block_ms=best["single"] * 1e3,
+             over_single_block=best[c] / best["single"],
+             mean_n_samples=mean, plain_ms=t_plain * 1e3,
+             plain_rays=pick.size, gate="statistical (bench.py:181-186)",
+             **gate, **b, kernel_over_bound=best[c] * 1e3 / b["bound_ms"],
+             clocks_power=smi(["nvidia-smi", "--query-gpu=clocks.sm,"
+                               "power.draw,temperature.gpu",
+                               "--format=csv,noheader"]))
+        if not gate["ok"]:
+            raise RuntimeError(f"{c} disagrees with plain at {res}^2: {gate}")
+        entries.append({
+            "name": names[c], "route": "cuda", "source": FMKS_SOURCE,
+            "replaces": SIM_KERNEL_REPLACES, "cell": c,
+            "launches": launches[c], "max_abs_err": gate["max_abs_err"],
+            "ms": best[c] * 1e3, "plain_ms": t_plain * 1e3,
+            "plain_rays": int(pick.size),
+            **{k: b[k] for k in ("bound_ms", "bound_by")},
+            "single_block_ms": best["single"] * 1e3, "library_ms": None})
+
+    # the FMKS phase kernel on the route's own second phase at full width
+    phase_check = checks["phase"]
+    out2_k, _, t2_k, _, rays2, samples2 = _second_phase(
+        cells["fmks"][0], "rk4", ps.KERNEL_PHASE_STEPS, with_plain=False)
+    b_phase = phase_bound(rays2, samples2, "float32", grid_bytes(fmks),
+                          kind="simulation_fmks")
+    emit("fmks_phase_timing", resolution=res, card=card,
+         phase_steps=ps.KERNEL_PHASE_STEPS, second_phase_rays=rays2,
+         second_phase_kernel_ms=t2_k * 1e3, **b_phase)
+    entries.append({
+        "name": "simulation_phase_fmks_kernel", "route": "cuda",
+        "source": SIM_KERNEL_SOURCE, "replaces": PHASE_REPLACES,
+        "launches": phase_launches,
+        "max_abs_err": phase_check["max_abs_err"], "ms": t2_k * 1e3,
+        "plain_ms": phase_check["plain_s"] * 1e3,
+        "plain_rays": phase_check["phase_rays"],
+        "kernel_ms_at_plain_rays": phase_check["kernel_s"] * 1e3,
+        **{k: b_phase[k] for k in ("bound_ms", "bound_by")},
+        "library_ms": None})
+
+    # the polarized route with the FMKS derive kernel, best of 3 in turns
+    # with phase 9's SKS route
+    (args_f, kw_p, geom), _ = _timed(_pol_args, _fmks_pol_full_config(),
+                                     fmks)
+    args_s, _, _ = _pol_args(_pol_full_config("float32", "rk4"),
+                             grids["float32"])
+    pol = {"fmks": _spatial(args_f), "single": _spatial(args_s)}
+    best_p, times_p, outs_p = _best_in_turns({
+        c: (lambda b=b: pk.render_polarized(*b, **kw_p))
+        for c, b in pol.items()})
+    stages = {c: _pol_stage_times(b, kw_p)["stage_ms"]
+              for c, b in pol.items()}
+    # held as phase 9 holds its route (truth_gate) and the float64 route
+    # exactly, on the same rays: float32 polarized transfer of this torus
+    # is ill-conditioned (PERF.md, Findings), so the float32 route
+    # is held to the float32 plain version only through their errors to
+    # float64
+    positions, plain_stokes, t_plain_p = checks["pol_plain"]
+    positions64, truth, t_truth = checks["pol_truth"]
+    pol_pick = np.arange(0, n, FMKS_POL_STRIDE)
+    if not (np.array_equal(positions, args_f[0][pol_pick].cpu().numpy())
+            and np.array_equal(positions64, positions.astype(np.float64))):
+        raise RuntimeError("the plain version traced other rays")
+    ours = _pol_stokes(pk.render_polarized(*args_f, **kw_p), args_f, geom,
+                       True)
+    ours = {k: v[pol_pick] for k, v in ours.items()}
+    pol_gate = polarized_gate(ours, plain_stokes, exact=False)
+    to_truth = truth_gate(ours, plain_stokes, truth)
+    fmks64, _ = fmks_snapshot(torch.float64, datasets=host["datasets"])
+    args64, kw64, geom64 = _pol_args(_fmks_pol_full_config("float64"),
+                                     fmks64)
+    pick_t = torch.as_tensor(pol_pick, device=args64[0].device)
+    sub64 = (*(a[pick_t].contiguous() for a in (args_f[0].double(),
+                                                 args_f[1].double(),
+                                                 args_f[2].double())),
+             args_f[3].double(), *args64[4:-1], args_f[-1])
+    gate64 = polarized_gate(_pol_stokes(pk.render_polarized(*sub64, **kw64),
+                                        sub64, geom64, True), truth, True)
+    del fmks64
+    mean_p = float(outs_p["fmks"][3].double().mean())
+    b_pol = bound("polarized_fmks", "rk4", "float32", n, mean_p,
+                  in_bytes=grid_bytes(fmks), out_values=16,
+                  extra_out_bytes=12)
+    emit("fmks_pol_timing", resolution=res, card=card, order="spatial_order",
+         kernel_s_runs=times_p, route_ms=best_p["fmks"] * 1e3,
+         single_block_route_ms=best_p["single"] * 1e3,
+         over_single_block=best_p["fmks"] / best_p["single"],
+         stage_ms=stages, mean_n_samples=mean_p, plain_ms=t_plain_p * 1e3,
+         plain_rays=pol_pick.size, float32_plain=pol_gate,
+         float64_truth=to_truth, float64_route=gate64,
+         gate="float32: NaN sets, within 3x the plain version's error to "
+              "float64 (truth_gate); float64 route exact (polarized_gate)",
+         **b_pol)
+    if not (pol_gate["same_nan"] and to_truth["ok"] and gate64["ok"]):
+        raise RuntimeError(f"the FMKS polarized route disagrees with plain "
+                           f"at {res}^2: {pol_gate}, against float64 "
+                           f"{to_truth}, float64 route {gate64}")
+    entries.append({
+        "name": "polarized_kernel (FMKS derive)", "route": "cuda",
+        "source": POL_KERNEL_SOURCE, "replaces": POL_KERNEL_REPLACES,
+        "launches": launches["fmks_pol"],
+        "max_abs_err": pol_gate["max_abs_err"],
+        "max_abs_err_float64": gate64["max_abs_err"],
+        "ms": best_p["fmks"] * 1e3,
+        "plain_ms": t_plain_p * 1e3, "plain_rays": int(pol_pick.size),
+        **{k: b_pol[k] for k in ("bound_ms", "bound_by")},
+        "single_block_ms": best_p["single"] * 1e3,
+        "derive_ms": stages["fmks"]["derive"],
+        "single_block_derive_ms": stages["single"]["derive"],
+        "library_ms": None})
+    emit("fmks_phase", card=card, seconds=time.perf_counter() - t_phase)
+    return entries
+
+
 # Phase 3's kernel-against-plain checks, emitted in this order.
 CHECKS = (
     (check_formula_tangents, ("rk4", "float64")),
@@ -3925,6 +4565,14 @@ PHASE3_SECONDS = {
     ("check_mixture_simulation", ("dp", "float32")): 90.0,
     ("mixture_plain_subset", ()): 60.0,
     ("mixture_pol_plain_subset", ()): 50.0,
+    # the FMKS and harm3d jobs, estimated (each builds its snapshot
+    # first; the plain subsets run on one host core)
+    ("fmks_pol_subset", ("float64",)): 60.0,
+    ("fmks_pol_subset", ("float32",)): 50.0,
+    ("fmks_plain_subset", ("fmks_mix",)): 45.0,
+    ("fmks_plain_subset", ("harm3d",)): 45.0,
+    ("fmks_plain_subset", ("fmks",)): 40.0,
+    ("check_fmks_simulation", ("thermal", "dp", "float32", True)): 30.0,
 }
 
 
@@ -3941,12 +4589,13 @@ def main(argv=None) -> int:
     if opts.chunk_sweep:
         phase_pol_chunks(card, full_width_snapshot(torch.float32))
     else:
-        with multiprocessing.get_context("spawn").Pool(WORKERS) as pool:
-            truth, subsets, pol_stages, mesh_checks, aux, mixture_checks = \
-                phase_checks(pool)
         with tempfile.TemporaryDirectory(dir=ROOT / "build" / "kernels") \
                 as tmp:
             tmp = pathlib.Path(tmp)
+            with multiprocessing.get_context("spawn").Pool(WORKERS) as pool:
+                (truth, subsets, pol_stages, mesh_checks, aux, mixture_checks,
+                 fmks_checks, fmks_host) = phase_checks(
+                    pool, prep=lambda: fmks_host_prep(tmp))
             phase_goldens(tmp)
             formula = phase_full_width(tmp, card, subsets["k11"])
             phase_sim_goldens(tmp)
@@ -3961,13 +4610,15 @@ def main(argv=None) -> int:
                                              pol_stages)
             mixture = phase_mixture_full_width(tmp, card, grids,
                                                mixture_checks)
+            fmks = phase_fmks_full_width(card, grids, fmks_checks, fmks_host)
             grids.clear()
             multi = phase_multi_full_width(tmp, card, subsets["k13"])
             tangent = phase_grad_full_width(card, subsets["k14"])
             phase_fit(card)
         emit("total", seconds=time.perf_counter() - started)
         print(json.dumps({"kernels": [formula, multi, tangent, simulation,
-                                      phased, polarized, *mesh, *mixture]}),
+                                      phased, polarized, *mesh, *mixture,
+                                      *fmks]}),
               flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -326,10 +326,10 @@ def test_check_grid_blocks(files):
 
 
 def test_simulation_units_do_not_contract():
-    """The units of many blocks and of the mixture of populations build,
-    as the single-block units, without multiply-add contraction: their
-    kernels round as the plain version does, and a phased render on many
-    blocks stays the monolithic kernel's bit for bit."""
+    """The units of many blocks, of FMKS and of the mixture of populations
+    build, as the single-block units, without multiply-add contraction:
+    their kernels round as the plain version does, and a phased render on
+    many blocks stays the monolithic kernel's bit for bit."""
     from blacklight_tpu_torch.ops import _build
     units = {p.name for p in _build.sources()
              if p.name.startswith("simulation")}
@@ -340,5 +340,9 @@ def test_simulation_units_do_not_contract():
                      "simulation_mixture_blocks.cu",
                      "simulation_mixture_blocks_dp.cu",
                      "simulation_phase_mixture.cu",
-                     "simulation_phase_mixture_blocks.cu"}
+                     "simulation_phase_mixture_blocks.cu",
+                     "simulation_fmks.cu", "simulation_fmks_dp.cu",
+                     "simulation_mixture_fmks.cu",
+                     "simulation_phase_fmks.cu",
+                     "simulation_phase_mixture_fmks.cu"}
     assert all(_build.CONTRACT[u] is False for u in units)
