@@ -100,6 +100,9 @@ extern "C" int blacklight_polarized_derive(
   if (mode == bl::SAMPLE_FMKS) {
     return static_cast<int>(bl::launch_polarized_derive_fmks(dtype_code, bl::POP_THERMAL, a));
   }
+  if (bl::is_cks_mode(mode)) {
+    return static_cast<int>(bl::launch_polarized_derive_cks(dtype_code, bl::POP_THERMAL, a));
+  }
   if (mode != bl::SAMPLE_SINGLE) {
     return static_cast<int>(bl::launch_polarized_derive_blocks(dtype_code, a));
   }

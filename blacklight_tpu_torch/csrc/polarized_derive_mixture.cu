@@ -56,6 +56,8 @@ extern "C" int blacklight_polarized_derive_mixture(
   cudaError_t err;
   if (mode == bl::SAMPLE_FMKS) {
     err = bl::launch_polarized_derive_fmks(dtype_code, bl::POP_MIXTURE, a);
+  } else if (bl::is_cks_mode(mode)) {
+    err = bl::launch_polarized_derive_cks(dtype_code, bl::POP_MIXTURE, a);
   } else if (mode != bl::SAMPLE_SINGLE) {
     err = bl::launch_polarized_derive_mixture_blocks(dtype_code, a);
   } else if (dtype_code == 0) {

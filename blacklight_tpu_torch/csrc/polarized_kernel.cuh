@@ -67,6 +67,11 @@
 // of its own, polarized_derive_mixture{,_f64,_blocks}.cu, so that the
 // thermal units compile as they did; the trace and chain kernels do not
 // depend on the population (a record holds the same eight coefficients).
+// The derive kernel on an FMKS block (polarized_derive_fmks{,_f64}.cu)
+// and on a CKS grid (AthenaK's: polarized_derive_mode_kernel and the
+// mixture's in sim_sample.cuh's SAMPLE_CKS_* modes, the sample at its own
+// (x, y, z), fluid_state_cks; polarized_derive_cks{,_f64}.cu) live in
+// units of their own as well.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -1182,7 +1187,7 @@ __device__ __forceinline__ void derive_sample(long long g, SampleSet<T> set, lon
   // the grid sample: zeros where a geometric cut holds (the reference's
   // sampler leaves zeros there, which the tetrad consumes), the fallback
   // values off the grid
-  const SksPoint<T> pt = cks_to_sks(c, x, y, z);
+  const SksPoint<T> pt = sample_point<MODE>(c, x, y, z);
   const bool keep_geo =
       geometric_keep(c.cuts, pt.x, pt.y, pt.z, pt.r, c.camera_r, c.cam1, c.cam2, c.cam3);
   T v[8];
@@ -1199,6 +1204,11 @@ __device__ __forceinline__ void derive_sample(long long g, SampleSet<T> set, lon
     int hint[3] = {-1, -1, -1};
     sampled = keep_geo && sample_fmks(grid, pt, v, hint);
     off_grid = keep_geo && !sampled;
+  } else if constexpr (IsCks<MODE>) {
+    // the block search in (x, y, z) only where the sample is not cut
+    int hint[3] = {-1, -1, -1}, block = -1;
+    sampled = keep_geo && sample_cks<MODE>(grid, pt, v, hint, block);
+    off_grid = keep_geo && !sampled;
   } else {
     // the block search only where the sample is not cut
     int hint[3] = {-1, -1, -1}, block = -1;
@@ -1214,12 +1224,16 @@ __device__ __forceinline__ void derive_sample(long long g, SampleSet<T> set, lon
     }
   }
   FluidState<T> st;
-  fluid_state(c, pt, v, st);
+  T ucon[4], bcon[4];
+  if constexpr (IsCks<MODE>) {
+    fluid_state_cks(c, pt, v, st, ucon, bcon);
+  } else {
+    fluid_state(c, pt, v, st);
+  }
   const bool b_zero = v[5] == T(0) && v[6] == T(0) && v[7] == T(0);
   const bool keep = keep_geo && !b_zero && value_keep(c, st);
   const bool bad0 = off_grid && c.fallback_nan && keep_geo;
-  T ucon[4], bcon[4];
-  fluid_cks(pt, c.spin, st, ucon, bcon);
+  if constexpr (!IsCks<MODE>) fluid_cks(pt, c.spin, st, ucon, bcon);
 
   if constexpr (GEOMETRY) {
     // the fluid tetrad; a field-free cell takes up = (0, 0, 0, 1)
@@ -1312,7 +1326,8 @@ __global__ void __launch_bounds__(POL_THREADS, DeriveBlocks<T>::value)
 
 // The derive kernel on many mesh blocks or at the nearest cell (MODE
 // SAMPLE_BLOCKS or SAMPLE_INTERBLOCK), instantiated in
-// polarized_derive_blocks.cu.
+// polarized_derive_blocks.cu; on a CKS grid (SAMPLE_CKS_BLOCKS or
+// SAMPLE_CKS_INTERBLOCK) in polarized_derive_cks{,_f64}.cu.
 template <typename T, bool GEOMETRY, int MODE>
 __global__ void __launch_bounds__(POL_THREADS, DeriveBlocks<T>::value)
     polarized_derive_mode_kernel(SampleSet<T> set, long long n_slots,
@@ -1345,8 +1360,9 @@ __global__ void __launch_bounds__(POL_THREADS, DeriveBlocks<T>::value)
 
 // The derive kernel of the mixture population (POP_MIXTURE) on one block or
 // many, in any mode, instantiated in polarized_derive_mixture*.cu (and
-// SAMPLE_FMKS in polarized_derive_fmks*.cu); params holds the MixtureParam
-// values after P_COUNT.
+// SAMPLE_FMKS in polarized_derive_fmks*.cu, the CKS modes in
+// polarized_derive_cks*.cu); params holds the MixtureParam values after
+// P_COUNT.
 template <typename T, bool GEOMETRY, int MODE>
 __global__ void __launch_bounds__(POL_THREADS, DeriveBlocks<T>::value)
     polarized_derive_mixture_kernel(SampleSet<T> set, long long n_slots,
@@ -1523,8 +1539,8 @@ cudaError_t launch_polarized_trace(const PolTraceArgs& a) {
 }
 
 // MODE SAMPLE_SINGLE launches polarized_derive_kernel, SAMPLE_FMKS
-// polarized_derive_fmks_kernel, the others polarized_derive_mode_kernel;
-// POP_MIXTURE polarized_derive_mixture_kernel.
+// polarized_derive_fmks_kernel, the others (the CKS modes too)
+// polarized_derive_mode_kernel; POP_MIXTURE polarized_derive_mixture_kernel.
 template <typename T, int MODE = SAMPLE_SINGLE, int POP = POP_THERMAL>
 cudaError_t launch_polarized_derive(const PolDeriveArgs& a) {
   const long long threads = a.n_slots * POL_WARP;
@@ -1598,5 +1614,10 @@ cudaError_t launch_polarized_derive_mixture_blocks(int dtype_code, const PolDeri
 // polarized_derive_fmks.cu, double in polarized_derive_fmks_f64.cu.
 cudaError_t launch_polarized_derive_fmks(int dtype_code, int pop, const PolDeriveArgs& a);
 cudaError_t launch_polarized_derive_fmks_f64(int pop, const PolDeriveArgs& a);
+// The derive kernel on a CKS grid (a.grid.mode SAMPLE_CKS_BLOCKS or
+// SAMPLE_CKS_INTERBLOCK), thermal or the mixture: float in
+// polarized_derive_cks.cu, double in polarized_derive_cks_f64.cu.
+cudaError_t launch_polarized_derive_cks(int dtype_code, int pop, const PolDeriveArgs& a);
+cudaError_t launch_polarized_derive_cks_f64(int pop, const PolDeriveArgs& a);
 
 }  // namespace bl

@@ -1,7 +1,7 @@
 // What the simulation-model kernels do at one stored sample before the
-// transfer: CKS -> SKS, the cell search and trilinear blend of the GRMHD
-// table, the fluid state, the value cuts, u and b in CKS, the pitch angle
-// and the thermal j_I / alpha_I, or their sum with the power-law and kappa
+// transfer: CKS -> SKS (none on a CKS grid), the cell search and trilinear
+// blend of the GRMHD table, the fluid state, the value cuts, u and b in
+// CKS, the pitch angle and the thermal j_I / alpha_I, or their sum with the power-law and kappa
 // populations' (a compile-time population, POP_THERMAL or POP_MIXTURE). The unpolarized kernel
 // (simulation_kernel.cuh) and the polarized one (polarized_kernel.cuh)
 // both call these, so the two cannot drift.
@@ -280,13 +280,20 @@ __device__ __forceinline__ SksPoint<T> cks_to_sks(const SimConsts<T>& c, T x, T 
   return p;
 }
 
+// The Kerr-Schild radius at (x, y, z) where no step handed it over (the
+// polarized derive kernel's samples).
 template <typename T>
-__device__ __forceinline__ SksPoint<T> cks_to_sks(const SimConsts<T>& c, T x, T y, T z) {
+__device__ __forceinline__ KsRadius<T> sample_radius(const SimConsts<T>& c, T x, T y, T z) {
   KsRadius<T> q;
   q.rr2 = x * x + y * y + z * z;
   q.r2 = T(0.5) * (q.rr2 - c.a2 + m_hypot(q.rr2 - c.a2, c.two_spin * z));
   q.r = m_sqrt(q.r2);
-  return cks_to_sks(c, x, y, z, q);
+  return q;
+}
+
+template <typename T>
+__device__ __forceinline__ SksPoint<T> cks_to_sks(const SimConsts<T>& c, T x, T y, T z) {
+  return cks_to_sks(c, x, y, z, sample_radius(c, x, y, z));
 }
 
 template <typename T>
@@ -744,6 +751,84 @@ __device__ __forceinline__ bool sample_fmks(const FmksGridView<T>& g, const SksP
   return true;
 }
 
+// ---------------------------------------------------------------------------
+// CKS (AthenaK's Cartesian Kerr-Schild grids; grid/athenak.py):
+// SAMPLE_CKS_BLOCKS and SAMPLE_CKS_INTERBLOCK sample as SAMPLE_BLOCKS and
+// SAMPLE_INTERBLOCK do (BlockModeOf), at the sample's own (x, y, z), which
+// are the grid's coordinates (grid/sampling.py sample_grid): no cks_to_sks
+// and no phi wrap; the host's neighbour table has no periodic axis
+// (grid/amr.py), and a point outside every block is off the grid. The
+// sample keeps its Kerr-Schild radius for the geometric cuts and the
+// metric. One AthenaK block takes SAMPLE_CKS_BLOCKS (as the nearest cell
+// of one block takes SAMPLE_BLOCKS). The fluid state is formed in the
+// CKS metric (fluid_state_cks), u and b in CKS already.
+constexpr int SAMPLE_CKS_BLOCKS = 4;
+constexpr int SAMPLE_CKS_INTERBLOCK = 5;
+
+template <int MODE>
+constexpr bool IsCks = MODE == SAMPLE_CKS_BLOCKS || MODE == SAMPLE_CKS_INTERBLOCK;
+
+// Whether a launch's mode (SimGridArgs::mode) is one of a CKS grid's.
+inline bool is_cks_mode(int mode) {
+  return mode == SAMPLE_CKS_BLOCKS || mode == SAMPLE_CKS_INTERBLOCK;
+}
+
+// The mode of many blocks that a CKS mode samples as.
+template <int MODE>
+constexpr int BlockModeOf = MODE == SAMPLE_CKS_INTERBLOCK ? SAMPLE_INTERBLOCK : SAMPLE_BLOCKS;
+
+// A sample point of a CKS grid: x, y, z, the radius parts of q (r2, r)
+// and the grid's coordinates (x, y, z) in the places of (r, th, ph)
+// (ph_raw unused).
+template <typename T>
+__device__ __forceinline__ SksPoint<T> cks_point(T x, T y, T z, const KsRadius<T>& q) {
+  SksPoint<T> p;
+  p.x = x;
+  p.y = y;
+  p.z = z;
+  p.r2 = q.r2;
+  p.r = q.r;
+  p.th = y;
+  p.ph_raw = z;
+  p.ph = z;
+  return p;
+}
+
+// The sample point of a kernel of MODE at (x, y, z) of radius q: in SKS
+// (cks_to_sks), or on a CKS grid cks_point.
+template <int MODE, typename T>
+__device__ __forceinline__ SksPoint<T> sample_point(const SimConsts<T>& c, T x, T y, T z,
+                                                    const KsRadius<T>& q) {
+  if constexpr (IsCks<MODE>) {
+    return cks_point(x, y, z, q);
+  } else {
+    return cks_to_sks(c, x, y, z, q);
+  }
+}
+
+// The same at (x, y, z) alone (the polarized derive kernel's samples).
+template <int MODE, typename T>
+__device__ __forceinline__ SksPoint<T> sample_point(const SimConsts<T>& c, T x, T y, T z) {
+  return sample_point<MODE>(c, x, y, z, sample_radius(c, x, y, z));
+}
+
+// The point in a CKS grid's coordinates, where the sampler of many blocks
+// reads them: x in the place of r.
+template <typename T>
+__device__ __forceinline__ SksPoint<T> cks_grid_point(const SksPoint<T>& p) {
+  SksPoint<T> g = p;
+  g.r = p.x;
+  return g;
+}
+
+// The sample of a point of a CKS grid in MODE; false off the grid (no
+// block holds the point). hint and block as sample_blocks'.
+template <int MODE, typename T>
+__device__ __forceinline__ bool sample_cks(const BlockGridView<T>& g, const SksPoint<T>& p,
+                                           T (&v)[8], int (&hint)[3], int& block) {
+  return sample_blocks<BlockModeOf<MODE>>(g, cks_grid_point(p), v, hint, block);
+}
+
 // The snapshot as the C interface receives it: the (n_b, n_k, n_j, n_i, 8)
 // float32 table, the coordinates in the rays' type, the guides (int32) and
 // the host array of their axes (make_grid_view); the sampling mode
@@ -795,8 +880,8 @@ struct SimGridArgs {
   }
 
   // Whether the mode and the blocks agree: one block for SAMPLE_SINGLE,
-  // the neighbour table for SAMPLE_INTERBLOCK, one block and a table of at
-  // least 2 x 2 for SAMPLE_FMKS.
+  // the neighbour table for SAMPLE_INTERBLOCK and SAMPLE_CKS_INTERBLOCK,
+  // one block and a table of at least 2 x 2 for SAMPLE_FMKS.
   bool valid() const {
     if (n_i < 2 || n_j < 2 || n_k < 2 || n_b < 1) return false;
     if (mode == SAMPLE_SINGLE) return n_b == 1 && !nearest;
@@ -804,9 +889,9 @@ struct SimGridArgs {
       const double* v = axes + 3 * GUIDE_AXIS_VALUES;
       return n_b == 1 && map != nullptr && v[9] >= 2.0 && v[10] >= 2.0;
     }
-    if (mode == SAMPLE_BLOCKS) return bounds != nullptr;
-    return mode == SAMPLE_INTERBLOCK && bounds != nullptr && amr != nullptr &&
-           parity != nullptr && !nearest;
+    if (mode == SAMPLE_BLOCKS || mode == SAMPLE_CKS_BLOCKS) return bounds != nullptr;
+    return (mode == SAMPLE_INTERBLOCK || mode == SAMPLE_CKS_INTERBLOCK) && bounds != nullptr &&
+           amr != nullptr && parity != nullptr && !nearest;
   }
 };
 
@@ -906,6 +991,90 @@ __device__ __forceinline__ void fluid_state(const SimConsts<T>& c, const SksPoin
   s.br = br;
   s.bth = bth;
   s.bph = bph;
+}
+
+// The fluid state at a point p of a CKS grid (cks_point) from sampled CKS
+// primitives (models/synchrotron.py fluid_state with coords "cks",
+// cks_frame): the normal-frame velocity and the cell-frame field in the
+// Kerr-Schild metric g = eta + f l l (l_0 = 1; at the point's radius, as
+// ops/geometry.py ks_scalars), u and b in CKS (ucon, bcon), then
+// fluid_state's scalars from b^2. Each sum runs over its index in order,
+// cks_frame's forms.
+template <typename T>
+__device__ __forceinline__ void fluid_state_cks(const SimConsts<T>& c, const SksPoint<T>& p,
+                                                const T (&v)[8], FluidState<T>& s, T (&ucon)[4],
+                                                T (&bcon)[4]) {
+  using Forms = TypeForms<T>;
+  const T r = p.r, r2 = p.r2, x = p.x, y = p.y, z = p.z;
+  const T rho = v[0], pgas = v[1];
+  const T uu[3] = {v[2], v[3], v[4]};
+  const T bb[3] = {v[5], v[6], v[7]};
+  s.rho_cgs = rho * c.d_unit;
+  s.pgas_cgs = pgas * c.e_unit;
+  s.n_e_cgs = (s.rho_cgs / c.mu_mp) / c.ne_div;
+
+  const T f = T(2) * r2 * r / (r2 * r2 + c.a2 * z * z);
+  const T denom = r2 + c.a2;
+  const T l[3] = {(r * x + c.spin * y) / denom, (r * y - c.spin * x) / denom, z / r};
+  const T fl[3] = {f * l[0], f * l[1], f * l[2]};
+  // g[m][n], m, n = 0..3
+  T g[4][4];
+  g[0][0] = f - T(1);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    g[0][i + 1] = fl[i];
+    g[i + 1][0] = fl[i];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) g[i + 1][j + 1] = i == j ? T(1) + fl[i] * l[j] : fl[i] * l[j];
+  }
+  T rows[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    rows[i] = g[i + 1][1] * uu[0] + g[i + 1][2] * uu[1] + g[i + 1][3] * uu[2];
+  }
+  const T uu0 = m_sqrt(T(1) + (uu[0] * rows[0] + uu[1] * rows[1] + uu[2] * rows[2]));
+  const T lapse = T(1) / m_sqrt(T(1) + f);
+  const T ut = uu0 / lapse;
+  ucon[0] = ut;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) ucon[i + 1] = uu[i] - fl[i] / (T(1) + f) * ut;
+  T ucov[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    ucov[m] = g[m][0] * ucon[0] + g[m][1] * ucon[1] + g[m][2] * ucon[2] + g[m][3] * ucon[3];
+  }
+  const T bt = ucov[1] * bb[0] + ucov[2] * bb[1] + ucov[3] * bb[2];
+  bcon[0] = bt;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) bcon[i + 1] = (bb[i] + bt * ucon[i + 1]) / ut;
+  T bcov[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    bcov[m] = g[m][0] * bcon[0] + g[m][1] * bcon[1] + g[m][2] * bcon[2] + g[m][3] * bcon[3];
+  }
+  const T b_sq = bcov[0] * bcon[0] + bcov[1] * bcon[1] + bcov[2] * bcon[2] + bcov[3] * bcon[3];
+
+  // fluid_state's scalars
+  if (Forms::F64) {
+    s.bb_cgs = (b_sq > T(0) ? m_sqrt(b_sq) : T(0)) * c.b_unit;
+  } else {
+    s.bb_cgs = m_sqrt(jmax(b_sq, T(1e-30))) * c.b_unit;
+  }
+  s.sigma = b_sq / jmax(rho, Forms::div_floor());
+  s.beta_inv = b_sq / jmax(T(2) * pgas, Forms::div_floor());
+  const T u_b = T(1) / (T(1) + s.beta_inv * s.beta_inv);
+  const T tti_tte = c.rat_high * u_b + c.rat_low * (T(1) - u_b);
+  const T kb_tt_tot = c.kb_tot * (pgas / jmax(rho, Forms::div_floor()));
+  T kb_tt_e;
+  if (c.use_p) {
+    kb_tt_e = (T(1) / (tti_tte + c.ne_ni)) * c.one_plus_ne_ni * kb_tt_tot;
+  } else {
+    kb_tt_e = c.one_plus_ne_ni * kb_tt_tot / c.gamma_m1;
+    kb_tt_e = kb_tt_e / (tti_tte / c.gamma_i_m1 + c.ne_ni_over_gamma_e_m1);
+  }
+  s.kb_tt_e = kb_tt_e;
+  s.theta_e = kb_tt_e / c.me_c2;
+  s.b_sq = b_sq;
 }
 
 // Value cuts (models/synchrotron.py value_cuts); a cut that is off is

@@ -29,6 +29,7 @@ namespace {
 cudaError_t dispatch(int dtype_code, int integrator, const bl::SimLaunchArgs& a) {
   if (a.nf < 1 || a.nf > bl::MAX_FREQUENCIES) return cudaErrorInvalidValue;
   if (a.grid.mode == bl::SAMPLE_FMKS) return bl::launch_simulation_fmks(dtype_code, integrator, a);
+  if (bl::is_cks_mode(a.grid.mode)) return bl::launch_simulation_cks(dtype_code, integrator, a);
   if (a.grid.mode != bl::SAMPLE_SINGLE) {
     if (integrator == bl::INTEGRATOR_DP) return bl::launch_simulation_dp_blocks(dtype_code, a);
     return bl::launch_simulation_rk_blocks(dtype_code, integrator, a);
@@ -51,9 +52,10 @@ cudaError_t dispatch(int dtype_code, int integrator, const bl::SimLaunchArgs& a)
 // the three axes' guides (int32) and axes, a host array, their lo, hi,
 // scale and bins (4 doubles an axis). mode: the sampling mode
 // (sim_sample.cuh SAMPLE_*: 0 one block, 1 many blocks or the nearest
-// cell, 2 exact interblock, 3 one FMKS block); nearest: 1 for the nearest
-// cell (modes 1 and 3); bounds (n_b, 6) in the rays' type (modes 1 and 2);
-// amr (n_b, 27, 8, 5) and parity (n_b, 3) int32 (mode 2); map the FMKS
+// cell, 2 exact interblock, 3 one FMKS block, 4 and 5 modes 1 and 2 on a
+// CKS grid); nearest: 1 for the nearest cell (modes 1, 3 and 4); bounds
+// (n_b, 6) in the rays' type (modes 1, 2, 4 and 5); amr (n_b, 27, 8, 5)
+// and parity (n_b, 3) int32 (modes 2 and 5); map the FMKS
 // table (2, n2m, n1m) in the rays' type, with FMKS_MAP_VALUES more values
 // in axes after the axes' (mode 3). i_nu receives (n_rays, nf) values.
 // Launches on `stream`, does not synchronize, allocates nothing; returns

@@ -4,8 +4,12 @@
 //
 // Replaces the TPU kernel blacklight_tpu/ops/pallas_simulation.py
 // _make_kernel (:795, launched by render_simulation :1400; K2.1 rk4/rk2,
-// K2.2 dp) for SKS grids, ti_te_beta electrons (thermal, as the TPU
-// kernel, or mixed with power-law and kappa ones, below) and up to
+// K2.2 dp) for SKS grids (and, as the JAX package's XLA path does, for
+// AthenaK's CKS grids: the mode, phase and mixture kernels in the modes
+// SAMPLE_CKS_BLOCKS and SAMPLE_CKS_INTERBLOCK, in the units
+// simulation_cks{,_dp}.cu, simulation_mixture_cks.cu and
+// simulation_phase{,_mixture}_cks.cu), ti_te_beta electrons (thermal, as
+// the TPU kernel, or mixed with power-law and kappa ones, below) and up to
 // MAX_FREQUENCIES frequencies. Its values follow the JAX package's
 // exact (XLA) path in each type's forms: grid/sampling.py sample_grid,
 // models/cuts.py geometric_keep, models/synchrotron.py fluid_state,
@@ -128,8 +132,8 @@ template <typename T, int INTEGRATOR>
 constexpr int SimBlocks = sizeof(T) != 4 ? 1 : INTEGRATOR == INTEGRATOR_DP ? 6 : 8;
 
 // The block of the ray's previous sample (-1: none), which only the modes
-// of many blocks carry: SAMPLE_SINGLE's SimSample keeps its layout
-// (SAMPLE_FMKS's, one block, has none either).
+// of many blocks carry (the CKS modes too): SAMPLE_SINGLE's SimSample keeps
+// its layout (SAMPLE_FMKS's, one block, has none either).
 struct BlockHint {
   int block = -1;
 };
@@ -175,7 +179,7 @@ struct SimSample : std::conditional_t<MODE == SAMPLE_SINGLE || MODE == SAMPLE_FM
   __device__ __forceinline__ void operator()(const T (&ym)[7], T k1, T k2, T k3, T h,
                                              const KsRadius<T>& q) {
     using Forms = TypeForms<T>;
-    const SksPoint<T> p = cks_to_sks(c, ym[1], ym[2], ym[3], q);
+    const SksPoint<T> p = sample_point<MODE>(c, ym[1], ym[2], ym[3], q);
     if (!geometric_keep(c.cuts, p.x, p.y, p.z, p.r, c.camera_r, c.cam1, c.cam2, c.cam3)) return;
     T v[8];
     bool on_grid;
@@ -184,6 +188,8 @@ struct SimSample : std::conditional_t<MODE == SAMPLE_SINGLE || MODE == SAMPLE_FM
       if (on_grid) sample_cell(grid, p, v, hint);
     } else if constexpr (MODE == SAMPLE_FMKS) {
       on_grid = sample_fmks(grid, p, v, hint);
+    } else if constexpr (IsCks<MODE>) {
+      on_grid = sample_cks<MODE>(grid, p, v, hint, this->block);
     } else {
       on_grid = sample_blocks<MODE>(grid, p, v, hint, this->block);
     }
@@ -195,10 +201,15 @@ struct SimSample : std::conditional_t<MODE == SAMPLE_SINGLE || MODE == SAMPLE_FM
     }
     if (v[5] == T(0) && v[6] == T(0) && v[7] == T(0)) return;  // zero field
     FluidState<T> st;
-    fluid_state(c, p, v, st);
-    if (!value_keep(c, st)) return;
     T ucon[4], bcon[4];
-    fluid_cks(p, c.spin, st, ucon, bcon);
+    if constexpr (IsCks<MODE>) {
+      fluid_state_cks(c, p, v, st, ucon, bcon);
+      if (!value_keep(c, st)) return;
+    } else {
+      fluid_state(c, p, v, st);
+      if (!value_keep(c, st)) return;
+      fluid_cks(p, c.spin, st, ucon, bcon);
+    }
     const Pitch<T> pa = pitch_angle(p0, k1, k2, k3, ucon, bcon, st.b_sq);
     const T u_dot_k = pa.u_dot_k;
     const T sin_b = safe_sqrt(pa.sin2);
@@ -303,7 +314,8 @@ __global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
 
 // Many mesh blocks or the nearest cell (MODE SAMPLE_BLOCKS or
 // SAMPLE_INTERBLOCK), instantiated in simulation_blocks.cu and
-// simulation_blocks_dp.cu.
+// simulation_blocks_dp.cu; a CKS grid (SAMPLE_CKS_BLOCKS or
+// SAMPLE_CKS_INTERBLOCK) in simulation_cks.cu and simulation_cks_dp.cu.
 template <typename T, int INTEGRATOR, int NF, int MODE>
 __global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
     simulation_mode_kernel(const T* __restrict__ positions, const T* __restrict__ directions,
@@ -336,7 +348,8 @@ __global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
 
 // The thermal, power-law and kappa populations (POP_MIXTURE) on one block
 // or many, in any mode, instantiated in simulation_mixture*.cu (SAMPLE_FMKS
-// in simulation_mixture_fmks.cu).
+// in simulation_mixture_fmks.cu, the CKS modes in
+// simulation_mixture_cks.cu).
 template <typename T, int INTEGRATOR, int NF, int MODE>
 __global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
     simulation_mixture_kernel(const T* __restrict__ positions, const T* __restrict__ directions,
@@ -380,8 +393,8 @@ struct SimLaunchArgs {
 };
 
 // MODE SAMPLE_SINGLE launches simulation_kernel, SAMPLE_FMKS
-// simulation_fmks_kernel, the others simulation_mode_kernel; POP_MIXTURE
-// simulation_mixture_kernel.
+// simulation_fmks_kernel, the others (the CKS modes too)
+// simulation_mode_kernel; POP_MIXTURE simulation_mixture_kernel.
 template <typename T, int INTEGRATOR, int NF, int MODE, int POP = POP_THERMAL>
 cudaError_t launch_simulation(const SimLaunchArgs& a) {
   const unsigned blocks = static_cast<unsigned>((a.n_rays + SIM_THREADS - 1) / SIM_THREADS);
@@ -468,6 +481,29 @@ cudaError_t launch_simulation_fmks(int dtype_code, int integrator, const SimLaun
 cudaError_t launch_simulation_fmks_dp(int dtype_code, const SimLaunchArgs& a);
 cudaError_t launch_simulation_mixture_fmks(int dtype_code, int integrator,
                                            const SimLaunchArgs& a);
+
+// A CKS mode (a.grid.mode SAMPLE_CKS_BLOCKS or SAMPLE_CKS_INTERBLOCK) in
+// INTEGRATOR and POP, float (dtype_code 0) or double (1).
+template <int INTEGRATOR, int POP = POP_THERMAL>
+cudaError_t launch_simulation_cks_modes(int dtype_code, const SimLaunchArgs& a) {
+  const bool inter = a.grid.mode == SAMPLE_CKS_INTERBLOCK;
+  if (dtype_code == 0) {
+    return inter ? launch_simulation_nf<float, INTEGRATOR, SAMPLE_CKS_INTERBLOCK, POP>(a)
+                 : launch_simulation_nf<float, INTEGRATOR, SAMPLE_CKS_BLOCKS, POP>(a);
+  }
+  if (dtype_code == 1) {
+    return inter ? launch_simulation_nf<double, INTEGRATOR, SAMPLE_CKS_INTERBLOCK, POP>(a)
+                 : launch_simulation_nf<double, INTEGRATOR, SAMPLE_CKS_BLOCKS, POP>(a);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// A CKS grid: every integrator, rk4 and rk2 in simulation_cks.cu and dp in
+// simulation_cks_dp.cu; the mixture's in simulation_mixture_cks.cu.
+cudaError_t launch_simulation_cks(int dtype_code, int integrator, const SimLaunchArgs& a);
+cudaError_t launch_simulation_cks_dp(int dtype_code, const SimLaunchArgs& a);
+cudaError_t launch_simulation_mixture_cks(int dtype_code, int integrator,
+                                          const SimLaunchArgs& a);
 
 // ---------------------------------------------------------------------------
 // Phased dispatch (K2.3): one phase of the kernel above from a carried state.
@@ -584,7 +620,9 @@ __global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
 }
 
 // Many mesh blocks or the nearest cell (MODE SAMPLE_BLOCKS or
-// SAMPLE_INTERBLOCK), instantiated in simulation_phase_blocks.cu.
+// SAMPLE_INTERBLOCK), instantiated in simulation_phase_blocks.cu; a CKS
+// grid (SAMPLE_CKS_BLOCKS or SAMPLE_CKS_INTERBLOCK) in
+// simulation_phase_cks.cu.
 template <typename T, int INTEGRATOR, int NF, int MODE>
 __global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
     simulation_phase_mode_kernel(const int* __restrict__ index, long long n_live, int n_base,
@@ -621,7 +659,8 @@ __global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
 
 // The mixture (POP_MIXTURE) on one block or many, in any mode,
 // instantiated in simulation_phase_mixture*.cu (SAMPLE_FMKS in
-// simulation_phase_mixture_fmks.cu).
+// simulation_phase_mixture_fmks.cu, the CKS modes in
+// simulation_phase_mixture_cks.cu).
 template <typename T, int INTEGRATOR, int NF, int MODE>
 __global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
     simulation_phase_mixture_kernel(const int* __restrict__ index, long long n_live, int n_base,
@@ -720,5 +759,10 @@ cudaError_t launch_simulation_phase_mixture_blocks(int dtype_code, int integrato
 cudaError_t launch_simulation_phase_fmks(int dtype_code, int integrator, const SimPhaseArgs& a);
 cudaError_t launch_simulation_phase_mixture_fmks(int dtype_code, int integrator,
                                                  const SimPhaseArgs& a);
+// The phase kernel on a CKS grid (the CKS modes); defined in
+// simulation_phase_cks.cu, the mixture's in simulation_phase_mixture_cks.cu.
+cudaError_t launch_simulation_phase_cks(int dtype_code, int integrator, const SimPhaseArgs& a);
+cudaError_t launch_simulation_phase_mixture_cks(int dtype_code, int integrator,
+                                                const SimPhaseArgs& a);
 
 }  // namespace bl

@@ -32,6 +32,9 @@ cudaError_t dispatch_mixture(int dtype_code, int integrator, const bl::SimLaunch
   if (a.grid.mode == bl::SAMPLE_FMKS) {
     return bl::launch_simulation_mixture_fmks(dtype_code, integrator, a);
   }
+  if (bl::is_cks_mode(a.grid.mode)) {
+    return bl::launch_simulation_mixture_cks(dtype_code, integrator, a);
+  }
   if (a.grid.mode != bl::SAMPLE_SINGLE) {
     if (integrator == bl::INTEGRATOR_DP) {
       return bl::launch_simulation_mixture_dp_blocks(dtype_code, a);

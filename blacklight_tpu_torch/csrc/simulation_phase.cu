@@ -32,6 +32,9 @@ cudaError_t dispatch_phase(int dtype_code, int integrator, const bl::SimPhaseArg
   if (a.grid.mode == bl::SAMPLE_FMKS) {
     return bl::launch_simulation_phase_fmks(dtype_code, integrator, a);
   }
+  if (bl::is_cks_mode(a.grid.mode)) {
+    return bl::launch_simulation_phase_cks(dtype_code, integrator, a);
+  }
   if (a.grid.mode != bl::SAMPLE_SINGLE) {
     return bl::launch_simulation_phase_blocks(dtype_code, integrator, a);
   }

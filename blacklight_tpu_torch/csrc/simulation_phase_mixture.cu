@@ -30,6 +30,9 @@ cudaError_t dispatch_phase_mixture(int dtype_code, int integrator, const bl::Sim
   if (a.grid.mode == bl::SAMPLE_FMKS) {
     return bl::launch_simulation_phase_mixture_fmks(dtype_code, integrator, a);
   }
+  if (bl::is_cks_mode(a.grid.mode)) {
+    return bl::launch_simulation_phase_mixture_cks(dtype_code, integrator, a);
+  }
   if (a.grid.mode != bl::SAMPLE_SINGLE) {
     return bl::launch_simulation_phase_mixture_blocks(dtype_code, integrator, a);
   }

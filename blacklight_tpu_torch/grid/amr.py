@@ -4,7 +4,8 @@ Port of ``blacklight_tpu/grid/amr.py`` (:36-262). The reference resolves
 every trilinear corner that leaves its mesh block with FindNearbyInds
 (simulation_sampling.cpp:1068-1321): the neighbour block may be at the
 same refinement level, one coarser or one finer; phi neighbours wrap the
-periodic boundary; a direction with no grid falls back to constant
+periodic boundary of an SKS grid (a CKS grid, AthenaK's, has no periodic
+axis, :1183-1211); a direction with no grid falls back to constant
 extrapolation (the corner clamps onto the home block). Which block that
 is depends only on the home block, the axes the corner crossed and the
 half of the block the sample lies in, so the host works it out once for
@@ -41,11 +42,12 @@ def _d2(x):
 
 
 def _find_nearby_block(where, level, li, lj, lk, max_level, n_3_level,
-                       di, dj, dk, ui, uj, uk):
+                       periodic_phi, di, dj, dk, ui, uj, uk):
     """FindNearbyInds' block resolution (simulation_sampling.cpp:
     1068-1321) for one key of the block at ``level`` and logical location
-    (li, lj, lk) of an SKS grid (phi periodic): ``where`` maps (level, i,
-    j, k) to the first block there. di/dj/dk in {-1, 0, +1}: the corner
+    (li, lj, lk) of a grid whose third axis wraps where ``periodic_phi``
+    (SKS; not CKS): ``where`` maps (level, i, j, k) to the first block
+    there. di/dj/dk in {-1, 0, +1}: the corner
     index below, inside or above the block's range; ui/uj/uk the
     reference's upper flags (corner index > n / 2). Returns (b_alt, case,
     eff_di, eff_dj, eff_dk)."""
@@ -81,6 +83,8 @@ def _find_nearby_block(where, level, li, lj, lk, max_level, n_3_level,
                   (level + 1, fine_i, fine_j,
                    lk * 2 - 1 if dk == -1 else lk * 2 + 2)):
             return True
+        if not periodic_phi:
+            return False
         # the periodic wrap (":1183-1211"); n_3_level holds the levels
         # that exist, and a level outside it has no block
         def last(lev):
@@ -102,8 +106,8 @@ def _find_nearby_block(where, level, li, lj, lk, max_level, n_3_level,
     if dk != 0 and not x3_exists():
         dk = 0
 
-    phi_wrap_lo = dk == -1 and lk == 0
-    phi_wrap_hi = dk == 1 and lk == n_3_level[level] - 1
+    phi_wrap_lo = periodic_phi and dk == -1 and lk == 0
+    phi_wrap_hi = periodic_phi and dk == 1 and lk == n_3_level[level] - 1
 
     # same level (":1232-1258")
     ka = lk + dk
@@ -143,9 +147,11 @@ def _find_nearby_block(where, level, li, lj, lk, max_level, n_3_level,
     raise BlacklightError("Grid interpolation failed.")
 
 
-def build_neighbor_table(levels, locations, n_k, n3_root):
-    """The neighbour table of every (block, crossing, half) key of an SKS
-    grid (phi periodic), in numpy on the host.
+def build_neighbor_table(levels, locations, n_k, n3_root,
+                         periodic_phi=True):
+    """The neighbour table of every (block, crossing, half) key of a grid,
+    in numpy on the host: an SKS grid's third axis (phi) wraps
+    (``periodic_phi``), a CKS grid's does not.
 
     Returns (table, loc_parity):
       table: (n_b, 27, 8, TABLE_FIELDS) int32 indexed by
@@ -153,7 +159,7 @@ def build_neighbor_table(levels, locations, n_k, n3_root):
       loc_parity: (n_b, 3) int32, each location modulo 2 (the coarser
         level's cell offset, simulation_sampling.cpp:1281-1283).
     n_k: a block's phi cells, which with n3_root give each level's phi
-    blocks.
+    blocks (unused without ``periodic_phi``).
     """
     levels = np.asarray(levels, dtype=np.int64)
     locations = np.asarray(locations, dtype=np.int64)
@@ -186,7 +192,7 @@ def build_neighbor_table(levels, locations, n_k, n3_root):
                             try:
                                 entry = _find_nearby_block(
                                     where, *home, max_level, n_3_level,
-                                    di, dj, dk, ui, uj, uk)
+                                    periodic_phi, di, dj, dk, ui, uj, uk)
                             except BlacklightError:
                                 # the reference fails only when a ray
                                 # queries such a corner; a block whose
@@ -199,14 +205,15 @@ def build_neighbor_table(levels, locations, n_k, n3_root):
 
 
 def with_amr_table(grid):
-    """``grid`` with its neighbour table on its device; the grid itself
-    where it has one already, lacks the refinement metadata or is one
-    block."""
+    """``grid`` with its neighbour table on its device (no periodic axis
+    on a CKS grid); the grid itself where it has one already, lacks the
+    refinement metadata or is one block."""
     if grid.amr_table is not None or grid.levels is None \
             or grid.locations is None or grid.n_blocks <= 1:
         return grid
     table, parity = build_neighbor_table(
-        grid.levels, grid.locations, grid.prim.shape[2], grid.n3_root)
+        grid.levels, grid.locations, grid.prim.shape[2], grid.n3_root,
+        periodic_phi=grid.coords != "cks")
     device = grid.prim.device
     return dataclasses.replace(
         grid, amr_table=torch.from_numpy(table).to(device),

@@ -54,6 +54,11 @@ class SimulationGrid:
     ``map_dtheta`` (grid/mks.generate_sks_map), and ``bounds`` the SKS
     domain (r, theta, phi low and high; Python floats) of the off-grid
     test. None for a grid whose coordinates are SKS.
+
+    ``coords`` names the grid's coordinates: "sks" (spherical Kerr-Schild:
+    Athena++, and iharm3d and harm3d once converted or mapped) or "cks"
+    (Cartesian Kerr-Schild: AthenaK, grid/athenak.py), whose faces and
+    centres are x, y and z.
     """
 
     prim: torch.Tensor
@@ -81,6 +86,7 @@ class SimulationGrid:
     map_dr: float = 0.0
     map_dtheta: float = 0.0
     bounds: Optional[tuple] = None
+    coords: str = "sks"
 
     @property
     def n_blocks(self) -> int:
@@ -89,29 +95,35 @@ class SimulationGrid:
 
 def simulation_grid(prim, x1f, x1v, x2f, x2v, x3f, x3v, ind, time, *,
                     device, dtype, levels=None, locations=None,
-                    n3_root: int = 0, fmks_map=None) -> SimulationGrid:
+                    n3_root: int = 0, fmks_map=None,
+                    coords: str = "sks") -> SimulationGrid:
     """SimulationGrid on ``device`` from array-likes: prim (n_var, n_b,
     n_k, n_j, n_i) as float32, the coordinates (n_b, n + 1) and (n_b, n)
     in ``dtype``, and the optional refinement metadata (levels (n_b,),
     locations (n_b, 3), n3_root) or FMKS map (sks_map, map_r_in, map_dr,
-    map_dtheta, bounds; the table a float64 tensor or array). The loaders
-    end here, and so does any caller that builds a snapshot in memory."""
+    map_dtheta, bounds; the table a float64 tensor or array); ``coords``
+    "sks" or "cks". The loaders end here, and so does any caller that
+    builds a snapshot in memory."""
+    if coords not in ("sks", "cks"):
+        raise ValueError(f"unknown grid coordinates {coords!r}")
+
     def host(a, dt):
         # torch takes no read-only arrays (a JAX array's numpy view is one)
         return torch.as_tensor(np.require(a, dt, "W"))
 
-    def coords(a):
+    def axis(a):
         return host(a, np.float64).to(device=device, dtype=dtype)
 
     return SimulationGrid(
         prim=host(prim, np.float32).to(device),
-        x1f=coords(x1f), x1v=coords(x1v), x2f=coords(x2f), x2v=coords(x2v),
-        x3f=coords(x3f), x3v=coords(x3v), ind=dict(ind), time=float(time),
+        x1f=axis(x1f), x1v=axis(x1v), x2f=axis(x2f), x2v=axis(x2v),
+        x3f=axis(x3f), x3v=axis(x3v), ind=dict(ind), time=float(time),
         host_faces=tuple(np.array(f, np.float64) for f in (x1f, x2f, x3f)),
         levels=None if levels is None else np.array(levels, np.int32),
         locations=None if locations is None else np.array(locations,
                                                           np.int64),
-        n3_root=int(n3_root), **_fmks_fields(fmks_map, device, dtype))
+        n3_root=int(n3_root), coords=coords,
+        **_fmks_fields(fmks_map, device, dtype))
 
 
 def _fmks_fields(fmks_map, device, dtype) -> dict:

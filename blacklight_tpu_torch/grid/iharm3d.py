@@ -73,13 +73,19 @@ def gas_pressure(prim: np.ndarray, slot: int, gamma: float) -> None:
     prim[slot] *= np.float32(gamma - 1.0)
 
 
+def _check_coord(cfg):
+    """cfg's simulation_coord, which must be SKS or FMKS."""
+    coord = cfg.require("simulation_coord")
+    if coord not in (Coordinates.sks, Coordinates.fmks):
+        raise BlacklightError("Invalid simulation_coord for Harm format.")
+    return coord
+
+
 def iharm3d_grid(datasets: dict, cfg, *, device,
                  dtype=torch.float64) -> SimulationGrid:
     """SimulationGrid on ``device`` from an iharm3d dump's datasets
     (read_iharm3d); cfg supplies the simulation_* and plasma_* options."""
-    coord = cfg.require("simulation_coord")
-    if coord not in (Coordinates.sks, Coordinates.fmks):
-        raise BlacklightError("Invalid simulation_coord for Harm format.")
+    coord = _check_coord(cfg)
     spin = cfg.require("simulation_a")
     plasma_model = cfg.require("plasma_model")
     kappa_name = cfg.require("simulation_kappa_name") \
@@ -200,5 +206,7 @@ def iharm3d_grid(datasets: dict, cfg, *, device,
 def load_iharm3d(path: str, cfg, *, device,
                  dtype=torch.float64) -> SimulationGrid:
     """Load an iharm3d dump onto ``device``; cfg supplies the
-    simulation_* and plasma_* options."""
+    simulation_* and plasma_* options. The coordinates are checked before
+    the file is read, as the JAX package's loader checks them."""
+    _check_coord(cfg)
     return iharm3d_grid(read_iharm3d(path), cfg, device=device, dtype=dtype)

@@ -28,6 +28,11 @@ grid's ``bounds``, and each sample's (r, theta) becomes (x^1, x^2) by a
 bilinear lookup in the grid's inverse table ``sks_map`` (the JAX
 package's forms and clamps, blacklight_tpu/grid/sampling.py:104-128)
 before the cell search on the native faces.
+
+A CKS grid (AthenaK; grid/athenak.py) is sampled at the positions' own
+(x, y, z), which are its coordinates (the JAX package's :245-251): no
+conversion, no periodic axis (its neighbour table has none either), and
+a point outside every block is off the grid.
 """
 
 from __future__ import annotations
@@ -291,18 +296,22 @@ def interblock_corners(grid: SimulationGrid, b, cells, coords):
 
 
 def sample_grid(grid: SimulationGrid, pos, spin, opts: SamplerOptions):
-    """Sample the primitives at CKS positions ``pos`` (B, 4).
+    """Sample the primitives at CKS positions ``pos`` (B, 4), converted to
+    SKS for an SKS grid and taken as they are for a CKS grid.
 
     Returns a dict of (B,) values keyed by SAMPLE_NAMES in the working
     dtype, plus "off_grid" and "nan_mask" (B,) bool.
     """
     x, y, z = pos[..., 1], pos[..., 2], pos[..., 3]
+    if grid.coords == "cks":
+        return sample_sks(grid, x, y, z, opts)
     r, th, ph = sks.cks_to_sks(x, y, z, spin)
     return sample_sks(grid, r, th, ph, opts)
 
 
 def sample_sks(grid: SimulationGrid, r, th, ph, opts: SamplerOptions):
-    """sample_grid at SKS coordinates (r, th, ph), (B,) each."""
+    """sample_grid at the grid's own coordinates (r, th, ph), (B,) each:
+    SKS, or (x, y, z) on a CKS grid."""
     mode = sampling_mode(grid, opts)
     nvar, n_b, n_k, n_j, n_i = grid.prim.shape
     b, (i, j, k), (i_m, j_m, k_m), (f_i, f_j, f_k), off_grid = \

@@ -3,7 +3,7 @@ tensors.
 
 Port of ``blacklight_tpu/models/synchrotron.py`` for ti_te_beta
 electrons: ``PlasmaParams`` and ``CutParams`` (:36-78), ``fluid_state``
-in SKS (:81-209), ``value_cuts`` (:212-230), ``pitch_angle`` (:242-276),
+in SKS and in CKS (:81-209), ``value_cuts`` (:212-230), ``pitch_angle`` (:242-276),
 the Bessel K functions (:291-428), ``log_j_scale`` (:429-431), the
 thermal population (``thermal_coefficients`` with its polarized branch:
 j_Q, j_V, alpha_Q, alpha_V, rho_Q, rho_V; :785-936), the power-law and
@@ -29,7 +29,7 @@ import math
 import torch
 
 from blacklight_tpu_torch.constants import Math, Physics, PlasmaModel
-from blacklight_tpu_torch.ops import sks
+from blacklight_tpu_torch.ops import geometry, sks
 
 THETA_E_ZERO = 0.01  # reference radiation_integrator.hpp:190
 
@@ -89,10 +89,15 @@ class CutParams:
                 ("beta_inv", self.beta_inverse_min, self.beta_inverse_max))
 
 
-def fluid_state(pos, samples, spin, plasma: PlasmaParams, rho_unit: float):
+def fluid_state(pos, samples, spin, plasma: PlasmaParams, rho_unit: float,
+                coords: str = "sks"):
     """CGS fluid state and CKS four-vectors at CKS positions ``pos``
-    (B, 4) from sampled SKS primitives (simulation_coefficients.cpp:
-    287-358 and the Jacobian :397-431).
+    (B, 4) from sampled primitives (simulation_coefficients.cpp:287-358):
+    with ``coords`` "sks" the primitives are SKS and u, b go to CKS by the
+    Jacobian (:397-431); with "cks" (AthenaK) they are CKS already, the
+    normal-frame velocity and the cell-frame field taken in the CKS metric
+    (the geodesics' own, radiation_geometry.cpp:425-458), and no Jacobian
+    applies (the JAX package's :110-129).
 
     Returns a dict with rho_cgs, pgas_cgs, n_e_cgs, bb_cgs, sigma,
     beta_inv, theta_e, kb_tt_e_cgs, ucon and bcon (each a tuple of four
@@ -113,16 +118,23 @@ def fluid_state(pos, samples, spin, plasma: PlasmaParams, rho_unit: float):
     n_cgs = rho_cgs / (plasma.mu * Physics.m_p)
     n_e_cgs = n_cgs / (1.0 + 1.0 / plasma.ne_ni)
 
-    m = sks.sks_metric(x, y, z, spin)
-    ut, ur, uth, uph = sks.normal_frame_velocity(m, uu1, uu2, uu3)
-    _, ucov_r, ucov_th, ucov_ph = sks.lower_sks(m, ut, ur, uth, uph)
-    # b^mu from the cell-frame field (simulation_coefficients.cpp:315-328)
-    bt = ucov_r * bb1 + ucov_th * bb2 + ucov_ph * bb3
-    br = (bb1 + bt * ur) / ut
-    bth = (bb2 + bt * uth) / ut
-    bph = (bb3 + bt * uph) / ut
-    bcov_t, bcov_r, bcov_th, bcov_ph = sks.lower_sks(m, bt, br, bth, bph)
-    b_sq = bcov_t * bt + bcov_r * br + bcov_th * bth + bcov_ph * bph
+    if coords == "cks":
+        ucon, bcon, b_sq = cks_frame(pos, spin, (uu1, uu2, uu3),
+                                     (bb1, bb2, bb3))
+    elif coords == "sks":
+        m = sks.sks_metric(x, y, z, spin)
+        ut, ur, uth, uph = sks.normal_frame_velocity(m, uu1, uu2, uu3)
+        _, ucov_r, ucov_th, ucov_ph = sks.lower_sks(m, ut, ur, uth, uph)
+        # b^mu from the cell-frame field (simulation_coefficients.cpp:
+        # 315-328)
+        bt = ucov_r * bb1 + ucov_th * bb2 + ucov_ph * bb3
+        br = (bb1 + bt * ur) / ut
+        bth = (bb2 + bt * uth) / ut
+        bph = (bb3 + bt * uph) / ut
+        bcov_t, bcov_r, bcov_th, bcov_ph = sks.lower_sks(m, bt, br, bth, bph)
+        b_sq = bcov_t * bt + bcov_r * br + bcov_th * bth + bcov_ph * bph
+    else:
+        raise ValueError(f"unknown simulation coordinates {coords!r}")
 
     f64 = b_sq.dtype == torch.float64
     if f64:
@@ -154,12 +166,52 @@ def fluid_state(pos, samples, spin, plasma: PlasmaParams, rho_unit: float):
                                      + plasma.ne_ni / (plasma.gamma_e - 1.0))
     theta_e = kb_tt_e_cgs / (Physics.m_e * Physics.c ** 2)
 
-    ux, uy, uz = sks.sks_to_cks_vector(ur, uth, uph, x, y, z, spin)
-    bx, by, bz = sks.sks_to_cks_vector(br, bth, bph, x, y, z, spin)
+    if coords == "sks":
+        ux, uy, uz = sks.sks_to_cks_vector(ur, uth, uph, x, y, z, spin)
+        bx, by, bz = sks.sks_to_cks_vector(br, bth, bph, x, y, z, spin)
+        ucon, bcon = (ut, ux, uy, uz), (bt, bx, by, bz)
     return dict(rho_cgs=rho_cgs, pgas_cgs=pgas_cgs, n_e_cgs=n_e_cgs,
                 bb_cgs=bb_cgs, sigma=sigma, beta_inv=beta_inv,
                 theta_e=theta_e, kb_tt_e_cgs=kb_tt_e_cgs,
-                ucon=(ut, ux, uy, uz), bcon=(bt, bx, by, bz), b_sq=b_sq)
+                ucon=ucon, bcon=bcon, b_sq=b_sq)
+
+
+def cks_frame(pos, spin, uu, bb):
+    """u^mu, b^mu (four (B,) CKS components each) and b^2 from the CKS
+    normal-frame velocity ``uu`` and cell-frame field ``bb`` (three (B,)
+    components each) at CKS positions ``pos`` (B, 4), in the Kerr-Schild
+    metric g_{mu nu} = eta + f l_mu l_nu (ops/geometry.py gcov_gcon's
+    terms): uu^0 = sqrt(1 + g_ij uu^i uu^j), the lapse 1 / sqrt(1 + f)
+    and the shift f l_i / (1 + f) (g^{00} = -(1 + f), g^{0i} = f l_i),
+    u^0 = uu^0 / lapse, u^i = uu^i - shift^i u^0; b^0 = u_i bb^i and
+    b^i = (bb^i + b^0 u^i) / u^0. Each sum runs over its index in order,
+    the forms csrc/sim_sample.cuh fluid_state_cks writes."""
+    _, f, l_lower = geometry.ks_scalars(pos[..., 1:], spin)
+    l = l_lower.unbind(-1)
+    fl = [f * li for li in l]
+    # g[m][n], m, n = 0..3, with l_0 = 1
+    g = [[f - 1.0, *fl]]
+    g += [[fl[i], *((1.0 + fl[i] * l[j]) if i == j else fl[i] * l[j]
+                    for j in range(3))] for i in range(3)]
+    rows = [g[i + 1][1] * uu[0] + g[i + 1][2] * uu[1] + g[i + 1][3] * uu[2]
+            for i in range(3)]
+    uu0 = torch.sqrt(1.0 + (uu[0] * rows[0] + uu[1] * rows[1]
+                            + uu[2] * rows[2]))
+    lapse = 1.0 / torch.sqrt(1.0 + f)
+    ut = uu0 / lapse
+    ucon = (ut, *(uu[i] - fl[i] / (1.0 + f) * ut for i in range(3)))
+
+    def lower(v):
+        return [g[m][0] * v[0] + g[m][1] * v[1] + g[m][2] * v[2]
+                + g[m][3] * v[3] for m in range(4)]
+
+    ucov = lower(ucon)
+    bt = ucov[1] * bb[0] + ucov[2] * bb[1] + ucov[3] * bb[2]
+    bcon = (bt, *((bb[i] + bt * ucon[i + 1]) / ut for i in range(3)))
+    bcov = lower(bcon)
+    b_sq = (bcov[0] * bcon[0] + bcov[1] * bcon[1] + bcov[2] * bcon[2]
+            + bcov[3] * bcon[3])
+    return ucon, bcon, b_sq
 
 
 def value_cuts(state, cuts: CutParams):

@@ -47,7 +47,9 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # blocks (simulation_blocks*.cu, simulation_phase_blocks.cu,
 # polarized_derive_blocks.cu), of one FMKS block (simulation_fmks*.cu,
 # simulation_mixture_fmks.cu, simulation_phase*_fmks.cu,
-# polarized_derive_fmks*.cu) and of the mixture of populations
+# polarized_derive_fmks*.cu), of CKS grids (simulation_cks*.cu,
+# simulation_mixture_cks.cu, simulation_phase*_cks.cu,
+# polarized_derive_cks*.cu) and of the mixture of populations
 # (simulation_mixture*.cu, simulation_phase_mixture*.cu,
 # polarized_derive_mixture*.cu) follow their thermal units.
 CONTRACT = {"formula_kernel.cu": False, "formula_kernel_dp.cu": True,
@@ -75,7 +77,13 @@ CONTRACT = {"formula_kernel.cu": False, "formula_kernel_dp.cu": True,
             "polarized_derive_mixture_f64.cu": False,
             "polarized_derive_mixture_blocks.cu": False,
             "polarized_derive_fmks.cu": False,
-            "polarized_derive_fmks_f64.cu": False}
+            "polarized_derive_fmks_f64.cu": False,
+            "simulation_cks.cu": False, "simulation_cks_dp.cu": False,
+            "simulation_mixture_cks.cu": False,
+            "simulation_phase_cks.cu": False,
+            "simulation_phase_mixture_cks.cu": False,
+            "polarized_derive_cks.cu": False,
+            "polarized_derive_cks_f64.cu": False}
 
 
 def find_nvcc() -> str:

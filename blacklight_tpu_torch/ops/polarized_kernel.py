@@ -5,7 +5,8 @@ three CUDA kernels.
 Port of ``blacklight_tpu/ops/pallas_polarized.py`` (``_make_kernel``
 :286, launched by ``render_polarized`` :727; K3.1) for a single-block SKS
 grid and thermal ti_te_beta electrons, with dp, rk4 and rk2 in float32
-and float64. Its values follow the JAX package's exact (XLA) path,
+and float64; the derive kernel also samples many blocks, FMKS and CKS
+grids and the mixture of populations (``simulation_kernel.kernel_mode``). Its values follow the JAX package's exact (XLA) path,
 ``transfer/polarized.integrate_polarized`` with
 ``pipeline_simulation.make_simulation_coeff_fns(polarized=True)``, in each
 dtype's forms; like the TPU kernel it leaves the camera-frame Stokes
@@ -90,14 +91,14 @@ SAMPLE_SHARE = 14 / 66
 # of each.
 LAUNCHES = 0
 STAGE_LAUNCHES = {"trace": 0, "derive": 0, "chain": 0}
-# Of the derive launches, those of each sampling mode's kernel
-# (grid/sampling.py SINGLE: polarized_derive_kernel; BLOCKS, INTERBLOCK:
-# polarized_derive_mode_kernel; FMKS: polarized_derive_fmks_kernel), and
-# those of the mixture's (polarized_derive_mixture_kernel, any mode), also
-# by mode.
-DERIVE_MODE_LAUNCHES = [0, 0, 0, 0]
+# Of the derive launches, those of each kernel mode's kernel
+# (simulation_kernel.kernel_mode; SINGLE: polarized_derive_kernel; BLOCKS,
+# INTERBLOCK, CKS_BLOCKS, CKS_INTERBLOCK: polarized_derive_mode_kernel;
+# FMKS: polarized_derive_fmks_kernel), and those of the mixture's
+# (polarized_derive_mixture_kernel, any mode), also by mode.
+DERIVE_MODE_LAUNCHES = [0] * sk.KERNEL_MODES
 DERIVE_MIXTURE_LAUNCHES = 0
-DERIVE_MIXTURE_MODE_LAUNCHES = [0, 0, 0, 0]
+DERIVE_MIXTURE_MODE_LAUNCHES = [0] * sk.KERNEL_MODES
 
 # Index order of the kernel's float64 parameter vector: the simulation
 # kernel's (simulation_kernel.PARAM_NAMES), then the enum in

@@ -18,6 +18,9 @@ on a CUDA device it launches the hand-written kernel
 ``render_simulation_reference``, the same function in plain torch ops
 built from ``grid/sampling``, ``models/cuts`` and
 ``models/synchrotron``. There is no fallback from one to the other.
+A grid in Cartesian Kerr-Schild coordinates (AthenaK's, ``grid.coords``
+"cks") takes the kernels' CKS modes (``kernel_mode``), which the JAX
+package renders on its XLA path.
 
 Phased dispatch (K2.3, ``render_simulation_phase`` :1484 and
 ``render_simulation_phased`` :1588 of the JAX module) runs the same
@@ -79,16 +82,26 @@ from blacklight_tpu_torch.transfer import unpolarized as tu
 # render_simulation launches once per this many frequencies.
 MAX_FREQUENCIES = 16
 
+# The kernels' modes of a CKS grid (csrc/sim_sample.cuh SAMPLE_CKS_*),
+# after grid/sampling.py's SINGLE, BLOCKS, INTERBLOCK and FMKS: the block
+# search in (x, y, z), then trilinear interpolation clamped to the block or
+# the nearest cell (one block takes it too), or exact interblock
+# interpolation without a periodic axis. KernelGrid.mode is one of the
+# six.
+CKS_BLOCKS, CKS_INTERBLOCK = 4, 5
+KERNEL_MODES = 6
+
 # Kernel launches so far; render_simulation adds one per launch of the CUDA
 # kernel and nowhere else.
 LAUNCHES = 0
-# Of those, the launches of each sampling mode's kernel (grid/sampling.py
-# SINGLE: simulation_kernel; BLOCKS, INTERBLOCK: simulation_mode_kernel;
-# FMKS: simulation_fmks_kernel), and the launches of the mixture's kernel
+# Of those, the launches of each kernel mode's kernel (kernel_mode; SINGLE:
+# simulation_kernel; BLOCKS, INTERBLOCK, CKS_BLOCKS, CKS_INTERBLOCK:
+# simulation_mode_kernel; FMKS: simulation_fmks_kernel), and the launches
+# of the mixture's kernel
 # (simulation_mixture_kernel, any mode), also by mode.
-MODE_LAUNCHES = [0, 0, 0, 0]
+MODE_LAUNCHES = [0] * KERNEL_MODES
 MIXTURE_LAUNCHES = 0
-MIXTURE_MODE_LAUNCHES = [0, 0, 0, 0]
+MIXTURE_MODE_LAUNCHES = [0] * KERNEL_MODES
 
 # Most bins of an axis' guide (csrc/sim_sample.cuh GridAxis): 64 KB of
 # int32 an axis at most.
@@ -261,7 +274,9 @@ def check_grid(grid: SimulationGrid) -> None:
     overlapping in volume, in float64 and rounded to float32 (a point
     strictly inside a block then lies in no other block's closed box, so
     the kernels keep the previous sample's block while the point stays
-    strictly inside it). Checked on the grid's host copy of its faces."""
+    strictly inside it). Checked on the grid's host copy of its faces, in
+    the grid's coordinates: (r, theta, phi), or (x, y, z) of a CKS
+    grid."""
     if min(grid.prim.shape[2:]) < 2:
         raise ValueError("the simulation kernel needs 2 cells per axis")
     for faces in grid.host_faces:
@@ -346,15 +361,17 @@ GRID_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6 \
 class KernelGrid(NamedTuple):
     """The snapshot as a kernel launch takes it, on the grid's device:
     kernel_tables' table and coords, the three axes' guides concatenated,
-    and under the modes of many blocks the (n_b, 6) block bounds (r, theta,
-    phi low and high faces, in the coordinates' dtype) and, under
+    and under the modes of many blocks the (n_b, 6) block bounds (the low
+    and high faces of r, theta and phi, or of x, y and z, in the
+    coordinates' dtype) and, under
     INTERBLOCK, the neighbour table and location parities (int32), under
     FMKS the map's table (2, n2m, n1m) in the coordinates' dtype; on the
     host the axes array: lo, hi, scale and bins of each axis
     (GUIDE_AXIS_VALUES float64 values an axis; under the modes of many
     blocks the box of every block and one bin), under FMKS followed by the
-    map's FMKS_MAP_VALUES; the sampling mode (grid/sampling.py SINGLE,
-    BLOCKS, INTERBLOCK, FMKS) and the nearest-cell flag."""
+    map's FMKS_MAP_VALUES; the kernel mode (kernel_mode: grid/sampling.py
+    SINGLE, BLOCKS, INTERBLOCK, FMKS, or CKS_BLOCKS, CKS_INTERBLOCK) and
+    the nearest-cell flag."""
 
     table: torch.Tensor
     coords: torch.Tensor
@@ -380,11 +397,22 @@ class KernelGrid(NamedTuple):
                 None if self.map is None else self.map.data_ptr())
 
 
+def kernel_mode(grid: SimulationGrid, sampler: SamplerOptions) -> int:
+    """The mode of the kernel a launch on ``grid`` under ``sampler`` takes:
+    grid/sampling.sampling_mode's (which raises for a mode the grid cannot
+    take), or on a CKS grid CKS_INTERBLOCK for its INTERBLOCK and
+    CKS_BLOCKS for the others (one block, many, the nearest cell)."""
+    mode = sampling_mode(grid, sampler)
+    if grid.coords != "cks":
+        return mode
+    return CKS_INTERBLOCK if mode == INTERBLOCK else CKS_BLOCKS
+
+
 def kernel_grid(grid: SimulationGrid, dtype,
                 sampler: SamplerOptions = SamplerOptions()) -> KernelGrid:
     """kernel_tables and what else a launch in ``dtype`` under
-    ``sampler``'s mode (grid/sampling.sampling_mode, which raises for a
-    mode the grid cannot take) reads of ``grid``. The guides of a single
+    ``sampler``'s mode (kernel_mode, which raises for a mode the grid
+    cannot take) reads of ``grid``. The guides of a single
     block follow from the grid's host copy of its faces rounded to
     ``dtype``, as its device coordinates were, and are counted on the
     device, so nothing is read back; the modes of many blocks search each
@@ -392,8 +420,9 @@ def kernel_grid(grid: SimulationGrid, dtype,
     SINGLE does, and adds the grid's map: its table rounded to ``dtype``
     and its values (grid.map_r_in, map_dr, map_dtheta, bounds and the
     table's shape), which the card rounds to ``dtype`` as the plain
-    version's Python floats are rounded."""
-    mode = sampling_mode(grid, sampler)
+    version's Python floats are rounded. A CKS grid's modes are those of
+    many blocks, one block included."""
+    mode = kernel_mode(grid, sampler)
     table, coords = kernel_tables(grid, dtype)
     rounded = [h.astype(_NUMPY_DTYPES[dtype]) for h in grid.host_faces]
     bounds = torch.stack([c for f in (grid.x1f, grid.x2f, grid.x3f)
@@ -411,7 +440,8 @@ def kernel_grid(grid: SimulationGrid, dtype,
                                       device=coords.device))
         axes += (lo, hi, scale, bins)
         at += host.size + host.shape[0] * n
-    interblock, fmks = mode == INTERBLOCK, mode == FMKS
+    interblock = mode in (INTERBLOCK, CKS_INTERBLOCK)
+    fmks = mode == FMKS
     if fmks:
         axes += (grid.map_r_in, grid.map_dr, grid.map_dtheta, *grid.bounds,
                  grid.sks_map.shape[2], grid.sks_map.shape[1])
@@ -676,7 +706,7 @@ def fluid_sample(pos, sp: SimKernelParams, grid: SimulationGrid, spin,
                    else torch.where(keep_geo, v, 0.0)
                    for k, v in samples.items()}
     state = synchrotron.fluid_state(pos, samples, spin, sp.plasma,
-                                    sp.rho_unit)
+                                    sp.rho_unit, coords=grid.coords)
     keep_val = synchrotron.value_cuts(state, sp.cuts)
     b_zero = ((samples["bb1"] == 0.0) & (samples["bb2"] == 0.0)
               & (samples["bb3"] == 0.0))
@@ -849,13 +879,13 @@ def angular_order(positions, block: int = 1024):
 # Phase kernel launches so far; render_simulation_phase adds one per launch
 # of the CUDA phase kernel and nowhere else.
 PHASE_LAUNCHES = 0
-# Of those, the launches of each sampling mode's phase kernel (SINGLE:
-# simulation_phase_kernel; BLOCKS, INTERBLOCK:
-# simulation_phase_mode_kernel; FMKS: simulation_phase_fmks_kernel), and of
-# the mixture's (simulation_phase_mixture_kernel, any mode), also by mode.
-PHASE_MODE_LAUNCHES = [0, 0, 0, 0]
+# Of those, the launches of each kernel mode's phase kernel (SINGLE:
+# simulation_phase_kernel; BLOCKS, INTERBLOCK, CKS_BLOCKS, CKS_INTERBLOCK:
+# simulation_phase_mode_kernel; FMKS: simulation_phase_fmks_kernel), and
+# of the mixture's (simulation_phase_mixture_kernel, any mode), also by mode.
+PHASE_MODE_LAUNCHES = [0] * KERNEL_MODES
 PHASE_MIXTURE_LAUNCHES = 0
-PHASE_MIXTURE_MODE_LAUNCHES = [0, 0, 0, 0]
+PHASE_MIXTURE_MODE_LAUNCHES = [0] * KERNEL_MODES
 
 # Steps a phase of render_simulation_phased by default: at 1024^2 with 2000
 # steps, 1000 (2 launches) beat the JAX package's 512 (4 launches) in turns

@@ -25,14 +25,12 @@ import numpy as np
 import torch
 
 from blacklight_tpu_torch.constants import (
-    Coordinates,
     ModelType,
     OutputFormat,
     Physics,
     PlasmaModel,
     RayIntegrator,
     RayTerminate,
-    SimulationFormat,
 )
 from blacklight_tpu_torch.output import (
     assemble_npz_arrays,
@@ -120,19 +118,10 @@ def check_slice(cfg) -> None:
 
 
 def _check_simulation_slice(cfg, refuse) -> None:
-    fmt = cfg.simulation_format
-    coord = cfg.simulation_coord
-    # the port reads Athena++ (SKS), iharm3d (MKS as SKS, or FMKS) and
-    # harm3d (MKS as SKS) files; the iharm3d and harm3d loaders check
-    # their coordinates as the JAX package's do
-    readers = (SimulationFormat.athena, SimulationFormat.iharm3d,
-               SimulationFormat.harm3d)
-    if fmt not in readers:
-        refuse(f"simulation_format = {fmt.value if fmt else None}", "B.4")
-    if coord == Coordinates.cks or (fmt == SimulationFormat.athena
-                                    and coord != Coordinates.sks):
-        refuse(f"simulation_coord = {coord.value if coord else None} with "
-               f"simulation_format = {fmt.value}", "B.4")
+    # the port reads every format the JAX package reads: Athena++ (SKS),
+    # AthenaK (CKS), iharm3d (MKS as SKS, or FMKS) and harm3d (MKS as
+    # SKS); the loaders and the renderer check the coordinates as the JAX
+    # package's do
     if cfg.require("simulation_multiple") and cfg.slow_light_on:
         refuse("slow light", "B.6")
     if cfg.require("plasma_model") != PlasmaModel.ti_te_beta:

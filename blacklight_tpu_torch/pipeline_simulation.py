@@ -3,8 +3,10 @@
 Port of ``blacklight_tpu/pipeline_simulation.py`` (:70-254, :257-707)
 for the port's slice (``pipeline.check_slice``): one Athena++ snapshot
 of one or many mesh blocks (with its neighbour table for exact
-interblock sampling), or one iharm3d (MKS or FMKS) or harm3d snapshot,
-read once onto the device, and one of two routes,
+interblock sampling), one AthenaK snapshot in Cartesian Kerr-Schild
+coordinates (the same, without a periodic axis), or one iharm3d (MKS or
+FMKS) or harm3d snapshot, read once onto the device, and one of two
+routes,
 chosen from the config before anything launches, as the JAX package
 chooses between its kernels and its XLA path
 (blacklight_tpu/pipeline_simulation.py:348-370, :466-474):
@@ -35,12 +37,17 @@ from typing import Optional
 
 import torch
 
-from blacklight_tpu_torch.constants import PlasmaModel, SimulationFormat
+from blacklight_tpu_torch.constants import (
+    Coordinates,
+    PlasmaModel,
+    SimulationFormat,
+)
 from blacklight_tpu_torch.output import format_filename
 from blacklight_tpu_torch.utils.errors import BlacklightError
 from blacklight_tpu_torch.camera import make_camera
 from blacklight_tpu_torch.grid.amr import with_amr_table
 from blacklight_tpu_torch.grid.athena import SimulationGrid, load_athdf
+from blacklight_tpu_torch.grid.athenak import load_athenak
 from blacklight_tpu_torch.grid.harm3d import load_harm3d
 from blacklight_tpu_torch.grid.iharm3d import load_iharm3d
 from blacklight_tpu_torch.grid.sampling import sampling_mode
@@ -134,17 +141,23 @@ def cut_params_from_config(cfg) -> synchrotron.CutParams:
 
 def load_grid_file(cfg, path: str, *, device, dtype) -> SimulationGrid:
     """Load one snapshot file in the configured format
-    (blacklight_tpu/pipeline_simulation.py:133-155; AthenaK is refused by
-    pipeline.check_slice, ROADMAP B.4)."""
+    (blacklight_tpu/pipeline_simulation.py:119-140): an AthenaK file's
+    parameters are held against the configuration's spin, mass, density
+    unit and molecular weight, and its adiabatic index against
+    plasma_gamma (warnings)."""
     fmt = cfg.require("simulation_format")
     if fmt == SimulationFormat.athena:
         return load_athdf(path, device=device, dtype=dtype)
+    if fmt == SimulationFormat.athenak:
+        expected = {"a": cfg.require("simulation_a"),
+                    "bhmass_msun": cfg.require("simulation_m_msun"),
+                    "density_cgs": cfg.require("simulation_rho_cgs"),
+                    "mu": cfg.require("plasma_mu")}
+        return load_athenak(path, device=device, dtype=dtype,
+                            plasma_gamma=cfg.plasma_gamma, expected=expected)
     if fmt == SimulationFormat.iharm3d:
         return load_iharm3d(path, cfg, device=device, dtype=dtype)
-    if fmt == SimulationFormat.harm3d:
-        return load_harm3d(path, cfg, device=device, dtype=dtype)
-    raise BlacklightError("blacklight_tpu_torch does not read "
-                          f"simulation_format = {fmt.value} (ROADMAP B.4).")
+    return load_harm3d(path, cfg, device=device, dtype=dtype)
 
 
 def load_grid(cfg, snapshot: Optional[int] = None, *, device,
@@ -232,6 +245,12 @@ def make_simulation_renderer(cfg, snapshot: Optional[int] = None, *, device,
     if grid.prim.device != device:
         raise BlacklightError(f"the grid is on {grid.prim.device}, not "
                               f"{device}")
+    # (blacklight_tpu/pipeline_simulation.py:174-178)
+    coords = "cks" if cfg.require("simulation_coord") == Coordinates.cks \
+        else "sks"
+    if grid.coords != coords:
+        raise BlacklightError(
+            "simulation_coord does not match the loaded grid's coordinates.")
     if cfg.simulation_block_interp and cfg.require("simulation_interp"):
         # the neighbour table of exact interblock sampling
         # (blacklight_tpu/pipeline_simulation.py:297-301)

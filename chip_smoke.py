@@ -12,13 +12,15 @@ and prints no final line):
 1. device: the card's name, power limit and maximum SM clock
    (nvidia-smi);
 2. build: compile csrc/*.cu with nvcc (one process per source, all at
-   once), report registers, spills and the FP64 instructions of each
-   kernel instantiation (every formula, simulation and polarized one), the
-   static instruction mix of each formula and simulation kernel's step
-   loop, of its per-step path and of the sample's part of that path
-   (scripts/sass_step_mix.py, on those units built again with line
-   tables) and the size of the formula and simulation kernels' launch
-   constants, each held to the host's packing;
+   once) and hold the size of the formula and simulation kernels' launch
+   constants to the host's packing; then, in the main process while phase
+   3's jobs run, report registers, spills and the FP64 instructions of
+   each kernel instantiation (every formula, simulation and polarized
+   one), the static instruction mix of each formula and simulation
+   kernel's step loop, of its per-step path and of the sample's part of
+   that path (scripts/sass_step_mix.py, on those units built again with
+   line tables), and hold the thermal kernels' SASS to
+   scripts/thermal_sass.json;
 3. checks, each kernel against its plain PyTorch version on identical
    rays, WORKERS processes at once on the one card (the plain versions
    are bound by the host's launches, so they overlap; their times here
@@ -72,6 +74,16 @@ and prints no final line):
      version on one host core on 4,096 of the card's rays of each of
      phase 17's cells (1,024 polarized, in float32 and in float64), which
      phase 17 holds its kernels against;
+   - phase 18's: the CKS instantiations on a small AthenaK cube of the
+     same torus (ATHENAK_CHECK_LAYOUT: 22 blocks on two levels), 128^2
+     against their plain versions: the simulation kernel in rk4 float64
+     with interblock sampling and at the nearest cell and the mixture's
+     with interblock sampling (400 steps of 0.04, exact), dp float32
+     trilinear (statistical); the CKS phase kernel on its second phase of
+     200 steps (rk4 float64 interblock, exact); and the plain version on
+     4,096 of the camera's rays of each of phase 18's cells on the card
+     and on 1,024 polarized on one host core (in float32 and in float64),
+     once the main process has written phase 18's file;
    jobs start longest first (PHASE3_SECONDS);
 4. the 32^2 formula goldens through pipeline.run(cfg, device="cuda") at
    the tolerances of tests/test_formula_e2e.py;
@@ -235,7 +247,31 @@ and prints no final line):
     The script's host work for phase 17 (the FMKS datasets, the harm3d
     file) runs in the main process while phase 3's jobs run.
 
-Phases 4 to 17 run alone on the card, after phase 3.
+18. AthenaK snapshots in Cartesian Kerr-Schild coordinates (ROADMAP B.4),
+    run after phase 17: FULL_GRID's torus on write_athenak's cube
+    (half-width r_max / sqrt(2), spin 0) as a root grid of 8^3 blocks of
+    32^3 cells with the central 2 x 2 x 2 refined once (568 blocks, 18.6 M
+    cells, ~600 MB), written by scripts/mock_athenak.py to a file under
+    build/ while phase 3 runs and read by the port's load_athenak (the
+    writer's, the loader's and the neighbour table's times). Through
+    pipeline.run at 1024^2 (rk4, 2000 steps, float32; off-grid samples
+    take fallback values), each with every launch count zeroed just
+    before and read just after: athenak-amr-rk4-f32 (exact interblock
+    sampling, simulation_mode_kernel in SAMPLE_CKS_INTERBLOCK),
+    athenak-rk4-f32 (trilinear clamped to the block, SAMPLE_CKS_BLOCKS),
+    athenak-mix-rk4-f32 (golden_plasma_mix_rk4_32.input's electrons,
+    simulation_mixture_kernel in SAMPLE_CKS_BLOCKS) and the polarized route
+    (polarized_derive_mode_kernel in a CKS mode); the phased route
+    (KERNEL_PHASED) bit for bit the first cell's image. Then each kernel
+    alone in spatial_order, best of 3 in turns with phase 14's mb-amr,
+    beside its bound and held to
+    phase 3's plain version on its subset (statistical gate); the CKS phase
+    kernel on the route's second phase; the polarized route in turns with
+    phase 14's polarized route on mb-amr, with each stage's time, held as
+    phase 9's is (truth_gate, equal NaN sets) and its float64 run on the
+    same 1,024 rays exact (polarized_gate).
+
+Phases 4 to 18 run alone on the card, after phase 3.
 
 ``python3 chip_smoke.py --chunk-sweep`` runs phases 1 and 2, then times
 the polarized route at 1024^2 (float32 rk4, spatial_order) for trace
@@ -267,7 +303,10 @@ phase kernel and the derive kernel of interblock sampling, then the
 mixture's: the simulation kernel, the phase kernel and the polarized
 route's derive kernel, then phase 17's: the FMKS simulation kernel, the
 mixture's on FMKS, the single-block kernel on the harm3d grid, the FMKS
-phase kernel and the polarized route with the FMKS derive kernel); then
+phase kernel and the polarized route with the FMKS derive kernel, then
+phase 18's: the CKS simulation kernel with interblock sampling and
+trilinear, the mixture's on the CKS grid, the CKS phase kernel and the
+polarized route with the CKS derive kernel); then
 come the card's name and power limit, and
 the last line is {"ok": true, "device": {...}}. The script prints its
 total time on the line before the kernels line.
@@ -276,6 +315,7 @@ total time on the line before the kernels line.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import multiprocessing
 import pathlib
@@ -359,12 +399,26 @@ SM_CLOCK_HZ = {}
 # each, a floor, 2 compares and a clamp: ~10), the weights (2 subtractions
 # and 4 clamps) and the bilinear lookup (9 products, 5 sums, 3
 # subtractions): ~40, in front of the single block's sample.
+# A CKS grid (csrc/sim_sample.cuh SAMPLE_CKS_*, AthenaK) drops the SKS
+# sample's CKS -> SKS (acos, atan2, atan, the wrap: ~15), its SKS fluid
+# state's metric, frame and field (~95) and the Jacobian to CKS (~48) for
+# the CKS fluid state (fluid_state_cks: f and l ~17, the metric's 13
+# products and sums, g u u ~20, the lapse, shift and u ~16, u_mu and
+# b_mu 56, b^0, b^i and b^2 ~21: ~146): 12 fewer. Its point location is
+# counted as the SKS blocks' is (~20 a sample): the linear scan over
+# phase 18's 568 blocks costs the kernels more (~53 a sample, and the
+# polarized derive kernel, which keeps no block from a previous sample,
+# ~2,000), but that is the kernels' own overhead, not work the function
+# needs, so no bound counts it. The polarized CKS sample counts the
+# block's box (6) in place of the SKS sample's 12.
 OPS_PER_STEP = {"rk4": 830, "rk2": 500, "dp": 2020}
 OPS_PER_SAMPLE = {"formula": 130, "simulation": 495, "polarized": 2740,
                   "simulation_blocks": 520, "simulation_interblock": 1030,
                   "simulation_nearest": 331, "simulation_mixture": 575,
                   "polarized_mixture": 2740, "simulation_fmks": 535,
-                  "simulation_mixture_fmks": 615, "polarized_fmks": 2780}
+                  "simulation_mixture_fmks": 615, "polarized_fmks": 2780,
+                  "simulation_cks": 508, "simulation_cks_interblock": 1018,
+                  "simulation_mixture_cks": 588, "polarized_cks": 2734}
 POL_OPS_PER_FREQUENCY = 1090
 POL_MIX_OPS_PER_FREQUENCY = 260
 POL_CHAIN_OPS_PER_FREQUENCY = 900
@@ -502,7 +556,8 @@ def _ptxas_table(report: str) -> dict:
     return {k: v for k, v in table.items() if v}
 
 
-SAMPLE_MODE_NAMES = ("single block", "blocks", "interblock", "fmks")
+SAMPLE_MODE_NAMES = ("single block", "blocks", "interblock", "fmks",
+                     "cks blocks", "cks interblock")
 
 
 def _kernel_label(mangled: str) -> str:
@@ -600,7 +655,7 @@ def _step_loops() -> dict:
                                           "simulation_*.cu")
                    for p in csrc.glob(pattern)
                    if not any(kind in p.name for kind in ("blocks", "mixture",
-                                                          "fmks")))
+                                                          "fmks", "cks")))
     per_ray, per_sample = mix.per_ray_lines(ROOT), mix.per_sample_lines(ROOT)
     with tempfile.TemporaryDirectory() as tmp:
         sass = mix.disassemble(ROOT, units, pathlib.Path(tmp))
@@ -635,6 +690,10 @@ def _sass_fp64(sass) -> dict:
 
 
 def phase_build():
+    """Phase 2's build: the library from the checkout's sources, loaded
+    with each C interface's checks, and the launch constants' sizes held
+    to the host's packing. Returns the library's path for
+    phase_build_report."""
     from blacklight_tpu_torch.ops import _build
     from blacklight_tpu_torch.ops import formula_kernel as fk
     from blacklight_tpu_torch.ops import polarized_kernel as pk
@@ -645,28 +704,15 @@ def phase_build():
     fk._library()
     sk._phase_library()
     pk._library()
-    sass = _sass(path)
-    STEP_LOOPS.update(_step_loops())
-    ptxas = _ptxas_table(_build.ptxas_report())
-    thermal_sass = _thermal_sass(sass)
     emit("build", seconds=build_s, library=path.name, units=len(
         _build.sources()),
-         ptxas=ptxas, fp64_sass=_sass_fp64(sass),
          formula_consts_bytes={f"{str(k[0])[6:]}, NF={k[1]}": v for k, v in
                                fk.consts_sizes(fk._library()).items()},
          simulation_consts_bytes={f"{str(k[0])[6:]}, NF={k[1]}": v for k, v
                                   in sk.consts_sizes(sk._library()).items()},
          simulation_mixture_consts_bytes={
              f"{str(k[0])[6:]}, NF={k[1]}": v for k, v in
-             sk.consts_sizes(sk._library(), mixture=True).items()},
-         simulation_registers={k: v for k, v in ptxas.items()
-                               if k.startswith("simulation")},
-         step_loops=STEP_LOOPS)
-    emit("mixture_registers", ptxas={k: v for k, v in ptxas.items()
-                                     if "mixture" in k})
-    emit("fmks_registers", ptxas={k: v for k, v in ptxas.items()
-                                  if "fmks" in k})
-    emit("thermal_sass", **thermal_sass)
+             sk.consts_sizes(sk._library(), mixture=True).items()})
     if fk.consts_sizes(fk._library()) != fk.host_consts_sizes():
         raise RuntimeError("FormulaLaunchConsts and launch_consts disagree")
     for mixture in (False, True):
@@ -674,6 +720,34 @@ def phase_build():
                 != sk.host_consts_sizes(mixture):
             raise RuntimeError("SimLaunchConsts (SimMixLaunchConsts) and "
                                "launch_consts disagree")
+    return path
+
+
+def phase_build_report(path):
+    """Phase 2's report of the library at ``path``: registers, spills and
+    FP64 instructions of each kernel, the step loops' instruction mixes
+    (which later phases' issue estimates read) and the thermal kernels'
+    SASS held to scripts/thermal_sass.json. The main process makes it
+    while phase 3's jobs run: it needs no card, and its disassembly and
+    line-table builds would otherwise hold the card idle."""
+    from blacklight_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    sass = _sass(path)
+    STEP_LOOPS.update(_step_loops())
+    ptxas = _ptxas_table(_build.ptxas_report())
+    thermal_sass = _thermal_sass(sass)
+    emit("build_report", seconds=time.perf_counter() - t0, ptxas=ptxas,
+         fp64_sass=_sass_fp64(sass),
+         simulation_registers={k: v for k, v in ptxas.items()
+                               if k.startswith("simulation")},
+         step_loops=STEP_LOOPS)
+    emit("mixture_registers", ptxas={k: v for k, v in ptxas.items()
+                                     if "mixture" in k})
+    emit("fmks_registers", ptxas={k: v for k, v in ptxas.items()
+                                  if "fmks" in k})
+    emit("cks_registers", ptxas={k: v for k, v in ptxas.items()
+                                 if ", cks " in k})
+    emit("thermal_sass", **thermal_sass)
     if not thermal_sass["ok"]:
         raise RuntimeError(f"a thermal kernel's SASS changed: {thermal_sass}")
 
@@ -819,8 +893,8 @@ def phase_checks(pool, prep=None) -> tuple:
     phase 15's jobs (AUX_JOBS) by name; and phase 16's: the mixture's
     phase kernel against its plain version ("phase"), the plain version
     on its cells' subsets ("plain", "pol_plain"); and phase 17's, alike,
-    with the float64 polarized subset ("pol_truth"). Jobs start longest
-    first (PHASE3_SECONDS)."""
+    with the float64 polarized subset ("pol_truth"), and phase 18's, alike.
+    Jobs start longest first (PHASE3_SECONDS)."""
     t0 = time.perf_counter()
     jobs = {("check", fn.__name__, args): (fn, args) for fn, args in CHECKS}
     jobs.update({("mesh_phase", "check_mesh_phase", args):
@@ -845,6 +919,14 @@ def phase_checks(pool, prep=None) -> tuple:
     jobs[("fmks_phase", "check_fmks_phase", ())] = (check_fmks_phase, ())
     jobs.update({("fmks_pol", "fmks_pol_subset", (p,)):
                  (fmks_pol_subset, (p,)) for p in ("float32", "float64")})
+    jobs.update({("athenak", "check_athenak_simulation", args):
+                 (check_athenak_simulation, args) for args in ATHENAK_CHECKS})
+    jobs.update({("athenak_plain", "athenak_plain_subset", (cell,)):
+                 (athenak_plain_subset, (cell,)) for cell in ATHENAK_RUNS})
+    jobs[("athenak_phase", "check_athenak_phase", ())] = (
+        check_athenak_phase, ())
+    jobs.update({("athenak_pol", "athenak_pol_subset", (p,)):
+                 (athenak_pol_subset, (p,)) for p in ("float32", "float64")})
     # longest first (a stable sort: jobs of no measured length keep the
     # table's order after the measured ones)
     order = sorted(jobs, key=lambda key: -PHASE3_SECONDS.get(key[1:], 0.0))
@@ -915,8 +997,22 @@ def phase_checks(pool, prep=None) -> tuple:
                       for args, job in results("fmks_plain").items()},
             "pol_plain": results("fmks_pol")[("float32",)].get(),
             "pol_truth": results("fmks_pol")[("float64",)].get()}
+    athenak_phase = started[("athenak_phase", "check_athenak_phase", ())]
+    for job in (*(started[("athenak", "check_athenak_simulation", args)]
+                  for args in ATHENAK_CHECKS), athenak_phase):
+        phase, result = job.get()
+        emit(phase, workers=WORKERS, **result)
+        if not result["ok"]:
+            raise RuntimeError(f"{phase}: kernel disagrees with plain: "
+                               f"{result}")
+    athenak = {"phase": athenak_phase.get()[1],
+               "plain": {args[0]: job.get() for args, job in
+                         results("athenak_plain").items()},
+               "pol_plain": results("athenak_pol")[("float32",)].get(),
+               "pol_truth": results("athenak_pol")[("float64",)].get()}
     emit("checks", workers=WORKERS, seconds=time.perf_counter() - t0)
-    return truth, subsets, stages, mesh, aux, mixture, fmks, prepared
+    return truth, subsets, stages, mesh, aux, mixture, fmks, athenak, \
+        prepared
 
 
 def _check_exact(kernel_out, plain_out, rtol) -> dict:
@@ -2015,6 +2111,7 @@ def phase_mesh_blocks(tmp: pathlib.Path, card: str, grids: dict,
     mesh = {"uniform": mesh_grid("uniform", torch.float32),
             "amr": mesh_grid("amr", torch.float32),
             "single": grids["float32"]}
+    grids["mb_amr"] = mesh["amr"]  # phase 18 times its kernels beside it
     emit("mesh_snapshots", seconds=time.perf_counter() - t0, **{
         name: {"blocks": g.n_blocks, "cells": int(g.prim[0].numel()),
                "table_mb": grid_bytes(g) / 1e6,
@@ -2681,7 +2778,7 @@ def bound(kernel, integrator, precision, rays, mean_samples, *, in_bytes,
     if kernel == "formula":
         per_sample += FORMULA_OPS_PER_FREQUENCY * (frequencies - 1) \
             + FORMULA_OPS_PER_TANGENT * frequencies * tangents
-    if kernel in ("polarized", "polarized_fmks"):
+    if kernel in ("polarized", "polarized_fmks", "polarized_cks"):
         per_sample += POL_OPS_PER_FREQUENCY * frequencies
     if kernel == "polarized_mixture":
         per_sample += (POL_OPS_PER_FREQUENCY + POL_MIX_OPS_PER_FREQUENCY) \
@@ -4491,6 +4588,524 @@ def phase_fmks_full_width(card: str, grids: dict, checks: dict,
     return entries
 
 
+# Phase 18: AthenaK snapshots in Cartesian Kerr-Schild (CKS) coordinates
+# (ROADMAP B.4). FULL_GRID's torus on write_athenak's cube (half-width
+# r_max / sqrt(2)) at the golden inputs' spin (0), written by
+# scripts/mock_athenak.write_blocks: a root grid of ATHENAK_ROOT^3 blocks
+# of ATHENAK_CELLS^3 cells (256^3) with the central 2 x 2 x 2 root blocks
+# refined once (568 blocks, 18.6 M cells, ~600 MB of float32), in a file
+# under build/ that the port's load_athenak reads. The cube is smaller
+# than the camera's distance, so off-grid samples take fallback values
+# (fallback_nan off, test_loaders.py's fallback_rho and fallback_pgas).
+ATHENAK_SOURCE = "blacklight_tpu_torch/csrc/sim_sample.cuh"
+# The file's directory, which phase 3's jobs read it from (emptied at the
+# script's start and removed at its end)
+ATHENAK_DIR = ROOT / "build" / "kernels" / "athenak"
+ATHENAK_ROOT, ATHENAK_CELLS = 8, 32
+ATHENAK_REFINE = tuple((i, j, k) for i in (3, 4) for j in (3, 4)
+                       for k in (3, 4))
+ATHENAK_RES, ATHENAK_STEPS = 1024, 2000
+ATHENAK_FALLBACK = dict(fallback_nan=False, fallback_rho=1.0e-8,
+                        fallback_pgas=1.0e-10)
+# Phase 3's checks: the same cube at 2^3 root blocks of 16^3 cells, two
+# of them refined (22 blocks), 400 steps of 0.04 at 128^2.
+ATHENAK_CHECK_LAYOUT = dict(root=2, cells=16, refine=((1, 1, 1), (0, 1, 1)))
+ATHENAK_CHECK_RES = 128
+# The polarized cell's plain rays: every ATHENAK_POL_STRIDE-th (1,024), in
+# float32 and in float64
+ATHENAK_POL_STRIDE = 4 * PLAIN_STRIDE
+# Phase 18's unpolarized cells: name -> (input, sampling overrides)
+ATHENAK_RUNS = {
+    "athenak_amr": ("golden_sim_rk4_32.input",
+                    {"simulation_block_interp": True}),
+    "athenak": ("golden_sim_rk4_32.input", {}),
+    "athenak_mix": (MIX_INPUT, {}),
+}
+
+
+def write_athenak_file(directory: pathlib.Path, layout=None) -> tuple:
+    """The AthenaK file of FULL_GRID's torus in ``directory`` (phase 18's
+    layout, or write_blocks' keywords ``layout``), written under a
+    temporary name and then renamed, so that a reader waiting for the
+    name sees the whole file: (path, the writer's seconds)."""
+    mock = _mock()
+    import mock_athenak
+    p = dict(mock.DEFAULTS, **FULL_GRID)
+    layout = layout or dict(root=ATHENAK_ROOT, cells=ATHENAK_CELLS,
+                            refine=ATHENAK_REFINE)
+    path = directory / "athenak.bin"
+    t0 = time.perf_counter()
+    mock_athenak.write_blocks(str(path.with_suffix(".part")), p, **layout)
+    path.with_suffix(".part").rename(path)
+    return path, time.perf_counter() - t0
+
+
+def _wait_for(path: pathlib.Path, limit_s=600.0) -> None:
+    """Wait until ``path`` exists (the main process writes phase 18's
+    file while phase 3's jobs run)."""
+    t0 = time.perf_counter()
+    while not path.exists():
+        if time.perf_counter() - t0 > limit_s:
+            raise RuntimeError(f"{path} was not written")
+        time.sleep(0.5)
+
+
+def athenak_snapshot(path, dtype, table=None) -> tuple:
+    """The AthenaK file at ``path`` on the card in ``dtype`` through
+    load_athenak, with its neighbour table (``table``: a grid of the same
+    file whose table to take): (grid, load seconds, table seconds)."""
+    import dataclasses
+    import torch
+    from blacklight_tpu_torch import pipeline
+    from blacklight_tpu_torch.grid.amr import with_amr_table
+    from blacklight_tpu_torch.grid.athenak import load_athenak
+    device = pipeline.resolve_device("cuda")
+    t0 = time.perf_counter()
+    grid = load_athenak(str(path), device=device, dtype=dtype)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if table is not None:
+        grid = dataclasses.replace(grid, amr_table=table.amr_table,
+                                   loc_parity=table.loc_parity)
+    else:
+        grid = with_amr_table(grid)
+        torch.cuda.synchronize()
+    return grid, t1 - t0, time.perf_counter() - t1
+
+
+def _athenak_config(name="golden_sim_rk4_32.input", **overrides):
+    """``name`` as an AthenaK configuration (the snapshot is passed to the
+    renderer) with ATHENAK_FALLBACK."""
+    from blacklight_tpu_torch.constants import Coordinates, SimulationFormat
+    return _sim_config(name, simulation_format=SimulationFormat.athenak,
+                       simulation_coord=Coordinates.cks,
+                       **{**ATHENAK_FALLBACK, **overrides})
+
+
+def _athenak_cell_config(cell, precision="float32", **overrides):
+    """Phase 18's ``cell``: phase 7's (1024^2, rk4, 2000 steps)."""
+    name, sampling_overrides = ATHENAK_RUNS[cell]
+    return _athenak_config(name, camera_resolution=ATHENAK_RES,
+                           precision=precision, ray_integrator="rk4",
+                           ray_max_steps=ATHENAK_STEPS,
+                           **sampling_overrides, **overrides)
+
+
+def _athenak_pol_config(precision="float32"):
+    return _athenak_config("golden_polarized_rk4_32.input",
+                           camera_resolution=ATHENAK_RES, precision=precision,
+                           ray_integrator="rk4", ray_max_steps=ATHENAK_STEPS,
+                           image_rotation_split=False)
+
+
+def athenak_plain_subset(cell) -> tuple:
+    """Phase 3: the plain version on phase 18's ``cell`` on every
+    PLAIN_STRIDE-th ray, on the card (its block search over 568 blocks
+    made the version on one host core 1.6-1.9x slower, PERF.md), once the
+    main process has written the file (athenak_path()): (their positions,
+    (I_nu, flags, n_samples), seconds), numpy."""
+    import torch
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+    path = athenak_path()
+    _wait_for(path)
+    grid, _, _ = athenak_snapshot(path, torch.float32)
+    args, kwargs = _sim_args(_athenak_cell_config(cell), grid)
+    pick = torch.arange(0, args[0].shape[0], PLAIN_STRIDE,
+                        device=args[0].device)
+    sub = (*(a[pick].contiguous() for a in args[:3]), *args[3:])
+    out, t_p = _timed(sk.render_simulation_reference, *sub, **kwargs)
+    return (sub[0].cpu().numpy(), [o.cpu().numpy() for o in out], t_p)
+
+
+def athenak_pol_subset(precision) -> tuple:
+    """Phase 3: the plain polarized version on phase 18's polarized cell
+    in ``precision`` on every ATHENAK_POL_STRIDE-th ray of the float32
+    camera's (float64 widens them), on one host core: (their positions,
+    Stokes, seconds)."""
+    import torch
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    torch.set_num_threads(1)
+    path = athenak_path()
+    _wait_for(path)
+    grid, _, _ = athenak_snapshot(path, torch.float32)
+    card_args, _, _ = _pol_args(_athenak_pol_config(), grid)
+    if precision == "float64":
+        grid, _, _ = athenak_snapshot(path, torch.float64, table=grid)
+    sub, kwargs, geom = _host_subset(
+        _athenak_pol_config(), card_args, _host_grid(grid),
+        ATHENAK_POL_STRIDE,
+        _athenak_pol_config("float64") if precision == "float64" else None)
+    del card_args, grid
+    out, t_p = _timed(pk.render_polarized_reference, *sub, **kwargs)
+    return sub[0].numpy(), _pol_stokes(out, sub, geom, False), t_p
+
+
+def _athenak_check_args(name, precision, **overrides):
+    """The small AthenaK check's configuration and snapshot
+    (ATHENAK_CHECK_LAYOUT, written to a temporary file)."""
+    import torch
+    dtype = torch.float32 if precision == "float32" else torch.float64
+    with tempfile.TemporaryDirectory(dir=ROOT / "build" / "kernels") as tmp:
+        path, _ = write_athenak_file(pathlib.Path(tmp), ATHENAK_CHECK_LAYOUT)
+        grid, _, _ = athenak_snapshot(path, dtype)
+    return _athenak_config(name, precision=precision, **overrides), grid
+
+
+# Phase 3's checks: (population, integrator, precision, sampling)
+ATHENAK_SAMPLING = {"interblock": {"simulation_block_interp": True},
+                    "trilinear": {}, "nearest": {"simulation_interp": False}}
+ATHENAK_CHECKS = (("thermal", "rk4", "float64", "interblock"),
+                  ("thermal", "rk4", "float64", "nearest"),
+                  ("mixture", "rk4", "float64", "interblock"),
+                  ("thermal", "dp", "float32", "trilinear"))
+
+
+def check_athenak_simulation(population, integrator, precision,
+                             sampling_name) -> tuple:
+    """The CKS instantiation of the simulation kernel (thermal or the
+    mixture) against its plain version at ATHENAK_CHECK_RES^2: rk4 float64
+    exact (rtol 1e-9, 400 steps of 0.04), dp float32 statistical (steps of
+    0.04 within the input's budget of 2000)."""
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+    steps = MIX_CHECK_STEPS if integrator != "dp" else {"ray_step": 0.04}
+    cfg, grid = _athenak_check_args(
+        "golden_sim_rk4_32.input" if population == "thermal" else MIX_INPUT,
+        precision, camera_resolution=ATHENAK_CHECK_RES,
+        ray_integrator=integrator, **ATHENAK_SAMPLING[sampling_name],
+        **steps)
+    args, kwargs = _sim_args(cfg, grid)
+    mode = sk.kernel_mode(grid, args[5].sampler)
+    counts = sk.MODE_LAUNCHES if population == "thermal" \
+        else sk.MIXTURE_MODE_LAUNCHES
+    before = counts[mode]
+    out_k, t_k = _timed(sk.render_simulation, *args, **kwargs)
+    launched = counts[mode] - before
+    out_p, t_p = _timed(sk.render_simulation_reference, *args, **kwargs)
+    exact = integrator != "dp" and precision == "float64"
+    result = _check_exact(out_k, out_p, 1e-9 if exact else None)
+    result["ok"] = bool(result["ok"] and launched == 1
+                        and mode in (sk.CKS_BLOCKS, sk.CKS_INTERBLOCK))
+    return "athenak_kernel_vs_plain", dict(
+        population=population, integrator=integrator, precision=precision,
+        sampling=sampling_name, kernel_mode=mode, blocks=grid.n_blocks,
+        cks_launches=launched, kernel_s=t_k, plain_s=t_p, **result)
+
+
+def check_athenak_phase() -> tuple:
+    """The CKS phase kernel against its plain version at
+    ATHENAK_CHECK_RES^2 (MIX_CHECK_STEPS), exact interblock sampling: the
+    second phase of MIX_PHASE_STEPS from the kernel's carried state after
+    the first, rk4 float64 exact."""
+    import numpy as np
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+    cfg, grid = _athenak_check_args(
+        "golden_sim_rk4_32.input", "float64",
+        camera_resolution=ATHENAK_CHECK_RES, ray_integrator="rk4",
+        **ATHENAK_SAMPLING["interblock"], **MIX_CHECK_STEPS)
+    args, _ = _sim_args(cfg, grid)
+    before = sk.PHASE_MODE_LAUNCHES[sk.CKS_INTERBLOCK]
+    out_k, out_p, t_k, t_p, rays, samples = _second_phase(
+        args, "rk4", MIX_PHASE_STEPS)
+    launched = sk.PHASE_MODE_LAUNCHES[sk.CKS_INTERBLOCK] - before
+    result = _check_exact(out_k, out_p, 1e-9)
+    result["ok"] = bool(result["ok"] and launched == 2)
+    a, b = out_k[0].cpu().numpy(), out_p[0].cpu().numpy()
+    both = np.isfinite(a) & np.isfinite(b)
+    result["max_abs_err"] = float(np.max(np.abs(a[both] - b[both]))) \
+        if both.any() else 0.0
+    return "athenak_phase_kernel_vs_plain", dict(
+        integrator="rk4", precision="float64", phase_steps=MIX_PHASE_STEPS,
+        phase_rays=rays, phase_samples=samples, cks_launches=launched,
+        kernel_s=t_k, plain_s=t_p, **result)
+
+
+def athenak_host_prep() -> dict:
+    """Phase 18's host work, which the main process does while phase 3's
+    jobs run: the AthenaK file (athenak_path()), with the writer's
+    seconds and the file's size."""
+    path, write_s = write_athenak_file(ATHENAK_DIR)
+    return {"path": path, "write_s": write_s,
+            "file_mb": path.stat().st_size / 1e6}
+
+
+def athenak_path() -> pathlib.Path:
+    """Where athenak_host_prep writes phase 18's file."""
+    return ATHENAK_DIR / "athenak.bin"
+
+
+def phase_athenak_full_width(card: str, grids: dict, checks: dict,
+                             host: dict) -> list:
+    """Phase 18; ``checks``: phase 3's AthenaK results ("plain" by cell,
+    "pol_plain", "pol_truth", "phase"); ``host``: athenak_host_prep's
+    result (the file, written while phase 3 ran). Returns the kernels
+    line's entries."""
+    import numpy as np
+    import torch
+    from blacklight_tpu_torch import pipeline, pipeline_simulation as ps
+    from blacklight_tpu_torch.ops import formula_kernel as fk
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+
+    res, n = ATHENAK_RES, ATHENAK_RES * ATHENAK_RES
+    t_phase = time.perf_counter()
+    path = host["path"]
+    device = torch.device("cuda", torch.cuda.current_device())
+    allocated = torch.cuda.memory_allocated(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    memory = {"allocated_bytes_at_entry": allocated,
+              "allocated_bytes_after_gc": torch.cuda.memory_allocated(device)}
+    grid, load_s, table_s = athenak_snapshot(path, torch.float32)
+    if "mb_amr" not in grids:
+        grids["mb_amr"] = mesh_grid("amr", torch.float32)
+    emit("athenak_snapshot", card=card, blocks=grid.n_blocks,
+         cells=int(grid.prim[0].numel()),
+         levels=sorted(set(grid.levels.tolist())),
+         block_cells=list(grid.prim.shape[:1:-1]),
+         half_width=float(grid.host_faces[0].max()),
+         file_mb=host["file_mb"], write_s=host["write_s"],
+         load_athenak_s=load_s, neighbour_table_s=table_s,
+         table_mb=grid_bytes(grid) / 1e6, **memory,
+         route_free_bytes=pk.free_device_bytes(device))
+
+    # each cell through pipeline.run, every count zeroed just before and
+    # read just after
+    expect = {"athenak_amr": sk.CKS_INTERBLOCK, "athenak": sk.CKS_BLOCKS,
+              "athenak_mix": sk.CKS_BLOCKS, "athenak_pol": sk.CKS_BLOCKS}
+    images, launches = {}, {}
+    for cell, mode in expect.items():
+        cfg = _athenak_pol_config() if cell == "athenak_pol" \
+            else _athenak_cell_config(cell)
+        cfg.output_file = str(path.parent / f"{cell}.npz")
+        kind = {"athenak_mix": "mixture",
+                "athenak_pol": "derive"}.get(cell, "simulation")
+        _zero_fmks_counts(fk, sk, pk)
+        arrays, run_s = _timed(pipeline.run, cfg, quiet=True, device="cuda",
+                               grid=grid)
+        counts = _fmks_counts(fk, sk, pk)
+        image = arrays["I_nu"]
+        finite = np.isfinite(image)
+        if kind == "derive":
+            # the route's three kernels, its derive launches all CKS
+            stages = dict(pk.STAGE_LAUNCHES)
+            only = (all(stages.values())
+                    and counts["derive"][mode] == stages["derive"]
+                    and counts["polarized"] == sum(stages.values())
+                    and not (counts["formula"] or sum(counts["simulation"])
+                             or sum(counts["phase"])
+                             or sum(counts["derive_mixture"])))
+        else:
+            only = _only_mode(counts, kind, mode)
+        ok = bool(image.shape == (res, res) and finite.all() and only
+                  and np.nanmax(image) > 0.0)
+        if cell == "athenak_pol":
+            ok = ok and all(np.isfinite(arrays[k]).all() for k in STOKES)
+        emit("athenak_main_path", cell=cell, resolution=res,
+             precision="float32", integrator="rk4", max_steps=ATHENAK_STEPS,
+             kernel_mode=mode, seconds=run_s, launches=counts,
+             stage_launches=dict(pk.STAGE_LAUNCHES) if kind == "derive"
+             else None, nan_pixels=int((~finite).sum()),
+             max_I_nu=float(np.nanmax(image)), ok=ok)
+        if not ok:
+            raise RuntimeError(f"{cell}: the main path did not render through "
+                               f"the CKS kernel of its mode: {counts}")
+        images[cell] = image
+        launches[cell] = counts[kind][mode] if kind != "derive" \
+            else counts["polarized"]
+
+    # athenak_amr's run again, warm (its first run is the grid's first)
+    _, warm_s = _timed(pipeline.run, _athenak_cell_config("athenak_amr"),
+                       quiet=True, device="cuda", grid=grid)
+    emit("athenak_warm_run", cell="athenak_amr", card=card,
+         seconds=warm_s)
+
+    # the phased route on athenak_amr: bit for bit its monolithic image
+    ps.KERNEL_PHASED = True
+    try:
+        _zero_fmks_counts(fk, sk, pk)
+        phased, phased_s = _timed(pipeline.run,
+                                  _athenak_cell_config("athenak_amr"),
+                                  quiet=True, device="cuda", grid=grid)
+        counts = _fmks_counts(fk, sk, pk)
+    finally:
+        ps.KERNEL_PHASED = False
+    a, b = phased["I_nu"], images["athenak_amr"]
+    same = bool(np.array_equal(np.isnan(a), np.isnan(b))
+                and np.array_equal(a[~np.isnan(a)], b[~np.isnan(b)]))
+    phase_launches = counts["phase"][sk.CKS_INTERBLOCK]
+    emit("athenak_phased", resolution=res, card=card, seconds=phased_s,
+         phase_steps=ps.KERNEL_PHASE_STEPS, launches=counts,
+         identical_to_monolithic=same)
+    if not same or not _only_mode(counts, "phase", sk.CKS_INTERBLOCK):
+        raise RuntimeError("the CKS phased route launched no CKS phase "
+                           "kernel, another kernel, or its image differs "
+                           f"from the monolithic one: {counts}")
+
+    # each kernel alone in spatial_order, best of 3 in turns with phase
+    # 14's mb-amr, each held to phase 3's plain version on every
+    # PLAIN_STRIDE-th ray of the camera's
+    cells = {"mb_amr": _sim_args(_mesh_cell_config("mb_amr", "float32",
+                                                   res=res),
+                                 grids["mb_amr"])}
+    cells.update({c: _sim_args(_athenak_cell_config(c), grid)
+                  for c in ATHENAK_RUNS})
+    bundles = {c: _spatial(args) for c, (args, _) in cells.items()}
+    kwargs = cells["mb_amr"][1]
+    best, times, outs = _best_in_turns({
+        c: (lambda b=b: sk.render_simulation(*b, **kwargs))
+        for c, b in bundles.items()})
+    entries, pick = [], np.arange(0, n, PLAIN_STRIDE)
+    kinds = {"athenak_amr": "simulation_cks_interblock",
+             "athenak": "simulation_cks", "athenak_mix":
+             "simulation_mixture_cks"}
+    names = {"athenak_amr": "simulation_mode_kernel (CKS interblock)",
+             "athenak": "simulation_mode_kernel (CKS blocks)",
+             "athenak_mix": "simulation_mixture_kernel (CKS blocks)"}
+    for c in ATHENAK_RUNS:
+        args = cells[c][0]
+        positions, plain, t_plain = checks["plain"][c]
+        if not np.array_equal(positions, args[0][pick].cpu().numpy()):
+            raise RuntimeError("the plain version traced other rays")
+        out_cam = sk.render_simulation(*args, **kwargs)
+        gate = gate_outputs([out_cam[0].cpu().numpy()[pick]], [plain[0]])
+        mean = float(outs[c][2].double().mean())
+        b = bound(kinds[c], "rk4", "float32", n, mean,
+                  in_bytes=grid_bytes(grid), out_values=1)
+        emit("athenak_timing", cell=c, resolution=res, card=card,
+             order="spatial_order", kernel_s_runs=times[c],
+             kernel_ms=best[c] * 1e3, mb_amr_ms=best["mb_amr"] * 1e3,
+             over_mb_amr=best[c] / best["mb_amr"],
+             mean_n_samples=mean, plain_ms=t_plain * 1e3,
+             plain_rays=pick.size, gate="statistical (bench.py:181-186)",
+             **gate, **b, kernel_over_bound=best[c] * 1e3 / b["bound_ms"],
+             clocks_power=smi(["nvidia-smi", "--query-gpu=clocks.sm,"
+                               "power.draw,temperature.gpu",
+                               "--format=csv,noheader"]))
+        if not gate["ok"]:
+            raise RuntimeError(f"{c} disagrees with plain at {res}^2: {gate}")
+        entries.append({
+            "name": names[c], "route": "cuda", "source": ATHENAK_SOURCE,
+            "replaces": SIM_KERNEL_REPLACES, "cell": c,
+            "launches": launches[c], "max_abs_err": gate["max_abs_err"],
+            "ms": best[c] * 1e3, "plain_ms": t_plain * 1e3,
+            "plain_rays": int(pick.size),
+            **{k: b[k] for k in ("bound_ms", "bound_by")},
+            "mb_amr_ms": best["mb_amr"] * 1e3, "library_ms": None})
+
+    # the CKS phase kernel on the route's own second phase at full width,
+    # best of 3 in turns with the same second phase of the clamped
+    # trilinear cell and of mb-amr (which sampling, which grid makes it
+    # slower)
+    phase_check = checks["phase"]
+    steps = ps.KERNEL_PHASE_STEPS
+    firsts = {c: _first_phase(cells[c][0], "rk4", steps)
+              for c in ("athenak_amr", "athenak", "mb_amr")}
+    second = {c: {"kernel_s_runs": []} for c in firsts}
+    for _ in range(3):
+        for c, (carry0, index, phase) in firsts.items():
+            carry = sk.SimCarry(*(t.clone() for t in carry0))
+            second[c]["kernel_s_runs"].append(_timed(
+                sk.render_simulation_phase, carry, index, steps, steps,
+                *phase)[1])
+            second[c].update(rays=int(index.numel()), samples=int(
+                (carry.n_samp[index.long()]
+                 - carry0.n_samp[index.long()]).sum()))
+    for c in second:
+        second[c]["kernel_ms"] = min(second[c]["kernel_s_runs"]) * 1e3
+    del firsts, carry
+    t2_k = second["athenak_amr"]["kernel_ms"] / 1e3
+    rays2, samples2 = (second["athenak_amr"][k] for k in ("rays", "samples"))
+    b_phase = phase_bound(rays2, samples2, "float32", grid_bytes(grid),
+                          kind="simulation_cks_interblock")
+    emit("athenak_phase_timing", resolution=res, card=card,
+         phase_steps=steps, second_phase_rays=rays2,
+         second_phase_samples=samples2, second_phase_kernel_ms=t2_k * 1e3,
+         second_phase_runs=second["athenak_amr"]["kernel_s_runs"],
+         **{f"{c}_second_phase": second[c] for c in ("athenak", "mb_amr")},
+         over_mb_amr=t2_k * 1e3 / second["mb_amr"]["kernel_ms"], **b_phase)
+    entries.append({
+        "name": "simulation_phase_mode_kernel (CKS interblock)",
+        "route": "cuda", "source": SIM_KERNEL_SOURCE,
+        "replaces": PHASE_REPLACES, "launches": phase_launches,
+        "max_abs_err": phase_check["max_abs_err"], "ms": t2_k * 1e3,
+        "plain_ms": phase_check["plain_s"] * 1e3,
+        "plain_rays": phase_check["phase_rays"],
+        "kernel_ms_at_plain_rays": phase_check["kernel_s"] * 1e3,
+        **{k: b_phase[k] for k in ("bound_ms", "bound_by")},
+        "library_ms": None})
+
+    # the polarized route with the CKS derive kernel, best of 3 in turns
+    # with phase 14's polarized route on mb-amr (interblock sampling)
+    (args_k, kw_p, geom), _ = _timed(_pol_args, _athenak_pol_config(), grid)
+    args_m, _, _ = _pol_args(_pol_config(
+        camera_resolution=res, precision="float32", ray_integrator="rk4",
+        ray_max_steps=ATHENAK_STEPS, image_rotation_split=False,
+        simulation_block_interp=True), grids["mb_amr"])
+    pol = {"athenak": _spatial(args_k), "mb_amr": _spatial(args_m)}
+    best_p, times_p, outs_p = _best_in_turns({
+        c: (lambda b=b: pk.render_polarized(*b, **kw_p))
+        for c, b in pol.items()})
+    stages = {c: _pol_stage_times(b, kw_p)["stage_ms"]
+              for c, b in pol.items()}
+    # held as phase 9 holds its route (truth_gate) and the float64 route
+    # exactly, on the same rays
+    positions, plain_stokes, t_plain_p = checks["pol_plain"]
+    positions64, truth, _ = checks["pol_truth"]
+    pol_pick = np.arange(0, n, ATHENAK_POL_STRIDE)
+    if not (np.array_equal(positions, args_k[0][pol_pick].cpu().numpy())
+            and np.array_equal(positions64, positions.astype(np.float64))):
+        raise RuntimeError("the plain version traced other rays")
+    ours = _pol_stokes(pk.render_polarized(*args_k, **kw_p), args_k, geom,
+                       False)
+    ours = {k: v[pol_pick] for k, v in ours.items()}
+    pol_gate = polarized_gate(ours, plain_stokes, exact=False)
+    to_truth = truth_gate(ours, plain_stokes, truth)
+    grid64, _, _ = athenak_snapshot(path, torch.float64, table=grid)
+    args64, kw64, geom64 = _pol_args(_athenak_pol_config("float64"), grid64)
+    pick_t = torch.as_tensor(pol_pick, device=args64[0].device)
+    sub64 = (*(a[pick_t].contiguous() for a in (args_k[0].double(),
+                                                 args_k[1].double(),
+                                                 args_k[2].double())),
+             args_k[3].double(), *args64[4:-1], args_k[-1])
+    gate64 = polarized_gate(_pol_stokes(pk.render_polarized(*sub64, **kw64),
+                                        sub64, geom64, False), truth, True)
+    del grid64
+    mean_p = float(outs_p["athenak"][3].double().mean())
+    b_pol = bound("polarized_cks", "rk4", "float32", n, mean_p,
+                  in_bytes=grid_bytes(grid), out_values=16,
+                  extra_out_bytes=12)
+    emit("athenak_pol_timing", resolution=res, card=card,
+         order="spatial_order", kernel_s_runs=times_p,
+         route_ms=best_p["athenak"] * 1e3,
+         mb_amr_route_ms=best_p["mb_amr"] * 1e3,
+         over_mb_amr=best_p["athenak"] / best_p["mb_amr"],
+         stage_ms=stages, mean_n_samples=mean_p, plain_ms=t_plain_p * 1e3,
+         plain_rays=pol_pick.size, float32_plain=pol_gate,
+         float64_truth=to_truth, float64_route=gate64,
+         gate="float32: NaN sets, within 3x the plain version's error to "
+              "float64 (truth_gate); float64 route exact (polarized_gate)",
+         **b_pol)
+    if not (pol_gate["same_nan"] and to_truth["ok"] and gate64["ok"]):
+        raise RuntimeError(f"the CKS polarized route disagrees with plain "
+                           f"at {res}^2: {pol_gate}, against float64 "
+                           f"{to_truth}, float64 route {gate64}")
+    entries.append({
+        "name": "polarized_kernel (CKS derive)", "route": "cuda",
+        "source": POL_KERNEL_SOURCE, "replaces": POL_KERNEL_REPLACES,
+        "launches": launches["athenak_pol"],
+        "max_abs_err": pol_gate["max_abs_err"],
+        "max_abs_err_float64": gate64["max_abs_err"],
+        "ms": best_p["athenak"] * 1e3,
+        "plain_ms": t_plain_p * 1e3, "plain_rays": int(pol_pick.size),
+        **{k: b_pol[k] for k in ("bound_ms", "bound_by")},
+        "mb_amr_ms": best_p["mb_amr"] * 1e3,
+        "derive_ms": stages["athenak"]["derive"],
+        "mb_amr_derive_ms": stages["mb_amr"]["derive"],
+        "library_ms": None})
+    emit("athenak_phase", card=card, seconds=time.perf_counter() - t_phase)
+    return entries
+
+
 # Phase 3's kernel-against-plain checks, emitted in this order.
 CHECKS = (
     (check_formula_tangents, ("rk4", "float64")),
@@ -4573,6 +5188,21 @@ PHASE3_SECONDS = {
     ("fmks_plain_subset", ("harm3d",)): 45.0,
     ("fmks_plain_subset", ("fmks",)): 40.0,
     ("check_fmks_simulation", ("thermal", "dp", "float32", True)): 30.0,
+    # the AthenaK jobs (measured on one H100: the plain subsets
+    # then on one host core each, 135.6, 85.4 and 84.4 s; on the card
+    # estimated from the mesh cells' of their sampling, which they now
+    # wait for the main process's file, ~9 s, to start)
+    ("athenak_plain_subset", ("athenak_amr",)): 100.0,
+    ("athenak_plain_subset", ("athenak_mix",)): 60.0,
+    ("athenak_plain_subset", ("athenak",)): 55.0,
+    ("athenak_pol_subset", ("float64",)): 35.0,
+    ("athenak_pol_subset", ("float32",)): 30.0,
+    ("check_athenak_simulation", ("thermal", "dp", "float32",
+                                  "trilinear")): 30.0,
+    ("check_athenak_simulation", ("thermal", "rk4", "float64",
+                                  "interblock")): 25.0,
+    ("check_athenak_simulation", ("mixture", "rk4", "float64",
+                                  "interblock")): 25.0,
 }
 
 
@@ -4585,17 +5215,23 @@ def main(argv=None) -> int:
     started = time.perf_counter()
     card = phase_device()
     import torch
-    phase_build()
+    library = phase_build()
     if opts.chunk_sweep:
+        phase_build_report(library)
         phase_pol_chunks(card, full_width_snapshot(torch.float32))
     else:
         with tempfile.TemporaryDirectory(dir=ROOT / "build" / "kernels") \
                 as tmp:
             tmp = pathlib.Path(tmp)
+            shutil.rmtree(ATHENAK_DIR, ignore_errors=True)
+            ATHENAK_DIR.mkdir(parents=True)
             with multiprocessing.get_context("spawn").Pool(WORKERS) as pool:
                 (truth, subsets, pol_stages, mesh_checks, aux, mixture_checks,
-                 fmks_checks, fmks_host) = phase_checks(
-                    pool, prep=lambda: fmks_host_prep(tmp))
+                 fmks_checks, athenak_checks,
+                 (athenak_host, fmks_host, _)) = phase_checks(
+                    pool, prep=lambda: (athenak_host_prep(),
+                                        fmks_host_prep(tmp),
+                                        phase_build_report(library)))
             phase_goldens(tmp)
             formula = phase_full_width(tmp, card, subsets["k11"])
             phase_sim_goldens(tmp)
@@ -4611,14 +5247,18 @@ def main(argv=None) -> int:
             mixture = phase_mixture_full_width(tmp, card, grids,
                                                mixture_checks)
             fmks = phase_fmks_full_width(card, grids, fmks_checks, fmks_host)
+            athenak = phase_athenak_full_width(card, grids, athenak_checks,
+                                               athenak_host)
+            shutil.rmtree(ATHENAK_DIR, ignore_errors=True)
             grids.clear()
             multi = phase_multi_full_width(tmp, card, subsets["k13"])
             tangent = phase_grad_full_width(card, subsets["k14"])
             phase_fit(card)
-        emit("total", seconds=time.perf_counter() - started)
+        emit("total", seconds=time.perf_counter() - started,
+             epoch_s=time.time())
         print(json.dumps({"kernels": [formula, multi, tangent, simulation,
                                       phased, polarized, *mesh, *mixture,
-                                      *fmks]}),
+                                      *fmks, *athenak]}),
               flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

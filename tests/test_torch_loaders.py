@@ -11,8 +11,9 @@ pipeline.run on the CPU gives the JAX run's image at 16^2 with 400 steps
 of 0.04 (rk4 float64, rtol 1e-8; polarized at 8^2 with the polarized
 float64 gates: I, Q, U at rtol 1e-8, V at 1e-5). Then the port's own
 versions of tests/test_loaders.py:188-241 (each format's image against
-the Athena++ image of the same torus) and the refusals of what the port
-does not read yet (ROADMAP B.4, B.2), before any load.
+the Athena++ image of the same torus) and the refusals, before any
+load, of what the port does not read yet (ROADMAP B.2) and of
+coordinates a format does not have.
 
 Each package's FMKS table (2048^2, 60 bisection rounds) is built once per
 set of parameters here (a cache around generate_sks_map), not once per
@@ -356,27 +357,32 @@ def test_image_fmks_matches_athena_grid_aligned(tmp_path):
                                atol=2e-5 * np.nanmax(image_a))
 
 
-# name -> (overrides, the ROADMAP item the refusal names)
+# name -> (overrides, the error, raised before any load): the ROADMAP
+# item a refusal names, or a loader's coordinate check (the JAX package's
+# message). AthenaK is read: its loader opens the (missing) file.
 REFUSED = {
     "athenak": ({"simulation_format": "athenak",
-                 "simulation_coord": "cks"}, "B.4"),
-    "cks": ({"simulation_coord": "cks"}, "B.4"),
+                 "simulation_coord": "cks"}, FileNotFoundError, None),
+    "cks": ({"simulation_coord": "cks"}, BlacklightError,
+            "Invalid simulation_coord for Harm format."),
     "harm3d_cks": ({"simulation_format": "harm3d",
-                    "simulation_coord": "cks"}, "B.4"),
+                    "simulation_coord": "cks"}, BlacklightError,
+                   "Invalid simulation_coord for Harm format."),
     "code_kappa": ({"plasma_model": "code_kappa",
-                    "simulation_kappa_name": "KAPPA"}, "B.2"),
+                    "simulation_kappa_name": "KAPPA"}, BlacklightError,
+                   "(ROADMAP B.2)"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_refused_before_any_load(tmp_path, case):
-    """What the port does not read yet raises naming its ROADMAP item,
-    before the (missing) file is opened."""
-    overrides, item = REFUSED[case]
+    """What the port does not read yet raises naming its ROADMAP item, and
+    a loader's coordinate check raises, before the (missing) file is
+    opened; an AthenaK configuration passes both and fails opening it."""
+    overrides, error, message = REFUSED[case]
     paths = {"iharm3d": tmp_path / "missing.h5", "dir": tmp_path}
     cfg = parse_config(_text(paths, "iharm3d", **overrides))
-    with pytest.raises(BlacklightError,
-                       match=re.escape(f"(ROADMAP {item})")):
+    with pytest.raises(error, match=re.escape(message) if message else None):
         pipeline.run(cfg, quiet=True, device="cpu")
 
 

@@ -326,8 +326,8 @@ def test_check_grid_blocks(files):
 
 
 def test_simulation_units_do_not_contract():
-    """The units of many blocks, of FMKS and of the mixture of populations
-    build, as the single-block units, without multiply-add contraction:
+    """The units of many blocks, of FMKS, of CKS grids and of the mixture
+    of populations build, as the single-block units, without multiply-add contraction:
     their kernels round as the plain version does, and a phased render on
     many blocks stays the monolithic kernel's bit for bit."""
     from blacklight_tpu_torch.ops import _build
@@ -344,5 +344,9 @@ def test_simulation_units_do_not_contract():
                      "simulation_fmks.cu", "simulation_fmks_dp.cu",
                      "simulation_mixture_fmks.cu",
                      "simulation_phase_fmks.cu",
-                     "simulation_phase_mixture_fmks.cu"}
+                     "simulation_phase_mixture_fmks.cu",
+                     "simulation_cks.cu", "simulation_cks_dp.cu",
+                     "simulation_mixture_cks.cu",
+                     "simulation_phase_cks.cu",
+                     "simulation_phase_mixture_cks.cu"}
     assert all(_build.CONTRACT[u] is False for u in units)

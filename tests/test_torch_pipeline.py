@@ -114,10 +114,12 @@ def test_npy_output(tmp_path):
 
 
 # Configurations outside the port's slice, each with the ROADMAP item its
-# error must name
+# error must name; a simulation configuration without its simulation
+# options (every snapshot format is read) with the error of the first
+# option it lacks
 OUT_OF_SLICE = {
     "simulation": ({"model_type": "simulation", "image_polarization": False},
-                   "ROADMAP B"),
+                   "Must specify simulation_multiple"),
     "adaptive": ({"adaptive_max_level": 1}, "A.9"),
     "geodesic_save": ({"checkpoint_geodesic_save": True,
                        "checkpoint_geodesic_file": "g.npz"}, "A.8"),
@@ -157,6 +159,7 @@ def test_import_does_not_load_jax(tmp_path):
         "    if not m.name.endswith('__main__'):  # runs the CLI\n"
         "        importlib.import_module(m.name)\n"
         "import blacklight_tpu_torch.cli\n"
+        "assert 'blacklight_tpu_torch.grid.athenak' in sys.modules\n"
         "from blacklight_tpu_torch import pipeline, read_config\n"
         f"cfg = read_config({str(inp)!r})\n"
         "cfg.camera_resolution = 8\n"

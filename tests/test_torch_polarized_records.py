@@ -443,5 +443,7 @@ def test_polarized_units_do_not_contract():
                      "polarized_derive_mixture_f64.cu",
                      "polarized_derive_mixture_blocks.cu",
                      "polarized_derive_fmks.cu",
-                     "polarized_derive_fmks_f64.cu"}
+                     "polarized_derive_fmks_f64.cu",
+                     "polarized_derive_cks.cu",
+                     "polarized_derive_cks_f64.cu"}
     assert all(_build.CONTRACT[u] is False for u in units)

@@ -224,32 +224,35 @@ def test_grid_argument_skips_loading(tmp_path):
         pipeline_simulation.make_simulation_renderer(cfg, device="cpu")
 
 
-# Simulation configurations outside the port's slice, each with the
-# ROADMAP item its error must name
+# Simulation configurations the port refuses, each with what its error
+# must say: the ROADMAP item of a configuration outside the port's slice,
+# or the JAX package's coordinate errors (harm3d snapshots are read in SKS
+# only, grid/harm3d.py; an Athena++ file is SKS, not CKS, which is
+# AthenaK's)
 OUT_OF_SLICE = {
-    # harm3d snapshots are read (grid/harm3d.py), in SKS only; CKS is
-    # AthenaK's, the part of B.4 still to come
     "harm3d": ({"simulation_format": "harm3d", "simulation_coord": "cks"},
-               "B.4"),
-    "cks": ({"simulation_coord": "cks"}, "B.4"),
+               "Invalid simulation_coord for Harm format."),
+    "cks": ({"simulation_coord": "cks"},
+            "simulation_coord does not match the loaded grid's "
+            "coordinates."),
     "slow_light": ({"simulation_multiple": "true", "slow_light_on": "true",
                     "slow_chunk_size": 2, "slow_t_start": 0.0,
                     "slow_dt": 1.0, "slow_interp": "false",
                     "slow_num_images": 1, "slow_offset": 0,
                     "simulation_start": 0, "simulation_end": 1},
-                   "B.6"),
+                   "ROADMAP B.6)"),
     "code_kappa": ({"plasma_model": "code_kappa",
-                    "simulation_kappa_name": "kappa"}, "B.2"),
+                    "simulation_kappa_name": "kappa"}, "ROADMAP B.2)"),
     "adaptive": ({"adaptive_max_level": 1, "adaptive_block_size": 4,
-                  "adaptive_num_regions": 0}, "A.9"),
+                  "adaptive_num_regions": 0}, "ROADMAP A.9)"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(OUT_OF_SLICE))
 def test_out_of_slice_simulation_config_raises(tmp_path, case):
-    overrides, item = OUT_OF_SLICE[case]
+    overrides, message = OUT_OF_SLICE[case]
     cfg = _config(tmp_path, **overrides)
-    with pytest.raises(BlacklightError, match=re.escape(f"ROADMAP {item})")):
+    with pytest.raises(BlacklightError, match=re.escape(message)):
         pipeline.run(cfg, quiet=True, device="cpu")
     assert not (tmp_path / "out.npz").exists()
 
