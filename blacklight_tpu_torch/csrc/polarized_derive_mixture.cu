@@ -17,7 +17,7 @@ extern "C" int blacklight_polarized_derive_mixture(
     const void* directions, const void* momentum_factors, const void* freqs, int nf,
     const void* params, const void* table, const void* coords, const void* guides,
     const void* axes, int n_i, int n_j, int n_k, int mode, int nearest, int n_b,
-    const void* bounds, const void* amr, const void* parity, const void* map,
+    const void* bounds, const void* amr, const void* parity, const void* map, const void* kappa,
     void* geometry_records, void* coefficient_records, void* bad, void* stream) {
   if (n_slots <= 0) return 0;
   const bl::SimGridArgs grid{static_cast<const float*>(table),
@@ -33,7 +33,8 @@ extern "C" int blacklight_polarized_derive_mixture(
                              bounds,
                              static_cast<const int*>(amr),
                              static_cast<const int*>(parity),
-                             map};
+                             map,
+                             static_cast<const float*>(kappa)};
   if (cap < 1 || n_rays < 0 || n_warps < 0 ||
       static_cast<long long>(n_warps) * bl::POL_WARP < n_rays || nf < 1 ||
       nf > bl::POL_MAX_FREQUENCIES || !grid.valid()) {

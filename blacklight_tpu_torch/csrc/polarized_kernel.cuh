@@ -1094,6 +1094,8 @@ struct DeriveBlocks {
 // sample the reference would NaN (its coefficients are zeroed). The grid
 // is sampled in MODE (sim_sample.cuh SAMPLE_*); g is the thread's index.
 // The set and the grid by value, as the kernels' parameters are taken.
+// POP_MIXTURE: kappa is the electron entropy's cell table of a code_kappa
+// launch (null otherwise).
 template <typename T, bool GEOMETRY, int MODE, int POP = POP_THERMAL>
 __device__ __forceinline__ void derive_sample(long long g, SampleSet<T> set, long long n_slots,
                                               const T* __restrict__ directions,
@@ -1103,7 +1105,8 @@ __device__ __forceinline__ void derive_sample(long long g, SampleSet<T> set, lon
                                               SampleGrid<T, MODE> grid,
                                               T* __restrict__ geometry,
                                               T* __restrict__ coefficients,
-                                              int* __restrict__ bad) {
+                                              int* __restrict__ bad,
+                                              const float* __restrict__ kappa = nullptr) {
   using Forms = TypeForms<T>;
   const long long slot = g / POL_WARP;
   const int lane = static_cast<int>(g % POL_WARP);
@@ -1190,37 +1193,38 @@ __device__ __forceinline__ void derive_sample(long long g, SampleSet<T> set, lon
   const SksPoint<T> pt = sample_point<MODE>(c, x, y, z);
   const bool keep_geo =
       geometric_keep(c.cuts, pt.x, pt.y, pt.z, pt.r, c.camera_r, c.cam1, c.cam2, c.cam3);
-  T v[8];
+  T v[SampleValues<POP>];
   bool off_grid, sampled;
   if constexpr (MODE == SAMPLE_SINGLE) {
     off_grid = is_off_grid(grid, pt);
     sampled = keep_geo && !off_grid;
     if (sampled) {
       int hint[3] = {-1, -1, -1};  // one sample a thread: no previous cell
-      sample_cell(grid, pt, v, hint);
+      sample_cell(grid, pt, v, hint, kappa);
     }
   } else if constexpr (MODE == SAMPLE_FMKS) {
     // the map only where the sample is not cut
     int hint[3] = {-1, -1, -1};
-    sampled = keep_geo && sample_fmks(grid, pt, v, hint);
+    sampled = keep_geo && sample_fmks(grid, pt, v, hint, kappa);
     off_grid = keep_geo && !sampled;
   } else if constexpr (IsCks<MODE>) {
     // the block search in (x, y, z) only where the sample is not cut
     int hint[3] = {-1, -1, -1}, block = -1;
-    sampled = keep_geo && sample_cks<MODE>(grid, pt, v, hint, block);
+    sampled = keep_geo && sample_cks<MODE>(grid, pt, v, hint, block, kappa);
     off_grid = keep_geo && !sampled;
   } else {
     // the block search only where the sample is not cut
     int hint[3] = {-1, -1, -1}, block = -1;
-    sampled = keep_geo && sample_blocks<MODE>(grid, pt, v, hint, block);
+    sampled = keep_geo && sample_blocks<MODE>(grid, pt, v, hint, block, kappa);
     off_grid = keep_geo && !sampled;
   }
   if (!sampled) {
 #pragma unroll
-    for (int q = 0; q < 8; ++q) v[q] = T(0);
+    for (int q = 0; q < SampleValues<POP>; ++q) v[q] = T(0);
     if (keep_geo) {
       v[0] = pk.fallback_rho;
       v[1] = pk.fallback_pgas;
+      if constexpr (POP == POP_MIXTURE) v[8] = T(params[P_COUNT + M_FALLBACK_KAPPA]);
     }
   }
   FluidState<T> st;
@@ -1229,6 +1233,9 @@ __device__ __forceinline__ void derive_sample(long long g, SampleSet<T> set, lon
     fluid_state_cks(c, pt, v, st, ucon, bcon);
   } else {
     fluid_state(c, pt, v, st);
+  }
+  if constexpr (POP == POP_MIXTURE) {
+    code_kappa_state(MixConsts<T>(params + P_COUNT), v[0], v[8], st);
   }
   const bool b_zero = v[5] == T(0) && v[6] == T(0) && v[7] == T(0);
   const bool keep = keep_geo && !b_zero && value_keep(c, st);
@@ -1362,7 +1369,8 @@ __global__ void __launch_bounds__(POL_THREADS, DeriveBlocks<T>::value)
 // many, in any mode, instantiated in polarized_derive_mixture*.cu (and
 // SAMPLE_FMKS in polarized_derive_fmks*.cu, the CKS modes in
 // polarized_derive_cks*.cu); params holds the MixtureParam values after
-// P_COUNT.
+// P_COUNT, with the code_kappa temperature's, which reads the electron
+// entropy from `kappa` (n_b, n_k, n_j, n_i) float32.
 template <typename T, bool GEOMETRY, int MODE>
 __global__ void __launch_bounds__(POL_THREADS, DeriveBlocks<T>::value)
     polarized_derive_mixture_kernel(SampleSet<T> set, long long n_slots,
@@ -1370,11 +1378,12 @@ __global__ void __launch_bounds__(POL_THREADS, DeriveBlocks<T>::value)
                                     const T* __restrict__ momentum_factors,
                                     const T* __restrict__ freqs, int nf,
                                     const double* __restrict__ params,
-                                    SampleGrid<T, MODE> grid, T* __restrict__ geometry,
-                                    T* __restrict__ coefficients, int* __restrict__ bad) {
+                                    SampleGrid<T, MODE> grid, const float* __restrict__ kappa,
+                                    T* __restrict__ geometry, T* __restrict__ coefficients,
+                                    int* __restrict__ bad) {
   derive_sample<T, GEOMETRY, MODE, POP_MIXTURE>(
       static_cast<long long>(blockIdx.x) * POL_THREADS + threadIdx.x, set, n_slots, directions,
-      momentum_factors, freqs, nf, params, grid, geometry, coefficients, bad);
+      momentum_factors, freqs, nf, params, grid, geometry, coefficients, bad, kappa);
 }
 
 // The coherency tensor of each frequency of the launch: registers for one,
@@ -1551,8 +1560,8 @@ cudaError_t launch_polarized_derive(const PolDeriveArgs& a) {
     kernel<<<blocks, POL_THREADS, 0, a.stream>>>(
         a.set.view<T>(), a.n_slots, static_cast<const T*>(a.directions),
         static_cast<const T*>(a.momentum_factors), static_cast<const T*>(a.freqs), a.nf,
-        a.params, grid_view_of<T, MODE>(a.grid), static_cast<T*>(a.geometry_records),
-        static_cast<T*>(a.coefficient_records), a.bad);
+        a.params, grid_view_of<T, MODE>(a.grid), a.grid.kappa,
+        static_cast<T*>(a.geometry_records), static_cast<T*>(a.coefficient_records), a.bad);
   } else if constexpr (MODE == SAMPLE_SINGLE) {
     auto kernel =
         a.geometry ? polarized_derive_kernel<T, true> : polarized_derive_kernel<T, false>;

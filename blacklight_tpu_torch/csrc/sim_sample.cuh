@@ -306,10 +306,15 @@ __device__ __forceinline__ bool is_off_grid(const GridView<T>& grid, const SksPo
 // positivity repair of rho and pgas against the anchor cell (:225-226) and
 // the reference's float32 storage of samples (:189); v in table order
 // (rho, pgas, uu1..3, bb1..3). For a point on the grid; hint: each axis'
-// face count at the ray's previous sample (-1: none), updated.
-template <typename T>
+// face count at the ray's previous sample (-1: none), updated. With NV = 9
+// (the mixture's kernels) v[8] is the electron entropy of plasma_model =
+// code_kappa, blended from the cell table `kappa` (n_k, n_j, n_i) with the
+// same corners and weights and repaired against the anchor as rho is (0
+// where the launch has no such table).
+template <typename T, int NV>
 __device__ __forceinline__ void sample_cell(const GridView<T>& grid, const SksPoint<T>& p,
-                                            T (&v)[8], int (&hint)[3]) {
+                                            T (&v)[NV], int (&hint)[3],
+                                            const float* __restrict__ kappa = nullptr) {
   const int n_i = grid.ax[0].n, n_j = grid.ax[1].n, n_k = grid.ax[2].n;
   int i_m, j_m, k_m;
   T f_i, f_j, f_k;
@@ -329,7 +334,7 @@ __device__ __forceinline__ void sample_cell(const GridView<T>& grid, const SksPo
                   f_k * f_j * f_i};
   const long long anchor =
       (static_cast<long long>(k_m) * n_j + j_m) * static_cast<long long>(n_i) + i_m;
-  float anchor_rho = 0.0f, anchor_pgas = 0.0f;
+  float anchor_rho = 0.0f, anchor_pgas = 0.0f, anchor_kappa = 0.0f;
 #pragma unroll
   for (int corner = 0; corner < 8; ++corner) {
     const int dk = corner >> 2, dj = (corner >> 1) & 1, di = corner & 1;
@@ -346,11 +351,20 @@ __device__ __forceinline__ void sample_cell(const GridView<T>& grid, const SksPo
       const T term = w[corner] * T(prim_at(a, b, q));
       v[q] = corner == 0 ? term : v[q] + term;
     }
+    if constexpr (NV > 8) {
+      const float k = kappa != nullptr ? __ldg(kappa + cell) : 0.0f;
+      if (corner == 0) anchor_kappa = k;
+      const T term = w[corner] * T(k);
+      v[8] = corner == 0 ? term : v[8] + term;
+    }
   }
   if (v[0] <= T(0)) v[0] = T(anchor_rho);
   if (v[1] <= T(0)) v[1] = T(anchor_pgas);
+  if constexpr (NV > 8) {
+    if (v[8] <= T(0)) v[8] = T(anchor_kappa);
+  }
 #pragma unroll
-  for (int q = 0; q < 8; ++q) v[q] = T(static_cast<float>(v[q]));
+  for (int q = 0; q < NV; ++q) v[q] = T(static_cast<float>(v[q]));
 }
 
 // ---------------------------------------------------------------------------
@@ -497,10 +511,12 @@ __device__ __forceinline__ BlockAxis<T> locate_in_block(const GridAxis<T>& a, in
 
 // The trilinear blend of 8 cells (cell(corner) their table indices, in the
 // corner order of sample_cell), the positivity repair of rho and pgas
-// against corner 0 and the float32 storage of samples: sample_cell's sum.
-template <typename T, typename Cell>
+// against corner 0 and the float32 storage of samples: sample_cell's sum,
+// with its kappa channel where NV = 9.
+template <typename T, typename Cell, int NV>
 __device__ __forceinline__ void blend_cells(const float4* __restrict__ table, T f_i, T f_j, T f_k,
-                                            Cell cell, T (&v)[8]) {
+                                            Cell cell, T (&v)[NV],
+                                            const float* __restrict__ kappa = nullptr) {
   const T w[8] = {(T(1) - f_k) * (T(1) - f_j) * (T(1) - f_i),
                   (T(1) - f_k) * (T(1) - f_j) * f_i,
                   (T(1) - f_k) * f_j * (T(1) - f_i),
@@ -509,7 +525,7 @@ __device__ __forceinline__ void blend_cells(const float4* __restrict__ table, T 
                   f_k * (T(1) - f_j) * f_i,
                   f_k * f_j * (T(1) - f_i),
                   f_k * f_j * f_i};
-  float anchor_rho = 0.0f, anchor_pgas = 0.0f;
+  float anchor_rho = 0.0f, anchor_pgas = 0.0f, anchor_kappa = 0.0f;
 #pragma unroll
   for (int corner = 0; corner < 8; ++corner) {
     const long long c = cell(corner);
@@ -524,11 +540,20 @@ __device__ __forceinline__ void blend_cells(const float4* __restrict__ table, T 
       const T term = w[corner] * T(prim_at(a, b, q));
       v[q] = corner == 0 ? term : v[q] + term;
     }
+    if constexpr (NV > 8) {
+      const float k = kappa != nullptr ? __ldg(kappa + c) : 0.0f;
+      if (corner == 0) anchor_kappa = k;
+      const T term = w[corner] * T(k);
+      v[8] = corner == 0 ? term : v[8] + term;
+    }
   }
   if (v[0] <= T(0)) v[0] = T(anchor_rho);
   if (v[1] <= T(0)) v[1] = T(anchor_pgas);
+  if constexpr (NV > 8) {
+    if (v[8] <= T(0)) v[8] = T(anchor_kappa);
+  }
 #pragma unroll
-  for (int q = 0; q < 8; ++q) v[q] = T(static_cast<float>(v[q]));
+  for (int q = 0; q < NV; ++q) v[q] = T(static_cast<float>(v[q]));
 }
 
 // The cell index along one axis of an interblock corner (grid/sampling.py
@@ -557,9 +582,10 @@ __device__ __forceinline__ int interblock_index(int e, int par, int ck, bool upp
 // the next block's first centre in the flat centre array, or for the last
 // block the mirror through its upper face), and each corner's cell through
 // the neighbour table.
-template <typename T>
+template <typename T, int NV>
 __device__ __forceinline__ void sample_interblock(const BlockGridView<T>& g, const SksPoint<T>& p,
-                                                  int b, T (&v)[8], int (&hint)[3]) {
+                                                  int b, T (&v)[NV], int (&hint)[3],
+                                                  const float* __restrict__ kappa) {
   const T x[3] = {p.r, p.th, p.ph};
   int n[3], c[3], base[3];
   bool past[3];
@@ -614,15 +640,16 @@ __device__ __forceinline__ void sample_interblock(const BlockGridView<T>& g, con
                     idx[0];
                 return min(max(cell, 0LL), n_cells - 1);
               },
-              v);
+              v, kappa);
 }
 
 // The sample at a point in block b under SAMPLE_BLOCKS: the nearest cell
 // (no repair; its float32 values as they are), or trilinear interpolation
 // clamped to the block.
-template <typename T>
+template <typename T, int NV>
 __device__ __forceinline__ void sample_block(const BlockGridView<T>& g, const SksPoint<T>& p,
-                                             int b, T (&v)[8], int (&hint)[3]) {
+                                             int b, T (&v)[NV], int (&hint)[3],
+                                             const float* __restrict__ kappa) {
   const BlockAxis<T> oi = locate_in_block(g.cells.ax[0], b, p.r, hint[0]);
   const BlockAxis<T> oj = locate_in_block(g.cells.ax[1], b, p.th, hint[1]);
   const BlockAxis<T> ok = locate_in_block(g.cells.ax[2], b, p.ph, hint[2]);
@@ -634,6 +661,7 @@ __device__ __forceinline__ void sample_block(const BlockGridView<T>& g, const Sk
     const float4 c = __ldg(g.cells.table + 2 * cell + 1);
 #pragma unroll
     for (int q = 0; q < 8; ++q) v[q] = T(prim_at(a, c, q));
+    if constexpr (NV > 8) v[8] = T(kappa != nullptr ? __ldg(kappa + cell) : 0.0f);
     return;
   }
   const int i_m = min(max(oi.i_m, 0), n_i - 2);
@@ -645,22 +673,23 @@ __device__ __forceinline__ void sample_block(const BlockGridView<T>& g, const Sk
                 const int dk = corner >> 2, dj = (corner >> 1) & 1, di = corner & 1;
                 return anchor + (static_cast<long long>(dk) * n_j + dj) * n_i + di;
               },
-              v);
+              v, kappa);
 }
 
 // The sample of a point on the grid of many blocks (grid/sampling.py
 // sample_sks) in MODE; false off the grid (no block holds the point).
 // hint: the face counts of the ray's previous sample, block: its block
-// (-1: none), both updated.
-template <int MODE, typename T>
+// (-1: none), both updated. kappa: sample_cell's.
+template <int MODE, typename T, int NV>
 __device__ __forceinline__ bool sample_blocks(const BlockGridView<T>& g, const SksPoint<T>& p,
-                                              T (&v)[8], int (&hint)[3], int& block) {
+                                              T (&v)[NV], int (&hint)[3], int& block,
+                                              const float* __restrict__ kappa = nullptr) {
   const int b = find_block(g, p, block, hint);
   if (b < 0) return false;
   if constexpr (MODE == SAMPLE_INTERBLOCK) {
-    sample_interblock(g, p, b, v, hint);
+    sample_interblock(g, p, b, v, hint, kappa);
   } else {
-    sample_block(g, p, b, v, hint);
+    sample_block(g, p, b, v, hint, kappa);
   }
   return true;
 }
@@ -710,10 +739,11 @@ __device__ __forceinline__ int fmks_cell(T t, int top) {
 
 // The sample of a point under SAMPLE_FMKS; false off the SKS domain.
 // hint: each native axis' face count at the ray's previous sample (-1:
-// none), updated.
-template <typename T>
+// none), updated. kappa: sample_cell's.
+template <typename T, int NV>
 __device__ __forceinline__ bool sample_fmks(const FmksGridView<T>& g, const SksPoint<T>& p,
-                                            T (&v)[8], int (&hint)[3]) {
+                                            T (&v)[NV], int (&hint)[3],
+                                            const float* __restrict__ kappa = nullptr) {
   if (p.r < g.lo[0] || p.r > g.hi[0] || p.th < g.lo[1] || p.th > g.hi[1] || p.ph < g.lo[2] ||
       p.ph > g.hi[2]) {
     return false;
@@ -731,7 +761,7 @@ __device__ __forceinline__ bool sample_fmks(const FmksGridView<T>& g, const SksP
   q.th = (T(1) - wj) * ((T(1) - wi) * __ldg(x2) + wi * __ldg(x2 + 1)) +
          wj * ((T(1) - wi) * __ldg(x2 + g.n1m) + wi * __ldg(x2 + g.n1m + 1));
   if (!g.nearest) {
-    sample_cell(g.cells, q, v, hint);
+    sample_cell(g.cells, q, v, hint, kappa);
     return true;
   }
   // the nearest cell: the containing cell of each axis, its float32
@@ -748,6 +778,7 @@ __device__ __forceinline__ bool sample_fmks(const FmksGridView<T>& g, const SksP
   const float4 b = __ldg(g.cells.table + 2 * cell + 1);
 #pragma unroll
   for (int k = 0; k < 8; ++k) v[k] = T(prim_at(a, b, k));
+  if constexpr (NV > 8) v[8] = T(kappa != nullptr ? __ldg(kappa + cell) : 0.0f);
   return true;
 }
 
@@ -823,10 +854,11 @@ __device__ __forceinline__ SksPoint<T> cks_grid_point(const SksPoint<T>& p) {
 
 // The sample of a point of a CKS grid in MODE; false off the grid (no
 // block holds the point). hint and block as sample_blocks'.
-template <int MODE, typename T>
+template <int MODE, typename T, int NV>
 __device__ __forceinline__ bool sample_cks(const BlockGridView<T>& g, const SksPoint<T>& p,
-                                           T (&v)[8], int (&hint)[3], int& block) {
-  return sample_blocks<BlockModeOf<MODE>>(g, cks_grid_point(p), v, hint, block);
+                                           T (&v)[NV], int (&hint)[3], int& block,
+                                           const float* __restrict__ kappa = nullptr) {
+  return sample_blocks<BlockModeOf<MODE>>(g, cks_grid_point(p), v, hint, block, kappa);
 }
 
 // The snapshot as the C interface receives it: the (n_b, n_k, n_j, n_i, 8)
@@ -835,7 +867,9 @@ __device__ __forceinline__ bool sample_cks(const BlockGridView<T>& g, const SksP
 // (SAMPLE_*), the nearest-cell flag, the blocks, their bounds in the rays'
 // type, under SAMPLE_INTERBLOCK the neighbour table and parities (int32),
 // and under SAMPLE_FMKS the map's table in the rays' type (its values
-// follow the axes' in `axes`).
+// follow the axes' in `axes`); the electron entropy's (n_b, n_k, n_j, n_i)
+// float32 table of a code_kappa launch, which only the mixture's C
+// interfaces take (null otherwise).
 struct SimGridArgs {
   const float* table;
   const void* coords;
@@ -849,6 +883,7 @@ struct SimGridArgs {
   const int* amr;
   const int* parity;
   const void* map;
+  const float* kappa;
 
   template <typename T>
   GridView<T> view() const {
@@ -915,9 +950,9 @@ struct FluidState {
   T ut, ur, uth, uph, bt, br, bth, bph;
 };
 
-template <typename T>
+template <typename T, int NV>
 __device__ __forceinline__ void fluid_state(const SimConsts<T>& c, const SksPoint<T>& p,
-                                            const T (&v)[8], FluidState<T>& s) {
+                                            const T (&v)[NV], FluidState<T>& s) {
   using Forms = TypeForms<T>;
   const T r = p.r, r2 = p.r2, spin = c.spin;
   const T rho = v[0], pgas = v[1], uu1 = v[2], uu2 = v[3], uu3 = v[4];
@@ -1000,9 +1035,9 @@ __device__ __forceinline__ void fluid_state(const SimConsts<T>& c, const SksPoin
 // ops/geometry.py ks_scalars), u and b in CKS (ucon, bcon), then
 // fluid_state's scalars from b^2. Each sum runs over its index in order,
 // cks_frame's forms.
-template <typename T>
+template <typename T, int NV>
 __device__ __forceinline__ void fluid_state_cks(const SimConsts<T>& c, const SksPoint<T>& p,
-                                                const T (&v)[8], FluidState<T>& s, T (&ucon)[4],
+                                                const T (&v)[NV], FluidState<T>& s, T (&ucon)[4],
                                                 T (&bcon)[4]) {
   using Forms = TypeForms<T>;
   const T r = p.r, r2 = p.r2, x = p.x, y = p.y, z = p.z;
@@ -1186,6 +1221,11 @@ __device__ __forceinline__ ThermalI<T> thermal_i(const SimConsts<T>& c, T nu_cgs
 constexpr int POP_THERMAL = 0;
 constexpr int POP_MIXTURE = 1;
 
+// The values a sample takes of the table: the 8 primitives, and under
+// POP_MIXTURE the electron entropy (sample_cell).
+template <int POP>
+constexpr int SampleValues = POP == POP_MIXTURE ? 9 : 8;
+
 // The MixtureParam constants of a launch, each rounded once to T: from
 // the float64 vector in device memory (the polarized derive kernel), or
 // from launch constants the host already rounded to T (the simulation
@@ -1224,6 +1264,23 @@ __device__ __forceinline__ T pow_s(T x, T e) {
 template <typename T>
 __device__ __forceinline__ T cbrt_s(T x) {
   return m_copysign(m_pow(m_abs(x), T(1.0 / 3.0)), x);
+}
+
+// The code_kappa electron temperature in place of fluid_state's ti_te_beta
+// one where the launch says so (M_CODE_KAPPA), from the sampled density
+// and electron entropy (models/synchrotron.py code_kappa_temperature, its
+// forms: rho_e = rho m_e / (mu_e m_p), theta_e = 0.2 (sqrt(1 + 25
+// cbrt(rho_e kappa)^2) - 1), kb_tt_e = theta_e m_e c^2). The cube root is
+// cbrt_s, |x|^(1/3) as the plain version takes it, not the library's
+// cbrt: the two then round alike.
+template <typename T>
+__device__ __forceinline__ void code_kappa_state(const MixConsts<T>& m, T rho, T kappa,
+                                                 FluidState<T>& s) {
+  if (!m.on(M_CODE_KAPPA)) return;
+  const T rho_e = rho * m[M_CK_ME] / m[M_CK_MU_E_MP];
+  const T c = cbrt_s(rho_e * kappa);
+  s.theta_e = T(0.2) * (m_sqrt(T(1) + T(25) * (c * c)) - T(1));
+  s.kb_tt_e = s.theta_e * m[M_CK_ME] * m[M_CK_C2];
 }
 
 // sign(cos theta_B) as the coefficients take it: +1 where cos >= 0.

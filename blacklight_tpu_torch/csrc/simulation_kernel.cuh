@@ -139,12 +139,15 @@ struct BlockHint {
 };
 struct NoBlockHint {};
 
-// The mixture's constants, which only POP_MIXTURE's SimSample carries.
+// The mixture's constants and the electron entropy's cell table of a
+// code_kappa launch (null otherwise), which only POP_MIXTURE's SimSample
+// carries.
 template <typename T, int POP>
 struct PopulationRef {};
 template <typename T>
 struct PopulationRef<T, POP_MIXTURE> {
   const MixConsts<T>* mix = nullptr;
+  const float* kappa = nullptr;
 };
 
 // Accumulators of one ray and what happens at each of its stored samples,
@@ -181,17 +184,19 @@ struct SimSample : std::conditional_t<MODE == SAMPLE_SINGLE || MODE == SAMPLE_FM
     using Forms = TypeForms<T>;
     const SksPoint<T> p = sample_point<MODE>(c, ym[1], ym[2], ym[3], q);
     if (!geometric_keep(c.cuts, p.x, p.y, p.z, p.r, c.camera_r, c.cam1, c.cam2, c.cam3)) return;
-    T v[8];
+    T v[SampleValues<POP>];
+    const float* kappa = nullptr;
+    if constexpr (POP == POP_MIXTURE) kappa = this->kappa;
     bool on_grid;
     if constexpr (MODE == SAMPLE_SINGLE) {
       on_grid = !is_off_grid(grid, p);
-      if (on_grid) sample_cell(grid, p, v, hint);
+      if (on_grid) sample_cell(grid, p, v, hint, kappa);
     } else if constexpr (MODE == SAMPLE_FMKS) {
-      on_grid = sample_fmks(grid, p, v, hint);
+      on_grid = sample_fmks(grid, p, v, hint, kappa);
     } else if constexpr (IsCks<MODE>) {
-      on_grid = sample_cks<MODE>(grid, p, v, hint, this->block);
+      on_grid = sample_cks<MODE>(grid, p, v, hint, this->block, kappa);
     } else {
-      on_grid = sample_blocks<MODE>(grid, p, v, hint, this->block);
+      on_grid = sample_blocks<MODE>(grid, p, v, hint, this->block, kappa);
     }
     if (!on_grid) {
       // fallback values with zero field: zero coefficients, and NaN pixels
@@ -204,9 +209,11 @@ struct SimSample : std::conditional_t<MODE == SAMPLE_SINGLE || MODE == SAMPLE_FM
     T ucon[4], bcon[4];
     if constexpr (IsCks<MODE>) {
       fluid_state_cks(c, p, v, st, ucon, bcon);
+      if constexpr (POP == POP_MIXTURE) code_kappa_state(*this->mix, v[0], v[8], st);
       if (!value_keep(c, st)) return;
     } else {
       fluid_state(c, p, v, st);
+      if constexpr (POP == POP_MIXTURE) code_kappa_state(*this->mix, v[0], v[8], st);
       if (!value_keep(c, st)) return;
       fluid_cks(p, c.spin, st, ucon, bcon);
     }
@@ -248,25 +255,29 @@ struct SimSample : std::conditional_t<MODE == SAMPLE_SINGLE || MODE == SAMPLE_FM
 };
 
 // The MixConsts of a POP_MIXTURE launch (from its launch constants
-// `mix`); nothing for POP_THERMAL.
+// `mix`) and its electron entropy's table; nothing for POP_THERMAL.
 template <typename T, int POP>
 struct MixHolder {
-  __device__ explicit MixHolder(const T*) {}
+  __device__ MixHolder(const T*, const float*) {}
   template <typename S>
   __device__ void attach(S&) const {}
 };
 template <typename T>
 struct MixHolder<T, POP_MIXTURE> {
   MixConsts<T> m;
-  __device__ explicit MixHolder(const T* mix) : m(mix, RoundedConsts{}) {}
+  const float* kappa;
+  __device__ MixHolder(const T* mix, const float* kappa_)
+      : m(mix, RoundedConsts{}), kappa(kappa_) {}
   template <typename S>
   __device__ void attach(S& sample) const {
     sample.mix = &m;
+    sample.kappa = kappa;
   }
 };
 
 // One ray of the monolithic kernel; i_nu: (n_rays, nf) row-major. mix:
-// POP_MIXTURE's MixtureParam launch constants.
+// POP_MIXTURE's MixtureParam launch constants, kappa its electron
+// entropy's table (null where the launch has none).
 template <typename T, int INTEGRATOR, int NF, int MODE, int POP = POP_THERMAL>
 __device__ __forceinline__ void simulation_ray(long long ray, const T* __restrict__ positions,
                                                const T* __restrict__ directions,
@@ -275,10 +286,11 @@ __device__ __forceinline__ void simulation_ray(long long ray, const T* __restric
                                                const SampleGrid<T, MODE>& grid,
                                                T* __restrict__ i_nu, int* __restrict__ flags_out,
                                                int* __restrict__ n_samples_out,
-                                               const T* mix = nullptr) {
+                                               const T* mix = nullptr,
+                                               const float* kappa = nullptr) {
   const TraceConsts<T> tc(consts.v);
   const SimConsts<T> sc(consts.v, RoundedConsts{});
-  const MixHolder<T, POP> mc(mix);
+  const MixHolder<T, POP> mc(mix, kappa);
 
   RayState<T> s;
   init_ray_state(tc, positions + 4 * ray, directions + 4 * ray, s);
@@ -349,21 +361,24 @@ __global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
 // The thermal, power-law and kappa populations (POP_MIXTURE) on one block
 // or many, in any mode, instantiated in simulation_mixture*.cu (SAMPLE_FMKS
 // in simulation_mixture_fmks.cu, the CKS modes in
-// simulation_mixture_cks.cu).
+// simulation_mixture_cks.cu); at the code_kappa temperature where the
+// launch constants say so, reading the electron entropy from `kappa`
+// (n_b, n_k, n_j, n_i) float32, a table beside the 32-byte rows.
 template <typename T, int INTEGRATOR, int NF, int MODE>
 __global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
     simulation_mixture_kernel(const T* __restrict__ positions, const T* __restrict__ directions,
                               const T* __restrict__ momentum_factors,
                               const __grid_constant__ SimMixLaunchConsts<T, NF> consts, int nf,
                               const __grid_constant__ SampleGrid<T, MODE> grid,
-                              T* __restrict__ i_nu, int* __restrict__ flags_out,
-                              int* __restrict__ n_samples_out, long long n_rays) {
+                              const float* __restrict__ kappa, T* __restrict__ i_nu,
+                              int* __restrict__ flags_out, int* __restrict__ n_samples_out,
+                              long long n_rays) {
   const long long ray = static_cast<long long>(blockIdx.x) * SIM_THREADS + threadIdx.x;
   if (ray >= n_rays) return;
   simulation_ray<T, INTEGRATOR, NF, MODE, POP_MIXTURE>(ray, positions, directions,
                                                        momentum_factors, consts.sim, nf, grid,
                                                        i_nu, flags_out, n_samples_out,
-                                                       consts.mix);
+                                                       consts.mix, kappa);
 }
 
 // The launch constants of an instantiation from the host's copy (bytes
@@ -404,7 +419,7 @@ cudaError_t launch_simulation(const SimLaunchArgs& a) {
     simulation_mixture_kernel<T, INTEGRATOR, NF, MODE><<<blocks, SIM_THREADS, 0, a.stream>>>(
         static_cast<const T*>(a.positions), static_cast<const T*>(a.directions),
         static_cast<const T*>(a.momentum_factors), consts, a.nf, grid_view_of<T, MODE>(a.grid),
-        static_cast<T*>(a.i_nu), a.flags, a.n_samples, a.n_rays);
+        a.grid.kappa, static_cast<T*>(a.i_nu), a.flags, a.n_samples, a.n_rays);
   } else {
     SimLaunchConsts<T, NF> consts;
     if (!copy_consts(a.consts, a.consts_bytes, consts)) return cudaErrorInvalidValue;
@@ -553,12 +568,12 @@ __device__ __forceinline__ void simulation_phase_ray(
     long long slot, const int* __restrict__ index, int n_base, int phase_steps, bool write_state,
     const T* __restrict__ directions, const T* __restrict__ momentum_factors,
     const SimLaunchConsts<T, NF>& consts, int nf, const SampleGrid<T, MODE>& grid,
-    const SimCarryView<T>& carry, const T* mix = nullptr) {
+    const SimCarryView<T>& carry, const T* mix = nullptr, const float* kappa = nullptr) {
   const long long ray = index[slot];
   const long long n = carry.n_rays;
   const TraceConsts<T> tc(consts.v);
   const SimConsts<T> sc(consts.v, RoundedConsts{});
-  const MixHolder<T, POP> mc(mix);
+  const MixHolder<T, POP> mc(mix, kappa);
 
   RayState<T> s;
 #pragma unroll
@@ -669,12 +684,12 @@ __global__ void __launch_bounds__(SIM_THREADS, SimBlocks<T, INTEGRATOR>)
                                     const T* __restrict__ momentum_factors,
                                     const __grid_constant__ SimMixLaunchConsts<T, NF> consts,
                                     int nf, const __grid_constant__ SampleGrid<T, MODE> grid,
-                                    SimCarryView<T> carry) {
+                                    const float* __restrict__ kappa, SimCarryView<T> carry) {
   const long long slot = static_cast<long long>(blockIdx.x) * SIM_THREADS + threadIdx.x;
   if (slot >= n_live) return;
   simulation_phase_ray<T, INTEGRATOR, NF, MODE, POP_MIXTURE>(
       slot, index, n_base, phase_steps, write_state, directions, momentum_factors, consts.sim,
-      nf, grid, carry, consts.mix);
+      nf, grid, carry, consts.mix, kappa);
 }
 
 // Pointers and sizes of one phase launch, as the C interface receives
@@ -714,7 +729,7 @@ cudaError_t launch_simulation_phase(const SimPhaseArgs& a) {
     simulation_phase_mixture_kernel<T, INTEGRATOR, NF, MODE><<<blocks, SIM_THREADS, 0, a.stream>>>(
         a.index, a.n_live, a.n_base, a.phase_steps, a.write_state,
         static_cast<const T*>(a.directions), static_cast<const T*>(a.momentum_factors), consts,
-        a.nf, grid_view_of<T, MODE>(a.grid), carry);
+        a.nf, grid_view_of<T, MODE>(a.grid), a.grid.kappa, carry);
   } else {
     SimLaunchConsts<T, NF> consts;
     if (!copy_consts(a.consts, a.consts_bytes, consts)) return cudaErrorInvalidValue;

@@ -58,7 +58,8 @@ extern "C" int blacklight_simulation_mixture_launch(
     const void* momentum_factors, const void* consts, long long consts_bytes, const void* table,
     const void* coords, const void* guides, const void* axes, int n_i, int n_j, int n_k,
     int mode, int nearest, int n_b, const void* bounds, const void* amr, const void* parity,
-    const void* map, void* i_nu, void* flags, void* n_samples, long long n_rays, void* stream) {
+    const void* map, const void* kappa, void* i_nu, void* flags, void* n_samples, long long n_rays,
+    void* stream) {
   if (n_rays <= 0) return 0;
   const bl::SimGridArgs grid{static_cast<const float*>(table),
                              coords,
@@ -73,7 +74,8 @@ extern "C" int blacklight_simulation_mixture_launch(
                              bounds,
                              static_cast<const int*>(amr),
                              static_cast<const int*>(parity),
-                             map};
+                             map,
+                             static_cast<const float*>(kappa)};
   if (!grid.valid()) return static_cast<int>(cudaErrorInvalidValue);
   const bl::SimLaunchArgs a{positions,
                             directions,

@@ -101,8 +101,9 @@ enum SimulationParam : int {
 
 // The power-law and kappa populations (models/synchrotron.py
 // powerlaw_constants, kappa_constants, powerlaw_coefficients,
-// kappa_coefficients), each constant folded in float64 on the host as the
-// Python expressions fold it before it meets a tensor.
+// kappa_coefficients) and the code_kappa temperature
+// (code_kappa_temperature), each constant folded in float64 on the host as
+// the Python expressions fold it before it meets a tensor.
 enum MixtureParam : int {
   // which populations the sum holds (fraction != 0), and e^2 / (m_e c)
   M_THERMAL_ON,
@@ -180,6 +181,15 @@ enum MixtureParam : int {
   M_KP_VL_B,
   M_KP_VH_A,
   M_KP_VH_B,
+  // plasma_model = code_kappa: the temperature from the sampled electron
+  // entropy (its flag; m_e, mu_e m_p and c^2 of rho_e = rho m_e /
+  // (mu_e m_p) and kb_tt_e = theta_e m_e c^2), and the entropy of
+  // off-grid samples
+  M_CODE_KAPPA,
+  M_CK_ME,
+  M_CK_MU_E_MP,
+  M_CK_C2,
+  M_FALLBACK_KAPPA,
   M_COUNT
 };
 

@@ -51,7 +51,8 @@ extern "C" int blacklight_simulation_phase_mixture_launch(
     int phase_steps, int write_state, const void* directions, const void* momentum_factors,
     const void* consts, long long consts_bytes, const void* table, const void* coords,
     const void* guides, const void* axes, int n_i, int n_j, int n_k, int mode, int nearest,
-    int n_b, const void* bounds, const void* amr, const void* parity, const void* map, void* y,
+    int n_b, const void* bounds, const void* amr, const void* parity, const void* map,
+    const void* kappa, void* y,
     void* r_mid_prev, void* n_samp, void* masks, void* intensity, void* tau, void* bad,
     long long n_rays, void* stream) {
   if (n_live <= 0) return 0;
@@ -68,7 +69,8 @@ extern "C" int blacklight_simulation_phase_mixture_launch(
                              bounds,
                              static_cast<const int*>(amr),
                              static_cast<const int*>(parity),
-                             map};
+                             map,
+                             static_cast<const float*>(kappa)};
   if (!grid.valid() || phase_steps < 1 || n_live > n_rays) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,9 +1,9 @@
 """Athena++ ``.athdf`` snapshot loader.
 
 Port of ``blacklight_tpu/grid/athena.py`` (``SimulationGrid`` :23-94,
-``load_athdf`` :170-222) for the port's slice: the grid holds tensors on
-one device, and the file is read by ``grid/hdf5.py`` (numpy and struct),
-so no h5py is needed. The layout is the one the reference parses
+``load_athdf`` :170-222, with its kappa slot) for the port's slice: the
+grid holds tensors on one device, and the file is read by
+``grid/hdf5.py`` (numpy and struct), so no h5py is needed. The layout is the one the reference parses
 (simulation_reader.cpp:593-781): datasets ``prim`` (rho, press, vel1-3)
 and ``B`` (Bcc1-3) with per-block face and centre coordinates, and the
 mesh's refinement metadata (``Levels``, ``LogicalLocations``, the
@@ -137,16 +137,22 @@ def _fmks_fields(fmks_map, device, dtype) -> dict:
                 bounds=tuple(float(b) for b in bounds))
 
 
-def load_athdf(path: str, *, device, dtype=torch.float64) -> SimulationGrid:
-    """Load an Athena++ .athdf file onto ``device``."""
+def load_athdf(path: str, kappa_name: Optional[str] = None, *, device,
+               dtype=torch.float64) -> SimulationGrid:
+    """Load an Athena++ .athdf file onto ``device``; ``kappa_name`` names
+    the file's variable of the kappa slot (the electron entropy of
+    plasma_model = code_kappa), if any."""
     f = hdf5.read_file(path)
     dataset_names = [n.decode() for n in f.attrs["DatasetNames"]]
     variable_names = [n.decode() for n in f.attrs["VariableNames"]]
     prim = np.concatenate([f[name].read().astype(np.float32)
                            for name in dataset_names], axis=0)
 
+    wanted = dict(PRIMITIVE_NAMES)
+    if kappa_name is not None:
+        wanted["kappa"] = kappa_name
     ind = {}
-    for key, var in PRIMITIVE_NAMES.items():
+    for key, var in wanted.items():
         if var not in variable_names:
             raise BlacklightError(
                 f'Unable to locate "{var}" slice of "prim" in data file.')

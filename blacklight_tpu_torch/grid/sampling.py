@@ -11,7 +11,9 @@ finer refinement level (``simulation_block_interp = true``, :505-552,
 of CKS positions the sampler converts to SKS, finds the block (the first
 in file order whose closed box holds the point) and the cell on each
 axis, blends the 8 corner values of every primitive, repairs
-non-positive rho/pgas against the anchor cell, rounds through float32 as
+non-positive rho/pgas (and kappa, the electron entropy of plasma_model =
+code_kappa, sampled as a ninth primitive where ``has_kappa``) against
+the anchor cell, rounds through float32 as
 the reference stores samples, and substitutes the fallback values off
 the grid (with a ``nan_mask`` that the transfer turns into NaN pixels
 under ``fallback_nan``).
@@ -50,6 +52,9 @@ from blacklight_tpu_torch.utils.errors import BlacklightError
 CORNER_ORDER = ((0, 0, 0), (0, 0, 1), (0, 1, 0), (0, 1, 1),
                 (1, 0, 0), (1, 0, 1), (1, 1, 0), (1, 1, 1))
 SAMPLE_NAMES = ("rho", "pgas", "uu1", "uu2", "uu3", "bb1", "bb2", "bb3")
+# The sampled values repaired against the anchor cell where an
+# interpolated one is not positive (simulation_sampling.cpp:821-827)
+POSITIVE_NAMES = ("rho", "pgas", "kappa")
 
 # Sampling modes (csrc/sim_sample.cuh SAMPLE_*): one block, trilinear
 # clamped to it; many blocks (or nearest cell), the block search first;
@@ -66,6 +71,15 @@ class SamplerOptions:
     fallback_nan: bool = True
     fallback_rho: float = 0.0
     fallback_pgas: float = 0.0
+    fallback_kappa: float = 0.0
+    # sample the ninth primitive, "kappa" (plasma_model = code_kappa)
+    has_kappa: bool = False
+
+
+def sample_names(opts: SamplerOptions) -> tuple:
+    """The names sample_grid returns values of: SAMPLE_NAMES, then
+    "kappa" where ``opts.has_kappa``."""
+    return SAMPLE_NAMES + (("kappa",) if opts.has_kappa else ())
 
 
 def locate(xf_row, xv_row, x):
@@ -208,9 +222,10 @@ def finalize_sample(named, off_grid, opts: SamplerOptions, pos_dtype):
     simulation_sampling.cpp:836-844) and substitute the fallback values
     off the grid (:376-384, 676-707). Values stay finite; ``nan_mask``
     marks the samples the transfer turns into NaN pixels."""
-    fallback = {"rho": opts.fallback_rho, "pgas": opts.fallback_pgas}
+    fallback = {"rho": opts.fallback_rho, "pgas": opts.fallback_pgas,
+                "kappa": opts.fallback_kappa}
     out = {}
-    for name in SAMPLE_NAMES:
+    for name in sample_names(opts):
         v = named[name].to(torch.float32).to(pos_dtype)
         out[name] = torch.where(off_grid, fallback.get(name, 0.0), v)
     out["off_grid"] = off_grid
@@ -299,8 +314,8 @@ def sample_grid(grid: SimulationGrid, pos, spin, opts: SamplerOptions):
     """Sample the primitives at CKS positions ``pos`` (B, 4), converted to
     SKS for an SKS grid and taken as they are for a CKS grid.
 
-    Returns a dict of (B,) values keyed by SAMPLE_NAMES in the working
-    dtype, plus "off_grid" and "nan_mask" (B,) bool.
+    Returns a dict of (B,) values keyed by sample_names(opts) in the
+    working dtype, plus "off_grid" and "nan_mask" (B,) bool.
     """
     x, y, z = pos[..., 1], pos[..., 2], pos[..., 3]
     if grid.coords == "cks":
@@ -346,9 +361,9 @@ def sample_sks(grid: SimulationGrid, r, th, ph, opts: SamplerOptions):
         vals = sum(wc * cc for wc, cc in zip(w, values))
         anchor = values[0]
     named = {}
-    for name in SAMPLE_NAMES:
+    for name in sample_names(opts):
         v = vals[grid.ind[name]]
-        if opts.interp and name in ("rho", "pgas"):
+        if opts.interp and name in POSITIVE_NAMES:
             # positivity repair against the anchor cell
             # (simulation_sampling.cpp:821-827)
             v = torch.where(v <= 0.0, anchor[grid.ind[name]].to(v.dtype), v)

@@ -1,9 +1,10 @@
 """Synchrotron emission, absorption and rotation from sampled GRMHD, on
 tensors.
 
-Port of ``blacklight_tpu/models/synchrotron.py`` for ti_te_beta
-electrons: ``PlasmaParams`` and ``CutParams`` (:36-78), ``fluid_state``
-in SKS and in CKS (:81-209), ``value_cuts`` (:212-230), ``pitch_angle`` (:242-276),
+Port of ``blacklight_tpu/models/synchrotron.py``: ``PlasmaParams`` and
+``CutParams`` (:36-78), ``fluid_state`` in SKS and in CKS with the
+ti_te_beta and the code_kappa electron temperature (:81-209),
+``value_cuts`` (:212-230), ``pitch_angle`` (:242-276),
 the Bessel K functions (:291-428), ``log_j_scale`` (:429-431), the
 thermal population (``thermal_coefficients`` with its polarized branch:
 j_Q, j_V, alpha_Q, alpha_V, rho_Q, rho_V; :785-936), the power-law and
@@ -99,12 +100,14 @@ def fluid_state(pos, samples, spin, plasma: PlasmaParams, rho_unit: float,
     (the geodesics' own, radiation_geometry.cpp:425-458), and no Jacobian
     applies (the JAX package's :110-129).
 
+    The electron temperature follows ``plasma.model``: ti_te_beta from
+    the gas temperature and the ion-to-electron ratio, code_kappa from
+    the sampled electron entropy ``samples["kappa"]`` (:330-358).
+
     Returns a dict with rho_cgs, pgas_cgs, n_e_cgs, bb_cgs, sigma,
     beta_inv, theta_e, kb_tt_e_cgs, ucon and bcon (each a tuple of four
     (B,) CKS components) and b_sq.
     """
-    if plasma.model != PlasmaModel.ti_te_beta:
-        raise ValueError("the port's fluid state covers ti_te_beta")
     x, y, z = pos[..., 1], pos[..., 2], pos[..., 3]
     rho, pgas = samples["rho"], samples["pgas"]
     uu1, uu2, uu3 = samples["uu1"], samples["uu2"], samples["uu3"]
@@ -149,22 +152,29 @@ def fluid_state(pos, samples, spin, plasma: PlasmaParams, rho_unit: float,
     sigma = b_sq / torch.clamp(rho, min=dfloor)
     beta_inv = b_sq / torch.clamp(2.0 * pgas, min=dfloor)
 
-    # electron temperature (simulation_coefficients.cpp:330-358), with
-    # (rat_high + rat_low b^2) / (1 + b^2) in the form that passes
-    # beta_inv = inf
-    u_b = 1.0 / (1.0 + beta_inv ** 2)
-    tti_tte = plasma.rat_high * u_b + plasma.rat_low * (1.0 - u_b)
-    kb_tt_tot_cgs = (plasma.mu * Physics.m_p * Physics.c ** 2) \
-        * (pgas / torch.clamp(rho, min=dfloor))
-    if plasma.use_p:
-        kb_tt_e_cgs = (1.0 + plasma.ne_ni) / (tti_tte + plasma.ne_ni) \
-            * kb_tt_tot_cgs
+    # electron temperature (simulation_coefficients.cpp:330-358)
+    if plasma.model == PlasmaModel.ti_te_beta:
+        # (rat_high + rat_low b^2) / (1 + b^2) in the form that passes
+        # beta_inv = inf
+        u_b = 1.0 / (1.0 + beta_inv ** 2)
+        tti_tte = plasma.rat_high * u_b + plasma.rat_low * (1.0 - u_b)
+        kb_tt_tot_cgs = (plasma.mu * Physics.m_p * Physics.c ** 2) \
+            * (pgas / torch.clamp(rho, min=dfloor))
+        if plasma.use_p:
+            kb_tt_e_cgs = (1.0 + plasma.ne_ni) / (tti_tte + plasma.ne_ni) \
+                * kb_tt_tot_cgs
+        else:
+            kb_tt_e_cgs = (1.0 + plasma.ne_ni) * kb_tt_tot_cgs \
+                / (plasma.gamma - 1.0)
+            kb_tt_e_cgs = kb_tt_e_cgs / (
+                tti_tte / (plasma.gamma_i - 1.0)
+                + plasma.ne_ni / (plasma.gamma_e - 1.0))
+        theta_e = kb_tt_e_cgs / (Physics.m_e * Physics.c ** 2)
+    elif plasma.model == PlasmaModel.code_kappa:
+        theta_e, kb_tt_e_cgs = code_kappa_temperature(rho, samples["kappa"],
+                                                      plasma)
     else:
-        kb_tt_e_cgs = (1.0 + plasma.ne_ni) * kb_tt_tot_cgs \
-            / (plasma.gamma - 1.0)
-        kb_tt_e_cgs = kb_tt_e_cgs / (tti_tte / (plasma.gamma_i - 1.0)
-                                     + plasma.ne_ni / (plasma.gamma_e - 1.0))
-    theta_e = kb_tt_e_cgs / (Physics.m_e * Physics.c ** 2)
+        raise ValueError(f"unknown plasma model {plasma.model!r}")
 
     if coords == "sks":
         ux, uy, uz = sks.sks_to_cks_vector(ur, uth, uph, x, y, z, spin)
@@ -174,6 +184,23 @@ def fluid_state(pos, samples, spin, plasma: PlasmaParams, rho_unit: float,
                 bb_cgs=bb_cgs, sigma=sigma, beta_inv=beta_inv,
                 theta_e=theta_e, kb_tt_e_cgs=kb_tt_e_cgs,
                 ucon=ucon, bcon=bcon, b_sq=b_sq)
+
+
+def code_kappa_temperature(rho, kappa, plasma: PlasmaParams):
+    """(theta_e, kb_tt_e_cgs) of plasma_model = code_kappa from the
+    sampled density ``rho`` and electron entropy ``kappa`` (code units;
+    simulation_coefficients.cpp:351-358), in the JAX package's form
+    0.2 (sqrt(1 + 25 cbrt(rho_e kappa)^2) - 1), which cancels for cold
+    cells in float32 as the reference's does. The cube root is ``cbrt``'s
+    |x|^(1/3), the form csrc/sim_sample.cuh cbrt_s writes, so that the
+    kernels and this plain version round alike; against a true cube root
+    (the JAX package's jnp.cbrt) it differs by the rounding of 1/3 times
+    |ln x|: ~1e-15 relative in float64, up to ~2e-6 in float32."""
+    mu_e = plasma.mu * (1.0 + 1.0 / plasma.ne_ni)
+    rho_e = rho * Physics.m_e / (mu_e * Physics.m_p)
+    rho_kappa_e_cbrt = cbrt(rho_e * kappa)
+    theta_e = 0.2 * (torch.sqrt(1.0 + 25.0 * rho_kappa_e_cbrt ** 2) - 1.0)
+    return theta_e, theta_e * Physics.m_e * Physics.c ** 2
 
 
 def cks_frame(pos, spin, uu, bb):

@@ -99,6 +99,9 @@ STAGE_LAUNCHES = {"trace": 0, "derive": 0, "chain": 0}
 DERIVE_MODE_LAUNCHES = [0] * sk.KERNEL_MODES
 DERIVE_MIXTURE_LAUNCHES = 0
 DERIVE_MIXTURE_MODE_LAUNCHES = [0] * sk.KERNEL_MODES
+# Of the mixture's derive launches, those at the code_kappa temperature,
+# by mode.
+DERIVE_CODE_KAPPA_MODE_LAUNCHES = [0] * sk.KERNEL_MODES
 
 # Index order of the kernel's float64 parameter vector: the simulation
 # kernel's (simulation_kernel.PARAM_NAMES), then the enum in
@@ -120,7 +123,7 @@ def kernel_params(params: geo.GeodesicParams, sp: sk.SimKernelParams,
         "FALLBACK_RHO": sp.sampler.fallback_rho,
         "FALLBACK_PGAS": sp.sampler.fallback_pgas,
         "E_SQUARED": Physics.e ** 2, "ME_C": Physics.m_e * Physics.c})
-    mix = sk.mixture_params(sp.plasma, polarized=True) \
+    mix = sk.mixture_params(sp.plasma, True, sp.sampler.fallback_kappa) \
         if sk.is_mixture(sp.plasma) else []
     return geo.pack_params(PARAM_NAMES, values) + mix
 
@@ -289,7 +292,7 @@ def render_polarized(positions, directions, momentum_factors, frequencies,
     sk._check_frequencies(frequencies, positions)
     if integrator not in INTEGRATORS:
         raise ValueError(f"integrator must be one of {INTEGRATORS}")
-    sk.check_grid(grid)
+    sk.check_grid(grid, sp.sampler)
     if grid.prim.device != positions.device:
         raise TypeError("the grid and the rays must share one device")
     device = positions.device
@@ -397,6 +400,8 @@ class _CudaStages:
         if stage == "derive" and self.mixture:
             DERIVE_MIXTURE_LAUNCHES += 1
             DERIVE_MIXTURE_MODE_LAUNCHES[self.grid.mode] += 1
+            if self.grid.kappa is not None:
+                DERIVE_CODE_KAPPA_MODE_LAUNCHES[self.grid.mode] += 1
         elif stage == "derive":
             DERIVE_MODE_LAUNCHES[self.grid.mode] += 1
 
@@ -435,12 +440,14 @@ class _CudaStages:
         freqs = self.frequencies[f0:f1].contiguous()
         derive = self.lib.blacklight_polarized_derive_mixture \
             if self.mixture else self.lib.blacklight_polarized_derive
+        grid_args = self.grid.mixture_args() if self.mixture \
+            else self.grid.args()
         self._launch("derive", derive,
                      self.dtype_code, int(first), *self._set(piece),
                      piece.n_slots, piece.r1 - piece.r0,
                      self._ray_ptr(1, piece.r0, 4),
                      self._ray_ptr(2, piece.r0, 1), freqs.data_ptr(), nf,
-                     self.prm.data_ptr(), *self.grid.args(),
+                     self.prm.data_ptr(), *grid_args,
                      geometry.data_ptr(), coefficients.data_ptr(),
                      bits.data_ptr())
         return geometry, coefficients, bits
@@ -471,7 +478,9 @@ def _library() -> ctypes.CDLL:
                    *sk.GRID_ARGTYPES, ptr, ptr, ptr, ptr],
         "chain": [i32, *sample_set, i64, ptr, ptr, ptr, i32, ptr, ptr, ptr],
     }
-    signatures["derive_mixture"] = signatures["derive"]
+    signatures["derive_mixture"] = [
+        i32, i32, *sample_set, i64, i64, ptr, ptr, ptr, i32, ptr,
+        *sk.MIXTURE_GRID_ARGTYPES, ptr, ptr, ptr, ptr]
     for name, argtypes in signatures.items():
         fn = getattr(lib, f"blacklight_polarized_{name}")
         fn.argtypes = argtypes

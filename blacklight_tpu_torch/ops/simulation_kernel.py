@@ -7,10 +7,13 @@ dp) for Athena++ SKS grids, ti_te_beta electrons and any number of
 frequencies. The values follow the JAX package's exact (XLA) path,
 ``pipeline_simulation.make_simulation_coeff_fns`` inside
 ``transfer/unpolarized.integrate_unpolarized``, in each dtype's forms.
-The TPU kernel is thermal only; a configuration that mixes in power-law
-or kappa electrons (``is_mixture``) launches the same kernel's mixture
-instantiation (csrc/simulation_kernel.cuh POP_MIXTURE), whose constants
-``mixture_params`` folds, where the JAX package takes its XLA path.
+The TPU kernel is thermal ti_te_beta only; a configuration that mixes in
+power-law or kappa electrons, or takes the code_kappa temperature from
+the snapshot's electron entropy (``is_mixture``), launches the same
+kernel's mixture instantiation (csrc/simulation_kernel.cuh POP_MIXTURE),
+whose constants ``mixture_params`` folds and which reads the entropy
+from a table of its own (``KernelGrid.kappa``), where the JAX package
+takes its XLA path.
 
 ``render_simulation`` dispatches on the device of the rays it is given:
 on a CUDA device it launches the hand-written kernel
@@ -48,7 +51,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from blacklight_tpu_torch.constants import Math, Physics
+from blacklight_tpu_torch.constants import Math, Physics, PlasmaModel
 from blacklight_tpu_torch.grid import amr
 from blacklight_tpu_torch.grid.athena import SimulationGrid
 from blacklight_tpu_torch.grid.sampling import (
@@ -58,6 +61,7 @@ from blacklight_tpu_torch.grid.sampling import (
     SINGLE,
     SamplerOptions,
     sample_grid,
+    sample_names,
     sampling_mode,
 )
 from blacklight_tpu_torch.models import synchrotron
@@ -102,6 +106,8 @@ LAUNCHES = 0
 MODE_LAUNCHES = [0] * KERNEL_MODES
 MIXTURE_LAUNCHES = 0
 MIXTURE_MODE_LAUNCHES = [0] * KERNEL_MODES
+# Of the mixture's launches, those at the code_kappa temperature, by mode.
+CODE_KAPPA_MODE_LAUNCHES = [0] * KERNEL_MODES
 
 # Most bins of an axis' guide (csrc/sim_sample.cuh GridAxis): 64 KB of
 # int32 an axis at most.
@@ -149,27 +155,46 @@ MIX_PARAM_NAMES = (
           for kind in ("X", "NX")) + (
     "KP_RHO_V", "KP_RHO_FRAC", "KP_RHO_1M_FRAC",
 ) + tuple(f"KP_Q{b}_{v}" for b in "LH" for v in "ABCDE") + (
-    "KP_VL_A", "KP_VL_B", "KP_VH_A", "KP_VH_B")
+    "KP_VL_A", "KP_VL_B", "KP_VH_A", "KP_VH_B",
+    "CODE_KAPPA", "CK_ME", "CK_MU_E_MP", "CK_C2", "FALLBACK_KAPPA")
+
+
+def is_code_kappa(plasma: synchrotron.PlasmaParams) -> bool:
+    """Whether the electron temperature is plasma_model = code_kappa's,
+    from the snapshot's electron entropy."""
+    return plasma.model == PlasmaModel.code_kappa
 
 
 def is_mixture(plasma: synchrotron.PlasmaParams) -> bool:
-    """Whether the configuration mixes power-law or kappa electrons into
-    the thermal ones (the kernels' POP_MIXTURE instantiations)."""
-    return plasma.power_frac != 0.0 or plasma.kappa_frac != 0.0
+    """Whether a launch takes the kernels' POP_MIXTURE instantiations:
+    power-law or kappa electrons mixed into the thermal ones, or the
+    code_kappa temperature (a launch constant of those instantiations, so
+    that the thermal ti_te_beta ones compile as they did)."""
+    return (plasma.power_frac != 0.0 or plasma.kappa_frac != 0.0
+            or is_code_kappa(plasma))
 
 
-def mixture_params(plasma: synchrotron.PlasmaParams, polarized: bool) -> list:
+def mixture_params(plasma: synchrotron.PlasmaParams, polarized: bool,
+                   fallback_kappa: float = 0.0) -> list:
     """The mixture's constants in MIX_PARAM_NAMES order
     (models/synchrotron.py powerlaw_constants, kappa_constants with the
-    route's ``polarized``), each folded in float64 as the plain version's
-    Python expressions fold it before it meets a tensor; zeros for a
-    population the mixture leaves out."""
+    route's ``polarized``, code_kappa_temperature's constants and the
+    sampler's ``fallback_kappa``), each folded in float64 as the plain
+    version's Python expressions fold it before it meets a tensor; zeros
+    for a population the mixture leaves out."""
     pl, kp = synchrotron.population_constants(plasma, polarized)
     values = dict.fromkeys(MIX_PARAM_NAMES, 0.0)
     values.update({
         "THERMAL_ON": plasma.thermal_frac != 0.0,
         "POWER_ON": pl is not None, "KAPPA_ON": kp is not None,
-        "KA": Physics.e * Physics.e / (Physics.m_e * Physics.c)})
+        "KA": Physics.e * Physics.e / (Physics.m_e * Physics.c),
+        "FALLBACK_KAPPA": fallback_kappa})
+    if is_code_kappa(plasma):
+        values.update({
+            "CODE_KAPPA": True, "CK_ME": Physics.m_e,
+            "CK_MU_E_MP": plasma.mu * (1.0 + 1.0 / plasma.ne_ni)
+            * Physics.m_p,
+            "CK_C2": Physics.c ** 2})
     if pl is not None:
         pp, frac = plasma.power_p, plasma.power_frac
         values.update({
@@ -225,7 +250,9 @@ def sim_kernel_params(cfg, cuts_geo: GeometricCuts,
             block_interp=bool(cfg.simulation_block_interp),
             fallback_nan=cfg.require("fallback_nan"),
             fallback_rho=cfg.fallback_rho or 0.0,
-            fallback_pgas=cfg.fallback_pgas or 0.0),
+            fallback_pgas=cfg.fallback_pgas or 0.0,
+            fallback_kappa=cfg.fallback_kappa or 0.0,
+            has_kappa=is_code_kappa(plasma)),
         rho_unit=cfg.require("simulation_rho_cgs"))
 
 
@@ -266,8 +293,12 @@ def kernel_params(params: geo.GeodesicParams, sp: SimKernelParams,
 OVERLAP_ROWS = 256
 
 
-def check_grid(grid: SimulationGrid) -> None:
-    """Raise ValueError for a grid outside the kernels' cover: blocks of
+def check_grid(grid: SimulationGrid,
+               sampler: SamplerOptions = SamplerOptions()) -> None:
+    """Raise ValueError for a grid outside the kernels' cover: a grid
+    without a primitive ``sampler`` samples (sample_names: the kappa slot
+    too where ``sampler.has_kappa``; the loaders raise the JAX package's
+    error for a file without it), blocks of
     at least 2 cells per axis with faces in non-decreasing order (the
     cell search then finds the cell the comparison count finds); and, of
     many blocks, each with some extent on every axis and no two
@@ -282,7 +313,7 @@ def check_grid(grid: SimulationGrid) -> None:
     for faces in grid.host_faces:
         if bool((faces[:, 1:] < faces[:, :-1]).any()):
             raise ValueError("grid faces must be non-decreasing")
-    missing = [n for n in SAMPLE_NAMES if n not in grid.ind]
+    missing = [n for n in sample_names(sampler) if n not in grid.ind]
     if missing:
         raise ValueError(f"grid lacks {missing}")
     if grid.n_blocks == 1:
@@ -353,9 +384,12 @@ def axis_guide(faces, lo: float, scale: float, bins: int):
 
 
 # ctypes of KernelGrid.args() in the C interfaces: table, coords, guides,
-# axes, n_i, n_j, n_k, mode, nearest, n_b, bounds, amr, parity, map.
+# axes, n_i, n_j, n_k, mode, nearest, n_b, bounds, amr, parity, map; the
+# mixture's interfaces take the kappa table after them
+# (KernelGrid.mixture_args()).
 GRID_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6 \
     + (ctypes.c_void_p,) * 4
+MIXTURE_GRID_ARGTYPES = GRID_ARGTYPES + (ctypes.c_void_p,)
 
 
 class KernelGrid(NamedTuple):
@@ -371,7 +405,10 @@ class KernelGrid(NamedTuple):
     blocks the box of every block and one bin), under FMKS followed by the
     map's FMKS_MAP_VALUES; the kernel mode (kernel_mode: grid/sampling.py
     SINGLE, BLOCKS, INTERBLOCK, FMKS, or CKS_BLOCKS, CKS_INTERBLOCK) and
-    the nearest-cell flag."""
+    the nearest-cell flag; where the sampler takes the kappa slot
+    (plasma_model = code_kappa), its (n_b, n_k, n_j, n_i) float32 table, a
+    ninth value a cell that the mixture's kernels read beside the 32-byte
+    rows of the others, which stay as they are."""
 
     table: torch.Tensor
     coords: torch.Tensor
@@ -383,6 +420,7 @@ class KernelGrid(NamedTuple):
     mode: int
     nearest: bool
     map: torch.Tensor | None = None
+    kappa: torch.Tensor | None = None
 
     def args(self) -> tuple:
         """The C interfaces' table, coords, guides, axes, n_i, n_j, n_k,
@@ -395,6 +433,12 @@ class KernelGrid(NamedTuple):
                 None if self.amr is None else self.amr.data_ptr(),
                 None if self.parity is None else self.parity.data_ptr(),
                 None if self.map is None else self.map.data_ptr())
+
+    def mixture_args(self) -> tuple:
+        """args() and the kappa table (a null pointer where none), as the
+        mixture's C interfaces take them."""
+        return (*self.args(),
+                None if self.kappa is None else self.kappa.data_ptr())
 
 
 def kernel_mode(grid: SimulationGrid, sampler: SamplerOptions) -> int:
@@ -421,7 +465,8 @@ def kernel_grid(grid: SimulationGrid, dtype,
     and its values (grid.map_r_in, map_dr, map_dtheta, bounds and the
     table's shape), which the card rounds to ``dtype`` as the plain
     version's Python floats are rounded. A CKS grid's modes are those of
-    many blocks, one block included."""
+    many blocks, one block included. The kappa table is the grid's kappa
+    slot where ``sampler.has_kappa``."""
     mode = kernel_mode(grid, sampler)
     table, coords = kernel_tables(grid, dtype)
     rounded = [h.astype(_NUMPY_DTYPES[dtype]) for h in grid.host_faces]
@@ -450,7 +495,9 @@ def kernel_grid(grid: SimulationGrid, dtype,
                       grid.amr_table.contiguous() if interblock else None,
                       grid.loc_parity.contiguous() if interblock else None,
                       mode, not sampler.interp,
-                      grid.sks_map.to(dtype).contiguous() if fmks else None)
+                      grid.sks_map.to(dtype).contiguous() if fmks else None,
+                      grid.prim[grid.ind["kappa"]].contiguous()
+                      if sampler.has_kappa else None)
 
 
 def frequency_bucket(nf: int, one: bool = True) -> int:
@@ -547,7 +594,7 @@ def render_simulation(positions, directions, momentum_factors, frequencies,
     _check_frequencies(frequencies, positions)
     if integrator not in INTEGRATORS:
         raise ValueError(f"integrator must be one of {INTEGRATORS}")
-    check_grid(grid)
+    check_grid(grid, sp.sampler)
     if grid.prim.device != positions.device:
         raise TypeError("the grid and the rays must share one device")
     device = positions.device
@@ -607,9 +654,11 @@ def _render_cuda(positions, directions, momentum_factors, frequencies,
     scales = image_scale(frequencies, log_j_scale).cpu().numpy()
     code, integ = _DTYPE_CODES[positions.dtype], INTEGRATORS.index(integrator)
     mixture = is_mixture(sp.plasma)
-    mix = mixture_params(sp.plasma, polarized=False) if mixture else None
+    mix = mixture_params(sp.plasma, False, sp.sampler.fallback_kappa) \
+        if mixture else None
     launch = lib.blacklight_simulation_mixture_launch if mixture \
         else lib.blacklight_simulation_launch
+    grid_args = kgrid.mixture_args() if mixture else kgrid.args()
     for start in range(0, nf, MAX_FREQUENCIES):
         stop = min(start + MAX_FREQUENCIES, nf)
         consts = launch_consts(
@@ -623,7 +672,7 @@ def _render_cuda(positions, directions, momentum_factors, frequencies,
             rc = launch(
                 code, integ, stop - start, positions.data_ptr(),
                 directions.data_ptr(), momentum_factors.data_ptr(),
-                consts.ctypes.data, consts.nbytes, *kgrid.args(),
+                consts.ctypes.data, consts.nbytes, *grid_args,
                 out.data_ptr(), flags.data_ptr(), n_samples.data_ptr(), b,
                 stream)
         if rc != 0:
@@ -634,6 +683,8 @@ def _render_cuda(positions, directions, momentum_factors, frequencies,
         if mixture:
             MIXTURE_LAUNCHES += 1
             MIXTURE_MODE_LAUNCHES[kgrid.mode] += 1
+            if kgrid.kappa is not None:
+                CODE_KAPPA_MODE_LAUNCHES[kgrid.mode] += 1
         else:
             MODE_LAUNCHES[kgrid.mode] += 1
         if out is not i_nu:
@@ -647,10 +698,11 @@ def _library() -> ctypes.CDLL:
     declared: every pointer and the stream as c_void_p."""
     lib = _build.load_library()
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for name in ("blacklight_simulation_launch",
-                 "blacklight_simulation_mixture_launch"):
+    for name, grid_args in (
+            ("blacklight_simulation_launch", GRID_ARGTYPES),
+            ("blacklight_simulation_mixture_launch", MIXTURE_GRID_ARGTYPES)):
         getattr(lib, name).argtypes = [
-            i32, i32, i32, ptr, ptr, ptr, ptr, i64, *GRID_ARGTYPES, ptr, ptr,
+            i32, i32, i32, ptr, ptr, ptr, ptr, i64, *grid_args, ptr, ptr,
             ptr, i64, ptr]
         getattr(lib, name).restype = i32
     for name in ("blacklight_simulation_consts_bytes",
@@ -882,10 +934,12 @@ PHASE_LAUNCHES = 0
 # Of those, the launches of each kernel mode's phase kernel (SINGLE:
 # simulation_phase_kernel; BLOCKS, INTERBLOCK, CKS_BLOCKS, CKS_INTERBLOCK:
 # simulation_phase_mode_kernel; FMKS: simulation_phase_fmks_kernel), and
-# of the mixture's (simulation_phase_mixture_kernel, any mode), also by mode.
+# of the mixture's (simulation_phase_mixture_kernel, any mode), also by mode,
+# and of those the launches at the code_kappa temperature, by mode.
 PHASE_MODE_LAUNCHES = [0] * KERNEL_MODES
 PHASE_MIXTURE_LAUNCHES = 0
 PHASE_MIXTURE_MODE_LAUNCHES = [0] * KERNEL_MODES
+PHASE_CODE_KAPPA_MODE_LAUNCHES = [0] * KERNEL_MODES
 
 # Steps a phase of render_simulation_phased by default: at 1024^2 with 2000
 # steps, 1000 (2 launches) beat the JAX package's 512 (4 launches) in turns
@@ -1015,7 +1069,7 @@ def _phase_runner(frequencies, params, sp, grid, mass_msun, camera_x,
     """run(carry, index, n_base, phase_steps, directions,
     momentum_factors): one phase on ``device``, with what every phase of
     a render shares (the parameter vector, the tables) built once."""
-    check_grid(grid)
+    check_grid(grid, sp.sampler)
     if grid.prim.device != device:
         raise TypeError("the grid and the rays must share one device")
     if device.type == "cpu":
@@ -1036,9 +1090,11 @@ def _phase_runner(frequencies, params, sp, grid, mass_msun, camera_x,
     nus = frequencies.cpu().numpy()
     code, integ = _DTYPE_CODES[dtype], INTEGRATORS.index(integrator)
     mixture = is_mixture(sp.plasma)
-    mix = mixture_params(sp.plasma, polarized=False) if mixture else None
+    mix = mixture_params(sp.plasma, False, sp.sampler.fallback_kappa) \
+        if mixture else None
     launch = lib.blacklight_simulation_phase_mixture_launch if mixture \
         else lib.blacklight_simulation_phase_launch
+    grid_args = kgrid.mixture_args() if mixture else kgrid.args()
     # the phase kernel writes no image: its scales are zero
     chunks = [(start, min(start + MAX_FREQUENCIES, nf), launch_consts(
         values, nus[start:start + MAX_FREQUENCIES],
@@ -1062,7 +1118,7 @@ def _phase_runner(frequencies, params, sp, grid, mass_msun, camera_x,
                     code, integ, stop - start, index.data_ptr(), n_live,
                     n_base, phase_steps, int(chunk == len(chunks) - 1),
                     directions.data_ptr(), momentum_factors.data_ptr(),
-                    consts.ctypes.data, consts.nbytes, *kgrid.args(),
+                    consts.ctypes.data, consts.nbytes, *grid_args,
                     carry.y.data_ptr(), carry.r_mid_prev.data_ptr(),
                     carry.n_samp.data_ptr(), carry.masks.data_ptr(),
                     carry.intensity[start].data_ptr(),
@@ -1076,6 +1132,8 @@ def _phase_runner(frequencies, params, sp, grid, mass_msun, camera_x,
             if mixture:
                 PHASE_MIXTURE_LAUNCHES += 1
                 PHASE_MIXTURE_MODE_LAUNCHES[kgrid.mode] += 1
+                if kgrid.kappa is not None:
+                    PHASE_CODE_KAPPA_MODE_LAUNCHES[kgrid.mode] += 1
             else:
                 PHASE_MODE_LAUNCHES[kgrid.mode] += 1
     return run
@@ -1087,11 +1145,13 @@ def _phase_library() -> ctypes.CDLL:
     declared as well."""
     lib = _library()
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for name in ("blacklight_simulation_phase_launch",
-                 "blacklight_simulation_phase_mixture_launch"):
+    for name, grid_args in (
+            ("blacklight_simulation_phase_launch", GRID_ARGTYPES),
+            ("blacklight_simulation_phase_mixture_launch",
+             MIXTURE_GRID_ARGTYPES)):
         getattr(lib, name).argtypes = [
             i32, i32, i32, ptr, i64, i32, i32, i32, ptr, ptr, ptr, i64,
-            *GRID_ARGTYPES, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr]
+            *grid_args, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr]
         getattr(lib, name).restype = i32
     return lib
 

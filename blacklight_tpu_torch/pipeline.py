@@ -28,7 +28,6 @@ from blacklight_tpu_torch.constants import (
     ModelType,
     OutputFormat,
     Physics,
-    PlasmaModel,
     RayIntegrator,
     RayTerminate,
 )
@@ -124,8 +123,6 @@ def _check_simulation_slice(cfg, refuse) -> None:
     # package's do
     if cfg.require("simulation_multiple") and cfg.slow_light_on:
         refuse("slow light", "B.6")
-    if cfg.require("plasma_model") != PlasmaModel.ti_te_beta:
-        refuse(f"plasma_model = {cfg.plasma_model.value}", "B.2")
 
 
 def resolve_device(device) -> torch.device:

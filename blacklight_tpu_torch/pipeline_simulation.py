@@ -13,8 +13,10 @@ chooses between its kernels and its XLA path
 
 - "kernel", the light image alone: one fused kernel that integrates the
   geodesics, samples the grid, evaluates the synchrotron coefficients
-  (thermal electrons, or their mixture with power-law and kappa ones:
-  the kernels' mixture instantiations) and accumulates the transfer,
+  (thermal electrons at the ti_te_beta or the code_kappa temperature,
+  alone or mixed with power-law and kappa ones: the kernels' mixture
+  instantiations take all but thermal ti_te_beta electrons alone) and
+  accumulates the transfer,
   unpolarized
   (``ops/simulation_kernel.render_simulation``, or with KERNEL_PHASED its
   phased dispatch ``render_simulation_phased``) or, with
@@ -141,19 +143,25 @@ def cut_params_from_config(cfg) -> synchrotron.CutParams:
 
 def load_grid_file(cfg, path: str, *, device, dtype) -> SimulationGrid:
     """Load one snapshot file in the configured format
-    (blacklight_tpu/pipeline_simulation.py:119-140): an AthenaK file's
-    parameters are held against the configuration's spin, mass, density
-    unit and molecular weight, and its adiabatic index against
-    plasma_gamma (warnings)."""
+    (blacklight_tpu/pipeline_simulation.py:116-140): with plasma_model =
+    code_kappa the Athena++ and AthenaK loaders read the kappa slot from
+    the variable simulation_kappa_name (the iharm3d and harm3d loaders
+    read the configuration themselves); an AthenaK file's parameters are
+    held against the configuration's spin, mass, density unit and
+    molecular weight, and its adiabatic index against plasma_gamma
+    (warnings)."""
     fmt = cfg.require("simulation_format")
+    kappa_name = None
+    if cfg.require("plasma_model") == PlasmaModel.code_kappa:
+        kappa_name = cfg.require("simulation_kappa_name")
     if fmt == SimulationFormat.athena:
-        return load_athdf(path, device=device, dtype=dtype)
+        return load_athdf(path, kappa_name, device=device, dtype=dtype)
     if fmt == SimulationFormat.athenak:
         expected = {"a": cfg.require("simulation_a"),
                     "bhmass_msun": cfg.require("simulation_m_msun"),
                     "density_cgs": cfg.require("simulation_rho_cgs"),
                     "mu": cfg.require("plasma_mu")}
-        return load_athenak(path, device=device, dtype=dtype,
+        return load_athenak(path, kappa_name, device=device, dtype=dtype,
                             plasma_gamma=cfg.plasma_gamma, expected=expected)
     if fmt == SimulationFormat.iharm3d:
         return load_iharm3d(path, cfg, device=device, dtype=dtype)

@@ -38,9 +38,15 @@ and prints no final line):
      V: rk4 float64, dp float32, rk2 float32 with image_rotation_split
      and two frequencies; each float32 case also against the plain
      version in float64 on the same rays (truth_gate);
-   - the plain polarized version in float64 and in float32 on 4,096 rays
-     of phase 9's main path, which phase 9 holds its float32 route
-     against;
+   - the plain polarized version in float64 (on one host core) and in
+     float32 (on the card) on 4,096 rays of phase 9's main path, which
+     phase 9 holds its float32 route against;
+   - the plain simulation version on every ray of phase 7's float32 rk4
+     cell, which phase 7 holds its kernel against, and phase 13's second
+     phase (steps 1000-1999 of that cell from the phase kernel's carried
+     state) through the phase kernel and its plain version, which phase
+     13 holds its own run to (bit for bit, then the statistical gate);
+   - phase 12's ``python -m blacklight_tpu_torch.fit_demo``;
    - the polarized route's three kernels at phase 9's cell (4,096 of its
      rays, every PLAIN_STRIDE-th in spatial_order), each against its plain
      version on the same inputs: the trace kernel on the rays, the derive
@@ -84,7 +90,18 @@ and prints no final line):
      4,096 of the camera's rays of each of phase 18's cells on the card
      and on 1,024 polarized on one host core (in float32 and in float64),
      once the main process has written phase 18's file;
-   jobs start longest first (PHASE3_SECONDS);
+   - phase 19's: the code_kappa phase kernel on its second phase of 200
+     steps at 128^2 on mock_small.athdf's snapshot with a kappa slot (rk4
+     float64, exact); the plain version on 4,096 of the camera's rays of
+     each of phase 19's cells (CK_PLAIN: phase 7's cell in float32 and in
+     float64, the mixture, mb-amr, the nearest cell, the FMKS torus on one
+     host core each, the AthenaK cube on the card), and the polarized cell
+     on 1,024 rays on one host core in float32 and in float64;
+   jobs start longest first (PHASE3_SECONDS), the main process running
+   MAIN_JOBS itself once its own host work is done (phase 2's report,
+   phase 17's and 18's mocks); each job's start, end and seconds are
+   printed ("checks_job"), and the "checks" line names the job that
+   ended phase 3;
 4. the 32^2 formula goldens through pipeline.run(cfg, device="cuda") at
    the tolerances of tests/test_formula_e2e.py;
 5. the formula main path at full width: golden_formula_32.input at
@@ -108,8 +125,9 @@ and prints no final line):
    kernel time by name); the time of the snapshot's kernel tables and
    guides (kernel_tables, kernel_grid); then kernel times at 1024^2 in
    float32 rk4, float64 rk4 and float32 dp, each beside its bound and the
-   issue estimate of phase 2's per-step path, and the plain version's in
-   float32 rk4;
+   issue estimate of phase 2's per-step path, the float32 rk4 kernel held
+   to phase 3's plain version on every ray (sim_full_width_plain, on the
+   card in the pool);
 8. the 32^2 polarized goldens through pipeline.run(cfg, device="cuda"),
    reading the .athdf file, at the tolerances of
    tests/test_polarized_e2e.py;
@@ -136,14 +154,15 @@ and prints no final line):
     through the kernel; the tangent kernel's time against phase 3's plain
     subset;
 12. the fit: ``python -m blacklight_tpu_torch.fit_demo`` (32^2, 200 Adam
-    iterations) must print FIT OK; then 10 iterations at 1024^2, whose
-    loss must be finite and fall;
+    iterations; run in phase 3's pool) must have printed FIT OK; then 10
+    iterations at 1024^2, whose loss must be finite and fall;
 13. K2.3, phased dispatch, run right after phase 7 on its snapshot:
     phase 7's configuration through pipeline.run with
     pipeline_simulation.KERNEL_PHASED on, counting phase launches (at
     most 2000 / KERNEL_PHASE_STEPS), whose image must be phase 7's bit for
     bit; the phase kernel held to its plain version on the route's own
-    second phase (KERNEL_PHASE_STEPS) at full width; the phased route's
+    second phase (KERNEL_PHASE_STEPS) at full width (phase 3's run of
+    the plain version); the phased route's
     bound (each phase's);
     warp and block efficiencies of each ray order (camera order,
     spatial_order per tile size, each phase's launch order); best of 3 of
@@ -271,7 +290,25 @@ and prints no final line):
     phase 9's is (truth_gate, equal NaN sets) and its float64 run on the
     same 1,024 rays exact (polarized_gate).
 
-Phases 4 to 18 run alone on the card, after phase 3.
+19. plasma_model = code_kappa (ROADMAP B.2), run after phase 18: the
+    electron temperature from a ninth sampled primitive, the electron
+    entropy kappa = KAPPA_SCALE * pgas / rho^gamma_adi of each snapshot's
+    own rho and pgas (scripts/mock_athenak.py with_kappa), on the mixture's
+    instantiations (the thermal ones keep their SASS, phase 2). Phase 7's
+    cell (1024^2, rk4, 2000 steps, float32) through pipeline.run, counting
+    the code_kappa launches of each mode (CODE_KAPPA_MODE_LAUNCHES); the
+    kernel in spatial_order, best of 3 in turns with phase 7's thermal
+    kernel, beside its bound, held to phase 3's plain version on every
+    PLAIN_STRIDE-th ray (statistical gate) and in float64 on those rays to
+    the plain version in float64 (exact); the phased route bit for bit
+    its image, the phase kernel's second phase timed; the polarized route
+    through pipeline.run and in turns with phase 9's, with each stage's
+    time, held as phase 9's is (truth_gate, equal NaN sets); then the
+    kernel on the PLAIN_STRIDE-th rays of each other cell (the mixture,
+    mb-amr's interblock sampling, the nearest cell, the FMKS torus and the
+    AthenaK cube with interblock sampling) held to its plain version there.
+
+Phases 4 to 19 run alone on the card, after phase 3.
 
 ``python3 chip_smoke.py --chunk-sweep`` runs phases 1 and 2, then times
 the polarized route at 1024^2 (float32 rk4, spatial_order) for trace
@@ -306,7 +343,11 @@ mixture's on FMKS, the single-block kernel on the harm3d grid, the FMKS
 phase kernel and the polarized route with the FMKS derive kernel, then
 phase 18's: the CKS simulation kernel with interblock sampling and
 trilinear, the mixture's on the CKS grid, the CKS phase kernel and the
-polarized route with the CKS derive kernel); then
+polarized route with the CKS derive kernel, then phase 19's: the
+code_kappa simulation kernel, its phase kernel, the polarized route with
+its derive kernel, and the code_kappa kernel of the mixture, of
+interblock sampling, of the nearest cell, of FMKS and of a CKS grid);
+then
 come the card's name and power limit, and
 the last line is {"ok": true, "device": {...}}. The script prints its
 total time on the line before the kernels line.
@@ -411,6 +452,12 @@ SM_CLOCK_HZ = {}
 # ~2,000), but that is the kernels' own overhead, not work the function
 # needs, so no bound counts it. The polarized CKS sample counts the
 # block's box (6) in place of the SKS sample's 12.
+# The code_kappa sample (phase 19) is the thermal one of its mode with the
+# code_kappa temperature in place of ti_te_beta's (~15): rho_e and its
+# product with kappa (3), the cube root (~20), theta_e (6) and kb_tt_e
+# (2), ~+20, and its mixture's the mixture's +20; the polarized sample
+# the thermal one's +20 (POL_MIX_OPS_PER_FREQUENCY only where the cell
+# mixes in power-law or kappa electrons).
 OPS_PER_STEP = {"rk4": 830, "rk2": 500, "dp": 2020}
 OPS_PER_SAMPLE = {"formula": 130, "simulation": 495, "polarized": 2740,
                   "simulation_blocks": 520, "simulation_interblock": 1030,
@@ -418,7 +465,14 @@ OPS_PER_SAMPLE = {"formula": 130, "simulation": 495, "polarized": 2740,
                   "polarized_mixture": 2740, "simulation_fmks": 535,
                   "simulation_mixture_fmks": 615, "polarized_fmks": 2780,
                   "simulation_cks": 508, "simulation_cks_interblock": 1018,
-                  "simulation_mixture_cks": 588, "polarized_cks": 2734}
+                  "simulation_mixture_cks": 588, "polarized_cks": 2734,
+                  "simulation_code_kappa": 515,
+                  "simulation_code_kappa_mixture": 595,
+                  "simulation_code_kappa_interblock": 1050,
+                  "simulation_code_kappa_nearest": 351,
+                  "simulation_code_kappa_fmks": 555,
+                  "simulation_code_kappa_cks_interblock": 1038,
+                  "polarized_code_kappa": 2760}
 POL_OPS_PER_FREQUENCY = 1090
 POL_MIX_OPS_PER_FREQUENCY = 260
 POL_CHAIN_OPS_PER_FREQUENCY = 900
@@ -480,6 +534,7 @@ FULL_GRID = dict(n_r=288, n_th=128, n_ph=128, r_min=1.916, r_max=52.2,
 
 # The script's start: each line carries its seconds since then ("at_s")
 STARTED = time.perf_counter()
+STARTED_EPOCH = time.time()
 
 
 def emit(phase: str, **fields) -> None:
@@ -901,6 +956,11 @@ def phase_checks(pool, prep=None) -> tuple:
                  (check_mesh_phase, args) for args in MESH_PHASE_CHECKS})
     jobs.update({("subset", "formula_plain_subset", (cell,)):
                  (formula_plain_subset, (cell,)) for cell in FORMULA_CELLS})
+    jobs[("subset", "sim_full_width_plain", ("sim",))] = (
+        sim_full_width_plain, ())
+    jobs[("subset", "sim_second_phase_plain", ("second_phase",))] = (
+        sim_second_phase_plain, ())
+    jobs[("subset", "fit_demo_run", ("fit_demo",))] = (fit_demo_run, ())
     jobs.update({("mesh_plain", "mesh_plain_subset", key):
                  (mesh_plain_subset, key) for key in MESH_PLAIN})
     jobs.update({(kind, fn.__name__, ()): (fn, ()) for kind, fn in (
@@ -927,11 +987,31 @@ def phase_checks(pool, prep=None) -> tuple:
         check_athenak_phase, ())
     jobs.update({("athenak_pol", "athenak_pol_subset", (p,)):
                  (athenak_pol_subset, (p,)) for p in ("float32", "float64")})
+    jobs.update({("code_kappa", "code_kappa_plain", key):
+                 (code_kappa_plain, key) for key in CK_PLAIN})
+    jobs.update({("code_kappa_pol", "code_kappa_pol_plain", (p,)):
+                 (code_kappa_pol_plain, (p,)) for p in ("float32", "float64")})
+    jobs[("code_kappa_phase", "check_code_kappa_phase", ())] = (
+        check_code_kappa_phase, ())
     # longest first (a stable sort: jobs of no measured length keep the
-    # table's order after the measured ones)
-    order = sorted(jobs, key=lambda key: -PHASE3_SECONDS.get(key[1:], 0.0))
-    started = {key: pool.apply_async(*jobs[key]) for key in order}
+    # table's order after the measured ones); MAIN_JOBS run in this
+    # process once its own host work is done, on the core the pool leaves
+    order = sorted((key for key in jobs if key[1:] not in MAIN_JOBS),
+                   key=lambda key: -PHASE3_SECONDS.get(key[1:], 0.0))
+    started = {key: _PoolJob(pool.apply_async(_pool_job, jobs[key]))
+               for key in order}
+    t_prep = time.perf_counter()
     prepared = prep() if prep is not None else None
+    t_main = time.perf_counter()
+    import torch
+    threads = torch.get_num_threads()
+    for key in jobs:
+        if key[1:] in MAIN_JOBS:
+            started[key] = _DoneJob(_pool_job(*jobs[key]))
+    torch.set_num_threads(threads)
+    emit("checks_main_process", prep_s=t_main - t_prep,
+         jobs_s=time.perf_counter() - t_main,
+         jobs=[[name, list(args)] for name, args in MAIN_JOBS])
 
     def results(kind):
         return {key[2]: job for key, job in started.items()
@@ -1010,9 +1090,63 @@ def phase_checks(pool, prep=None) -> tuple:
                          results("athenak_plain").items()},
                "pol_plain": results("athenak_pol")[("float32",)].get(),
                "pol_truth": results("athenak_pol")[("float64",)].get()}
-    emit("checks", workers=WORKERS, seconds=time.perf_counter() - t0)
+    phase, result = started[("code_kappa_phase", "check_code_kappa_phase",
+                             ())].get()
+    emit(phase, workers=WORKERS, **result)
+    if not result["ok"]:
+        raise RuntimeError(f"{phase}: kernel disagrees with plain: {result}")
+    code_kappa = {"phase": result,
+                  "plain": {key: job.get() for key, job in
+                            results("code_kappa").items()},
+                  "pol_plain": results("code_kappa_pol")[("float32",)].get(),
+                  "pol_truth": results("code_kappa_pol")[("float64",)].get()}
+    spans = {key: job.span() for key, job in started.items()}
+    for key in sorted(spans, key=lambda k: spans[k][0]):
+        begin, end = spans[key]
+        emit("checks_job", job=key[1], args=list(key[2]),
+             start_at_s=begin - STARTED_EPOCH, end_at_s=end - STARTED_EPOCH,
+             seconds=end - begin)
+    last = max(spans, key=lambda k: spans[k][1])
+    emit("checks", workers=WORKERS, seconds=time.perf_counter() - t0,
+         last_job=[last[1], list(last[2])],
+         job_seconds=sum(end - begin for begin, end in spans.values()))
     return truth, subsets, stages, mesh, aux, mixture, fmks, athenak, \
-        prepared
+        code_kappa, prepared
+
+
+def _pool_job(fn, args):
+    """A phase-3 job in a worker: its result and the epoch seconds at its
+    start and end."""
+    begin = time.time()
+    return fn(*args), begin, time.time()
+
+
+class _DoneJob:
+    """A phase-3 job the main process ran: _PoolJob's get() and span()
+    over _pool_job's result."""
+
+    def __init__(self, result):
+        self.result = result
+
+    def get(self):
+        return self.result[0]
+
+    def span(self) -> tuple:
+        return self.result[1:]
+
+
+class _PoolJob:
+    """A phase-3 job's AsyncResult whose get() gives the job's result;
+    span() its (start, end) epoch seconds, once it has ended."""
+
+    def __init__(self, async_result):
+        self.async_result = async_result
+
+    def get(self):
+        return self.async_result.get()[0]
+
+    def span(self) -> tuple:
+        return self.async_result.get()[1:]
 
 
 def _check_exact(kernel_out, plain_out, rtol) -> dict:
@@ -1226,7 +1360,8 @@ def time_kernel(phase, kernel, plain, args, kwargs, res, card,
     """Warm best of 3 of ``kernel`` on a res^2 ray bundle, and its outputs
     held to the plain version's by the statistical gate (per output and
     frequency): ``plain`` is None (no check), the plain version (run once
-    on the same rays) or formula_plain_subset's result for these rays.
+    on the same rays) or a phase-3 job's result for every ray or every
+    PLAIN_STRIDE-th (formula_plain_subset, sim_full_width_plain).
     Emits the timing line and, for a formula kernel, the order its rays
     were launched in (``order``: the permutation of the camera's rays that
     ``args`` hold, None for camera order), the 128-ray block efficiency of
@@ -1251,7 +1386,7 @@ def time_kernel(phase, kernel, plain, args, kwargs, res, card,
             ref, n_plain = [o.cpu().numpy() for o in _outputs(out_p)], n
         else:
             positions, ref, t_plain = plain
-            pick = np.arange(0, n, PLAIN_STRIDE)
+            pick = np.arange(0, n, n // positions.shape[0])
             if not np.array_equal(positions, args[0][pick].cpu().numpy()):
                 raise RuntimeError("the plain version traced other rays")
             ours, n_plain = [o[pick] for o in ours], pick.size
@@ -1464,7 +1599,24 @@ def full_width_snapshot(dtype, device=None):
         dtype=dtype)
 
 
-def phase_sim_full_width(tmp: pathlib.Path, card: str, grids: dict) -> dict:
+def sim_full_width_plain() -> tuple:
+    """Phase 3: the plain version on every ray of phase 7's float32 rk4
+    cell, on the card, which phase 7 holds its kernel against (it ran in
+    phase 7, after phase 3, ~43 s alone on the card: PERF.md): (the rays'
+    positions, (I_nu,), seconds), numpy. In phase 3's pool its time is not
+    comparable with a lone run."""
+    import torch
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+    args, kwargs = _sim_args(_sim_config(
+        camera_resolution=1024, precision="float32", ray_integrator="rk4",
+        ray_max_steps=2000), full_width_snapshot(torch.float32))
+    out, t_plain = _timed(sk.render_simulation_reference, *args, **kwargs)
+    return args[0].cpu().numpy(), [out[0].cpu().numpy()], t_plain
+
+
+def phase_sim_full_width(tmp: pathlib.Path, card: str, grids: dict,
+                         plain32) -> dict:
+    """Phase 7; ``plain32``: sim_full_width_plain's result."""
     import numpy as np
     import torch
     from blacklight_tpu_torch import pipeline
@@ -1524,8 +1676,8 @@ def phase_sim_full_width(tmp: pathlib.Path, card: str, grids: dict) -> dict:
         cfg = _sim_config(camera_resolution=res, precision=precision,
                           ray_integrator=integrator, ray_max_steps=2000)
         (args, kwargs), t_setup = _timed(_sim_args, cfg, grids[precision])
-        plain = sk.render_simulation_reference \
-            if (precision, integrator) == ("float32", "rk4") else None
+        plain = plain32 if (precision, integrator) == ("float32", "rk4") \
+            else None
         tp = "float" if precision == "float32" else "double"
         cell = time_kernel(
             "sim_timing", sk.render_simulation, plain, args, kwargs, res,
@@ -1579,11 +1731,30 @@ def phase_bound(rays, samples, precision, in_bytes,
             "bound_ops": ops, "bound_bytes": n_bytes}
 
 
+def sim_second_phase_plain() -> tuple:
+    """Phase 3: phase 13's second phase: phase 7's cell (float32 rk4)
+    through the phase kernel's first phase of KERNEL_PHASE_STEPS, then its
+    second phase through the kernel and through the plain version from
+    that state, on the card (it took ~22 s after phase 3 alone): (kernel
+    outputs, plain outputs, plain seconds, the second phase's rays),
+    numpy."""
+    import torch
+    from blacklight_tpu_torch import pipeline_simulation as ps
+    args, _ = _sim_args(_sim_config(
+        camera_resolution=1024, precision="float32", ray_integrator="rk4",
+        ray_max_steps=2000), full_width_snapshot(torch.float32))
+    out_k, out_p, _, t_p, rays, _ = _second_phase(args, "rk4",
+                                                  ps.KERNEL_PHASE_STEPS)
+    return ([o.cpu().numpy() for o in out_k],
+            [o.cpu().numpy() for o in out_p], t_p, rays)
+
+
 def phase_phased_full_width(tmp: pathlib.Path, card: str, grids: dict,
-                            mono: dict) -> dict:
+                            mono: dict, second) -> dict:
     """Phase 13 (K2.3): phase 7's configuration through pipeline.run with
     KERNEL_PHASED on, held bit for bit to phase 7's image ``mono``; the
-    phase kernel against its plain version on the second phase; the
+    phase kernel against its plain version on the second phase (phase 3's
+    run of it, ``second``: sim_second_phase_plain's result); the
     efficiencies and times of each ray order."""
     import numpy as np
     import torch
@@ -1626,19 +1797,27 @@ def phase_phased_full_width(tmp: pathlib.Path, card: str, grids: dict,
         camera_resolution=res, precision="float32", ray_integrator="rk4",
         ray_max_steps=2000), grid)
     steps = ps.KERNEL_PHASE_STEPS
-    out_k, out_p, t_k, t_p, rays2, samples2 = _second_phase(args, "rk4",
-                                                            steps)
-    gate = _check_exact(out_k, out_p, None)
+    out_k, _, t_k, _, rays2, samples2 = _second_phase(
+        args, "rk4", steps, with_plain=False)
+    # phase 3's run of the same two phases: its kernel outputs are these
+    # bit for bit, its plain version's held to them
+    job_k, job_p, t_p, job_rays = second
+    out_k = [o.cpu().numpy() for o in out_k]
+    same = job_rays == rays2 and all(
+        np.array_equal(a, b, equal_nan=a.dtype.kind == "f")
+        for a, b in zip(out_k, job_k))
+    gate = _check_exact(tuple(torch.from_numpy(o) for o in out_k),
+                        tuple(torch.from_numpy(o) for o in job_p), None)
+    gate["ok"] = bool(gate["ok"] and same)
     emit("phase_kernel_vs_plain", resolution=res, card=card,
          phase_steps=steps, second_phase_rays=rays2, kernel_ms=t_k * 1e3,
-         plain_ms=t_p * 1e3, **gate)
+         plain_ms=t_p * 1e3, plain_in="phase 3's pool",
+         kernel_same_as_phase_3=same, **gate)
     if not gate["ok"]:
         raise RuntimeError(f"the phase kernel disagrees with plain at "
                            f"{res}^2: {gate}")
-    both = np.isfinite(out_k[0].cpu().numpy()) & np.isfinite(
-        out_p[0].cpu().numpy())
-    max_abs_err = float(np.max(np.abs(out_k[0].cpu().numpy()[both]
-                                      - out_p[0].cpu().numpy()[both])))
+    both = np.isfinite(out_k[0]) & np.isfinite(job_p[0])
+    max_abs_err = float(np.max(np.abs(out_k[0][both] - job_p[0][both])))
 
     # ray orders: the monolithic kernel's n_samples stand in for steps
     positions, n = args[0], res * res
@@ -1833,6 +2012,12 @@ def _mock():
     sys.path.insert(0, str(ROOT / "scripts"))
     import generate_mock_simulation as mock
     return mock
+
+
+def _mock_athenak():
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import mock_athenak
+    return mock_athenak
 
 
 def mesh_grid(layout, dtype):
@@ -2778,7 +2963,8 @@ def bound(kernel, integrator, precision, rays, mean_samples, *, in_bytes,
     if kernel == "formula":
         per_sample += FORMULA_OPS_PER_FREQUENCY * (frequencies - 1) \
             + FORMULA_OPS_PER_TANGENT * frequencies * tangents
-    if kernel in ("polarized", "polarized_fmks", "polarized_cks"):
+    if kernel in ("polarized", "polarized_fmks", "polarized_cks",
+                  "polarized_code_kappa"):
         per_sample += POL_OPS_PER_FREQUENCY * frequencies
     if kernel == "polarized_mixture":
         per_sample += (POL_OPS_PER_FREQUENCY + POL_MIX_OPS_PER_FREQUENCY) \
@@ -2980,15 +3166,23 @@ def _plain_subset(args):
 
 def pol_full_width_truth() -> tuple:
     """The plain version in float64 on phase 9's float32 plain-version
-    rays, through the float64 snapshot: (their positions, Stokes)."""
+    rays (widened), through the float64 snapshot, on one host core (on the
+    card it took 2.6x as long in phase 3's pool, PERF.md): (their
+    positions, Stokes)."""
     import torch
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    torch.set_num_threads(1)
     # the camera's rays do not depend on the snapshot: cfg's small one
     # stands in for it here
-    args, _, _ = _pol_args(_pol_full_config("float32", "rk4"))
-    _, sub = _plain_subset(args)
-    truth = _pol_truth(_pol_full_config("float64", "rk4"), sub,
-                       full_width_snapshot(torch.float64))
-    return sub[0].cpu().numpy(), truth
+    cfg = _pol_full_config("float32", "rk4")
+    card_args, _, _ = _pol_args(cfg)
+    sub, kwargs, geom = _host_subset(
+        cfg, card_args, full_width_snapshot(torch.float64,
+                                            torch.device("cpu")),
+        PLAIN_STRIDE, _pol_full_config("float64", "rk4"))
+    del card_args
+    out = pk.render_polarized_reference(*sub, **kwargs)
+    return sub[0].numpy(), _pol_stokes(out, sub, geom, True)
 
 
 def pol_full_width_plain() -> tuple:
@@ -3688,26 +3882,35 @@ def phase_grad_full_width(card: str, subset) -> dict:
             "library_ms": None}
 
 
-def phase_fit(card: str):
-    """Phase 12: ``python -m blacklight_tpu_torch.fit_demo`` as a user runs
-    it (32^2, 200 Adam iterations on the card), which must print FIT OK;
-    then 10 iterations of the same problem at 1024^2, whose loss must be
-    finite and fall, with the time of each iteration."""
+def fit_demo_run() -> tuple:
+    """Phase 3: ``python -m blacklight_tpu_torch.fit_demo`` as a user runs
+    it (32^2, 200 Adam iterations on the card; it took ~22 s after phase
+    3 alone): (return code, its output's lines, its error output's end,
+    seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "blacklight_tpu_torch.fit_demo"],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    return (proc.returncode, proc.stdout.strip().splitlines(),
+            proc.stderr[-2000:], time.perf_counter() - t0)
+
+
+def phase_fit(card: str, demo):
+    """Phase 12: phase 3's run of ``python -m blacklight_tpu_torch.fit_demo``
+    (``demo``: fit_demo_run's result) must have printed FIT OK; then 10
+    iterations of the same problem at 1024^2, whose loss must be finite
+    and fall, with the time of each iteration."""
     import math
     from blacklight_tpu_torch import fit_demo
     from blacklight_tpu_torch.ops import formula_kernel as fk
     from blacklight_tpu_torch.ops import polarized_kernel as pk
     from blacklight_tpu_torch.ops import simulation_kernel as sk
 
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "blacklight_tpu_torch.fit_demo"],
-                          cwd=ROOT, capture_output=True, text=True,
-                          timeout=600)
-    lines = proc.stdout.strip().splitlines()
-    ok = proc.returncode == 0 and "FIT OK" in lines
+    returncode, lines, stderr, seconds = demo
+    ok = returncode == 0 and "FIT OK" in lines
     emit("fit_demo", resolution=32, iterations=200, card=card,
-         returncode=proc.returncode, seconds=time.perf_counter() - t0,
-         output=lines[-4:], stderr=proc.stderr[-2000:], ok=ok)
+         returncode=returncode, seconds=seconds, ran_in="phase 3's pool",
+         output=lines[-4:], stderr=stderr, ok=ok)
     if not ok:
         raise RuntimeError("fit_demo did not print FIT OK")
 
@@ -4629,7 +4832,7 @@ def write_athenak_file(directory: pathlib.Path, layout=None) -> tuple:
     temporary name and then renamed, so that a reader waiting for the
     name sees the whole file: (path, the writer's seconds)."""
     mock = _mock()
-    import mock_athenak
+    mock_athenak = _mock_athenak()
     p = dict(mock.DEFAULTS, **FULL_GRID)
     layout = layout or dict(root=ATHENAK_ROOT, cells=ATHENAK_CELLS,
                             refine=ATHENAK_REFINE)
@@ -5106,6 +5309,448 @@ def phase_athenak_full_width(card: str, grids: dict, checks: dict,
     return entries
 
 
+# Phase 19: plasma_model = code_kappa (ROADMAP B.2): the electron
+# temperature from a ninth sampled primitive, the electron entropy, on
+# the mixture's instantiations of K2.1, K2.3 and K3.1's derive kernel
+# (csrc/sim_sample.cuh code_kappa_state; the thermal instantiations keep
+# their SASS). Every snapshot takes kappa = KAPPA_SCALE * pgas /
+# rho^gamma_adi of its own float32 rho and pgas (with_kappa):
+# write_athena's field, scaled (scripts/mock_athenak.py KAPPA_SCALE says
+# why).
+CK_SOURCE = "blacklight_tpu_torch/csrc/sim_sample.cuh"
+CK_RES, CK_STEPS = 1024, 2000
+# The polarized cell's plain rays: every CK_POL_STRIDE-th (1,024), in
+# float32 and in float64
+CK_POL_STRIDE = 4 * PLAIN_STRIDE
+# Phase 19's unpolarized cells: name -> (snapshot, input, sampling
+# overrides); "ck" is phase 7's cell, the others the other sampling
+# modes (each held on its PLAIN_STRIDE-th rays) and the mixture
+CK_CELLS = {
+    "ck": ("single", "golden_sim_rk4_32.input", {}),
+    "ck_mix": ("single", MIX_INPUT, {}),
+    "ck_amr": ("amr", "golden_sim_rk4_32.input",
+               {"simulation_block_interp": True}),
+    "ck_nearest": ("single", "golden_sim_rk4_32.input",
+                   {"simulation_interp": False}),
+    "ck_fmks": ("fmks", "golden_sim_rk4_32.input", {}),
+    "ck_athenak": ("athenak", "golden_sim_rk4_32.input",
+                   {"simulation_block_interp": True}),
+}
+# The cells whose plain version runs on the card (the AthenaK block
+# search over 568 blocks is slower on one host core, PERF.md); the others
+# run on one host core each
+CK_CARD_PLAIN = ("ck_athenak",)
+# The kernel mode each cell launches (ops/simulation_kernel.kernel_mode)
+CK_MODES = {"ck": 0, "ck_mix": 0, "ck_amr": 2, "ck_nearest": 1,
+            "ck_fmks": 3, "ck_athenak": 5}
+# Phase 3's plain runs of phase 19's cells: (cell, precision)
+CK_PLAIN = (("ck", "float32"), ("ck", "float64"), *(
+    (cell, "float32") for cell in CK_CELLS if cell != "ck"))
+
+
+def with_kappa(grid):
+    """``grid`` with a ninth primitive "kappa" (scripts/mock_athenak.py
+    with_kappa: KAPPA_SCALE * pgas / rho^gamma_adi of its float32 rho and
+    pgas, formed in float64 and stored in float32)."""
+    return _mock_athenak().with_kappa(grid, _mock().DEFAULTS["gamma_adi"])
+
+
+def _ck_config(cell, precision="float32", polarized=False, **overrides):
+    """Phase 19's ``cell`` (CK_CELLS; polarized: golden_polarized's input
+    on the cell's snapshot) at CK_RES^2, rk4, CK_STEPS steps."""
+    from blacklight_tpu_torch.constants import PlasmaModel
+    snapshot, name, sampling = CK_CELLS[cell]
+    if polarized:
+        name = "golden_polarized_rk4_32.input"
+        overrides = dict(image_rotation_split=False, **overrides)
+    make = {"fmks": _fmks_config, "athenak": _athenak_config}.get(
+        snapshot, _sim_config)
+    return make(name, camera_resolution=CK_RES, precision=precision,
+                ray_integrator="rk4", ray_max_steps=CK_STEPS,
+                plasma_model=PlasmaModel.code_kappa,
+                simulation_kappa_name="kappa", **sampling, **overrides)
+
+
+def ck_snapshot(cell, dtype, grids=None):
+    """The snapshot of phase 19's ``cell`` on the card in ``dtype``, with
+    its kappa slot (``grids``: phase 7's and phase 14's grids by key,
+    reused where present)."""
+    import torch
+    snapshot = CK_CELLS[cell][0]
+    key = {"single": str(dtype).split(".")[-1], "amr": "mb_amr"}.get(
+        snapshot)
+    if grids is not None and key in grids and dtype == torch.float32:
+        grid = grids[key]
+    elif snapshot == "single":
+        grid = full_width_snapshot(dtype)
+    elif snapshot == "amr":
+        grid = mesh_grid("amr", dtype)
+    elif snapshot == "fmks":
+        grid, _ = fmks_snapshot(dtype, datasets=(grids or {}).get(
+            "fmks_datasets"))
+    else:
+        path = athenak_path()
+        _wait_for(path)
+        grid, _, _ = athenak_snapshot(path, dtype)
+    return with_kappa(grid)
+
+
+def code_kappa_plain(cell, precision) -> tuple:
+    """Phase 3: the plain version on phase 19's ``cell`` in ``precision``
+    on every PLAIN_STRIDE-th ray of the float32 camera's (float64 widens
+    them): on one host core, or on the card for CK_CARD_PLAIN: (their
+    positions, (I_nu, flags, n_samples), seconds), numpy."""
+    import torch
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+    torch.set_num_threads(1)
+    grid = ck_snapshot(cell, torch.float32)
+    card_args, kwargs = _sim_args(_ck_config(cell), grid)
+    if cell in CK_CARD_PLAIN:
+        _, sub = _plain_subset(card_args)
+    else:
+        wide = precision == "float64"
+        if wide:
+            grid = ck_snapshot(cell, torch.float64)
+        sub, kwargs, _ = _host_subset(
+            _ck_config(cell), card_args, _host_grid(grid), PLAIN_STRIDE,
+            _ck_config(cell, "float64") if wide else None)
+        kwargs = {"integrator": kwargs["integrator"]}
+    del card_args, grid
+    out, t_p = _timed(sk.render_simulation_reference, *sub, **kwargs)
+    return (sub[0].cpu().numpy(), [o.cpu().numpy() for o in out], t_p)
+
+
+def code_kappa_pol_plain(precision) -> tuple:
+    """Phase 3: the plain polarized version on phase 19's polarized cell
+    in ``precision`` on every CK_POL_STRIDE-th ray of the float32
+    camera's, on one host core: (their positions, Stokes, seconds)."""
+    import torch
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    torch.set_num_threads(1)
+    grid = ck_snapshot("ck", torch.float32)
+    cfg = _ck_config("ck", polarized=True)
+    card_args, _, _ = _pol_args(cfg, grid)
+    wide = precision == "float64"
+    if wide:
+        grid = ck_snapshot("ck", torch.float64)
+    sub, kwargs, geom = _host_subset(
+        cfg, card_args, _host_grid(grid), CK_POL_STRIDE,
+        _ck_config("ck", "float64", polarized=True) if wide else None)
+    del card_args, grid
+    out, t_p = _timed(pk.render_polarized_reference, *sub, **kwargs)
+    return sub[0].numpy(), _pol_stokes(out, sub, geom, True), t_p
+
+
+def check_code_kappa_phase() -> tuple:
+    """Phase 3: the code_kappa phase kernel against its plain version,
+    128^2 on mock_small.athdf's snapshot with its kappa slot
+    (MIX_CHECK_STEPS): the second phase of MIX_PHASE_STEPS from the
+    kernel's carried state after the first, rk4 float64 exact."""
+    import numpy as np
+    import torch
+    from blacklight_tpu_torch import pipeline
+    from blacklight_tpu_torch.constants import PlasmaModel
+    from blacklight_tpu_torch.grid.athena import load_athdf
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+    cfg = _sim_config(camera_resolution=128, ray_integrator="rk4",
+                      precision="float64",
+                      plasma_model=PlasmaModel.code_kappa,
+                      simulation_kappa_name="kappa", **MIX_CHECK_STEPS)
+    grid = with_kappa(load_athdf(str(FIXTURES / "mock_small.athdf"),
+                                 device=pipeline.resolve_device("cuda"),
+                                 dtype=torch.float64))
+    args, _ = _sim_args(cfg, grid)
+    before = sk.PHASE_CODE_KAPPA_MODE_LAUNCHES[0]
+    out_k, out_p, t_k, t_p, rays, samples = _second_phase(
+        args, "rk4", MIX_PHASE_STEPS)
+    launched = sk.PHASE_CODE_KAPPA_MODE_LAUNCHES[0] - before
+    result = _check_exact(out_k, out_p, 1e-9)
+    result["ok"] = bool(result["ok"] and launched == 2)
+    a, b = out_k[0].cpu().numpy(), out_p[0].cpu().numpy()
+    both = np.isfinite(a) & np.isfinite(b)
+    result["max_abs_err"] = float(np.max(np.abs(a[both] - b[both]))) \
+        if both.any() else 0.0
+    return "code_kappa_phase_kernel_vs_plain", dict(
+        integrator="rk4", precision="float64", phase_steps=MIX_PHASE_STEPS,
+        phase_rays=rays, phase_samples=samples, code_kappa_launches=launched,
+        kernel_s=t_k, plain_s=t_p, **result)
+
+
+def _ck_grid_bytes(grid) -> int:
+    """grid_bytes and the kappa table (4 bytes a cell) the code_kappa
+    kernels read besides."""
+    return grid_bytes(grid) + 4 * grid.prim[0].numel()
+
+
+def _ck_entry(name, source, replaces, launches, gate, ms, plain_ms,
+              plain_rays, b, **extra) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": gate["max_abs_err"], "ms": ms,
+            "plain_ms": plain_ms, "plain_rays": int(plain_rays),
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "library_ms": None, **extra}
+
+
+def phase_code_kappa(tmp: pathlib.Path, card: str, grids: dict,
+                     checks: dict) -> list:
+    """Phase 19; ``checks``: phase 3's code_kappa results ("plain" by
+    (cell, precision), "pol_plain", "pol_truth", "phase"). Returns the
+    kernels line's entries."""
+    import numpy as np
+    import torch
+    from blacklight_tpu_torch import pipeline, pipeline_simulation as ps
+    from blacklight_tpu_torch.ops import formula_kernel as fk
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+
+    res, n = CK_RES, CK_RES * CK_RES
+    t_phase = time.perf_counter()
+    grid = ck_snapshot("ck", torch.float32, grids)
+    pick = np.arange(0, n, PLAIN_STRIDE)
+
+    def zero():
+        fk.LAUNCHES = sk.LAUNCHES = pk.LAUNCHES = sk.PHASE_LAUNCHES = 0
+        for counts in (sk.CODE_KAPPA_MODE_LAUNCHES,
+                       sk.PHASE_CODE_KAPPA_MODE_LAUNCHES,
+                       pk.DERIVE_CODE_KAPPA_MODE_LAUNCHES):
+            counts[:] = [0] * len(counts)
+        pk.STAGE_LAUNCHES.update(dict.fromkeys(pk.STAGE_LAUNCHES, 0))
+
+    # the main path: phase 7's cell at the code_kappa temperature through
+    # pipeline.run, every count zeroed just before and read just after
+    zero()
+    arrays, run_s = _timed(pipeline.run, _ck_config(
+        "ck", output_file=str(tmp / "code_kappa.npz")), quiet=True,
+        device="cuda", grid=grid)
+    launches = sk.CODE_KAPPA_MODE_LAUNCHES[0]
+    others = fk.LAUNCHES + pk.LAUNCHES + sk.LAUNCHES - launches
+    image = arrays["I_nu"]
+    emit("code_kappa_main_path", resolution=res, precision="float32",
+         integrator="rk4", max_steps=CK_STEPS,
+         kappa_scale=_mock_athenak().KAPPA_SCALE,
+         seconds=run_s, code_kappa_launches=launches, other_launches=others,
+         nan_pixels=int(np.isnan(image).sum()),
+         zero_pixels=int((image == 0).sum()),
+         max_I_nu=float(np.nanmax(image)))
+    if image.shape != (res, res) or not np.nanmax(image) > 0.0 \
+            or not np.isfinite(np.nanmax(image)) or launches != 1 or others:
+        raise RuntimeError("the code_kappa main path did not launch the "
+                           "code_kappa kernel once alone, or gave no finite "
+                           "positive image")
+
+    # the code_kappa kernel and phase 7's thermal kernel in turns, as run
+    # launches them
+    (args_k, kwargs), t_setup = _timed(_sim_args, _ck_config("ck"), grid)
+    args_t, _ = _sim_args(_sim_config(camera_resolution=res,
+                                      precision="float32",
+                                      ray_integrator="rk4",
+                                      ray_max_steps=CK_STEPS),
+                          grids.get("float32") or full_width_snapshot(
+                              torch.float32))
+    best, runs, outs = _best_in_turns({
+        name: (lambda b=b: sk.render_simulation(*b, **kwargs))
+        for name, b in (("code_kappa", _spatial(args_k)),
+                        ("thermal", _spatial(args_t)))})
+    mean_samples = float(outs["code_kappa"][2].double().mean())
+    positions, plain, t_plain = checks["plain"][("ck", "float32")]
+    out_cam = sk.render_simulation(*args_k, **kwargs)
+    if not np.array_equal(positions, args_k[0][pick].cpu().numpy()):
+        raise RuntimeError("the plain version traced other rays")
+    gate = gate_outputs([out_cam[0].cpu().numpy()[pick]], [plain[0]])
+    b_ck = bound("simulation_code_kappa", "rk4", "float32", n, mean_samples,
+                 in_bytes=_ck_grid_bytes(grid), out_values=1)
+    # float64: the kernel on the plain version's rays (the float32
+    # camera's, widened) through the float64 snapshot, held to the plain
+    # version in float64 (exact)
+    grid64 = ck_snapshot("ck", torch.float64)
+    full64, _ = _sim_args(_ck_config("ck", "float64"), grid64)
+    pick_t = torch.from_numpy(pick).to(args_k[0].device)
+    args64 = (*(a[pick_t].double().contiguous() for a in args_k[:3]),
+              args_k[3].double(), *full64[4:-1], args_k[-1])
+    out64, t64 = _timed(sk.render_simulation, *args64, **kwargs)
+    positions64, plain64, t_plain64 = checks["plain"][("ck", "float64")]
+    exact64 = _check_exact(out64, tuple(torch.from_numpy(p) for p in plain64),
+                           1e-9)
+    exact64["max_abs_err"] = gate_outputs(
+        [out64[0].cpu().numpy()], [plain64[0]], 1e-9)["max_abs_err"]
+    del grid64, full64, args64, out64
+    emit("code_kappa_timing", resolution=res, card=card,
+         order="spatial_order", camera_setup_s=t_setup,
+         kernel_s_runs=runs, kernel_ms=best["code_kappa"] * 1e3,
+         thermal_kernel_ms=best["thermal"] * 1e3,
+         code_kappa_over_thermal=best["code_kappa"] / best["thermal"],
+         mean_n_samples=mean_samples, plain_ms=t_plain * 1e3,
+         plain_rays=pick.size, gate="statistical (bench.py:181-186)", **gate,
+         **b_ck, float64_kernel_ms_plain_rays=t64 * 1e3,
+         float64_plain_ms=t_plain64 * 1e3, float64_gate=exact64,
+         clocks_power=smi(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,"
+                           "temperature.gpu", "--format=csv,noheader"]))
+    if not gate["ok"] or not exact64["ok"] or not np.array_equal(
+            positions64, positions):
+        raise RuntimeError(f"the code_kappa kernel disagrees with plain at "
+                           f"{res}^2: {gate} {exact64}")
+    entries = [_ck_entry(
+        "simulation_mixture_kernel (code_kappa)", CK_SOURCE,
+        SIM_KERNEL_REPLACES, launches, gate, best["code_kappa"] * 1e3,
+        t_plain * 1e3, pick.size, b_ck,
+        thermal_ms=best["thermal"] * 1e3,
+        float64_max_abs_err=exact64["max_abs_err"])]
+
+    # the phased route: bit for bit the monolithic image
+    ps.KERNEL_PHASED = True
+    try:
+        zero()
+        phased = pipeline.run(_ck_config("ck"), quiet=True, device="cuda",
+                              grid=grid)
+        phase_launches = sk.PHASE_CODE_KAPPA_MODE_LAUNCHES[0]
+        others = fk.LAUNCHES + sk.LAUNCHES + pk.LAUNCHES \
+            + sk.PHASE_LAUNCHES - phase_launches
+    finally:
+        ps.KERNEL_PHASED = False
+    a = phased["I_nu"]
+    same = bool(a.shape == image.shape and np.array_equal(
+        np.isnan(a), np.isnan(image)) and np.array_equal(
+        a[~np.isnan(a)], image[~np.isnan(image)]))
+    out2_k, _, t2_k, _, rays2, samples2 = _second_phase(
+        args_k, "rk4", ps.KERNEL_PHASE_STEPS, with_plain=False)
+    b_phase = phase_bound(rays2, samples2, "float32", _ck_grid_bytes(grid),
+                          kind="simulation_code_kappa")
+    phase_check = checks["phase"]
+    emit("code_kappa_phased", resolution=res, card=card,
+         phase_steps=ps.KERNEL_PHASE_STEPS, phase_launches=phase_launches,
+         other_launches=others, identical_to_monolithic=same,
+         second_phase_rays=rays2, second_phase_kernel_ms=t2_k * 1e3,
+         **b_phase)
+    if not same or not phase_launches or others:
+        raise RuntimeError("the code_kappa phased route launched no "
+                           "code_kappa phase kernel, another kernel, or its "
+                           "image differs from the monolithic one")
+    entries.append(_ck_entry(
+        "simulation_phase_mixture_kernel (code_kappa)", SIM_KERNEL_SOURCE,
+        PHASE_REPLACES, phase_launches, phase_check, t2_k * 1e3,
+        phase_check["plain_s"] * 1e3, phase_check["phase_rays"], b_phase,
+        kernel_ms_at_plain_rays=phase_check["kernel_s"] * 1e3))
+
+    # the polarized route: through pipeline.run, then in turns with phase
+    # 9's thermal route, held as phase 9's is
+    zero()
+    pol_arrays, pol_run_s = _timed(pipeline.run, _ck_config(
+        "ck", polarized=True, output_file=str(tmp / "code_kappa_pol.npz")),
+        quiet=True, device="cuda", grid=grid)
+    stage_launches = dict(pk.STAGE_LAUNCHES)
+    derive_launches = pk.DERIVE_CODE_KAPPA_MODE_LAUNCHES[0]
+    pol_launches = pk.LAUNCHES
+    finite_i = np.isfinite(pol_arrays["I_nu"])
+    emit("code_kappa_pol_main_path", resolution=res, seconds=pol_run_s,
+         launches=pol_launches, stage_launches=stage_launches,
+         code_kappa_derive_launches=derive_launches,
+         nan_pixels=int((~finite_i).sum()),
+         max_I_nu=float(np.nanmax(pol_arrays["I_nu"])))
+    if not all(stage_launches.values()) or fk.LAUNCHES or sk.LAUNCHES \
+            or derive_launches != stage_launches["derive"] \
+            or not all(np.isfinite(pol_arrays[k][finite_i]).all()
+                       for k in STOKES):
+        raise RuntimeError("the code_kappa polarized route did not launch "
+                           "each stage with the code_kappa derive kernel, or "
+                           "its image is not finite where I is")
+    args_p, kw_p, geom = _pol_args(_ck_config("ck", polarized=True), grid)
+    args_pt, _, _ = _pol_args(_pol_config(
+        camera_resolution=res, precision="float32", ray_integrator="rk4",
+        ray_max_steps=CK_STEPS, image_rotation_split=False),
+        grids.get("float32") or full_width_snapshot(torch.float32))
+    pol_bundles = {"code_kappa": _spatial(args_p),
+                   "thermal": _spatial(args_pt)}
+    best_p, runs_p, outs_p = _best_in_turns({
+        name: (lambda b=b: pk.render_polarized(*b, **kw_p))
+        for name, b in pol_bundles.items()})
+    stages = {name: _pol_stage_times(b, kw_p)["stage_ms"]
+              for name, b in pol_bundles.items()}
+    positions, plain_stokes, t_plain_p = checks["pol_plain"]
+    positions64, truth, _ = checks["pol_truth"]
+    pol_pick = np.arange(0, n, CK_POL_STRIDE)
+    if not (np.array_equal(positions, args_p[0][pol_pick].cpu().numpy())
+            and np.array_equal(positions64, positions)):
+        raise RuntimeError("the plain version traced other rays")
+    ours = _pol_stokes(pk.render_polarized(*args_p, **kw_p), args_p, geom,
+                       True)
+    ours = {k: v[pol_pick] for k, v in ours.items()}
+    pol_gate = truth_gate(ours, plain_stokes, truth)
+    finite = np.isfinite(ours["I_nu"]) & np.isfinite(plain_stokes["I_nu"])
+    pol_gate["same_nan"] = bool(np.array_equal(
+        np.isnan(ours["I_nu"]), np.isnan(plain_stokes["I_nu"])))
+    pol_gate["max_abs_err"] = float(np.max(np.abs(
+        ours["I_nu"][finite] - plain_stokes["I_nu"][finite]), initial=0.0))
+    pol_gate["ok"] = pol_gate["ok"] and pol_gate["same_nan"]
+    mean_p = float(outs_p["code_kappa"][3].double().mean())
+    b_pol = bound("polarized_code_kappa", "rk4", "float32", n, mean_p,
+                  in_bytes=_ck_grid_bytes(grid), out_values=16,
+                  extra_out_bytes=12)
+    emit("code_kappa_pol_timing", resolution=res, card=card,
+         order="spatial_order", kernel_s_runs=runs_p,
+         route_ms=best_p["code_kappa"] * 1e3,
+         thermal_route_ms=best_p["thermal"] * 1e3,
+         code_kappa_over_thermal=best_p["code_kappa"] / best_p["thermal"],
+         stage_ms=stages, mean_n_samples=mean_p, plain_ms=t_plain_p * 1e3,
+         plain_rays=pol_pick.size, gate=pol_gate, **b_pol)
+    if not pol_gate["ok"]:
+        raise RuntimeError(f"the code_kappa polarized route disagrees with "
+                           f"plain at {res}^2: {pol_gate}")
+    entries.append(_ck_entry(
+        "polarized_kernel (code_kappa derive)", POL_MIX_SOURCE,
+        POL_KERNEL_REPLACES, pol_launches, pol_gate,
+        best_p["code_kappa"] * 1e3, t_plain_p * 1e3, pol_pick.size, b_pol,
+        derive_launches=derive_launches,
+        derive_ms=stages["code_kappa"]["derive"],
+        thermal_ms=best_p["thermal"] * 1e3,
+        thermal_derive_ms=stages["thermal"]["derive"]))
+    del pol_bundles, outs_p, args_p, args_pt
+
+    # the other cells: the kernel on the PLAIN_STRIDE-th rays of each,
+    # every count zeroed just before and read just after, held to its
+    # plain version there
+    ops = {"ck_mix": "simulation_code_kappa_mixture",
+           "ck_amr": "simulation_code_kappa_interblock",
+           "ck_nearest": "simulation_code_kappa_nearest",
+           "ck_fmks": "simulation_code_kappa_fmks",
+           "ck_athenak": "simulation_code_kappa_cks_interblock"}
+    for cell, kind in ops.items():
+        cell_grid = grid if CK_CELLS[cell][0] == "single" \
+            else ck_snapshot(cell, torch.float32, grids)
+        args_c, kwargs_c = _sim_args(_ck_config(cell), cell_grid)
+        _, sub = _plain_subset(args_c)
+        sk.render_simulation(*sub, **kwargs_c)  # warm
+        zero()
+        out, t_k = _timed(sk.render_simulation, *sub, **kwargs_c)
+        mode = CK_MODES[cell]
+        launched = sk.CODE_KAPPA_MODE_LAUNCHES[mode]
+        others = fk.LAUNCHES + pk.LAUNCHES + sk.LAUNCHES - launched
+        positions, plain, t_p = checks["plain"][(cell, "float32")]
+        if not np.array_equal(positions, sub[0].cpu().numpy()):
+            raise RuntimeError("the plain version traced other rays")
+        cell_gate = gate_outputs([out[0].cpu().numpy()], [plain[0]])
+        b_c = bound(kind, "rk4", "float32", pick.size,
+                    float(out[2].double().mean()),
+                    in_bytes=_ck_grid_bytes(cell_grid), out_values=1)
+        emit("code_kappa_mode", cell=cell, mode=mode, rays=pick.size,
+             card=card, kernel_ms=t_k * 1e3, code_kappa_launches=launched,
+             other_launches=others, plain_ms=t_p * 1e3,
+             plain_on="card" if cell in CK_CARD_PLAIN else "host core",
+             gate="statistical (bench.py:181-186)", **cell_gate, **b_c,
+             max_I_nu=float(np.nanmax(plain[0])))
+        if not cell_gate["ok"] or launched != 1 or others \
+                or not np.nanmax(plain[0]) > 0.0:
+            raise RuntimeError(f"code_kappa {cell}: {cell_gate}, "
+                               f"{launched} launches, {others} others")
+        entries.append(_ck_entry(
+            f"simulation_mixture_kernel (code_kappa, {cell})", CK_SOURCE,
+            SIM_KERNEL_REPLACES, launched, cell_gate, t_k * 1e3, t_p * 1e3,
+            pick.size, b_c, mode=SAMPLE_MODE_NAMES[mode]))
+        del args_c, sub, cell_grid
+    emit("code_kappa", card=card, seconds=time.perf_counter() - t_phase)
+    return entries
+
+
 # Phase 3's kernel-against-plain checks, emitted in this order.
 CHECKS = (
     (check_formula_tangents, ("rk4", "float64")),
@@ -5137,72 +5782,110 @@ CHECKS = (
 MESH_PHASE_CHECKS = (("interblock", "rk4", "float64"),
                      ("nearest", "rk2", "float32"))
 FORMULA_CELLS = ("k13", "k14", "k11")
-# Seconds of phase 3's longer jobs in a pool of 7 on an H100 host (my chip
-# run of the port with phase 15, chip_smoke.py's job and plain times), by
-# (function name, arguments): the pool starts the longest first, so that
-# no long job starts last.
+# Phase 3's jobs that the main process runs itself, in this order, once
+# its own host work (phase_checks' prep, ~195-240 s) is done, on the core
+# the pool's 7 workers leave (idle ~550 s of phase 3 before, as measured
+# on one H100 host): phase 19's plain versions on one host core, ~340 s
+# there (~460 s on a slower host; with two of phase 17's jobs as well the
+# main process ended last there, PERF.md). (function name, arguments)
+MAIN_JOBS = tuple(("code_kappa_plain", key) for key in CK_PLAIN
+                  if key[0] not in CK_CARD_PLAIN) + tuple(
+    ("code_kappa_pol_plain", (p,)) for p in ("float64", "float32"))
+# Seconds of phase 3's jobs, measured on an H100 host (its "checks_job"
+# lines; MAIN_JOBS ran in the main process), by
+# (function name, arguments); the pool starts the longest first, so that
+# no long job starts last. Estimated: sim_second_phase_plain and
+# fit_demo_run (~22 s each alone after phase 3 before).
 PHASE3_SECONDS = {
-    ("check_formula_tangents", ("dp", "float32")): 208.4,
-    ("aux_pol_card", ()): 201.0,
-    ("check_formula", ("dp", "float32")): 199.8,
-    ("formula_plain_subset", ("k13",)): 190.6,
-    ("formula_plain_subset", ("k14",)): 189.5,
-    ("formula_plain_subset", ("k11",)): 183.3,
-    ("check_formula", ("dp", "float64")): 176.9,
-    ("pol_full_width_truth", ()): 150.1,
-    # phase 9's float32 plain version, which ran in the main process
-    # (143,073.76 ms alone in the main process on an H100, PERF.md)
-    ("pol_full_width_plain", ()): 150.0,
-    ("aux_golden_formula", ()): 128.9,
-    ("check_formula_tangents", ("rk4", "float64")): 128.2,
-    ("check_formula", ("rk4", "float64")): 120.6,
-    ("mesh_plain_subset", ("mb_amr", "float64")): 112.3,
-    ("mesh_plain_subset", ("mb_amr", "float32")): 95.6,
-    ("aux_pol_cpu", ()): 95.3,
-    ("check_simulation", ("dp", "float64")): 90.9,
-    ("check_simulation", ("dp", "float32")): 86.0,
-    ("mesh_plain_subset", ("mb_uniform", "float64")): 76.1,
-    ("check_simulation", ("rk4", "float64")): 74.9,
-    ("check_formula", ("rk2", "float32")): 62.0,
-    ("check_mesh_polarized", ("interblock", "rk4", "float64")): 58.7,
-    ("mesh_plain_subset", ("nearest", "float64")): 56.5,
-    ("check_polarized", ("rk4", "float64", False, 1)): 56.1,
-    ("mesh_phase_plain_subset", ()): 54.6,
-    ("aux_exact_card", ()): 53.3,
-    ("check_polarized", ("dp", "float32", False, 1)): 53.3,
-    ("check_simulation", ("rk2", "float32")): 52.1,
-    ("mesh_plain_subset", ("nearest", "float32")): 51.2,
-    ("mesh_plain_subset", ("mb_uniform", "float32")): 45.6,
-    ("aux_full_width_cpu", ()): 42.1,
-    ("check_simulation_phase", ("rk4", "float64")): 37.6,
-    ("aux_exact_cpu", ()): 36.9,
-    # the mixture's jobs, estimated from the thermal ones of their size
-    ("check_mixture_simulation", ("dp", "float32")): 90.0,
-    ("mixture_plain_subset", ()): 60.0,
-    ("mixture_pol_plain_subset", ()): 50.0,
-    # the FMKS and harm3d jobs, estimated (each builds its snapshot
-    # first; the plain subsets run on one host core)
-    ("fmks_pol_subset", ("float64",)): 60.0,
-    ("fmks_pol_subset", ("float32",)): 50.0,
-    ("fmks_plain_subset", ("fmks_mix",)): 45.0,
-    ("fmks_plain_subset", ("harm3d",)): 45.0,
-    ("fmks_plain_subset", ("fmks",)): 40.0,
-    ("check_fmks_simulation", ("thermal", "dp", "float32", True)): 30.0,
-    # the AthenaK jobs (measured on one H100: the plain subsets
-    # then on one host core each, 135.6, 85.4 and 84.4 s; on the card
-    # estimated from the mesh cells' of their sampling, which they now
-    # wait for the main process's file, ~9 s, to start)
-    ("athenak_plain_subset", ("athenak_amr",)): 100.0,
-    ("athenak_plain_subset", ("athenak_mix",)): 60.0,
-    ("athenak_plain_subset", ("athenak",)): 55.0,
-    ("athenak_pol_subset", ("float64",)): 35.0,
-    ("athenak_pol_subset", ("float32",)): 30.0,
-    ("check_athenak_simulation", ("thermal", "dp", "float32",
-                                  "trilinear")): 30.0,
-    ("check_athenak_simulation", ("thermal", "rk4", "float64",
-                                  "interblock")): 25.0,
-    ("check_athenak_simulation", ("mixture", "rk4", "float64",
-                                  "interblock")): 25.0,
+    ("aux_pol_card", ()): 264.4,
+    ("check_formula_tangents", ("dp", "float32")): 233.0,
+    ("pol_full_width_plain", ()): 221.9,
+    ("check_formula", ("dp", "float32")): 214.6,
+    ("formula_plain_subset", ("k13",)): 211.6,
+    ("formula_plain_subset", ("k14",)): 204.3,
+    ("formula_plain_subset", ("k11",)): 202.0,
+    ("sim_full_width_plain", ("sim",)): 146.9,
+    ("aux_golden_formula", ()): 137.3,
+    ("check_polarized_stages", ()): 133.1,
+    ("check_formula", ("dp", "float64")): 132.5,
+    ("pol_full_width_truth", ()): 124.3,
+    ("check_polarized", ("dp", "float32", False, 1)): 118.6,
+    ("check_formula_tangents", ("rk4", "float64")): 101.6,
+    ("aux_pol_cpu", ()): 97.3,
+    ("mesh_plain_subset", ("mb_amr", "float32")): 97.2,
+    ("check_simulation", ("dp", "float64")): 94.4,
+    ("check_polarized", ("rk2", "float32", True, 2)): 93.3,
+    ("code_kappa_plain", ("ck_athenak", "float32")): 92.9,
+    ("check_formula", ("rk4", "float64")): 89.2,
+    ("mesh_plain_subset", ("mb_amr", "float64")): 88.4,
+    ("athenak_plain_subset", ("athenak_amr",)): 87.2,
+    ("check_mixture_simulation", ("dp", "float32")): 86.5,
+    ("check_simulation", ("dp", "float32")): 85.9,
+    ("aux_exact_card", ()): 85.7,
+    ("code_kappa_plain", ("ck_amr", "float32")): 82.6,
+    ("check_mesh_polarized", ("interblock", "rk4", "float64")): 64.1,
+    ("check_formula", ("rk2", "float32")): 63.0,
+    ("athenak_plain_subset", ("athenak",)): 56.9,
+    ("mesh_plain_subset", ("mb_uniform", "float64")): 55.2,
+    ("mesh_phase_plain_subset", ()): 54.7,
+    ("check_polarized", ("rk4", "float64", False, 1)): 48.8,
+    ("code_kappa_plain", ("ck_fmks", "float32")): 47.9,
+    ("check_simulation", ("rk4", "float64")): 47.5,
+    ("fmks_plain_subset", ("harm3d",)): 46.3,
+    ("code_kappa_plain", ("ck", "float32")): 46.0,
+    ("sim_second_phase_plain", ("second_phase",)): 45.0,
+    ("mixture_pol_plain_subset", ()): 44.7,
+    ("athenak_plain_subset", ("athenak_mix",)): 43.6,
+    ("mixture_plain_subset", ()): 43.3,
+    ("code_kappa_plain", ("ck", "float64")): 42.7,
+    ("code_kappa_plain", ("ck_mix", "float32")): 41.4,
+    ("mesh_plain_subset", ("mb_uniform", "float32")): 41.0,
+    ("fit_demo_run", ("fit_demo",)): 40.0,
+    ("mesh_plain_subset", ("nearest", "float64")): 38.7,
+    ("aux_exact_cpu", ()): 38.1,
+    ("fmks_plain_subset", ("fmks",)): 38.1,
+    ("aux_full_width_cpu", ()): 37.3,
+    ("check_simulation", ("rk2", "float32")): 37.2,
+    ("aux_golden_sim_tau", ()): 35.9,
+    ("fmks_plain_subset", ("fmks_mix",)): 35.6,
+    ("code_kappa_plain", ("ck_nearest", "float32")): 35.1,
+    ("mesh_plain_subset", ("nearest", "float32")): 34.9,
+    ("fmks_pol_subset", ("float64",)): 34.1,
+    ("athenak_pol_subset", ("float64",)): 29.9,
+    ("check_mesh_polarized", ("nearest", "rk2", "float32")): 29.0,
+    ("check_athenak_simulation",
+     ("thermal", "dp", "float32", "trilinear")): 28.0,
+    ("check_simulation_phase", ("rk4", "float64")): 26.0,
+    ("check_fmks_simulation", ("thermal", "dp", "float32", True)): 25.5,
+    ("code_kappa_pol_plain", ("float64",)): 23.7,
+    ("fmks_pol_subset", ("float32",)): 23.5,
+    ("athenak_pol_subset", ("float32",)): 22.9,
+    ("check_mesh_simulation", ("interblock", "dp", "float64", 1)): 20.6,
+    ("check_mesh_simulation", ("interblock", "dp", "float32", 1)): 19.7,
+    ("code_kappa_pol_plain", ("float32",)): 17.4,
+    ("check_simulation_phase", ("rk2", "float32")): 16.9,
+    ("check_mesh_simulation", ("interblock", "rk4", "float64", 1)): 15.6,
+    ("check_fmks_simulation", ("mixture", "rk4", "float64", True)): 15.0,
+    ("check_athenak_simulation",
+     ("mixture", "rk4", "float64", "interblock")): 14.9,
+    ("check_athenak_simulation",
+     ("thermal", "rk4", "float64", "interblock")): 13.9,
+    ("check_mesh_simulation", ("interblock", "rk2", "float64", 3)): 13.2,
+    ("check_mixture_simulation", ("rk4", "float64")): 12.3,
+    ("check_fmks_simulation", ("thermal", "rk4", "float64", True)): 12.0,
+    ("check_fmks_simulation", ("thermal", "rk4", "float64", False)): 11.3,
+    ("check_mesh_simulation", ("nearest", "rk4", "float64", 3)): 10.7,
+    ("check_mesh_phase", ("interblock", "rk4", "float64")): 10.4,
+    ("check_athenak_simulation",
+     ("thermal", "rk4", "float64", "nearest")): 10.2,
+    ("check_athenak_phase", ()): 10.2,
+    ("check_mesh_simulation", ("nearest", "rk2", "float32", 1)): 10.0,
+    ("check_fmks_phase", ()): 7.9,
+    ("check_mixture_phase", ()): 7.4,
+    ("check_mesh_phase", ("nearest", "rk2", "float32")): 5.2,
+    ("check_code_kappa_phase", ()): 4.9,
+    ("check_mesh_derive", ("float64",)): 2.2,
+    ("check_mesh_derive", ("float32",)): 1.2,
 }
 
 
@@ -5227,7 +5910,7 @@ def main(argv=None) -> int:
             ATHENAK_DIR.mkdir(parents=True)
             with multiprocessing.get_context("spawn").Pool(WORKERS) as pool:
                 (truth, subsets, pol_stages, mesh_checks, aux, mixture_checks,
-                 fmks_checks, athenak_checks,
+                 fmks_checks, athenak_checks, code_kappa_checks,
                  (athenak_host, fmks_host, _)) = phase_checks(
                     pool, prep=lambda: (athenak_host_prep(),
                                         fmks_host_prep(tmp),
@@ -5236,8 +5919,10 @@ def main(argv=None) -> int:
             formula = phase_full_width(tmp, card, subsets["k11"])
             phase_sim_goldens(tmp)
             grids = {}
-            simulation, mono = phase_sim_full_width(tmp, card, grids)
-            phased = phase_phased_full_width(tmp, card, grids, mono)
+            simulation, mono = phase_sim_full_width(tmp, card, grids,
+                                                    subsets["sim"])
+            phased = phase_phased_full_width(tmp, card, grids, mono,
+                                             subsets["second_phase"])
             mesh = phase_mesh_blocks(tmp, card, grids, mesh_checks["plain"],
                                      mesh_checks)
             phase_aux_planes(tmp, card, grids, mono, simulation, aux)
@@ -5249,16 +5934,19 @@ def main(argv=None) -> int:
             fmks = phase_fmks_full_width(card, grids, fmks_checks, fmks_host)
             athenak = phase_athenak_full_width(card, grids, athenak_checks,
                                                athenak_host)
+            grids["fmks_datasets"] = fmks_host["datasets"]
+            code_kappa = phase_code_kappa(tmp, card, grids,
+                                          code_kappa_checks)
             shutil.rmtree(ATHENAK_DIR, ignore_errors=True)
             grids.clear()
             multi = phase_multi_full_width(tmp, card, subsets["k13"])
             tangent = phase_grad_full_width(card, subsets["k14"])
-            phase_fit(card)
+            phase_fit(card, subsets["fit_demo"])
         emit("total", seconds=time.perf_counter() - started,
              epoch_s=time.time())
         print(json.dumps({"kernels": [formula, multi, tangent, simulation,
                                       phased, polarized, *mesh, *mixture,
-                                      *fmks, *athenak]}),
+                                      *fmks, *athenak, *code_kappa]}),
               flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

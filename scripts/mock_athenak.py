@@ -21,6 +21,28 @@ import numpy as np
 
 # the variables AthenaK writes, in the order write_athenak writes them
 VARIABLES = ("dens", "velx", "vely", "velz", "eint", "bcc1", "bcc2", "bcc3")
+# The electron entropy of the port's code_kappa mocks: KAPPA_SCALE * pgas /
+# rho^gamma_adi, write_athena's field scaled. Unscaled, the torus'
+# electrons sit at theta_e ~ 1e-4, where every float32 intensity
+# underflows to 0; scaled, theta_e spans ~0.2-3, the thermal cells' range,
+# and the cold-cell branches (theta_e < 0.01) still occur.
+KAPPA_SCALE = 1e7
+
+
+def with_kappa(grid, gamma_adi, scale=KAPPA_SCALE):
+    """The port's SimulationGrid ``grid`` with a ninth primitive "kappa":
+    ``scale`` * pgas / rho^gamma_adi of its rho and pgas, formed in float64
+    and stored in the grid's type, as a file's float32 variable would be
+    read (torch is imported here: the writers need only numpy)."""
+    import dataclasses
+
+    import torch
+    rho = grid.prim[grid.ind["rho"]].double()
+    pgas = grid.prim[grid.ind["pgas"]].double()
+    kappa = (scale * pgas / rho ** gamma_adi).float().to(grid.prim.dtype)
+    return dataclasses.replace(
+        grid, prim=torch.cat([grid.prim, kappa[None]]),
+        ind={**grid.ind, "kappa": grid.prim.shape[0]})
 
 
 def cks_fields(X, Y, Z, p) -> dict:
@@ -117,7 +139,7 @@ def block_layout(root: int, refine=()) -> list:
 
 def write_blocks(path, p, *, root=1, cells=None, refine=(), spin=0.0,
                  location_size=8, variable_size=4, extra_variables=(),
-                 parameters="") -> int:
+                 parameters="", kappa_scale=None) -> int:
     """Write the torus of ``p`` on write_athenak's cube [-w, w]^3 (w =
     r_max / sqrt(2)) as root^3 root blocks of
     ``cells``^3 cells (write_athenak's max(n_r, 32) by default), with the
@@ -126,14 +148,17 @@ def write_blocks(path, p, *, root=1, cells=None, refine=(), spin=0.0,
     torus), and ``parameters`` after it (more sections, as text). Faces
     are written as floats of ``location_size`` bytes, variables of
     ``variable_size``; each of ``extra_variables`` (names) follows the
-    eight with the density times 2, 3, ... Returns the number of
-    blocks."""
+    eight with the density times 2, 3, ..., and with ``kappa_scale`` a
+    variable "kappa" last: kappa_scale * pgas / dens^gamma_adi, pgas =
+    (gamma_adi - 1) eint (write_athena's electron entropy, scaled).
+    Returns the number of blocks."""
     n = cells or max(p["n_r"], 32)
     w = p["r_max"] / np.sqrt(2.0)
     layout = block_layout(root, refine)
     param_text = (f"<coord>\na = {float(spin)}\n<mhd>\ngamma = "
                   f"{p['gamma_adi']}\n{parameters}").encode()
-    names = VARIABLES + tuple(extra_variables)
+    names = VARIABLES + tuple(extra_variables) + (
+        ("kappa",) if kappa_scale is not None else ())
     loc_dtype = np.float32 if location_size == 4 else np.float64
     var_dtype = np.float32 if variable_size == 4 else np.float64
     with open(path, "wb") as f:
@@ -167,6 +192,10 @@ def write_blocks(path, p, *, root=1, cells=None, refine=(), spin=0.0,
                              dtype=loc_dtype).tobytes())
             for q, name in enumerate(extra_variables):
                 fields[name] = fields["dens"] * (q + 2.0)
+            if kappa_scale is not None:
+                gamma = p["gamma_adi"]
+                fields["kappa"] = kappa_scale * (gamma - 1.0) \
+                    * fields["eint"] / fields["dens"] ** gamma
             for name in names:
                 f.write(np.ascontiguousarray(fields[name],
                                              dtype=var_dtype).tobytes())

@@ -56,7 +56,8 @@ AMR = dict(root=2, cells=8, refine=[(1, 1, 1), (0, 1, 0)])
 # file -> write_blocks' keywords (None: write_athenak's own file)
 FILES = {"mock": None, "amr": AMR,
          "f64_vars": dict(location_size=4, variable_size=8),
-         "kappa": dict(AMR, extra_variables=("kappa_e",))}
+         "kappa": dict(AMR, extra_variables=("kappa_e",),
+                       kappa_scale=mock_athenak.KAPPA_SCALE)}
 
 
 @pytest.fixture(scope="module")
@@ -389,14 +390,22 @@ def test_coordinate_mismatch_raises_as_jax(mocks, tmp_path, case):
     assert not (tmp_path / "out.npz").exists()
 
 
-def test_code_kappa_stays_refused(mocks):
-    """plasma_model = code_kappa on an AthenaK file still raises naming
-    ROADMAP B.2, before the file is read."""
-    paths = {"missing": mocks["dir"] / "missing.bin", "dir": mocks["dir"]}
-    text = _text(paths, "missing", plasma_model="code_kappa",
-                 simulation_kappa_name="kappa_e")
-    with pytest.raises(BlacklightError, match=re.escape("(ROADMAP B.2)")):
-        pipeline.run(parse_config(text), quiet=True, device="cpu")
+def test_code_kappa_renders_as_jax(mocks, tmp_path):
+    """plasma_model = code_kappa on the AthenaK file with a kappa column
+    (the electron entropy read from simulation_kappa_name: write_blocks'
+    "kappa", scaled to theta_e ~0.2-3) against the JAX run: interblock
+    sampling on two levels, rk4 float64, rtol 1e-8 with equal NaN
+    sets."""
+    text = _text(mocks, "kappa", tmp_path / "out.npz",
+                 plasma_model="code_kappa", simulation_kappa_name="kappa",
+                 simulation_block_interp="true", camera_resolution=8)
+    ref = jax_pipeline.run(jax_parse_config(text), quiet=True)
+    ours = pipeline.run(parse_config(text), quiet=True, device="cpu")
+    a, b = np.asarray(ours["I_nu"]), np.asarray(ref["I_nu"])
+    assert a.shape == b.shape == (8, 8)
+    assert np.array_equal(np.isnan(a), np.isnan(b))
+    assert np.nanmax(b) > 0.0
+    np.testing.assert_allclose(a, b, rtol=1e-8, atol=0.0)
 
 
 def test_image_matches_athena_loosely(mocks):

@@ -2,7 +2,8 @@
 through pipeline.run or the CLI on the CPU, at the tolerances of
 test_formula_e2e.py, test_simulation_e2e.py and test_polarized_e2e.py
 (reference-binary outputs), the auxiliary image planes' goldens among
-them, and the CLI's npz against the JAX package's."""
+them, the plasma models' (golden_code_kappa_32 among them), and the
+CLI's npz against the JAX package's."""
 
 import numpy as np
 import pytest
@@ -209,3 +210,27 @@ def test_plasma_kappa_tau_parity(fixtures_dir, tmp_path):
         assert np.array_equal(np.isnan(arrays[key]), np.isnan(gold[key])), key
         np.testing.assert_allclose(arrays[key], gold[key], rtol=1e-8,
                                    err_msg=key)
+
+
+def test_code_kappa_golden_parity(fixtures_dir, tmp_path):
+    """golden_code_kappa_32: the electron temperature from the snapshot's
+    electron entropy (plasma_model = code_kappa, ROADMAP B.2) on
+    write_athena's mock with its "kappa" slice, written at test time as
+    tests/test_reference_goldens.py:70-85 writes it: identical NaN sets,
+    rtol 1e-8 over a floor of 1e-8 of the peak."""
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).parents[1] / "scripts"))
+    import generate_mock_simulation as gen
+    p = dict(gen.DEFAULTS)
+    gen.write_athena(str(tmp_path / "mock.athdf"), gen.make_fields(p), p,
+                     kappa=True)
+    cfg = read_config(str(fixtures_dir / "golden_code_kappa_32.input"))
+    cfg.simulation_file = str(tmp_path / "mock.athdf")
+    cfg.output_file = str(tmp_path / "out.npz")
+    ours = pipeline.run(cfg, quiet=True, device="cpu")["I_nu"]
+    gold = np.load(fixtures_dir / "golden_code_kappa_32.npz")["I_nu"]
+    scale = np.nanmax(np.abs(gold))
+    rel = np.abs(ours - gold) / (np.abs(gold) + scale * 1e-8)
+    assert np.array_equal(np.isnan(ours), np.isnan(gold))
+    assert np.nanmax(rel) < 1e-8, np.nanmax(rel)

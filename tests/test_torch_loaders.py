@@ -368,17 +368,19 @@ REFUSED = {
     "harm3d_cks": ({"simulation_format": "harm3d",
                     "simulation_coord": "cks"}, BlacklightError,
                    "Invalid simulation_coord for Harm format."),
-    "code_kappa": ({"plasma_model": "code_kappa",
-                    "simulation_kappa_name": "KAPPA"}, BlacklightError,
-                   "(ROADMAP B.2)"),
+    # code_kappa without the kappa slot's variable: the JAX package's
+    # error (blacklight_tpu/pipeline_simulation.py:118-120)
+    "code_kappa": ({"plasma_model": "code_kappa"}, BlacklightError,
+                   "Must specify simulation_kappa_name in input file for "
+                   "this configuration."),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_refused_before_any_load(tmp_path, case):
-    """What the port does not read yet raises naming its ROADMAP item, and
-    a loader's coordinate check raises, before the (missing) file is
-    opened; an AthenaK configuration passes both and fails opening it."""
+    """A loader's coordinate check raises, and so does code_kappa without
+    simulation_kappa_name, before the (missing) file is opened; an
+    AthenaK configuration passes both and fails opening it."""
     overrides, error, message = REFUSED[case]
     paths = {"iharm3d": tmp_path / "missing.h5", "dir": tmp_path}
     cfg = parse_config(_text(paths, "iharm3d", **overrides))

@@ -24,6 +24,7 @@ import torch
 from blacklight_tpu import pipeline_simulation as jax_sim
 from blacklight_tpu.models import synchrotron as jsyn
 from blacklight_tpu.utils.config import parse_config as jax_parse_config
+from blacklight_tpu.utils.errors import BlacklightError as JaxBlacklightError
 from blacklight_tpu_torch import (BlacklightError, cli,
                                   parse_config, pipeline)
 from blacklight_tpu_torch.constants import Physics, PlasmaModel
@@ -256,12 +257,19 @@ def test_cli_renders_the_mixture(tmp_path, capsys):
                                np.asarray(ref["I_nu"])[:, 0], rtol=1e-8)
 
 
-def test_code_kappa_still_refused(tmp_path):
-    cfg = parse_config(_config_text(
-        tmp_path / "x.npz", "golden_plasma_mix_rk4_32.input", res=4,
-        plasma_model="code_kappa", simulation_kappa_name="kappa"))
-    with pytest.raises(BlacklightError, match=re.escape("ROADMAP B.2)")):
-        pipeline.run(cfg, quiet=True, device="cpu")
+def test_code_kappa_mixture_reads_its_slot_as_jax(tmp_path):
+    """The mixture with code_kappa electrons on mock_small.athdf, which has
+    no "kappa" variable: the port's loader raises the JAX package's error
+    (tests/test_torch_code_kappa.py renders the mixture with the slot)."""
+    text = _config_text(tmp_path / "x.npz", "golden_plasma_mix_rk4_32.input",
+                        res=4, plasma_model="code_kappa",
+                        simulation_kappa_name="kappa")
+    with pytest.raises(JaxBlacklightError) as jax_err:
+        jax_sim.render_simulation_image(jax_parse_config(text))
+    with pytest.raises(BlacklightError) as err:
+        pipeline.run(parse_config(text), quiet=True, device="cpu")
+    assert str(err.value) == str(jax_err.value) == (
+        'Unable to locate "kappa" slice of "prim" in data file.')
     assert not (tmp_path / "x.npz").exists()
 
 

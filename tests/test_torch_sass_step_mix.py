@@ -146,7 +146,7 @@ def test_per_sample_lines_cover_the_sample_functors(mix):
         return next(i for i, t in enumerate(source, 1) if pattern in t)
 
     sample_cell = ("simulation_kernel.cuh",
-                   line("sample_cell(grid, p, v, hint);"))
+                   line("sample_cell(grid, p, v, hint, kappa);"))
     assert sample_cell in samples and sample_cell not in per_ray
     for pattern in ("trace_steps<T, INTEGRATOR>(tc, s, p0, 0, tc.max_steps",
                     "flags_out[ray] = s.flag ? 1 : 0;"):

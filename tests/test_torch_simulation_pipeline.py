@@ -226,7 +226,8 @@ def test_grid_argument_skips_loading(tmp_path):
 
 # Simulation configurations the port refuses, each with what its error
 # must say: the ROADMAP item of a configuration outside the port's slice,
-# or the JAX package's coordinate errors (harm3d snapshots are read in SKS
+# or the JAX package's errors: code_kappa without its slot's variable, and
+# the coordinate errors (harm3d snapshots are read in SKS
 # only, grid/harm3d.py; an Athena++ file is SKS, not CKS, which is
 # AthenaK's)
 OUT_OF_SLICE = {
@@ -241,8 +242,11 @@ OUT_OF_SLICE = {
                     "slow_num_images": 1, "slow_offset": 0,
                     "simulation_start": 0, "simulation_end": 1},
                    "ROADMAP B.6)"),
-    "code_kappa": ({"plasma_model": "code_kappa",
-                    "simulation_kappa_name": "kappa"}, "ROADMAP B.2)"),
+    # code_kappa without the kappa slot's variable: the JAX package's
+    # error (blacklight_tpu/pipeline_simulation.py:118-120)
+    "code_kappa": ({"plasma_model": "code_kappa"},
+                   "Must specify simulation_kappa_name in input file for "
+                   "this configuration."),
     "adaptive": ({"adaptive_max_level": 1, "adaptive_block_size": 4,
                   "adaptive_num_regions": 0}, "ROADMAP A.9)"),
 }
