@@ -319,13 +319,37 @@ def camera_geometry(*, bh_m: float, bh_a: float, camera_r: float,
 
 def pixel_grid(resolution: int, *, device, dtype):
     """Fractional pixel coordinates (u_ind, v_ind) (camera.cpp:393-396),
-    two (resolution**2,) tensors in row-major pixel order."""
-    idx = np.arange(resolution, dtype=np.float64)
-    frac = (idx - resolution / 2.0 + 0.5) / resolution
-    u_ind = np.tile(frac, resolution)
-    v_ind = np.repeat(frac, resolution)
-    return (torch.tensor(u_ind, dtype=dtype, device=device),
-            torch.tensor(v_ind, dtype=dtype, device=device))
+    two (resolution**2,) tensors in row-major pixel order: the camera as
+    one block of ``block_pixel_grid``."""
+    return block_pixel_grid([0], [0], resolution, resolution,
+                            device=device, dtype=dtype)
+
+
+def block_pixel_grid(block_u, block_v, block_size: int,
+                     effective_resolution: int, *, device, dtype):
+    """Fractional pixel coordinates of adaptive blocks (camera.cpp:
+    465-499; ``blacklight_tpu/camera.py:321-343``), formed in float64 and
+    rounded once, so that a block's pixel at level l has the coordinates
+    of the same pixel of ``pixel_grid(resolution * 2**l)`` bit for bit.
+
+    block_u, block_v: (B,) integer block locations at this level;
+    effective_resolution: camera_resolution * 2**level.
+
+    Returns two (B * block_size**2,) tensors, block-major then row-major
+    within a block.
+    """
+    block_u = np.asarray(block_u)
+    block_v = np.asarray(block_v)
+    m = np.arange(block_size * block_size)
+    m2 = m // block_size
+    m1 = m % block_size
+    l_offset = (block_u * block_size)[:, None]
+    m_offset = (block_v * block_size)[:, None]
+    res = effective_resolution
+    u_ind = (m1[None, :] + l_offset - res / 2.0 + 0.5) / res
+    v_ind = (m2[None, :] + m_offset - res / 2.0 + 0.5) / res
+    return (torch.tensor(u_ind.reshape(-1), dtype=dtype, device=device),
+            torch.tensor(v_ind.reshape(-1), dtype=dtype, device=device))
 
 
 def init_pixels(geom: CameraGeometry, u_ind, v_ind, *,
@@ -368,11 +392,12 @@ def init_pixels(geom: CameraGeometry, u_ind, v_ind, *,
     g_cov = geometry.gcov(positions[:, 1:], bh_a, bh_m, flat=ray_flat)
     p0 = geometry.null_momentum_time_component(g_cov, p_spatial)
     p_con = torch.cat([p0[:, None], p_spatial], dim=-1)
-    directions = torch.einsum("...ij,...j->...i", g_cov, p_con)
+    # contractions by geometry.dot: the same rays in any bundle
+    directions = geometry.dot(g_cov, p_con[:, None, :])
 
     # Momentum factor (camera.cpp:576-583)
     if image_normalization == FrequencyNormalization.camera:
-        nu_local = -torch.einsum("...i,i->...", directions, geom.u_con)
+        nu_local = -geometry.dot(directions, geom.u_con)
     else:
         nu_local = -directions[:, 0]
     return CameraRays(positions=positions.contiguous(),

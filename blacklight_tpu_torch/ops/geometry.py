@@ -31,7 +31,20 @@ __all__ = [
     "null_momentum_time_component",
     "renormalize_null_momentum",
     "minkowski",
+    "dot",
 ]
+
+
+def dot(a, b):
+    """sum_k a[..., k] * b[..., k], broadcast, added in index order one
+    elementwise op at a time: a ray's value does not depend on the batch it
+    is computed in (on the card a batched contraction's summation order
+    changes with the batch size), so an adaptive level's camera rays are
+    the finer camera's bit for bit."""
+    out = a[..., 0] * b[..., 0]
+    for k in range(1, a.shape[-1]):
+        out = out + a[..., k] * b[..., k]
+    return out
 
 
 def radius(x, spin):
@@ -237,9 +250,8 @@ def null_momentum_time_component(g_cov, p_spatial):
       p_spatial: (..., 3) contravariant spatial momentum.
     """
     a = g_cov[..., 0, 0]
-    b = 2.0 * torch.einsum("...i,...i->...", g_cov[..., 0, 1:], p_spatial)
-    c = torch.einsum("...ij,...i,...j->...", g_cov[..., 1:, 1:], p_spatial,
-                     p_spatial)
+    b = 2.0 * dot(g_cov[..., 0, 1:], p_spatial)
+    c = dot(dot(g_cov[..., 1:, 1:], p_spatial[..., None, :]), p_spatial)
     d = torch.sqrt(torch.clamp(b * b - 4.0 * a * c, min=0.0))
     root_bneg = 2.0 * c / (d - b)
     root_else = -(b + d) / (2.0 * a)

@@ -1,6 +1,6 @@
 """End-to-end orchestration: config -> camera -> fused kernel -> output.
 
-Port of ``blacklight_tpu/pipeline.py`` (:32-122, :221-334), with the same
+Port of ``blacklight_tpu/pipeline.py`` (:32-122, :141-334), with the same
 timing report, for the formula model and (through
 ``pipeline_simulation``) the simulation model. Geodesics, coefficients
 and transfer of the light image run as one fused kernel per model
@@ -10,6 +10,8 @@ device, its plain PyTorch version for the CPU. A configuration with an
 auxiliary image plane or image_light = false takes the scan route
 instead: ``transfer/unpolarized.integrate_unpolarized`` in torch ops on
 the rays' device, which the JAX package's formula ``run`` always takes.
+With adaptive_max_level > 0, ``adaptive_loop`` renders each refinement
+level's child blocks through the root image's route.
 
 The configurations this package covers so far are decided from the
 config before any work starts; every other one raises BlacklightError
@@ -34,12 +36,19 @@ from blacklight_tpu_torch.constants import (
 from blacklight_tpu_torch.output import (
     assemble_npz_arrays,
     format_filename,
+    shape_adaptive_level,
     validate_output_options,
     write_output,
 )
 from blacklight_tpu_torch.utils.config import warn_ignored_options
 from blacklight_tpu_torch.utils.errors import BlacklightError, blacklight_warning
-from blacklight_tpu_torch.camera import CameraRays, make_camera
+from blacklight_tpu_torch import adaptive
+from blacklight_tpu_torch.camera import (
+    CameraRays,
+    block_pixel_grid,
+    init_pixels,
+    make_camera,
+)
 from blacklight_tpu_torch.models import formula as formula_model
 from blacklight_tpu_torch.ops import geodesic
 from blacklight_tpu_torch.ops.formula_kernel import (
@@ -104,8 +113,6 @@ def check_slice(cfg) -> None:
             f"(ROADMAP {item}); use blacklight_tpu for this input.")
 
     simulation = cfg.require("model_type") == ModelType.simulation
-    if (cfg.adaptive_max_level or 0) > 0:
-        refuse("adaptive_max_level > 0", "A.9")
     for key in ("checkpoint_geodesic_save", "checkpoint_geodesic_load",
                 "checkpoint_sample_save", "checkpoint_sample_load"):
         if getattr(cfg, key):
@@ -218,6 +225,78 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def _host_rays(rays: CameraRays) -> CameraRays:
+    return CameraRays(positions=_to_numpy(rays.positions),
+                      directions=_to_numpy(rays.directions),
+                      momentum_factors=_to_numpy(rays.momentum_factors))
+
+
+def adaptive_loop(cfg, render_fn, geom, root_image) -> list:
+    """Adaptive refinement (``blacklight_tpu/pipeline.py:141-218``,
+    reference blacklight.cpp:198-236): at each level evaluate the blocks
+    on the host, spawn 4 children at doubled resolution per flagged block
+    and render only the new pixels with ``render_fn``, the root image's
+    renderer (the same kernel or scan route). The child rays are made on
+    the camera's device; each level's image comes back to the host once,
+    for the criteria and the output.
+
+    root_image: the root render as a dict of numpy arrays. Returns the
+    per-level dicts that ``output.assemble_npz_arrays`` takes.
+    """
+    p_ad = adaptive.AdaptiveParams.from_config(cfg)
+    if p_ad.max_level == 0:
+        return []
+    res = cfg.require("camera_resolution")
+    width = cfg.require("camera_width")
+    freq_idx = p_ad.frequency_num - 1
+    bs = p_ad.block_size
+    bh_m, bh_a, _ = bh_mass_spin(cfg)
+    camera_out = cfg.require("output_camera")
+
+    def criteria_intensity(image):
+        # I_nu at the adaptive frequency; Stokes I when polarized
+        # (radiation_adaptive.cpp:72-77)
+        return image["I_nu"][:, freq_idx]
+
+    locs = adaptive.root_block_locs(res, bs)
+    blocks = adaptive.extract_root_blocks(criteria_intensity(root_image),
+                                          res, bs)
+    levels = []
+    level = 0
+    while level < p_ad.max_level:
+        flags = adaptive.check_refinement(blocks, locs, level, res, width,
+                                          p_ad)
+        if not flags.any():
+            break
+        locs = adaptive.child_block_locs(locs, flags)
+        level += 1
+        u_ind, v_ind = block_pixel_grid(
+            locs[:, 1], locs[:, 0], bs, res << level,
+            device=geom.cam_x.device, dtype=geom.cam_x.dtype)
+        child_rays = init_pixels(
+            geom, u_ind, v_ind, camera_type=cfg.require("camera_type"),
+            bh_m=bh_m, bh_a=bh_a, camera_width=width,
+            camera_r=cfg.require("camera_r"),
+            image_normalization=cfg.require("image_normalization"),
+            ray_flat=cfg.require("ray_flat"))
+        # The exact bundle: the JAX loop pads it to a power of two of
+        # blocks only so that XLA reuses its compiled executables (the
+        # padding repeats ray 0 and is sliced off); a launch takes any
+        # number of rays and gives the same pixels.
+        image = render_fn(child_rays.positions, child_rays.directions,
+                          child_rays.momentum_factors)
+        image = {k: _to_numpy(v) for k, v in image.items()}
+        n_blocks = locs.shape[0]
+        lvl = {"num_blocks": n_blocks, "block_locs": locs}
+        lvl.update(shape_adaptive_level(
+            cfg, image, n_blocks, bs,
+            camera_rays=_host_rays(child_rays) if camera_out else None))
+        levels.append(lvl)
+        blocks = adaptive.blocks_from_bundle(criteria_intensity(image),
+                                             n_blocks, bs)
+    return levels
+
+
 def run(cfg, snapshot: Optional[int] = None, quiet: bool = False, *,
         device="cuda", grid=None) -> dict:
     """Full run for one snapshot on ``device`` ("cuda" or "cpu").
@@ -231,6 +310,7 @@ def run(cfg, snapshot: Optional[int] = None, quiet: bool = False, *,
     validate_output_options(cfg)
     warn_ignored_options(cfg)
     check_slice(cfg)
+    adaptive.AdaptiveParams.from_config(cfg)  # its errors before any work
     simulation = cfg.require("model_type") == ModelType.simulation
 
     t0 = time.time()
@@ -247,6 +327,7 @@ def run(cfg, snapshot: Optional[int] = None, quiet: bool = False, *,
     t1 = time.time()
     image = render_fn(rays.positions, rays.directions, rays.momentum_factors)
     image = {k: _to_numpy(v) for k, v in image.items()}  # waits for the device
+    adaptive_levels = adaptive_loop(cfg, render_fn, geom, image)
     t_image = time.time() - t1
 
     n_bad = int(np.sum(image["_flags"]))
@@ -255,12 +336,10 @@ def run(cfg, snapshot: Optional[int] = None, quiet: bool = False, *,
             f"{n_bad} out of {len(image['_flags'])} geodesics terminate "
             "unexpectedly.")
 
-    host_rays = CameraRays(positions=_to_numpy(rays.positions),
-                           directions=_to_numpy(rays.directions),
-                           momentum_factors=_to_numpy(rays.momentum_factors))
     arrays = assemble_npz_arrays(cfg, image, mass_msun=mass_msun,
                                  frequencies=_to_numpy(frequencies),
-                                 camera_rays=host_rays)
+                                 camera_rays=_host_rays(rays),
+                                 adaptive_levels=adaptive_levels)
     # numbered outputs follow the snapshot (output_writer.cpp:248-254)
     file_number = snapshot
     if snapshot is not None and simulation \

@@ -308,7 +308,23 @@ and prints no final line):
     mb-amr's interblock sampling, the nearest cell, the FMKS torus and the
     AthenaK cube with interblock sampling) held to its plain version there.
 
-Phases 4 to 19 run alone on the card, after phase 3.
+20. adaptive image-plane refinement (ROADMAP A.9), run after phase 19:
+    golden_adaptive_32 through pipeline.run(cfg, device="cuda") on
+    write_athena's mock built in memory (golden_adaptive_snapshot), float64
+    rk4, at tests/test_reference_goldens.py:21-49's gates (equal levels,
+    block counts and refined locations, rtol 1e-8); then phase 7's
+    sim-rk4-f32 cell (two levels), phase 5's formula-dp-f32 and phase 9's
+    pol-rk4-f32 (one level) at a 1024^2 root on phase 7's snapshot, blocks
+    of ADAPTIVE_BLOCK refined by golden_adaptive_32's criteria and a forced
+    region over the centre: pipeline.run without refinement (warm), then
+    with it, counting launches, each level's blocks, rays and render time;
+    every level must refine some but not all of its candidate blocks and
+    equal, bit for bit, the same kernel's render of the same pixels' rays
+    from the finer camera (pixel_grid(1024 * 2**level)) launched in that
+    camera's row-major order (adaptive_level_gate). It adds no plain-version
+    job: the kernels are held to their plain versions in phase 3.
+
+Phases 4 to 20 run alone on the card, after phase 3.
 
 ``python3 chip_smoke.py --chunk-sweep`` runs phases 1 and 2, then times
 the polarized route at 1024^2 (float32 rk4, spatial_order) for trace
@@ -1572,12 +1588,13 @@ def phase_sim_goldens(tmp: pathlib.Path):
             raise RuntimeError(f"golden {name} failed")
 
 
-def full_width_snapshot(dtype, device=None):
-    """FULL_GRID from scripts/generate_mock_simulation.make_fields on the
-    card (or ``device``), as an Athena++ file would hold it (float32
-    values and coordinates; the coordinates then in ``dtype``), through
-    the function that load_athdf ends in. The card's Python has no h5py to
-    write the file."""
+def full_width_snapshot(dtype, device=None, size=FULL_GRID):
+    """FULL_GRID (or ``size``, over the generator's defaults) from
+    scripts/generate_mock_simulation.make_fields on the card (or
+    ``device``), as an Athena++ file would hold it (float32 values and
+    coordinates; the coordinates then in ``dtype``), through the function
+    that load_athdf ends in. The card's Python has no h5py to write the
+    file."""
     import numpy as np
     import torch
     from blacklight_tpu_torch.grid.athena import (
@@ -1586,7 +1603,7 @@ def full_width_snapshot(dtype, device=None):
     )
     sys.path.insert(0, str(ROOT / "scripts"))
     import generate_mock_simulation as mock
-    fields = mock.make_fields(dict(mock.DEFAULTS, **FULL_GRID))
+    fields = mock.make_fields(dict(mock.DEFAULTS, **size))
     names = ["rho", "press", "vel1", "vel2", "vel3", "Bcc1", "Bcc2", "Bcc3"]
     prim = np.stack([fields[k] for k in ("rho", "pgas", "uur", "uuth", "uuph",
                                          "bbr", "bbth", "bbph")])
@@ -5751,6 +5768,210 @@ def phase_code_kappa(tmp: pathlib.Path, card: str, grids: dict,
     return entries
 
 
+# Phase 20 (adaptive refinement, ROADMAP A.9): the golden's criteria (the
+# Laplacian, golden_adaptive_32.input) and a forced region over the centre
+# of half-width ADAPTIVE_REGION of the camera's width, blocks of
+# ADAPTIVE_BLOCK at the ADAPTIVE_RES^2 root; levels by cell.
+ADAPTIVE_RES = 1024
+ADAPTIVE_BLOCK = 32
+ADAPTIVE_REGION = 0.08
+ADAPTIVE_LEVELS = {"sim-rk4-f32": 2, "formula-dp-f32": 1, "pol-rk4-f32": 1}
+
+
+def golden_adaptive_snapshot(dtype, device=None):
+    """write_athena's mock torus at the generator's defaults (the
+    snapshot of golden_adaptive_32, tests/test_reference_goldens.py:21-49)
+    as load_athdf reads it, built in memory: the card has no h5py."""
+    return full_width_snapshot(dtype, device, size={})
+
+
+def _adaptive_config(cfg, max_level):
+    """``cfg`` refined to ``max_level`` levels of ADAPTIVE_BLOCK blocks by
+    golden_adaptive_32's criteria and the central forced region."""
+    import dataclasses
+    from blacklight_tpu_torch.utils.config import AdaptiveRegion
+    golden = _config("golden_adaptive_32.input")
+    for field in dataclasses.fields(golden):
+        if field.name.startswith("adaptive_"):
+            setattr(cfg, field.name, getattr(golden, field.name))
+    half = ADAPTIVE_REGION * cfg.camera_width
+    cfg.adaptive_max_level = max_level
+    cfg.adaptive_block_size = ADAPTIVE_BLOCK
+    cfg.adaptive_num_regions = 1
+    cfg.adaptive_regions = [AdaptiveRegion(level=max_level, x_min=-half,
+                                           x_max=half, y_min=-half,
+                                           y_max=half)]
+    return cfg
+
+
+def level_pixels(locs, block, resolution):
+    """Row-major indices into a ``resolution``^2 camera of the pixels of
+    blocks ``locs`` (B, 2) (v, u), block-major then row-major within a
+    block, as an adaptive level's bundle holds them."""
+    import numpy as np
+    m = np.arange(block * block)
+    rows = (locs[:, 0] * block)[:, None] + m // block
+    cols = (locs[:, 1] * block)[:, None] + m % block
+    return (rows * resolution + cols).reshape(-1)
+
+
+def adaptive_level_gate(cfg, arrays, grid) -> list:
+    """Every level's images against the same kernel's render of the same
+    pixels' rays from the finer camera (pixel_grid(resolution * 2**l)),
+    launched in that camera's row-major order: (per level, blocks, rays,
+    whether every Stokes channel is equal bit for bit, the direct
+    render's seconds)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from blacklight_tpu_torch import pipeline, pipeline_simulation
+    res, block = cfg.camera_resolution, cfg.adaptive_block_size
+    counts = arrays["adaptive_num_blocks"]
+    result = []
+    for level in range(1, int(arrays["adaptive_num_levels"][0]) + 1):
+        fine = dataclasses.replace(cfg, camera_resolution=res << level,
+                                   adaptive_max_level=0)
+        if grid is None:
+            render_fn, _, rays, _, _ = pipeline.make_formula_renderer(
+                fine, device="cuda")
+        else:
+            render_fn, _, rays, _, _ = \
+                pipeline_simulation.make_simulation_renderer(
+                    fine, device="cuda", grid=grid)
+        pick = level_pixels(arrays[f"adaptive_block_locs_{level}"], block,
+                            res << level)
+        order = np.argsort(pick)
+        index = torch.from_numpy(pick[order]).to(rays.positions.device)
+        rays = [t[index] for t in (rays.positions, rays.directions,
+                                   rays.momentum_factors)]
+        direct, t_direct = _timed(render_fn, *rays)
+        equal = {}
+        for key in STOKES:
+            if key in direct:
+                values = direct[key][:, 0].cpu().numpy()[np.argsort(order)]
+                ours = arrays[f"adaptive_{key}_{level}"].reshape(-1)
+                equal[key] = bool(ours.dtype == values.dtype and np.array_equal(
+                    ours, values, equal_nan=True))
+        result.append({"level": level, "blocks": int(counts[level]),
+                       "rays": int(pick.size), "bit_for_bit": equal,
+                       "direct_s": t_direct})
+        del rays, direct
+    return result
+
+
+def phase_adaptive(tmp: pathlib.Path, card: str, grids: dict):
+    """Phase 20: adaptive refinement (ROADMAP A.9) through pipeline.run on
+    the card: golden_adaptive_32 at its gates, then each cell of
+    ADAPTIVE_LEVELS at 1024^2 (phase 7's, phase 5's and phase 9's, on
+    phase 7's snapshot in ``grids``) with and without refinement, each
+    level's blocks, rays and render time, and each level bit for bit the
+    kernel's direct render of the same pixels (adaptive_level_gate)."""
+    import numpy as np
+    import torch
+    from blacklight_tpu_torch import pipeline
+    from blacklight_tpu_torch.ops import formula_kernel as fk
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+
+    t_phase = time.perf_counter()
+    name = "golden_adaptive_32"
+    before = sk.LAUNCHES
+    ours = pipeline.run(_config(f"{name}.input",
+                                output_file=str(tmp / f"{name}.npz")),
+                        quiet=True, device="cuda",
+                        grid=golden_adaptive_snapshot(torch.float64))
+    launched = sk.LAUNCHES - before
+    ref = np.load(FIXTURES / f"{name}.npz")
+    # tests/test_reference_goldens.py:21-49
+    scale = np.nanmax(np.abs(ref["I_nu"]))
+    worst = float(np.nanmax(np.abs(ours["I_nu"] - ref["I_nu"])
+                            / (np.abs(ref["I_nu"]) + scale * 1e-8)))
+    ours_at = {tuple(v): i for i, v in enumerate(
+        ours["adaptive_block_locs_1"])}
+    ref_at = {tuple(v): i for i, v in enumerate(
+        ref["adaptive_block_locs_1"])}
+    same_locs = set(ours_at) == set(ref_at)
+    for loc in set(ours_at) & set(ref_at):
+        a = ours["adaptive_I_nu_1"][ours_at[loc]]
+        b = ref["adaptive_I_nu_1"][ref_at[loc]]
+        worst = max(worst, float(np.nanmax(np.abs(a - b)
+                                           / (np.abs(b) + scale * 1e-8))))
+    ok = bool(np.array_equal(ours["adaptive_num_levels"],
+                             ref["adaptive_num_levels"])
+              and np.array_equal(ours["adaptive_num_blocks"],
+                                 ref["adaptive_num_blocks"])
+              and same_locs and worst < 1e-8 and launched == 2)
+    emit("adaptive_golden", name=name, launches=launched,
+         num_blocks=ours["adaptive_num_blocks"].tolist(),
+         same_locations=same_locs, max_rel=worst,
+         gate="equal levels, blocks and locations, rtol 1e-8", ok=ok)
+    if not ok:
+        raise RuntimeError(f"golden {name} failed")
+
+    res = ADAPTIVE_RES
+    cells = {
+        "sim-rk4-f32": (_sim_config(
+            precision="float32", ray_integrator="rk4", ray_max_steps=2000),
+            grids["float32"]),
+        "formula-dp-f32": (_config(
+            "golden_formula_32.input", precision="float32",
+            ray_integrator="dp"), None),
+        "pol-rk4-f32": (_pol_full_config("float32", "rk4"), grids["float32"]),
+    }
+    real_loop = pipeline.adaptive_loop
+    for cell in ADAPTIVE_LEVELS:
+        cfg, grid = cells[cell]
+        cfg.camera_resolution = res
+        cfg.output_file = str(tmp / f"adaptive_{cell}.npz")
+        # warm, then run without refinement
+        for _ in range(2):
+            _, plain_run_s = _timed(pipeline.run, cfg, quiet=True,
+                                    device="cuda", grid=grid)
+        cfg = _adaptive_config(cfg, ADAPTIVE_LEVELS[cell])
+        renders = []
+
+        def timed_loop(cfg_, render_fn, geom, root_image):
+            def timed(*rays):
+                out, seconds = _timed(render_fn, *rays)
+                renders.append({"rays": rays[0].shape[0],
+                                "render_s": seconds})
+                return out
+            return real_loop(cfg_, timed, geom, root_image)
+
+        fk.LAUNCHES = sk.LAUNCHES = pk.LAUNCHES = sk.PHASE_LAUNCHES = 0
+        pipeline.adaptive_loop = timed_loop
+        try:
+            arrays, run_s = _timed(pipeline.run, cfg, quiet=True,
+                                   device="cuda", grid=grid)
+        finally:
+            pipeline.adaptive_loop = real_loop
+        launches = {"formula": fk.LAUNCHES, "simulation": sk.LAUNCHES,
+                    "polarized": pk.LAUNCHES, "phase": sk.PHASE_LAUNCHES}
+        counts = arrays["adaptive_num_blocks"].tolist()
+        levels = adaptive_level_gate(cfg, arrays, grid)
+        for entry, render in zip(levels, renders):
+            entry.update(render)
+        kind = {"sim": "simulation", "formula": "formula",
+                "pol": "polarized"}[cell.split("-")[0]]
+        ok = (len(levels) == ADAPTIVE_LEVELS[cell]
+              and all(0 < counts[i] < 4 * counts[i - 1]
+                      for i in range(1, len(counts)))
+              and all(all(e["bit_for_bit"].values()) and e["bit_for_bit"]
+                      for e in levels)
+              and launches[kind] >= 1 + len(levels)
+              and sum(launches.values()) == launches[kind]
+              and arrays["I_nu"].shape == (res, res))
+        emit("adaptive", card=card, cell=cell, resolution=res,
+             block=ADAPTIVE_BLOCK, max_level=ADAPTIVE_LEVELS[cell],
+             num_blocks=counts, run_s=run_s,
+             run_without_refinement_s=plain_run_s, levels=levels,
+             launches=launches, ok=ok)
+        if not ok:
+            raise RuntimeError(f"adaptive cell {cell} failed")
+        del arrays
+    emit("adaptive_phase", card=card, seconds=time.perf_counter() - t_phase)
+
+
 # Phase 3's kernel-against-plain checks, emitted in this order.
 CHECKS = (
     (check_formula_tangents, ("rk4", "float64")),
@@ -5937,6 +6158,7 @@ def main(argv=None) -> int:
             grids["fmks_datasets"] = fmks_host["datasets"]
             code_kappa = phase_code_kappa(tmp, card, grids,
                                           code_kappa_checks)
+            phase_adaptive(tmp, card, grids)
             shutil.rmtree(ATHENAK_DIR, ignore_errors=True)
             grids.clear()
             multi = phase_multi_full_width(tmp, card, subsets["k13"])

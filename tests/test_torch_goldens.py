@@ -2,8 +2,9 @@
 through pipeline.run or the CLI on the CPU, at the tolerances of
 test_formula_e2e.py, test_simulation_e2e.py and test_polarized_e2e.py
 (reference-binary outputs), the auxiliary image planes' goldens among
-them, the plasma models' (golden_code_kappa_32 among them), and the
-CLI's npz against the JAX package's."""
+them, the plasma models' (golden_code_kappa_32 among them), the adaptive
+golden (golden_adaptive_32), and the CLI's npz against the JAX
+package's."""
 
 import numpy as np
 import pytest
@@ -234,3 +235,40 @@ def test_code_kappa_golden_parity(fixtures_dir, tmp_path):
     rel = np.abs(ours - gold) / (np.abs(gold) + scale * 1e-8)
     assert np.array_equal(np.isnan(ours), np.isnan(gold))
     assert np.nanmax(rel) < 1e-8, np.nanmax(rel)
+
+
+def test_adaptive_golden_parity(fixtures_dir, tmp_path):
+    """golden_adaptive_32 (one level of blocks of 8 refined by the
+    Laplacian criterion) on write_athena's mock, written at test time,
+    with the gates of tests/test_reference_goldens.py:21-49: equal
+    adaptive_num_levels and adaptive_num_blocks, the same refined
+    locations, and the root and every refined block within rtol 1e-8 over
+    a floor of 1e-8 of the root's peak."""
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).parents[1] / "scripts"))
+    import generate_mock_simulation as gen
+    p = dict(gen.DEFAULTS)
+    gen.write_athena(str(tmp_path / "mock.athdf"), gen.make_fields(p), p)
+    cfg = read_config(str(fixtures_dir / "golden_adaptive_32.input"))
+    cfg.simulation_file = str(tmp_path / "mock.athdf")
+    cfg.output_file = str(tmp_path / "out.npz")
+    ours = pipeline.run(cfg, quiet=True, device="cpu")
+    ref = np.load(fixtures_dir / "golden_adaptive_32.npz")
+    np.testing.assert_array_equal(ours["adaptive_num_levels"],
+                                  ref["adaptive_num_levels"])
+    np.testing.assert_array_equal(ours["adaptive_num_blocks"],
+                                  ref["adaptive_num_blocks"])
+    assert ref["adaptive_num_levels"][0] == 1
+    scale = np.nanmax(np.abs(ref["I_nu"]))
+    rel = np.abs(ours["I_nu"] - ref["I_nu"]) / (np.abs(ref["I_nu"])
+                                                + scale * 1e-8)
+    assert np.nanmax(rel) < 1e-8, np.nanmax(rel)
+    o_map = {tuple(v): i for i, v in enumerate(ours["adaptive_block_locs_1"])}
+    r_map = {tuple(v): i for i, v in enumerate(ref["adaptive_block_locs_1"])}
+    assert set(o_map) == set(r_map)
+    for loc, oi in o_map.items():
+        a = ours["adaptive_I_nu_1"][oi]
+        b = ref["adaptive_I_nu_1"][r_map[loc]]
+        rel = np.abs(a - b) / (np.abs(b) + scale * 1e-8)
+        assert np.nanmax(rel) < 1e-8, (loc, np.nanmax(rel))

@@ -74,9 +74,10 @@ def test_cli_cpu_writes_same_npz(jax_reference, tmp_path, capsys):
 
 def test_cli_reports_errors(tmp_path, capsys):
     inp = _input(tmp_path / "bad.input", tmp_path / "bad.npz",
-                 adaptive_max_level=1)
+                 checkpoint_geodesic_save="true",
+                 checkpoint_geodesic_file=tmp_path / "g.npz")
     assert cli.main(["--device", "cpu", str(inp)]) == 1
-    assert "A.9" in capsys.readouterr().err
+    assert "A.8" in capsys.readouterr().err
     assert cli.main(["--device", "cpu", str(tmp_path / "missing")]) == 1
 
 
@@ -116,11 +117,17 @@ def test_npy_output(tmp_path):
 # Configurations outside the port's slice, each with the ROADMAP item its
 # error must name; a simulation configuration without its simulation
 # options (every snapshot format is read) with the error of the first
-# option it lacks
+# option it lacks; adaptive configurations the JAX package refuses, with
+# its errors (blacklight_tpu/adaptive.py:56-58, output.py:45-46)
 OUT_OF_SLICE = {
     "simulation": ({"model_type": "simulation", "image_polarization": False},
                    "Must specify simulation_multiple"),
-    "adaptive": ({"adaptive_max_level": 1}, "A.9"),
+    "adaptive_block_size": ({"adaptive_max_level": 1,
+                             "adaptive_block_size": 5},
+                            "adaptive_block_size must divide "
+                            "camera_resolution."),
+    "adaptive_npy": ({"adaptive_max_level": 1, "output_format": "npy"},
+                     "Only npz outputs support adaptive ray tracing."),
     "geodesic_save": ({"checkpoint_geodesic_save": True,
                        "checkpoint_geodesic_file": "g.npz"}, "A.8"),
     "geodesic_load": ({"checkpoint_geodesic_load": True,
@@ -140,6 +147,9 @@ def test_out_of_slice_config_raises(tmp_path, case):
         if key == "model_type":
             from blacklight_tpu_torch.constants import ModelType
             value = ModelType(value)
+        elif key == "output_format":
+            from blacklight_tpu_torch.constants import OutputFormat
+            value = OutputFormat(value)
         setattr(cfg, key, value)
     with pytest.raises(BlacklightError, match=item):
         pipeline.run(cfg, quiet=True, device="cpu")

@@ -247,8 +247,16 @@ OUT_OF_SLICE = {
     "code_kappa": ({"plasma_model": "code_kappa"},
                    "Must specify simulation_kappa_name in input file for "
                    "this configuration."),
-    "adaptive": ({"adaptive_max_level": 1, "adaptive_block_size": 4,
-                  "adaptive_num_regions": 0}, "ROADMAP A.9)"),
+    # adaptive configurations the JAX package refuses, with its errors
+    # (blacklight_tpu/adaptive.py:56-58, output.py:45-46)
+    "adaptive_block_size": ({"adaptive_max_level": 1,
+                             "adaptive_block_size": 5,
+                             "adaptive_num_regions": 0},
+                            "adaptive_block_size must divide "
+                            "camera_resolution."),
+    "adaptive_npy": ({"adaptive_max_level": 1, "adaptive_block_size": 4,
+                      "adaptive_num_regions": 0, "output_format": "npy"},
+                     "Only npz outputs support adaptive ray tracing."),
 }
 
 
