@@ -8,8 +8,10 @@ kernels (``csrc/trace.cuh`` on the card); ``step`` is one of its steps in
 plain torch ops, from which ``trace_steps`` (one phase of the loop),
 ``trace_reference`` (the loop of
 ``ops/formula_kernel.render_formula_reference`` and
-``ops/simulation_kernel.render_simulation_reference``) and the windowed
-sweep of ``ops/polarized_kernel.render_polarized_reference`` are built.
+``ops/simulation_kernel.render_simulation_reference``), ``trace_compacted``
+(the scan route's loop, which drops finished rays and replays steps from
+CUDA graphs) and the windowed sweep of
+``ops/polarized_kernel.render_polarized_reference`` are built.
 """
 
 from __future__ import annotations
@@ -321,6 +323,155 @@ def trace_reference(positions, directions, params: GeodesicParams,
                         directions[:, 0], params, integrator, 0,
                         params.ray_max_steps, on_sample)
     return state.flag, state.n_samples
+
+
+# The scan route's loop (``trace_compacted``): the live-ray count is read
+# (one host sync) every COMPACT_CHECK_STEPS steps, and the bundle drops its
+# finished rays when its live rays are fewer than COMPACT_SHARE of its
+# rows. A compacted bundle keeps COMPACT_ROWS-multiples of rows ahead of
+# the original bundle's last (B mod COMPACT_ROWS) rays, which stay at its
+# end: torch's CPU loops take the vector or the scalar form of an op by an
+# element's distance from the end of its tensor (the last n mod 2w
+# elements of n, w the vector width: 8 or 16 lanes), so every row keeps
+# the form, and the bits, it had in the whole bundle. On a CUDA device
+# every bundle's step after the first COMPACT_CHECK_STEPS steps is
+# captured once in a CUDA graph and replayed (the same kernels on the same
+# tensors: the eager route is bound by the host's ~1,860 launches a step).
+COMPACT_CHECK_STEPS = 16
+COMPACT_SHARE = 0.75
+COMPACT_ROWS = 64
+# Whether trace_compacted replays steps from CUDA graphs on a CUDA device
+# (off: every step eager, as on the CPU).
+STEP_GRAPHS = True
+# Lock steps taken by trace_compacted (replayed ones included), for
+# callers that time a step.
+LOCK_STEPS = 0
+
+
+def _gather_state(state: RayState, index) -> RayState:
+    return RayState(*(tuple(c.index_select(0, index) for c in f)
+                      if isinstance(f, tuple) else f.index_select(0, index)
+                      for f in state))
+
+
+def _final(state: RayState, carry: dict) -> tuple:
+    """What trace_compacted returns of each ray, by name."""
+    return (("flag", state.flag), ("n_samples", state.n_samples),
+            *carry.items())
+
+
+def _flat(state: RayState, p0, carry: dict) -> list:
+    return [*state.y, *state[1:], p0, *carry.values()]
+
+
+def _unflat(flat: list, keys) -> tuple:
+    state = RayState(tuple(flat[:7]), *flat[7:15])
+    return state, flat[15], dict(zip(keys, flat[16:]))
+
+
+class _StepGraph:
+    """A lock step of one bundle captured in a CUDA graph: each replay
+    advances the bundle's state and carry, which live in the graph's own
+    input tensors (``state``, ``p0``, ``carry``), by one step that is not
+    the last (n < max_steps - 1, the only step whose index the step
+    reads)."""
+
+    def __init__(self, state, p0, carry, params, integrator, on_sample):
+        keys = tuple(carry)
+        static = [t.clone() for t in _flat(state, p0, carry)]
+        self.state, self.p0, self.carry = _unflat(static, keys)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            new, sample = step(self.state, self.p0, -1, params, integrator)
+            carry = dict(self.carry)
+            on_sample(*sample, carry)
+            for dst, src in zip(static, _flat(new, self.p0, carry)):
+                if src is not dst:
+                    dst.copy_(src)
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+
+def trace_compacted(positions, directions, params: GeodesicParams,
+                    integrator: str, carry: dict, on_sample):
+    """The loop of ``trace_reference`` for a caller that keeps per-ray
+    tensors: each ray's steps and samples are bit for bit the lock-step
+    loop's, but finished rays leave the bundle.
+
+    carry: per-ray tensors (first dimension B), the caller's inputs and
+    accumulators. on_sample(valid, x, k, h, carry) is called once per step
+    with the fields of ``step``'s Sample over the rays the bundle still
+    holds, and with ``carry`` holding those rays' rows; it replaces the
+    accumulators in ``carry`` and makes no host sync (on a CUDA device
+    it is captured in a graph). A finished ray's sample is invalid and
+    must leave its accumulators as they are, as the loop's are left: the
+    loop may step a bundle whose rays have all finished (up to
+    COMPACT_CHECK_STEPS - 1 steps) and keeps some finished rays in it.
+
+    Returns (flag (B,) bool, n_samples (B,) int32, carry with every ray's
+    final rows in the caller's order).
+    """
+    global LOCK_STEPS
+    b = positions.shape[0]
+    state = initial_state(positions, directions, params)
+    p0 = directions[:, 0]
+    fixed = b % COMPACT_ROWS  # the last rays, never moved
+    rows = None  # the bundle's rays in the caller's order; None: all
+    out = None
+    graph = None
+    on_card = STEP_GRAPHS and positions.device.type == "cuda"
+    last = params.ray_max_steps - 1
+    n = 0
+    while n <= last:
+        if on_card and graph is None and n > 0:
+            graph = _StepGraph(state, p0, carry, params, integrator,
+                               on_sample)
+            state, p0, carry = graph.state, graph.p0, graph.carry
+        for n in range(n, min(n + COMPACT_CHECK_STEPS, last + 1)):
+            if graph is not None and n < last:
+                graph.replay()
+            else:
+                state, sample = step(state, p0, n, params, integrator)
+                on_sample(*sample, carry)
+            LOCK_STEPS += 1
+        n += 1
+        m = state.alive.shape[0]
+        body = m - fixed
+        alive_body, alive = (int(v) for v in torch.stack(
+            [state.alive[:body].sum(), state.alive.sum()]).tolist())
+        if alive == 0:
+            break
+        if alive >= COMPACT_SHARE * m:
+            continue
+        # every live ray of the body, then its first finished ones up to a
+        # multiple of COMPACT_ROWS, in order; then the fixed rays
+        pad = -alive_body % COMPACT_ROWS
+        if alive_body + pad == body:
+            continue
+        dead = ~state.alive[:body]
+        keep = state.alive[:body] | (dead & (torch.cumsum(dead, 0) <= pad))
+        kept = keep.nonzero().squeeze(1)
+        index = torch.cat([kept, torch.arange(body, m,
+                                              device=kept.device)])
+        drop = (~keep).nonzero().squeeze(1)
+        if out is None:
+            rows = torch.arange(b, device=kept.device)
+            out = {k: torch.empty_like(v) for k, v in _final(state, carry)}
+        dropped = rows.index_select(0, drop)
+        for key, value in _final(state, carry):
+            out[key].index_copy_(0, dropped, value.index_select(0, drop))
+        rows = rows.index_select(0, index)
+        state = _gather_state(state, index)
+        p0 = p0.index_select(0, index)
+        carry = {k: v.index_select(0, index) for k, v in carry.items()}
+        graph = None
+    if out is None:
+        return state.flag, state.n_samples, carry
+    for key, value in _final(state, carry):
+        out[key].index_copy_(0, rows, value)
+    flag, n_samples = out.pop("flag"), out.pop("n_samples")
+    return flag, n_samples, out
 
 
 def segment_carries(positions, directions, params: GeodesicParams,

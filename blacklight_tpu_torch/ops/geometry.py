@@ -85,8 +85,8 @@ def ks_scalars(x, spin, mass=1.0):
 
 def minkowski(batch_shape, *, dtype, device):
     """eta = diag(-1, 1, 1, 1) broadcast to batch_shape + (4, 4)."""
-    eta = torch.diag(torch.tensor([-1.0, 1.0, 1.0, 1.0], dtype=dtype,
-                                  device=device))
+    eta = torch.eye(4, dtype=dtype, device=device)
+    eta[0, 0].fill_(-1.0)  # no host-to-device copy: a CUDA graph may hold it
     return eta.expand(tuple(batch_shape) + (4, 4))
 
 

@@ -9,7 +9,10 @@ and transfer of the light image run as one fused kernel per model
 device, its plain PyTorch version for the CPU. A configuration with an
 auxiliary image plane or image_light = false takes the scan route
 instead: ``transfer/unpolarized.integrate_unpolarized`` in torch ops on
-the rays' device, which the JAX package's formula ``run`` always takes.
+the rays' device, which the JAX package's formula ``run`` always takes;
+so does a simulation with false-color renderings
+(``transfer/rendering``), which the formula model ignores with a warning,
+as the JAX package does.
 With adaptive_max_level > 0, ``adaptive_loop`` renders each refinement
 level's child blocks through the root image's route.
 
@@ -117,8 +120,6 @@ def check_slice(cfg) -> None:
                 "checkpoint_sample_save", "checkpoint_sample_load"):
         if getattr(cfg, key):
             refuse(f"{key}", "A.8")
-    if (cfg.render_num_images or 0) > 0:
-        refuse("rendering (render_num_images > 0)", "D.1")
     if simulation:
         _check_simulation_slice(cfg, refuse)
 
@@ -174,13 +175,13 @@ def make_formula_renderer(cfg, *, device):
     fallback_nan = cfg.require("fallback_nan")
     opts = tu.ImageOptions.from_config(cfg)
 
-    def render_scan(positions, directions, momentum_factors):
-        def coeff_fn(pos, kcov):
-            j, alpha, _, bad = formula_model.formula_coefficients(
-                pos, torch.stack(kcov, dim=-1), momentum_factors,
-                frequencies, fparams, camera_x)
-            return j, alpha, bad
+    def coeff_fn(pos, kcov, momentum_factors):
+        j, alpha, _, bad = formula_model.formula_coefficients(
+            pos, torch.stack(kcov, dim=-1), momentum_factors, frequencies,
+            fparams, camera_x)
+        return j, alpha, bad
 
+    def render_scan(positions, directions, momentum_factors):
         return tu.integrate_unpolarized(
             positions, directions, momentum_factors, frequencies,
             params=params, integrator=params.integrator.value,
@@ -229,6 +230,14 @@ def _host_rays(rays: CameraRays) -> CameraRays:
     return CameraRays(positions=_to_numpy(rays.positions),
                       directions=_to_numpy(rays.directions),
                       momentum_factors=_to_numpy(rays.momentum_factors))
+
+
+def _rendering(image: dict):
+    """The false-color renderings of a host image in the output's layout,
+    (n_images, 3, B) from (B, n_images, 3); None without them."""
+    if "rendering" not in image:
+        return None
+    return np.transpose(image["rendering"], (1, 2, 0))
 
 
 def adaptive_loop(cfg, render_fn, geom, root_image) -> list:
@@ -290,7 +299,8 @@ def adaptive_loop(cfg, render_fn, geom, root_image) -> list:
         lvl = {"num_blocks": n_blocks, "block_locs": locs}
         lvl.update(shape_adaptive_level(
             cfg, image, n_blocks, bs,
-            camera_rays=_host_rays(child_rays) if camera_out else None))
+            camera_rays=_host_rays(child_rays) if camera_out else None,
+            rendering=_rendering(image)))
         levels.append(lvl)
         blocks = adaptive.blocks_from_bundle(criteria_intensity(image),
                                              n_blocks, bs)
@@ -339,6 +349,7 @@ def run(cfg, snapshot: Optional[int] = None, quiet: bool = False, *,
     arrays = assemble_npz_arrays(cfg, image, mass_msun=mass_msun,
                                  frequencies=_to_numpy(frequencies),
                                  camera_rays=_host_rays(rays),
+                                 rendering=_rendering(image),
                                  adaptive_levels=adaptive_levels)
     # numbered outputs follow the snapshot (output_writer.cpp:248-254)
     file_number = snapshot

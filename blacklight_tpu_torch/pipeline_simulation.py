@@ -24,11 +24,16 @@ chooses between its kernels and its XLA path
   followed by the camera-frame Stokes extraction); each the CUDA kernel
   for a CUDA device, its plain PyTorch version for the CPU. Rays are
   launched in ``spatial_order``.
-- "scan", any auxiliary image plane or image_light = false: the
-  transfer in torch ops on the rays' device
-  (``transfer/unpolarized.integrate_unpolarized``, or with
-  image_polarization ``transfer/polarized.integrate_polarized``), with
-  ``make_simulation_coeff_fns``' coefficients and cell values.
+- "scan", any auxiliary image plane, image_light = false or a
+  false-color rendering (render_num_images > 0): the transfer in torch
+  ops on the rays' device (``transfer/unpolarized.integrate_unpolarized``,
+  or with image_polarization ``transfer/polarized.integrate_polarized``),
+  with ``make_simulation_coeff_fns``' coefficients and cell values; the
+  renderings ride the unpolarized trace
+  (``transfer/rendering.Renderer``), or with image_polarization a trace of
+  their own (``transfer/rendering.integrate_rendering``), as the JAX
+  package's XLA path renders them (blacklight_tpu/pipeline_simulation.py
+  :596-606).
 
 Nothing falls back from one route to another.
 """
@@ -57,6 +62,7 @@ from blacklight_tpu_torch.models import synchrotron
 from blacklight_tpu_torch.models.cuts import GeometricCuts
 from blacklight_tpu_torch.ops import polarized_kernel, simulation_kernel
 from blacklight_tpu_torch.transfer import polarized as tp
+from blacklight_tpu_torch.transfer import rendering
 from blacklight_tpu_torch.transfer import unpolarized as tu
 
 # Phased dispatch of the unpolarized kernel
@@ -187,9 +193,11 @@ def make_simulation_coeff_fns(sp: simulation_kernel.SimKernelParams, grid,
     (blacklight_tpu/pipeline_simulation.py:167-254) for a bundle with
     ``momentum_factors``; camera_x four Python floats.
 
-    Unpolarized, coeff_fn(pos (B, 4), kcov four (B,)) is
-    ``simulation_kernel.sample_coefficients``; polarized, coeff_fn(pos,
-    kcov) on 4-tuples is ``polarized_kernel.polarized_coefficients``.
+    Unpolarized, coeff_fn(pos (B, 4), kcov four (B,)[, momentum_factors])
+    is ``simulation_kernel.sample_coefficients``; polarized, coeff_fn(pos,
+    kcov) on 4-tuples is ``polarized_kernel.polarized_coefficients``. The
+    momentum factors are ``momentum_factors`` unless given: the scan
+    route's bundle drops finished rays and passes its own.
     cell_fn(pos, kcov) gives the cell values, NaN where a cut holds or the
     reference would NaN the sample. The two share one grid sample and
     fluid state per sample: cell_fn called with the ``pos`` object of the
@@ -205,7 +213,7 @@ def make_simulation_coeff_fns(sp: simulation_kernel.SimKernelParams, grid,
                 posb, sp, grid, spin, camera_x, zero_cut=polarized))
         return last["fluid"]
 
-    def coeff_fn(pos, kcov):
+    def coeff_fn(pos, kcov, momentum_factors=momentum_factors):
         if polarized:
             return polarized_kernel.polarized_coefficients(
                 pos, kcov, momentum_factors, frequencies, sp, grid, spin,
@@ -231,8 +239,9 @@ def make_simulation_renderer(cfg, snapshot: Optional[int] = None, *, device,
     render_fn(positions, directions, momentum_factors) renders a pixel
     bundle to a dict of tensors: "I_nu" (B, F) (and "Q_nu", "U_nu",
     "V_nu" with image_polarization; no light image with image_light =
-    false), the auxiliary planes the config asks for, "_flags" (B,) bool
-    and "_n_samples" (B,). ``render_fn.route`` is "kernel" or "scan" (the
+    false), the auxiliary planes the config asks for, "rendering"
+    (B, n_images, 3) with render_num_images > 0, "_flags" (B,) bool and
+    "_n_samples" (B,). ``render_fn.route`` is "kernel" or "scan" (the
     module's docstring). On the kernel route it launches the bundle in
     ``spatial_order`` and returns it in the caller's order;
     ``render_fn.kernel`` is the kernel wrapper it calls
@@ -280,7 +289,11 @@ def make_simulation_renderer(cfg, snapshot: Optional[int] = None, *, device,
     opts = tu.ImageOptions.from_config(cfg)
     # (blacklight_tpu/pipeline_simulation.py:316-317)
     polarized = cfg.require("image_polarization") if opts.light else False
-    route = "scan" if opts.aux or not opts.light else "kernel"
+    render = None
+    if cfg.require("render_num_images") > 0:
+        render = rendering.Renderer(cfg.render_images, mass_msun, params)
+    route = "scan" if opts.aux or not opts.light or render is not None \
+        else "kernel"
     if route == "scan":
         kernel = None
     elif polarized:
@@ -295,19 +308,33 @@ def make_simulation_renderer(cfg, snapshot: Optional[int] = None, *, device,
             polarized=polarized)
         common = dict(params=params, integrator=kernel_kwargs["integrator"],
                       coeff_fn=coeff_fn, mass_msun=mass_msun, opts=opts,
-                      cell_fn=cell_fn if opts.cells else None,
+                      cell_fn=cell_fn if opts.cells or render is not None
+                      else None,
                       camera_x=camera_x, log_j_scale=log_scale)
         if not polarized:
             return tu.integrate_unpolarized(
                 positions, directions, momentum_factors, frequencies,
-                **common)
+                render=render, **common)
+        if not opts.cells:
+            common["cell_fn"] = None
         nn_re, nn_im, flags, n_samples, bad, planes = tp.integrate_polarized(
             positions, directions, momentum_factors, frequencies,
             rotation_split=cfg.require("image_rotation_split"), **common)
         image = polarized_kernel.poisoned_stokes(
             nn_re, nn_im, flags, bad, positions, directions, frequencies,
             params, geom, log_scale, fallback_nan)
-        return {**image, **planes, "_flags": flags, "_n_samples": n_samples}
+        image = {**image, **planes, "_flags": flags, "_n_samples": n_samples}
+        if render is not None:
+            # the unpolarized cell values: the polarized sampler's zeroed
+            # primitives at geometrically cut samples give NaN cells there
+            # all the same
+            _, cells_fn = make_simulation_coeff_fns(
+                sp, grid, frequencies, momentum_factors, bh_a, camera_x,
+                polarized=False)
+            image["rendering"] = rendering.integrate_rendering(
+                positions, directions, params, cells_fn, render.images,
+                mass_msun, camera_x)[0]
+        return image
 
     def render_fn(positions, directions, momentum_factors):
         if route == "scan":

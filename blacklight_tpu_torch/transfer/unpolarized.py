@@ -7,9 +7,12 @@ auxiliary image planes (time, length, lambda, emission, tau, the
 cell-value averages, crossings) and of ``image_light = false``, which the
 JAX package renders on its XLA path and never in a Pallas kernel. It runs
 in torch ops on the rays' device, a CPU or a CUDA one alike, streamed
-through the lock-step loop of the kernels' plain versions
-(``ops/geodesic.trace_reference``): every step's samples are consumed as
-they are produced and nothing is stored per step.
+through ``ops/geodesic.trace_compacted`` (the kernels' plain lock-step
+loop, each ray's steps bit for bit, but finished rays leave the bundle
+and on the card each step is replayed from a CUDA graph): every step's
+samples are consumed as they are produced and nothing is stored per
+step. False-color renderings (``transfer/rendering.Renderer``) ride the
+same samples.
 
 The transfer sum is accumulated camera to far end,
 
@@ -170,7 +173,7 @@ def integrate_unpolarized(positions, directions, momentum_factors,
                           integrator: str, coeff_fn: Callable,
                           opts: ImageOptions, mass_msun: float, camera_x,
                           cell_fn: Optional[Callable] = None,
-                          log_j_scale: float = 0.0) -> dict:
+                          log_j_scale: float = 0.0, render=None) -> dict:
     """Geodesics and unpolarized transfer with every image plane over a
     ray bundle, in torch ops on the rays' device.
 
@@ -179,18 +182,23 @@ def integrate_unpolarized(positions, directions, momentum_factors,
     "dp", "rk4" or "rk2"; camera_x a 4-sequence of Python floats (the
     crossings plane and the point invalid samples are evaluated at).
 
-    coeff_fn(pos (B, 4), kcov four (B,) components) -> (j, alpha, bad),
-    each (B, F): the invariant coefficients (j divided by
-    exp(log_j_scale)), zero where cut, and the samples the reference would
-    NaN. cell_fn(pos, kcov) -> (B, NUM_CELL_VALUES) diagnostic values, NaN
+    coeff_fn(pos (B, 4), kcov four (B,) components, momentum_factors (B,))
+    -> (j, alpha, bad), each (B, F): the invariant coefficients (j divided
+    by exp(log_j_scale)), zero where cut, and the samples the reference
+    would NaN; its rays are the bundle's rays that are still traced
+    (``geodesic.trace_compacted``), whose momentum factors it is given.
+    cell_fn(pos, kcov) -> (B, NUM_CELL_VALUES) diagnostic values, NaN
     where a sample is cut or invalid; the lambda_ave, emission_ave and
-    tau_int planes need it.
+    tau_int planes and ``render`` need it. render: a
+    ``transfer/rendering.Renderer``, whose false-color images come from
+    the same samples' cell values.
 
     Returns a dict of tensors: "I_nu" (B, F) with opts.light; "time",
     "length" and "crossings" (B,); "lambda", "emission", "tau" (B, F);
     "lambda_ave", "emission_ave", "tau_int" (B, F, NUM_CELL_VALUES);
-    "_t_min", "_t_max" (B,) with track_sample_times; "_flags" (B,) bool
-    and "_n_samples" (B,) int32.
+    "_t_min", "_t_max" (B,) with track_sample_times; "rendering"
+    (B, n_images, 3) with ``render``; "_flags" (B,) bool and "_n_samples"
+    (B,) int32.
     """
     b, f = positions.shape[0], frequencies.shape[0]
     dtype, device = positions.dtype, positions.device
@@ -198,18 +206,19 @@ def integrate_unpolarized(positions, directions, momentum_factors,
     t_unit = x_cm / Physics.c
     spin, mass, flat = params.bh_a, params.bh_m, params.ray_flat
     cam = [float(v) for v in camera_x]
-    mom = momentum_factors
 
-    need_cells = opts.cells
+    need_cells = opts.cells or render is not None
     if need_cells and cell_fn is None:
-        raise ValueError("cell_fn required for lambda_ave/emission_ave/tau_int")
+        raise ValueError("cell_fn required for lambda_ave/emission_ave/"
+                         "tau_int and rendering")
     need_coeffs = (opts.light or opts.emission or opts.emission_ave
                    or opts.tau or opts.tau_int)
 
     def zeros(*shape, kind=dtype):
         return torch.zeros(shape, dtype=kind, device=device)
 
-    st = {}
+    # the per-ray inputs and accumulators (geodesic.trace_compacted's carry)
+    st = {"mom": momentum_factors}
     if need_coeffs:
         # samples whose coefficients the reference would NaN: a flag and
         # a final NaN, so the recurrence itself stays finite
@@ -241,17 +250,24 @@ def integrate_unpolarized(positions, directions, momentum_factors,
     if opts.track_sample_times:
         st["t_min"] = torch.full((b,), math.inf, dtype=dtype, device=device)
         st["t_max"] = torch.full((b,), -math.inf, dtype=dtype, device=device)
+    if render is not None:
+        st.update(render.start(b, dtype, device))
 
-    def contribution(valid, x, k, h):
+    def contribution(valid, x, k, h, st):
         pos, kcov = safe_sample(valid, x, k, cam)
         vcol = valid[:, None]
-        delta_lambda, dl_cgs = path_cgs(valid, h, x_cm, frequencies, mom)
+        delta_lambda, dl_cgs = path_cgs(valid, h, x_cm, frequencies,
+                                        st["mom"])
         if need_coeffs:
-            j, alpha, cbad = coeff_fn(pos, kcov)
+            j, alpha, cbad = coeff_fn(pos, kcov, st["mom"])
             j, alpha, bad = sanitize(j, alpha, cbad)
             st["coeff_bad"] = st["coeff_bad"] | (vcol & bad)
         if need_cells:
             cells = cell_fn(pos, kcov)
+        if render is not None:
+            render.update(st, valid, cells, render.delta_length(
+                valid, pos, torch.stack(kcov, dim=-1), h))
+        if opts.cells:
             cells_ok = vcol & ~torch.isnan(cells[:, 0:1])
             cells = torch.where(torch.isnan(cells), 0.0, cells)
         if opts.light:
@@ -274,7 +290,7 @@ def integrate_unpolarized(positions, directions, momentum_factors,
                                                           0.0)
         if opts.tau:
             st["tau"] = st["tau"] + torch.where(vcol, alpha * dl_cgs, 0.0)
-        ok3 = cells_ok[:, :, None] if need_cells else None
+        ok3 = cells_ok[:, :, None] if opts.cells else None
         if opts.lambda_ave:
             st["lambda_ave"] = st["lambda_ave"] + torch.where(
                 ok3, cells[:, None, :] * dl_cgs[..., None], 0.0)
@@ -302,8 +318,8 @@ def integrate_unpolarized(positions, directions, momentum_factors,
             st["t_max"] = torch.where(valid, torch.maximum(st["t_max"], x[0]),
                                       st["t_max"])
 
-    flags, n_samples = geodesic.trace_reference(positions, directions, params,
-                                                integrator, contribution)
+    flags, n_samples, st = geodesic.trace_compacted(
+        positions, directions, params, integrator, st, contribution)
 
     # final transforms (unpolarized.cpp:176-209), NaN poisoning flagged
     # rays under fallback_nan and, in the coefficient planes, rays that
@@ -344,4 +360,6 @@ def integrate_unpolarized(positions, directions, momentum_factors,
     if opts.track_sample_times:
         out["_t_min"] = st["t_min"]
         out["_t_max"] = st["t_max"]
+    if render is not None:
+        out["rendering"] = render.finish(st)
     return out

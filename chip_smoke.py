@@ -324,7 +324,24 @@ and prints no final line):
     camera's row-major order (adaptive_level_gate). It adds no plain-version
     job: the kernels are held to their plain versions in phase 3.
 
-Phases 4 to 20 run alone on the card, after phase 3.
+21. false-color rendering (ROADMAP D.1), run after phase 20, on the scan
+    route (transfer/unpolarized.integrate_unpolarized with
+    transfer/rendering.Renderer; ops/geodesic.trace_compacted drops
+    finished rays and replays each bundle's step from a CUDA graph):
+    golden_render_rk4_32 (float64 rk4, rtol 1e-8 over 1e-10 of the peak)
+    and golden_render_32 (dp, mean error < 5e-3 and max < 2e-1 of the peak;
+    tests/test_render_truecolor.py:16-34) through pipeline.run(cfg,
+    device="cuda") on mock_small.athdf, in phase 3's pool (RENDER_JOBS);
+    then phase 7's cell (1024^2, float32 rk4, 2000 steps) with
+    golden_render_rk4_32's three features (fill rho, fill sigma, thresh
+    beta_inverse = 0.15) through pipeline.run, timed, counting every kernel
+    launch (none may launch) and the lock steps, held channel by channel
+    to phase 3's run of the route on the CPU on every PLAIN_STRIDE-th ray
+    (plane_gate: bench.py:181-186's statistical gate, which takes the
+    pixels where a thresh crossing flips in float32) and its light image
+    to phase 7's kernel image (statistical gate).
+
+Phases 4 to 21 run alone on the card, after phase 3.
 
 ``python3 chip_smoke.py --chunk-sweep`` runs phases 1 and 2, then times
 the polarized route at 1024^2 (float32 rk4, spatial_order) for trace
@@ -986,6 +1003,8 @@ def phase_checks(pool, prep=None) -> tuple:
     jobs[("derive", "check_mesh_derive", ("float32",))] = (
         check_mesh_derive, ("float32",))
     jobs.update({("aux", fn.__name__, ()): (fn, ()) for _, fn in AUX_JOBS})
+    jobs.update({("render", fn.__name__, ()): (fn, ())
+                 for _, fn in RENDER_JOBS})
     jobs.update({("mixture", fn.__name__, ()): (fn, ()) for fn in (
         check_mixture_phase, mixture_plain_subset, mixture_pol_plain_subset)})
     jobs.update({("fmks", "check_fmks_simulation", args):
@@ -1073,6 +1092,8 @@ def phase_checks(pool, prep=None) -> tuple:
     truth = (*truth.get(), pol_plain.get())
     subsets = {cell: result.get() for cell, result in subsets.items()}
     aux = {name: job.get() for name, job in aux.items()}
+    aux["render"] = {name: started[("render", fn.__name__, ())].get()
+                     for name, fn in RENDER_JOBS}
     phase, result = mixture["check_mixture_phase"].get()
     emit(phase, workers=WORKERS, **result)
     if not result["ok"]:
@@ -2851,24 +2872,15 @@ def phase_aux_planes(tmp: pathlib.Path, card: str, grids: dict, mono: dict,
     if not np.array_equal(subset_positions, cpu_positions):
         raise RuntimeError("phase 3's CPU route ran on other rays")
 
-    steps = [0]
-    step = geodesic.step
-
-    def counted(*args, **kwargs):
-        steps[0] += 1
-        return step(*args, **kwargs)
-
-    geodesic.step = counted
-    try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        _zero_counts(fk, sk, pk)
-        arrays, wall = _timed(pipeline.run, cfg, quiet=True, device="cuda",
-                              grid=grids["float32"])
-        launches = _launch_counts(fk, sk, pk)
-    finally:
-        geodesic.step = step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    steps = [geodesic.LOCK_STEPS]
+    _zero_counts(fk, sk, pk)
+    arrays, wall = _timed(pipeline.run, cfg, quiet=True, device="cuda",
+                          grid=grids["float32"])
+    launches = _launch_counts(fk, sk, pk)
+    steps[0] = geodesic.LOCK_STEPS - steps[0]
     peak = torch.cuda.max_memory_allocated() - base
     moved = [v for v in launches.values()
              if (sum(v) if isinstance(v, list) else v)]
@@ -5972,6 +5984,157 @@ def phase_adaptive(tmp: pathlib.Path, card: str, grids: dict):
     emit("adaptive_phase", card=card, seconds=time.perf_counter() - t_phase)
 
 
+def _render_features(cfg, name="golden_render_rk4_32.input"):
+    """``cfg`` with the renderings of ``name`` (its render_* lines)."""
+    golden = _config(name)
+    cfg.render_num_images = golden.render_num_images
+    cfg.render_images = golden.render_images
+    return cfg
+
+
+def _render_full_config(**overrides):
+    """Phase 21's main path: phase 7's cell with golden_render_rk4_32's
+    renderings beside its light image."""
+    return _render_features(_sim_config(**{
+        "camera_resolution": 1024, "precision": "float32",
+        "ray_integrator": "rk4", "ray_max_steps": 2000, **overrides}))
+
+
+def render_full_width_cpu() -> tuple:
+    """Phase 3: phase 21's route on the CPU on every PLAIN_STRIDE-th ray
+    of its camera (built on the card) through FULL_GRID on the host:
+    (plane_columns, seconds, route, the rays' positions)."""
+    import torch
+    torch.set_num_threads(1)
+    cfg = _render_full_config()
+    rays = _card_rays(cfg, PLAIN_STRIDE)
+    grid = full_width_snapshot(torch.float32, device=torch.device("cpu"))
+    return (*_scan(cfg, "cpu", grid, rays), rays[0].numpy())
+
+
+def render_golden(name) -> dict:
+    """Phase 3: golden_render_rk4_32 (rk4, float64: rtol 1e-8 over 1e-10
+    of the peak) or golden_render_32 (dp: mean error < 5e-3, max < 2e-1 of
+    the peak; tests/test_render_truecolor.py:16-34) through pipeline.run
+    on the card."""
+    import numpy as np
+    arrays, seconds, launches = _aux_run(_config(
+        f"{name}.input", simulation_file=str(FIXTURES / "mock_small.athdf")))
+    gold = np.load(FIXTURES / f"{name}.npz")["rendering"]
+    ours = arrays["rendering"].reshape(gold.shape)
+    peak = float(np.abs(gold).max())
+    err = np.abs(ours - gold) / peak
+    if name == "golden_render_rk4_32":
+        gate = "rtol 1e-8, atol 1e-10 of the peak"
+        ok = bool(np.allclose(ours, gold, rtol=1e-8, atol=peak * 1e-10))
+    else:
+        gate = "mean error < 5e-3, max < 2e-1 of the peak"
+        ok = bool(np.nanmean(err) < 5e-3 and np.nanmax(err) < 2e-1)
+    ok = ok and not any((sum(v) if isinstance(v, list) else v)
+                        for v in launches.values())
+    return {"name": name, "seconds": seconds, "launches": launches,
+            "max_err_over_peak": float(np.nanmax(err)),
+            "mean_err_over_peak": float(np.nanmean(err)), "gate": gate,
+            "ok": ok}
+
+
+def render_golden_rk4() -> dict:
+    return render_golden("golden_render_rk4_32")
+
+
+def render_golden_dp() -> dict:
+    return render_golden("golden_render_32")
+
+
+# Phase 21's jobs in phase 3's pool, by name.
+RENDER_JOBS = (("golden_rk4", render_golden_rk4),
+               ("golden_dp", render_golden_dp),
+               ("full_cpu", render_full_width_cpu))
+
+
+def phase_rendering(tmp: pathlib.Path, card: str, grids: dict, mono: dict,
+                    render: dict) -> None:
+    """Phase 21 (the module's docstring); ``mono`` is phase 7's arrays,
+    ``render`` phase 3's RENDER_JOBS results."""
+    import numpy as np
+    import torch
+    from blacklight_tpu_torch import pipeline
+    from blacklight_tpu_torch.ops import formula_kernel as fk
+    from blacklight_tpu_torch.ops import geodesic
+    from blacklight_tpu_torch.ops import polarized_kernel as pk
+    from blacklight_tpu_torch.ops import simulation_kernel as sk
+    from blacklight_tpu_torch.pipeline_simulation import (
+        make_simulation_renderer)
+
+    t_phase = time.perf_counter()
+    goldens = [render["golden_rk4"], render["golden_dp"]]
+    for golden in goldens:
+        emit("render_golden", **golden)
+
+    grid = grids.get("float32")
+    if grid is None:
+        grid = full_width_snapshot(torch.float32)
+    cfg = _render_full_config(output_file=str(tmp / "render_full.npz"))
+    res = cfg.camera_resolution
+    render_fn, _, rays, _, _ = make_simulation_renderer(
+        _render_full_config(ray_max_steps=AUX_WARM_STEPS), device="cuda",
+        grid=grid)
+    _, t_warm = _timed(render_fn, *(t[:AUX_WARM_RAYS] for t in (
+        rays.positions, rays.directions, rays.momentum_factors)))
+    route = render_fn.route
+    subset_positions = rays.positions[::PLAIN_STRIDE].cpu().numpy()
+    del render_fn, rays
+    cpu_cols, cpu_s, cpu_route, cpu_positions = render["full_cpu"]
+    if route != "scan" or cpu_route != "scan":
+        raise RuntimeError(f"the rendering took the {route} route")
+    if not np.array_equal(subset_positions, cpu_positions):
+        raise RuntimeError("phase 3's CPU route ran on other rays")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    steps = geodesic.LOCK_STEPS
+    _zero_counts(fk, sk, pk)
+    arrays, wall = _timed(pipeline.run, cfg, quiet=True, device="cuda",
+                          grid=grid)
+    launches = _launch_counts(fk, sk, pk)
+    steps = geodesic.LOCK_STEPS - steps
+    peak = torch.cuda.max_memory_allocated() - base
+    moved = [v for v in launches.values()
+             if (sum(v) if isinstance(v, list) else v)]
+    rendering = arrays["rendering"]
+    if moved or rendering.shape != (1, 3, res, res) \
+            or not np.isfinite(rendering).all() or not steps:
+        raise RuntimeError(f"the rendering launched a kernel or is wrong: "
+                           f"{launches}, {rendering.shape}, {steps} steps")
+    kernel_gate = statistical_gate(arrays["I_nu"].ravel(),
+                                   mono["I_nu"].ravel())
+    emit("render_main_path", resolution=res, precision="float32",
+         integrator="rk4", max_steps=2000, route=route, card=card,
+         features=["fill rho", "fill sigma", "thresh beta_inverse 0.15"],
+         seconds=wall, steps=steps, ms_per_step=wall / steps * 1e3,
+         warm_call_rays=AUX_WARM_RAYS, warm_call_steps=AUX_WARM_STEPS,
+         warm_call_s=t_warm, peak_device_bytes=peak, launches=launches,
+         i_nu_vs_kernel_image=kernel_gate,
+         nonzero_pixels=int((rendering.sum(axis=(0, 1)) > 0).sum()))
+
+    ours = rendering.reshape(1, 3, -1)[:, :, ::PLAIN_STRIDE]
+    theirs = np.transpose(cpu_cols["rendering"], (1, 2, 0))
+    gates = {"XYZ"[c]: plane_gate(ours[0, c], theirs[0, c])
+             for c in range(3)}
+    subset_ok = all(g["ok"] for g in gates.values())
+    emit("render_vs_cpu_route", rays=int(subset_positions.shape[0]),
+         cpu_route_s=cpu_s, workers=WORKERS, gates=gates,
+         ok=bool(subset_ok))
+    emit("render_phase", card=card, seconds=time.perf_counter() - t_phase)
+    failed = [name for name, ok in (
+        ("I_nu against phase 7's kernel image", kernel_gate["ok"]),
+        ("rendering against the CPU route", subset_ok),
+        *((g["name"], g["ok"]) for g in goldens)) if not ok]
+    if failed:
+        raise RuntimeError(f"phase 21 failed: {failed}")
+
+
 # Phase 3's kernel-against-plain checks, emitted in this order.
 CHECKS = (
     (check_formula_tangents, ("rk4", "float64")),
@@ -6026,7 +6189,10 @@ PHASE3_SECONDS = {
     ("formula_plain_subset", ("k14",)): 204.3,
     ("formula_plain_subset", ("k11",)): 202.0,
     ("sim_full_width_plain", ("sim",)): 146.9,
-    ("aux_golden_formula", ()): 137.3,
+    ("aux_golden_formula", ()): 53.4,
+    ("render_golden_rk4", ()): 30.8,
+    ("render_golden_dp", ()): 21.9,
+    ("render_full_width_cpu", ()): 23.5,
     ("check_polarized_stages", ()): 133.1,
     ("check_formula", ("dp", "float64")): 132.5,
     ("pol_full_width_truth", ()): 124.3,
@@ -6042,7 +6208,7 @@ PHASE3_SECONDS = {
     ("athenak_plain_subset", ("athenak_amr",)): 87.2,
     ("check_mixture_simulation", ("dp", "float32")): 86.5,
     ("check_simulation", ("dp", "float32")): 85.9,
-    ("aux_exact_card", ()): 85.7,
+    ("aux_exact_card", ()): 29.8,
     ("code_kappa_plain", ("ck_amr", "float32")): 82.6,
     ("check_mesh_polarized", ("interblock", "rk4", "float64")): 64.1,
     ("check_formula", ("rk2", "float32")): 63.0,
@@ -6063,11 +6229,11 @@ PHASE3_SECONDS = {
     ("mesh_plain_subset", ("mb_uniform", "float32")): 41.0,
     ("fit_demo_run", ("fit_demo",)): 40.0,
     ("mesh_plain_subset", ("nearest", "float64")): 38.7,
-    ("aux_exact_cpu", ()): 38.1,
+    ("aux_exact_cpu", ()): 18.9,
     ("fmks_plain_subset", ("fmks",)): 38.1,
-    ("aux_full_width_cpu", ()): 37.3,
+    ("aux_full_width_cpu", ()): 24.3,
     ("check_simulation", ("rk2", "float32")): 37.2,
-    ("aux_golden_sim_tau", ()): 35.9,
+    ("aux_golden_sim_tau", ()): 11.0,
     ("fmks_plain_subset", ("fmks_mix",)): 35.6,
     ("code_kappa_plain", ("ck_nearest", "float32")): 35.1,
     ("mesh_plain_subset", ("nearest", "float32")): 34.9,
@@ -6159,6 +6325,7 @@ def main(argv=None) -> int:
             code_kappa = phase_code_kappa(tmp, card, grids,
                                           code_kappa_checks)
             phase_adaptive(tmp, card, grids)
+            phase_rendering(tmp, card, grids, mono, aux["render"])
             shutil.rmtree(ATHENAK_DIR, ignore_errors=True)
             grids.clear()
             multi = phase_multi_full_width(tmp, card, subsets["k13"])

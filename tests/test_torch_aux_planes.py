@@ -200,6 +200,38 @@ def _cpu() -> str:
             f"{torch.backends.cpu.get_cpu_capability()}")
 
 
+def _float_state() -> str:
+    """This process's floating-point environment (the C library's rounding
+    mode and, on x86-64, the SSE control word: rounding, flush-to-zero and
+    denormals-are-zero), torch's thread count and JAX's x64 flag."""
+    import ctypes
+    import jax
+    state = {"torch threads": torch.get_num_threads(),
+             "jax x64": bool(jax.config.jax_enable_x64)}
+    try:
+        libm = ctypes.CDLL("libm.so.6")
+        env = ctypes.create_string_buffer(32)
+        libm.fegetenv(env)
+        state["fegetround"] = libm.fegetround()
+        state["mxcsr"] = hex(int.from_bytes(env.raw[28:32], "little"))
+    except OSError:
+        pass
+    return ", ".join(f"{k} {v}" for k, v in state.items())
+
+
+def _earlier_files(request) -> list:
+    """The test files of which some test already ran in this process (in
+    an xdist worker: on this worker), this one aside: pytest clears an
+    item's funcargs to None once it has run."""
+    here = request.node.path
+    files = []
+    for item in request.session.items:
+        if getattr(item, "funcargs", {}) is None and item.path != here \
+                and item.path.name not in files:
+            files.append(item.path.name)
+    return files
+
+
 def _pow_report(x, e, values: dict) -> str:
     """Each library's largest relative distance from math.pow on the
     finite entries, and the CPU."""
@@ -228,7 +260,7 @@ def _library_pows(x, e) -> dict:
 
 
 @pytest.mark.parametrize("e", EXPONENTS)
-def test_cpp_pow_matches_jax(e):
+def test_cpp_pow_matches_jax(e, request):
     x = _pow_inputs()
     value, bad = formula.cpp_pow(torch.tensor(x), e)
     ref_value, ref_bad = jax_formula._cpp_pow(x, e)
@@ -236,17 +268,24 @@ def test_cpp_pow_matches_jax(e):
     assert np.isfinite(value.numpy()).all()
     port, jax_value = value.numpy(), np.asarray(ref_value)
 
-    def report():
-        return _pow_report(np.abs(x), e, {
-            "port": np.abs(port), "jax package": np.abs(jax_value),
-            **_library_pows(x, e)})
+    def report(assertion):
+        with np.errstate(invalid="ignore", divide="ignore"):
+            rel = np.abs(port - jax_value) / np.abs(jax_value)
+        return (f"{assertion} failed; port from the JAX package "
+                f"{float(np.nanmax(rel)):.3g}; "
+                + _pow_report(np.abs(x), e, {
+                    "port": np.abs(port), "jax package": np.abs(jax_value),
+                    **_library_pows(x, e)})
+                + f"; {_float_state()}; earlier files in this process: "
+                f"{_earlier_files(request)}")
 
     assert np.allclose(port, jax_value, rtol=CPP_POW_JAX_RTOL, atol=0.0), \
-        report()
+        report(f"port against the JAX package at rtol {CPP_POW_JAX_RTOL}")
     # C++'s std::pow where it is finite: math.pow per element
     ok = ~bad.numpy() & ~((x == 0.0) & (e < 0.0))
     exact = _math_pow(x[ok], e)
-    assert np.allclose(port[ok], exact, rtol=1e-13, atol=0.0), report()
+    assert np.allclose(port[ok], exact, rtol=1e-13, atol=0.0), \
+        report("port against math.pow at rtol 1e-13")
     if e < 0.0:  # pow(0, e < 0) is flagged, where the kernel forms give 0
         assert bad.numpy()[x == 0.0].all()
 
@@ -541,9 +580,9 @@ def test_sample_times_match_jax(tmp_path):
     camera_x = np.asarray(jgeom.cam_x).tolist()
     freqs = torch.tensor(np.asarray(jfreqs))
 
-    def coeff(pos, kcov):
+    def coeff(pos, kcov, momentum_factors):
         j, alpha, _, bad = formula.formula_coefficients(
-            pos, torch.stack(kcov, dim=-1), t.momentum_factors, freqs, fp,
+            pos, torch.stack(kcov, dim=-1), momentum_factors, freqs, fp,
             camera_x)
         return j, alpha, bad
 

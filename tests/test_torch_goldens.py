@@ -3,8 +3,9 @@ through pipeline.run or the CLI on the CPU, at the tolerances of
 test_formula_e2e.py, test_simulation_e2e.py and test_polarized_e2e.py
 (reference-binary outputs), the auxiliary image planes' goldens among
 them, the plasma models' (golden_code_kappa_32 among them), the adaptive
-golden (golden_adaptive_32), and the CLI's npz against the JAX
-package's."""
+golden (golden_adaptive_32), the false-color renderings
+(golden_render{,_rk4}_32), the true-color and pinhole goldens, and the
+CLI's npz against the JAX package's."""
 
 import numpy as np
 import pytest
@@ -272,3 +273,70 @@ def test_adaptive_golden_parity(fixtures_dir, tmp_path):
         b = ref["adaptive_I_nu_1"][r_map[loc]]
         rel = np.abs(a - b) / (np.abs(b) + scale * 1e-8)
         assert np.nanmax(rel) < 1e-8, (loc, np.nanmax(rel))
+
+
+def test_rendering_rk4_exact_parity(fixtures_dir, tmp_path):
+    """golden_render_rk4_32 (fill rho, fill sigma, thresh beta_inverse;
+    image_light = false) through the scan route with its renderings
+    (ROADMAP D.1): rtol 1e-8 over 1e-10 of the peak
+    (tests/test_render_truecolor.py:16-24)."""
+    cfg = read_config(str(fixtures_dir / "golden_render_rk4_32.input"))
+    cfg.simulation_file = str(fixtures_dir / "mock_small.athdf")
+    cfg.output_file = str(tmp_path / "r.npz")
+    gold = np.load(fixtures_dir / "golden_render_rk4_32.npz")["rendering"]
+    ours = pipeline.run(cfg, quiet=True, device="cpu")["rendering"]
+    assert ours.shape == gold.shape
+    np.testing.assert_allclose(ours, gold, rtol=1e-8,
+                               atol=np.abs(gold).max() * 1e-10)
+
+
+def test_rendering_dp_quadrature_parity(fixtures_dir, tmp_path):
+    """golden_render_32 (dp): threshold crossings are binary events
+    sensitive to sample placement, so agreement is statistical: mean
+    error < 5e-3 and max < 2e-1 of the peak
+    (tests/test_render_truecolor.py:27-34)."""
+    cfg = read_config(str(fixtures_dir / "golden_render_32.input"))
+    cfg.simulation_file = str(fixtures_dir / "mock_small.athdf")
+    cfg.output_file = str(tmp_path / "r.npz")
+    gold = np.load(fixtures_dir / "golden_render_32.npz")["rendering"]
+    ours = pipeline.run(cfg, quiet=True, device="cpu")["rendering"]
+    err = np.abs(ours.reshape(gold.shape) - gold) / np.abs(gold).max()
+    assert np.nanmean(err) < 5e-3
+    assert np.nanmax(err) < 2e-1
+
+
+def test_true_color_rk4_exact_parity(fixtures_dir, tmp_path):
+    """golden_true_color_rk4_32: ten lin-wave frequencies through the
+    kernel route, rtol 1e-8, with the npz's shape and frequencies
+    (tests/test_render_truecolor.py:37-56)."""
+    cfg = read_config(str(fixtures_dir / "golden_true_color_rk4_32.input"))
+    cfg.simulation_file = str(fixtures_dir / "mock_small.athdf")
+    cfg.output_file = str(tmp_path / "tc.npz")
+    pipeline.run(cfg, quiet=True, device="cpu")
+    data = np.load(tmp_path / "tc.npz")
+    gold = np.load(fixtures_dir / "golden_true_color_rk4_32.npz")
+    assert data["I_nu"].shape == (10, 32, 32)
+    np.testing.assert_allclose(data["I_nu"], gold["I_nu"], rtol=1e-8)
+    np.testing.assert_allclose(data["frequency"], gold["frequency"])
+
+
+def test_pinhole_golden_parity(fixtures_dir, tmp_path):
+    """golden_pinhole_32: the pinhole camera (camera.cpp:608-671), rk4, on
+    write_athena's mock written at test time as
+    tests/test_reference_goldens.py:52-67 writes it: identical NaN sets,
+    rtol 1e-8 over a floor of 1e-8 of the peak."""
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).parents[1] / "scripts"))
+    import generate_mock_simulation as gen
+    p = dict(gen.DEFAULTS)
+    gen.write_athena(str(tmp_path / "mock.athdf"), gen.make_fields(p), p)
+    cfg = read_config(str(fixtures_dir / "golden_pinhole_32.input"))
+    cfg.simulation_file = str(tmp_path / "mock.athdf")
+    cfg.output_file = str(tmp_path / "out.npz")
+    ours = pipeline.run(cfg, quiet=True, device="cpu")["I_nu"]
+    ref = np.load(fixtures_dir / "golden_pinhole_32.npz")["I_nu"]
+    scale = np.nanmax(np.abs(ref))
+    rel = np.abs(ours - ref) / (np.abs(ref) + scale * 1e-8)
+    assert np.array_equal(np.isnan(ours), np.isnan(ref))
+    assert np.nanmax(rel) < 1e-8, np.nanmax(rel)

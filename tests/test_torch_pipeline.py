@@ -117,8 +117,9 @@ def test_npy_output(tmp_path):
 # Configurations outside the port's slice, each with the ROADMAP item its
 # error must name; a simulation configuration without its simulation
 # options (every snapshot format is read) with the error of the first
-# option it lacks; adaptive configurations the JAX package refuses, with
-# its errors (blacklight_tpu/adaptive.py:56-58, output.py:45-46)
+# option it lacks; adaptive configurations and a rendering the JAX package
+# refuses, with its errors (blacklight_tpu/adaptive.py:56-58,
+# output.py:43-46)
 OUT_OF_SLICE = {
     "simulation": ({"model_type": "simulation", "image_polarization": False},
                    "Must specify simulation_multiple"),
@@ -134,7 +135,8 @@ OUT_OF_SLICE = {
                        "checkpoint_geodesic_file": "g.npz"}, "A.8"),
     "sample_save": ({"checkpoint_sample_save": True}, "A.8"),
     "sample_load": ({"checkpoint_sample_load": True}, "A.8"),
-    "rendering": ({"render_num_images": 1}, "D.1"),
+    "rendering": ({"render_num_images": 1, "output_format": "npy"},
+                  "Only npz outputs support rendering."),
 }
 
 
@@ -170,6 +172,7 @@ def test_import_does_not_load_jax(tmp_path):
         "        importlib.import_module(m.name)\n"
         "import blacklight_tpu_torch.cli\n"
         "assert 'blacklight_tpu_torch.grid.athenak' in sys.modules\n"
+        "assert 'blacklight_tpu_torch.transfer.rendering' in sys.modules\n"
         "from blacklight_tpu_torch import pipeline, read_config\n"
         f"cfg = read_config({str(inp)!r})\n"
         "cfg.camera_resolution = 8\n"
